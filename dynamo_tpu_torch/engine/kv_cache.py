@@ -1,0 +1,149 @@
+"""Host-side page allocator (copy of the allocation and prefix-reuse core of
+``dynamo_tpu.engine.kv_cache.PageAllocator``).
+
+The device side is two tensors per model, k/v pages
+[layers, kv_heads, num_pages, page_size, head_dim], owned by the runner.
+The host side hands out page ids. Pages of finished sequences can stay
+registered under their chained block hash and be reused on prefix hits
+until evicted; the engine does not register pages until history prefill
+is ported, so today every page returns to the free list. The reference's
+KVBM demotion, admin clear, router events and telemetry are not copied.
+
+Lifecycle invariant (as in the reference): a page is either FREE
+(unregistered, refcount 0), ACTIVE (refcount > 0 — held by one or more
+live sequences; may also be registered for sharing), or INACTIVE
+(registered, refcount 0 — reusable on a prefix hit, evictable LRU). Only
+INACTIVE pages may be evicted: evicting a page a live sequence still
+writes to would silently corrupt its KV.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+
+
+class PageAllocator:
+    # Page 0 is RESERVED as the scratch page: inactive decode slots have
+    # all-zero page tables, so their dummy K/V scatters land there instead of
+    # clobbering live data. Never allocated.
+    SCRATCH_PAGE = 0
+
+    def __init__(self, num_pages: int, page_size: int):
+        self.num_pages = num_pages - 1  # page 0 reserved
+        self.page_size = page_size
+        self.free: list[int] = list(range(num_pages - 1, 0, -1))
+        # All registered blocks: block_hash -> page id.
+        self.cached: dict[int, int] = {}
+        self.cached_by_page: dict[int, int] = {}
+        # INACTIVE subset (registered AND refcount 0) in LRU order — the
+        # only pages eviction may take.
+        self.inactive: OrderedDict[int, int] = OrderedDict()
+        # Active references: page id -> refcount.
+        self.refs: dict[int, int] = {}
+
+    # -- queries --------------------------------------------------------------
+    @property
+    def num_free(self) -> int:
+        return len(self.free) + len(self.inactive)
+
+    @property
+    def num_active(self) -> int:
+        return len(self.refs)
+
+    def lookup(self, block_hashes: list[int]) -> list[int]:
+        """Page ids for the longest cached prefix of ``block_hashes``."""
+        pages = []
+        for h in block_hashes:
+            page = self.cached.get(h)
+            if page is None:
+                break
+            pages.append(page)
+        return pages
+
+    # -- allocation -----------------------------------------------------------
+    def allocate(self, count: int) -> list[int] | None:
+        """Allocate ``count`` fresh pages (evicting LRU *inactive* cached
+        pages as needed — never a page a live sequence holds). None if
+        impossible."""
+        if self.num_free < count:
+            return None
+        out = []
+        for _ in range(count):
+            if self.free:
+                page = self.free.pop()
+            else:
+                # Evict least-recently-used inactive page.
+                h, page = self.inactive.popitem(last=False)
+                del self.cached[h]
+                del self.cached_by_page[page]
+            assert page not in self.refs, \
+                f"allocator invariant violated: page {page} already active"
+            self.refs[page] = 1
+            out.append(page)
+        return out
+
+    def acquire_cached(self, block_hashes: list[int]) -> list[int]:
+        """Pin the cached prefix pages for reuse; returns their page ids."""
+        pages = []
+        for h in block_hashes:
+            page = self.cached.get(h)
+            if page is None:
+                break
+            # Inactive -> active (stays registered so other sequences can
+            # share — refcount tracks active users).
+            self.inactive.pop(h, None)
+            self.refs[page] = self.refs.get(page, 0) + 1
+            pages.append(page)
+        return pages
+
+    def register(self, page: int, block_hash: int) -> None:
+        """A page now holds a COMPLETE block: make it reusable by hash."""
+        existing = self.cached_by_page.get(page)
+        if existing == block_hash:
+            return
+        if existing is not None:
+            # The page's content no longer matches its old hash: drop the
+            # stale registration entirely.
+            del self.cached_by_page[page]
+            self.cached.pop(existing, None)
+            self.inactive.pop(existing, None)
+        if block_hash in self.cached:
+            # Another page already holds this block; keep the older one. A
+            # page whose old registration we just dropped must not leak out
+            # of every pool: unreferenced -> back to free.
+            if existing is not None and page not in self.refs:
+                self.free.append(page)
+            return
+        self.cached[block_hash] = page
+        self.cached_by_page[page] = block_hash
+        if page not in self.refs:
+            self.inactive[block_hash] = page
+
+    def unregister(self, pages: list[int]) -> None:
+        """Drop these pages' prefix-cache registrations (used when a request
+        fails and its KV contents must not be reused)."""
+        for page in pages:
+            h = self.cached_by_page.pop(page, None)
+            if h is not None:
+                self.cached.pop(h, None)
+                self.inactive.pop(h, None)
+                if page not in self.refs:
+                    self.free.append(page)
+
+    def release(self, pages: list[int]) -> None:
+        """Drop one active reference; unreferenced unregistered pages return
+        to the free list, registered ones become inactive (reusable LRU,
+        most-recently-released last)."""
+        for page in pages:
+            ref = self.refs.get(page)
+            if ref is None:
+                continue
+            if ref > 1:
+                self.refs[page] = ref - 1
+                continue
+            del self.refs[page]
+            h = self.cached_by_page.get(page)
+            if h is None:
+                self.free.append(page)
+            else:
+                self.inactive[h] = page

@@ -1,0 +1,327 @@
+"""Llama/Qwen2-family transformer in torch over the paged KV pool
+(counterpart of ``dynamo_tpu.engine.model``).
+
+Parameters are a dict with the reference's tree and layouts: per-layer
+weights stacked on a leading ``L`` axis, projections stored ``[in, out]``.
+Numerics follow the reference: bf16 weights and activations, fp32 for
+norms, RoPE, softmax and the logits. The forwards loop over layers in
+Python, where the reference scans.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from dynamo_tpu_torch.engine.config import ModelSpec
+from dynamo_tpu_torch.engine.kv_quant import (gather_pages_folded,
+                                              scatter_pages)
+
+Params = dict[str, Any]
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Building blocks
+# ---------------------------------------------------------------------------
+
+def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [..., in] @ w [in, out] in the weights' dtype (fp32 accumulate)."""
+    return torch.matmul(x, w)
+
+
+def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return embed[tokens.long()]
+
+
+def lm_logits(x: torch.Tensor, params: Params, spec: ModelSpec
+              ) -> torch.Tensor:
+    """Final hidden [B, H] -> fp32 logits [B, V] (bf16 operands, fp32
+    output, as the reference's preferred_element_type=f32)."""
+    if spec.tie_word_embeddings:
+        w = params["embed"].t()
+    else:
+        w = params["lm_head"]
+    if x.is_cuda:
+        return torch.mm(x, w, out_dtype=torch.float32)
+    return torch.matmul(x.float(), w.float())
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float
+             ) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables [..., head_dim/2] for HF rotate-half RoPE."""
+    half = head_dim // 2
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                          device=positions.device) / half))
+    angles = positions.float()[..., None] * freqs
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+               ) -> torch.Tensor:
+    """x [..., heads, head_dim]; cos/sin [..., half] (broadcast over heads)."""
+    half = x.shape[-1] // 2
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    cos = cos[..., None, :]
+    sin = sin[..., None, :]
+    out1 = xf1 * cos - xf2 * sin
+    out2 = xf2 * cos + xf1 * sin
+    return torch.cat([out1, out2], dim=-1).to(x.dtype)
+
+
+def ffn_block(h2: torch.Tensor, lp: dict, spec: ModelSpec) -> torch.Tensor:
+    """Dense SwiGLU over normalized hidden states [..., H]."""
+    if spec.num_experts:
+        raise NotImplementedError("MoE is not ported yet")
+    gate = mm(h2, lp["w_gate"])
+    up = mm(h2, lp["w_up"])
+    ff = F.silu(gate.float()).to(h2.dtype) * up
+    return mm(ff, lp["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+def param_shapes(spec: ModelSpec) -> dict:
+    h, d = spec.hidden_size, spec.head_dim
+    nh, nkv, L = spec.num_heads, spec.num_kv_heads, spec.num_layers
+    i = spec.intermediate_size
+    layers = {
+        "input_norm": (L, h),
+        "post_attn_norm": (L, h),
+        "wq": (L, h, nh * d),
+        "wk": (L, h, nkv * d),
+        "wv": (L, h, nkv * d),
+        "wo": (L, nh * d, h),
+        "w_gate": (L, h, i),
+        "w_up": (L, h, i),
+        "w_down": (L, i, h),
+    }
+    if spec.qkv_bias:
+        layers["bq"] = (L, nh * d)
+        layers["bk"] = (L, nkv * d)
+        layers["bv"] = (L, nkv * d)
+    shapes = {"embed": (spec.vocab_size, h), "final_norm": (h,),
+              "layers": layers}
+    if not spec.tie_word_embeddings:
+        shapes["lm_head"] = (h, spec.vocab_size)
+    return shapes
+
+
+def init_params(spec: ModelSpec, generator: torch.Generator,
+                device: str | torch.device = "cuda",
+                dtype: torch.dtype = torch.bfloat16) -> Params:
+    """Random init with the reference's distribution (``model.py:251``):
+    N(0, 1) / sqrt(fan_in) with fan_in = shape[-2], ones for norm scales
+    (and for 1-D leaves such as biases). ``generator`` must live on
+    ``device``."""
+    if spec.num_experts:
+        raise NotImplementedError("MoE is not ported yet")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("init_params: device is cuda but no GPU is "
+                           "available")
+
+    def init_one(shape):
+        if len(shape) == 1 or shape[-1] == 1:
+            return torch.ones(shape, dtype=dtype, device=device)
+        w = torch.randn(shape, generator=generator, dtype=dtype,
+                        device=device)
+        return w.mul_(torch.tensor(1.0 / shape[-2] ** 0.5, dtype=dtype))
+
+    shapes = param_shapes(spec)
+    params: Params = {k: init_one(v) for k, v in shapes.items()
+                      if k != "layers"}
+    params["layers"] = {k: init_one(v) for k, v in shapes["layers"].items()}
+    params["final_norm"] = torch.ones(shapes["final_norm"], dtype=dtype,
+                                      device=device)
+    for key in ("input_norm", "post_attn_norm"):
+        params["layers"][key] = torch.ones(shapes["layers"][key],
+                                           dtype=dtype, device=device)
+    return params
+
+
+def layer_params(params: Params, layer: int) -> dict:
+    """One layer's weights: views into the stacked tensors (no copy)."""
+    return {k: v[layer] for k, v in params["layers"].items()}
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def dense_causal_attention(q, k, v, q_positions, kv_len_mask,
+                           q_per_kv: int) -> torch.Tensor:
+    """Prefill attention over freshly computed K/V.
+
+    q [B,S,Nh,D], k/v [B,S,Nkv,D], q_positions [B,S] (absolute),
+    kv_len_mask [B,S] bool (valid kv slots). Causal by position, fp32
+    scores and softmax, bf16 probabilities into the PV product. GQA groups
+    query heads without repeating K/V."""
+    b, s, nh, d = q.shape
+    nkv = k.shape[2]
+    qg = q.reshape(b, s, nkv, q_per_kv, d)
+    scores = torch.einsum("bqngd,bknd->bngqk", qg.float(), k.float())
+    scores = scores / (d ** 0.5)
+    causal = (q_positions[:, None, None, :, None]
+              >= q_positions[:, None, None, None, :])
+    valid = kv_len_mask[:, None, None, None, :]
+    scores = torch.where(causal & valid, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bngqk,bknd->bqngd", probs, v)
+    return out.reshape(b, s, nh, d)
+
+
+def paged_window_attention(q, k_cache, v_cache, layer: int, page_table,
+                           hist_lens, k_win, v_win, m: int, k_self, v_self,
+                           q_per_kv: int) -> torch.Tensor:
+    """Plain decode attention for step ``m`` of an M-step window
+    (reference ``paged_window_attention_xla``): one softmax over the
+    gathered history (hist_lens tokens), the in-window buffer k_win/v_win
+    [Nkv,B,M,D] (cols j < m) and the current token k_self/v_self
+    [B,Nkv,D]. Probabilities are cast to bf16 before the PV products, as
+    in the reference."""
+    b, nh, d = q.shape
+    nkv, page = k_cache.shape[1], k_cache.shape[3]
+    maxp = page_table.shape[1]
+    M = k_win.shape[2]
+    k_all = gather_pages_folded(k_cache, layer, page_table).float()
+    v_all = gather_pages_folded(v_cache, layer, page_table)
+    qg = q.reshape(b, nkv, q_per_kv, d).float()
+    scale = 1.0 / d ** 0.5
+    s_hist = torch.einsum("bngd,nbld->bngl", qg, k_all) * scale
+    pos = torch.arange(maxp * page, device=q.device)[None, :]
+    s_hist = torch.where((pos < hist_lens.long()[:, None])[:, None, None, :],
+                         s_hist, NEG_INF)
+    s_win = torch.einsum("bngd,nbjd->bngj", qg, k_win.float()) * scale
+    win_valid = (torch.arange(M, device=q.device) < m)[None, None, None, :]
+    s_win = torch.where(win_valid, s_win, NEG_INF)
+    s_self = torch.einsum("bngd,bnd->bng", qg,
+                          k_self.float())[..., None] * scale
+    full = torch.cat([s_hist, s_win, s_self], dim=-1)
+    probs = torch.softmax(full, dim=-1)
+    p_hist = probs[..., :maxp * page].to(q.dtype)
+    p_win = probs[..., maxp * page:-1].to(q.dtype)
+    p_self = probs[..., -1]
+    out = (torch.einsum("bngl,nbld->bngd", p_hist, v_all)
+           + torch.einsum("bngj,nbjd->bngd", p_win, v_win)
+           + p_self[..., None].to(q.dtype) * v_self[:, :, None, :])
+    return out.reshape(b, nh, d)
+
+
+def paged_decode_attention(q, k_cache, v_cache, layer: int, page_table,
+                           hist_lens, k_self, v_self,
+                           q_per_kv: int) -> torch.Tensor:
+    """Plain single-step decode attention: the window attention with zero
+    in-window columns (reference ``paged_decode_attention_xla``)."""
+    b = q.shape[0]
+    nkv, d = k_cache.shape[1], k_cache.shape[4]
+    empty = torch.zeros((nkv, b, 0, d), dtype=k_cache.dtype,
+                        device=q.device)
+    return paged_window_attention(q, k_cache, v_cache, layer, page_table,
+                                  hist_lens, empty, empty, 0, k_self, v_self,
+                                  q_per_kv)
+
+
+# ---------------------------------------------------------------------------
+# Forward passes
+# ---------------------------------------------------------------------------
+
+def _qkv(h: torch.Tensor, lp: dict, spec: ModelSpec, cos, sin):
+    """Projected, biased, head-split and rotated q, k, v for one layer."""
+    d = spec.head_dim
+    q = mm(h, lp["wq"])
+    k = mm(h, lp["wk"])
+    v = mm(h, lp["wv"])
+    if spec.qkv_bias:
+        q = q + lp["bq"]
+        k = k + lp["bk"]
+        v = v + lp["bv"]
+    q = q.reshape(*q.shape[:-1], spec.num_heads, d)
+    k = k.reshape(*k.shape[:-1], spec.num_kv_heads, d)
+    v = v.reshape(*v.shape[:-1], spec.num_kv_heads, d)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def prefill_forward(params: Params, spec: ModelSpec, k_cache, v_cache,
+                    tokens, positions, page_table, seq_lens):
+    """Whole-prompt prefill; writes K/V into pages.
+
+    tokens/positions [B,S] (S a multiple of page_size), page_table
+    [B, S//page_size] (pages covering the prompt; padding entries 0 = the
+    scratch page), seq_lens [B]. Returns (last-token logits [B,V] fp32,
+    k_cache, v_cache); the caches are updated in place."""
+    b, s = tokens.shape
+    d = spec.head_dim
+    page = k_cache.shape[3]
+    x = embed_lookup(params["embed"], tokens)
+    cos, sin = rope_tables(positions, d, spec.rope_theta)
+    valid = (torch.arange(s, device=tokens.device)[None, :]
+             < seq_lens[:, None])
+    k_layers, v_layers = [], []
+    for layer in range(spec.num_layers):
+        lp = layer_params(params, layer)
+        h = rms_norm(x, lp["input_norm"], spec.rms_norm_eps)
+        q, k, v = _qkv(h, lp, spec, cos, sin)
+        attn = dense_causal_attention(q, k, v, positions, valid,
+                                      spec.q_per_kv)
+        x = x + mm(attn.reshape(b, s, -1), lp["wo"])
+        h2 = rms_norm(x, lp["post_attn_norm"], spec.rms_norm_eps)
+        x = x + ffn_block(h2, lp, spec)
+        k_layers.append(k)
+        v_layers.append(v)
+    L, nkv = spec.num_layers, spec.num_kv_heads
+    # [L,B,S,Nkv,D] -> page blocks [L,Nkv,B*S/page,page,D]; one scatter.
+    k_blocks = (torch.stack(k_layers).reshape(L, b * (s // page), page, nkv, d)
+                .permute(0, 3, 1, 2, 4))
+    v_blocks = (torch.stack(v_layers).reshape(L, b * (s // page), page, nkv, d)
+                .permute(0, 3, 1, 2, 4))
+    flat_pages = page_table.reshape(-1)
+    scatter_pages(k_cache, k_blocks, flat_pages)
+    scatter_pages(v_cache, v_blocks, flat_pages)
+    x = rms_norm(x, params["final_norm"], spec.rms_norm_eps)
+    last_idx = torch.clamp(seq_lens.long() - 1, min=0)
+    x_last = x[torch.arange(b, device=x.device), last_idx]
+    return lm_logits(x_last, params, spec), k_cache, v_cache
+
+
+def decode_window_step(params: Params, spec: ModelSpec, k_cache, v_cache,
+                       k_buf, v_buf, m: int, tokens, positions, page_table,
+                       hist_lens, attention_impl=None):
+    """One decode step inside an M-step window. The caches are read-only
+    here; this window's earlier tokens come from k_buf/v_buf
+    [L,Nkv,B,M,D] (cols j < m), and the step's fresh K/V is returned as
+    [L,B,Nkv,D] for the caller to append to the buffers.
+
+    hist_lens [B]: tokens cache-resident before the window. Returns
+    (logits [B,V] fp32, k_new, v_new)."""
+    d = spec.head_dim
+    b = tokens.shape[0]
+    x = embed_lookup(params["embed"], tokens)
+    cos, sin = rope_tables(positions, d, spec.rope_theta)
+    attn_fn = attention_impl or paged_window_attention
+    k_layers, v_layers = [], []
+    for layer in range(spec.num_layers):
+        lp = layer_params(params, layer)
+        h = rms_norm(x, lp["input_norm"], spec.rms_norm_eps)
+        q, k, v = _qkv(h, lp, spec, cos, sin)
+        attn = attn_fn(q, k_cache, v_cache, layer, page_table, hist_lens,
+                       k_buf[layer], v_buf[layer], m, k, v, spec.q_per_kv)
+        x = x + mm(attn.reshape(b, -1), lp["wo"])
+        h2 = rms_norm(x, lp["post_attn_norm"], spec.rms_norm_eps)
+        x = x + ffn_block(h2, lp, spec)
+        k_layers.append(k)
+        v_layers.append(v)
+    x = rms_norm(x, params["final_norm"], spec.rms_norm_eps)
+    return (lm_logits(x, params, spec), torch.stack(k_layers),
+            torch.stack(v_layers))

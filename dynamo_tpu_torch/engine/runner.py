@@ -1,0 +1,317 @@
+"""ModelRunner: parameters, the paged KV pool, prefill and decode windows
+(the part of ``dynamo_tpu.engine.runner.ModelRunner`` the engine calls).
+
+- ``prefill_batch``: bucketed whole-prompt prefill (no history) that
+  samples each row's first token and leaves it in ``tokens_dev`` so the
+  next decode window chains from it without a host round trip.
+- ``decode_window``: M decode steps for the whole slot batch. The host
+  uploads one packed int32 control array per window (the ``PK_*`` columns,
+  byte-identical to the reference), tokens chain on the device, the
+  window's K/V collects in a small buffer, and one commit scatter writes
+  it into the pool at the end.
+
+Every decode step of every layer runs the hand-written paged attention
+kernel (``engine/attention.py``) on CUDA tensors; CPU tensors take its
+plain version. Nothing here reads a device value on the host: windows and
+prefills are enqueued and the engine reads results back when they are
+ready.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from dynamo_tpu_torch.engine import attention
+from dynamo_tpu_torch.engine.config import EngineConfig
+from dynamo_tpu_torch.engine.kv_quant import scatter_tokens
+from dynamo_tpu_torch.engine.model import (decode_window_step, init_params,
+                                           prefill_forward)
+from dynamo_tpu_torch.engine.sampler import (gumbel_noise,
+                                             sample_tokens_per_row)
+from dynamo_tpu_torch.runtime.logging import get_logger
+
+log = get_logger("runner")
+
+# Packed per-window control array columns (int32; floats bitcast).
+PK_OVERRIDE = 0   # 1 -> take PK_TOKEN instead of the chained device token
+PK_TOKEN = 1
+PK_POS = 2        # absolute position of the token to be written this window
+PK_SEQLEN = 3     # length INCLUDING that token; 0 -> slot inactive
+PK_TOPK = 4
+PK_TEMP = 5       # float32 bits
+PK_TOPP = 6       # float32 bits
+PK_CAP = 7        # position capacity = allocated pages * page_size; a slot
+                  # freezes when its position reaches this
+PK_LOGPROB = 8    # 1 -> this slot wants logprobs (not served by the port)
+PK_FREQPEN = 9    # float32 bits: frequency_penalty (not served by the port)
+PK_PRESPEN = 10   # float32 bits: presence_penalty (not served by the port)
+PK_SEED = 11      # int32 sampling seed (meaningful when PK_SEEDED)
+PK_SEEDED = 12    # 1 -> slot uses a per-request seeded noise stream
+PK_ADAPTER = 13   # LoRA adapter slot id (0 = base; not served by the port)
+PK_PREFIX = 14    # page table starts here
+
+SEED_MASK = 0x7FFFFFFF  # seeds ride int32 control columns: 31 usable bits
+
+
+def mask_seed(seed: int) -> int:
+    """The one place a request seed maps to its 31-bit control value."""
+    return int(seed) & SEED_MASK
+
+
+@dataclasses.dataclass
+class PrefillSeq:
+    """One whole-prompt prefill row."""
+    tokens: np.ndarray          # [n] prompt tokens
+    chunk_pages: np.ndarray     # pages covering the prompt
+    sampling: tuple[float, int, float]  # (temperature, top_k, top_p)
+    seed: int | None = None     # per-request sampling seed
+
+
+def _unsupported(config: EngineConfig) -> list[str]:
+    spec = config.model
+    out = []
+    for name in ("tp", "dp", "pp", "sp"):
+        if getattr(config, name) != 1:
+            out.append(f"{name}={getattr(config, name)}")
+    if spec.num_experts:
+        out.append("MoE")
+    if spec.quant or config.resolve_quant_kv():
+        out.append("int8 weights/KV")
+    if config.spec_decode:
+        out.append("spec decode")
+    if config.max_adapters:
+        out.append("LoRA")
+    if config.host_cache_pages or config.kv_disk_cache_dir:
+        out.append("KV host/disk tiers")
+    if config.attention_backend not in ("auto", "pallas"):
+        out.append(f"attention_backend={config.attention_backend!r} (the "
+                   f"port always runs its paged attention kernel)")
+    if config.dtype != "bfloat16":
+        out.append(f"dtype={config.dtype}")
+    return out
+
+
+class ModelRunner:
+    def __init__(self, config: EngineConfig, params: dict | None = None,
+                 seed: int = 0):
+        missing = _unsupported(config)
+        if missing:
+            raise ValueError("not ported yet: " + ", ".join(missing))
+        self.config = config
+        self.spec = spec = config.model
+        self.device = torch.device(config.device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("ModelRunner: device is cuda but no GPU is "
+                               "available")
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            params = init_params(spec, gen, self.device)
+        self.params = params
+        self._sized_pages()
+        kv_shape = (spec.num_layers, spec.num_kv_heads, self.num_pages,
+                    config.page_size, spec.head_dim)
+        self.k_cache = torch.zeros(kv_shape, dtype=torch.bfloat16,
+                                   device=self.device)
+        self.v_cache = torch.zeros(kv_shape, dtype=torch.bfloat16,
+                                   device=self.device)
+        self.param_bytes = sum(t.numel() * t.element_size()
+                               for t in _leaves(params))
+        self.kv_pool_bytes = 2 * self.k_cache.numel() * 2
+        # Noise for unseeded sampling rows.
+        self._rng = torch.Generator(device=self.device).manual_seed(seed + 1)
+        # The chained next-token per slot, on device.
+        self.tokens_dev = torch.zeros(config.max_num_seqs, dtype=torch.int32,
+                                      device=self.device)
+        # Bytes the paged attention launches of all windows so far must
+        # move (attention.hist_flash_bytes), counted on the host.
+        self.attention_bytes = 0
+
+    # -- setup ---------------------------------------------------------------
+    def _sized_pages(self) -> None:
+        """Pool pages: config.num_pages, or a hbm_kv_budget_frac share of
+        the device memory left free after the params."""
+        cfg = self.config
+        if cfg.num_pages is not None:
+            self.num_pages = cfg.num_pages
+            return
+        if self.device.type != "cuda":
+            raise ValueError("num_pages must be set when the runner is not "
+                             "on a GPU (there is no free memory to size from)")
+        free, _ = torch.cuda.mem_get_info(self.device)
+        budget = max(64 << 20, int(free * cfg.hbm_kv_budget_frac))
+        page_bytes = cfg.kv_token_bytes() * cfg.page_size
+        self.num_pages = max(16, budget // page_bytes)
+        log.info("KV pool: %d pages of %d tokens (%.1f GiB)", self.num_pages,
+                 cfg.page_size, self.num_pages * page_bytes / (1 << 30))
+
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """Host array -> device without waiting for queued device work."""
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def _noise(self, sampling: np.ndarray, seeds: np.ndarray,
+               seeded: np.ndarray, positions: np.ndarray):
+        """Gumbel noise [B, V] for one sampling step, or None when no row
+        samples. Unseeded rows share one draw from the runner's generator;
+        a seeded row draws from a generator keyed by (seed, position of the
+        token being sampled), so its draw depends on nothing else."""
+        if not sampling.any():
+            return None
+        b, v = len(sampling), self.spec.vocab_size
+        noise = gumbel_noise((b, v), self._rng, self.device)
+        for i in np.flatnonzero(sampling & seeded):
+            gen = torch.Generator(device=self.device).manual_seed(
+                (int(seeds[i]) << 32) | (int(positions[i]) & 0xFFFFFFFF))
+            noise[i] = gumbel_noise((v,), gen, self.device)
+        return noise
+
+    # -- public API (called from the engine thread) --------------------------
+    def prefill_batch(self, seqs: list[PrefillSeq],
+                      slots: list[int] | None = None) -> torch.Tensor:
+        """Prefill whole prompts (padded to the bucket of the longest) and
+        sample each row's first token. With ``slots`` the tokens are also
+        written into ``tokens_dev[slots]``. Returns the sampled tokens [n]
+        as a device tensor; the caller reads them back when ready."""
+        cfg = self.config
+        page = cfg.page_size
+        n_max = max(len(s.tokens) for s in seqs)
+        if n_max > cfg.max_prompt_len:
+            raise ValueError(f"prompt of {n_max} tokens exceeds the longest "
+                             f"whole-prompt prefill ({cfg.max_prompt_len})")
+        bucket = cfg.bucket_for(n_max)
+        bucket_pages = bucket // page
+        b = len(seqs)
+        tokens = np.zeros((b, bucket), np.int32)
+        positions = np.zeros((b, bucket), np.int32)
+        # Padding page-table entries stay 0 = the allocator's scratch page.
+        table = np.zeros((b, bucket_pages), np.int32)
+        lens = np.zeros(b, np.int32)
+        temp = np.zeros(b, np.float32)
+        top_k = np.zeros(b, np.int32)
+        top_p = np.ones(b, np.float32)
+        seeds = np.zeros(b, np.int64)
+        seeded = np.zeros(b, bool)
+        for i, s in enumerate(seqs):
+            n = len(s.tokens)
+            tokens[i, :n] = s.tokens
+            positions[i] = np.minimum(np.arange(bucket), n - 1)
+            table[i, :len(s.chunk_pages)] = s.chunk_pages
+            lens[i] = n
+            temp[i], top_k[i], top_p[i] = s.sampling
+            if s.seed is not None:
+                seeds[i] = mask_seed(s.seed)
+                seeded[i] = True
+        logits, _, _ = prefill_forward(
+            self.params, self.spec, self.k_cache, self.v_cache,
+            self._upload(tokens), self._upload(positions),
+            self._upload(table), self._upload(lens))
+        # The first generated token lands at position n.
+        noise = self._noise(temp > 0, seeds, seeded, lens)
+        sampled = sample_tokens_per_row(
+            logits, self._upload(temp), self._upload(top_k),
+            self._upload(top_p), noise)
+        if slots is not None:
+            idx = torch.as_tensor(slots, dtype=torch.long, device=self.device)
+            self.tokens_dev[idx] = sampled
+        return sampled
+
+    def bucket_pages_for(self, needed: int) -> int:
+        """Page-table width bucket (power of two, >= 8) for a window."""
+        b = 8
+        maxp = self.config.max_pages_per_seq
+        while b < needed and b < maxp:
+            b *= 2
+        return min(b, maxp)
+
+    def decode_window(self, packed: np.ndarray, window: int) -> torch.Tensor:
+        """Run one M-step decode window.
+
+        packed [B, PK_PREFIX + bucket_pages] int32 (see PK_* columns).
+        Returns the sampled tokens [M, B] int32 as a device tensor."""
+        M = int(window)
+        spec, page = self.spec, self.config.page_size
+        unserved = (packed[:, PK_LOGPROB].any() or packed[:, PK_FREQPEN].any()
+                    or packed[:, PK_PRESPEN].any()
+                    or packed[:, PK_ADAPTER].any())
+        if unserved:
+            raise ValueError("logprobs, penalties and adapters are not "
+                             "ported yet")
+        B = packed.shape[0]
+        h_hist = np.maximum(packed[:, PK_SEQLEN].astype(np.int64) - 1, 0)
+        if (h_hist > (packed.shape[1] - PK_PREFIX) * page).any():
+            raise ValueError("a slot's history is longer than its page-table "
+                             "row covers")
+        # Every step of every layer launches the kernel over this history.
+        per_launch = attention.hist_flash_bytes(h_hist, spec.num_heads,
+                                                self.k_cache)
+        self.attention_bytes += M * spec.num_layers * per_launch
+        dev = self._upload(packed)
+        tokens = torch.where(dev[:, PK_OVERRIDE] > 0, dev[:, PK_TOKEN],
+                             self.tokens_dev)
+        positions0 = dev[:, PK_POS]
+        seq_lens0 = dev[:, PK_SEQLEN]
+        cap = dev[:, PK_CAP]
+        top_k = dev[:, PK_TOPK]
+        temp = dev[:, PK_TEMP].view(torch.float32)
+        top_p = dev[:, PK_TOPP].view(torch.float32)
+        page_table = dev[:, PK_PREFIX:].contiguous()
+        # The cache-resident history is fixed across the window: the
+        # window's own tokens live in kbuf/vbuf until the commit below.
+        hist_lens = torch.clamp(seq_lens0 - 1, min=0).to(torch.int32)
+        L, nkv, d = spec.num_layers, spec.num_kv_heads, spec.head_dim
+        kbuf = torch.zeros((L, nkv, B, M, d), dtype=self.k_cache.dtype,
+                           device=self.device)
+        vbuf = torch.zeros_like(kbuf)
+        # Host copy of each slot's position per step (a slot advances
+        # while live and below its cap), for the seeded noise streams.
+        h_pos0 = packed[:, PK_POS].astype(np.int64)
+        h_cap = packed[:, PK_CAP].astype(np.int64)
+        h_sampling = packed[:, PK_TEMP].view(np.float32) > 0
+        h_seeds = packed[:, PK_SEED].astype(np.int64)
+        h_seeded = packed[:, PK_SEEDED] > 0
+        toks = torch.empty((M, B), dtype=torch.int32, device=self.device)
+        positions = positions0
+        for m in range(M):
+            live = (seq_lens0 > 0) & (positions < cap)
+            logits, k_new, v_new = decode_window_step(
+                self.params, spec, self.k_cache, self.v_cache, kbuf, vbuf, m,
+                tokens, positions, page_table, hist_lens,
+                attention_impl=attention.paged_window_attention)
+            kbuf[:, :, :, m] = k_new.transpose(1, 2)
+            vbuf[:, :, :, m] = v_new.transpose(1, 2)
+            h_pos = h_pos0 + np.clip(np.minimum(m, h_cap - h_pos0), 0, None)
+            noise = self._noise(h_sampling, h_seeds, h_seeded, h_pos + 1)
+            sampled = sample_tokens_per_row(logits, temp, top_k, top_p, noise)
+            toks[m] = sampled
+            tokens = torch.where(live, sampled, tokens)
+            positions = positions + live.to(positions.dtype)
+        self.tokens_dev = tokens
+        # Commit: every (step, slot) entry into its page; frozen and
+        # inactive entries land on the scratch page 0.
+        m_idx = torch.arange(M, device=self.device)[:, None]
+        adv = torch.clamp(torch.minimum(m_idx, (cap - positions0)[None, :]),
+                          min=0)
+        pos_m = positions0[None, :] + adv                        # [M, B]
+        live_m = (seq_lens0[None, :] > 0) & (pos_m < cap[None, :])
+        pidx = torch.clamp(pos_m // page, 0, page_table.shape[1] - 1)
+        dest = page_table[torch.arange(B, device=self.device)[None, :],
+                          pidx.long()]                           # [M, B]
+        dest = torch.where(live_m, dest, 0)
+        off = torch.where(live_m, pos_m % page, 0)
+        # kbuf [L,Nkv,B,M,D] -> [L,Nkv,M,B,D] to match [M,B] indices.
+        scatter_tokens(self.k_cache, kbuf.transpose(2, 3), dest, off)
+        scatter_tokens(self.v_cache, vbuf.transpose(2, 3), dest, off)
+        return toks
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v

@@ -1,0 +1,147 @@
+"""Port paged decode attention == the JAX package's, on the same inputs.
+
+The port's wrappers (``dynamo_tpu_torch.engine.attention``) run their
+kernel's plain torch version on CPU tensors; they are held against the
+JAX Pallas kernel (run in Pallas interpret mode, as
+tests/test_attention_pallas.py runs it) and against the JAX XLA gather
+path. The port's plain gather (``dynamo_tpu_torch.engine.model``) is held
+against the XLA gather it copies. Cases follow test_attention_pallas.py:
+ragged and long ragged lengths with zero history, layer 0/1 of the stacked
+cache, MQA, GQA, shuffled page tables, window steps m in {0, 3}.
+
+Tolerances:
+- wrapper vs Pallas / XLA: atol = rtol = 0.03, the Pallas-vs-XLA bound of
+  test_attention_pallas.py. The port's history path keeps probabilities in
+  fp32 where XLA casts them to bf16 before the PV product (relative error
+  2^-8 per weight) and both outputs are bf16 (one ulp is 2^-7 at |x| ~ 1).
+- plain gather vs XLA gather (same algorithm, bf16 probabilities on both
+  sides): atol = rtol = 0.02, one bf16 ulp of the outputs plus summation
+  order.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dynamo_tpu.engine.attention import (paged_decode_attention_pallas,
+                                         paged_window_attention_pallas)
+from dynamo_tpu.engine.model import (paged_decode_attention_xla,
+                                     paged_window_attention_xla)
+from dynamo_tpu_torch.engine import attention as port_attn
+from dynamo_tpu_torch.engine import model as port_model
+
+torch.set_num_threads(1)
+
+TOL = dict(atol=0.03, rtol=0.03)
+PLAIN_TOL = dict(atol=0.02, rtol=0.02)
+
+
+def _case(d, b, nkv, qpk, maxp, hist, seed=0, page=16, L=2, M=8):
+    """bf16-representable float32 inputs shared by both packages."""
+    rng = np.random.default_rng(seed)
+    nh = nkv * qpk
+    npages = maxp * b + 2
+
+    def bf(shape):
+        x = rng.standard_normal(shape).astype(np.float32)
+        return np.asarray(jnp.asarray(x, jnp.bfloat16), np.float32)
+
+    pt = np.zeros((b, maxp), np.int32)
+    for i in range(b):
+        pt[i] = rng.permutation(np.arange(1, npages - 1))[:maxp]
+    return dict(q=bf((b, nh, d)), kc=bf((L, nkv, npages, page, d)),
+                vc=bf((L, nkv, npages, page, d)), ks=bf((b, nkv, d)),
+                vs=bf((b, nkv, d)), kw=bf((nkv, b, M, d)),
+                vw=bf((nkv, b, M, d)), pt=pt,
+                hl=np.asarray(hist, np.int32), qpk=qpk)
+
+
+def _jax(c, name):
+    return jnp.asarray(c[name],
+                       jnp.int32 if name in ("pt", "hl") else jnp.bfloat16)
+
+
+def _torch(c, name):
+    t = torch.from_numpy(c[name])
+    return t if name in ("pt", "hl") else t.to(torch.bfloat16)
+
+
+def _port_decode(c, layer):
+    T = {k: _torch(c, k) for k in ("q", "kc", "vc", "pt", "hl", "ks", "vs")}
+    args_t = (T["q"], T["kc"], T["vc"], layer, T["pt"], T["hl"], T["ks"],
+              T["vs"], c["qpk"])
+    return args_t, port_attn.paged_decode_attention(*args_t).float().numpy()
+
+
+def _run_decode(c, layer):
+    J = {k: _jax(c, k) for k in ("q", "kc", "vc", "pt", "hl", "ks", "vs")}
+    ly = jnp.asarray(layer, jnp.int32)
+    args_j = (J["q"], J["kc"], J["vc"], ly, J["pt"], J["hl"], J["ks"],
+              J["vs"], c["qpk"])
+    args_t, port = _port_decode(c, layer)
+    f32 = lambda x: np.asarray(x, np.float32)  # noqa: E731
+    return {"xla": f32(paged_decode_attention_xla(*args_j)),
+            "pallas": (f32(paged_decode_attention_pallas(*args_j))
+                       if c["q"].shape[-1] in (64, 128) else None),
+            "port": port,
+            "port_plain":
+                port_model.paged_decode_attention(*args_t).float().numpy()}
+
+
+def _check(out):
+    np.testing.assert_allclose(out["port"], out["xla"], **TOL)
+    np.testing.assert_allclose(out["port_plain"], out["xla"], **PLAIN_TOL)
+    if out["pallas"] is not None:
+        np.testing.assert_allclose(out["port"], out["pallas"], **TOL)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_port_decode_matches_jax(d):
+    _check(_run_decode(_case(d, b=4, nkv=2, qpk=4, maxp=8,
+                             hist=[5, 17, 64, 128]), layer=1))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_port_decode_matches_jax_long_ragged(d):
+    """Zero history, chunk-crossing and non-page-aligned lengths."""
+    _check(_run_decode(_case(d, b=4, nkv=2, qpk=2, maxp=32,
+                             hist=[0, 129, 300, 511], seed=3), layer=1))
+
+
+@pytest.mark.parametrize("layer", [0, 1])
+def test_port_layer_indexing(layer):
+    c = _case(64, b=2, nkv=2, qpk=2, maxp=4, hist=[30, 61], seed=4)
+    out = _run_decode(c, layer)
+    _check(out)
+    _, other = _port_decode(c, 1 - layer)
+    assert np.max(np.abs(out["port"] - other)) > 0.01
+
+
+def test_port_mqa_single_group():
+    """One kv head, eight query heads."""
+    _check(_run_decode(_case(64, b=2, nkv=1, qpk=8, maxp=8, hist=[33, 90],
+                             seed=5), layer=1))
+
+
+@pytest.mark.parametrize("m", [0, 3])
+@pytest.mark.parametrize("d", [32, 64])
+def test_port_window_matches_jax(m, d):
+    """History + in-window buffer columns j < m + the self column."""
+    c = _case(d, b=4, nkv=2, qpk=2, maxp=8, hist=[0, 30, 64, 127], seed=7)
+    names = ("q", "kc", "vc", "pt", "hl", "kw", "vw", "ks", "vs")
+    J = {k: _jax(c, k) for k in names}
+    T = {k: _torch(c, k) for k in names}
+    args_j = (J["q"], J["kc"], J["vc"], jnp.asarray(1, jnp.int32), J["pt"],
+              J["hl"], J["kw"], J["vw"], jnp.asarray(m, jnp.int32), J["ks"],
+              J["vs"], 2)
+    args_t = (T["q"], T["kc"], T["vc"], 1, T["pt"], T["hl"], T["kw"],
+              T["vw"], m, T["ks"], T["vs"], 2)
+    ref = np.asarray(paged_window_attention_xla(*args_j), np.float32)
+    port = port_attn.paged_window_attention(*args_t).float().numpy()
+    plain = port_model.paged_window_attention(*args_t).float().numpy()
+    np.testing.assert_allclose(port, ref, **TOL)
+    np.testing.assert_allclose(plain, ref, **PLAIN_TOL)
+    if d == 64:
+        pal = np.asarray(paged_window_attention_pallas(*args_j), np.float32)
+        np.testing.assert_allclose(port, pal, **TOL)
