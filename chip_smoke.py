@@ -3,19 +3,28 @@
     python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero without the final line:
-1. build: compile the paged decode-attention kernel
-   (dynamo_tpu_torch/csrc/paged_attention.cu) with nvcc for sm_90a.
-2. kernel: hold the kernel against its plain torch version through both
+1. build: compile the paged decode-attention kernel, both entry points
+   (paged_attention_hist for a bf16 pool, paged_attention_hist_int8 for an
+   int8 pool with per-token scales), from
+   dynamo_tpu_torch/csrc/paged_attention.cu with nvcc for sm_90a.
+2. kernels: hold each variant against its plain torch version through both
    wrappers (paged_window_attention, paged_decode_attention) over D in
    {32, 64, 128}, ragged / zero / >8-page histories, MQA and GQA, layer > 0,
-   shuffled page tables and window steps m in {0, 3}; then time the kernel,
-   its plain version and SDPA over the gathered pages (a yardstick the port
-   never calls) at llama-3-8b decode shapes.
-3. main path: build the engine with launch.build_engine for llama-3-8b at
-   full width (random weights, seed 0), serve 8 concurrent requests through
-   GPUEngine.generate, check every request, check that every decode step of
-   every layer launched the kernel, and hold teacher-forced decode logits of
-   the kernel path against the plain attention path on the card.
+   shuffled page tables, window steps m in {0, 3} and a history clamped to
+   its page-table row; then time each variant, its plain version and a
+   yardstick at llama-3-8b decode shapes: SDPA over the gathered pages for
+   bf16, and for int8 SDPA over pages gathered and dequantized beforehand
+   (no single PyTorch call reads int8 pages with per-token scales).
+3. main path, bf16 pool: build the engine with launch.build_engine for
+   llama-3-8b at full width (random weights, seed 0), serve 8 concurrent
+   requests through GPUEngine.generate, check every request, check that
+   every decode step of every layer launched the bf16 kernel, and hold
+   teacher-forced decode logits of the kernel path against the plain
+   attention path on the card. The engine is then released.
+4. main path, int8 pool: the same with --quant-kv int8: every decode step
+   of every layer launches the int8 kernel and never the bf16 one; the
+   teacher-forced check runs on an int8 pool, and its logits stay
+   cosine-close (> 0.99) to the bf16 pool's for the same tokens.
 The last lines are the kernels' JSON summary, the card's name and power
 limit, and {"ok": true, "device": {...}}.
 """
@@ -23,6 +32,7 @@ limit, and {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import asyncio
+import gc
 import json
 import sys
 import time
@@ -36,10 +46,18 @@ import torch
 # wrappers' outputs are bf16, where one ulp is 2^-7 relative.
 TRIPLE_TOL = dict(atol=2e-3, rtol=2e-3)
 OUTPUT_TOL = dict(atol=1.6e-2, rtol=1.6e-2)
+# The int8 kernel and its plain version both dequantize in fp32; the
+# kernel applies each token's scale once to its score and PV weight, the
+# plain version to every value, so the same tolerances hold.
 # Teacher-forced logits, kernel path vs plain path over 32 layers: the
 # plain path rounds probabilities to bf16 before PV (2^-8 relative per
-# weight) and the two paths' bf16 activations then drift by ulps per layer.
+# weight), and over an int8 pool also the dequantized K/V (2^-9 relative
+# per value), and the two paths' bf16 activations then drift by ulps per
+# layer.
 LOGIT_ATOL = 0.25
+# int8 pool vs bf16 pool logits for the same tokens: the JAX package's own
+# quality gate (tests/test_kv_quant.py).
+MIN_COSINE = 0.99
 
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12       # dense bf16 tensor cores, H100 SXM data sheet
@@ -67,7 +85,8 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 # Phase 2: kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def make_case(gen, d, b, nkv, qpk, hist, L=2, page=16, M=8, extra_pages=3):
+def make_case(gen, d, b, nkv, qpk, hist, L=2, page=16, M=8, extra_pages=3,
+              quant=False):
     maxp = max(1, max(-(-h // page) for h in hist)) + extra_pages
     npages = b * maxp + 2
 
@@ -77,19 +96,38 @@ def make_case(gen, d, b, nkv, qpk, hist, L=2, page=16, M=8, extra_pages=3):
     # Shuffled page tables; entries past the live pages point anywhere.
     perm = torch.randperm(npages - 1, generator=gen) + 1
     pt = perm[:b * maxp].reshape(b, maxp).to(torch.int32).cuda()
-    return dict(q=rnd(b, nkv * qpk, d), kc=rnd(L, nkv, npages, page, d),
-                vc=rnd(L, nkv, npages, page, d), pt=pt,
+    kc, vc = rnd(L, nkv, npages, page, d), rnd(L, nkv, npages, page, d)
+    if quant:
+        from dynamo_tpu_torch.engine.kv_quant import QuantKV, kv_quantize
+        kc, vc = QuantKV(*kv_quantize(kc)), QuantKV(*kv_quantize(vc))
+    return dict(q=rnd(b, nkv * qpk, d), kc=kc, vc=vc, pt=pt,
                 hl=torch.tensor(hist, dtype=torch.int32).cuda(),
                 ks=rnd(b, nkv, d), vs=rnd(b, nkv, d),
                 kw=rnd(nkv, b, M, d), vw=rnd(nkv, b, M, d), qpk=qpk)
 
 
-def check_kernel(attention) -> float:
-    """Kernel (CUDA tensors) against the plain version on the same inputs:
-    the raw triple against hist_flash_plain on the card, and both wrappers
-    against themselves on CPU copies (where they run the plain version).
-    Returns the largest absolute error of the normalised triple."""
-    gen = torch.Generator().manual_seed(1)
+def to_cpu(v):
+    if isinstance(v, tuple):  # QuantKV
+        return type(v)(*(t.cpu() for t in v))
+    return v.cpu() if torch.is_tensor(v) else v
+
+
+def check_kernel(attention, quant: bool) -> float:
+    """Kernel (CUDA tensors) against the plain version on the same inputs,
+    bf16 or int8 pools: the raw triple against hist_flash_plain on the
+    card, and both wrappers against themselves on CPU copies (where they
+    run the plain version). Returns the largest absolute error of the
+    normalised triple."""
+    kind = "int8" if quant else "bf16"
+    gen = torch.Generator().manual_seed(3 if quant else 1)
+    if quant:
+        # The quantizer on the card gives the CPU's bits, which the CPU
+        # tests hold to the reference's numpy quantizer.
+        from dynamo_tpu_torch.engine.kv_quant import kv_quantize
+        x = torch.randn((64, 8, 16, 128), generator=gen).to(torch.bfloat16)
+        (q_g, s_g), (q_c, s_c) = kv_quantize(x.cuda()), kv_quantize(x)
+        assert torch.equal(q_g.cpu(), q_c) and torch.equal(s_g.cpu(), s_c)
+        log("int8 quantizer on the card: bit-identical to the CPU's")
     cases = [
         # (d, b, nkv, qpk, hist, layer, window m)
         (32, 4, 2, 2, [0, 5, 17, 140], 1, 0),        # zero + ragged
@@ -100,7 +138,7 @@ def check_kernel(attention) -> float:
     ]
     worst = 0.0
     for d, b, nkv, qpk, hist, layer, m in cases:
-        c = make_case(gen, d, b, nkv, qpk, hist)
+        c = make_case(gen, d, b, nkv, qpk, hist, quant=quant)
         args = (c["q"], c["kc"], c["vc"], layer, c["pt"], c["hl"], qpk)
         acc, l, mx = attention.KERNEL(*args)
         torch.cuda.synchronize()
@@ -116,7 +154,7 @@ def check_kernel(attention) -> float:
                 "empty history must give l = 0, acc = 0"
         worst = max(worst, float((out_k - out_p).abs().max()))
 
-        cpu = {k: (v.cpu() if torch.is_tensor(v) else v) for k, v in c.items()}
+        cpu = {k: to_cpu(v) for k, v in c.items()}
         win_k = attention.paged_window_attention(
             c["q"], c["kc"], c["vc"], layer, c["pt"], c["hl"], c["kw"],
             c["vw"], m, c["ks"], c["vs"], qpk)
@@ -134,13 +172,13 @@ def check_kernel(attention) -> float:
                                    **OUTPUT_TOL)
         torch.testing.assert_close(dec_k.float().cpu(), dec_p.float(),
                                    **OUTPUT_TOL)
-        log(f"kernel ok: D={d} B={b} Nkv={nkv} qpk={qpk} hist={hist} "
-            f"layer={layer} m={m} max|err|={worst:.3g}")
+        log(f"{kind} kernel ok: D={d} B={b} Nkv={nkv} qpk={qpk} "
+            f"hist={hist} layer={layer} m={m} max|err|={worst:.3g}")
 
     # A history longer than its page-table row counts only the row's
     # tokens: the last row's table ends the allocation, so a read past it
     # would leave the table.
-    c = make_case(gen, 64, 2, 2, 4, [20, 100], extra_pages=0)
+    c = make_case(gen, 64, 2, 2, 4, [20, 100], extra_pages=0, quant=quant)
     cap = c["pt"].shape[1] * c["kc"].shape[3]
     c["hl"] = torch.tensor([20, cap + 1000], dtype=torch.int32, device="cuda")
     args = (c["q"], c["kc"], c["vc"], 1, c["pt"], c["hl"], 4)
@@ -149,51 +187,64 @@ def check_kernel(attention) -> float:
     torch.cuda.synchronize()
     torch.testing.assert_close(acc / l, acc_p / l_p, **TRIPLE_TOL)
     worst = max(worst, float((acc / l - acc_p / l_p).abs().max()))
-    log(f"kernel ok: history {cap + 1000} clamped to the row's {cap} tokens")
+    log(f"{kind} kernel ok: history {cap + 1000} clamped to the row's {cap} "
+        f"tokens")
     return worst
 
 
-def time_kernel(attention) -> dict:
+def time_kernel(attention, quant: bool) -> dict:
     """llama-3-8b decode shapes: B=32, Nkv=8, qpk=4, D=128, page 16,
-    history 2048 for every row, layer 1 of a 2-layer pool."""
+    history 2048 for every row, layer 1 of a 2-layer pool (bf16 or int8)."""
     gen = torch.Generator().manual_seed(2)
     b, nkv, qpk, d, hist, page = 32, 8, 4, 128, 2048, 16
-    c = make_case(gen, d, b, nkv, qpk, [hist] * b, page=page, extra_pages=0)
+    c = make_case(gen, d, b, nkv, qpk, [hist] * b, page=page, extra_pages=0,
+                  quant=quant)
     args = (c["q"], c["kc"], c["vc"], 1, c["pt"], c["hl"], qpk)
-    launches = attention.KERNEL.launches
     ms = time_ms(lambda: attention.KERNEL(*args))
     acc, l, mx = attention.KERNEL(*args)
-    attention.KERNEL.launches = launches  # timing launches are not counted
     acc_p, l_p, _ = attention.hist_flash_plain(*args)
     out_k, out_p = acc / l, acc_p / l_p
     torch.testing.assert_close(out_k, out_p, **TRIPLE_TOL)
     max_err = float((out_k - out_p).abs().max())
-    log(f"kernel ok at the timed shape: max|err|={max_err:.3g}")
+    log(f"{'int8' if quant else 'bf16'} kernel ok at the timed shape: "
+        f"max|err|={max_err:.3g}")
     del acc, l, mx, acc_p, l_p, out_k, out_p
     plain_ms = time_ms(lambda: attention.hist_flash_plain(*args))
-    # Yardstick: one SDPA call over the same history, gathered beforehand.
+    # Yardstick: one SDPA call over the same history, gathered (and for
+    # int8 dequantized to bf16) beforehand.
     pt = c["pt"].long()
-    k = c["kc"][1][:, pt].reshape(nkv, b, hist, d).transpose(0, 1)
-    v = c["vc"][1][:, pt].reshape(nkv, b, hist, d).transpose(0, 1)
-    k, v = k.contiguous(), v.contiguous()
+    from dynamo_tpu_torch.engine.kv_quant import gather_pages_folded
+    k = gather_pages_folded(c["kc"], 1, pt).transpose(0, 1).contiguous()
+    v = gather_pages_folded(c["vc"], 1, pt).transpose(0, 1).contiguous()
     q = c["q"][:, :, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = time_ms(lambda: sdpa(q, k, v, enable_gqa=True))
+    sdpa_ms = time_ms(lambda: sdpa(q, k, v, enable_gqa=True))
     bytes_moved = attention.hist_flash_bytes(c["hl"], nkv * qpk, c["kc"])
     flops = 4 * b * hist * nkv * qpk * d              # QK^T and PV
     bound_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
     bound_ops = flops / H100_BF16_FLOPS * 1e3
+    name = "paged_attention_hist_int8" if quant else "paged_attention_hist"
     out = {"shape": f"B={b} Nkv={nkv} qpk={qpk} D={d} hist={hist}",
-           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "ms": ms, "plain_ms": plain_ms,
            "bound_ms": max(bound_bytes, bound_ops),
            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
            "bytes": bytes_moved, "flops": flops, "max_abs_err": max_err,
            "achieved_GBps": bytes_moved / (ms * 1e-3) / 1e9}
+    if quant:
+        log("int8 library_ms: null; no single PyTorch call computes "
+            "attention over int8 pages with per-token scales. "
+            "sdpa_bf16_ms is SDPA over the same pages gathered and "
+            "dequantized to bf16 beforehand: a yardstick of scale only")
+        out.update(library_ms=None, sdpa_bf16_ms=sdpa_ms)
+    else:
+        out.update(library_ms=sdpa_ms)
     for what, key in (("kernel", "ms"), ("plain", "plain_ms"),
-                      ("library_sdpa", "library_ms")):
-        log(json.dumps({"timing": what, "shape": out["shape"],
-                        "ms": out[key]}))
-    log(json.dumps({"timing": "paged_attention_hist", **out}))
+                      ("library_sdpa", "library_ms"),
+                      ("sdpa_bf16_yardstick", "sdpa_bf16_ms")):
+        if key in out:
+            log(json.dumps({"timing": what, "kernel": name,
+                            "shape": out["shape"], "ms": out[key]}))
+    log(json.dumps({"timing": name, **out}))
     return out
 
 
@@ -201,21 +252,31 @@ def time_kernel(attention) -> dict:
 # Phase 3: main path
 # ---------------------------------------------------------------------------
 
-def teacher_forced_check(engine, prompt, generated, attention, model) -> float:
-    """Prefill ``prompt`` into a private pool, then run one window of
-    teacher-forced decode steps over ``generated`` twice on the same
-    inputs: through the kernel wrapper and through the plain gather.
-    Returns the largest absolute logit difference."""
-    runner = engine.runner
-    spec, cfg, dev = runner.spec, engine.config, runner.device
-    page, M = cfg.page_size, engine.decode_window
+def teacher_forced_check(runner, window, prompt, generated, attention, model,
+                         quant: bool) -> tuple[float, list]:
+    """Prefill ``prompt`` into a private pool (bf16, or int8 with
+    ``quant``), then run one window of teacher-forced decode steps over
+    ``generated`` twice on the same inputs: through the kernel wrapper and
+    through the plain gather. Returns the largest absolute logit
+    difference and the kernel path's logits of each step."""
+    from dynamo_tpu_torch.engine.kv_quant import QuantKV
+
+    spec, cfg, dev = runner.spec, runner.config, runner.device
+    page, M = cfg.page_size, window
     n = len(prompt)
     bucket = cfg.bucket_for(n)
     pages = bucket // page + -(-M // page) + 1
     shape = (spec.num_layers, spec.num_kv_heads, pages + 1, page,
              spec.head_dim)
-    kc = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
-    vc = torch.zeros_like(kc)
+
+    def pool():
+        if quant:
+            return QuantKV(torch.zeros(shape, dtype=torch.int8, device=dev),
+                           torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=dev))
+        return torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+
+    kc, vc = pool(), pool()
     table = torch.arange(1, pages + 1, dtype=torch.int32, device=dev)[None]
     tok = torch.zeros((1, bucket), dtype=torch.int32, device=dev)
     tok[0, :n] = torch.tensor(prompt, dtype=torch.int32)
@@ -225,9 +286,9 @@ def teacher_forced_check(engine, prompt, generated, attention, model) -> float:
                           torch.tensor([n], dtype=torch.int32, device=dev))
     hist = torch.tensor([n], dtype=torch.int32, device=dev)
     kbuf = torch.zeros((spec.num_layers, spec.num_kv_heads, 1, M,
-                        spec.head_dim), dtype=torch.bfloat16, device=dev)
+                        spec.head_dim), dtype=kc.dtype, device=dev)
     vbuf = torch.zeros_like(kbuf)
-    worst = 0.0
+    worst, logits = 0.0, []
     for m in range(M):
         # The token fed at step m sits at position n + m.
         args = (runner.params, spec, kc, vc, kbuf, vbuf, m,
@@ -244,23 +305,39 @@ def teacher_forced_check(engine, prompt, generated, attention, model) -> float:
         assert diff <= LOGIT_ATOL, f"step {m}: |logit diff| {diff} > " \
                                    f"{LOGIT_ATOL}"
         worst = max(worst, diff)
-    return worst
+        logits.append(lk[0])
+    return worst, logits
 
 
-def main_path(attention, model) -> dict:
+def main_path(attention, model, quant_kv: str | None) -> dict:
+    """Serve the 8 requests at full width from a bf16 pool, or from an int8
+    pool with ``quant_kv="int8"``; the engine is stopped and released
+    before this returns."""
     from dynamo_tpu_torch import launch
     from dynamo_tpu_torch.profile_decode import (MAX_TOKENS, MODEL,
                                                  PROMPT_LENS, serve)
 
-    args = launch.parse_args(["out=gpu", "--model", MODEL, "--seed", "0"])
+    argv = ["out=gpu", "--model", MODEL, "--seed", "0"]
+    if quant_kv:
+        argv += ["--quant-kv", quant_kv]
+    kind = quant_kv or "bf16"
     t0 = time.monotonic()
-    engine = launch.build_engine(args)
+    engine = launch.build_engine(launch.parse_args(argv))
     setup_s = time.monotonic() - t0
-    spec = engine.runner.spec
-    log(f"engine: {spec.name} layers={spec.num_layers} "
-        f"hidden={spec.hidden_size} pages={engine.runner.num_pages} "
-        f"pool={engine.runner.kv_pool_bytes / 2**30:.1f} GiB "
-        f"params={engine.runner.param_bytes / 2**30:.1f} GiB "
+    runner = engine.runner
+    spec = runner.spec
+    pool_bytes = runner.k_cache.nbytes + runner.v_cache.nbytes
+    assert runner.kv_pool_bytes == pool_bytes, (runner.kv_pool_bytes,
+                                                pool_bytes)
+    if quant_kv:
+        assert runner.k_cache.data.dtype == torch.int8
+        assert runner.kv_pool_bytes == sum(
+            t.nbytes for c in (runner.k_cache, runner.v_cache)
+            for t in (c.data, c.scale))
+    log(f"engine ({kind} pool): {spec.name} layers={spec.num_layers} "
+        f"hidden={spec.hidden_size} pages={runner.num_pages} "
+        f"pool={runner.kv_pool_bytes / 2**30:.2f} GiB "
+        f"params={runner.param_bytes / 2**30:.1f} GiB "
         f"window={engine.decode_window} setup={setup_s:.1f}s")
     rng = np.random.default_rng(0)
     sampling = [{}] * 6 + [{"temperature": 0.8, "top_p": 0.9},
@@ -272,38 +349,75 @@ def main_path(attention, model) -> dict:
                  "sampling_options": s} for p, s in zip(prompts, sampling)]
     try:
         attention.KERNEL.launches = 0
+        attention.KERNEL.launches_int8 = 0
         windows0 = engine.windows_dispatched
         t0 = time.monotonic()
         results = asyncio.run(serve(engine, requests))
         wall = time.monotonic() - t0
-        launches = attention.KERNEL.launches
+        launches = {"paged_attention_hist": attention.KERNEL.launches,
+                    "paged_attention_hist_int8":
+                        attention.KERNEL.launches_int8}
         windows = engine.windows_dispatched - windows0
         for i, r in enumerate(results):
             assert r["finish"] == "length", (i, r["finish"])
             assert len(r["tokens"]) == MAX_TOKENS, (i, len(r["tokens"]))
             assert all(0 <= t < spec.vocab_size for t in r["tokens"])
         expected = windows * engine.decode_window * spec.num_layers
-        assert launches == expected and launches > 0, (launches, expected)
+        ran, idle = (("paged_attention_hist_int8", "paged_attention_hist")
+                     if quant_kv else
+                     ("paged_attention_hist", "paged_attention_hist_int8"))
+        assert launches[ran] == expected and expected > 0, (launches,
+                                                            expected)
+        assert launches[idle] == 0, launches
         win_ms = sorted(s * 1e3 for s in engine.window_seconds)
         ttft = sorted(r["ttft_s"] * 1e3 for r in results)
         n_tok = sum(len(r["tokens"]) for r in results)
-        stats = {"requests": len(results), "tokens": n_tok,
+        stats = {"pool": kind, "pages": runner.num_pages,
+                 "pool_gib": runner.kv_pool_bytes / 2**30,
+                 "requests": len(results), "tokens": n_tok,
                  "wall_s": wall, "tok_per_s": n_tok / wall,
                  "ttft_ms_median": ttft[len(ttft) // 2],
                  "ttft_ms_max": ttft[-1], "windows": windows,
                  "window_steps": engine.decode_window,
                  "window_ms_median": win_ms[len(win_ms) // 2],
                  "window_ms_max": win_ms[-1],
-                 "kernel_launches": launches}
+                 "kernel_launches": launches[ran], "launches": launches}
         log(json.dumps({"main_path": stats}))
     finally:
         engine.stop()
-    worst = teacher_forced_check(engine, prompts[0], results[0]["tokens"],
-                                 attention, model)
-    log(f"teacher-forced logits, kernel vs plain path: max|diff|={worst:.4f}"
-        f" (tolerance {LOGIT_ATOL})")
+    tf = dict(runner=runner, window=engine.decode_window, prompt=prompts[0],
+              generated=results[0]["tokens"], attention=attention,
+              model=model)
+    worst, logits = teacher_forced_check(quant=bool(quant_kv), **tf)
+    log(f"teacher-forced logits on the {kind} pool, kernel vs plain path: "
+        f"max|diff|={worst:.4f} (tolerance {LOGIT_ATOL})")
     stats["teacher_forced_max_abs_diff"] = worst
+    if quant_kv:
+        _, ref = teacher_forced_check(quant=False, **tf)
+        cos = min(float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+                  for a, b in zip(logits, ref))
+        log(f"teacher-forced logits, int8 pool vs bf16 pool: min cosine "
+            f"{cos:.6f} over {len(ref)} steps (gate > {MIN_COSINE})")
+        assert cos > MIN_COSINE, cos
+        stats["int8_vs_bf16_min_cosine"] = cos
+    # Release the engine's weights and pool before the next phase.
+    del engine, runner, tf, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"released: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still "
+        f"allocated")
     return stats
+
+
+def kernel_entry(name, variant, timing, max_err, stats) -> dict:
+    return {"name": name, "route": "cuda",
+            "source": "dynamo_tpu_torch/csrc/paged_attention.cu",
+            "replaces": "dynamo_tpu/engine/attention.py:72",
+            "variant": variant, "launches": stats["kernel_launches"],
+            "max_abs_err": max(max_err, timing["max_abs_err"]),
+            "ms": timing["ms"], "plain_ms": timing["plain_ms"],
+            "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
+            "library_ms": timing["library_ms"]}
 
 
 def main() -> int:
@@ -328,25 +442,24 @@ def main() -> int:
         attention.KERNEL.build()
         log(f"build: {attention.KERNEL.build_seconds:.1f}s")
         for line in attention.KERNEL.build_log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("Compiling", "registers", "spill")):
                 log("  " + line.strip())
-        max_err = check_kernel(attention)
-        timing = time_kernel(attention)
+        err_bf16 = check_kernel(attention, quant=False)
+        err_int8 = check_kernel(attention, quant=True)
+        timing_bf16 = time_kernel(attention, quant=False)
+        timing_int8 = time_kernel(attention, quant=True)
         torch.cuda.empty_cache()
-        stats = main_path(attention, model)
+        stats_bf16 = main_path(attention, model, None)
+        stats_int8 = main_path(attention, model, "int8")
     except Exception:  # noqa: BLE001 — report and fail the run
         traceback.print_exc()
         return 1
-    kernel = {"name": "paged_attention_hist", "route": "cuda",
-              "source": "dynamo_tpu_torch/csrc/paged_attention.cu",
-              "replaces": "dynamo_tpu/engine/attention.py:72",
-              "launches": stats["kernel_launches"],
-              "max_abs_err": max(max_err, timing["max_abs_err"]),
-              "ms": timing["ms"],
-              "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
-              "bound_by": timing["bound_by"],
-              "library_ms": timing["library_ms"]}
-    log(json.dumps({"kernels": [kernel]}))
+    log(json.dumps({"kernels": [
+        kernel_entry("paged_attention_hist", "bf16 pool", timing_bf16,
+                     err_bf16, stats_bf16),
+        kernel_entry("paged_attention_hist_int8",
+                     "int8 pool, _decode_kernel(quantized=True)",
+                     timing_int8, err_int8, stats_int8)]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

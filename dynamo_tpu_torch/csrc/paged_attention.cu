@@ -1,29 +1,44 @@
 // Paged decode attention over the cache-resident history, for Hopper (sm_90a).
 //
 // Replaces dynamo_tpu/engine/attention.py::_decode_kernel (driven there by
-// _hist_flash_pallas). One thread block per (sequence, kv-head) walks the
-// sequence's page table over its hist_len cached tokens and runs an online
-// softmax for the q_per_kv query heads that share the kv head. It returns the
-// same flash triple as the TPU kernel: unnormalised acc [B, Nkv, qpk, D] and
-// m, l [B, Nkv, qpk] in fp32. The caller merges the in-window columns and the
-// current token's column in torch (attention.py::_merge_extra).
+// _hist_flash_pallas) in both its variants: the bf16 pool
+// (paged_attention_hist) and the int8 pool with per-token scales,
+// _decode_kernel(quantized=True) (paged_attention_hist_int8). One thread
+// block per (sequence, kv-head) walks the sequence's page table over its
+// hist_len cached tokens and runs an online softmax for the q_per_kv query
+// heads that share the kv head. It returns the same flash triple as the TPU
+// kernel: unnormalised acc [B, Nkv, qpk, D] and m, l [B, Nkv, qpk] in fp32.
+// The caller merges the in-window columns and the current token's column in
+// torch (attention.py::_merge_extra).
 //
 // Bound: device-memory bytes. Every live K and V row of the history is read
-// once (2 * hist_len * D * 2 bytes per (sequence, kv-head)); the arithmetic is
-// 4 * qpk flops per byte, far under the ~295 flops/byte where the H100's bf16
-// tensor cores would become the limit. The design therefore only aims to read
-// each live row once, with 16-byte coalesced loads:
+// once: 2 * hist_len * D * 2 bytes per (sequence, kv-head) for bf16, and
+// 2 * hist_len * (D + 4) for int8 (the values plus one f32 scale per token).
+// The arithmetic is 4 * qpk flops per bf16 byte, far under the ~295
+// flops/byte where the H100's bf16 tensor cores would become the limit. The
+// design therefore only aims to read each live row once, with 16-byte
+// coalesced loads:
 //   - only the ceil(hist_len / page) leading page-table entries are read; the
 //     tail of the table may be page 0 or stale; hist_len is clamped to
 //     maxp * page, the row's capacity;
 //   - a chunk of kChunk tokens of K and V is staged in shared memory, loaded
-//     with all of a thread's 16-byte loads in flight before any is stored;
+//     with all of a thread's 16-byte loads in flight before any is stored
+//     (8 bf16 or 16 int8 values per load); for int8 the chunk's 64 K and 64 V
+//     scales are staged beside the rows;
 //   - scores: one warp per token, lanes split D, fp32 dot + warp reduction;
 //   - PV: each thread owns output (head, d) elements and reads V rows from
 //     shared memory across the chunk.
-// Offsets into the stacked [L, Nkv, P, page, D] pool are int64: a full-size
-// pool holds more than 2^31 elements. The layer is an index into that pool;
-// no layer is ever sliced or copied.
+// int8: the rows stay int8 in shared memory (16 KB at D=128, where an fp32
+// dequantised chunk would need 64 KB, over the 48 KB of static shared
+// memory). The scales fold into per-token scalars instead of dequantising
+// every element: score_t = k_scale[t] * sum_d q_d * k[t, d], and the PV
+// weight of token t is p_t * v_scale[t]. In exact arithmetic this is the
+// TPU kernel's fp32 dequantise-then-dot; in fp32 the scale multiplies once
+// after the dot instead of once per element, so the two round differently
+// by a few fp32 ulps of each score and weight.
+// Offsets into the stacked [L, Nkv, P, page, D] pool and its [L, Nkv, P,
+// page] scales are int64: a full-size pool holds more than 2^31 elements.
+// The layer is an index into that pool; no layer is ever sliced or copied.
 // Masked scores are -1e30, not -inf, so exp(m - m) never becomes NaN. A row
 // with no history returns m = -1e30, l = 0, acc = 0, which the merge weights
 // to zero.
@@ -36,6 +51,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -44,9 +61,9 @@ constexpr int kChunk = 64;  // history tokens staged per iteration
 constexpr int kMaxQpk = 8;  // query heads per kv head
 constexpr float kNegInf = -1e30f;
 
-// E consecutive bf16 values starting at p, as floats (E in {1, 2, 4}).
+// E consecutive pool values starting at p, as floats (E in {1, 2, 4}).
 template <int E>
-__device__ __forceinline__ void load_bf16(const __nv_bfloat16* p, float* out) {
+__device__ __forceinline__ void load_vals(const __nv_bfloat16* p, float* out) {
   if constexpr (E == 1) {
     out[0] = __bfloat162float(*p);
   } else if constexpr (E == 2) {
@@ -65,6 +82,27 @@ __device__ __forceinline__ void load_bf16(const __nv_bfloat16* p, float* out) {
   }
 }
 
+template <int E>
+__device__ __forceinline__ void load_vals(const int8_t* p, float* out) {
+  if constexpr (E == 1) {
+    out[0] = static_cast<float>(*p);
+  } else if constexpr (E == 2) {
+    const char2 c = *reinterpret_cast<const char2*>(p);
+    out[0] = static_cast<float>(c.x);
+    out[1] = static_cast<float>(c.y);
+  } else {
+    static_assert(E == 4, "E must be 1, 2 or 4");
+    const char4 c = *reinterpret_cast<const char4*>(p);
+    out[0] = static_cast<float>(c.x);
+    out[1] = static_cast<float>(c.y);
+    out[2] = static_cast<float>(c.z);
+    out[3] = static_cast<float>(c.w);
+  }
+}
+
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(int8_t x) { return static_cast<float>(x); }
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -77,30 +115,39 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-template <int D>
+// kQuant selects the pool: bf16 values, or int8 values with f32 scales
+// (k_scale/v_scale, ignored and null for bf16).
+template <int D, bool kQuant>
 __global__ void __launch_bounds__(kThreads)
-hist_flash_kernel(const __nv_bfloat16* __restrict__ q,        // [B, Nkv*qpk, D]
-                  const __nv_bfloat16* __restrict__ k_cache,  // [L, Nkv, P, page, D]
-                  const __nv_bfloat16* __restrict__ v_cache,
-                  const int* __restrict__ page_table,         // [B, maxp]
-                  const int* __restrict__ hist_lens,          // [B]
-                  float* __restrict__ acc_out,                // [B, Nkv, qpk, D]
-                  float* __restrict__ m_out,                  // [B, Nkv, qpk]
-                  float* __restrict__ l_out,                  // [B, Nkv, qpk]
+hist_flash_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Nkv*qpk, D]
+                  const std::conditional_t<kQuant, int8_t, __nv_bfloat16>* __restrict__ k_cache,
+                  const std::conditional_t<kQuant, int8_t, __nv_bfloat16>* __restrict__ v_cache,
+                  const float* __restrict__ k_scale,  // [L, Nkv, P, page]
+                  const float* __restrict__ v_scale,
+                  const int* __restrict__ page_table,  // [B, maxp]
+                  const int* __restrict__ hist_lens,   // [B]
+                  float* __restrict__ acc_out,         // [B, Nkv, qpk, D]
+                  float* __restrict__ m_out,           // [B, Nkv, qpk]
+                  float* __restrict__ l_out,           // [B, Nkv, qpk]
                   int nkv, int qpk, int num_pages, int page_size, int maxp,
                   int layer) {
+  using T = std::conditional_t<kQuant, int8_t, __nv_bfloat16>;
   constexpr int E = D / 32;                      // elements per lane in a dot
-  constexpr int kVec = 8;                        // bf16 per 16-byte load
+  constexpr int kVec = 16 / sizeof(T);           // values per 16-byte load
   constexpr int kRowVecs = D / kVec;             // 16-byte loads per token row
   constexpr int kLoads = kChunk * kRowVecs / kThreads;
   constexpr int kOuts = kMaxQpk * D / kThreads;  // (head, d) outputs per thread
   constexpr int kGroupsPerWarp = kMaxQpk / kWarps;
-  static_assert(kLoads * kThreads == kChunk * kRowVecs, "chunk/thread split");
+  static_assert(kLoads >= 1 && kLoads * kThreads == kChunk * kRowVecs,
+                "chunk/thread split");
   static_assert(kOuts * kThreads == kMaxQpk * D, "output/thread split");
   static_assert(kChunk == 64, "softmax phase reads two scores per lane");
+  static_assert(kThreads == 2 * kChunk, "one scale load per thread");
 
-  __shared__ __align__(16) __nv_bfloat16 k_s[kChunk * D];
-  __shared__ __align__(16) __nv_bfloat16 v_s[kChunk * D];
+  __shared__ __align__(16) T k_s[kChunk * D];
+  __shared__ __align__(16) T v_s[kChunk * D];
+  __shared__ float ks_s[kQuant ? kChunk : 1];
+  __shared__ float vs_s[kQuant ? kChunk : 1];
   __shared__ float p_s[kMaxQpk][kChunk];
   __shared__ float alpha_s[kMaxQpk];
 
@@ -120,7 +167,7 @@ hist_flash_kernel(const __nv_bfloat16* __restrict__ q,        // [B, Nkv*qpk, D]
 #pragma unroll
   for (int g = 0; g < kMaxQpk; ++g) {
     if (g < qpk) {
-      load_bf16<E>(qh + static_cast<int64_t>(g) * D + lane * E, qr[g]);
+      load_vals<E>(qh + static_cast<int64_t>(g) * D + lane * E, qr[g]);
 #pragma unroll
       for (int e = 0; e < E; ++e) qr[g][e] *= scale;
     } else {
@@ -167,18 +214,37 @@ hist_flash_kernel(const __nv_bfloat16* __restrict__ q,        // [B, Nkv*qpk, D]
         vreg[i] = make_uint4(0u, 0u, 0u, 0u);
       }
     }
+    // int8: threads [0, kChunk) fetch the chunk's K scales, the rest its V
+    // scales, one token each.
+    float sreg = 0.f;
+    if constexpr (kQuant) {
+      const int t = tid % kChunk;
+      if (t < n_valid) {
+        const int tok = c0 + t;
+        const int64_t pid = pt[tok / page_size];
+        const int64_t off = (head_base + pid) * page_size + tok % page_size;
+        sreg = tid < kChunk ? k_scale[off] : v_scale[off];
+      }
+    }
 #pragma unroll
     for (int i = 0; i < kLoads; ++i) {
       const int idx = tid + i * kThreads;
       reinterpret_cast<uint4*>(k_s)[idx] = kreg[i];
       reinterpret_cast<uint4*>(v_s)[idx] = vreg[i];
     }
+    if constexpr (kQuant) {
+      if (tid < kChunk) {
+        ks_s[tid] = sreg;
+      } else {
+        vs_s[tid - kChunk] = sreg;
+      }
+    }
     __syncthreads();
 
     // Scores: warp per token, lanes split D.
     for (int t = warp; t < kChunk; t += kWarps) {
       float kv[E];
-      load_bf16<E>(k_s + t * D + lane * E, kv);
+      load_vals<E>(k_s + t * D + lane * E, kv);
 #pragma unroll
       for (int g = 0; g < kMaxQpk; ++g) {
         if (g < qpk) {
@@ -186,13 +252,15 @@ hist_flash_kernel(const __nv_bfloat16* __restrict__ q,        // [B, Nkv*qpk, D]
 #pragma unroll
           for (int e = 0; e < E; ++e) s += qr[g][e] * kv[e];
           s = warp_sum(s);
+          if constexpr (kQuant) s *= ks_s[t];
           if (lane == 0) p_s[g][t] = t < n_valid ? s : kNegInf;
         }
       }
     }
     __syncthreads();
 
-    // Online softmax: warp w owns heads w, w + kWarps.
+    // Online softmax: warp w owns heads w, w + kWarps. For int8 the stored
+    // PV weight carries the token's V scale; l sums the bare probabilities.
 #pragma unroll
     for (int i = 0; i < kGroupsPerWarp; ++i) {
       const int g = warp + i * kWarps;
@@ -200,11 +268,15 @@ hist_flash_kernel(const __nv_bfloat16* __restrict__ q,        // [B, Nkv*qpk, D]
         const float s0 = p_s[g][lane];
         const float s1 = p_s[g][lane + 32];
         const float m_new = fmaxf(m_run[i], warp_max(fmaxf(s0, s1)));
-        const float p0 = expf(s0 - m_new);
-        const float p1 = expf(s1 - m_new);
+        float p0 = expf(s0 - m_new);
+        float p1 = expf(s1 - m_new);
         const float alpha = expf(m_run[i] - m_new);
         l_run[i] = l_run[i] * alpha + warp_sum(p0 + p1);
         m_run[i] = m_new;
+        if constexpr (kQuant) {
+          p0 *= vs_s[lane];
+          p1 *= vs_s[lane + 32];
+        }
         p_s[g][lane] = p0;
         p_s[g][lane + 32] = p1;
         if (lane == 0) alpha_s[g] = alpha;
@@ -221,7 +293,7 @@ hist_flash_kernel(const __nv_bfloat16* __restrict__ q,        // [B, Nkv*qpk, D]
       if (g < qpk) {
         float a = acc[i] * alpha_s[g];
         for (int t = 0; t < n_valid; ++t)
-          a += p_s[g][t] * __bfloat162float(v_s[t * D + d]);
+          a += p_s[g][t] * to_float(v_s[t * D + d]);
         acc[i] = a;
       }
     }
@@ -244,25 +316,23 @@ hist_flash_kernel(const __nv_bfloat16* __restrict__ q,        // [B, Nkv*qpk, D]
   }
 }
 
-}  // namespace
-
-// C interface (loaded with ctypes). Launches on `stream`, does not
-// synchronise, allocates nothing. Returns cudaGetLastError() after the launch
-// (0 on success), or cudaErrorInvalidValue for an unsupported shape.
-extern "C" int paged_attention_hist(const void* q, const void* k_cache,
-                                    const void* v_cache, const void* page_table,
-                                    const void* hist_lens, void* acc, void* m,
-                                    void* l, int batch, int nkv, int qpk,
-                                    int num_pages, int page_size, int head_dim,
-                                    int maxp, int layer, void* stream) {
+template <bool kQuant>
+int launch(const void* q, const void* k_cache, const void* v_cache,
+           const void* k_scale, const void* v_scale, const void* page_table,
+           const void* hist_lens, void* acc, void* m, void* l, int batch,
+           int nkv, int qpk, int num_pages, int page_size, int head_dim,
+           int maxp, int layer, void* stream) {
+  using T = std::conditional_t<kQuant, int8_t, __nv_bfloat16>;
   if (batch < 1 || nkv < 1 || qpk < 1 || qpk > kMaxQpk || page_size < 1 ||
       maxp < 1 || nkv > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(batch, nkv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* qb = static_cast<const __nv_bfloat16*>(q);
-  const auto* kb = static_cast<const __nv_bfloat16*>(k_cache);
-  const auto* vb = static_cast<const __nv_bfloat16*>(v_cache);
+  const auto* kc = static_cast<const T*>(k_cache);
+  const auto* vc = static_cast<const T*>(v_cache);
+  const auto* ks = static_cast<const float*>(k_scale);
+  const auto* vs = static_cast<const float*>(v_scale);
   const auto* ptb = static_cast<const int*>(page_table);
   const auto* hl = static_cast<const int*>(hist_lens);
   auto* ao = static_cast<float*>(acc);
@@ -270,19 +340,51 @@ extern "C" int paged_attention_hist(const void* q, const void* k_cache,
   auto* lo = static_cast<float*>(l);
   switch (head_dim) {
     case 32:
-      hist_flash_kernel<32><<<grid, kThreads, 0, s>>>(
-          qb, kb, vb, ptb, hl, ao, mo, lo, nkv, qpk, num_pages, page_size, maxp, layer);
+      hist_flash_kernel<32, kQuant><<<grid, kThreads, 0, s>>>(
+          qb, kc, vc, ks, vs, ptb, hl, ao, mo, lo, nkv, qpk, num_pages, page_size, maxp, layer);
       break;
     case 64:
-      hist_flash_kernel<64><<<grid, kThreads, 0, s>>>(
-          qb, kb, vb, ptb, hl, ao, mo, lo, nkv, qpk, num_pages, page_size, maxp, layer);
+      hist_flash_kernel<64, kQuant><<<grid, kThreads, 0, s>>>(
+          qb, kc, vc, ks, vs, ptb, hl, ao, mo, lo, nkv, qpk, num_pages, page_size, maxp, layer);
       break;
     case 128:
-      hist_flash_kernel<128><<<grid, kThreads, 0, s>>>(
-          qb, kb, vb, ptb, hl, ao, mo, lo, nkv, qpk, num_pages, page_size, maxp, layer);
+      hist_flash_kernel<128, kQuant><<<grid, kThreads, 0, s>>>(
+          qb, kc, vc, ks, vs, ptb, hl, ao, mo, lo, nkv, qpk, num_pages, page_size, maxp, layer);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// C interface (loaded with ctypes). Each entry point launches on `stream`,
+// does not synchronise, allocates nothing, and returns cudaGetLastError()
+// after the launch (0 on success), or cudaErrorInvalidValue for an
+// unsupported shape.
+
+// bf16 pool: k_cache/v_cache bf16 [L, Nkv, P, page, D].
+extern "C" int paged_attention_hist(const void* q, const void* k_cache,
+                                    const void* v_cache, const void* page_table,
+                                    const void* hist_lens, void* acc, void* m,
+                                    void* l, int batch, int nkv, int qpk,
+                                    int num_pages, int page_size, int head_dim,
+                                    int maxp, int layer, void* stream) {
+  return launch<false>(q, k_cache, v_cache, nullptr, nullptr, page_table,
+                       hist_lens, acc, m, l, batch, nkv, qpk, num_pages,
+                       page_size, head_dim, maxp, layer, stream);
+}
+
+// int8 pool: k_cache/v_cache int8 [L, Nkv, P, page, D] with f32 per-token
+// scales k_scale/v_scale [L, Nkv, P, page].
+extern "C" int paged_attention_hist_int8(
+    const void* q, const void* k_cache, const void* v_cache,
+    const void* k_scale, const void* v_scale, const void* page_table,
+    const void* hist_lens, void* acc, void* m, void* l, int batch, int nkv,
+    int qpk, int num_pages, int page_size, int head_dim, int maxp, int layer,
+    void* stream) {
+  return launch<true>(q, k_cache, v_cache, k_scale, v_scale, page_table,
+                      hist_lens, acc, m, l, batch, nkv, qpk, num_pages,
+                      page_size, head_dim, maxp, layer, stream);
 }

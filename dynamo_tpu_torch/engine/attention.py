@@ -2,12 +2,14 @@
 version, and the two wrappers the decode path calls.
 
 The kernel (``csrc/paged_attention.cu``) replaces the TPU kernel
-``dynamo_tpu/engine/attention.py::_decode_kernel``: one thread block per
-(sequence, kv-head) reads the live history pages of one layer of the
-stacked ``[L, Nkv, P, page, D]`` pool and returns the flash triple
-(unnormalised acc, l, m). The wrappers then flash-merge the in-window
-buffer columns ``j < m`` and the current token's column in torch
-(``_merge_extra``), as the JAX wrappers do.
+``dynamo_tpu/engine/attention.py::_decode_kernel`` in both its variants:
+one thread block per (sequence, kv-head) reads the live history pages of
+one layer of the stacked ``[L, Nkv, P, page, D]`` pool and returns the
+flash triple (unnormalised acc, l, m). A bf16 pool goes to the entry point
+``paged_attention_hist``; an int8 pool (``QuantKV``: int8 values and f32
+per-token scales) to ``paged_attention_hist_int8``. The wrappers then
+flash-merge the in-window buffer columns ``j < m`` and the current token's
+column in torch (``_merge_extra``), as the JAX wrappers do.
 
 Which version runs follows the tensors: CPU tensors take the plain
 version (that is what the CPU tests run), CUDA tensors launch the kernel
@@ -26,6 +28,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from dynamo_tpu_torch.engine.kv_quant import KV_SCALE_BYTES, QuantKV
 
 NEG_INF = -1e30
 MAX_QPK = 8
@@ -52,14 +56,17 @@ def _nvcc() -> str:
 
 
 class PagedAttentionKernel:
-    """The compiled kernel and its launch count.
+    """The compiled kernel and its launch counts, one per entry point.
 
-    ``launches`` goes up by one for every kernel launch and nowhere else,
-    so a caller can zero it, drive a path, and read how many times that
-    path ran the kernel."""
+    ``launches`` (bf16 pool, ``paged_attention_hist``) and
+    ``launches_int8`` (int8 pool, ``paged_attention_hist_int8``) each go up
+    by one for every launch of that entry point and nowhere else, so a
+    caller can zero them, drive a path, and read how many times that path
+    ran each variant."""
 
     def __init__(self):
         self.launches = 0
+        self.launches_int8 = 0
         self._lib = None
         self.build_log = ""
         self.build_seconds = 0.0
@@ -87,24 +94,49 @@ class PagedAttentionKernel:
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        fn = lib.paged_attention_hist_int8
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
         self._lib = lib
         self.build_seconds = time.monotonic() - t0
 
     def __call__(self, q, k_cache, v_cache, layer: int, page_table,
                  hist_lens, q_per_kv: int):
         """Flash triple over the cache-resident history of CUDA tensors:
-        (acc [B,Nkv,qpk,D], l [B,Nkv,qpk,1], m [B,Nkv,qpk,1]), fp32."""
+        (acc [B,Nkv,qpk,D], l [B,Nkv,qpk,1], m [B,Nkv,qpk,1]), fp32.
+        k_cache/v_cache are both bf16 tensors or both ``QuantKV``."""
+        quant = isinstance(k_cache, QuantKV)
+        _check(isinstance(v_cache, QuantKV) == quant,
+               "k_cache and v_cache must both be bf16 or both int8")
+        if quant:
+            k_data, v_data = k_cache.data, v_cache.data
+            scales = [("k_cache.scale", k_cache.scale),
+                      ("v_cache.scale", v_cache.scale)]
+        else:
+            k_data, v_data, scales = k_cache, v_cache, []
         b, nh, d = q.shape
-        L, nkv, num_pages, page, d_cache = k_cache.shape
+        L, nkv, num_pages, page, d_cache = k_data.shape
         qpk = int(q_per_kv)
-        _check(q.is_cuda and k_cache.is_cuda and v_cache.is_cuda
-               and page_table.is_cuda and hist_lens.is_cuda,
+        tensors = [("q", q), ("k_cache", k_data), ("v_cache", v_data),
+                   *scales, ("page_table", page_table),
+                   ("hist_lens", hist_lens)]
+        _check(all(t.is_cuda for _, t in tensors),
                "all inputs must be CUDA tensors")
-        _check(len({t.device for t in (q, k_cache, v_cache, page_table,
-                                       hist_lens)}) == 1,
+        _check(len({t.device for _, t in tensors}) == 1,
                "all inputs must be on one device")
-        _check(q.dtype == k_cache.dtype == v_cache.dtype == torch.bfloat16,
-               "q and the caches must be bfloat16")
+        _check(q.dtype == torch.bfloat16, "q must be bfloat16")
+        if quant:
+            _check(k_data.dtype == v_data.dtype == torch.int8,
+                   "int8 cache data must be int8")
+            _check(all(s.dtype == torch.float32 for _, s in scales),
+                   "int8 cache scales must be float32")
+            _check(all(s.shape == k_data.shape[:-1] for _, s in scales),
+                   f"int8 cache scales must have shape "
+                   f"{tuple(k_data.shape[:-1])}")
+        else:
+            _check(k_data.dtype == v_data.dtype == torch.bfloat16,
+                   "q and the caches must be bfloat16")
         _check(page_table.dtype == hist_lens.dtype == torch.int32,
                "page_table and hist_lens must be int32")
         _check(d in HEAD_DIMS and d_cache == d,
@@ -112,16 +144,16 @@ class PagedAttentionKernel:
         _check(1 <= qpk <= MAX_QPK and nh == nkv * qpk,
                f"{nh} query heads / {nkv} kv heads / q_per_kv {qpk} "
                f"unsupported (q_per_kv <= {MAX_QPK})")
-        _check(v_cache.shape == k_cache.shape, "k/v cache shapes differ")
+        _check(v_data.shape == k_data.shape, "k/v cache shapes differ")
         _check(page_table.dim() == 2 and page_table.shape[0] == b
                and hist_lens.shape == (b,), "page_table/hist_lens shape")
         _check(0 <= layer < L, f"layer {layer} outside [0, {L})")
-        for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
-                        ("page_table", page_table),
-                        ("hist_lens", hist_lens)):
+        for name, t in tensors:
             _check(t.is_contiguous(), f"{name} must be contiguous")
-        for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+        for name, t in tensors[:3]:
             _check(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
+        for name, t in scales:
+            _check(t.data_ptr() % 4 == 0, f"{name} must be 4-byte aligned")
         self.build()
         acc = torch.empty((b, nkv, qpk, d), dtype=torch.float32,
                           device=q.device)
@@ -129,15 +161,27 @@ class PagedAttentionKernel:
                         device=q.device)
         l = torch.empty_like(m)
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = self._lib.paged_attention_hist(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            page_table.data_ptr(), hist_lens.data_ptr(), acc.data_ptr(),
-            m.data_ptr(), l.data_ptr(), b, nkv, qpk, num_pages, page,
-            d, page_table.shape[1], int(layer), stream)
+        ints = (b, nkv, qpk, num_pages, page, d, page_table.shape[1],
+                int(layer), stream)
+        outs = (page_table.data_ptr(), hist_lens.data_ptr(), acc.data_ptr(),
+                m.data_ptr(), l.data_ptr())
+        if quant:
+            name = "paged_attention_hist_int8"
+            err = self._lib.paged_attention_hist_int8(
+                q.data_ptr(), k_data.data_ptr(), v_data.data_ptr(),
+                k_cache.scale.data_ptr(), v_cache.scale.data_ptr(), *outs,
+                *ints)
+        else:
+            name = "paged_attention_hist"
+            err = self._lib.paged_attention_hist(
+                q.data_ptr(), k_data.data_ptr(), v_data.data_ptr(), *outs,
+                *ints)
         if err != 0:
-            raise RuntimeError(f"paged_attention_hist launch failed: "
-                               f"cudaError {err}")
-        self.launches += 1
+            raise RuntimeError(f"{name} launch failed: cudaError {err}")
+        if quant:
+            self.launches_int8 += 1
+        else:
+            self.launches += 1
         return acc, l, m
 
 
@@ -149,18 +193,32 @@ def _check(cond: bool, msg: str) -> None:
 KERNEL = PagedAttentionKernel()
 
 
+def _gather_fp32(cache, layer: int, pt: torch.Tensor) -> torch.Tensor:
+    """Pages ``pt`` [B, maxP] of one layer as fp32 [Nkv, B, maxP*page, D];
+    an int8 pool is dequantized in fp32, as the TPU kernel does."""
+    b, maxp = pt.shape
+    nkv, page, d = cache.shape[1], cache.shape[3], cache.shape[4]
+    if isinstance(cache, QuantKV):
+        out = (cache.data[layer][:, pt].float()
+               * cache.scale[layer][:, pt][..., None])
+    else:
+        out = cache[layer][:, pt].float()
+    return out.reshape(nkv, b, maxp * page, d)
+
+
 def hist_flash_plain(q, k_cache, v_cache, layer: int, page_table,
                      hist_lens, q_per_kv: int):
     """Plain torch version of the kernel: the same flash triple, from a
-    gather of every page-table entry (masked past hist_lens). A row with
-    no history gives m = NEG_INF, l = 0, acc = 0, as the kernel does."""
+    gather of every page-table entry (masked past hist_lens), bf16 or int8
+    pool. A row with no history gives m = NEG_INF, l = 0, acc = 0, as the
+    kernel does."""
     b, nh, d = q.shape
-    L, nkv, _, page, _ = k_cache.shape
+    nkv, page = k_cache.shape[1], k_cache.shape[3]
     maxp = page_table.shape[1]
     qpk = int(q_per_kv)
     pt = page_table.long()
-    k = k_cache[layer][:, pt].reshape(nkv, b, maxp * page, d).float()
-    v = v_cache[layer][:, pt].reshape(nkv, b, maxp * page, d).float()
+    k = _gather_fp32(k_cache, layer, pt)
+    v = _gather_fp32(v_cache, layer, pt)
     qg = q.reshape(b, nkv, qpk, d).float()
     s = torch.einsum("bngd,nbld->bngl", qg, k) / (d ** 0.5)
     valid = (torch.arange(maxp * page, device=q.device)[None, :]
@@ -174,17 +232,17 @@ def hist_flash_plain(q, k_cache, v_cache, layer: int, page_table,
 
 
 def hist_flash_bytes(hist_lens, num_heads: int, k_cache) -> int:
-    """Bytes one kernel launch must move, each once: the live K and V rows,
-    q [B, num_heads, D] in the cache's dtype, the page-table entries of the
-    live pages, hist_lens and the fp32 triple. ``hist_lens`` is a host
-    array or a tensor (a device tensor is read back, which waits for the
-    device)."""
+    """Bytes one kernel launch must move, each once: the live K and V rows
+    (bf16, or int8 values plus their f32 scale), q [B, num_heads, D] in
+    bf16, the page-table entries of the live pages, hist_lens and the fp32
+    triple. ``hist_lens`` is a host array or a tensor (a device tensor is
+    read back, which waits for the device)."""
     h = torch.as_tensor(hist_lens).long().cpu()
     b = h.numel()
     nkv, page, d = k_cache.shape[1], k_cache.shape[3], k_cache.shape[4]
-    es = k_cache.element_size()
+    row = d + KV_SCALE_BYTES if isinstance(k_cache, QuantKV) else 2 * d
     live_pages = int(((h + page - 1) // page).sum())
-    return (2 * int(h.sum()) * nkv * d * es + b * num_heads * d * es
+    return (2 * int(h.sum()) * nkv * row + b * num_heads * d * 2
             + live_pages * 4 + b * 4 + b * num_heads * (d + 2) * 4)
 
 

@@ -3,14 +3,16 @@
 ModelSpec, EngineConfig and PRESETS are copied field for field so a
 configuration means the same thing in both packages. EngineConfig adds
 one field, ``device``. Fields that select features this port does not
-serve yet (tp/pp/sp, int8, spec decode, LoRA, tiers) keep their defaults;
-the runner rejects non-default values rather than ignore them.
+serve yet (tp/pp/sp, int8 weights, spec decode, LoRA, tiers) keep their
+defaults; the runner rejects non-default values rather than ignore them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+
+from dynamo_tpu_torch.engine.kv_quant import KV_SCALE_BYTES
 
 # H100 SXM HBM3 rate (NVIDIA data sheet); DTPU_HBM_GBPS overrides per part.
 DEFAULT_HBM_GBPS = 3350.0
@@ -162,10 +164,12 @@ class EngineConfig:
         return self.quant_kv
 
     def kv_token_bytes(self) -> int:
-        """Per-token bytes in the device KV pool (k+v, all layers/heads)."""
+        """Per-token bytes in the device KV pool (k+v, all layers/heads):
+        bf16 = 2 bytes/value; int8 = 1 byte/value + a 4-byte f32 scale per
+        (layer, head, token). The single source for pool sizing."""
         m = self.model
         if self.resolve_quant_kv() == "int8":
-            per_head = m.head_dim + 4  # f32 scale per (layer, head, token)
+            per_head = m.head_dim + KV_SCALE_BYTES
         else:
             per_head = 2 * m.head_dim
         return 2 * m.num_layers * m.num_kv_heads * per_head

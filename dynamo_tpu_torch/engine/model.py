@@ -189,8 +189,9 @@ def paged_window_attention(q, k_cache, v_cache, layer: int, page_table,
     (reference ``paged_window_attention_xla``): one softmax over the
     gathered history (hist_lens tokens), the in-window buffer k_win/v_win
     [Nkv,B,M,D] (cols j < m) and the current token k_self/v_self
-    [B,Nkv,D]. Probabilities are cast to bf16 before the PV products, as
-    in the reference."""
+    [B,Nkv,D]. An int8 pool is dequantized to bf16 in the gather.
+    Probabilities are cast to bf16 before the PV products, as in the
+    reference."""
     b, nh, d = q.shape
     nkv, page = k_cache.shape[1], k_cache.shape[3]
     maxp = page_table.shape[1]
@@ -260,7 +261,8 @@ def prefill_forward(params: Params, spec: ModelSpec, k_cache, v_cache,
     tokens/positions [B,S] (S a multiple of page_size), page_table
     [B, S//page_size] (pages covering the prompt; padding entries 0 = the
     scratch page), seq_lens [B]. Returns (last-token logits [B,V] fp32,
-    k_cache, v_cache); the caches are updated in place."""
+    k_cache, v_cache); the caches are updated in place (an int8 pool is
+    quantized on the way in)."""
     b, s = tokens.shape
     d = spec.head_dim
     page = k_cache.shape[3]

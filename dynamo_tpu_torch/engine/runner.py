@@ -10,11 +10,13 @@
   window's K/V collects in a small buffer, and one commit scatter writes
   it into the pool at the end.
 
-Every decode step of every layer runs the hand-written paged attention
-kernel (``engine/attention.py``) on CUDA tensors; CPU tensors take its
-plain version. Nothing here reads a device value on the host: windows and
-prefills are enqueued and the engine reads results back when they are
-ready.
+The pool is bf16, or int8 with per-token scales (``--quant-kv int8``,
+``kv_quant.QuantKV``): the prefill scatter and the window commit quantize,
+and the attention reads dequantize. Every decode step of every layer runs
+the hand-written paged attention kernel (``engine/attention.py``) for the
+pool's type on CUDA tensors; CPU tensors take its plain version. Nothing
+here reads a device value on the host: windows and prefills are enqueued
+and the engine reads results back when they are ready.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import torch
 
 from dynamo_tpu_torch.engine import attention
 from dynamo_tpu_torch.engine.config import EngineConfig
-from dynamo_tpu_torch.engine.kv_quant import scatter_tokens
+from dynamo_tpu_torch.engine.kv_quant import QuantKV, scatter_tokens
 from dynamo_tpu_torch.engine.model import (decode_window_step, init_params,
                                            prefill_forward)
 from dynamo_tpu_torch.engine.sampler import (gumbel_noise,
@@ -78,8 +80,8 @@ def _unsupported(config: EngineConfig) -> list[str]:
             out.append(f"{name}={getattr(config, name)}")
     if spec.num_experts:
         out.append("MoE")
-    if spec.quant or config.resolve_quant_kv():
-        out.append("int8 weights/KV")
+    if spec.quant:
+        out.append("int8 weights")
     if config.spec_decode:
         out.append("spec decode")
     if config.max_adapters:
@@ -100,6 +102,11 @@ class ModelRunner:
         missing = _unsupported(config)
         if missing:
             raise ValueError("not ported yet: " + ", ".join(missing))
+        # KV-pool quantization with the DTPU_QUANT_KV override applied.
+        self.quant_kv = config.resolve_quant_kv()
+        if self.quant_kv not in (None, "int8"):
+            raise ValueError(
+                f"quant_kv must be None or 'int8', got {self.quant_kv!r}")
         self.config = config
         self.spec = spec = config.model
         self.device = torch.device(config.device)
@@ -113,13 +120,12 @@ class ModelRunner:
         self._sized_pages()
         kv_shape = (spec.num_layers, spec.num_kv_heads, self.num_pages,
                     config.page_size, spec.head_dim)
-        self.k_cache = torch.zeros(kv_shape, dtype=torch.bfloat16,
-                                   device=self.device)
-        self.v_cache = torch.zeros(kv_shape, dtype=torch.bfloat16,
-                                   device=self.device)
+        self.k_cache = self._zero_pool(kv_shape)
+        self.v_cache = self._zero_pool(kv_shape)
         self.param_bytes = sum(t.numel() * t.element_size()
                                for t in _leaves(params))
-        self.kv_pool_bytes = 2 * self.k_cache.numel() * 2
+        # The pool's real bytes: bf16 values, or int8 values + f32 scales.
+        self.kv_pool_bytes = self.k_cache.nbytes + self.v_cache.nbytes
         # Noise for unseeded sampling rows.
         self._rng = torch.Generator(device=self.device).manual_seed(seed + 1)
         # The chained next-token per slot, on device.
@@ -130,6 +136,17 @@ class ModelRunner:
         self.attention_bytes = 0
 
     # -- setup ---------------------------------------------------------------
+    def _zero_pool(self, shape):
+        """One of K/V: bf16 zeros, or int8 zeros with zero scales (an
+        unwritten page reads as 0 either way; every write goes through
+        kv_quantize, whose scales are never 0)."""
+        if self.quant_kv == "int8":
+            return QuantKV(
+                torch.zeros(shape, dtype=torch.int8, device=self.device),
+                torch.zeros(shape[:-1], dtype=torch.float32,
+                            device=self.device))
+        return torch.zeros(shape, dtype=torch.bfloat16, device=self.device)
+
     def _sized_pages(self) -> None:
         """Pool pages: config.num_pages, or a hbm_kv_budget_frac share of
         the device memory left free after the params."""

@@ -47,6 +47,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--decode-window", default=8, type=_window_arg,
                         help="positive int or 'auto'")
     parser.add_argument("--pipeline-depth", type=int, default=4)
+    parser.add_argument("--quant-kv", default=None, choices=["int8"],
+                        help="store the paged KV pool as int8 with a f32 "
+                             "scale per token and head (about 1.9x the "
+                             "pages in the same memory)")
     parser.add_argument("--prompt", default="1,2,3,4",
                         help="comma-separated token ids for the __main__ "
                              "smoke request")
@@ -63,7 +67,8 @@ def build_engine_config(args) -> EngineConfig:
         model=PRESETS[args.model], page_size=args.page_size,
         num_pages=args.num_pages, max_pages_per_seq=args.max_pages_per_seq,
         max_num_seqs=args.max_num_seqs, decode_window=args.decode_window,
-        pipeline_depth=args.pipeline_depth, device=args.device)
+        pipeline_depth=args.pipeline_depth, quant_kv=args.quant_kv,
+        device=args.device)
 
 
 def build_engine(args) -> GPUEngine:

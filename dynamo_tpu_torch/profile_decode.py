@@ -15,7 +15,9 @@ time less the prefill-only round's, over the decode steps. The runner
 counts the bytes every paged attention launch must move
 (``ModelRunner.attention_bytes``); their time at the HBM rate, over the
 kernel's profiled device time in the same round, is its roofline share on
-the main path. Prints one JSON line. Runs on a GPU only.
+the main path. The pool is bf16 unless ``DTPU_QUANT_KV=int8`` asks for the
+int8 pool, whose decode steps run the kernel's int8 variant. Prints one
+JSON line. Runs on a GPU only.
 """
 
 from __future__ import annotations
@@ -123,11 +125,12 @@ def main() -> int:
         if engine.windows_dispatched != windows0:
             raise RuntimeError("the prefill-only round dispatched decode "
                                "windows")
-        launches0 = attention.KERNEL.launches
+        launches0 = attention.KERNEL.launches + attention.KERNEL.launches_int8
         bytes0 = engine.runner.attention_bytes
         wall, busy, by_name = _profiled_round(engine, requests)
         windows = engine.windows_dispatched - windows0
-        launches = attention.KERNEL.launches - launches0
+        launches = (attention.KERNEL.launches
+                    + attention.KERNEL.launches_int8 - launches0)
         attn_bytes = engine.runner.attention_bytes - bytes0
     finally:
         engine.stop()
@@ -140,7 +143,8 @@ def main() -> int:
     attn_bound_ms = attn_bytes / (DEFAULT_HBM_GBPS * 1e9) * 1e3
     out = {
         "device": torch.cuda.get_device_name(0), "smi": smi_line(),
-        "model": spec.name, "requests": len(requests),
+        "model": spec.name, "kv_pool": engine.runner.quant_kv or "bf16",
+        "kv_pages": engine.runner.num_pages, "requests": len(requests),
         "max_tokens": MAX_TOKENS, "prompt_tokens": sum(PROMPT_LENS),
         "timed_round": {"wall_s": timed_wall,
                         "tok_per_s": len(requests) * MAX_TOKENS / timed_wall,

@@ -17,6 +17,14 @@ Tolerances:
 - plain gather vs XLA gather (same algorithm, bf16 probabilities on both
   sides): atol = rtol = 0.02, one bf16 ulp of the outputs plus summation
   order.
+
+The int8 cases quantize the same bf16 pools with the reference's
+``quantize_np`` into ``QuantKV`` pools for both packages and keep the same
+tolerances. The wrapper's plain version dequantizes in fp32 as the Pallas
+kernel does, so it differs from Pallas only in summation order; the plain
+gather dequantizes to bf16 as the XLA gather does (``kv_dequantize``).
+Both stay well inside the reference's own Pallas-vs-XLA int8 gate, 0.05
+(tests/test_kv_quant.py).
 """
 
 import jax.numpy as jnp
@@ -26,10 +34,13 @@ import torch
 
 from dynamo_tpu.engine.attention import (paged_decode_attention_pallas,
                                          paged_window_attention_pallas)
+from dynamo_tpu.engine.kv_quant import QuantKV as JQuantKV
+from dynamo_tpu.engine.kv_quant import quantize_np
 from dynamo_tpu.engine.model import (paged_decode_attention_xla,
                                      paged_window_attention_xla)
 from dynamo_tpu_torch.engine import attention as port_attn
 from dynamo_tpu_torch.engine import model as port_model
+from dynamo_tpu_torch.engine.kv_quant import QuantKV as TQuantKV
 
 torch.set_num_threads(1)
 
@@ -57,12 +68,22 @@ def _case(d, b, nkv, qpk, maxp, hist, seed=0, page=16, L=2, M=8):
                 hl=np.asarray(hist, np.int32), qpk=qpk)
 
 
+def _quantized(c):
+    """The case with its K/V pools as int8 + per-token scales (the
+    reference's numpy quantizer)."""
+    return dict(c, kc=quantize_np(c["kc"]), vc=quantize_np(c["vc"]))
+
+
 def _jax(c, name):
+    if isinstance(c[name], tuple):
+        return JQuantKV(*(jnp.asarray(a) for a in c[name]))
     return jnp.asarray(c[name],
                        jnp.int32 if name in ("pt", "hl") else jnp.bfloat16)
 
 
 def _torch(c, name):
+    if isinstance(c[name], tuple):
+        return TQuantKV(*(torch.from_numpy(a) for a in c[name]))
     t = torch.from_numpy(c[name])
     return t if name in ("pt", "hl") else t.to(torch.bfloat16)
 
@@ -128,7 +149,37 @@ def test_port_mqa_single_group():
 @pytest.mark.parametrize("d", [32, 64])
 def test_port_window_matches_jax(m, d):
     """History + in-window buffer columns j < m + the self column."""
-    c = _case(d, b=4, nkv=2, qpk=2, maxp=8, hist=[0, 30, 64, 127], seed=7)
+    _check_window(_case(d, b=4, nkv=2, qpk=2, maxp=8, hist=[0, 30, 64, 127],
+                        seed=7), m, d)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_port_int8_decode_matches_jax(d):
+    """int8 pool: ragged histories, one of them empty, at layer 1."""
+    _check(_run_decode(_quantized(_case(d, b=4, nkv=2, qpk=4, maxp=8,
+                                        hist=[0, 17, 64, 128], seed=8)),
+                       layer=1))
+
+
+def test_port_int8_decode_matches_jax_long_ragged():
+    """int8 pool: chunk-crossing and non-page-aligned lengths, layer 0."""
+    _check(_run_decode(_quantized(_case(128, b=3, nkv=2, qpk=2, maxp=32,
+                                        hist=[129, 300, 511], seed=9)),
+                       layer=0))
+
+
+def test_port_int8_mqa_single_group():
+    _check(_run_decode(_quantized(_case(64, b=2, nkv=1, qpk=8, maxp=8,
+                                        hist=[33, 90], seed=10)), layer=1))
+
+
+@pytest.mark.parametrize("m", [0, 3])
+def test_port_int8_window_matches_jax(m):
+    _check_window(_quantized(_case(64, b=4, nkv=2, qpk=2, maxp=8,
+                                   hist=[0, 30, 64, 127], seed=11)), m, 64)
+
+
+def _check_window(c, m, d):
     names = ("q", "kc", "vc", "pt", "hl", "kw", "vw", "ks", "vs")
     J = {k: _jax(c, k) for k in names}
     T = {k: _torch(c, k) for k in names}

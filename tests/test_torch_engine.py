@@ -7,6 +7,12 @@ reference's top-2 logit margin at that position exceeds one bf16 ulp of
 the top logit. At a near-tie the chains may legitimately split, and the
 comparison stops there. Both engines also finish every request with the
 same reason and length.
+
+With ``quant_kv="int8"`` both engines keep an int8 pool. The margin is then
+read from the reference's own int8-pool logits at that position
+(``_ref_int8_logits``: its prefill and decode-window steps replayed over a
+``QuantKV`` pool with the window commits in between), since the dense
+prefill that gives the bf16 margin never reads the quantized pool.
 """
 
 import asyncio
@@ -20,6 +26,7 @@ from conftest import async_test
 
 from dynamo_tpu.engine import config as jcfg
 from dynamo_tpu.engine import model as jmodel
+from dynamo_tpu.engine import kv_quant as jq
 from dynamo_tpu.engine.engine import TPUEngine
 from dynamo_tpu.llm.protocols import PreprocessedRequest as JRequest
 from dynamo_tpu.runtime.context import Context as JContext
@@ -44,6 +51,21 @@ def engines():
                                        **ENGINE_KW), params=jparams)
     teng = GPUEngine(tcfg.EngineConfig(model=SPEC_T, device="cpu",
                                        **ENGINE_KW),
+                     params=params_from_jax(jax.tree.map(np.asarray, jparams),
+                                            SPEC_T, device="cpu"))
+    yield jparams, jeng, teng
+    jeng.stop()
+    teng.stop()
+
+
+@pytest.fixture(scope="module")
+def engines_int8():
+    jparams = jmodel.init_params(SPEC_J, jax.random.key(43))
+    jeng = TPUEngine(jcfg.EngineConfig(model=SPEC_J, attention_backend="xla",
+                                       quant_kv="int8", **ENGINE_KW),
+                     params=jparams)
+    teng = GPUEngine(tcfg.EngineConfig(model=SPEC_T, device="cpu",
+                                       quant_kv="int8", **ENGINE_KW),
                      params=params_from_jax(jax.tree.map(np.asarray, jparams),
                                             SPEC_T, device="cpu"))
     yield jparams, jeng, teng
@@ -85,13 +107,77 @@ def _ref_logits(jparams, seq):
                              jnp.asarray([n], jnp.int32))[0], np.float32)
 
 
+_window_step = jax.jit(
+    lambda p, k, v, kb, vb, m, t, pos, pt, hl: jmodel.decode_window_step(
+        p, SPEC_J, k, v, kb, vb, m, t, pos, pt, hl))
+
+
+def _ref_int8_logits(jparams, prompt, gen, M=ENGINE_KW["decode_window"]):
+    """The reference's logits behind each token of ``gen`` on an int8 pool:
+    gen[0] from the prefill, gen[i] from step (i-1) % M of decode window
+    (i-1) // M, whose history is the prompt and the earlier windows'
+    committed (quantized) tokens and whose buffer holds this window's."""
+    n, page = len(prompt), ENGINE_KW["page_size"]
+    L, nkv, d = SPEC_J.num_layers, SPEC_J.num_kv_heads, SPEC_J.head_dim
+    pages = ENGINE_KW["max_pages_per_seq"]
+    shape = (L, nkv, pages + 1, page, d)
+    kc, vc = (jq.QuantKV(jnp.zeros(shape, jnp.int8),
+                         jnp.zeros(shape[:-1], jnp.float32))
+              for _ in range(2))
+    bucket = 32 * -(-n // 32)
+    tok = np.zeros((1, bucket), np.int32)
+    tok[0, :n] = prompt
+    pos = np.minimum(np.arange(bucket), n - 1)[None].astype(np.int32)
+    table = np.arange(1, pages + 1, dtype=np.int32)[None]
+    logits, kc, vc = jax.jit(
+        lambda p, k, v, t, ps, pt, sl: jmodel.prefill_forward(
+            p, SPEC_J, k, v, t, ps, pt, sl))(
+        jparams, kc, vc, jnp.asarray(tok), jnp.asarray(pos),
+        jnp.asarray(table[:, :bucket // page]), jnp.asarray([n], jnp.int32))
+    out = [np.asarray(logits[0], np.float32)]
+    for w0 in range(0, len(gen) - 1, M):
+        kb = jnp.zeros((L, nkv, 1, M, d), jnp.bfloat16)
+        vb = jnp.zeros_like(kb)
+        for m in range(M):
+            logits, kn, vn = _window_step(
+                jparams, kc, vc, kb, vb, jnp.asarray(m, jnp.int32),
+                jnp.asarray([gen[min(w0 + m, len(gen) - 1)]], jnp.int32),
+                jnp.asarray([n + w0 + m], jnp.int32), jnp.asarray(table),
+                jnp.asarray([n + w0], jnp.int32))
+            kb = kb.at[:, :, :, m].set(kn.transpose(0, 2, 1, 3))
+            vb = vb.at[:, :, :, m].set(vn.transpose(0, 2, 1, 3))
+            out.append(np.asarray(logits[0], np.float32))
+        p = n + w0 + np.arange(M)
+        dest = jnp.asarray(table[0, p // page][:, None])
+        off = jnp.asarray((p % page)[:, None])
+        kc = jq.scatter_tokens(kc, kb.transpose(0, 1, 3, 2, 4), dest, off)
+        vc = jq.scatter_tokens(vc, vb.transpose(0, 1, 3, 2, 4), dest, off)
+    return out[:len(gen)]
+
+
 def _bf16_ulp(x: float) -> float:
     return 2.0 ** (np.floor(np.log2(abs(x))) - 7)
 
 
 @async_test(timeout=300)
 async def test_greedy_tokens_match_reference_at_clear_margins(engines):
-    jparams, jeng, teng = engines
+    await _greedy_at_clear_margins(*engines, lambda jp, p, rt, i:
+                                   _ref_logits(jp, p + rt[:i]))
+
+
+@async_test(timeout=300)
+async def test_int8_greedy_tokens_match_reference_at_clear_margins(
+        engines_int8):
+    """Both engines on int8 pools (``quant_kv="int8"``)."""
+    _, _, teng = engines_int8
+    assert teng.runner.k_cache.data.dtype == torch.int8
+    await _greedy_at_clear_margins(*engines_int8, lambda jp, p, rt, i:
+                                   _ref_int8_logits(jp, p, rt[:i + 1])[i])
+
+
+async def _greedy_at_clear_margins(jparams, jeng, teng, ref_logits):
+    """``ref_logits(jparams, prompt, ref_tokens, i)``: the reference's
+    logits behind its token i."""
     rng = np.random.default_rng(11)
     prompts = [rng.integers(0, SPEC_J.vocab_size, size=n).tolist()
                for n in (20, 33, 47, 61)]
@@ -109,7 +195,7 @@ async def test_greedy_tokens_match_reference_at_clear_margins(engines):
             if a == b:
                 compared += 1
                 continue
-            logits = _ref_logits(jparams, prompt + rt[:i])
+            logits = ref_logits(jparams, prompt, rt, i)
             top2 = np.sort(logits)[-2:]
             margin = float(top2[1] - top2[0])
             assert margin <= _bf16_ulp(top2[1]), (

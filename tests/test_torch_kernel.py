@@ -1,5 +1,5 @@
 """The paged attention kernel's wrapper, its plain version, and (on a GPU)
-the CUDA kernel against that plain version.
+the CUDA kernel against that plain version, for bf16 and int8 pools.
 
 This file imports neither jax nor dynamo_tpu, so it also runs on a machine
 with the card and no JAX:
@@ -10,7 +10,10 @@ The gpu-marked tests skip without a card: a CUDA kernel has no CPU mode.
 Tolerance on the card: kernel and plain version accumulate in fp32 from the
 same bf16 inputs; only summation order and exp rounding differ, so the
 normalised history output agrees to 1e-3 and the bf16 wrapper outputs to
-two bf16 ulps (1.6e-2 relative).
+two bf16 ulps (1.6e-2 relative). The int8 kernel and its plain version
+both dequantize in fp32 (the kernel folds each token's scale into its
+score and PV weight, the plain version multiplies it into every value),
+so the same tolerances hold.
 """
 
 import numpy as np
@@ -18,6 +21,7 @@ import pytest
 import torch
 
 from dynamo_tpu_torch.engine import attention
+from dynamo_tpu_torch.engine.kv_quant import QuantKV, kv_quantize
 
 torch.set_num_threads(1)
 
@@ -43,6 +47,40 @@ def _case(d, b, nkv, qpk, hist, seed=0, page=16, L=2, M=8, extra=3,
 
 def _hist_args(c, layer=1):
     return (c["q"], c["kc"], c["vc"], layer, c["pt"], c["hl"], c["qpk"])
+
+
+def _int8(c):
+    """The case with its K/V pools quantized to int8 + per-token scales."""
+    return dict(c, kc=QuantKV(*kv_quantize(c["kc"])),
+                vc=QuantKV(*kv_quantize(c["vc"])))
+
+
+def _counts():
+    return attention.KERNEL.launches, attention.KERNEL.launches_int8
+
+
+def _to_cpu(v):
+    if isinstance(v, QuantKV):
+        return QuantKV(v.data.cpu(), v.scale.cpu())
+    return v.cpu() if torch.is_tensor(v) else v
+
+
+def test_plain_int8_history_dequantizes_in_fp32():
+    """The int8 plain version is the plain version over the pool
+    dequantized in fp32 (not rounded to bf16), as the TPU kernel reads it;
+    page-table tails and empty histories behave as for bf16."""
+    c = _int8(_case(64, b=3, nkv=2, qpk=4, hist=[0, 20, 70], seed=3))
+    got = attention.hist_flash_plain(*_hist_args(c))
+    fp32 = dict(c, kc=c["kc"].data.float() * c["kc"].scale[..., None],
+                vc=c["vc"].data.float() * c["vc"].scale[..., None])
+    torch.testing.assert_close(got, attention.hist_flash_plain(
+        *_hist_args(fp32)), rtol=0, atol=0)
+    pt2 = c["pt"].clone()
+    pt2[0] = 0
+    pt2[1, 2:] = 0
+    torch.testing.assert_close(got, attention.hist_flash_plain(
+        *_hist_args(dict(c, pt=pt2))), rtol=0, atol=0)
+    assert torch.all(got[2][0] == attention.NEG_INF)
 
 
 def test_plain_history_triple_ignores_page_table_tail():
@@ -89,7 +127,18 @@ def test_kernel_wrapper_raises_instead_of_falling_back():
     assert attention.KERNEL.launches == before
 
 
+def test_int8_kernel_wrapper_raises_instead_of_falling_back():
+    c = _int8(_case(32, b=2, nkv=2, qpk=2, hist=[3, 9]))
+    before = _counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        attention.KERNEL(*_hist_args(c))
+    with pytest.raises(ValueError, match="both"):
+        attention.KERNEL(*_hist_args(dict(c, vc=c["vc"].data)))
+    assert _counts() == before
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
 @pytest.mark.parametrize("d,nkv,qpk,hist,layer,m", [
     (32, 2, 2, [0, 5, 17, 140], 1, 0),
     (64, 2, 4, [300, 0, 131], 1, 3),
@@ -97,16 +146,17 @@ def test_kernel_wrapper_raises_instead_of_falling_back():
     (128, 8, 4, [0, 33, 1000, 2049], 1, 0),
     (128, 1, 8, [129, 700], 1, 3),
 ])
-def test_kernel_matches_plain_on_gpu(d, nkv, qpk, hist, layer, m):
+def test_kernel_matches_plain_on_gpu(d, nkv, qpk, hist, layer, m, quant):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     c = _case(d, b=len(hist), nkv=nkv, qpk=qpk, hist=hist, seed=11,
               device="cuda")
+    c = _int8(c) if quant else c
     args = _hist_args(c, layer)
-    before = attention.KERNEL.launches
+    bf16, int8 = _counts()
     acc, l, mx = attention.KERNEL(*args)
     torch.cuda.synchronize()
-    assert attention.KERNEL.launches == before + 1
+    assert _counts() == ((bf16, int8 + 1) if quant else (bf16 + 1, int8))
     acc_p, l_p, mx_p = attention.hist_flash_plain(*args)
     live = c["hl"] > 0
     torch.testing.assert_close((acc / l.clamp_min(1e-30))[live],
@@ -114,7 +164,7 @@ def test_kernel_matches_plain_on_gpu(d, nkv, qpk, hist, layer, m):
                                atol=1e-3, rtol=1e-3)
     torch.testing.assert_close(mx[live], mx_p[live], atol=1e-3, rtol=1e-3)
     assert bool((l[~live] == 0).all() and (acc[~live] == 0).all())
-    cpu = {k: (v.cpu() if torch.is_tensor(v) else v) for k, v in c.items()}
+    cpu = {k: _to_cpu(v) for k, v in c.items()}
     for wrapper, names in (
             (attention.paged_window_attention,
              ("q", "kc", "vc", layer, "pt", "hl", "kw", "vw", m, "ks", "vs",
@@ -129,14 +179,15 @@ def test_kernel_matches_plain_on_gpu(d, nkv, qpk, hist, layer, m):
 
 
 @pytest.mark.gpu
-def test_kernel_clamps_history_to_page_table_row_on_gpu():
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_kernel_clamps_history_to_page_table_row_on_gpu(quant):
     """The last row's table ends the allocation: a read past the row would
     leave it. The kernel clamps the history to the row's tokens."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     c = _case(64, b=2, nkv=2, qpk=4, hist=[20, 100], seed=13, extra=0,
               device="cuda")
-    over, _ = _over_long(c, over=1000)
+    over, _ = _over_long(_int8(c) if quant else c, over=1000)
     args = _hist_args(over)
     acc, l, _ = attention.KERNEL(*args)
     torch.cuda.synchronize()
@@ -162,3 +213,49 @@ def test_kernel_rejects_bad_inputs_on_gpu():
     with pytest.raises(ValueError, match="layer"):
         attention.KERNEL(*_hist_args(c, layer=2))
     assert attention.KERNEL.launches == before
+
+
+@pytest.mark.gpu
+def test_int8_kernel_rejects_bad_inputs_on_gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    c = _int8(_case(64, b=2, nkv=2, qpk=2, hist=[3, 9], device="cuda"))
+    kc = c["kc"]
+    data16 = torch.empty(kc.data.numel() + 1, dtype=torch.int8,
+                         device="cuda")[1:].view(kc.data.shape)
+    data16.copy_(kc.data)
+    bad = [
+        dict(c, kc=QuantKV(kc.data, kc.scale.double())),          # scale dtype
+        dict(c, kc=QuantKV(kc.data.to(torch.uint8), kc.scale)),   # data dtype
+        dict(c, kc=QuantKV(kc.data, kc.scale[..., :-1].contiguous())),
+        dict(c, kc=QuantKV(kc.data, kc.scale.transpose(0, 1)      # strides
+                           .contiguous().transpose(0, 1))),
+        dict(c, kc=QuantKV(data16, kc.scale)),                    # alignment
+        dict(c, kc=QuantKV(kc.data.cpu(), kc.scale)),             # device
+        dict(c, vc=c["vc"].data),                                 # mixed
+    ]
+    before = _counts()
+    for case in bad:
+        with pytest.raises(ValueError):
+            attention.KERNEL(*_hist_args(case))
+    assert _counts() == before
+
+
+@pytest.mark.gpu
+def test_kv_quantize_on_gpu_is_bit_identical_to_cpu():
+    """The quantizer on the card gives the CPU's bits (which the CPU tests
+    hold to the reference's numpy quantizer): true divisions, round half
+    to even, .5 ties and all-zero rows included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    rng = np.random.default_rng(15)
+    x = torch.from_numpy(rng.standard_normal((64, 8, 16, 128)).astype(
+        np.float32) * 3)
+    x[0, 0, 0, :8] = torch.tensor([127, 2.5, -3.5, 0.5, 1.5, -0.5, -2.5,
+                                   126.5])
+    x[0, 0, 1] = 0
+    for xt in (x, x.to(torch.bfloat16)):
+        q_c, s_c = kv_quantize(xt)
+        q_g, s_g = kv_quantize(xt.cuda())
+        assert torch.equal(q_g.cpu(), q_c)
+        assert torch.equal(s_g.cpu().view(torch.int32), s_c.view(torch.int32))

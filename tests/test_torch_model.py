@@ -13,6 +13,15 @@ decode-window steps over their paged pools, twice:
   model's fixed bf16 casts read as fp32 (``_F32Numpy``), so no bf16
   rounding hides a small systematic difference. Only fp32 summation order
   differs (~1e-6 relative per op): logits within atol 1e-4, rtol 1e-4.
+- int8 pools (``QuantKV``, ``--quant-kv int8``): the bf16 tolerance. Both
+  packages quantize the same way (bit-identical on the same input); a K/V
+  value that differs by a bf16 ulp between the packages can move its int8
+  code by one step (1/127 of the row's absmax), small beside the bf16
+  noise above. The written pools, dequantized, agree within the bf16
+  pools' K tolerance (atol 0.05, rtol 0.02) plus one int8 step of the
+  row; the scales (absmax / 127) within that rtol. The int8 logits keep
+  the reference's own quality gate against bf16 pools: cosine > 0.99
+  (tests/test_kv_quant.py).
 """
 
 import dataclasses
@@ -25,9 +34,11 @@ import torch
 
 from dynamo_tpu.engine import config as jcfg
 from dynamo_tpu.engine import model as jmodel
+from dynamo_tpu.engine.kv_quant import QuantKV as JQuantKV
 from dynamo_tpu_torch.engine import attention as port_attn
 from dynamo_tpu_torch.engine import config as tcfg
 from dynamo_tpu_torch.engine import model as tmodel
+from dynamo_tpu_torch.engine.kv_quant import QuantKV as TQuantKV
 from dynamo_tpu_torch.engine.weights import params_from_jax
 
 torch.set_num_threads(1)
@@ -120,10 +131,20 @@ def test_init_params_distribution():
     assert abs(p["lm_head"].float().std().item() * 128 ** 0.5 - 1) < 0.05
 
 
-def _prefill_both(setup, prompts, bucket=32, fp32=False):
-    jspec, tspec, jparams, tparams = setup
+def _pools(shape, fp32=False, quant=False):
+    """Zero (JAX, port) K or V pools: bf16, fp32 or int8 QuantKV."""
+    if quant:
+        return (JQuantKV(jnp.zeros(shape, jnp.int8),
+                         jnp.zeros(shape[:-1], jnp.float32)),
+                TQuantKV(torch.zeros(shape, dtype=torch.int8),
+                         torch.zeros(shape[:-1], dtype=torch.float32)))
     jdt, tdt = ((jnp.float32, torch.float32) if fp32
                 else (jnp.bfloat16, torch.bfloat16))
+    return jnp.zeros(shape, jdt), torch.zeros(shape, dtype=tdt)
+
+
+def _prefill_both(setup, prompts, bucket=32, fp32=False, quant=False):
+    jspec, tspec, jparams, tparams = setup
     b = len(prompts)
     npages = 2 + b * (bucket // PAGE) + 8
     shape = (jspec.num_layers, jspec.num_kv_heads, npages, PAGE,
@@ -138,13 +159,12 @@ def _prefill_both(setup, prompts, bucket=32, fp32=False):
         pos[i] = np.minimum(np.arange(bucket), n - 1)
         lens[i] = n
         table[i] = 1 + i * (bucket // PAGE) + np.arange(bucket // PAGE)
+    (jk0, kc), (jv0, vc) = (_pools(shape, fp32, quant),
+                            _pools(shape, fp32, quant))
     jl, jk, jv = jax.jit(lambda p, k, v, t, ps, pt, sl: jmodel.prefill_forward(
         p, jspec, k, v, t, ps, pt, sl))(
-        jparams, jnp.zeros(shape, jdt), jnp.zeros(shape, jdt),
-        jnp.asarray(tok), jnp.asarray(pos), jnp.asarray(table),
-        jnp.asarray(lens))
-    kc = torch.zeros(shape, dtype=tdt)
-    vc = torch.zeros(shape, dtype=tdt)
+        jparams, jk0, jv0, jnp.asarray(tok), jnp.asarray(pos),
+        jnp.asarray(table), jnp.asarray(lens))
     tl, _, _ = tmodel.prefill_forward(
         tparams, tspec, kc, vc, torch.from_numpy(tok), torch.from_numpy(pos),
         torch.from_numpy(table), torch.from_numpy(lens))
@@ -171,17 +191,47 @@ def test_prefill_logits_match_fp32(setup_fp32):
     np.testing.assert_allclose(kc.numpy(), np.asarray(jk), **TOL_FP32)
 
 
+def test_prefill_logits_and_cache_match_int8(setup):
+    """Prefill into int8 pools: the scatter quantizes in both packages."""
+    rng = np.random.default_rng(0)
+    vocab = setup[0].vocab_size
+    prompts = [rng.integers(0, vocab, size=n).tolist() for n in (18, 31)]
+    (jl, jk, _), (tl, kc, _), table = _prefill_both(setup, prompts,
+                                                    quant=True)
+    np.testing.assert_allclose(tl, jl, **TOL)
+    live = table.reshape(-1)
+    s_t = kc.scale[:, :, live].numpy()
+    s_j = np.asarray(jk.scale)[:, :, live]
+    np.testing.assert_allclose(s_t, s_j, rtol=0.02)
+    deq_t = kc.data[:, :, live].numpy() * s_t[..., None]
+    deq_j = np.asarray(jk.data)[:, :, live] * s_j[..., None]
+    bound = 0.05 + 0.02 * np.abs(deq_j) + s_j[..., None]
+    assert np.all(np.abs(deq_t - deq_j) <= bound)
+
+
 def test_teacher_forced_window_logits_match(setup):
     """Three teacher-forced steps of one window: history in the pool,
     earlier window steps in the buffers, the current token as self."""
     _teacher_forced(setup, fp32=False, tol=TOL)
 
 
+def test_teacher_forced_window_logits_match_int8(setup):
+    """The same over int8 pools; the int8 logits stay cosine-close to the
+    bf16 pool's (the reference's quality gate)."""
+    got = _teacher_forced(setup, fp32=False, tol=TOL, quant=True)
+    bf16 = _teacher_forced(setup, fp32=False, tol=TOL)
+    for m, (a, b) in enumerate(zip(got, bf16)):
+        cos = (a * b).sum(-1) / (np.linalg.norm(a, axis=-1)
+                                 * np.linalg.norm(b, axis=-1))
+        assert cos.min() > 0.99, f"step {m}: int8-pool logits diverged ({cos})"
+
+
 def test_teacher_forced_window_logits_match_fp32(setup_fp32):
     _teacher_forced(setup_fp32, fp32=True, tol=TOL_FP32)
 
 
-def _teacher_forced(setup, fp32, tol):
+def _teacher_forced(setup, fp32, tol, quant=False):
+    """Returns the port's kernel-path logits of each step."""
     jspec, tspec, jparams, tparams = setup
     jdt, tdt = ((jnp.float32, torch.float32) if fp32
                 else (jnp.bfloat16, torch.bfloat16))
@@ -190,7 +240,7 @@ def _teacher_forced(setup, fp32, tol):
     prompts = [rng.integers(0, vocab, size=n).tolist() for n in (18, 27)]
     forced = rng.integers(0, vocab, size=(3, 2)).astype(np.int32)
     (_, jk, jv), (_, kc, vc), table = _prefill_both(setup, prompts,
-                                                    fp32=fp32)
+                                                    fp32=fp32, quant=quant)
     b, M = 2, 3
     L, nkv, d = jspec.num_layers, jspec.num_kv_heads, jspec.head_dim
     maxp = 4
@@ -204,6 +254,7 @@ def _teacher_forced(setup, fp32, tol):
     jvb = jnp.zeros_like(jkb)
     tkb = torch.zeros((L, nkv, b, M, d), dtype=tdt)
     tvb = torch.zeros_like(tkb)
+    out = []
     for m in range(M):
         positions = hist + m
         jl, jkn, jvn = step_j(jparams, jk, jv, jkb, jvb,
@@ -225,3 +276,5 @@ def _teacher_forced(setup, fp32, tol):
                                    err_msg=f"kernel path, step {m}")
         np.testing.assert_allclose(tl_plain.numpy(), ref, **tol,
                                    err_msg=f"plain path, step {m}")
+        out.append(tl.numpy())
+    return out
