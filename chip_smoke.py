@@ -12,9 +12,16 @@ Phases, in order; any failure exits non-zero without the final line:
    {32, 64, 128}, ragged / zero / >8-page histories, MQA and GQA, layer > 0,
    shuffled page tables, window steps m in {0, 3} and a history clamped to
    its page-table row; then time each variant, its plain version and a
-   yardstick at llama-3-8b decode shapes: SDPA over the gathered pages for
-   bf16, and for int8 SDPA over pages gathered and dequantized beforehand
-   (no single PyTorch call reads int8 pages with per-token scales).
+   yardstick at llama-3-8b decode widths at two shapes, B=32 x 2048 and the
+   main path's mid-round histories (8 live rows of 32 slots, a 128-page
+   bucket): SDPA over the gathered pages for bf16, and for int8 SDPA over
+   pages gathered and dequantized beforehand (no single PyTorch call reads
+   int8 pages with per-token scales), as one call over the pages up to the
+   longest live history and as one call per live row. The kernel's time is
+   its device time by CUDA-graph replay, with its eager and host time per
+   call beside it (dynamo_tpu_torch/time_attention.py). The build's report
+   gives each kernel's registers, spills and dynamic shared memory, and
+   each timing its split count S.
 3. main path, bf16 pool: build the engine with launch.build_engine for
    llama-3-8b at full width (random weights, seed 0), serve 8 concurrent
    requests through GPUEngine.generate, check every request, check that
@@ -41,9 +48,11 @@ import traceback
 import numpy as np
 import torch
 
-# Kernel vs plain version, same bf16 inputs. Both accumulate in fp32; only
-# summation order and exp rounding differ on the history triple. The
-# wrappers' outputs are bf16, where one ulp is 2^-7 relative.
+# Kernel vs plain version, same bf16 inputs. Both accumulate in fp32; the
+# kernel's tensor-core PV product takes each weight as a bf16 high part
+# plus a bf16 remainder (relative error under 2^-16), and summation order
+# and exp rounding differ on the history triple. The wrappers' outputs are
+# bf16, where one ulp is 2^-7 relative.
 TRIPLE_TOL = dict(atol=2e-3, rtol=2e-3)
 OUTPUT_TOL = dict(atol=1.6e-2, rtol=1.6e-2)
 # The int8 kernel and its plain version both dequantize in fp32; the
@@ -67,44 +76,9 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 # ---------------------------------------------------------------------------
 # Phase 2: kernel against its plain version
 # ---------------------------------------------------------------------------
-
-def make_case(gen, d, b, nkv, qpk, hist, L=2, page=16, M=8, extra_pages=3,
-              quant=False):
-    maxp = max(1, max(-(-h // page) for h in hist)) + extra_pages
-    npages = b * maxp + 2
-
-    def rnd(*shape):
-        return torch.randn(shape, generator=gen).to(torch.bfloat16).cuda()
-
-    # Shuffled page tables; entries past the live pages point anywhere.
-    perm = torch.randperm(npages - 1, generator=gen) + 1
-    pt = perm[:b * maxp].reshape(b, maxp).to(torch.int32).cuda()
-    kc, vc = rnd(L, nkv, npages, page, d), rnd(L, nkv, npages, page, d)
-    if quant:
-        from dynamo_tpu_torch.engine.kv_quant import QuantKV, kv_quantize
-        kc, vc = QuantKV(*kv_quantize(kc)), QuantKV(*kv_quantize(vc))
-    return dict(q=rnd(b, nkv * qpk, d), kc=kc, vc=vc, pt=pt,
-                hl=torch.tensor(hist, dtype=torch.int32).cuda(),
-                ks=rnd(b, nkv, d), vs=rnd(b, nkv, d),
-                kw=rnd(nkv, b, M, d), vw=rnd(nkv, b, M, d), qpk=qpk)
-
 
 def to_cpu(v):
     if isinstance(v, tuple):  # QuantKV
@@ -118,6 +92,7 @@ def check_kernel(attention, quant: bool) -> float:
     card, and both wrappers against themselves on CPU copies (where they
     run the plain version). Returns the largest absolute error of the
     normalised triple."""
+    from dynamo_tpu_torch.time_attention import make_case
     kind = "int8" if quant else "bf16"
     gen = torch.Generator().manual_seed(3 if quant else 1)
     if quant:
@@ -192,44 +167,69 @@ def check_kernel(attention, quant: bool) -> float:
     return worst
 
 
-def time_kernel(attention, quant: bool) -> dict:
-    """llama-3-8b decode shapes: B=32, Nkv=8, qpk=4, D=128, page 16,
-    history 2048 for every row, layer 1 of a 2-layer pool (bf16 or int8)."""
-    gen = torch.Generator().manual_seed(2)
-    b, nkv, qpk, d, hist, page = 32, 8, 4, 128, 2048, 16
-    c = make_case(gen, d, b, nkv, qpk, [hist] * b, page=page, extra_pages=0,
-                  quant=quant)
+def time_kernel(attention, quant: bool, shape: str) -> dict:
+    """Time one variant (bf16 or int8 pool) at llama-3-8b decode widths
+    (time_attention.SHAPE), at history 2048 in every row (shape "uniform")
+    or the main path's mid-round histories (shape "main"): device time by
+    CUDA-graph replay, eager and host time per call, its plain version, and
+    SDPA over the same live histories."""
+    from dynamo_tpu_torch.engine.kv_quant import gather_pages_folded
+    from dynamo_tpu_torch.time_attention import (SHAPE, caller, eager_ms,
+                                                 graph_ms, timed_case)
+    b, nkv, qpk, d, page, maxp = (SHAPE[k] for k in (
+        "b", "nkv", "qpk", "d", "page", "maxp"))
+    c, hist, layers = timed_case(quant, shape)
     args = (c["q"], c["kc"], c["vc"], 1, c["pt"], c["hl"], qpk)
-    ms = time_ms(lambda: attention.KERNEL(*args))
+    ms = graph_ms(caller(attention.KERNEL, c, layers))
+    eager, host = eager_ms(caller(attention.KERNEL, c, layers))
     acc, l, mx = attention.KERNEL(*args)
     acc_p, l_p, _ = attention.hist_flash_plain(*args)
-    out_k, out_p = acc / l, acc_p / l_p
+    live = c["hl"] > 0
+    out_k, out_p = (acc / l)[live], (acc_p / l_p)[live]
     torch.testing.assert_close(out_k, out_p, **TRIPLE_TOL)
     max_err = float((out_k - out_p).abs().max())
-    log(f"{'int8' if quant else 'bf16'} kernel ok at the timed shape: "
-        f"max|err|={max_err:.3g}")
+    kind = "int8" if quant else "bf16"
+    log(f"{kind} kernel ok at the timed shape {shape}: max|err|={max_err:.3g}")
     del acc, l, mx, acc_p, l_p, out_k, out_p
-    plain_ms = time_ms(lambda: attention.hist_flash_plain(*args))
-    # Yardstick: one SDPA call over the same history, gathered (and for
-    # int8 dequantized to bf16) beforehand.
-    pt = c["pt"].long()
-    from dynamo_tpu_torch.engine.kv_quant import gather_pages_folded
+    plain_ms = graph_ms(caller(attention.hist_flash_plain, c, layers))
+    # Yardstick: one SDPA call over the live rows' pages up to the longest
+    # live history, gathered (and for int8 dequantized to bf16) beforehand,
+    # ragged rows masked; and one SDPA call per live row at its exact
+    # length, unmasked, the calls' times summed.
+    rows = live.nonzero().flatten()
+    span = -(-max(hist) // page)
+    pt = c["pt"][rows, :span].long()
     k = gather_pages_folded(c["kc"], 1, pt).transpose(0, 1).contiguous()
     v = gather_pages_folded(c["vc"], 1, pt).transpose(0, 1).contiguous()
-    q = c["q"][:, :, None, :]
+    q = c["q"][rows][:, :, None, :]
+    mask = None
+    if min(hist[i] for i in rows.tolist()) < span * page:
+        mask = (torch.arange(span * page, device="cuda")[None, :]
+                < c["hl"][rows, None])[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    sdpa_ms = time_ms(lambda: sdpa(q, k, v, enable_gqa=True))
+    sdpa_ms = graph_ms(lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True))
+    per_row = [(q[i:i + 1], k[i:i + 1, :, :hist[r]].contiguous(),
+                v[i:i + 1, :, :hist[r]].contiguous())
+               for i, r in enumerate(rows.tolist())]
+    sdpa_rows_ms = graph_ms(lambda: [sdpa(*x, enable_gqa=True)
+                                     for x in per_row])
     bytes_moved = attention.hist_flash_bytes(c["hl"], nkv * qpk, c["kc"])
-    flops = 4 * b * hist * nkv * qpk * d              # QK^T and PV
+    flops = 4 * sum(hist) * nkv * qpk * d              # QK^T and PV
     bound_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
     bound_ops = flops / H100_BF16_FLOPS * 1e3
+    pps, splits = attention.split_plan(maxp, page)
     name = "paged_attention_hist_int8" if quant else "paged_attention_hist"
-    out = {"shape": f"B={b} Nkv={nkv} qpk={qpk} D={d} hist={hist}",
-           "ms": ms, "plain_ms": plain_ms,
+    out = {"shape": f"B={b} Nkv={nkv} qpk={qpk} D={d} page={page} "
+                    f"maxp={maxp} hist={hist if shape != 'uniform' else 2048}",
+           "splits": splits, "pages_per_split": pps,
+           "ms": ms, "eager_ms": eager, "host_ms": host,
+           "plain_ms": plain_ms,
            "bound_ms": max(bound_bytes, bound_ops),
            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
            "bytes": bytes_moved, "flops": flops, "max_abs_err": max_err,
-           "achieved_GBps": bytes_moved / (ms * 1e-3) / 1e9}
+           "achieved_GBps": bytes_moved / (ms * 1e-3) / 1e9,
+           "sdpa_gathered_tokens": int(rows.numel()) * span * page,
+           "sdpa_per_row_ms": sdpa_rows_ms}
     if quant:
         log("int8 library_ms: null; no single PyTorch call computes "
             "attention over int8 pages with per-token scales. "
@@ -238,14 +238,42 @@ def time_kernel(attention, quant: bool) -> dict:
         out.update(library_ms=None, sdpa_bf16_ms=sdpa_ms)
     else:
         out.update(library_ms=sdpa_ms)
-    for what, key in (("kernel", "ms"), ("plain", "plain_ms"),
+    for what, key in (("kernel", "ms"), ("kernel_eager", "eager_ms"),
+                      ("kernel_host", "host_ms"), ("plain", "plain_ms"),
                       ("library_sdpa", "library_ms"),
-                      ("sdpa_bf16_yardstick", "sdpa_bf16_ms")):
+                      ("sdpa_bf16_yardstick", "sdpa_bf16_ms"),
+                      ("sdpa_per_row", "sdpa_per_row_ms")):
         if key in out:
             log(json.dumps({"timing": what, "kernel": name,
                             "shape": out["shape"], "ms": out[key]}))
     log(json.dumps({"timing": name, **out}))
     return out
+
+
+def log_build(attention) -> None:
+    """Registers, spills and dynamic shared memory of every kernel, from
+    ptxas's report of this build and the library."""
+    import re
+    name, spills = None, None
+    for line in attention.KERNEL.build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = re.search(r"hist_flash_partialILi(\d+)ELb(\d)", m.group(1))
+            name = "hist_flash_combine: no dynamic shared memory"
+            if k:
+                d, quant = int(k.group(1)), k.group(2) == "1"
+                name = (f"hist_flash_partial<D={d}, "
+                        f"{'int8' if quant else 'bf16'}>: "
+                        f"{attention.KERNEL.smem_bytes(d, quant)} bytes of "
+                        f"dynamic shared memory")
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spills = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            log(f"  ptxas {name}, {m.group(1)} registers, {spills} bytes "
+                f"of spill stores")
+            name = None
 
 
 # ---------------------------------------------------------------------------
@@ -409,15 +437,23 @@ def main_path(attention, model, quant_kv: str | None) -> dict:
     return stats
 
 
-def kernel_entry(name, variant, timing, max_err, stats) -> dict:
+def kernel_entry(name, variant, timing, main, max_err, stats) -> dict:
+    """One kernel's summary: times at the B=32 x 2048 shape, and the same
+    numbers at the main path's mid-round shape under ``main_shape``."""
     return {"name": name, "route": "cuda",
             "source": "dynamo_tpu_torch/csrc/paged_attention.cu",
             "replaces": "dynamo_tpu/engine/attention.py:72",
             "variant": variant, "launches": stats["kernel_launches"],
-            "max_abs_err": max(max_err, timing["max_abs_err"]),
+            "max_abs_err": max(max_err, timing["max_abs_err"],
+                               main["max_abs_err"]),
             "ms": timing["ms"], "plain_ms": timing["plain_ms"],
             "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-            "library_ms": timing["library_ms"]}
+            "library_ms": timing["library_ms"],
+            "eager_ms": timing["eager_ms"], "host_ms": timing["host_ms"],
+            "main_shape": {k: main[k] for k in (
+                "ms", "eager_ms", "host_ms", "plain_ms", "bound_ms",
+                "bound_by", "splits", "sdpa_per_row_ms")}
+            | {"sdpa_ms": main.get("library_ms") or main["sdpa_bf16_ms"]}}
 
 
 def main() -> int:
@@ -441,13 +477,13 @@ def main() -> int:
     try:
         attention.KERNEL.build()
         log(f"build: {attention.KERNEL.build_seconds:.1f}s")
-        for line in attention.KERNEL.build_log.splitlines():
-            if any(w in line for w in ("Compiling", "registers", "spill")):
-                log("  " + line.strip())
+        log_build(attention)
         err_bf16 = check_kernel(attention, quant=False)
         err_int8 = check_kernel(attention, quant=True)
-        timing_bf16 = time_kernel(attention, quant=False)
-        timing_int8 = time_kernel(attention, quant=True)
+        timing_bf16 = time_kernel(attention, False, "uniform")
+        timing_int8 = time_kernel(attention, True, "uniform")
+        main_bf16 = time_kernel(attention, False, "main")
+        main_int8 = time_kernel(attention, True, "main")
         torch.cuda.empty_cache()
         stats_bf16 = main_path(attention, model, None)
         stats_int8 = main_path(attention, model, "int8")
@@ -456,10 +492,10 @@ def main() -> int:
         return 1
     log(json.dumps({"kernels": [
         kernel_entry("paged_attention_hist", "bf16 pool", timing_bf16,
-                     err_bf16, stats_bf16),
+                     main_bf16, err_bf16, stats_bf16),
         kernel_entry("paged_attention_hist_int8",
                      "int8 pool, _decode_kernel(quantized=True)",
-                     timing_int8, err_int8, stats_int8)]}))
+                     timing_int8, main_int8, err_int8, stats_int8)]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,9 +3,13 @@ version, and the two wrappers the decode path calls.
 
 The kernel (``csrc/paged_attention.cu``) replaces the TPU kernel
 ``dynamo_tpu/engine/attention.py::_decode_kernel`` in both its variants:
-one thread block per (sequence, kv-head) reads the live history pages of
-one layer of the stacked ``[L, Nkv, P, page, D]`` pool and returns the
-flash triple (unnormalised acc, l, m). A bf16 pool goes to the entry point
+it reads the live history pages of one layer of the stacked
+``[L, Nkv, P, page, D]`` pool and returns the flash triple (unnormalised
+acc, l, m). It runs split-K over pages: a partial kernel per (sequence,
+kv-head, split) writes fp32 partial triples into scratch this module
+allocates, and a combine kernel merges them; ``split_plan`` picks the
+split from shapes alone, so ``hist_lens`` is never read back. One C call
+per entry point launches both kernels. A bf16 pool goes to the entry point
 ``paged_attention_hist``; an int8 pool (``QuantKV``: int8 values and f32
 per-token scales) to ``paged_attention_hist_int8``. The wrappers then
 flash-merge the in-window buffer columns ``j < m`` and the current token's
@@ -34,6 +38,7 @@ from dynamo_tpu_torch.engine.kv_quant import KV_SCALE_BYTES, QuantKV
 NEG_INF = -1e30
 MAX_QPK = 8
 HEAD_DIMS = (32, 64, 128)
+SPLIT_TOKENS = 256      # history tokens per split
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "paged_attention.cu"
@@ -53,6 +58,16 @@ def _nvcc() -> str:
         raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the "
                            "paged attention kernel cannot be built")
     return path
+
+
+def split_plan(maxp: int, page_size: int) -> tuple[int, int]:
+    """Pages per split ``pps`` and split count ``S`` for a page table of
+    ``maxp`` entries per row (the runner's power-of-two page bucket): split
+    ``s`` covers pages ``[s * pps, (s + 1) * pps)``, and the S splits cover
+    every page exactly once. Shapes only, never the histories: a split holds
+    SPLIT_TOKENS tokens, or one page where a page is larger."""
+    pps = max(1, SPLIT_TOKENS // page_size)
+    return pps, -(-maxp // pps)
 
 
 class PagedAttentionKernel:
@@ -91,12 +106,15 @@ class PagedAttentionKernel:
             os.replace(tmp, LIBRARY)
         lib = ctypes.CDLL(str(LIBRARY))
         fn = lib.paged_attention_hist
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fn = lib.paged_attention_hist_int8
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 10
                        + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        fn = lib.paged_attention_smem_bytes
+        fn.argtypes = [ctypes.c_int, ctypes.c_int]
         fn.restype = ctypes.c_int
         self._lib = lib
         self.build_seconds = time.monotonic() - t0
@@ -155,16 +173,24 @@ class PagedAttentionKernel:
         for name, t in scales:
             _check(t.data_ptr() % 4 == 0, f"{name} must be 4-byte aligned")
         self.build()
-        acc = torch.empty((b, nkv, qpk, d), dtype=torch.float32,
+        maxp = page_table.shape[1]
+        pps, splits = split_plan(maxp, page)
+        # One allocation: the returned triple, then the partial triples'
+        # scratch (part_acc [B,Nkv,S,qpk,D], part_m, part_l [B,Nkv,S,qpk]).
+        n = b * nkv * qpk
+        buf = torch.empty(n * (d + 2) * (1 + splits), dtype=torch.float32,
                           device=q.device)
-        m = torch.empty((b, nkv, qpk, 1), dtype=torch.float32,
-                        device=q.device)
-        l = torch.empty_like(m)
+        acc = buf[:n * d].view(b, nkv, qpk, d)
+        m = buf[n * d:n * (d + 1)].view(b, nkv, qpk, 1)
+        l = buf[n * (d + 1):n * (d + 2)].view(b, nkv, qpk, 1)
+        part_acc = buf.data_ptr() + 4 * n * (d + 2)
+        part_m = part_acc + 4 * n * splits * d
+        part_l = part_m + 4 * n * splits
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        ints = (b, nkv, qpk, num_pages, page, d, page_table.shape[1],
-                int(layer), stream)
+        ints = (b, nkv, qpk, num_pages, page, d, maxp, int(layer), pps,
+                splits, stream)
         outs = (page_table.data_ptr(), hist_lens.data_ptr(), acc.data_ptr(),
-                m.data_ptr(), l.data_ptr())
+                m.data_ptr(), l.data_ptr(), part_acc, part_m, part_l)
         if quant:
             name = "paged_attention_hist_int8"
             err = self._lib.paged_attention_hist_int8(
@@ -183,6 +209,11 @@ class PagedAttentionKernel:
         else:
             self.launches += 1
         return acc, l, m
+
+    def smem_bytes(self, head_dim: int, quant: bool) -> int:
+        """Dynamic shared memory of one partial-kernel block, in bytes."""
+        self.build()
+        return self._lib.paged_attention_smem_bytes(head_dim, int(quant))
 
 
 def _check(cond: bool, msg: str) -> None:

@@ -138,8 +138,9 @@ def main() -> int:
     top = [{"name": name[:90], "device_ms": us / 1e3,
             "share_of_busy": us * 1e-6 / busy}
            for name, us in by_name.most_common(12)]
+    # Both kernels of one launch: hist_flash_partial and hist_flash_combine.
     attn_ms = sum(us for name, us in by_name.items()
-                  if "hist_flash_kernel" in name) / 1e3
+                  if "hist_flash_" in name) / 1e3
     attn_bound_ms = attn_bytes / (DEFAULT_HBM_GBPS * 1e9) * 1e3
     out = {
         "device": torch.cuda.get_device_name(0), "smi": smi_line(),

@@ -32,7 +32,8 @@ import numpy as np
 import pytest
 import torch
 
-from dynamo_tpu.engine.attention import (paged_decode_attention_pallas,
+from dynamo_tpu.engine.attention import (_hist_flash_pallas,
+                                         paged_decode_attention_pallas,
                                          paged_window_attention_pallas)
 from dynamo_tpu.engine.kv_quant import QuantKV as JQuantKV
 from dynamo_tpu.engine.kv_quant import quantize_np
@@ -196,3 +197,114 @@ def _check_window(c, m, d):
     if d == 64:
         pal = np.asarray(paged_window_attention_pallas(*args_j), np.float32)
         np.testing.assert_allclose(port, pal, **TOL)
+
+
+# ---------------------------------------------------------------------------
+# Split-K: the kernel's split plan, replayed in plain torch.
+#
+# hist_flash_split_plain cuts each row's clamped history into the splits of
+# attention.split_plan, runs the plain history triple over each split's
+# pages, and merges the live splits as the kernel's combine step does. It is
+# held to the unsplit plain version (both fp32 from the same bf16 or int8
+# inputs, only summation order differs: atol = rtol = 1e-5 on the
+# normalised output and m) and to the JAX Pallas kernel in interpret mode
+# (fp32 on the same inputs: atol = rtol = 1e-4).
+# ---------------------------------------------------------------------------
+
+def hist_flash_split_plain(q, k_cache, v_cache, layer, page_table, hist_lens,
+                           q_per_kv, pps, splits):
+    """Plain split-then-merge flash triple (acc, l, m), as the kernel
+    computes it: split s covers pages [s*pps, (s+1)*pps) of each row."""
+    b, _, d = q.shape
+    nkv, page = k_cache.shape[1], k_cache.shape[3]
+    maxp = page_table.shape[1]
+    span = pps * page
+    hist = torch.clamp(hist_lens.long(), max=maxp * page)
+    parts = []
+    for s in range(splits):
+        h_s = torch.clamp(hist - s * span, 0, span).to(torch.int32)
+        parts.append(port_attn.hist_flash_plain(
+            q, k_cache, v_cache, layer,
+            page_table[:, s * pps:(s + 1) * pps].contiguous(), h_s,
+            q_per_kv))
+    acc = torch.zeros((b, nkv, q_per_kv, d))
+    l = torch.zeros((b, nkv, q_per_kv, 1))
+    m = torch.full((b, nkv, q_per_kv, 1), port_attn.NEG_INF)
+    for i in range(b):
+        live = -(-int(hist[i]) // span)          # splits with history
+        if live == 0:
+            continue
+        ms = torch.stack([parts[s][2][i] for s in range(live)])
+        m[i] = ms.max(dim=0).values
+        w = torch.exp(ms - m[i])
+        l[i] = (torch.stack([parts[s][1][i] for s in range(live)]) * w).sum(0)
+        acc[i] = (torch.stack([parts[s][0][i] for s in range(live)])
+                  * w).sum(0)
+    return acc, l, m
+
+
+def _split_inputs(c, hist):
+    T = {k: _torch(c, k) for k in ("q", "kc", "vc", "pt")}
+    return (T["q"], T["kc"], T["vc"], 1, T["pt"],
+            torch.tensor(hist, dtype=torch.int32), c["qpk"])
+
+
+def _normalised(acc, l):
+    return acc / torch.clamp(l, min=1e-30)
+
+
+SPLIT_CASES = {
+    # (d, b, nkv, qpk, maxp, page, hist): zero, ragged, histories ending on
+    # a split boundary (256 tokens), splits wholly past the history, and one
+    # history clamped to its row.
+    "ragged_zero_clamped": (64, 4, 2, 4, 32, 16, [0, 64, 133, 700]),
+    "boundaries": (128, 3, 1, 8, 48, 16, [512, 256, 17]),
+    "page8": (32, 3, 2, 2, 64, 8, [256, 391, 0]),
+}
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("name", sorted(SPLIT_CASES))
+def test_split_merge_matches_unsplit_plain(name, quant):
+    d, b, nkv, qpk, maxp, page, hist = SPLIT_CASES[name]
+    c = _case(d, b, nkv, qpk, maxp, hist, seed=21, page=page)
+    c = _quantized(c) if quant else c
+    args = _split_inputs(c, hist)
+    pps, splits = port_attn.split_plan(maxp, page)
+    assert splits > 1
+    acc, l, m = hist_flash_split_plain(*args, pps, splits)
+    acc_p, l_p, m_p = port_attn.hist_flash_plain(*args)
+    live = torch.tensor(hist) > 0
+    torch.testing.assert_close(_normalised(acc, l)[live],
+                               _normalised(acc_p, l_p)[live],
+                               atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(m, m_p, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(l, l_p, atol=1e-5, rtol=1e-5)
+    assert torch.all(acc[~live] == 0) and torch.all(l[~live] == 0)
+    assert torch.all(m[~live] == port_attn.NEG_INF)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("name", ["boundaries", "ragged_zero_clamped"])
+def test_split_merge_matches_jax_pallas(name, quant):
+    """The same split-then-merge triple against _hist_flash_pallas
+    (interpret mode on the CPU), given the clamped histories the kernel
+    uses (the Pallas kernel itself assumes hist <= maxp * page)."""
+    d, b, nkv, qpk, maxp, page, hist = SPLIT_CASES[name]
+    c = _case(d, b, nkv, qpk, maxp, hist, seed=22, page=page)
+    c = _quantized(c) if quant else c
+    args = _split_inputs(c, hist)
+    pps, splits = port_attn.split_plan(maxp, page)
+    acc, l, m = hist_flash_split_plain(*args, pps, splits)
+    clamped = np.minimum(np.asarray(hist, np.int32), maxp * page)
+    J = {k: _jax(c, k) for k in ("q", "kc", "vc", "pt")}
+    num_j, l_j, m_j = (torch.from_numpy(np.array(x, np.float32))
+                       for x in _hist_flash_pallas(
+                           J["q"], J["kc"], J["vc"],
+                           jnp.asarray(1, jnp.int32), J["pt"],
+                           jnp.asarray(clamped), qpk))
+    live = torch.tensor(hist) > 0
+    torch.testing.assert_close(_normalised(acc, l)[live],
+                               _normalised(num_j, l_j)[live],
+                               atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(m[live], m_j[live], atol=1e-4, rtol=1e-4)

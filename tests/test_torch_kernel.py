@@ -8,9 +8,11 @@ with the card and no JAX:
 
 The gpu-marked tests skip without a card: a CUDA kernel has no CPU mode.
 Tolerance on the card: kernel and plain version accumulate in fp32 from the
-same bf16 inputs; only summation order and exp rounding differ, so the
-normalised history output agrees to 1e-3 and the bf16 wrapper outputs to
-two bf16 ulps (1.6e-2 relative). The int8 kernel and its plain version
+same bf16 inputs. The kernel's score products are exact (bf16 x bf16 in
+fp32), and it carries each PV weight as a bf16 high part plus a bf16
+remainder (relative error under 2^-16); the rest is summation order and exp
+rounding, so the normalised history output agrees to 1e-3 and the bf16
+wrapper outputs to two bf16 ulps (1.6e-2 relative). The int8 kernel and its plain version
 both dequantize in fp32 (the kernel folds each token's scale into its
 score and PV weight, the plain version multiplies it into every value),
 so the same tolerances hold.
@@ -119,6 +121,29 @@ def test_plain_history_clamps_to_page_table_row():
                                rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("page", [8, 16, 32, 64, 256, 512])
+@pytest.mark.parametrize("maxp", [1, 7, 8, 128, 512])
+def test_split_plan_covers_every_page_once(maxp, page):
+    """S >= 1 splits of pps pages cover the page-table row exactly once,
+    each split holds SPLIT_TOKENS tokens (or one page, where a page is
+    larger), and only shapes go in: plain ints, no tensor, so no device
+    read."""
+    pps, splits = attention.split_plan(maxp, page)
+    assert type(pps) is int and type(splits) is int
+    assert pps >= 1 and splits >= 1
+    covered = [p for s in range(splits)
+               for p in range(s * pps, min((s + 1) * pps, maxp))]
+    assert covered == list(range(maxp))
+    assert (splits - 1) * pps < maxp  # no split lies past the row
+    assert pps * page == max(attention.SPLIT_TOKENS, page)
+
+
+def test_split_plan_on_the_main_path_shape():
+    """A 128-page bucket of 16-token pages: 256-token splits, 8 of them,
+    whatever the histories (which the plan never sees)."""
+    assert attention.split_plan(128, 16) == (16, 8)
+
+
 def test_kernel_wrapper_raises_instead_of_falling_back():
     c = _case(32, b=2, nkv=2, qpk=2, hist=[3, 9])
     before = attention.KERNEL.launches
@@ -145,6 +170,22 @@ def test_int8_kernel_wrapper_raises_instead_of_falling_back():
     (64, 2, 7, [64, 65], 0, 3),
     (128, 8, 4, [0, 33, 1000, 2049], 1, 0),
     (128, 1, 8, [129, 700], 1, 3),
+    # Split-K: several splits, histories ending on split boundaries (256
+    # tokens) and splits wholly past a history.
+    (128, 8, 4, [256, 512, 0, 1024], 1, 3),
+    # A 16,384-token row beside empty rows.
+    (128, 8, 4, [16384, 0, 0], 1, 0),
+    # B=1, at each head dim.
+    (32, 4, 1, [777], 0, 3),
+    (64, 2, 4, [1], 1, 0),
+    (128, 8, 4, [4097], 1, 3),
+    # qpk in {1, 4, 7, 8} at D in {32, 64, 128}.
+    (32, 2, 8, [90, 0, 301], 1, 3),
+    (32, 2, 7, [64, 200], 0, 0),
+    (64, 1, 1, [33, 1500], 1, 3),
+    (64, 2, 8, [300, 257], 1, 0),
+    (128, 4, 1, [5, 0, 640], 0, 3),
+    (128, 2, 7, [2000, 63], 1, 0),
 ])
 def test_kernel_matches_plain_on_gpu(d, nkv, qpk, hist, layer, m, quant):
     if not torch.cuda.is_available():
