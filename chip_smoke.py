@@ -23,15 +23,32 @@ Phases, in order; any failure exits non-zero without the final line:
    gives each kernel's registers, spills and dynamic shared memory, and
    each timing its split count S.
 3. main path, bf16 pool: build the engine with launch.build_engine for
-   llama-3-8b at full width (random weights, seed 0), serve 8 concurrent
-   requests through GPUEngine.generate, check every request, check that
-   every decode step of every layer launched the bf16 kernel, and hold
-   teacher-forced decode logits of the kernel path against the plain
-   attention path on the card. The engine is then released.
+   llama-3-8b at full width (random weights, seed 0; one prefill program
+   takes at most 2048 tokens), serve 8 concurrent requests through
+   GPUEngine.generate, check every request, check that every decode step
+   of every layer launched the bf16 kernel, and hold teacher-forced decode
+   logits of the kernel path against the plain attention path on the
+   card. Then a second round on the same engine: four greedy requests that
+   open with 1024 tokens of a round-1 prompt (64 cached pages, prefilled
+   over that history), a 6000-token prompt (three chunks of up to 2048,
+   the last two over history, between the others' decode windows), a
+   request with presence/frequency penalties and logprobs, and a seeded
+   sampled one with logprobs, 32 tokens each. Checked: every request
+   finishes; the prefix cache served at least 4 x 64 blocks; the long
+   prompt took three chunks with a decode window between its first and
+   last; every decode step of every layer launched the bf16 kernel; the
+   first-token logits of a prefix-hit request and of the long prompt
+   against the same prompts prefilled whole; the penalised request's
+   tokens and logprobs against a teacher-forced plain path with the same
+   penalties. It prints the round's tok/s and TTFTs, the prefix hit
+   ratio, each chunk's device ms, peak memory, hashing ms per 1000 tokens
+   and a window's ms with and without a logprobs row. The engine is then
+   released.
 4. main path, int8 pool: the same with --quant-kv int8: every decode step
-   of every layer launches the int8 kernel and never the bf16 one; the
-   teacher-forced check runs on an int8 pool, and its logits stay
-   cosine-close (> 0.99) to the bf16 pool's for the same tokens.
+   of every layer, in both rounds, launches the int8 kernel and never the
+   bf16 one; the teacher-forced checks run on int8 pools, and round 1's
+   logits stay cosine-close (> 0.99) to the bf16 pool's for the same
+   tokens.
 The last lines are the kernels' JSON summary, the card's name and power
 limit, and {"ok": true, "device": {...}}.
 """
@@ -342,7 +359,8 @@ def main_path(attention, model, quant_kv: str | None) -> dict:
     pool with ``quant_kv="int8"``; the engine is stopped and released
     before this returns."""
     from dynamo_tpu_torch import launch
-    from dynamo_tpu_torch.profile_decode import (MAX_TOKENS, MODEL,
+    from dynamo_tpu_torch.profile_decode import (MAX_PREFILL_TOKENS,
+                                                 MAX_TOKENS, MODEL,
                                                  PROMPT_LENS, serve)
 
     argv = ["out=gpu", "--model", MODEL, "--seed", "0"]
@@ -350,7 +368,8 @@ def main_path(attention, model, quant_kv: str | None) -> dict:
         argv += ["--quant-kv", quant_kv]
     kind = quant_kv or "bf16"
     t0 = time.monotonic()
-    engine = launch.build_engine(launch.parse_args(argv))
+    engine = launch.build_engine(launch.parse_args(argv),
+                                 max_prefill_tokens=MAX_PREFILL_TOKENS)
     setup_s = time.monotonic() - t0
     runner = engine.runner
     spec = runner.spec
@@ -411,8 +430,16 @@ def main_path(attention, model, quant_kv: str | None) -> dict:
                  "window_ms_max": win_ms[-1],
                  "kernel_launches": launches[ran], "launches": launches}
         log(json.dumps({"main_path": stats}))
+        round2 = second_round(engine, attention, prompts)
     finally:
         engine.stop()
+    round2.update(round2_plain_checks(engine, model, round2,
+                                      quant=bool(quant_kv)))
+    round2.update(time_windows(engine))
+    log(json.dumps({"round2": {k: v for k, v in round2.items()
+                               if not k.startswith("_")}}))
+    stats["round2"] = {k: v for k, v in round2.items()
+                       if not k.startswith("_")}
     tf = dict(runner=runner, window=engine.decode_window, prompt=prompts[0],
               generated=results[0]["tokens"], attention=attention,
               model=model)
@@ -429,12 +456,254 @@ def main_path(attention, model, quant_kv: str | None) -> dict:
         assert cos > MIN_COSINE, cos
         stats["int8_vs_bf16_min_cosine"] = cos
     # Release the engine's weights and pool before the next phase.
-    del engine, runner, tf, logits
+    del engine, runner, tf, logits, round2
     gc.collect()
     torch.cuda.empty_cache()
     log(f"released: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still "
         f"allocated")
     return stats
+
+
+def second_round(engine, attention, round1_prompts) -> dict:
+    """Serve the second round on ``engine`` (which served round 1): four
+    greedy requests opening with 1024 tokens of round 1's request
+    SHARED_FROM (its pages stay registered under their block hashes after
+    it finishes) and 200 of their own, a
+    penalised greedy request with logprobs, a seeded sampled one with
+    logprobs, and a 6000-token greedy prompt submitted last, whose three
+    chunks interleave with the others' decode windows. Checks what the
+    engine counted; returns the round's numbers and, under keys that
+    start with "_", what the plain-path checks need."""
+    from dynamo_tpu_torch.llm.tokens import compute_block_hashes
+    from dynamo_tpu_torch.profile_decode import (
+        LOGPROBS, MAX_PREFILL_TOKENS, ROUND2_MAX_TOKENS, SHARED_FROM,
+        SHARED_TOKENS, round2_requests, serve)
+    runner, spec = engine.runner, engine.runner.spec
+    requests = round2_requests(spec, round1_prompts[SHARED_FROM],
+                               np.random.default_rng(1))
+    prompts = [r["token_ids"] for r in requests]
+    # The first-token logits of every prefill row over history.
+    captured = []
+    plain_batch = runner.prefill_batch
+
+    def capture(seqs, slots=None, count_rows=None):
+        out = plain_batch(seqs, slots=slots, count_rows=count_rows)
+        for i, seq in enumerate(seqs):
+            if seq.start_pos:
+                captured.append((seq.start_pos, seq.tokens.tolist(),
+                                 runner.last_prefill_logits[i].clone()))
+        return out
+
+    hits0, lookups0 = engine.prefix_hit_blocks, engine.prefix_lookup_blocks
+    windows0, chunks0 = engine.windows_dispatched, len(engine.chunk_records)
+    runner.prefill_batch = capture
+    attention.KERNEL.launches = 0
+    attention.KERNEL.launches_int8 = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.monotonic()
+        results = asyncio.run(serve(engine, requests))
+        wall = time.monotonic() - t0
+        torch.cuda.synchronize()
+        launches = {"paged_attention_hist": attention.KERNEL.launches,
+                    "paged_attention_hist_int8":
+                        attention.KERNEL.launches_int8}
+    finally:
+        del runner.prefill_batch
+    peak = torch.cuda.max_memory_allocated()
+    windows = engine.windows_dispatched - windows0
+    for i, r in enumerate(results):
+        assert r["finish"] == "length", (i, r["finish"])
+        assert len(r["tokens"]) == ROUND2_MAX_TOKENS, (i, len(r["tokens"]))
+    hits = engine.prefix_hit_blocks - hits0
+    lookups = engine.prefix_lookup_blocks - lookups0
+    assert hits >= 4 * SHARED_TOKENS // engine.config.page_size, hits
+    chunks = list(engine.chunk_records)[chunks0:]
+    assert [c["start"] for c in chunks] == [0, MAX_PREFILL_TOKENS,
+                                            2 * MAX_PREFILL_TOKENS], chunks
+    assert chunks[-1]["final"] and not chunks[0]["final"], chunks
+    assert chunks[-1]["windows_before"] > chunks[0]["windows_before"], (
+        "no decode window ran between the long prompt's chunks", chunks)
+    ran, idle = (("paged_attention_hist_int8", "paged_attention_hist")
+                 if runner.quant_kv == "int8" else
+                 ("paged_attention_hist", "paged_attention_hist_int8"))
+    expected = windows * engine.decode_window * spec.num_layers
+    assert launches[ran] == expected and expected > 0, (launches, expected)
+    assert launches[idle] == 0, launches
+    for r in results[4:6]:
+        assert len(r["log_probs"]) == len(r["top_log_probs"]) == \
+            ROUND2_MAX_TOKENS
+        assert all(len(t) == LOGPROBS for t in r["top_log_probs"])
+        assert all(np.isfinite(r["log_probs"]))
+    t0 = time.perf_counter()
+    for _ in range(3):
+        compute_block_hashes(prompts[-1], engine.config.page_size)
+    hash_ms = (time.perf_counter() - t0) / 3 / len(prompts[-1]) * 1e3 * 1e3
+    ttft = sorted(r["ttft_s"] * 1e3 for r in results)
+    n_tok = sum(len(r["tokens"]) for r in results)
+    out = {"requests": len(results), "tokens": n_tok, "wall_s": wall,
+           "tok_per_s": n_tok / wall, "ttft_ms_median": ttft[len(ttft) // 2],
+           "ttft_ms_max": ttft[-1],
+           "long_prompt_ttft_ms": results[-1]["ttft_s"] * 1e3,
+           "prefix_hit_blocks": hits, "prefix_lookup_blocks": lookups,
+           "prefix_hit_ratio": hits / lookups,
+           "chunks": len(chunks),
+           "chunk_device_ms": [c["device_ms"] for c in chunks],
+           "chunk_windows_before": [c["windows_before"] - windows0
+                                    for c in chunks],
+           "peak_memory_gib": peak / 2**30,
+           "hash_ms_per_1000_tokens": hash_ms, "windows": windows,
+           "kernel_launches": launches[ran], "launches": launches,
+           "_prompts": prompts, "_results": results, "_captured": captured}
+    return out
+
+
+def plain_forced_logits(runner, model, prompt, tokens, quant: bool):
+    """The plain path's logits behind each of ``tokens``: the first from a
+    whole-prompt prefill of ``prompt`` into a private pool (int8 with
+    ``quant``), the others from teacher-forced decode steps fed
+    ``tokens[:-1]`` with the plain gather attention."""
+    from dynamo_tpu_torch.engine.kv_quant import QuantKV
+    spec, cfg, dev = runner.spec, runner.config, runner.device
+    page, n = cfg.page_size, len(prompt)
+    bucket = cfg.bucket_for(n)
+    steps = len(tokens) - 1
+    pages = bucket // page + -(-steps // page) + 1
+    shape = (spec.num_layers, spec.num_kv_heads, pages + 1, page,
+             spec.head_dim)
+
+    def pool():
+        if quant:
+            return QuantKV(torch.zeros(shape, dtype=torch.int8, device=dev),
+                           torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=dev))
+        return torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+
+    kc, vc = pool(), pool()
+    table = torch.arange(1, pages + 1, dtype=torch.int32, device=dev)[None]
+    tok = torch.zeros((1, bucket), dtype=torch.int32, device=dev)
+    tok[0, :n] = torch.tensor(prompt, dtype=torch.int32)
+    pos = torch.clamp(torch.arange(bucket, device=dev), max=n - 1)[None]
+    first, _, _ = model.prefill_forward(
+        runner.params, spec, kc, vc, tok, pos.to(torch.int32),
+        table[:, :bucket // page],
+        torch.tensor([n], dtype=torch.int32, device=dev))
+    out = [first[0]]
+    if steps:
+        hist = torch.tensor([n], dtype=torch.int32, device=dev)
+        kbuf = torch.zeros((spec.num_layers, spec.num_kv_heads, 1, steps,
+                            spec.head_dim), dtype=torch.bfloat16, device=dev)
+        vbuf = torch.zeros_like(kbuf)
+    for m in range(steps):
+        logits, k_new, v_new = model.decode_window_step(
+            runner.params, spec, kc, vc, kbuf, vbuf, m,
+            torch.tensor([tokens[m]], dtype=torch.int32, device=dev),
+            torch.tensor([n + m], dtype=torch.int32, device=dev), table,
+            hist)
+        kbuf[:, :, :, m] = k_new.transpose(1, 2)
+        vbuf[:, :, :, m] = v_new.transpose(1, 2)
+        out.append(logits[0])
+    return out
+
+
+def round2_plain_checks(engine, model, round2, quant: bool) -> dict:
+    """Hold the second round against the plain path on the card:
+    the first-token logits of a prefix-hit request and of the long prompt
+    (history prefill, chunks for the long one) against the same prompts
+    prefilled whole; the penalised request's tokens against a
+    teacher-forced plain path with the same penalties, at clear margins
+    (two logits within LOGIT_ATOL can swap only within 2 x LOGIT_ATOL),
+    and its logprobs against that path's log_softmax."""
+    from dynamo_tpu_torch.profile_decode import (
+        LOGPROBS, MAX_PREFILL_TOKENS, PENALTIES, SHARED_TOKENS)
+    runner = engine.runner
+    prompts, results = round2["_prompts"], round2["_results"]
+    out = {}
+    for name, start, prompt in (
+            ("prefix_hit", SHARED_TOKENS, prompts[0]),
+            ("long_prompt", 2 * MAX_PREFILL_TOKENS, prompts[-1])):
+        got = [lg for s, toks, lg in round2["_captured"]
+               if s == start and toks == prompt[start:]]
+        assert len(got) == 1, (name, len(got))
+        want = plain_forced_logits(runner, model, prompt, [0], quant)[0]
+        diff = float((got[0] - want).abs().max())
+        assert torch.isfinite(got[0]).all(), name
+        log(f"{name}: first-token logits over history vs whole-prompt "
+            f"plain prefill: max|diff|={diff:.4f} (tolerance {LOGIT_ATOL})")
+        assert diff <= LOGIT_ATOL, (name, diff)
+        out[f"{name}_logit_max_abs_diff"] = diff
+    pen = results[4]
+    logits = plain_forced_logits(runner, model, prompts[4], pen["tokens"],
+                                 quant)
+    counts = torch.zeros_like(logits[0])
+    agree, lp_diff = 0, 0.0
+    for i, (tok, lg) in enumerate(zip(pen["tokens"], logits)):
+        lg = (lg - PENALTIES["frequency_penalty"] * counts
+              - PENALTIES["presence_penalty"] * (counts > 0))
+        top2 = torch.topk(lg, 2).values
+        if int(lg.argmax()) == tok:
+            agree += 1
+        else:
+            margin = float(top2[0] - top2[1])
+            assert margin <= 2 * LOGIT_ATOL, (
+                f"penalised token {i}: {tok} != plain argmax at margin "
+                f"{margin}")
+        lsm = torch.log_softmax(lg, dim=-1)
+        top_v = torch.topk(lsm, LOGPROBS).values.cpu().numpy()
+        emitted = [x["logprob"] for x in pen["top_log_probs"][i]]
+        lp_diff = max(lp_diff, abs(pen["log_probs"][i] - float(lsm[tok])),
+                      float(np.abs(np.asarray(emitted) - top_v).max()))
+        counts[tok] += 1
+    log(f"penalised request: {agree}/{len(logits)} tokens are the plain "
+        f"path's argmax; logprobs and top-{LOGPROBS} within "
+        f"{lp_diff:.4f} of its log_softmax (tolerance {LOGIT_ATOL})")
+    assert lp_diff <= LOGIT_ATOL, lp_diff
+    out.update(penalised_tokens_agree=agree, logprob_max_abs_diff=lp_diff)
+    return out
+
+
+def time_windows(engine, rows: int = 8, hist: int = 1224,
+                 reps: int = 3) -> dict:
+    """Device-synchronised ms of one decode window, run alone on the
+    stopped engine's runner over ``rows`` live rows of ``hist`` tokens in
+    fresh pages, with and without one row asking for logprobs (in turns:
+    without, with, with, without)."""
+    from dynamo_tpu_torch.engine import runner as trunner
+    runner, cfg = engine.runner, engine.config
+    page, M = cfg.page_size, engine.decode_window
+    per_row = -(-(hist + M) // page)
+    pages = engine.allocator.allocate(rows * per_row)
+    width = runner.bucket_pages_for(per_row)
+    packed = np.zeros((cfg.max_num_seqs, trunner.PK_PREFIX + width),
+                      np.int32)
+    for i in range(rows):
+        packed[i, trunner.PK_OVERRIDE] = 1
+        packed[i, trunner.PK_POS] = hist
+        packed[i, trunner.PK_SEQLEN] = hist + 1
+        packed[i, trunner.PK_TOPP] = np.float32(1.0).view(np.int32)
+        packed[i, trunner.PK_CAP] = per_row * page
+        packed[i, trunner.PK_PREFIX:trunner.PK_PREFIX + per_row] = \
+            pages[i * per_row:(i + 1) * per_row]
+    times = {False: [], True: []}
+    try:
+        for want_lp in (False, True) + (False, True, True, False) * reps:
+            packed[0, trunner.PK_LOGPROB] = int(want_lp)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runner.decode_window(packed, M)
+            torch.cuda.synchronize()
+            times[want_lp].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        engine.allocator.release(pages)
+    plain, with_lp = (sorted(times[k][1:]) for k in (False, True))
+    log(f"decode window alone ({rows} rows x {hist} tokens, M={M}): "
+        f"{plain[len(plain) // 2]:.2f} ms without logprobs, "
+        f"{with_lp[len(with_lp) // 2]:.2f} ms with one logprobs row")
+    return {"window_ms_without_logprobs": plain[len(plain) // 2],
+            "window_ms_with_logprobs": with_lp[len(with_lp) // 2],
+            "window_ms_samples": {"without_logprobs": times[False],
+                                  "with_logprobs": times[True]}}
 
 
 def kernel_entry(name, variant, timing, main, max_err, stats) -> dict:
@@ -444,6 +713,7 @@ def kernel_entry(name, variant, timing, main, max_err, stats) -> dict:
             "source": "dynamo_tpu_torch/csrc/paged_attention.cu",
             "replaces": "dynamo_tpu/engine/attention.py:72",
             "variant": variant, "launches": stats["kernel_launches"],
+            "launches_round2": stats["round2"]["kernel_launches"],
             "max_abs_err": max(max_err, timing["max_abs_err"],
                                main["max_abs_err"]),
             "ms": timing["ms"], "plain_ms": timing["plain_ms"],

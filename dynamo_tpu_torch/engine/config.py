@@ -199,12 +199,51 @@ class EngineConfig:
         nice = (1, 2, 4, 8, 12, 16, 24, 32, 48, 64)
         return min(nice, key=lambda m: abs(m - raw))
 
+    def resolve_prefill_chunk_tokens(self) -> int:
+        """Resolve ``prefill_chunk_tokens="auto"`` to the chunk budget: the
+        prompt tokens the engine dispatches as prefill chunks per loop
+        iteration before the next decode window.
+
+        Cost model: a chunk of n tokens costs about max(1, n / knee)
+        weight-read periods. Below the knee a chunk is bound by reading
+        the weights once, above it by compute (linear in n); the knee is
+        the device's operations per byte of weights read. 256 tokens is
+        the JAX package's default, not a measurement of this card;
+        DTPU_PREFILL_KNEE_TOK sets it per part. The budget is sized so one
+        iteration's chunk work costs about one DTPU_WINDOW_TARGET_MS
+        window period, then rounded down to a prefill bucket (chunks pad
+        to buckets). DTPU_PREFILL_CHUNK_TOKENS overrides the field."""
+        val = self.prefill_chunk_tokens
+        env = os.environ.get("DTPU_PREFILL_CHUNK_TOKENS")
+        if env:
+            val = env if env.strip() == "auto" else int(env)
+        if not isinstance(val, str):
+            if val < 1:
+                raise ValueError(
+                    f"prefill_chunk_tokens must be >= 1, got {val}")
+            return max(self.page_size, int(val))
+        if val != "auto":
+            raise ValueError(
+                f"prefill_chunk_tokens must be an int or 'auto', "
+                f"got {val!r}")
+        target_ms = float(os.environ.get("DTPU_WINDOW_TARGET_MS", "75"))
+        step_ms = self.model.weight_read_step_ms(self.tp, self.pp)
+        knee = float(os.environ.get("DTPU_PREFILL_KNEE_TOK", "256"))
+        raw = int(knee * max(1.0, target_ms / max(step_ms, 1e-6)))
+        raw = min(raw, self.max_prefill_tokens, self.prefill_buckets[-1])
+        fit = [b for b in self.prefill_buckets if b <= raw]
+        return max(self.page_size, fit[-1] if fit else raw)
+
     @property
     def max_model_len(self) -> int:
+        """Longest sequence (prompt plus generated tokens) the engine
+        serves: the only bound on what it accepts."""
         return self.max_pages_per_seq * self.page_size
 
     @property
     def max_prompt_len(self) -> int:
-        """Longest prompt one whole-prompt prefill takes. Longer prompts
-        need chunked prefill, which this port does not have yet."""
+        """Longest prefill one program takes (a whole prompt or one
+        chunk). Longer prompts, and prompt rests after a prefix-cache
+        hit, are prefilled in chunks of at most this many tokens; it does
+        not bound what the engine accepts (``max_model_len`` does)."""
         return min(self.max_prefill_tokens, self.prefill_buckets[-1])

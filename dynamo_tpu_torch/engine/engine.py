@@ -2,21 +2,30 @@
 ``dynamo_tpu.engine.engine.TPUEngine``).
 
 The engine thread owns all device work. Each loop it admits waiting
-requests (batched whole-prompt prefill onto PageAllocator pages; the
-first token stays on the device and is read back asynchronously), then
-decodes in M-step windows: one ``runner.decode_window`` enqueues M steps
-for every slot with tokens chained on the device. Up to
+requests, dispatches at most ``prefill_chunk_tokens`` of chunk work for
+long prompts, then decodes in M-step windows: one ``runner.decode_window``
+enqueues M steps for every slot with tokens chained on the device. Up to
 ``pipeline_depth`` windows are in flight; while the device runs them the
 host processes the oldest window's tokens, emits them to the streams,
 applies stop conditions and prepares the next page tables.
 
-KV pressure: when the pool is exhausted mid-decode the engine preempts
-the youngest slot, releases its pages and requeues the request to
-re-prefill from its accumulated tokens.
+Admission hashes each prompt into chained page-sized blocks
+(``llm/tokens.py``) and pins the longest cached prefix
+(``PageAllocator.acquire_cached``); the rest is prefilled over that
+history. A rest that fits one prefill program joins a batched prefill;
+a longer one takes stall-free chunked prefill: page-aligned chunks
+dispatched between decode windows, with no host readback until the final
+chunk's first token. Pages are registered under their block hashes at
+placement and as generated tokens complete blocks, so later requests
+(and a preempted request's re-prefill) reuse them. The first token of
+every prefill stays on the device and is read back asynchronously.
 
-Not ported yet (later slices): prefix reuse and history/chunked prefill
-(so every prompt must fit one prefill bucket), penalties, logprobs, spec
-decode, LoRA, KV tiers, disaggregation, metrics publishing.
+KV pressure: when the pool is exhausted mid-decode the engine preempts
+the youngest slot (or a request still prefilling), releases its pages
+and requeues the request to re-prefill from its accumulated tokens.
+
+Not ported yet (later slices): spec decode, LoRA, multimodal, KV host and
+disk tiers, KV events, disaggregation, metrics publishing.
 """
 
 from __future__ import annotations
@@ -35,11 +44,13 @@ import torch
 from dynamo_tpu_torch.engine.config import EngineConfig
 from dynamo_tpu_torch.engine.kv_cache import PageAllocator
 from dynamo_tpu_torch.engine.runner import (
-    PK_CAP, PK_OVERRIDE, PK_POS, PK_PREFIX, PK_SEED, PK_SEEDED, PK_SEQLEN,
-    PK_TEMP, PK_TOKEN, PK_TOPK, PK_TOPP, ModelRunner, PrefillSeq, mask_seed)
+    PK_CAP, PK_FREQPEN, PK_LOGPROB, PK_OVERRIDE, PK_POS, PK_PREFIX,
+    PK_PRESPEN, PK_SEED, PK_SEEDED, PK_SEQLEN, PK_TEMP, PK_TOKEN, PK_TOPK,
+    PK_TOPP, TOP_LOGPROBS, ModelRunner, PrefillSeq, mask_seed)
 from dynamo_tpu_torch.engine.sampler import MAX_TOPK
 from dynamo_tpu_torch.llm.protocols import (FinishReason, LLMEngineOutput,
                                             PreprocessedRequest)
+from dynamo_tpu_torch.llm.tokens import TokenBlockSequence
 from dynamo_tpu_torch.runtime.context import Context
 from dynamo_tpu_torch.runtime.engine import AsyncEngine
 from dynamo_tpu_torch.runtime.logging import get_logger
@@ -48,30 +59,64 @@ log = get_logger("gpu_engine")
 
 
 class _Readback:
-    """A device result copied to pinned host memory without waiting.
+    """Device results copied to pinned host memory without waiting.
 
     ``.cpu()`` would synchronise the whole stream, including windows
-    dispatched after this one, and so drain the pipeline; the copy is
-    instead queued behind the producing work and fenced by an event."""
+    dispatched after this one, and so drain the pipeline; the copies are
+    instead queued behind the producing work and fenced by one event.
+    ``tensors`` may hold None entries, which read back as None."""
 
-    def __init__(self, tensor: torch.Tensor):
-        if tensor.is_cuda:
-            self._host = torch.empty(tensor.shape, dtype=tensor.dtype,
-                                     pin_memory=True)
-            self._host.copy_(tensor, non_blocking=True)
-            self._event = torch.cuda.Event()
+    def __init__(self, tensors):
+        self._event = None
+        self._host = []
+        for t in tensors:
+            if t is not None and t.is_cuda:
+                host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                host.copy_(t, non_blocking=True)
+                t = host
+                if self._event is None:
+                    self._event = torch.cuda.Event()
+            self._host.append(t)
+        if self._event is not None:
             self._event.record()
-        else:
-            self._host = tensor
-            self._event = None
 
     def ready(self) -> bool:
         return self._event is None or self._event.query()
 
-    def numpy(self) -> np.ndarray:
+    def numpy(self) -> list:
         if self._event is not None:
             self._event.synchronize()
-        return self._host.numpy()
+        return [None if t is None else t.numpy() for t in self._host]
+
+
+class _Fence:
+    """Marks the device work enqueued between construction and ``close``:
+    ``ready`` says whether it finished, ``device_ms`` how long it ran on
+    the device. On the CPU the work is done when enqueued."""
+
+    def __init__(self, device: torch.device):
+        self._events = None
+        if device.type == "cuda":
+            self._events = (torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True))
+            self._events[0].record()
+
+    def close(self) -> "_Fence":
+        if self._events is not None:
+            self._events[1].record()
+        return self
+
+    def ready(self) -> bool:
+        return self._events is None or self._events[1].query()
+
+    def wait(self) -> None:
+        if self._events is not None:
+            self._events[1].synchronize()
+
+    def device_ms(self) -> float | None:
+        if self._events is None:
+            return None
+        return self._events[0].elapsed_time(self._events[1])
 
 
 @dataclasses.dataclass
@@ -81,16 +126,24 @@ class _Request:
     out_q: asyncio.Queue
     loop: asyncio.AbstractEventLoop
     tokens_all: list[int] = dataclasses.field(default_factory=list)
+    # Hashed blocks of the tokens whose K/V is in the pool.
+    blocks: TokenBlockSequence | None = None
     pages: list[int] = dataclasses.field(default_factory=list)
     generated: int = 0
     slot: int = -1
     epoch: int = 0
     # None = first token still on device (async readback pending).
     last_token: int | None = -1
+    reuse_tokens: int = 0  # cached-prefix tokens pinned by the last plan
     enqueue_t: float = dataclasses.field(default_factory=time.monotonic)
     # Upper bound on total sequence length (prompt + max_tokens): dispatch
     # never allocates pages past it.
     len_cap: int = 2**30
+    # Stall-free chunked prefill: while True the request owns a slot and
+    # pages but is prefilled by scheduled chunk dispatches (decode windows
+    # skip the slot). prefill_pos is the next prompt position to dispatch.
+    prefilling: bool = False
+    prefill_pos: int = 0
 
     def push(self, item) -> None:
         self.loop.call_soon_threadsafe(self.out_q.put_nowait, item)
@@ -98,7 +151,7 @@ class _Request:
 
 @dataclasses.dataclass
 class _Window:
-    toks: _Readback | None  # [M,B] tokens (None when no rows dispatched)
+    toks: _Readback | None  # tokens [M,B] + logprobs (None: no rows)
     slots: list             # per slot: (request, epoch, start_pos, cap) or None
     frozen: dict            # slot -> (request, epoch, "requeue" | "oom")
     size: int
@@ -111,6 +164,7 @@ class GPUEngine(AsyncEngine):
                  seed: int = 0):
         self.config = config
         self.decode_window = config.resolve_decode_window()
+        self.prefill_chunk_tokens = config.resolve_prefill_chunk_tokens()
         self.runner = ModelRunner(config, params=params, seed=seed)
         self.allocator = PageAllocator(self.runner.num_pages, config.page_size)
         b = config.max_num_seqs
@@ -121,6 +175,8 @@ class GPUEngine(AsyncEngine):
         self.temperature = np.zeros(b, np.float32)
         self.top_k = np.zeros(b, np.int32)
         self.top_p = np.ones(b, np.float32)
+        self.freq_pen = np.zeros(b, np.float32)
+        self.pres_pen = np.zeros(b, np.float32)
         self.seeds = np.zeros(b, np.int32)
         self.seeded = np.zeros(b, bool)
         self.overrides: dict[int, int] = {}  # slot -> first token next window
@@ -134,12 +190,29 @@ class GPUEngine(AsyncEngine):
         # Pages freed while windows that may still scatter to them are in
         # flight: (serial of the newest dispatched window, pages).
         self._pending_release: list[tuple[int, list[int]]] = []
+        # Requests in stall-free chunked prefill, and their dispatched
+        # chunks not yet seen complete (oldest first).
+        self._prefilling: list[_Request] = []
+        self._chunk_inflight: collections.deque[dict] = collections.deque()
         self._running = False
         self._thread: threading.Thread | None = None
         self.windows_dispatched = 0    # windows with device work
         self.preempt_count = 0
+        self.prefix_hit_blocks = 0     # cached blocks pinned at admission
+        self.prefix_lookup_blocks = 0  # blocks looked up at admission
+        # Pages that live slots stalled for at the last window dispatch:
+        # admission leaves them free, or a requeued request would take
+        # back the pages its preemption freed for them, again and again.
+        self._stalled_pages = 0
+        self.chunk_tokens_total = 0    # prompt tokens dispatched as chunks
+        self.chunk_dispatch_count = 0  # chunk programs dispatched
         # Dispatch -> tokens-on-host seconds of recent windows.
         self.window_seconds: collections.deque[float] = \
+            collections.deque(maxlen=4096)
+        # Completed chunks: {"request", "start", "tokens", "final",
+        # "windows_before" (windows dispatched before the chunk),
+        # "device_ms" (None on the CPU)}.
+        self.chunk_records: collections.deque[dict] = \
             collections.deque(maxlen=4096)
 
     # -- lifecycle ------------------------------------------------------------
@@ -166,23 +239,18 @@ class GPUEngine(AsyncEngine):
             raise ValueError(
                 f"prompt length {len(req.token_ids)} exceeds max model len "
                 f"{cfg.max_model_len}")
-        if len(req.token_ids) > cfg.max_prompt_len:
-            raise ValueError(
-                f"prompt length {len(req.token_ids)} exceeds the longest "
-                f"whole-prompt prefill ({cfg.max_prompt_len}); chunked "
-                f"prefill is not ported yet")
-        s = req.sampling_options
         unsupported = []
-        if s.logprobs is not None:
-            unsupported.append("logprobs")
-        if s.frequency_penalty or s.presence_penalty:
-            unsupported.append("frequency/presence penalties")
         if req.adapter:
             unsupported.append("LoRA adapters")
         if req.mm_embeds:
             unsupported.append("multimodal embeddings")
         if unsupported:
             raise ValueError("not ported yet: " + ", ".join(unsupported))
+        s = req.sampling_options
+        if s.logprobs is not None and s.logprobs > TOP_LOGPROBS:
+            log.warning("top_logprobs=%d exceeds cap %d; clamping",
+                        s.logprobs, TOP_LOGPROBS)
+            s.logprobs = TOP_LOGPROBS
         if s.top_k and s.top_k > MAX_TOPK:
             log.warning("top_k=%d exceeds sampler cap %d; clamping",
                         s.top_k, MAX_TOPK)
@@ -190,6 +258,13 @@ class GPUEngine(AsyncEngine):
         if s.seed is not None and not 0 <= s.seed <= 0x7FFFFFFF:
             log.warning("seed=%s outside the engine's 31-bit seed space; "
                         "using %d", s.seed, mask_seed(s.seed))
+        for field in ("frequency_penalty", "presence_penalty"):
+            val = getattr(s, field)
+            if val is not None and not -2.0 <= val <= 2.0:
+                clamped = max(-2.0, min(2.0, val))
+                log.warning("%s=%s outside [-2, 2]; clamping to %s",
+                            field, val, clamped)
+                setattr(s, field, clamped)
 
     async def generate(self, request, context: Context) -> AsyncIterator[dict]:
         """Stream wire dicts (``LLMEngineOutput.to_wire()``) for one
@@ -217,18 +292,26 @@ class GPUEngine(AsyncEngine):
 
     # -- engine loop ----------------------------------------------------------
     def _engine_loop(self) -> None:
-        log.info("engine loop starting (slots=%d pages=%d window=%d)",
-                 self.config.max_num_seqs, self.runner.num_pages,
-                 self.decode_window)
+        log.info("engine loop starting (slots=%d pages=%d window=%d "
+                 "chunk=%d)", self.config.max_num_seqs, self.runner.num_pages,
+                 self.decode_window, self.prefill_chunk_tokens)
         depth = max(1, self.config.pipeline_depth)
         while self._running:
             self._resolve_ready_first()
+            self._retire_chunks()
             try:
                 admitted = self._admit()
             except Exception:  # noqa: BLE001 — keep serving
                 log.exception("admission failed")
                 admitted = False
-            have_active = any(r is not None for r in self.slot_req)
+            # At most prefill_chunk_tokens of chunk work before the decode
+            # window, so a long prompt delays live decode slots by about one
+            # chunk per window instead of by the whole prompt.
+            chunk_dispatched = self._dispatch_prefill_chunks()
+            have_active = any(r is not None and not r.prefilling
+                              for r in self.slot_req)
+            if not have_active:
+                self._stalled_pages = 0  # no decode slot is waiting
             dispatched = False
             if have_active and len(self._inflight) < depth:
                 try:
@@ -236,9 +319,9 @@ class GPUEngine(AsyncEngine):
                 except Exception as exc:  # noqa: BLE001 — fail all, keep serving
                     log.exception("decode window dispatch failed")
                     for i, r in enumerate(self.slot_req):
-                        if r is not None:
+                        if r is not None and not r.prefilling:
                             r.push(RuntimeError(f"engine step failed: {exc}"))
-                            self._finish_slot(i)
+                            self._finish_slot(i, register=False)
                 else:
                     if window.toks is None:
                         self._do_process(window)
@@ -251,11 +334,15 @@ class GPUEngine(AsyncEngine):
                                    or not dispatched):
                 self._do_process(self._inflight.popleft())
             self._release_ready_pages()
-            if self._inflight:
+            if self._inflight or chunk_dispatched:
                 continue
-            if self._pending_first:
+            if not have_active and self._chunk_inflight:
+                # Prefill-only phase at full chunk depth: wait for the
+                # oldest chunk instead of spinning.
+                self._retire_chunks(block=True)
+            elif self._pending_first:
                 self._resolve_ready_first(force=True)
-            elif not admitted and not have_active:
+            elif not admitted and not have_active and not self._prefilling:
                 time.sleep(0.002)  # idle
 
     def _release_ready_pages(self) -> None:
@@ -288,13 +375,13 @@ class GPUEngine(AsyncEngine):
 
     def _resolve_first(self, entry: dict) -> None:
         try:
-            vals = entry["handle"].numpy()
+            vals, lps, top_vs, top_is = entry["handle"].numpy()
         except Exception as exc:  # noqa: BLE001 — device fault at readback
             log.exception("first-token readback failed")
             for _, r, slot, epoch in entry["rows"]:
                 if self.slot_req[slot] is r and r.epoch == epoch:
                     r.push(RuntimeError(f"prefill readback failed: {exc}"))
-                    self._finish_slot(slot)
+                    self._finish_slot(slot, register=False)
             return
         for row, r, slot, epoch in entry["rows"]:
             if self.slot_req[slot] is not r or r.epoch != epoch:
@@ -302,11 +389,18 @@ class GPUEngine(AsyncEngine):
             tok = int(vals[row])
             r.generated += 1
             finish = self._check_finish(r, tok)
-            self._emit(r, [tok], finish)
+            lp_out = None
+            k = r.req.sampling_options.logprobs
+            if k is not None:
+                lp_out = ([float(lps[row])],
+                          [[{"token_id": int(top_is[row, j]),
+                             "logprob": float(top_vs[row, j])}
+                            for j in range(k)]])
+            self._emit(r, [tok], finish, lp_out)
             r.last_token = tok
             r.tokens_all.append(tok)
             if finish is not None:
-                self._finish_slot(slot)
+                self._finish_slot(slot, register=True)
 
     def _do_process(self, w: _Window) -> None:
         try:
@@ -319,7 +413,7 @@ class GPUEngine(AsyncEngine):
                 if snap is not None and self.slot_req[i] is snap[0]:
                     snap[0].push(RuntimeError(
                         f"window processing failed: {exc}"))
-                    self._finish_slot(i)
+                    self._finish_slot(i, register=False)
 
     # -- admission / prefill --------------------------------------------------
     def _admit(self) -> bool:
@@ -346,26 +440,51 @@ class GPUEngine(AsyncEngine):
                 # No KV room: put back and stop admitting.
                 self.waiting.put(r)
                 break
-            staged.append((r, free_slots.pop(0), plan))
+            slot = free_slots.pop(0)
+            if plan == "chunked":
+                # The long prompt becomes scheduled chunk work; the slot
+                # and every page are held now, and decode windows skip the
+                # slot until the final chunk places it.
+                r.prefilling = True
+                r.prefill_pos = r.reuse_tokens
+                r.slot = slot
+                self.slot_req[slot] = r
+                self.disp_positions[slot] = 0
+                self.disp_seq_lens[slot] = 0
+                self.overrides.pop(slot, None)
+                self._prefilling.append(r)
+                continue
+            staged.append((r, slot, plan))
         if not staged:
             return False
-        # Batch staged prompts while the padded batch stays within
-        # max_prefill_tokens (the dense prefill's score tensor grows with
-        # rows x bucket^2).
+        # Batch the staged rows, those with history apart from those
+        # without, while the padded batch stays within max_prefill_tokens.
         groups: list[list] = []
-        for item in staged:
-            trial = (groups[-1] if groups else []) + [item]
-            n_max = max(len(p.tokens) for _, _, p in trial)
-            if groups and len(trial) * cfg.bucket_for(n_max) \
-                    <= cfg.max_prefill_tokens:
-                groups[-1] = trial
-            else:
-                groups.append([item])
+        for with_h in (False, True):
+            group: list = []
+            for item in staged:
+                if (item[2].hist_pages is not None) != with_h:
+                    continue
+                trial = group + [item]
+                n_max = max(len(p.tokens) for _, _, p in trial)
+                if group and len(trial) * cfg.bucket_for(n_max) \
+                        <= cfg.max_prefill_tokens:
+                    group = trial
+                else:
+                    if group:
+                        groups.append(group)
+                    group = [item]
+            if group:
+                groups.append(group)
         for group in groups:
+            counts = None
+            if any(any(p.penalties) for _, _, p in group):
+                counts = np.stack([self._count_row_of(r)
+                                   for r, _, _ in group])
             try:
-                sampled = self.runner.prefill_batch(
+                outs = self.runner.prefill_batch(
                     [p for _, _, p in group],
-                    slots=[s for _, s, _ in group])
+                    slots=[s for _, s, _ in group], count_rows=counts)
             except Exception as exc:  # noqa: BLE001
                 log.exception("batched prefill failed")
                 for r, _, _ in group:
@@ -377,37 +496,213 @@ class GPUEngine(AsyncEngine):
             for row, (r, slot, _) in enumerate(group):
                 self._place_in_slot_pending(r, slot)
                 rows.append((row, r, slot, r.epoch))
-            self._pending_first.append({"handle": _Readback(sampled),
+            self._pending_first.append({"handle": _Readback(outs),
                                         "rows": rows})
         return True
 
-    def _plan_prefill(self, r: _Request) -> PrefillSeq | None:
-        """Allocate the prompt's pages. Prefix reuse is off until history
-        prefill is ported, so every prompt is prefilled whole."""
+    def _plan_prefill(self, r: _Request):
+        """Pin the cached prefix pages and allocate the rest. Returns a
+        PrefillSeq (one prefill program), "chunked" (the rest is longer
+        than one program takes: scheduled chunks), or None (no KV room)."""
         cfg = self.config
+        page = cfg.page_size
         prompt = r.tokens_all
-        if len(prompt) > cfg.max_prompt_len:
-            # A preempted request whose tokens outgrew one prefill bucket.
-            raise ValueError(f"{len(prompt)} tokens exceed the longest "
-                             f"whole-prompt prefill ({cfg.max_prompt_len})")
-        pages = self.allocator.allocate(-(-len(prompt) // cfg.page_size))
-        if pages is None:
-            return None
-        r.pages = pages
+        r.blocks = TokenBlockSequence(page, prompt)
+        hashes = r.blocks.block_hashes
+        # Exact reproduction for seeded sampling: prefix reuse changes
+        # which program computes the tail, and low-bit logit differences
+        # flip near-ties under temperature sampling, so the same (prompt,
+        # seed) would depend on what is cached. First admission takes the
+        # no-reuse path; a preempted request's recompute keeps reuse (the
+        # pages it finds are its own run's history).
         s = r.req.sampling_options
-        return PrefillSeq(tokens=np.asarray(prompt, np.int32),
-                          chunk_pages=np.asarray(pages, np.int32),
-                          sampling=self._sampling_of(r), seed=s.seed)
+        canonical = (s.seed is not None and (s.temperature or 0.0) > 0.0
+                     and r.generated == 0)
+        cached = [] if canonical else self.allocator.acquire_cached(hashes)
+        if len(cached) * page >= len(prompt):
+            # Recompute at least the last token, for its logits.
+            drop = (len(cached) * page - len(prompt)) // page + 1
+            self.allocator.release(cached[len(cached) - drop:])
+            cached = cached[:len(cached) - drop]
+        reuse = len(cached) * page
+        self.prefix_lookup_blocks += max(1, len(hashes))
+        self.prefix_hit_blocks += len(cached)
+        need = -(-len(prompt) // page) - len(cached)
+        new_pages = None
+        if self.allocator.num_free - need >= self._stalled_pages:
+            new_pages = self.allocator.allocate(need)
+        if new_pages is None:
+            self.allocator.release(cached)
+            return None
+        r.pages = cached + new_pages
+        r.reuse_tokens = reuse
+        if len(prompt) - reuse > cfg.max_prompt_len:
+            return "chunked"
+        return PrefillSeq(
+            tokens=np.asarray(prompt[reuse:], np.int32), start_pos=reuse,
+            chunk_pages=np.asarray(new_pages, np.int32),
+            hist_pages=np.asarray(cached, np.int32) if cached else None,
+            sampling=self._sampling_of(r),
+            logprobs=s.logprobs is not None,
+            penalties=self._penalties_of(r), seed=s.seed)
+
+    # -- stall-free chunked prefill -------------------------------------------
+    def _chunk_seq(self, r: _Request, start: int, n: int,
+                   final: bool) -> PrefillSeq:
+        """The chunk row of ``r``'s prompt at [start, start + n). Only the
+        final chunk samples, so only it carries sampling, penalties,
+        logprobs and seed."""
+        page = self.config.page_size
+        first_page = start // page
+        seq = PrefillSeq(
+            tokens=np.asarray(r.tokens_all[start:start + n], np.int32),
+            chunk_pages=np.asarray(
+                r.pages[first_page:first_page + -(-n // page)], np.int32),
+            sampling=(0.0, 0, 1.0), start_pos=start,
+            hist_pages=(np.asarray(r.pages[:first_page], np.int32)
+                        if first_page else None))
+        if final:
+            s = r.req.sampling_options
+            seq.sampling = self._sampling_of(r)
+            seq.logprobs = s.logprobs is not None
+            seq.penalties = self._penalties_of(r)
+            seq.seed = s.seed
+        return seq
+
+    def _dispatch_prefill_chunks(self) -> bool:
+        """One scheduling pass over the prefilling requests: dispatch at
+        most ``prefill_chunk_tokens`` of chunk work, shared oldest-first
+        (non-final chunks end on a page boundary). Chunks in flight are
+        bounded by pipeline_depth, like decode windows. Returns True when
+        anything was dispatched."""
+        if not self._prefilling:
+            return False
+        page = self.config.page_size
+        depth = max(1, self.config.pipeline_depth)
+        max_chunk = self.config.max_prompt_len
+        budget = self.prefill_chunk_tokens
+        dispatched = False
+        queue_snap = sorted(self._prefilling, key=lambda x: x.enqueue_t)
+        for idx, r in enumerate(queue_snap):
+            if budget < page or len(self._chunk_inflight) >= depth:
+                break
+            if r.ctx.is_killed or r.ctx.is_stopped:
+                self._abort_prefilling(r, finish=FinishReason.CANCELLED)
+                continue
+            share = max(page, budget // (len(queue_snap) - idx))
+            remaining = len(r.tokens_all) - r.prefill_pos
+            n = min(share, max_chunk, remaining)
+            final = n >= remaining
+            if not final:
+                n = (n // page) * page
+                if n <= 0:
+                    continue
+            try:
+                self._dispatch_one_chunk(r, n, final)
+            except Exception as exc:  # noqa: BLE001
+                log.exception("chunk prefill dispatch failed")
+                self._abort_prefilling(r, error=exc)
+                continue
+            budget -= n
+            dispatched = True
+        return dispatched
+
+    def _dispatch_one_chunk(self, r: _Request, n: int, final: bool) -> None:
+        start = r.prefill_pos
+        seq = self._chunk_seq(r, start, n, final)
+        fence = _Fence(self.runner.device)
+        record = {"request": r.ctx.id, "start": start, "tokens": n,
+                  "final": final, "windows_before": self.windows_dispatched}
+        if not final:
+            # The chunk's K/V chains on the device; nothing is read back.
+            self.runner.prefill_chunk_async(seq)
+        else:
+            # The final chunk samples the first token into tokens_dev[slot]
+            # (decode windows chain from it) and its host value resolves
+            # asynchronously like any prefill's.
+            counts = (self._count_row_of(r)[None]
+                      if any(seq.penalties) else None)
+            outs = self.runner.prefill_batch([seq], slots=[r.slot],
+                                             count_rows=counts)
+            self._prefilling.remove(r)
+            r.prefilling = False
+            self._place_in_slot_pending(r, r.slot)
+            self._pending_first.append({"handle": _Readback(outs),
+                                        "rows": [(0, r, r.slot, r.epoch)]})
+        self._chunk_inflight.append({"fence": fence.close(),
+                                     "record": record})
+        r.prefill_pos = start + n
+        self.chunk_tokens_total += n
+        self.chunk_dispatch_count += 1
+
+    def _retire_chunks(self, block: bool = False) -> None:
+        """Pop completed chunks off the in-flight deque (they complete in
+        dispatch order) and record them. With ``block``, wait for the
+        oldest first."""
+        while self._chunk_inflight:
+            entry = self._chunk_inflight[0]
+            if not entry["fence"].ready():
+                if not block:
+                    break
+                entry["fence"].wait()
+                block = False  # only ever wait for the oldest
+            self._chunk_inflight.popleft()
+            self.chunk_records.append(
+                dict(entry["record"], device_ms=entry["fence"].device_ms()))
+
+    def _abort_prefilling(self, r: _Request,
+                          finish: FinishReason | None = None,
+                          error: Exception | None = None) -> None:
+        """End a request mid-chunked-prefill (cancellation or a dispatch
+        failure): free its slot and pages (deferred past in-flight device
+        work) and close the stream with the finish reason or error. Its
+        chunk pages were never registered."""
+        if r in self._prefilling:
+            self._prefilling.remove(r)
+        r.prefilling = False
+        if error is not None:
+            r.push(RuntimeError(f"prefill failed: {error}"))
+        else:
+            r.push(LLMEngineOutput(
+                token_ids=[],
+                finish_reason=finish or FinishReason.CANCELLED).to_wire())
+        self._finish_slot(r.slot, register=True)
+
+    def _preempt_prefilling(self, r: _Request) -> None:
+        """KV-pressure victim while still prefilling: drop the remaining
+        chunks and requeue the whole request (it re-prefills later)."""
+        self._prefilling.remove(r)
+        r.prefilling = False
+        self._requeue_slot(r.slot)
 
     @staticmethod
     def _sampling_of(r: _Request) -> tuple[float, int, float]:
         s = r.req.sampling_options
         return (s.temperature or 0.0, s.top_k or 0, s.top_p or 1.0)
 
+    @staticmethod
+    def _penalties_of(r: _Request) -> tuple[float, float]:
+        s = r.req.sampling_options
+        return (s.frequency_penalty or 0.0, s.presence_penalty or 0.0)
+
+    def _count_row_of(self, r: _Request) -> np.ndarray:
+        """uint8 [vocab] counts of this request's generated tokens so far
+        (penalty state; saturates at 255). tokens_all is authoritative, so
+        a preempted request's re-prefill rebuilds its counts."""
+        row = np.zeros(self.runner.spec.vocab_size, np.int64)
+        gen = r.tokens_all[len(r.req.token_ids):]
+        if gen:
+            np.add.at(row, np.asarray(gen, np.int64), 1)
+        return np.minimum(row, 255).astype(np.uint8)
+
     def _place_in_slot_pending(self, r: _Request, slot: int) -> None:
         """Occupy a slot whose first token is still on the device (in
         runner.tokens_dev): decode windows chain from it with no override;
-        the host value is emitted when the readback resolves."""
+        the host value is emitted when the readback resolves. The prompt's
+        complete blocks are registered for prefix reuse now: later device
+        work reads them after the prefill, in stream order."""
+        for idx, h in enumerate(r.blocks.block_hashes):
+            self.allocator.register(r.pages[idx], h)
         prompt_len = len(r.tokens_all)
         r.slot = slot
         r.epoch += 1
@@ -419,6 +714,7 @@ class GPUEngine(AsyncEngine):
         self.temperature[slot] = temp
         self.top_k[slot] = tk
         self.top_p[slot] = tp
+        self.freq_pen[slot], self.pres_pen[slot] = self._penalties_of(r)
         seed = r.req.sampling_options.seed
         self.seeded[slot] = seed is not None
         self.seeds[slot] = 0 if seed is None else mask_seed(seed)
@@ -435,7 +731,10 @@ class GPUEngine(AsyncEngine):
         satisfied: set[int] = set()
         deficits: dict[int, int] = {}
         needed_max = 1
-        live = [i for i, r in enumerate(self.slot_req) if r is not None]
+        # Prefilling slots have no token chain yet, and their pages were
+        # all allocated at admission.
+        live = [i for i, r in enumerate(self.slot_req)
+                if r is not None and not r.prefilling]
         n_live = len(live)
         # Allocate pages oldest-request-first (requeued requests keep their
         # original enqueue time, so they age past new arrivals).
@@ -459,7 +758,8 @@ class GPUEngine(AsyncEngine):
                 r.pages.extend(new)
             if not ok:
                 pending = sum(len(p) for _, p in self._pending_release)
-                if (n_live == 1 and needed - len(r.pages)
+                if (n_live == 1 and not self._prefilling
+                        and needed - len(r.pages)
                         > self.allocator.num_free + pending):
                     frozen[i] = (r, r.epoch, "oom")
                 else:
@@ -483,6 +783,17 @@ class GPUEngine(AsyncEngine):
                 stalled.discard(j)
                 frozen[j] = (r_j, r_j.epoch, "requeue")
                 freed += len(r_j.pages)
+            if freed < want:
+                # Then requests still prefilling, youngest first: their
+                # chunk work is recomputable, and cached prefixes make the
+                # re-prefill cheap. No in-flight window carries their slots.
+                for rp in sorted(self._prefilling,
+                                 key=lambda x: x.enqueue_t, reverse=True):
+                    if freed >= want:
+                        break
+                    freed += len(rp.pages)
+                    self._preempt_prefilling(rp)
+        self._stalled_pages = sum(deficits.values())
         active_rows = [i for i in live if i not in frozen
                        and i not in stalled and i not in satisfied]
         # This dispatch's decision supersedes earlier preemption records
@@ -512,6 +823,10 @@ class GPUEngine(AsyncEngine):
             packed[i, PK_TEMP] = self.temperature[i:i + 1].view(np.int32)[0]
             packed[i, PK_TOPP] = self.top_p[i:i + 1].view(np.int32)[0]
             packed[i, PK_CAP] = cap
+            if r.req.sampling_options.logprobs is not None:
+                packed[i, PK_LOGPROB] = 1
+            packed[i, PK_FREQPEN] = self.freq_pen[i:i + 1].view(np.int32)[0]
+            packed[i, PK_PRESPEN] = self.pres_pen[i:i + 1].view(np.int32)[0]
             packed[i, PK_SEED] = self.seeds[i]
             packed[i, PK_SEEDED] = int(self.seeded[i])
             packed[i, PK_PREFIX:PK_PREFIX + len(r.pages)] = r.pages
@@ -520,15 +835,16 @@ class GPUEngine(AsyncEngine):
             self.disp_positions[i] += adv
             self.disp_seq_lens[i] += adv
         t0 = time.monotonic()
-        toks = self.runner.decode_window(packed, M)
+        outs = self.runner.decode_window(packed, M)
         self.windows_dispatched += 1
-        return _Window(toks=_Readback(toks), slots=slots, frozen=frozen,
+        return _Window(toks=_Readback(outs), slots=slots, frozen=frozen,
                        size=M, serial=self._dispatch_serial, t0=t0)
 
     def _process_window(self, w: _Window) -> None:
+        page = self.config.page_size
         toks = None
         if w.toks is not None:
-            toks = w.toks.numpy()
+            toks, lps, top_vs, top_is = w.toks.numpy()
             self.window_seconds.append(time.monotonic() - w.t0)
         self._release_ready_pages()
         # The host token chains need every touched slot's first token.
@@ -546,7 +862,7 @@ class GPUEngine(AsyncEngine):
             if reason == "oom":
                 r.push(RuntimeError(
                     "KV pool exhausted and no other request to preempt"))
-                self._finish_slot(i)
+                self._finish_slot(i, register=False)
             else:
                 self._requeue_slot(i)
         if toks is None:
@@ -559,9 +875,11 @@ class GPUEngine(AsyncEngine):
                 continue  # slot reassigned since dispatch
             if r.ctx.is_killed:
                 r.push(None)
-                self._finish_slot(i)
+                self._finish_slot(i, register=True)
                 continue
             accepted: list[int] = []
+            k = r.req.sampling_options.logprobs
+            lp_out = ([], []) if k is not None else None
             finish = None
             inp = r.last_token
             for m in range(w.size):
@@ -571,7 +889,18 @@ class GPUEngine(AsyncEngine):
                     break
                 token = int(toks[m, i])
                 r.generated += 1
+                # The step's input token now has K/V in the pool: register
+                # the page it completes under its chained hash.
+                new_block = r.blocks.append(inp)
+                if new_block is not None:
+                    self.allocator.register(
+                        r.pages[len(r.blocks.tokens) // page - 1], new_block)
                 accepted.append(token)
+                if lp_out is not None:
+                    lp_out[0].append(float(lps[m, i]))
+                    lp_out[1].append([{"token_id": int(top_is[m, i, j]),
+                                       "logprob": float(top_vs[m, i, j])}
+                                      for j in range(k)])
                 r.tokens_all.append(token)
                 inp = token
                 finish = self._check_finish(r, token)
@@ -580,9 +909,9 @@ class GPUEngine(AsyncEngine):
             r.last_token = inp
             if finish is None and r.ctx.is_stopped:
                 finish = FinishReason.CANCELLED
-            self._emit(r, accepted, finish)
+            self._emit(r, accepted, finish, lp_out)
             if finish is not None:
-                self._finish_slot(i)
+                self._finish_slot(i, register=True)
 
     def _check_finish(self, r: _Request, token: int) -> FinishReason | None:
         sc = r.req.stop_conditions
@@ -597,11 +926,17 @@ class GPUEngine(AsyncEngine):
         return None
 
     def _emit(self, r: _Request, tokens: list[int],
-              finish: FinishReason | None = None) -> None:
-        r.push(LLMEngineOutput(token_ids=tokens,
-                               finish_reason=finish).to_wire())
+              finish: FinishReason | None = None,
+              lp_out: tuple[list, list] | None = None) -> None:
+        out = LLMEngineOutput(token_ids=tokens, finish_reason=finish)
+        if lp_out is not None:
+            out.log_probs, out.top_log_probs = lp_out
+        r.push(out.to_wire())
 
-    def _finish_slot(self, slot: int) -> None:
+    def _finish_slot(self, slot: int, register: bool) -> None:
+        """Free ``slot``. ``register=False`` is the failure path: the
+        pages' K/V is suspect, so their prefix-cache entries are dropped
+        and no later request reuses them."""
         r = self.slot_req[slot]
         self.slot_req[slot] = None
         self.disp_positions[slot] = 0
@@ -611,16 +946,19 @@ class GPUEngine(AsyncEngine):
             return
         r.slot = -1
         r.epoch += 1
+        if not register:
+            self.allocator.unregister(r.pages)
         # Defer the release until every in-flight window (which may still
         # scatter through the old page table) completes.
         self._pending_release.append((self._dispatch_serial, r.pages))
         r.pages = []
 
     def _requeue_slot(self, slot: int) -> None:
-        """Preempt: free this slot's pages and requeue the request with its
-        accumulated tokens (it re-prefills them)."""
+        """Preempt: free this slot's pages (their prefix-cache entries stay,
+        so the re-prefill mostly hits) and requeue the request with its
+        accumulated tokens."""
         r = self.slot_req[slot]
-        self._finish_slot(slot)
+        self._finish_slot(slot, register=True)
         if r is None:
             return
         if r.ctx.is_killed or r.ctx.is_stopped:

@@ -3,11 +3,12 @@
 
 The device side is two tensors per model, k/v pages
 [layers, kv_heads, num_pages, page_size, head_dim], owned by the runner.
-The host side hands out page ids. Pages of finished sequences can stay
-registered under their chained block hash and be reused on prefix hits
-until evicted; the engine does not register pages until history prefill
-is ported, so today every page returns to the free list. The reference's
-KVBM demotion, admin clear, router events and telemetry are not copied.
+The host side hands out page ids. The engine registers each complete
+block's page under its chained block hash (``llm/tokens.py``): at placement
+for the prompt's blocks, and as generated tokens complete blocks. Pages of
+finished sequences stay registered and are reused on prefix hits
+(``acquire_cached``) until evicted. The reference's KVBM demotion, admin
+clear, router events and telemetry are not copied.
 
 Lifecycle invariant (as in the reference): a page is either FREE
 (unregistered, refcount 0), ACTIVE (refcount > 0 — held by one or more

@@ -160,26 +160,58 @@ def layer_params(params: Params, layer: int) -> dict:
 # Attention
 # ---------------------------------------------------------------------------
 
-def dense_causal_attention(q, k, v, q_positions, kv_len_mask,
-                           q_per_kv: int) -> torch.Tensor:
-    """Prefill attention over freshly computed K/V.
+# fp32 score bytes of one query block in prefill attention: the blocks
+# bound the transient (scores, their softmax and the bf16 probabilities)
+# whatever the prompt or history length.
+SCORE_BLOCK_BYTES = 1 << 29
+
+
+def causal_attention(q, k, v, q_positions, kv_len_mask, q_per_kv: int,
+                     k_hist=None, v_hist=None, hist_lens=None,
+                     q_block: int | None = None) -> torch.Tensor:
+    """Prefill attention of a chunk over its own fresh K/V and, when given,
+    the sequence's earlier tokens in the pool.
 
     q [B,S,Nh,D], k/v [B,S,Nkv,D], q_positions [B,S] (absolute),
-    kv_len_mask [B,S] bool (valid kv slots). Causal by position, fp32
-    scores and softmax, bf16 probabilities into the PV product. GQA groups
-    query heads without repeating K/V."""
+    kv_len_mask [B,S] bool (valid chunk slots); k_hist/v_hist [Nkv,B,H,D]
+    (``gather_pages_folded``) with hist_lens [B] valid history tokens.
+    Causal by position within the chunk; the history lies before it. One
+    fp32 softmax over the history and chunk columns, bf16 probabilities
+    into both PV products, as the reference's ``dense_causal_attention``
+    and ``_prefill_with_history``. GQA groups query heads without
+    repeating K/V. Queries run in blocks of ``q_block`` rows (default:
+    SCORE_BLOCK_BYTES of scores), each row's softmax being independent."""
     b, s, nh, d = q.shape
     nkv = k.shape[2]
-    qg = q.reshape(b, s, nkv, q_per_kv, d)
-    scores = torch.einsum("bqngd,bknd->bngqk", qg.float(), k.float())
-    scores = scores / (d ** 0.5)
-    causal = (q_positions[:, None, None, :, None]
-              >= q_positions[:, None, None, None, :])
+    h = 0 if k_hist is None else k_hist.shape[2]
+    qg = q.reshape(b, s, nkv, q_per_kv, d).float()
+    kf = k.float()
+    scale = d ** 0.5
+    if h:
+        kh = k_hist.float()
+        hist_valid = (torch.arange(h, device=q.device)[None, :]
+                      < hist_lens.long()[:, None])[:, None, None, None, :]
     valid = kv_len_mask[:, None, None, None, :]
-    scores = torch.where(causal & valid, scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.einsum("bngqk,bknd->bqngd", probs, v)
-    return out.reshape(b, s, nh, d)
+    if q_block is None:
+        q_block = max(1, SCORE_BLOCK_BYTES // (4 * b * nh * (h + s)))
+    outs = []
+    for q0 in range(0, s, q_block):
+        qb = qg[:, q0:q0 + q_block]
+        scores = torch.einsum("bqngd,bknd->bngqk", qb, kf)
+        causal = (q_positions[:, None, None, q0:q0 + q_block, None]
+                  >= q_positions[:, None, None, None, :])
+        scores = torch.where(causal & valid, scores, NEG_INF)
+        if h:
+            hs = torch.einsum("bqngd,nbld->bngql", qb, kh)
+            scores = torch.cat([torch.where(hist_valid, hs, NEG_INF),
+                                scores], dim=-1)
+        probs = torch.softmax(scores / scale, dim=-1).to(q.dtype)
+        out = torch.einsum("bngqk,bknd->bqngd", probs[..., h:], v)
+        if h:
+            out = out + torch.einsum("bngql,nbld->bqngd", probs[..., :h],
+                                     v_hist)
+        outs.append(out)
+    return torch.cat(outs, dim=1).reshape(b, s, nh, d)
 
 
 def paged_window_attention(q, k_cache, v_cache, layer: int, page_table,
@@ -263,6 +295,27 @@ def prefill_forward(params: Params, spec: ModelSpec, k_cache, v_cache,
     scratch page), seq_lens [B]. Returns (last-token logits [B,V] fp32,
     k_cache, v_cache); the caches are updated in place (an int8 pool is
     quantized on the way in)."""
+    return _prefill(params, spec, k_cache, v_cache, tokens, positions,
+                    page_table, seq_lens, None, None)
+
+
+def prefill_with_history(params: Params, spec: ModelSpec, k_cache, v_cache,
+                         tokens, positions, page_table, seq_lens, hist_table,
+                         hist_lens):
+    """Chunk prefill over history (reference
+    ``runner._prefill_with_history``): ``prefill_forward`` whose queries
+    also attend to the sequence's earlier tokens, read from the pool
+    through hist_table [B, maxP] (pages before the chunk; padding 0) up to
+    hist_lens [B]. Serves a prompt's later chunks and the rest of a prompt
+    after a prefix-cache hit, over a bf16 or an int8 pool. The history
+    pages are disjoint from the chunk's, which are written after every
+    layer has read the history."""
+    return _prefill(params, spec, k_cache, v_cache, tokens, positions,
+                    page_table, seq_lens, hist_table, hist_lens)
+
+
+def _prefill(params, spec, k_cache, v_cache, tokens, positions, page_table,
+             seq_lens, hist_table, hist_lens):
     b, s = tokens.shape
     d = spec.head_dim
     page = k_cache.shape[3]
@@ -275,8 +328,13 @@ def prefill_forward(params: Params, spec: ModelSpec, k_cache, v_cache,
         lp = layer_params(params, layer)
         h = rms_norm(x, lp["input_norm"], spec.rms_norm_eps)
         q, k, v = _qkv(h, lp, spec, cos, sin)
-        attn = dense_causal_attention(q, k, v, positions, valid,
-                                      spec.q_per_kv)
+        hist = {}
+        if hist_table is not None:
+            hist = dict(k_hist=gather_pages_folded(k_cache, layer, hist_table),
+                        v_hist=gather_pages_folded(v_cache, layer, hist_table),
+                        hist_lens=hist_lens)
+        attn = causal_attention(q, k, v, positions, valid, spec.q_per_kv,
+                                **hist)
         x = x + mm(attn.reshape(b, s, -1), lp["wo"])
         h2 = rms_norm(x, lp["post_attn_norm"], spec.rms_norm_eps)
         x = x + ffn_block(h2, lp, spec)

@@ -1,22 +1,32 @@
 """ModelRunner: parameters, the paged KV pool, prefill and decode windows
 (the part of ``dynamo_tpu.engine.runner.ModelRunner`` the engine calls).
 
-- ``prefill_batch``: bucketed whole-prompt prefill (no history) that
-  samples each row's first token and leaves it in ``tokens_dev`` so the
-  next decode window chains from it without a host round trip.
+- ``prefill_batch``: bucketed prefill of whole prompts or of a prompt's
+  final chunk, with or without history pages (earlier chunks, a cached
+  prefix), that samples each row's first token and leaves it in
+  ``tokens_dev`` so the next decode window chains from it without a host
+  round trip. ``prefill_chunk_async`` runs an intermediate chunk, whose
+  sampled token nobody needs.
 - ``decode_window``: M decode steps for the whole slot batch. The host
   uploads one packed int32 control array per window (the ``PK_*`` columns,
   byte-identical to the reference), tokens chain on the device, the
   window's K/V collects in a small buffer, and one commit scatter writes
   it into the pool at the end.
+- OpenAI frequency/presence penalties read a ``[max_num_seqs, vocab]``
+  uint8 count state on the device (``counts``): prefills install a slot's
+  row, penalised windows subtract ``freq * count + pres * (count > 0)``
+  before temperature and top-k and bump the count of each live sampled
+  token, saturating at 255. Logprobs (the chosen token's and the top
+  ``TOP_LOGPROBS``) are computed only when some row asks for them.
 
 The pool is bf16, or int8 with per-token scales (``--quant-kv int8``,
 ``kv_quant.QuantKV``): the prefill scatter and the window commit quantize,
 and the attention reads dequantize. Every decode step of every layer runs
 the hand-written paged attention kernel (``engine/attention.py``) for the
-pool's type on CUDA tensors; CPU tensors take its plain version. Nothing
-here reads a device value on the host: windows and prefills are enqueued
-and the engine reads results back when they are ready.
+pool's type on CUDA tensors; CPU tensors take its plain version. Prefill
+attention over history is plain torch, as it is XLA in the reference.
+Nothing here reads a device value on the host: windows and prefills are
+enqueued and the engine reads results back when they are ready.
 """
 
 from __future__ import annotations
@@ -30,7 +40,8 @@ from dynamo_tpu_torch.engine import attention
 from dynamo_tpu_torch.engine.config import EngineConfig
 from dynamo_tpu_torch.engine.kv_quant import QuantKV, scatter_tokens
 from dynamo_tpu_torch.engine.model import (decode_window_step, init_params,
-                                           prefill_forward)
+                                           prefill_forward,
+                                           prefill_with_history)
 from dynamo_tpu_torch.engine.sampler import (gumbel_noise,
                                              sample_tokens_per_row)
 from dynamo_tpu_torch.runtime.logging import get_logger
@@ -47,13 +58,16 @@ PK_TEMP = 5       # float32 bits
 PK_TOPP = 6       # float32 bits
 PK_CAP = 7        # position capacity = allocated pages * page_size; a slot
                   # freezes when its position reaches this
-PK_LOGPROB = 8    # 1 -> this slot wants logprobs (not served by the port)
-PK_FREQPEN = 9    # float32 bits: frequency_penalty (not served by the port)
-PK_PRESPEN = 10   # float32 bits: presence_penalty (not served by the port)
+PK_LOGPROB = 8    # 1 -> this slot wants logprobs (the window computes them
+                  # when ANY slot asks; per-slot filtering is host-side)
+PK_FREQPEN = 9    # float32 bits: OpenAI frequency_penalty (0 = off)
+PK_PRESPEN = 10   # float32 bits: OpenAI presence_penalty (0 = off)
 PK_SEED = 11      # int32 sampling seed (meaningful when PK_SEEDED)
 PK_SEEDED = 12    # 1 -> slot uses a per-request seeded noise stream
 PK_ADAPTER = 13   # LoRA adapter slot id (0 = base; not served by the port)
 PK_PREFIX = 14    # page table starts here
+
+TOP_LOGPROBS = 8  # alternatives returned when logprobs are requested
 
 SEED_MASK = 0x7FFFFFFF  # seeds ride int32 control columns: 31 usable bits
 
@@ -65,11 +79,32 @@ def mask_seed(seed: int) -> int:
 
 @dataclasses.dataclass
 class PrefillSeq:
-    """One whole-prompt prefill row."""
-    tokens: np.ndarray          # [n] prompt tokens
-    chunk_pages: np.ndarray     # pages covering the prompt
+    """One whole-prompt or chunk prefill row."""
+    tokens: np.ndarray          # [n] chunk tokens
+    chunk_pages: np.ndarray     # pages covering the chunk
     sampling: tuple[float, int, float]  # (temperature, top_k, top_p)
+    start_pos: int = 0          # absolute position of tokens[0]
+    hist_pages: np.ndarray | None = None  # pages before the chunk
+    logprobs: bool = False      # row wants first-token logprobs
+    penalties: tuple[float, float] = (0.0, 0.0)  # (frequency, presence)
     seed: int | None = None     # per-request sampling seed
+
+
+def logprobs_of(logits: torch.Tensor, sampled: torch.Tensor):
+    """(chosen logprob [B], top values [B,K], top ids [B,K] int32) from
+    logits [B,V] fp32: log-softmax through one logsumexp, no full sort."""
+    lse = torch.logsumexp(logits, dim=-1)
+    chosen = torch.gather(logits, 1, sampled.long()[:, None])[:, 0]
+    top_v, top_i = torch.topk(logits, TOP_LOGPROBS, dim=-1)
+    return chosen - lse, top_v - lse[:, None], top_i.to(torch.int32)
+
+
+def apply_penalties(logits: torch.Tensor, counts: torch.Tensor,
+                    freq: torch.Tensor, pres: torch.Tensor) -> torch.Tensor:
+    """OpenAI penalties over generated-token counts [B,V] (vLLM
+    semantics): ``logits - freq * count - pres * (count > 0)``."""
+    cf = counts.float()
+    return logits - freq[:, None] * cf - pres[:, None] * (cf > 0)
 
 
 def _unsupported(config: EngineConfig) -> list[str]:
@@ -131,6 +166,12 @@ class ModelRunner:
         # The chained next-token per slot, on device.
         self.tokens_dev = torch.zeros(config.max_num_seqs, dtype=torch.int32,
                                       device=self.device)
+        # Penalty state: generated-token counts per slot (saturating).
+        self.counts = torch.zeros((config.max_num_seqs, spec.vocab_size),
+                                  dtype=torch.uint8, device=self.device)
+        # Logits [n, V] of the latest prefill_batch, after penalties (a
+        # device tensor; nothing reads it back unless a caller does).
+        self.last_prefill_logits: torch.Tensor | None = None
         # Bytes the paged attention launches of all windows so far must
         # move (attention.hist_flash_bytes), counted on the host.
         self.attention_bytes = 0
@@ -188,54 +229,114 @@ class ModelRunner:
         return noise
 
     # -- public API (called from the engine thread) --------------------------
-    def prefill_batch(self, seqs: list[PrefillSeq],
-                      slots: list[int] | None = None) -> torch.Tensor:
-        """Prefill whole prompts (padded to the bucket of the longest) and
-        sample each row's first token. With ``slots`` the tokens are also
-        written into ``tokens_dev[slots]``. Returns the sampled tokens [n]
-        as a device tensor; the caller reads them back when ready."""
+    def _prefill_logits(self, seqs: list[PrefillSeq]) -> torch.Tensor:
+        """Run one prefill program over ``seqs`` (padded to the bucket of
+        the longest; rows with history read their earlier pages) and
+        return the last valid position's logits [n, V]."""
         cfg = self.config
         page = cfg.page_size
         n_max = max(len(s.tokens) for s in seqs)
         if n_max > cfg.max_prompt_len:
-            raise ValueError(f"prompt of {n_max} tokens exceeds the longest "
-                             f"whole-prompt prefill ({cfg.max_prompt_len})")
+            raise ValueError(f"prefill of {n_max} tokens exceeds the longest "
+                             f"one program takes ({cfg.max_prompt_len})")
         bucket = cfg.bucket_for(n_max)
-        bucket_pages = bucket // page
         b = len(seqs)
         tokens = np.zeros((b, bucket), np.int32)
         positions = np.zeros((b, bucket), np.int32)
         # Padding page-table entries stay 0 = the allocator's scratch page.
-        table = np.zeros((b, bucket_pages), np.int32)
+        table = np.zeros((b, bucket // page), np.int32)
         lens = np.zeros(b, np.int32)
+        for i, s in enumerate(seqs):
+            n = len(s.tokens)
+            tokens[i, :n] = s.tokens
+            positions[i] = s.start_pos + np.minimum(np.arange(bucket), n - 1)
+            table[i, :len(s.chunk_pages)] = s.chunk_pages
+            lens[i] = n
+        args = (self.params, self.spec, self.k_cache, self.v_cache,
+                self._upload(tokens), self._upload(positions),
+                self._upload(table), self._upload(lens))
+        with_hist = [i for i, s in enumerate(seqs)
+                     if s.hist_pages is not None and len(s.hist_pages)]
+        if not with_hist:
+            return prefill_forward(*args)[0]
+        # Rows without history keep hist_lens 0 and read nothing.
+        width = self.bucket_pages_for(max(len(seqs[i].hist_pages)
+                                          for i in with_hist))
+        hist_table = np.zeros((b, width), np.int32)
+        hist_lens = np.zeros(b, np.int32)
+        for i in with_hist:
+            s = seqs[i]
+            if s.start_pos != len(s.hist_pages) * page:
+                raise ValueError(
+                    f"a chunk at position {s.start_pos} needs "
+                    f"{s.start_pos // page} whole history pages, got "
+                    f"{len(s.hist_pages)}")
+            hist_table[i, :len(s.hist_pages)] = s.hist_pages
+            hist_lens[i] = s.start_pos
+        return prefill_with_history(*args, self._upload(hist_table),
+                                    self._upload(hist_lens))[0]
+
+    def prefill_batch(self, seqs: list[PrefillSeq],
+                      slots: list[int] | None = None,
+                      count_rows: np.ndarray | None = None):
+        """Prefill whole prompts or final chunks and sample each row's
+        first token. ``count_rows`` [n, V] uint8 (the rows' generated-token
+        counts so far) turns on the penalties. With ``slots`` the tokens are
+        also written into ``tokens_dev[slots]``, and with ``count_rows``
+        the counts (bumped by the sampled token) into ``counts[slots]``.
+
+        Returns (tokens [n] int32, logprobs [n], top values [n, K], top ids
+        [n, K]) as device tensors, the last three None unless a row asks
+        for logprobs; the caller reads them back when ready."""
+        logits = self._prefill_logits(seqs)
+        b = len(seqs)
         temp = np.zeros(b, np.float32)
         top_k = np.zeros(b, np.int32)
         top_p = np.ones(b, np.float32)
         seeds = np.zeros(b, np.int64)
         seeded = np.zeros(b, bool)
+        ends = np.zeros(b, np.int64)
         for i, s in enumerate(seqs):
-            n = len(s.tokens)
-            tokens[i, :n] = s.tokens
-            positions[i] = np.minimum(np.arange(bucket), n - 1)
-            table[i, :len(s.chunk_pages)] = s.chunk_pages
-            lens[i] = n
             temp[i], top_k[i], top_p[i] = s.sampling
             if s.seed is not None:
                 seeds[i] = mask_seed(s.seed)
                 seeded[i] = True
-        logits, _, _ = prefill_forward(
-            self.params, self.spec, self.k_cache, self.v_cache,
-            self._upload(tokens), self._upload(positions),
-            self._upload(table), self._upload(lens))
-        # The first generated token lands at position n.
-        noise = self._noise(temp > 0, seeds, seeded, lens)
+            ends[i] = s.start_pos + len(s.tokens)
+        if count_rows is not None:
+            pen = np.asarray([s.penalties for s in seqs], np.float32)
+            rows = self._upload(np.asarray(count_rows, np.uint8))
+            logits = apply_penalties(logits, rows, self._upload(pen[:, 0]),
+                                     self._upload(pen[:, 1]))
+        self.last_prefill_logits = logits
+        # The first generated token lands at position start + n.
+        noise = self._noise(temp > 0, seeds, seeded, ends)
         sampled = sample_tokens_per_row(
             logits, self._upload(temp), self._upload(top_k),
             self._upload(top_p), noise)
         if slots is not None:
             idx = torch.as_tensor(slots, dtype=torch.long, device=self.device)
             self.tokens_dev[idx] = sampled
-        return sampled
+            if count_rows is not None:
+                n = torch.arange(b, device=self.device)
+                tok = sampled.long()
+                bumped = rows.clone()
+                bumped[n, tok] += (rows[n, tok] < 255).to(torch.uint8)
+                self.counts[idx] = bumped
+        lp = top_v = top_i = None
+        if any(s.logprobs for s in seqs):
+            lp, top_v, top_i = logprobs_of(logits, sampled)
+        return sampled, lp, top_v, top_i
+
+    def prefill_chunk_async(self, seq: PrefillSeq) -> None:
+        """Enqueue one intermediate chunk of a long prompt. Nothing comes
+        back to the host: the chunk's K/V lands in its pages, which the
+        next chunk reads as history later on the same stream."""
+        self._prefill_logits([seq])
+
+    def set_count_rows(self, slots: list[int], rows: np.ndarray) -> None:
+        """Install penalty-count rows [n, V] uint8 for ``slots``."""
+        idx = torch.as_tensor(slots, dtype=torch.long, device=self.device)
+        self.counts[idx] = self._upload(np.asarray(rows, np.uint8))
 
     def bucket_pages_for(self, needed: int) -> int:
         """Page-table width bucket (power of two, >= 8) for a window."""
@@ -245,19 +346,17 @@ class ModelRunner:
             b *= 2
         return min(b, maxp)
 
-    def decode_window(self, packed: np.ndarray, window: int) -> torch.Tensor:
+    def decode_window(self, packed: np.ndarray, window: int):
         """Run one M-step decode window.
 
         packed [B, PK_PREFIX + bucket_pages] int32 (see PK_* columns).
-        Returns the sampled tokens [M, B] int32 as a device tensor."""
+        Returns (tokens [M,B] int32, logprobs [M,B], top values [M,B,K],
+        top ids [M,B,K]) as device tensors, the last three None unless
+        some slot sets PK_LOGPROB."""
         M = int(window)
         spec, page = self.spec, self.config.page_size
-        unserved = (packed[:, PK_LOGPROB].any() or packed[:, PK_FREQPEN].any()
-                    or packed[:, PK_PRESPEN].any()
-                    or packed[:, PK_ADAPTER].any())
-        if unserved:
-            raise ValueError("logprobs, penalties and adapters are not "
-                             "ported yet")
+        if packed[:, PK_ADAPTER].any():
+            raise ValueError("LoRA adapters are not ported yet")
         B = packed.shape[0]
         h_hist = np.maximum(packed[:, PK_SEQLEN].astype(np.int64) - 1, 0)
         if (h_hist > (packed.shape[1] - PK_PREFIX) * page).any():
@@ -267,6 +366,9 @@ class ModelRunner:
         per_launch = attention.hist_flash_bytes(h_hist, spec.num_heads,
                                                 self.k_cache)
         self.attention_bytes += M * spec.num_layers * per_launch
+        penalized = bool(packed[:, PK_FREQPEN].any()
+                         or packed[:, PK_PRESPEN].any())
+        want_lp = bool(packed[:, PK_LOGPROB].any())
         dev = self._upload(packed)
         tokens = torch.where(dev[:, PK_OVERRIDE] > 0, dev[:, PK_TOKEN],
                              self.tokens_dev)
@@ -276,6 +378,8 @@ class ModelRunner:
         top_k = dev[:, PK_TOPK]
         temp = dev[:, PK_TEMP].view(torch.float32)
         top_p = dev[:, PK_TOPP].view(torch.float32)
+        freq_pen = dev[:, PK_FREQPEN].view(torch.float32)
+        pres_pen = dev[:, PK_PRESPEN].view(torch.float32)
         page_table = dev[:, PK_PREFIX:].contiguous()
         # The cache-resident history is fixed across the window: the
         # window's own tokens live in kbuf/vbuf until the commit below.
@@ -292,6 +396,14 @@ class ModelRunner:
         h_seeds = packed[:, PK_SEED].astype(np.int64)
         h_seeded = packed[:, PK_SEEDED] > 0
         toks = torch.empty((M, B), dtype=torch.int32, device=self.device)
+        lps = top_vs = top_is = None
+        if want_lp:
+            lps = torch.empty((M, B), dtype=torch.float32, device=self.device)
+            top_vs = torch.empty((M, B, TOP_LOGPROBS), dtype=torch.float32,
+                                 device=self.device)
+            top_is = torch.empty((M, B, TOP_LOGPROBS), dtype=torch.int32,
+                                 device=self.device)
+        rows = torch.arange(B, device=self.device)
         positions = positions0
         for m in range(M):
             live = (seq_lens0 > 0) & (positions < cap)
@@ -301,10 +413,22 @@ class ModelRunner:
                 attention_impl=attention.paged_window_attention)
             kbuf[:, :, :, m] = k_new.transpose(1, 2)
             vbuf[:, :, :, m] = v_new.transpose(1, 2)
+            if penalized:
+                # Subtracted before temperature and top-k.
+                logits = apply_penalties(logits, self.counts, freq_pen,
+                                         pres_pen)
             h_pos = h_pos0 + np.clip(np.minimum(m, h_cap - h_pos0), 0, None)
             noise = self._noise(h_sampling, h_seeds, h_seeded, h_pos + 1)
             sampled = sample_tokens_per_row(logits, temp, top_k, top_p, noise)
             toks[m] = sampled
+            if penalized:
+                # Saturating count bump for each live slot's token.
+                tok = sampled.long()
+                cur = self.counts[rows, tok]
+                self.counts[rows, tok] = cur + (live & (cur < 255)).to(
+                    torch.uint8)
+            if want_lp:
+                lps[m], top_vs[m], top_is[m] = logprobs_of(logits, sampled)
             tokens = torch.where(live, sampled, tokens)
             positions = positions + live.to(positions.dtype)
         self.tokens_dev = tokens
@@ -316,14 +440,13 @@ class ModelRunner:
         pos_m = positions0[None, :] + adv                        # [M, B]
         live_m = (seq_lens0[None, :] > 0) & (pos_m < cap[None, :])
         pidx = torch.clamp(pos_m // page, 0, page_table.shape[1] - 1)
-        dest = page_table[torch.arange(B, device=self.device)[None, :],
-                          pidx.long()]                           # [M, B]
+        dest = page_table[rows[None, :], pidx.long()]            # [M, B]
         dest = torch.where(live_m, dest, 0)
         off = torch.where(live_m, pos_m % page, 0)
         # kbuf [L,Nkv,B,M,D] -> [L,Nkv,M,B,D] to match [M,B] indices.
         scatter_tokens(self.k_cache, kbuf.transpose(2, 3), dest, off)
         scatter_tokens(self.v_cache, vbuf.transpose(2, 3), dest, off)
-        return toks
+        return toks, lps, top_vs, top_is
 
 
 def _leaves(tree):

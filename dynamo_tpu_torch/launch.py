@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import dataclasses
 import sys
 
 from dynamo_tpu_torch.engine.config import PRESETS, EngineConfig
@@ -20,7 +21,7 @@ from dynamo_tpu_torch.engine.engine import GPUEngine
 from dynamo_tpu_torch.runtime.context import Context
 
 
-def _window_arg(value: str):
+def _auto_or_int(value: str):
     return value if value == "auto" else int(value)
 
 
@@ -44,9 +45,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--max-num-seqs", type=int, default=32)
     parser.add_argument("--page-size", type=int, default=16)
     parser.add_argument("--max-pages-per-seq", type=int, default=512)
-    parser.add_argument("--decode-window", default=8, type=_window_arg,
+    parser.add_argument("--decode-window", default=8, type=_auto_or_int,
                         help="positive int or 'auto'")
     parser.add_argument("--pipeline-depth", type=int, default=4)
+    parser.add_argument("--prefill-chunk-tokens", default="auto",
+                        type=_auto_or_int,
+                        help="stall-free chunked prefill: prompt tokens "
+                             "dispatched as prefill chunks per engine-loop "
+                             "iteration before the next decode window; "
+                             "'auto' sizes it to about one "
+                             "DTPU_WINDOW_TARGET_MS window period "
+                             "(DTPU_PREFILL_CHUNK_TOKENS overrides)")
     parser.add_argument("--quant-kv", default=None, choices=["int8"],
                         help="store the paged KV pool as int8 with a f32 "
                              "scale per token and head (about 1.9x the "
@@ -67,15 +76,18 @@ def build_engine_config(args) -> EngineConfig:
         model=PRESETS[args.model], page_size=args.page_size,
         num_pages=args.num_pages, max_pages_per_seq=args.max_pages_per_seq,
         max_num_seqs=args.max_num_seqs, decode_window=args.decode_window,
-        pipeline_depth=args.pipeline_depth, quant_kv=args.quant_kv,
+        pipeline_depth=args.pipeline_depth,
+        prefill_chunk_tokens=args.prefill_chunk_tokens, quant_kv=args.quant_kv,
         device=args.device)
 
 
-def build_engine(args) -> GPUEngine:
-    """The real engine, in-process, with random weights from args.seed."""
+def build_engine(args, **overrides) -> GPUEngine:
+    """The real engine, in-process, with random weights from args.seed;
+    ``overrides`` set EngineConfig fields that have no flag."""
     if args.output != "gpu":
         raise ValueError(f"out={args.output} is not served by the port")
-    engine = GPUEngine(build_engine_config(args), seed=args.seed)
+    config = dataclasses.replace(build_engine_config(args), **overrides)
+    engine = GPUEngine(config, seed=args.seed)
     engine.start()
     return engine
 

@@ -239,10 +239,15 @@ async def test_stop_conditions_and_validation(engines):
     stop["stop_conditions"]["stop_token_ids"] = [ref[idx]]
     got, finish = await _collect(teng, stop, TContext())
     assert finish == "stop" and got == ref[:idx + 1]
-    with pytest.raises(ValueError, match="chunked prefill"):
-        await _collect(teng, _wire(list(range(65)), 4), TContext())
-    with pytest.raises(ValueError, match="logprobs"):
-        await _collect(teng, _wire(prompt, 4, logprobs=2), TContext())
+    # Only max_model_len bounds a prompt; LoRA and multimodal requests
+    # are refused until their slices are ported.
+    with pytest.raises(ValueError, match="max model len"):
+        await _collect(teng, _wire(list(range(256)), 4), TContext())
+    with pytest.raises(ValueError, match="not ported yet: LoRA"):
+        await _collect(teng, dict(_wire(prompt, 4), adapter="a"), TContext())
+    with pytest.raises(ValueError, match="not ported yet: multimodal"):
+        await _collect(teng, dict(_wire(prompt, 4), mm_embeds=[{"start": 0}]),
+                       TContext())
 
 
 def test_decode_window_counts_attention_bytes_and_checks_rows():

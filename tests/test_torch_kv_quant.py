@@ -190,7 +190,7 @@ def test_runner_int8_pool_and_first_tokens_match_reference():
     tt = tr.prefill_batch([
         TSeq(tokens=p, chunk_pages=np.asarray(pg, np.int32),
              sampling=(0.0, 0, 1.0))
-        for p, pg in zip(prompts, pages)]).numpy()
+        for p, pg in zip(prompts, pages)])[0].numpy()
     logits = np.asarray(jr.last_prefill_logits, np.float32)
     compared = 0
     for i in range(len(prompts)):
