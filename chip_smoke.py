@@ -49,6 +49,29 @@ Phases, in order; any failure exits non-zero without the final line:
    bf16 one; the teacher-forced checks run on int8 pools, and round 1's
    logits stay cosine-close (> 0.99) to the bf16 pool's for the same
    tokens.
+5. the OpenAI front at full width: launch.start_http (what ``python -m
+   dynamo_tpu_torch.launch in=http`` runs) builds llama-3-8b (bf16 pool,
+   seed 0) behind the HTTP front on 127.0.0.1 port 0 in this process. The
+   six chat prompts, then the alone chat's, go once through
+   engine.generate (their TTFT at the engine boundary) and leave the
+   prefix cache; then, from http.client
+   threads: /v1/models and /health; six concurrent streamed chats of
+   200-1500 rendered tokens (four greedy, one sampled with a seed, one
+   with logprobs and 3 alternatives) beside a streamed completion of
+   1024 random token ids, 32 tokens each with ignore_eos; one greedy
+   chat alone, streamed, then again alone and not streamed; a malformed
+   body and an unknown model. Checked: SSE framing and [DONE]; finish
+   length and 32 completion tokens; prompt_tokens equal to the port
+   tokenizer's count of the rendered template; 32 logprob entries of 3
+   alternatives; equal text and usage of the alone pair; 400 and 404
+   with the reference's error shape; paged_attention_hist launched
+   windows x M x 32 times, the int8 entry 0 times. It prints each
+   request's TTFT, median gap between chunks and time per output token
+   at the client, the phase's tok/s, and the TTFTs of the six chats and
+   of the alone chat through engine.generate. Then ``python -m dynamo_tpu_torch.launch
+   in=http out=gpu --model tiny-test --http-port 0`` runs as a
+   subprocess: its engine is on cuda without --device, it answers a
+   streamed chat and exits 0 on SIGTERM.
 The last lines are the kernels' JSON summary, the card's name and power
 limit, and {"ok": true, "device": {...}}.
 """
@@ -706,14 +729,345 @@ def time_windows(engine, rows: int = 8, hist: int = 1224,
                                   "with_logprobs": times[True]}}
 
 
-def kernel_entry(name, variant, timing, main, max_err, stats) -> dict:
+# ---------------------------------------------------------------------------
+# Phase 5: the OpenAI front at full width
+# ---------------------------------------------------------------------------
+
+HTTP_MAX_TOKENS = 32
+# Words of the test tokenizer's corpus: about one token per word.
+WORDS = ("hello world this is a test of the tpu native serving framework "
+         "the quick brown fox jumps over lazy dog def main return for in "
+         "range").split()
+# Words per prompt of the six concurrent chats: 200-1500 tokens rendered.
+CHAT_WORDS = (155, 400, 640, 880, 1110, 1330)
+SSE_TIMEOUT_S = 600
+
+
+def chat_body(model: str, rng, n_words: int) -> dict:
+    text = " ".join(rng.choice(WORDS, size=n_words))
+    return {"model": model, "stream": True, "ignore_eos": True,
+            "max_tokens": HTTP_MAX_TOKENS,
+            "stream_options": {"include_usage": True},
+            "messages": [{"role": "system", "content": "you are a test"},
+                         {"role": "user", "content": text}]}
+
+
+def http_call(port: int, method: str, path: str, body=None) -> dict:
+    """One request over http.client. A streamed answer is read line by
+    line: its SSE framing is checked (``data: `` events, each followed by
+    a blank line, ``data: [DONE]`` last) and each event's arrival time
+    kept. Returns status, content type, and the JSON body or the events
+    with their seconds since the request was sent."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port,
+                                      timeout=SSE_TIMEOUT_S)
+    try:
+        t0 = time.perf_counter()
+        payload = body if isinstance(body, (bytes, type(None))) \
+            else json.dumps(body).encode()
+        conn.request(method, path, body=payload,
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        out = {"status": resp.status,
+               "content_type": resp.getheader("Content-Type")}
+        if out["content_type"] != "text/event-stream":
+            out["json"] = json.loads(resp.read())
+            return out
+        events, times, done = [], [], False
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            assert not done, f"data after [DONE]: {line!r}"
+            assert line.startswith(b"data: ") and line.endswith(b"\n"), line
+            assert resp.readline() == b"\n", "an event lacks its blank line"
+            data = line[len(b"data: "):-1]
+            if data == b"[DONE]":
+                done = True
+                continue
+            events.append(json.loads(data))
+            times.append(time.perf_counter() - t0)
+        assert done, "the stream did not end in data: [DONE]"
+        out.update(events=events, times=times)
+        return out
+    finally:
+        conn.close()
+
+
+def stream_summary(res: dict) -> dict:
+    """Finish reason, usage, text, logprob entries, TTFT, the median gap
+    between chunks that carry choices, and the mean time per output token
+    after the first (TPOT), of a streamed chat or completion. A chunk
+    carries one engine output (a decode window's tokens) only when it has
+    text, logprobs or a finish reason: ids outside the test tokenizer's
+    vocab decode to no text, so most windows of a plain chat send no
+    chunk and the gap median reads whole stretches of windows; TPOT does
+    not depend on which windows sent one."""
+    finish, usage, text, lps, token_times = None, None, [], [], []
+    for event, t in zip(res["events"], res["times"]):
+        if event.get("usage"):
+            usage = event["usage"]
+        for choice in event["choices"]:
+            token_times.append(t)
+            finish = choice.get("finish_reason") or finish
+            text.append(choice.get("text")
+                        or choice.get("delta", {}).get("content") or "")
+            if choice.get("logprobs"):
+                lps.extend(choice["logprobs"].get("content") or [])
+    gaps = sorted(b - a for a, b in zip(token_times, token_times[1:]))
+    n = usage["completion_tokens"] if usage else 0
+    return {"finish": finish, "usage": usage, "text": "".join(text),
+            "logprobs": lps, "ttft_ms": token_times[0] * 1e3,
+            "chunks": len(token_times),
+            "itl_ms_median": gaps[len(gaps) // 2] * 1e3 if gaps else None,
+            "tpot_ms": ((token_times[-1] - token_times[0]) / (n - 1) * 1e3
+                        if n > 1 else None)}
+
+
+def forget_prompt(engine, token_ids) -> None:
+    """Drop the prefix-cache registrations of ``token_ids``' blocks once the
+    engine holds no page, so the next request with them prefills whole
+    (a prefix hit computes the tail over history, whose logits differ in
+    their low bits and can flip a greedy near-tie)."""
+    from dynamo_tpu_torch.llm.tokens import compute_block_hashes
+    deadline = time.monotonic() + 60
+    while engine.allocator.num_active and time.monotonic() < deadline:
+        time.sleep(0.05)
+    assert not engine.allocator.num_active, "the engine still holds pages"
+    engine.allocator.unregister(engine.allocator.lookup(
+        compute_block_hashes(token_ids, engine.config.page_size)))
+
+
+def http_phase(attention) -> dict:
+    """Build the OpenAI front for llama-3-8b (bf16 pool, seed 0) through
+    ``launch.start_http``, the function ``python -m dynamo_tpu_torch.launch
+    in=http`` runs, on 127.0.0.1 port 0 in this process; drive it with
+    http.client and check every answer; the engine is released before this
+    returns."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dynamo_tpu_torch import launch
+    from dynamo_tpu_torch.llm import chat_template
+    from dynamo_tpu_torch.llm.protocols import ChatCompletionRequest
+    from dynamo_tpu_torch.profile_decode import MODEL, serve
+
+    args = launch.parse_args(["in=http", "out=gpu", "--model", MODEL,
+                              "--seed", "0", "--http-port", "0"])
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, daemon=True)
+    thread.start()
+
+    def on_loop(coro, timeout):
+        return asyncio.run_coroutine_threadsafe(coro, loop).result(timeout)
+
+    t0 = time.monotonic()
+    service, engine = on_loop(launch.start_http(args), 900)
+    setup_s = time.monotonic() - t0
+    try:
+        port, spec = service.port, engine.runner.spec
+        pre = service.manager.get(MODEL).preprocessor
+        tok = pre.tokenizer
+        log(f"front: {MODEL} at 127.0.0.1:{port}, engine "
+            f"{spec.num_layers} layers, pages={engine.runner.num_pages} "
+            f"window={engine.decode_window} setup={setup_s:.1f}s")
+        rng = np.random.default_rng(5)
+        chats = [chat_body(MODEL, rng, n) for n in CHAT_WORDS]
+        chats[4].update(temperature=0.8, top_p=0.9, seed=77)
+        chats[5].update(logprobs=True, top_logprobs=3)
+        prompt_ids = [rng.integers(0, spec.vocab_size, 1024).tolist()]
+        comp = {"model": MODEL, "prompt": prompt_ids[0], "stream": True,
+                "ignore_eos": True, "max_tokens": HTTP_MAX_TOKENS,
+                "stream_options": {"include_usage": True}}
+        alone = chat_body(MODEL, rng, 300)
+        alone_ids = pre.preprocess_chat(
+            ChatCompletionRequest.model_validate(alone)).token_ids
+        rendered = [tok.encode(chat_template.render(c["messages"], True))
+                    for c in chats]
+
+        # The engine boundary: the six chats' token ids through
+        # engine.generate (after a short warm-up request), then the alone
+        # chat's, for the front's own cost beside them; their blocks then
+        # leave the prefix cache so the HTTP requests prefill them cold too.
+        wires = [pre.preprocess_chat(ChatCompletionRequest.model_validate(
+            c)).to_wire() for c in chats]
+        asyncio.run(serve(engine, [{"model": MODEL, "token_ids": [1] * 16,
+                                    "stop_conditions": {"max_tokens": 4}}]))
+        engine_side = asyncio.run(serve(engine, wires))
+        for ids in rendered:
+            forget_prompt(engine, ids)
+        alone_engine = asyncio.run(serve(engine, [pre.preprocess_chat(
+            ChatCompletionRequest.model_validate(alone)).to_wire()]))[0]
+        forget_prompt(engine, alone_ids)
+        log(json.dumps({"engine_boundary_ttft_ms": [
+            r["ttft_s"] * 1e3 for r in engine_side],
+            "engine_boundary_alone_ttft_ms": alone_engine["ttft_s"] * 1e3}))
+
+        attention.KERNEL.launches = 0
+        attention.KERNEL.launches_int8 = 0
+        windows0 = engine.windows_dispatched
+        for path in ("/v1/models", "/health"):
+            res = http_call(port, "GET", path)
+            assert res["status"] == 200, res
+        assert [m["id"] for m in http_call(port, "GET", "/v1/models")[
+            "json"]["data"]] == [MODEL]
+        t0 = time.monotonic()
+        with ThreadPoolExecutor(len(chats) + 1) as pool:
+            futures = [pool.submit(http_call, port, "POST",
+                                   "/v1/chat/completions", c) for c in chats]
+            futures.append(pool.submit(http_call, port, "POST",
+                                       "/v1/completions", comp))
+            results = [f.result(SSE_TIMEOUT_S) for f in futures]
+        wall = time.monotonic() - t0
+        summaries = []
+        for i, res in enumerate(results):
+            assert res["status"] == 200, res
+            s = stream_summary(res)
+            summaries.append(s)
+            assert s["finish"] == "length", (i, s["finish"])
+            assert s["usage"]["completion_tokens"] == HTTP_MAX_TOKENS, s
+            want = rendered[i] if i < len(chats) else prompt_ids[0]
+            assert s["usage"]["prompt_tokens"] == len(want), (
+                i, s["usage"], len(want))
+        lps = summaries[5]["logprobs"]
+        assert len(lps) == HTTP_MAX_TOKENS, len(lps)
+        assert all(len(e["top_logprobs"]) == 3 for e in lps)
+        assert all(np.isfinite(e["logprob"]) for e in lps)
+
+        # One greedy chat alone, streamed, then alone and not streamed.
+        streamed = stream_summary(http_call(
+            port, "POST", "/v1/chat/completions", alone))
+        forget_prompt(engine, alone_ids)
+        whole = http_call(port, "POST", "/v1/chat/completions",
+                          dict(alone, stream=False))
+        assert whole["status"] == 200, whole
+        body = whole["json"]
+        assert body["choices"][0]["finish_reason"] == "length", body
+        assert body["choices"][0]["message"]["content"] == streamed["text"]
+        assert body["usage"] == streamed["usage"], (body["usage"],
+                                                    streamed["usage"])
+
+        bad = http_call(port, "POST", "/v1/chat/completions", b"{nope")
+        missing = http_call(port, "POST", "/v1/chat/completions",
+                            dict(alone, model="no-such-model"))
+        for res, code, kind in ((bad, 400, "invalid_request_error"),
+                                (missing, 404, "model_not_found")):
+            assert res["status"] == code, res
+            err = res["json"]["error"]
+            assert sorted(err) == ["code", "message", "param", "type"], err
+            assert err["type"] == kind and err["message"], err
+        launches = {"paged_attention_hist": attention.KERNEL.launches,
+                    "paged_attention_hist_int8":
+                        attention.KERNEL.launches_int8}
+        windows = engine.windows_dispatched - windows0
+        expected = windows * engine.decode_window * spec.num_layers
+        assert launches["paged_attention_hist"] == expected > 0, (
+            launches, expected)
+        assert launches["paged_attention_hist_int8"] == 0, launches
+        n_tok = sum(s["usage"]["completion_tokens"] for s in summaries)
+        names = [f"chat{i}" for i in range(4)] + [
+            "chat_sampled", "chat_logprobs", "completion_1024_ids"]
+        for name, s in zip(names, summaries):
+            log(json.dumps({"http_request": name,
+                            "prompt_tokens": s["usage"]["prompt_tokens"],
+                            "ttft_ms": s["ttft_ms"],
+                            "itl_ms_median": s["itl_ms_median"],
+                            "tpot_ms": s["tpot_ms"], "chunks": s["chunks"]}))
+        stats = {"requests": len(summaries), "tokens": n_tok, "wall_s": wall,
+                 "tok_per_s": n_tok / wall,
+                 "ttft_ms": [s["ttft_ms"] for s in summaries],
+                 "itl_ms_median": [s["itl_ms_median"] for s in summaries],
+                 "tpot_ms": [s["tpot_ms"] for s in summaries],
+                 "engine_boundary_ttft_ms": [r["ttft_s"] * 1e3
+                                             for r in engine_side],
+                 "alone_ttft_ms": streamed["ttft_ms"],
+                 "alone_tpot_ms": streamed["tpot_ms"],
+                 "engine_boundary_alone_ttft_ms":
+                     alone_engine["ttft_s"] * 1e3,
+                 "windows": windows, "window_steps": engine.decode_window,
+                 "kernel_launches": launches["paged_attention_hist"],
+                 "launches": launches}
+        log(json.dumps({"http_phase": stats}))
+    finally:
+        on_loop(service.stop(), 60)
+        engine.stop()
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(60)
+        loop.close()
+    del engine, service, pre
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"released: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still "
+        f"allocated")
+    return stats
+
+
+def launcher_subprocess() -> dict:
+    """``python -m dynamo_tpu_torch.launch in=http out=gpu --model
+    tiny-test --http-port 0`` as a subprocess: it must log an engine on
+    cuda (no --device given), answer one streamed chat and exit 0 on
+    SIGTERM."""
+    import os
+    import queue
+    import signal
+    import subprocess
+    import threading
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dynamo_tpu_torch.launch", "in=http",
+         "out=gpu", "--model", "tiny-test", "--http-port", "0"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=dict(os.environ, DTPU_LOG="info"))
+    lines: queue.Queue = queue.Queue()
+    for pipe in (proc.stdout, proc.stderr):
+        threading.Thread(target=lambda p=pipe: [lines.put(x) for x in p],
+                         daemon=True).start()
+    seen = []
+    try:
+        t0 = time.monotonic()
+        while not (any(x.startswith("LAUNCH_READY") for x in seen)
+                   and any("from an engine on" in x for x in seen)):
+            try:
+                seen.append(lines.get(timeout=1))
+            except queue.Empty:
+                assert proc.poll() is None, (proc.returncode, seen[-20:])
+                assert time.monotonic() - t0 < 300, seen[-20:]
+        ready_s = time.monotonic() - t0
+        ready = next(x for x in seen if x.startswith("LAUNCH_READY"))
+        device = next(x for x in seen if "from an engine on" in x)
+        assert "from an engine on cuda" in device, device
+        port = int(ready.strip().rsplit("=", 1)[1])
+        res = http_call(port, "POST", "/v1/chat/completions", {
+            "model": "tiny-test", "stream": True, "max_tokens": 8,
+            "ignore_eos": True, "stream_options": {"include_usage": True},
+            "messages": [{"role": "user", "content": "hello world"}]})
+        s = stream_summary(res)
+        assert res["status"] == 200 and s["finish"] == "length", s
+        assert s["usage"]["completion_tokens"] == 8, s
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(timeout=120)
+        assert code == 0, (code, seen[-20:])
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    log(f"launcher subprocess: {ready.strip()}, {device.strip()}, "
+        f"ready in {ready_s:.1f}s, answered a streamed chat, exited 0 on "
+        f"SIGTERM")
+    return {"ready_s": ready_s}
+
+
+def kernel_entry(name, variant, timing, main, max_err, stats,
+                 http_launches) -> dict:
     """One kernel's summary: times at the B=32 x 2048 shape, and the same
-    numbers at the main path's mid-round shape under ``main_shape``."""
+    numbers at the main path's mid-round shape under ``main_shape``;
+    launches in round 1, round 2 and the HTTP phase."""
     return {"name": name, "route": "cuda",
             "source": "dynamo_tpu_torch/csrc/paged_attention.cu",
             "replaces": "dynamo_tpu/engine/attention.py:72",
             "variant": variant, "launches": stats["kernel_launches"],
             "launches_round2": stats["round2"]["kernel_launches"],
+            "launches_http": http_launches,
             "max_abs_err": max(max_err, timing["max_abs_err"],
                                main["max_abs_err"]),
             "ms": timing["ms"], "plain_ms": timing["plain_ms"],
@@ -757,15 +1111,19 @@ def main() -> int:
         torch.cuda.empty_cache()
         stats_bf16 = main_path(attention, model, None)
         stats_int8 = main_path(attention, model, "int8")
+        stats_http = http_phase(attention)
+        launcher_subprocess()
     except Exception:  # noqa: BLE001 — report and fail the run
         traceback.print_exc()
         return 1
     log(json.dumps({"kernels": [
         kernel_entry("paged_attention_hist", "bf16 pool", timing_bf16,
-                     main_bf16, err_bf16, stats_bf16),
+                     main_bf16, err_bf16, stats_bf16,
+                     stats_http["launches"]["paged_attention_hist"]),
         kernel_entry("paged_attention_hist_int8",
                      "int8 pool, _decode_kernel(quantized=True)",
-                     timing_int8, main_int8, err_int8, stats_int8)]}))
+                     timing_int8, main_int8, err_int8, stats_int8,
+                     stats_http["launches"]["paged_attention_hist_int8"])]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,16 @@
-"""Engine launcher for the port (counterpart of ``dynamo_tpu.launch``'s
-``out=tpu`` leg, ``_build_engine``).
+"""One-process launcher of the port (counterpart of ``dynamo_tpu.launch``
+``in=http out=tpu``, the "dynamo-run equivalent"): the OpenAI HTTP front,
+preprocessor, detokenizing backend and GPUEngine in one process, with no
+coordinator and no network hop between front and engine.
 
-``build_engine(args)`` assembles a GPUEngine for ``out=gpu --model
-<preset>`` with random weights from ``--seed``. The HTTP front end,
-tokenizer and request plane are a later slice, so the engine boundary is
-``engine.generate(request_dict, context)``.
+    python -m dynamo_tpu_torch.launch in=http out=gpu --model llama-3-8b
+    python -m dynamo_tpu_torch.launch --model tiny-test --device cpu
 
-    python -m dynamo_tpu_torch.launch out=gpu --model tiny-test --device cpu
+The weights are random from ``--seed``; the tokenizer is ``--tokenizer
+PATH`` (a ``tokenizer.json``) or the repo's test tokenizer. It prints
+``LAUNCH_READY in=http out=gpu port=N`` once it serves, and stops the
+front and the engine on SIGINT or SIGTERM. ``build_engine`` assembles
+the engine alone (``chip_smoke.py``, ``profile_decode.py``).
 """
 
 from __future__ import annotations
@@ -14,11 +18,30 @@ from __future__ import annotations
 import argparse
 import asyncio
 import dataclasses
+import os
+import signal
 import sys
 
 from dynamo_tpu_torch.engine.config import PRESETS, EngineConfig
 from dynamo_tpu_torch.engine.engine import GPUEngine
-from dynamo_tpu_torch.runtime.context import Context
+from dynamo_tpu_torch.llm.backend import Backend
+from dynamo_tpu_torch.llm.discovery import ModelManager, ServedModel
+from dynamo_tpu_torch.llm.http_service import HttpService
+from dynamo_tpu_torch.llm.model_card import (DEFAULT_CHAT_TEMPLATE,
+                                             ModelDeploymentCard, ModelEntry)
+from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+from dynamo_tpu_torch.llm.tokenizer import Tokenizer, make_test_tokenizer
+from dynamo_tpu_torch.runtime.logging import get_logger
+
+log = get_logger("launch")
+
+# in=/out= values of the reference's launcher that wait for later slices.
+NOT_PORTED = {
+    "in=text": "the interactive and batch inputs",
+    "in=batch": "the interactive and batch inputs",
+    "in=grpc": "the KServe gRPC front",
+    "out=dyn": "the worker main and request plane",
+}
 
 
 def _auto_or_int(value: str):
@@ -27,15 +50,16 @@ def _auto_or_int(value: str):
 
 def parse_args(argv=None) -> argparse.Namespace:
     argv = list(sys.argv[1:] if argv is None else argv)
-    out = "gpu"
+    io = {"in": "http", "out": "gpu"}
     rest = []
     for a in argv:
-        if a.startswith("out="):
-            out = a.split("=", 1)[1]
+        if a.startswith("in=") or a.startswith("out="):
+            k, v = a.split("=", 1)
+            io[k] = v
         else:
             rest.append(a)
     parser = argparse.ArgumentParser(
-        description="dynamo_tpu_torch engine launcher (out=gpu)")
+        description="dynamo_tpu_torch launcher (in=http out=gpu)")
     parser.add_argument("--model", default="tiny-test",
                         choices=sorted(PRESETS))
     parser.add_argument("--device", default="cuda")
@@ -60,14 +84,26 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="store the paged KV pool as int8 with a f32 "
                              "scale per token and head (about 1.9x the "
                              "pages in the same memory)")
-    parser.add_argument("--prompt", default="1,2,3,4",
-                        help="comma-separated token ids for the __main__ "
-                             "smoke request")
-    parser.add_argument("--max-tokens", type=int, default=16)
+    parser.add_argument("--model-name", default=None,
+                        help="served model name (default: --model)")
+    parser.add_argument("--tokenizer", default=None,
+                        help="path of a tokenizer.json (default: the repo's "
+                             "test tokenizer)")
+    parser.add_argument("--context-length", type=int, default=8192)
+    parser.add_argument("--http-host", default="127.0.0.1")
+    parser.add_argument("--http-port", type=int, default=8000,
+                        help="0 picks a free port")
     args = parser.parse_args(rest)
-    if out != "gpu":
-        parser.error(f"out= must be gpu, got {out!r}")
-    args.output = out
+    for key, value in io.items():
+        wait = NOT_PORTED.get(f"{key}={value}")
+        if wait:
+            parser.error(f"{key}={value} is not ported yet: it waits for "
+                         f"the slice that ports {wait}")
+    if io["in"] != "http":
+        parser.error(f"in= must be http, got {io['in']!r}")
+    if io["out"] != "gpu":
+        parser.error(f"out= must be gpu, got {io['out']!r}")
+    args.input, args.output = io["in"], io["out"]
     return args
 
 
@@ -92,21 +128,64 @@ def build_engine(args, **overrides) -> GPUEngine:
     return engine
 
 
-async def _smoke(engine: GPUEngine, args) -> None:
-    request = {"model": args.model,
-               "token_ids": [int(t) for t in args.prompt.split(",")],
-               "stop_conditions": {"max_tokens": args.max_tokens}}
-    async for item in engine.generate(request, Context()):
-        print(item, flush=True)
+def build_local_served(args, engine: GPUEngine | None = None
+                       ) -> tuple[ServedModel, GPUEngine]:
+    """Static pipeline: Preprocessor -> Backend -> GPUEngine, no network.
+    ``engine``: a started engine to serve from (default: ``build_engine``
+    of ``args``)."""
+    tokenizer = (Tokenizer.from_file(args.tokenizer) if args.tokenizer
+                 else make_test_tokenizer())
+    engine = engine or build_engine(args)
+    name = args.model_name or os.path.basename(args.model.rstrip("/"))
+    card = ModelDeploymentCard(name=name, chat_template=DEFAULT_CHAT_TEMPLATE,
+                               context_length=args.context_length)
+    entry = ModelEntry(model_name=name, namespace="local", component="local",
+                       endpoint="generate", model_type="chat", card=card)
+    backend = Backend(tokenizer, inner=engine)
+    return ServedModel(entry, OpenAIPreprocessor(card, tokenizer,
+                                                 inner=backend)), engine
+
+
+async def start_http(args, engine: GPUEngine | None = None
+                     ) -> tuple[HttpService, GPUEngine]:
+    """Build the served model and start the HTTP front on the running
+    event loop; the caller stops both."""
+    served, engine = build_local_served(args, engine)
+    manager = ModelManager()
+    manager.models[served.name] = served
+    service = HttpService(manager, host=args.http_host, port=args.http_port)
+    try:
+        await service.start()
+    except BaseException:
+        engine.stop()
+        raise
+    return service, engine
+
+
+async def run(args) -> None:
+    """Serve until SIGINT or SIGTERM, then stop the front and the engine."""
+    loop = asyncio.get_running_loop()
+    done = asyncio.Event()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        loop.add_signal_handler(sig, done.set)
+    try:
+        service, engine = await start_http(args)
+        try:
+            print(f"LAUNCH_READY in={args.input} out={args.output} "
+                  f"port={service.port}", flush=True)
+            log.info("serving %s from an engine on %s", args.model,
+                     engine.runner.device)
+            await done.wait()
+        finally:
+            await service.stop()
+            engine.stop()
+    finally:
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            loop.remove_signal_handler(sig)
 
 
 def main(argv=None) -> None:
-    args = parse_args(argv)
-    engine = build_engine(args)
-    try:
-        asyncio.run(_smoke(engine, args))
-    finally:
-        engine.stop()
+    asyncio.run(run(parse_args(argv)))
 
 
 if __name__ == "__main__":

@@ -23,3 +23,11 @@ class AsyncEngine(abc.ABC):
         ``context.is_stopped`` / generator close.
         """
         raise NotImplementedError
+
+
+class Operator(AsyncEngine):
+    """An engine stage wrapping a downstream engine: the forward edge
+    transforms the request, the backward edge the response stream."""
+
+    def __init__(self, inner: AsyncEngine | None = None):
+        self.inner = inner

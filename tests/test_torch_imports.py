@@ -1,5 +1,7 @@
 """The port stands alone: no file of dynamo_tpu_torch/, and not
-chip_smoke.py, imports jax or anything of the JAX package dynamo_tpu."""
+chip_smoke.py, imports jax or anything of the JAX package dynamo_tpu, nor
+a package the card's machine lacks (aiohttp, pydantic, tokenizers, jinja2,
+msgpack, xxhash, regex)."""
 
 import ast
 import subprocess
@@ -11,7 +13,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "dynamo_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
-FORBIDDEN = {"jax", "jaxlib", "dynamo_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "dynamo_tpu", "aiohttp", "pydantic",
+             "tokenizers", "jinja2", "msgpack", "xxhash", "regex"}
 
 
 def _imported_roots(path: Path) -> set[str]:
