@@ -72,6 +72,26 @@ Phases, in order; any failure exits non-zero without the final line:
    in=http out=gpu --model tiny-test --http-port 0`` runs as a
    subprocess: its engine is on cuda without --device, it answers a
    streamed chat and exits 0 on SIGTERM.
+6. the distributed main path at full width, before phase 5's engine is
+   released: in this process and over TCP on 127.0.0.1, a worker
+   DistributedRuntime with an embedded coordinator serves
+   engine.handler() on the request plane and registers the model
+   (backends.gpu.serve_engine), and a frontend DistributedRuntime runs a
+   ModelWatcher behind the HTTP front (launch.start_front). Phase 5's six
+   streamed chats and 1024-id completion go again, then its alone chat,
+   streamed, each prompt first dropped from the prefix cache. Checked:
+   framing and [DONE]; finish length and 32 completion tokens;
+   prompt_tokens equal to phase 5's; the alone chat's token ids (read by
+   a tap on engine.generate) equal phase 5's alone chat at the engine
+   boundary, and its text and usage equal phase 5's; /v1/models through
+   discovery; paged_attention_hist launched windows x M x 32 times, the
+   int8 entry 0 times. It prints each request's client TTFT and TPOT
+   beside phase 5's, the phase's tok/s, its seconds, and the mean us of
+   packb + unpackb over the phase's data frames. Then the coordinator,
+   ``python -m dynamo_tpu_torch.backends.gpu --model tiny-test`` and
+   ``python -m dynamo_tpu_torch.frontend --http-port 0`` run as
+   subprocesses: the worker's engine is on cuda without --device, a
+   streamed chat is answered, and all three exit 0 on SIGTERM.
 The last lines are the kernels' JSON summary, the card's name and power
 limit, and {"ok": true, "device": {...}}.
 """
@@ -988,6 +1008,14 @@ def http_phase(attention) -> dict:
                  "kernel_launches": launches["paged_attention_hist"],
                  "launches": launches}
         log(json.dumps({"http_phase": stats}))
+        traffic = {"chats": chats, "comp": comp, "alone": alone,
+                   "rendered": rendered, "prompt_ids": prompt_ids,
+                   "alone_ids": alone_ids,
+                   "alone_tokens": alone_engine["tokens"],
+                   "alone_text": streamed["text"],
+                   "summaries": summaries, "alone_summary": streamed,
+                   "names": names}
+        stats["dist"] = dist_phase(attention, engine, tok, on_loop, traffic)
     finally:
         on_loop(service.stop(), 60)
         engine.stop()
@@ -1000,6 +1028,244 @@ def http_phase(attention) -> dict:
     log(f"released: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still "
         f"allocated")
     return stats
+
+
+def dist_phase(attention, engine, tokenizer, on_loop, traffic) -> dict:
+    """Phase 6: the distributed main path at full width, over real TCP on
+    127.0.0.1 in this process, from phase 5's llama-3-8b engine. A worker
+    DistributedRuntime with an embedded coordinator serves
+    ``engine.handler()`` through ``backends.gpu.serve_engine`` (an
+    EndpointServer plus ``register_llm``); a frontend DistributedRuntime
+    runs ``launch.start_front`` (ModelWatcher + HttpService). Phase 5's
+    traffic goes again, each prompt first dropped from the prefix cache:
+    the six streamed chats beside the 1024-id completion, then the alone
+    greedy chat, streamed. A tap on ``engine.generate`` records each
+    engine output (the payload of one data frame) and the alone chat's
+    token ids: the OpenAI logprobs entries carry no ids. Checks: framing
+    and [DONE]; finish length and 32 completion tokens; prompt_tokens
+    equal to phase 5's; the alone chat's ids equal phase 5's alone chat
+    at the engine boundary (same engine, prompt, batch of one, cold
+    prefix cache); /v1/models through discovery; paged_attention_hist
+    launched windows x M x 32 times and the int8 entry 0 times. Prints
+    each request's client TTFT and TPOT beside phase 5's, the phase's
+    tok/s and the mean us of packb + unpackb over the phase's data
+    frames."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dynamo_tpu_torch.backends.gpu import serve_engine
+    from dynamo_tpu_torch.launch import start_front
+    from dynamo_tpu_torch.llm.model_card import deregister_llm
+    from dynamo_tpu_torch.profile_decode import MODEL
+    from dynamo_tpu_torch.runtime.config import RuntimeConfig
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.runtime.msgpack_lite import packb, unpackb
+
+    t_phase = time.monotonic()
+    outputs, ids_by_prompt = [], {}
+    inner = engine.generate
+
+    async def tapped(request, context):
+        ids = ids_by_prompt.setdefault(tuple(request["token_ids"]), [])
+        async for item in inner(request, context):
+            outputs.append(item)
+            ids.extend(item.get("token_ids", []))
+            yield item
+
+    async def up():
+        worker = await DistributedRuntime.with_embedded_coordinator(
+            RuntimeConfig())
+        server = await serve_engine(worker, engine, MODEL, tokenizer)
+        front = await DistributedRuntime.from_settings(
+            RuntimeConfig(coordinator_url=worker.config.coordinator_url))
+        service, watcher = await start_front(front, "127.0.0.1", 0)
+        deadline = time.monotonic() + 60
+        while watcher.manager.get(MODEL) is None:
+            assert time.monotonic() < deadline, "the model was not discovered"
+            await asyncio.sleep(0.02)
+        return worker, server, front, service, watcher
+
+    async def down(worker, server, front, service, watcher):
+        await service.stop()
+        await watcher.stop()
+        await front.close()
+        await deregister_llm(worker, MODEL)
+        await server.shutdown()
+        await worker.close()
+
+    chats, comp, alone = traffic["chats"], traffic["comp"], traffic["alone"]
+    prompts = traffic["rendered"] + traffic["prompt_ids"]
+    for ids in prompts + [traffic["alone_ids"]]:
+        forget_prompt(engine, ids)
+    stack = on_loop(up(), 120)
+    engine.generate = tapped
+    try:
+        port, spec = stack[3].port, engine.runner.spec
+        log(f"distributed: coordinator {stack[0].config.coordinator_url}, "
+            f"worker {stack[0].instance_id:x} at "
+            f"127.0.0.1:{stack[1].port}, front at 127.0.0.1:{port}")
+        attention.KERNEL.launches = 0
+        attention.KERNEL.launches_int8 = 0
+        windows0 = engine.windows_dispatched
+        models = http_call(port, "GET", "/v1/models")
+        assert models["status"] == 200, models
+        assert [m["id"] for m in models["json"]["data"]] == [MODEL], models
+        t0 = time.monotonic()
+        with ThreadPoolExecutor(len(chats) + 1) as pool:
+            futures = [pool.submit(http_call, port, "POST",
+                                   "/v1/chat/completions", c) for c in chats]
+            futures.append(pool.submit(http_call, port, "POST",
+                                       "/v1/completions", comp))
+            results = [f.result(SSE_TIMEOUT_S) for f in futures]
+        wall = time.monotonic() - t0
+        summaries = []
+        for i, res in enumerate(results):
+            assert res["status"] == 200, res
+            s = stream_summary(res)
+            summaries.append(s)
+            assert s["finish"] == "length", (i, s["finish"])
+            assert s["usage"]["completion_tokens"] == HTTP_MAX_TOKENS, s
+            assert s["usage"]["prompt_tokens"] == traffic["summaries"][i][
+                "usage"]["prompt_tokens"], (i, s["usage"])
+        # The alone chat prefills cold, as phase 5's did at the engine
+        # boundary.
+        for ids in prompts:
+            forget_prompt(engine, ids)
+        streamed = stream_summary(http_call(
+            port, "POST", "/v1/chat/completions", alone))
+        assert streamed["finish"] == "length", streamed
+        assert streamed["usage"] == traffic["alone_summary"]["usage"], (
+            streamed["usage"], traffic["alone_summary"]["usage"])
+        alone_ids = ids_by_prompt[tuple(traffic["alone_ids"])]
+        assert alone_ids == traffic["alone_tokens"], (
+            alone_ids, traffic["alone_tokens"])
+        assert streamed["text"] == traffic["alone_text"]
+        launches = {"paged_attention_hist": attention.KERNEL.launches,
+                    "paged_attention_hist_int8":
+                        attention.KERNEL.launches_int8}
+        windows = engine.windows_dispatched - windows0
+        expected = windows * engine.decode_window * spec.num_layers
+        assert launches["paged_attention_hist"] == expected > 0, (
+            launches, expected)
+        assert launches["paged_attention_hist_int8"] == 0, launches
+    finally:
+        del engine.generate
+        on_loop(down(*stack), 120)
+    # The codec's cost on this phase's data frames, as the endpoint server
+    # builds them.
+    frames = [{"t": "data", "rid": "0" * 32, "p": item, "s": i}
+              for i, item in enumerate(outputs)]
+    t0 = time.perf_counter()
+    for frame in frames:
+        unpackb(packb(frame))
+    codec_us = (time.perf_counter() - t0) / len(frames) * 1e6
+    n_tok = sum(s["usage"]["completion_tokens"] for s in summaries)
+    for name, s, s5 in zip(traffic["names"], summaries,
+                           traffic["summaries"]):
+        log(json.dumps({"dist_request": name,
+                        "prompt_tokens": s["usage"]["prompt_tokens"],
+                        "ttft_ms": s["ttft_ms"], "tpot_ms": s["tpot_ms"],
+                        "phase5_ttft_ms": s5["ttft_ms"],
+                        "phase5_tpot_ms": s5["tpot_ms"]}))
+    stats = {"requests": len(summaries), "tokens": n_tok, "wall_s": wall,
+             "tok_per_s": n_tok / wall,
+             "ttft_ms": [s["ttft_ms"] for s in summaries],
+             "tpot_ms": [s["tpot_ms"] for s in summaries],
+             "alone_ttft_ms": streamed["ttft_ms"],
+             "alone_tpot_ms": streamed["tpot_ms"],
+             "phase5_alone_ttft_ms": traffic["alone_summary"]["ttft_ms"],
+             "phase5_alone_tpot_ms": traffic["alone_summary"]["tpot_ms"],
+             "data_frames": len(frames),
+             "frame_bytes_mean": sum(len(packb(f)) for f in frames)
+             / len(frames),
+             "codec_us_per_frame": codec_us,
+             "windows": windows, "window_steps": engine.decode_window,
+             "kernel_launches": launches["paged_attention_hist"],
+             "launches": launches,
+             "phase_s": time.monotonic() - t_phase}
+    log(json.dumps({"dist_phase": stats}))
+    return stats
+
+
+def dist_subprocesses() -> dict:
+    """The distributed entry points as subprocesses on the card: ``python
+    -m dynamo_tpu_torch.runtime.coordinator --port 0``, ``python -m
+    dynamo_tpu_torch.backends.gpu --model tiny-test`` (it must log an
+    engine on cuda, no --device given) and ``python -m
+    dynamo_tpu_torch.frontend --http-port 0``; one streamed chat is
+    answered and all three exit 0 on SIGTERM, the worker first."""
+    import os
+    import queue
+    import signal
+    import subprocess
+    import threading
+
+    cwd = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+
+    def start(*argv):
+        proc = subprocess.Popen(
+            [sys.executable, "-m", *argv], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, cwd=cwd,
+            env=dict(os.environ, DTPU_LOG="info"))
+        lines: queue.Queue = queue.Queue()
+        for pipe in (proc.stdout, proc.stderr):
+            threading.Thread(target=lambda p=pipe: [lines.put(x) for x in p],
+                             daemon=True).start()
+        procs.append((proc, lines, []))
+        return procs[-1]
+
+    def wait_line(entry, text, timeout=300):
+        proc, lines, seen = entry
+        t0 = time.monotonic()
+        while not any(text in x for x in seen):
+            try:
+                seen.append(lines.get(timeout=1))
+            except queue.Empty:
+                assert proc.poll() is None, (proc.returncode, seen[-20:])
+                assert time.monotonic() - t0 < timeout, seen[-20:]
+        return next(x for x in seen if text in x).strip()
+
+    t0 = time.monotonic()
+    try:
+        coord = start("dynamo_tpu_torch.runtime.coordinator", "--host",
+                      "127.0.0.1", "--port", "0")
+        url = "tcp://127.0.0.1:" + wait_line(
+            coord, "COORDINATOR_READY").rsplit("=", 1)[1]
+        worker = start("dynamo_tpu_torch.backends.gpu", "--model",
+                       "tiny-test", "--coordinator-url", url)
+        front = start("dynamo_tpu_torch.frontend", "--http-host",
+                      "127.0.0.1", "--http-port", "0", "--coordinator-url",
+                      url)
+        ready = wait_line(worker, "GPU_WORKER_READY")
+        device = wait_line(worker, "from an engine on")
+        assert "from an engine on cuda" in device, device
+        port = int(wait_line(front, "FRONTEND_READY").rsplit("=", 1)[1])
+        deadline = time.monotonic() + 60
+        while [m["id"] for m in http_call(port, "GET", "/v1/models")[
+                "json"]["data"]] != ["tiny-test"]:
+            assert time.monotonic() < deadline, "the model was not served"
+            time.sleep(0.05)
+        ready_s = time.monotonic() - t0
+        res = http_call(port, "POST", "/v1/chat/completions", {
+            "model": "tiny-test", "stream": True, "max_tokens": 8,
+            "ignore_eos": True, "stream_options": {"include_usage": True},
+            "messages": [{"role": "user", "content": "hello world"}]})
+        s = stream_summary(res)
+        assert res["status"] == 200 and s["finish"] == "length", s
+        assert s["usage"]["completion_tokens"] == 8, s
+        for proc, _, seen in (worker, front, coord):
+            proc.send_signal(signal.SIGTERM)
+            code = proc.wait(timeout=120)
+            assert code == 0, (code, seen[-20:])
+    finally:
+        for proc, _, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+    log(f"distributed subprocesses: {ready.strip()}, {device.strip()}, "
+        f"serving in {ready_s:.1f}s, answered a streamed chat, all three "
+        f"exited 0 on SIGTERM")
+    return {"ready_s": ready_s}
 
 
 def launcher_subprocess() -> dict:
@@ -1058,16 +1324,18 @@ def launcher_subprocess() -> dict:
 
 
 def kernel_entry(name, variant, timing, main, max_err, stats,
-                 http_launches) -> dict:
+                 http_launches, dist_launches) -> dict:
     """One kernel's summary: times at the B=32 x 2048 shape, and the same
     numbers at the main path's mid-round shape under ``main_shape``;
-    launches in round 1, round 2 and the HTTP phase."""
+    launches in round 1, round 2, the HTTP phase and the distributed
+    phase."""
     return {"name": name, "route": "cuda",
             "source": "dynamo_tpu_torch/csrc/paged_attention.cu",
             "replaces": "dynamo_tpu/engine/attention.py:72",
             "variant": variant, "launches": stats["kernel_launches"],
             "launches_round2": stats["round2"]["kernel_launches"],
             "launches_http": http_launches,
+            "launches_dist": dist_launches,
             "max_abs_err": max(max_err, timing["max_abs_err"],
                                main["max_abs_err"]),
             "ms": timing["ms"], "plain_ms": timing["plain_ms"],
@@ -1113,17 +1381,21 @@ def main() -> int:
         stats_int8 = main_path(attention, model, "int8")
         stats_http = http_phase(attention)
         launcher_subprocess()
+        dist_subprocesses()
     except Exception:  # noqa: BLE001 — report and fail the run
         traceback.print_exc()
         return 1
     log(json.dumps({"kernels": [
         kernel_entry("paged_attention_hist", "bf16 pool", timing_bf16,
                      main_bf16, err_bf16, stats_bf16,
-                     stats_http["launches"]["paged_attention_hist"]),
+                     stats_http["launches"]["paged_attention_hist"],
+                     stats_http["dist"]["launches"]["paged_attention_hist"]),
         kernel_entry("paged_attention_hist_int8",
                      "int8 pool, _decode_kernel(quantized=True)",
                      timing_int8, main_int8, err_int8, stats_int8,
-                     stats_http["launches"]["paged_attention_hist_int8"])]}))
+                     stats_http["launches"]["paged_attention_hist_int8"],
+                     stats_http["dist"]["launches"][
+                         "paged_attention_hist_int8"])]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -53,6 +53,7 @@ from dynamo_tpu_torch.llm.protocols import (FinishReason, LLMEngineOutput,
 from dynamo_tpu_torch.llm.tokens import TokenBlockSequence
 from dynamo_tpu_torch.runtime.context import Context
 from dynamo_tpu_torch.runtime.engine import AsyncEngine
+from dynamo_tpu_torch.runtime.errors import InvalidRequestError
 from dynamo_tpu_torch.runtime.logging import get_logger
 
 log = get_logger("gpu_engine")
@@ -289,6 +290,21 @@ class GPUEngine(AsyncEngine):
             yield item
             if item.get("finish_reason"):
                 return
+
+    def handler(self):
+        """The endpoint handler that serves ``generate`` on the request
+        plane (``Endpoint.serve_endpoint``). The reference's control
+        requests are refused, never answered with an empty stream."""
+        async def handle(request, context):
+            for verb in ("clear_kv_blocks", "embed"):
+                if isinstance(request, dict) and request.get(verb):
+                    raise InvalidRequestError(
+                        f"{verb} requests are not ported yet: they wait "
+                        "for ROADMAP items 12 and 13")
+            async for out in self.generate(request, context):
+                yield out
+
+        return handle
 
     # -- engine loop ----------------------------------------------------------
     def _engine_loop(self) -> None:

@@ -1,16 +1,23 @@
-"""One-process launcher of the port (counterpart of ``dynamo_tpu.launch``
-``in=http out=tpu``, the "dynamo-run equivalent"): the OpenAI HTTP front,
-preprocessor, detokenizing backend and GPUEngine in one process, with no
-coordinator and no network hop between front and engine.
+"""Launcher of the port (counterpart of ``dynamo_tpu.launch``, the
+"dynamo-run equivalent").
+
+``in=http out=gpu`` runs the OpenAI HTTP front, preprocessor,
+detokenizing backend and GPUEngine in one process, with no coordinator and
+no network hop between front and engine; ``out=dyn`` runs the same front
+over a ``ModelWatcher`` on ``--coordinator-url`` and serves whatever
+workers (``python -m dynamo_tpu_torch.backends.gpu``, or the JAX
+package's) register there.
 
     python -m dynamo_tpu_torch.launch in=http out=gpu --model llama-3-8b
     python -m dynamo_tpu_torch.launch --model tiny-test --device cpu
+    python -m dynamo_tpu_torch.launch in=http out=dyn --coordinator-url tcp://127.0.0.1:4222
 
 The weights are random from ``--seed``; the tokenizer is ``--tokenizer
 PATH`` (a ``tokenizer.json``) or the repo's test tokenizer. It prints
-``LAUNCH_READY in=http out=gpu port=N`` once it serves, and stops the
-front and the engine on SIGINT or SIGTERM. ``build_engine`` assembles
-the engine alone (``chip_smoke.py``, ``profile_decode.py``).
+``LAUNCH_READY in=http out=<gpu|dyn> port=N`` once it serves, and stops
+on SIGINT or SIGTERM. ``build_engine`` assembles the engine alone
+(``chip_smoke.py``, ``profile_decode.py``); ``add_engine_args`` and
+``build_engine_config`` are shared with the worker main.
 """
 
 from __future__ import annotations
@@ -25,12 +32,15 @@ import sys
 from dynamo_tpu_torch.engine.config import PRESETS, EngineConfig
 from dynamo_tpu_torch.engine.engine import GPUEngine
 from dynamo_tpu_torch.llm.backend import Backend
-from dynamo_tpu_torch.llm.discovery import ModelManager, ServedModel
+from dynamo_tpu_torch.llm.discovery import (ModelManager, ModelWatcher,
+                                            ServedModel)
 from dynamo_tpu_torch.llm.http_service import HttpService
 from dynamo_tpu_torch.llm.model_card import (DEFAULT_CHAT_TEMPLATE,
                                              ModelDeploymentCard, ModelEntry)
 from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
 from dynamo_tpu_torch.llm.tokenizer import Tokenizer, make_test_tokenizer
+from dynamo_tpu_torch.runtime.config import RuntimeConfig
+from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
 from dynamo_tpu_torch.runtime.logging import get_logger
 
 log = get_logger("launch")
@@ -40,7 +50,6 @@ NOT_PORTED = {
     "in=text": "the interactive and batch inputs",
     "in=batch": "the interactive and batch inputs",
     "in=grpc": "the KServe gRPC front",
-    "out=dyn": "the worker main and request plane",
 }
 
 
@@ -48,18 +57,36 @@ def _auto_or_int(value: str):
     return value if value == "auto" else int(value)
 
 
-def parse_args(argv=None) -> argparse.Namespace:
-    argv = list(sys.argv[1:] if argv is None else argv)
-    io = {"in": "http", "out": "gpu"}
-    rest = []
-    for a in argv:
-        if a.startswith("in=") or a.startswith("out="):
-            k, v = a.split("=", 1)
-            io[k] = v
-        else:
-            rest.append(a)
-    parser = argparse.ArgumentParser(
-        description="dynamo_tpu_torch launcher (in=http out=gpu)")
+class RefusedFlag(argparse.Action):
+    """A flag of the reference's entry point that the port does not serve:
+    giving it, with a value outside ``allowed``, exits with the ROADMAP
+    item it waits for. It is never accepted and then ignored."""
+
+    def __init__(self, option_strings, dest, waits_for: str,
+                 allowed=(), **kwargs):
+        self.waits_for, self.allowed = waits_for, allowed
+        kwargs.setdefault("help", argparse.SUPPRESS)
+        super().__init__(option_strings, dest, **kwargs)
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        if values not in self.allowed:
+            parser.error(f"{option_string} is not ported yet: it waits for "
+                         f"{self.waits_for}")
+        setattr(namespace, self.dest, values)
+
+
+def add_refused_flags(parser: argparse.ArgumentParser, flags) -> None:
+    """``flags``: (flag, ROADMAP item it waits for, extra add_argument
+    keywords) triples; a flag without a ``type`` takes no value."""
+    for flag, waits_for, kwargs in flags:
+        if "type" not in kwargs:
+            kwargs = dict(kwargs, nargs=0)
+        parser.add_argument(flag, action=RefusedFlag, waits_for=waits_for,
+                            **kwargs)
+
+
+def add_engine_args(parser: argparse.ArgumentParser) -> None:
+    """The engine's flags, shared by the launcher and the worker main."""
     parser.add_argument("--model", default="tiny-test",
                         choices=sorted(PRESETS))
     parser.add_argument("--device", default="cuda")
@@ -89,10 +116,29 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--tokenizer", default=None,
                         help="path of a tokenizer.json (default: the repo's "
                              "test tokenizer)")
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    io = {"in": "http", "out": "gpu"}
+    rest = []
+    for a in argv:
+        if a.startswith("in=") or a.startswith("out="):
+            k, v = a.split("=", 1)
+            io[k] = v
+        else:
+            rest.append(a)
+    parser = argparse.ArgumentParser(
+        description="dynamo_tpu_torch launcher (in=http out=gpu|dyn)")
+    add_engine_args(parser)
     parser.add_argument("--context-length", type=int, default=8192)
     parser.add_argument("--http-host", default="127.0.0.1")
     parser.add_argument("--http-port", type=int, default=8000,
                         help="0 picks a free port")
+    parser.add_argument("--coordinator-url", default=None,
+                        help="out=dyn: the coordinator to discover workers "
+                             "on (default: DTPU_COORDINATOR_URL, else "
+                             "tcp://127.0.0.1:4222)")
     args = parser.parse_args(rest)
     for key, value in io.items():
         wait = NOT_PORTED.get(f"{key}={value}")
@@ -101,8 +147,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                          f"the slice that ports {wait}")
     if io["in"] != "http":
         parser.error(f"in= must be http, got {io['in']!r}")
-    if io["out"] != "gpu":
-        parser.error(f"out= must be gpu, got {io['out']!r}")
+    if io["out"] not in ("gpu", "dyn"):
+        parser.error(f"out= must be gpu or dyn, got {io['out']!r}")
     args.input, args.output = io["in"], io["out"]
     return args
 
@@ -162,23 +208,71 @@ async def start_http(args, engine: GPUEngine | None = None
     return service, engine
 
 
+async def start_front(runtime: DistributedRuntime, host: str, port: int,
+                      router_mode: str = "round_robin"
+                      ) -> tuple[HttpService, ModelWatcher]:
+    """The distributed front: an HTTP front over a ModelWatcher of the
+    coordinator's models/ prefix (``out=dyn`` and ``python -m
+    dynamo_tpu_torch.frontend``); the caller stops both."""
+    manager = ModelManager()
+    watcher = ModelWatcher(runtime, manager, router_mode=router_mode)
+    service = HttpService(manager, host=host, port=port)
+    try:
+        await watcher.start()
+        await service.start()
+    except BaseException:
+        await watcher.stop()
+        raise
+    return service, watcher
+
+
+async def start_dyn(args) -> tuple[HttpService, DistributedRuntime,
+                                    ModelWatcher]:
+    """``out=dyn``: connect to the coordinator and start the front; the
+    caller stops all three."""
+    cfg = RuntimeConfig.from_settings()
+    if args.coordinator_url:
+        cfg.coordinator_url = args.coordinator_url
+    runtime = await DistributedRuntime.from_settings(cfg)
+    try:
+        service, watcher = await start_front(runtime, args.http_host,
+                                             args.http_port)
+    except BaseException:
+        await runtime.close()
+        raise
+    return service, runtime, watcher
+
+
 async def run(args) -> None:
-    """Serve until SIGINT or SIGTERM, then stop the front and the engine."""
+    """Serve until SIGINT or SIGTERM, then stop the front and what it
+    serves from."""
     loop = asyncio.get_running_loop()
     done = asyncio.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
         loop.add_signal_handler(sig, done.set)
     try:
-        service, engine = await start_http(args)
+        if args.output == "dyn":
+            service, runtime, watcher = await start_dyn(args)
+            serving = ("the models registered at "
+                       + runtime.config.coordinator_url)
+
+            async def stop_rest():
+                await watcher.stop()
+                await runtime.close()
+        else:
+            service, engine = await start_http(args)
+            serving = f"{args.model} from an engine on {engine.runner.device}"
+
+            async def stop_rest():
+                engine.stop()
         try:
             print(f"LAUNCH_READY in={args.input} out={args.output} "
                   f"port={service.port}", flush=True)
-            log.info("serving %s from an engine on %s", args.model,
-                     engine.runner.device)
+            log.info("serving %s", serving)
             await done.wait()
         finally:
             await service.stop()
-            engine.stop()
+            await stop_rest()
     finally:
         for sig in (signal.SIGINT, signal.SIGTERM):
             loop.remove_signal_handler(sig)

@@ -1,20 +1,69 @@
-"""Served models of the one-process launcher (the ``ServedModel`` and
-``ModelManager`` of ``dynamo_tpu.llm.discovery``; the watcher of a
-coordinator's models/ prefix and the router engine wait for the worker-main
-slice of the port)."""
+"""Model discovery: watcher, manager and routed pipeline assembly (copy of
+``dynamo_tpu.llm.discovery`` without the KV router, storage plug-in,
+fleet hooks, journal events and spans).
+
+``ModelWatcher`` watches the coordinator's ``models/`` prefix. On the first
+instance of a model it fetches the tokenizer from the object store and
+assembles Preprocessor -> Backend (detokenize) -> Migration ->
+RouterEngine (endpoint client); on lease-expiry deletes it drops the model
+when its last instance is gone. The one-process launcher fills a
+``ModelManager`` with a local ``ServedModel`` instead.
+"""
 
 from __future__ import annotations
 
-from dynamo_tpu_torch.llm.model_card import ModelEntry
+import asyncio
+from typing import AsyncIterator
+
+from dynamo_tpu_torch.llm.backend import Backend
+from dynamo_tpu_torch.llm.migration import Migration
+from dynamo_tpu_torch.llm.model_card import (MODEL_ROOT, ModelEntry,
+                                             fetch_tokenizer, model_slug)
 from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+from dynamo_tpu_torch.runtime.context import Context
+from dynamo_tpu_torch.runtime.engine import AsyncEngine
+from dynamo_tpu_torch.runtime.logging import get_logger
+
+log = get_logger("discovery")
+
+
+def check_router_mode(mode: str) -> None:
+    """Raise ``ValueError`` for a router mode the port does not serve."""
+    if mode == "kv":
+        raise ValueError("router mode 'kv' (KV-cache-aware routing) is not "
+                         "ported yet: it waits for ROADMAP item 7 (KV events "
+                         "and the KV router's inputs)")
+    if mode not in ("round_robin", "random"):
+        raise ValueError(f"router mode must be round_robin or random, got "
+                         f"{mode!r}")
+
+
+class RouterEngine(AsyncEngine):
+    """Pipeline sink: pushes the preprocessed request to a worker instance
+    through the request plane."""
+
+    def __init__(self, client, router_mode: str = "round_robin"):
+        self.client = client
+        self.router_mode = router_mode
+
+    async def generate(self, request, context: Context) -> AsyncIterator[dict]:
+        stream = await self.client.generate(
+            request if isinstance(request, dict) else request.to_wire(),
+            context=context, mode=self.router_mode)
+        async for item in stream:
+            yield item
 
 
 class ServedModel:
-    """One servable model: its entry and its tokenizer-bound pipeline."""
+    """One servable model: its entry, its tokenizer-bound pipeline and, when
+    it is routed to workers, its endpoint client."""
 
-    def __init__(self, entry: ModelEntry, preprocessor: OpenAIPreprocessor):
+    def __init__(self, entry: ModelEntry, preprocessor: OpenAIPreprocessor,
+                 client=None):
         self.entry = entry
         self.preprocessor = preprocessor
+        self.client = client
+        self.instances: set[int] = set()
 
     @property
     def name(self) -> str:
@@ -33,3 +82,89 @@ class ModelManager:
     def list_models(self) -> list[dict]:
         return [{"id": m.name, "object": "model", "created": 0,
                  "owned_by": "dynamo-tpu"} for m in self.models.values()]
+
+
+class ModelWatcher:
+    def __init__(self, runtime, manager: ModelManager,
+                 router_mode: str = "round_robin"):
+        check_router_mode(router_mode)
+        self._runtime = runtime
+        self.manager = manager
+        self.router_mode = router_mode
+        self._task: asyncio.Task | None = None
+        self._watch = None
+        self._lock = asyncio.Lock()
+
+    async def start(self) -> None:
+        self._watch = await self._runtime.require_coordinator().watch_prefix(
+            MODEL_ROOT)
+        for item in self._watch.snapshot:
+            await self._on_put(item["k"], item["v"])
+        self._task = asyncio.create_task(self._loop())
+
+    async def _loop(self) -> None:
+        async for event in self._watch:
+            try:
+                if event["event"] == "put":
+                    await self._on_put(event["key"], event["value"])
+                else:
+                    await self._on_delete(event["key"])
+            except Exception:  # noqa: BLE001 — keep watching
+                log.exception("model watch event failed")
+
+    async def _on_put(self, key: str, value: dict) -> None:
+        entry = ModelEntry.from_wire(value)
+        instance_hex = key.rsplit("/", 1)[-1]
+        async with self._lock:
+            served = self.manager.models.get(entry.model_name)
+            if served is None:
+                served = await self._build(entry)
+                self.manager.models[entry.model_name] = served
+                log.info("model %s now served via %s/%s/%s",
+                         entry.model_name, entry.namespace, entry.component,
+                         entry.endpoint)
+            try:
+                served.instances.add(int(instance_hex, 16))
+            except ValueError:
+                return
+
+    async def _on_delete(self, key: str) -> None:
+        parts = key[len(MODEL_ROOT):].split("/")
+        if len(parts) != 2:
+            return
+        slug, instance_hex = parts
+        try:
+            iid = int(instance_hex, 16)
+        except ValueError:
+            iid = None
+        async with self._lock:
+            for name, served in list(self.manager.models.items()):
+                if model_slug(name) != slug:
+                    continue
+                served.instances.discard(iid)
+                if not served.instances:
+                    log.info("model %s: last instance gone; removing", name)
+                    del self.manager.models[name]
+                    await served.client.close()
+
+    async def _build(self, entry: ModelEntry) -> ServedModel:
+        coordinator = self._runtime.require_coordinator()
+        tokenizer = await fetch_tokenizer(coordinator, entry.card)
+        endpoint = (self._runtime.namespace(entry.namespace)
+                    .component(entry.component).endpoint(entry.endpoint))
+        client = await endpoint.client()
+        chain = Migration(entry.card.migration_limit,
+                          inner=RouterEngine(client, self.router_mode))
+        backend = Backend(tokenizer, inner=chain)
+        preprocessor = OpenAIPreprocessor(entry.card, tokenizer, inner=backend)
+        return ServedModel(entry, preprocessor, client)
+
+    async def stop(self) -> None:
+        if self._task:
+            self._task.cancel()
+        if self._watch:
+            await self._watch.cancel()
+        for served in list(self.manager.models.values()):
+            if served.client is not None:
+                await served.client.close()
+        self.manager.models.clear()

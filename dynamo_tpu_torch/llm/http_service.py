@@ -6,9 +6,11 @@ Routes: ``POST /v1/chat/completions`` and ``POST /v1/completions``
 ``data: [DONE]\\n\\n``, or not streamed), ``GET /v1/models``, ``GET
 /health`` and ``GET /live``. Errors are OpenAI error bodies: 400 for a
 body that does not parse or validate and for ``ValueError`` /
-``InvalidRequestError`` from the pipeline, 404 for an unknown model, 500
-otherwise. A streamed response pulls its first chunk before it sends
-headers, so pipeline errors keep their status.
+``InvalidRequestError`` from the pipeline, 404 for an unknown model, 503
+with ``Retry-After: 1`` when a routed model has no live worker
+(``NoInstancesError``), 500 otherwise. A streamed response pulls its
+first chunk before it sends headers, so pipeline errors keep their
+status.
 
 HTTP/1.1 with a ``Content-Length`` request body; every response closes
 its connection. A client that goes away (its side of the connection
@@ -29,7 +31,8 @@ from dynamo_tpu_torch.llm.preprocessor import aggregate_chat_stream
 from dynamo_tpu_torch.llm.protocols import (ChatCompletionRequest,
                                             CompletionRequest, usage_block)
 from dynamo_tpu_torch.runtime.context import Context
-from dynamo_tpu_torch.runtime.errors import InvalidRequestError
+from dynamo_tpu_torch.runtime.errors import (InvalidRequestError,
+                                             NoInstancesError)
 from dynamo_tpu_torch.runtime.logging import get_logger
 
 log = get_logger("http")
@@ -110,9 +113,10 @@ class _Exchange:
         self.ctx: Context | None = None
         self.streaming = False  # the 200 head of a stream is out
 
-    async def send_json(self, code: int, payload: dict) -> None:
+    async def send_json(self, code: int, payload: dict,
+                        extra: dict | None = None) -> None:
         body = json.dumps(payload).encode()
-        self.writer.write(_head(code, JSON_TYPE, len(body)) + body)
+        self.writer.write(_head(code, JSON_TYPE, len(body), extra) + body)
         await self.writer.drain()
 
 
@@ -236,10 +240,18 @@ class HttpService:
                 f"model {req.model!r} not found", "model_not_found", 404))
             return
         ex.ctx = Context()
+        extra = None
         try:
             payload = await run(req, served, ex)
         except ConnectionError:
             raise
+        except NoInstancesError as exc:
+            if ex.streaming:
+                raise
+            # The reference's Retry-After with no overload limiter: its
+            # default of one second.
+            code, payload = _error_body(str(exc), "service_unavailable", 503)
+            extra = {"Retry-After": "1"}
         except (ValueError, InvalidRequestError) as exc:
             if ex.streaming:
                 raise
@@ -254,7 +266,7 @@ class HttpService:
             if payload is None:
                 return
             code = 200
-        await ex.send_json(code, payload)
+        await ex.send_json(code, payload, extra)
 
     async def _chat(self, body: bytes, ex: _Exchange) -> None:
         await self._pipeline(body, ex, ChatCompletionRequest, self._run_chat)

@@ -1,5 +1,5 @@
 """Request context: identity, cancellation, tracing ids (copy of
-``dynamo_tpu.runtime.context.Context`` without the wire helpers).
+``dynamo_tpu.runtime.context.Context``).
 
 Every request carries a stable id, a two-level cancellation signal (stop =
 graceful stop issuing a final response; kill = hard abort) and trace ids.
@@ -12,7 +12,9 @@ import uuid
 from typing import Any
 
 from dynamo_tpu_torch.runtime.logging import (generate_span_id,
-                                              generate_trace_id)
+                                              generate_trace_id,
+                                              make_traceparent,
+                                              parse_traceparent)
 
 
 class Context:
@@ -44,3 +46,26 @@ class Context:
     @property
     def is_killed(self) -> bool:
         return self._killed.is_set()
+
+    async def wait_stopped(self) -> None:
+        # Cancellation watcher by design: callers hold this as a task and
+        # cancel it when the stream ends.
+        await self._stopped.wait()
+
+    def to_wire(self) -> dict:
+        # The W3C traceparent rides every inter-component frame beside the
+        # explicit ids, so a frontend's trace id reaches the worker.
+        return {"id": self.id, "trace_id": self.trace_id,
+                "span_id": self.span_id,
+                "traceparent": make_traceparent(self.trace_id, self.span_id)}
+
+    @classmethod
+    def from_wire(cls, data: dict | None) -> "Context":
+        data = data or {}
+        trace_id, parent_id = data.get("trace_id"), data.get("span_id")
+        if trace_id is None and data.get("traceparent"):
+            # Frames from peers that only speak W3C: parse the header.
+            parsed = parse_traceparent(data["traceparent"])
+            if parsed:
+                trace_id, parent_id = parsed["trace_id"], parsed["parent_id"]
+        return cls(data.get("id"), trace_id, parent_id)

@@ -307,13 +307,15 @@ async def test_greedy_chat_through_both_fronts(quant_kv):
 
 def test_launcher_refuses_inputs_of_later_slices(capsys):
     for argv, word in ((["in=text"], "interactive"), (["in=grpc"], "gRPC"),
-                       (["in=batch"], "batch"), (["out=dyn"], "worker"),
-                       (["out=tpu"], "out= must be gpu")):
+                       (["in=batch"], "batch"),
+                       (["out=tpu"], "out= must be gpu or dyn")):
         with pytest.raises(SystemExit):
             launch.parse_args(argv)
         assert word in capsys.readouterr().err
     args = launch.parse_args([])
     assert (args.input, args.output, args.device) == ("http", "gpu", "cuda")
+    # out=dyn is served since the worker-main slice (test_torch_worker.py).
+    assert launch.parse_args(["out=dyn"]).output == "dyn"
 
 
 def test_launcher_serves_and_exits_on_sigterm():

@@ -1,7 +1,8 @@
 """The port stands alone: no file of dynamo_tpu_torch/, and not
 chip_smoke.py, imports jax or anything of the JAX package dynamo_tpu, nor
 a package the card's machine lacks (aiohttp, pydantic, tokenizers, jinja2,
-msgpack, xxhash, regex)."""
+msgpack, xxhash, regex), nor ``tomli`` (the port reads TOML with the
+standard library's ``tomllib``)."""
 
 import ast
 import subprocess
@@ -14,7 +15,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "dynamo_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 FORBIDDEN = {"jax", "jaxlib", "dynamo_tpu", "aiohttp", "pydantic",
-             "tokenizers", "jinja2", "msgpack", "xxhash", "regex"}
+             "tokenizers", "jinja2", "msgpack", "xxhash", "regex", "tomli"}
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -36,6 +37,17 @@ def _imported_roots(path: Path) -> set[str]:
 def test_port_files_found():
     assert len(PORT_FILES) > 10
     assert all(p.exists() for p in PORT_FILES)
+
+
+@pytest.mark.parametrize("module", [
+    "backends/gpu.py", "frontend/main.py", "frontend/__main__.py",
+    "runtime/msgpack_lite.py", "runtime/frame.py", "runtime/retry.py",
+    "runtime/config.py", "runtime/coordinator.py",
+    "runtime/coordinator_client.py", "runtime/component.py",
+    "runtime/service.py", "runtime/client.py", "runtime/distributed.py",
+    "llm/migration.py"])
+def test_scan_reaches_the_distributed_modules(module):
+    assert ROOT / "dynamo_tpu_torch" / module in PORT_FILES
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
