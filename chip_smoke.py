@@ -92,6 +92,33 @@ Phases, in order; any failure exits non-zero without the final line:
    ``python -m dynamo_tpu_torch.frontend --http-port 0`` run as
    subprocesses: the worker's engine is on cuda without --device, a
    streamed chat is answered, and all three exit 0 on SIGTERM.
+7. real checkpoints at full width. a. The seed-0 llama-3-8b tree (the
+   preset's weights) is written as a HF checkpoint of the public
+   Meta-Llama-3-8B config.json (CKPT_LAYERS layers) in HF names and
+   [out, in] layout, bf16, in shards of at most 5 GB, with
+   engine/safetensors_lite.save_file into a temporary directory (its free
+   space printed first), beside the test tokenizer's tokenizer.json.
+   b. launch.build_engine with --model DIR loads it: every leaf equals
+   the written one; round 1 is served and checked as in phase 3 (every
+   decode step of every layer launches paged_attention_hist); its greedy
+   ids equal phase 3's preset engine's, or split only at a near-tie of
+   the teacher-forced logits; its teacher-forced logits are within
+   LOGIT_ATOL of phase 3's. c. The same with --quant int8: wq and w_down
+   of three layers and the embedding, quantized on the card, equal the
+   CPU quantizer's q and s bit for bit; the teacher-forced logits have
+   cosine > 0.99 to phase 3's bf16 weights'; round 1 is served on a bf16
+   pool and again with --quant-kv int8 (the int8 entry only). d. The
+   Qwen2.5-0.5B config (tied, qkv bias) is written the same way without a
+   tokenizer.json: its int8 weights' prefill logits have cosine > 0.99 to
+   its bf16 weights', and ``python -m dynamo_tpu_torch.launch --model DIR
+   --quant int8 --tokenizer X.gguf --http-port 0`` (a GGUF of the test
+   tokenizer, written by llm/gguf.write_metadata) runs as a subprocess:
+   its engine is on cuda without --device, it answers a streamed chat and
+   exits 0 on SIGTERM. e. It prints the write and load seconds and load
+   GB/s, param bytes and pool pages for bf16 and int8 weights, decode
+   device ms per step of a window run alone (torch.profiler), round 1's
+   tok/s for each, and the device ms of one int8-weight mm against the
+   bf16 matmul at [32, 4096] x [4096, 14336].
 The last lines are the kernels' JSON summary, the card's name and power
 limit, and {"ok": true, "device": {...}}.
 """
@@ -402,9 +429,7 @@ def main_path(attention, model, quant_kv: str | None) -> dict:
     pool with ``quant_kv="int8"``; the engine is stopped and released
     before this returns."""
     from dynamo_tpu_torch import launch
-    from dynamo_tpu_torch.profile_decode import (MAX_PREFILL_TOKENS,
-                                                 MAX_TOKENS, MODEL,
-                                                 PROMPT_LENS, serve)
+    from dynamo_tpu_torch.profile_decode import MAX_PREFILL_TOKENS, MODEL
 
     argv = ["out=gpu", "--model", MODEL, "--seed", "0"]
     if quant_kv:
@@ -429,49 +454,10 @@ def main_path(attention, model, quant_kv: str | None) -> dict:
         f"pool={runner.kv_pool_bytes / 2**30:.2f} GiB "
         f"params={runner.param_bytes / 2**30:.1f} GiB "
         f"window={engine.decode_window} setup={setup_s:.1f}s")
-    rng = np.random.default_rng(0)
-    sampling = [{}] * 6 + [{"temperature": 0.8, "top_p": 0.9},
-                           {"temperature": 0.8, "seed": 1234}]
-    prompts = [rng.integers(0, spec.vocab_size, size=n).tolist()
-               for n in PROMPT_LENS]
-    requests = [{"model": spec.name, "token_ids": p,
-                 "stop_conditions": {"max_tokens": MAX_TOKENS},
-                 "sampling_options": s} for p, s in zip(prompts, sampling)]
+    prompts = round1_prompts(spec)
     try:
-        attention.KERNEL.launches = 0
-        attention.KERNEL.launches_int8 = 0
-        windows0 = engine.windows_dispatched
-        t0 = time.monotonic()
-        results = asyncio.run(serve(engine, requests))
-        wall = time.monotonic() - t0
-        launches = {"paged_attention_hist": attention.KERNEL.launches,
-                    "paged_attention_hist_int8":
-                        attention.KERNEL.launches_int8}
-        windows = engine.windows_dispatched - windows0
-        for i, r in enumerate(results):
-            assert r["finish"] == "length", (i, r["finish"])
-            assert len(r["tokens"]) == MAX_TOKENS, (i, len(r["tokens"]))
-            assert all(0 <= t < spec.vocab_size for t in r["tokens"])
-        expected = windows * engine.decode_window * spec.num_layers
-        ran, idle = (("paged_attention_hist_int8", "paged_attention_hist")
-                     if quant_kv else
-                     ("paged_attention_hist", "paged_attention_hist_int8"))
-        assert launches[ran] == expected and expected > 0, (launches,
-                                                            expected)
-        assert launches[idle] == 0, launches
-        win_ms = sorted(s * 1e3 for s in engine.window_seconds)
-        ttft = sorted(r["ttft_s"] * 1e3 for r in results)
-        n_tok = sum(len(r["tokens"]) for r in results)
-        stats = {"pool": kind, "pages": runner.num_pages,
-                 "pool_gib": runner.kv_pool_bytes / 2**30,
-                 "requests": len(results), "tokens": n_tok,
-                 "wall_s": wall, "tok_per_s": n_tok / wall,
-                 "ttft_ms_median": ttft[len(ttft) // 2],
-                 "ttft_ms_max": ttft[-1], "windows": windows,
-                 "window_steps": engine.decode_window,
-                 "window_ms_median": win_ms[len(win_ms) // 2],
-                 "window_ms_max": win_ms[-1],
-                 "kernel_launches": launches[ran], "launches": launches}
+        results, stats = round1(engine, attention, prompts)
+        stats = {"pool": kind, **stats}
         log(json.dumps({"main_path": stats}))
         round2 = second_round(engine, attention, prompts)
     finally:
@@ -492,12 +478,17 @@ def main_path(attention, model, quant_kv: str | None) -> dict:
     stats["teacher_forced_max_abs_diff"] = worst
     if quant_kv:
         _, ref = teacher_forced_check(quant=False, **tf)
-        cos = min(float(torch.nn.functional.cosine_similarity(a, b, dim=0))
-                  for a, b in zip(logits, ref))
+        cos = min_cosine(logits, ref)
         log(f"teacher-forced logits, int8 pool vs bf16 pool: min cosine "
             f"{cos:.6f} over {len(ref)} steps (gate > {MIN_COSINE})")
         assert cos > MIN_COSINE, cos
         stats["int8_vs_bf16_min_cosine"] = cos
+    else:
+        # Phase 7's reference: the seed-0 preset's round 1 and its
+        # teacher-forced logits.
+        stats["_round1"] = {"prompts": prompts,
+                            "tokens": [r["tokens"] for r in results],
+                            "tf_logits": [lg.cpu() for lg in logits]}
     # Release the engine's weights and pool before the next phase.
     del engine, runner, tf, logits, round2
     gc.collect()
@@ -505,6 +496,66 @@ def main_path(attention, model, quant_kv: str | None) -> dict:
     log(f"released: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still "
         f"allocated")
     return stats
+
+
+def round1_prompts(spec) -> list[list[int]]:
+    from dynamo_tpu_torch.profile_decode import PROMPT_LENS
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, spec.vocab_size, size=n).tolist()
+            for n in PROMPT_LENS]
+
+
+def round1(engine, attention, prompts) -> tuple[list, dict]:
+    """Serve round 1 (the 8 requests: 6 greedy, one top-p, one seeded) on
+    ``engine`` and check it: every request finishes at MAX_TOKENS with ids
+    in the vocab, and every decode step of every layer launched the
+    paged-attention entry of the engine's pool and never the other.
+    Returns the results and the round's numbers."""
+    from dynamo_tpu_torch.profile_decode import MAX_TOKENS, serve
+    runner = engine.runner
+    spec = runner.spec
+    sampling = [{}] * 6 + [{"temperature": 0.8, "top_p": 0.9},
+                           {"temperature": 0.8, "seed": 1234}]
+    requests = [{"model": spec.name, "token_ids": p,
+                 "stop_conditions": {"max_tokens": MAX_TOKENS},
+                 "sampling_options": s} for p, s in zip(prompts, sampling)]
+    attention.KERNEL.launches = 0
+    attention.KERNEL.launches_int8 = 0
+    windows0 = engine.windows_dispatched
+    seconds0 = len(engine.window_seconds)
+    t0 = time.monotonic()
+    results = asyncio.run(serve(engine, requests))
+    wall = time.monotonic() - t0
+    launches = {"paged_attention_hist": attention.KERNEL.launches,
+                "paged_attention_hist_int8": attention.KERNEL.launches_int8}
+    windows = engine.windows_dispatched - windows0
+    for i, r in enumerate(results):
+        assert r["finish"] == "length", (i, r["finish"])
+        assert len(r["tokens"]) == MAX_TOKENS, (i, len(r["tokens"]))
+        assert all(0 <= t < spec.vocab_size for t in r["tokens"])
+    expected = windows * engine.decode_window * spec.num_layers
+    ran, idle = (("paged_attention_hist_int8", "paged_attention_hist")
+                 if runner.quant_kv == "int8" else
+                 ("paged_attention_hist", "paged_attention_hist_int8"))
+    assert launches[ran] == expected and expected > 0, (launches, expected)
+    assert launches[idle] == 0, launches
+    win_ms = sorted(s * 1e3 for s in list(engine.window_seconds)[seconds0:])
+    ttft = sorted(r["ttft_s"] * 1e3 for r in results)
+    n_tok = sum(len(r["tokens"]) for r in results)
+    return results, {
+        "pages": runner.num_pages, "pool_gib": runner.kv_pool_bytes / 2**30,
+        "requests": len(results), "tokens": n_tok, "wall_s": wall,
+        "tok_per_s": n_tok / wall, "ttft_ms_median": ttft[len(ttft) // 2],
+        "ttft_ms_max": ttft[-1], "windows": windows,
+        "window_steps": engine.decode_window,
+        "window_ms_median": win_ms[len(win_ms) // 2],
+        "window_ms_max": win_ms[-1], "kernel_launches": launches[ran],
+        "launches": launches}
+
+
+def min_cosine(logits, ref) -> float:
+    return min(float(torch.nn.functional.cosine_similarity(
+        a.float().cpu(), b.float().cpu(), dim=0)) for a, b in zip(logits, ref))
 
 
 def second_round(engine, attention, round1_prompts) -> dict:
@@ -706,12 +757,10 @@ def round2_plain_checks(engine, model, round2, quant: bool) -> dict:
     return out
 
 
-def time_windows(engine, rows: int = 8, hist: int = 1224,
-                 reps: int = 3) -> dict:
-    """Device-synchronised ms of one decode window, run alone on the
-    stopped engine's runner over ``rows`` live rows of ``hist`` tokens in
-    fresh pages, with and without one row asking for logprobs (in turns:
-    without, with, with, without)."""
+def alone_window(engine, rows: int, hist: int):
+    """(packed control array, pages) of one decode window run alone on the
+    stopped engine's runner over ``rows`` live greedy rows of ``hist``
+    tokens in fresh pages; the caller releases the pages."""
     from dynamo_tpu_torch.engine import runner as trunner
     runner, cfg = engine.runner, engine.config
     page, M = cfg.page_size, engine.decode_window
@@ -728,6 +777,18 @@ def time_windows(engine, rows: int = 8, hist: int = 1224,
         packed[i, trunner.PK_CAP] = per_row * page
         packed[i, trunner.PK_PREFIX:trunner.PK_PREFIX + per_row] = \
             pages[i * per_row:(i + 1) * per_row]
+    return packed, pages
+
+
+def time_windows(engine, rows: int = 8, hist: int = 1224,
+                 reps: int = 3) -> dict:
+    """Device-synchronised ms of one decode window, run alone on the
+    stopped engine's runner over ``rows`` live rows of ``hist`` tokens in
+    fresh pages, with and without one row asking for logprobs (in turns:
+    without, with, with, without)."""
+    from dynamo_tpu_torch.engine import runner as trunner
+    runner, M = engine.runner, engine.decode_window
+    packed, pages = alone_window(engine, rows, hist)
     times = {False: [], True: []}
     try:
         for want_lp in (False, True) + (False, True, True, False) * reps:
@@ -1268,10 +1329,11 @@ def dist_subprocesses() -> dict:
     return {"ready_s": ready_s}
 
 
-def launcher_subprocess() -> dict:
-    """``python -m dynamo_tpu_torch.launch in=http out=gpu --model
-    tiny-test --http-port 0`` as a subprocess: it must log an engine on
-    cuda (no --device given), answer one streamed chat and exit 0 on
+def launcher_subprocess(args=("--model", "tiny-test"),
+                        model: str = "tiny-test") -> dict:
+    """``python -m dynamo_tpu_torch.launch in=http out=gpu --http-port 0``
+    with ``args`` as a subprocess: it must log an engine on cuda (no
+    --device given), answer one streamed chat for ``model`` and exit 0 on
     SIGTERM."""
     import os
     import queue
@@ -1280,7 +1342,7 @@ def launcher_subprocess() -> dict:
     import threading
     proc = subprocess.Popen(
         [sys.executable, "-m", "dynamo_tpu_torch.launch", "in=http",
-         "out=gpu", "--model", "tiny-test", "--http-port", "0"],
+         "out=gpu", "--http-port", "0", *args],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         cwd=os.path.dirname(os.path.abspath(__file__)),
         env=dict(os.environ, DTPU_LOG="info"))
@@ -1304,7 +1366,7 @@ def launcher_subprocess() -> dict:
         assert "from an engine on cuda" in device, device
         port = int(ready.strip().rsplit("=", 1)[1])
         res = http_call(port, "POST", "/v1/chat/completions", {
-            "model": "tiny-test", "stream": True, "max_tokens": 8,
+            "model": model, "stream": True, "max_tokens": 8,
             "ignore_eos": True, "stream_options": {"include_usage": True},
             "messages": [{"role": "user", "content": "hello world"}]})
         s = stream_summary(res)
@@ -1317,18 +1379,395 @@ def launcher_subprocess() -> dict:
         if proc.poll() is None:
             proc.kill()
             proc.wait(timeout=60)
-    log(f"launcher subprocess: {ready.strip()}, {device.strip()}, "
-        f"ready in {ready_s:.1f}s, answered a streamed chat, exited 0 on "
-        f"SIGTERM")
-    return {"ready_s": ready_s}
+    log(f"launcher subprocess ({' '.join(args)}): {ready.strip()}, "
+        f"{device.strip()}, ready in {ready_s:.1f}s, answered a streamed "
+        f"chat, exited 0 on SIGTERM")
+    return {"ready_s": ready_s, "usage": s["usage"]}
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: real checkpoints at full width
+# ---------------------------------------------------------------------------
+
+# The public config.json values of meta-llama/Meta-Llama-3-8B and of
+# Qwen/Qwen2.5-0.5B (the fields ModelSpec.from_hf_config reads).
+LLAMA3_8B_CONFIG = {
+    "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+    "vocab_size": 128256, "hidden_size": 4096, "intermediate_size": 14336,
+    "num_hidden_layers": 32, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "rope_theta": 500000.0, "rms_norm_eps": 1e-05,
+    "max_position_embeddings": 8192, "tie_word_embeddings": False,
+    "hidden_act": "silu", "torch_dtype": "bfloat16"}
+QWEN25_05B_CONFIG = {
+    "architectures": ["Qwen2ForCausalLM"], "model_type": "qwen2",
+    "vocab_size": 151936, "hidden_size": 896, "intermediate_size": 4864,
+    "num_hidden_layers": 24, "num_attention_heads": 14,
+    "num_key_value_heads": 2, "rope_theta": 1000000.0, "rms_norm_eps": 1e-06,
+    "max_position_embeddings": 32768, "tie_word_embeddings": True,
+    "hidden_act": "silu", "torch_dtype": "bfloat16"}
+# The device phase 7 builds its trees and inputs on (the CPU only when the
+# phase is rehearsed at a tiny size).
+DEVICE = "cuda"
+# Checkpoint shards of at most this many bytes, as HF writes them.
+SHARD_BYTES = 5 * 10**9
+# Layers of the llama-3-8b layout written to disk: its full depth.
+CKPT_LAYERS = 32
+# Layers whose int8 q/s are held against the CPU quantizer.
+QUANT_CHECK_LAYERS = (0, CKPT_LAYERS // 2, CKPT_LAYERS - 1)
+
+
+def hf_tensors(params: dict, spec):
+    """(HF name, tensor in HF's [out, in] layout) of a port bf16 tree."""
+    from dynamo_tpu_torch.engine.weights import HF_LAYER_NAMES
+    yield "model.embed_tokens.weight", params["embed"]
+    for i in range(spec.num_layers):
+        for key, (hf, transposed) in HF_LAYER_NAMES.items():
+            if key in params["layers"]:
+                t = params["layers"][key][i]
+                yield f"model.layers.{i}.{hf}", t.t() if transposed else t
+    yield "model.norm.weight", params["final_norm"]
+    if "lm_head" in params:
+        yield "lm_head.weight", params["lm_head"].t()
+
+
+def seed0_params(spec):
+    """The seed-0 random tree the runner builds for a preset, on the card."""
+    from dynamo_tpu_torch.engine.model import init_params
+    return init_params(spec, torch.Generator(device=DEVICE).manual_seed(0),
+                       DEVICE)
+
+
+def write_checkpoint(directory: str, config: dict) -> dict:
+    """Write the seed-0 tree of ``config`` as a HF checkpoint: config.json
+    and bf16 safetensors in HF names and layout, in shards of at most
+    SHARD_BYTES. Returns its bytes, files and seconds."""
+    import os
+
+    from dynamo_tpu_torch.engine.config import ModelSpec
+    from dynamo_tpu_torch.engine.safetensors_lite import save_file
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, "config.json"), "w") as fh:
+        json.dump(config, fh, indent=2)
+    spec = ModelSpec.from_hf_config(directory)
+    t0 = time.monotonic()
+    params = seed0_params(spec)
+    shards, size = [{}], 0
+    for name, t in hf_tensors(params, spec):
+        n = t.numel() * t.element_size()
+        if shards[-1] and size + n > SHARD_BYTES:
+            shards.append({})
+            size = 0
+        shards[-1][name] = t
+        size += n
+    total = 0
+    for i, shard in enumerate(shards):
+        path = os.path.join(directory, f"model-{i + 1:05d}-of-"
+                                       f"{len(shards):05d}.safetensors")
+        save_file(shard, path, metadata={"format": "pt"})
+        total += os.path.getsize(path)
+    files = len(shards)
+    del params, shards
+    torch.cuda.empty_cache()
+    return {"bytes": total, "files": files,
+            "write_s": time.monotonic() - t0}
+
+
+def check_loaded_equal_written(params: dict, spec) -> None:
+    """Every leaf of a loaded bf16 tree equals the seed-0 tree written."""
+    want = seed0_params(spec)
+
+    def walk(a, b, path):
+        assert set(a) == set(b), path
+        for k in a:
+            if isinstance(a[k], dict):
+                walk(a[k], b[k], f"{path}{k}.")
+            else:
+                assert a[k].dtype == b[k].dtype == torch.bfloat16, path + k
+                assert torch.equal(a[k], b[k]), f"{path}{k} differs"
+    walk(params, want, "")
+    del want
+    torch.cuda.empty_cache()
+
+
+def check_int8_against_cpu(params: dict, spec) -> list[str]:
+    """wq and w_down of QUANT_CHECK_LAYERS and the embedding, quantized on
+    the card while loading, equal the CPU quantizer's q and s on the same
+    bf16 leaves."""
+    from dynamo_tpu_torch.engine import quant
+    src = seed0_params(spec)
+    checked = []
+    for key in ("wq", "w_down"):
+        for layer in QUANT_CHECK_LAYERS:
+            want = quant.quantize_weight(src["layers"][key][layer].cpu())
+            got = params["layers"][key]
+            assert torch.equal(got.q[layer].cpu(), want.q), (key, layer)
+            assert torch.equal(got.s[layer].cpu().view(torch.int32),
+                               want.s.view(torch.int32)), (key, layer)
+            checked.append(f"{key}[{layer}]")
+    want = quant.quantize_embedding(src["embed"].cpu())
+    assert torch.equal(params["embed"].q.cpu(), want.q)
+    assert torch.equal(params["embed"].s.cpu().view(torch.int32),
+                       want.s.view(torch.int32))
+    checked.append("embed")
+    del src
+    torch.cuda.empty_cache()
+    return checked
+
+
+def decode_step_device_ms(engine, rows: int = 8, hist: int = 1224) -> float:
+    """Device busy ms per decode step of one window run alone on the
+    stopped engine (``rows`` greedy rows of ``hist`` tokens), under
+    torch.profiler: the union of the device events' intervals over M."""
+    from dynamo_tpu_torch.profile_decode import _busy_seconds
+    packed, pages = alone_window(engine, rows, hist)
+    try:
+        engine.runner.decode_window(packed, engine.decode_window)
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            engine.runner.decode_window(packed, engine.decode_window)
+            torch.cuda.synchronize()
+    finally:
+        engine.allocator.release(pages)
+    intervals = [(e.time_range.start, e.time_range.end) for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not intervals:
+        raise RuntimeError("the profiler recorded no device activity")
+    return _busy_seconds(intervals) * 1e3 / engine.decode_window
+
+
+def greedy_agree(runner, model, prompts, tokens, ref_tokens) -> int:
+    """Greedy requests (the first 6 of round 1) against the reference's
+    tokens: equal, or split only at a near-tie of the teacher-forced
+    logits (top-2 margin within 2 x LOGIT_ATOL). Returns how many are
+    equal throughout."""
+    equal = 0
+    for i in range(6):
+        got, want = tokens[i], ref_tokens[i]
+        j = next((k for k, (a, b) in enumerate(zip(got, want)) if a != b),
+                 None)
+        if j is None:
+            equal += 1
+            continue
+        lg = plain_forced_logits(runner, model, prompts[i], want[:j + 1],
+                                 quant=runner.quant_kv == "int8")[-1]
+        top2 = torch.topk(lg, 2).values
+        margin = float(top2[0] - top2[1])
+        assert margin <= 2 * LOGIT_ATOL, (
+            f"request {i}: token {j} is {got[j]}, the reference's {want[j]}, "
+            f"at margin {margin}")
+    return equal
+
+
+def checkpoint_engine(attention, model, directory, ref, extra=()) -> dict:
+    """Build the engine from ``directory`` through launch.build_engine,
+    serve round 1 on it, and hold its teacher-forced logits against the
+    seed-0 preset's (``ref``, from phase 3). Returns the numbers, and
+    under "_engine" the stopped engine, which the caller releases."""
+    from dynamo_tpu_torch import launch
+    from dynamo_tpu_torch.profile_decode import MAX_PREFILL_TOKENS
+    loads = []
+    inner = launch.load_hf_weights
+
+    def timed(*args):
+        t0 = time.monotonic()
+        out = inner(*args)
+        torch.cuda.synchronize()
+        loads.append(time.monotonic() - t0)
+        return out
+
+    argv = ["out=gpu", "--model", directory, *extra]
+    launch.load_hf_weights = timed
+    try:
+        t0 = time.monotonic()
+        engine = launch.build_engine(launch.parse_args(argv),
+                                     max_prefill_tokens=MAX_PREFILL_TOKENS)
+        setup_s = time.monotonic() - t0
+    finally:
+        launch.load_hf_weights = inner
+    runner = engine.runner
+    try:
+        results, stats = round1(engine, attention, ref["prompts"])
+    finally:
+        engine.stop()
+    tokens = [r["tokens"] for r in results]
+    _, logits = teacher_forced_check(
+        runner, engine.decode_window, ref["prompts"][0], ref["tokens"][0],
+        attention, model, quant=runner.quant_kv == "int8")
+    weights = "int8" if runner.spec.quant == "int8" else "bf16"
+    # The preset's own weights must give its greedy ids; int8 weights are
+    # held by the cosine of their logits and only counted here.
+    equal = (greedy_agree(runner, model, ref["prompts"], tokens,
+                          ref["tokens"]) if weights == "bf16" else
+             sum(tokens[i] == ref["tokens"][i] for i in range(6)))
+    stats.update({
+        "weights": weights, "pool": runner.quant_kv or "bf16",
+        "param_bytes": runner.param_bytes, "load_s": loads[0],
+        "load_GBps": runner.param_bytes / loads[0] / 1e9,
+        "setup_s": setup_s, "greedy_equal_of_6": equal,
+        "tf_max_abs_diff_vs_preset": max(
+            float((a.cpu() - b).abs().max())
+            for a, b in zip(logits, ref["tf_logits"])),
+        "tf_min_cosine_vs_preset": min_cosine(logits, ref["tf_logits"]),
+        "decode_step_device_ms": decode_step_device_ms(engine)})
+    log(json.dumps({"checkpoint_engine": argv[2:], **stats}))
+    stats["_engine"] = engine
+    return stats
+
+
+def release(stats: dict) -> None:
+    """Drop a checkpoint engine's weights and pool."""
+    del stats["_engine"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def int8_mm_times() -> dict:
+    """Device ms of one int8-weight mm (dequantize to bf16, matmul, scale)
+    against the bf16 matmul, at the decode shape [32, 4096] x [4096,
+    14336], by CUDA-graph replay."""
+    from dynamo_tpu_torch.engine import model, quant
+    from dynamo_tpu_torch.time_attention import graph_ms
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    x = torch.randn((32, 4096), generator=gen, device=DEVICE).to(
+        torch.bfloat16)
+    w = torch.randn((4096, 14336), generator=gen, device=DEVICE).to(
+        torch.bfloat16)
+    qw = quant.quantize_weight(w)
+    out = {"int8_mm_ms": graph_ms(lambda: model.mm(x, qw)),
+           "bf16_mm_ms": graph_ms(lambda: model.mm(x, w))}
+    # Bound: the int8 weight read once (1 byte each) plus x and the output.
+    out["int8_mm_bound_ms"] = (w.numel() + 2 * (x.numel() + 32 * 14336)) \
+        / H100_BYTES_PER_S * 1e3
+    out["bf16_mm_bound_ms"] = 2 * (w.numel() + x.numel() + 32 * 14336) \
+        / H100_BYTES_PER_S * 1e3
+    del x, w, qw
+    torch.cuda.empty_cache()
+    return out
+
+
+def qwen_checks(directory: str, gguf_path: str) -> dict:
+    """The Qwen2.5-0.5B layout: its int8 weights (tied head folded into
+    the activations) give logits cosine-close to its bf16 weights' on a
+    prompt, in process; then the launcher serves it as a subprocess with
+    --quant int8 and the GGUF tokenizer."""
+    import dataclasses
+    import os
+
+    from dynamo_tpu_torch.engine.config import ModelSpec
+    from dynamo_tpu_torch.engine.weights import load_hf_weights
+    from dynamo_tpu_torch.engine import model
+    spec = ModelSpec.from_hf_config(directory)
+    prompt = torch.tensor([np.random.default_rng(9).integers(
+        0, spec.vocab_size, 256).tolist()], dtype=torch.int32, device=DEVICE)
+    shape = (spec.num_layers, spec.num_kv_heads, 17, 16, spec.head_dim)
+    logits = []
+    for quant in (None, "int8"):
+        params = load_hf_weights(dataclasses.replace(spec, quant=quant),
+                                 directory, DEVICE)
+        kc = torch.zeros(shape, dtype=torch.bfloat16, device=DEVICE)
+        lg, _, _ = model.prefill_forward(
+            params, spec, kc, torch.zeros_like(kc), prompt,
+            torch.arange(256, dtype=torch.int32, device=DEVICE)[None],
+            torch.arange(1, 17, dtype=torch.int32, device=DEVICE)[None],
+            torch.tensor([256], dtype=torch.int32, device=DEVICE))
+        logits.append(lg[0])
+        del params, kc
+    cos = min_cosine([logits[1]], [logits[0]])
+    log(f"qwen2.5-0.5b layout: int8 vs bf16 weights, prefill logits cosine "
+        f"{cos:.6f} (gate > {MIN_COSINE})")
+    assert cos > MIN_COSINE, cos
+    torch.cuda.empty_cache()
+    sub = launcher_subprocess(
+        ("--model", directory, "--quant", "int8", "--tokenizer", gguf_path),
+        os.path.basename(directory))
+    return {"int8_vs_bf16_cosine": cos, "launcher_ready_s": sub["ready_s"],
+            "launcher_usage": sub["usage"]}
+
+
+def write_gguf_tokenizer(path: str) -> None:
+    """The test tokenizer's vocab and merges as a GGUF file."""
+    from dynamo_tpu_torch.llm import gguf
+    from dynamo_tpu_torch.llm.tokenizer import make_test_tokenizer
+    spec = json.loads(make_test_tokenizer().to_bytes())["model"]
+    tokens = [t for t, _ in sorted(spec["vocab"].items(),
+                                   key=lambda kv: kv[1])]
+    merges = [m if isinstance(m, str) else " ".join(m)
+              for m in spec["merges"]]
+    gguf.write_metadata(path, {
+        "general.architecture": "qwen2", "tokenizer.ggml.model": "gpt2",
+        "tokenizer.ggml.tokens": tokens, "tokenizer.ggml.merges": merges,
+        "tokenizer.ggml.eos_token_id": spec["vocab"]["<|endoftext|>"]})
+
+
+def checkpoint_phase(attention, model, ref: dict) -> dict:
+    """Phase 7 (see the module docstring)."""
+    import os
+    import shutil
+    import tempfile
+
+    from dynamo_tpu_torch.llm.tokenizer import make_test_tokenizer
+    t_phase = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        usage = shutil.disk_usage(tmp)
+        log(f"checkpoint directory {tmp}: {usage.free / 1e9:.2f} GB free of "
+            f"{usage.total / 1e9:.2f} GB")
+        llama = os.path.join(tmp, "Meta-Llama-3-8B-layout")
+        config = dict(LLAMA3_8B_CONFIG, num_hidden_layers=CKPT_LAYERS)
+        written = write_checkpoint(llama, config)
+        with open(os.path.join(llama, "tokenizer.json"), "wb") as fh:
+            fh.write(make_test_tokenizer().to_bytes())
+        log(json.dumps({"checkpoint_written": written}))
+
+        bf16 = checkpoint_engine(attention, model, llama, ref)
+        runner = bf16["_engine"].runner
+        check_loaded_equal_written(runner.params, runner.spec)
+        log("loaded llama-3-8b layout: every leaf equals the written one")
+        assert bf16["tf_max_abs_diff_vs_preset"] <= LOGIT_ATOL, bf16
+        del runner
+        release(bf16)
+
+        int8 = checkpoint_engine(attention, model, llama, ref,
+                                 ("--quant", "int8"))
+        runner = int8["_engine"].runner
+        int8["quant_checked"] = check_int8_against_cpu(runner.params,
+                                                       runner.spec)
+        log(f"int8 q/s on the card equal the CPU quantizer's: "
+            f"{int8['quant_checked']}")
+        assert int8["tf_min_cosine_vs_preset"] > MIN_COSINE, int8
+        del runner
+        release(int8)
+
+        int8_kv = checkpoint_engine(attention, model, llama, ref,
+                                    ("--quant", "int8", "--quant-kv", "int8"))
+        assert int8_kv["tf_min_cosine_vs_preset"] > MIN_COSINE, int8_kv
+        release(int8_kv)
+        shutil.rmtree(llama)
+
+        qwen = os.path.join(tmp, "Qwen2.5-0.5B-layout")
+        qwen_written = write_checkpoint(qwen, QWEN25_05B_CONFIG)
+        gguf_path = os.path.join(tmp, "test-tokenizer.gguf")
+        write_gguf_tokenizer(gguf_path)
+        qwen_stats = qwen_checks(qwen, gguf_path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    mm = int8_mm_times()
+    out = {"written": written, "bf16_weights": bf16, "int8_weights": int8,
+           "int8_weights_int8_pool": int8_kv,
+           "qwen_written": qwen_written, "qwen": qwen_stats, **mm,
+           "phase_s": time.monotonic() - t_phase}
+    log(json.dumps({"checkpoint_phase": out}))
+    return out
 
 
 def kernel_entry(name, variant, timing, main, max_err, stats,
-                 http_launches, dist_launches) -> dict:
+                 http_launches, dist_launches, ckpt_launches) -> dict:
     """One kernel's summary: times at the B=32 x 2048 shape, and the same
     numbers at the main path's mid-round shape under ``main_shape``;
-    launches in round 1, round 2, the HTTP phase and the distributed
-    phase."""
+    launches in round 1, round 2, the HTTP phase, the distributed phase
+    and phase 7's round-1 runs on loaded checkpoints."""
     return {"name": name, "route": "cuda",
             "source": "dynamo_tpu_torch/csrc/paged_attention.cu",
             "replaces": "dynamo_tpu/engine/attention.py:72",
@@ -1336,6 +1775,7 @@ def kernel_entry(name, variant, timing, main, max_err, stats,
             "launches_round2": stats["round2"]["kernel_launches"],
             "launches_http": http_launches,
             "launches_dist": dist_launches,
+            "launches_checkpoint": ckpt_launches,
             "max_abs_err": max(max_err, timing["max_abs_err"],
                                main["max_abs_err"]),
             "ms": timing["ms"], "plain_ms": timing["plain_ms"],
@@ -1382,20 +1822,28 @@ def main() -> int:
         stats_http = http_phase(attention)
         launcher_subprocess()
         dist_subprocesses()
+        ckpt = checkpoint_phase(attention, model, stats_bf16.pop("_round1"))
     except Exception:  # noqa: BLE001 — report and fail the run
         traceback.print_exc()
         return 1
+
+    def ckpt_launches(kernel):
+        return {run: ckpt[run]["launches"][kernel] for run in (
+            "bf16_weights", "int8_weights", "int8_weights_int8_pool")}
+
     log(json.dumps({"kernels": [
         kernel_entry("paged_attention_hist", "bf16 pool", timing_bf16,
                      main_bf16, err_bf16, stats_bf16,
                      stats_http["launches"]["paged_attention_hist"],
-                     stats_http["dist"]["launches"]["paged_attention_hist"]),
+                     stats_http["dist"]["launches"]["paged_attention_hist"],
+                     ckpt_launches("paged_attention_hist")),
         kernel_entry("paged_attention_hist_int8",
                      "int8 pool, _decode_kernel(quantized=True)",
                      timing_int8, main_int8, err_int8, stats_int8,
                      stats_http["launches"]["paged_attention_hist_int8"],
                      stats_http["dist"]["launches"][
-                         "paged_attention_hist_int8"])]}))
+                         "paged_attention_hist_int8"],
+                     ckpt_launches("paged_attention_hist_int8"))]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,6 +2,7 @@
 of ``dynamo_tpu.backends.tpu``).
 
     python -m dynamo_tpu_torch.backends.gpu --model llama-3-8b --coordinator-url tcp://127.0.0.1:4222
+    python -m dynamo_tpu_torch.backends.gpu --model /path/to/checkpoint --quant int8
 
 connects to the coordinator (and fails with its connection error when it
 cannot be reached), builds the engine off the event loop so lease
@@ -11,8 +12,13 @@ the request plane, registers the model with ``register_llm`` and prints
 ``GPU_WORKER_READY mode=agg port=N worker=<hex> pages=N``. On SIGINT or
 SIGTERM it deregisters, stops the endpoint and the engine, closes the
 runtime and exits 0. The engine runs on ``--device`` (``cuda`` by
-default; the CPU only under ``--device cpu``), with random weights from
-``--seed``.
+default; the CPU only under ``--device cpu``). ``--model`` resolves as in
+the launcher (``engine/hub.py``: a preset with random weights from
+``--seed``, a checkpoint directory, or a hub id in the local HF cache;
+nothing is downloaded) and ``--quant int8`` serves int8 weights. The
+tokenizer is, as in the reference worker, ``--tokenizer`` first, then the
+checkpoint's ``tokenizer.json``, then, for a preset, the repo's test
+tokenizer.
 
 The reference worker's other flags are refused with the ROADMAP item each
 waits for; none is accepted and then ignored.
@@ -26,10 +32,11 @@ import signal
 
 from dynamo_tpu_torch.engine.engine import GPUEngine
 from dynamo_tpu_torch.launch import (add_engine_args, add_refused_flags,
-                                     build_engine_config)
+                                     build_engine_config, load_engine,
+                                     load_tokenizer)
 from dynamo_tpu_torch.llm.model_card import (ModelRuntimeConfig,
                                              deregister_llm, register_llm)
-from dynamo_tpu_torch.llm.tokenizer import Tokenizer, make_test_tokenizer
+from dynamo_tpu_torch.llm.tokenizer import Tokenizer
 from dynamo_tpu_torch.runtime.config import RuntimeConfig
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
 from dynamo_tpu_torch.runtime.logging import get_logger
@@ -77,8 +84,6 @@ REFUSED_FLAGS = (
                   "directives)", {}),
     ("--tool-call-parser", _PARSERS, {"type": str}),
     ("--reasoning-parser", _PARSERS, {"type": str}),
-    ("--quant", "ROADMAP item 6 (HF weights and int8 weights)",
-     {"type": str}),
     ("--ttft-budget-ms", _ADMISSION, {"type": float}),
     ("--admission-reject-factor", _ADMISSION, {"type": float}),
     ("--attention-backend", "no ROADMAP item: the port has one attention "
@@ -146,18 +151,14 @@ async def run(args: argparse.Namespace) -> None:
     engine = server = None
     try:
         engine_cfg = build_engine_config(args)
-        tokenizer = (Tokenizer.from_file(args.tokenizer) if args.tokenizer
-                     else make_test_tokenizer())
+        ckpt = args.resolved_checkpoint
+        tokenizer = load_tokenizer(ckpt, args.tokenizer,
+                                   checkpoint_first=False)
         model_name = args.model_name or engine_cfg.model.name
-
-        def build_engine() -> GPUEngine:
-            engine = GPUEngine(engine_cfg, seed=args.seed)
-            engine.start()
-            return engine
-
         # Engine construction blocks for seconds (weights, KV pool); run it
         # off the event loop so the coordinator lease keepalives flow.
-        engine = await loop.run_in_executor(None, build_engine)
+        engine = await loop.run_in_executor(None, load_engine, engine_cfg,
+                                            ckpt, args.seed)
         server = await serve_engine(runtime, engine, model_name, tokenizer,
                                     args.component, args.endpoint,
                                     args.migration_limit)

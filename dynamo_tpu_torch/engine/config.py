@@ -1,15 +1,17 @@
 """Model and engine configuration (copy of ``dynamo_tpu.engine.config``).
 
-ModelSpec, EngineConfig and PRESETS are copied field for field so a
-configuration means the same thing in both packages. EngineConfig adds
-one field, ``device``. Fields that select features this port does not
-serve yet (tp/pp/sp, int8 weights, spec decode, LoRA, tiers) keep their
-defaults; the runner rejects non-default values rather than ignore them.
+ModelSpec (with ``from_hf_config``), EngineConfig and PRESETS are copied
+field for field so a configuration means the same thing in both packages.
+EngineConfig adds one field, ``device``. Fields that select features this
+port does not serve yet (tp/pp/sp, MoE, spec decode, LoRA, tiers) keep
+their defaults; the runner rejects non-default values rather than ignore
+them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 
 from dynamo_tpu_torch.engine.kv_quant import KV_SCALE_BYTES
@@ -76,6 +78,33 @@ class ModelSpec:
         per_weight = 1.0 if self.quant == "int8" else 2.0
         shard_bytes = self.num_params() * per_weight / max(1, tp * pp)
         return shard_bytes / (hbm_gbps * 1e9) * 1e3
+
+    @classmethod
+    def from_hf_config(cls, path: str) -> "ModelSpec":
+        """Build from a HF config.json (local dir or file)."""
+        if os.path.isdir(path):
+            path = os.path.join(path, "config.json")
+        with open(path) as fh:
+            cfg = json.load(fh)
+        return cls(
+            name=cfg.get("_name_or_path",
+                         os.path.basename(os.path.dirname(path))),
+            vocab_size=cfg["vocab_size"],
+            hidden_size=cfg["hidden_size"],
+            intermediate_size=cfg["intermediate_size"],
+            num_layers=cfg["num_hidden_layers"],
+            num_heads=cfg["num_attention_heads"],
+            num_kv_heads=cfg.get("num_key_value_heads",
+                                 cfg["num_attention_heads"]),
+            head_dim=cfg.get("head_dim"),
+            rope_theta=cfg.get("rope_theta", 10000.0),
+            rms_norm_eps=cfg.get("rms_norm_eps", 1e-5),
+            qkv_bias=cfg.get("model_type") == "qwen2",
+            tie_word_embeddings=cfg.get("tie_word_embeddings", False),
+            max_position_embeddings=cfg.get("max_position_embeddings", 8192),
+            num_experts=cfg.get("num_local_experts", 0),
+            num_experts_per_tok=cfg.get("num_experts_per_tok", 2),
+        )
 
 
 # Presets (shapes from the public model cards).

@@ -163,6 +163,9 @@ class _Window:
 class GPUEngine(AsyncEngine):
     def __init__(self, config: EngineConfig, params: dict | None = None,
                  seed: int = 0):
+        """``params``: a loaded tree (``weights.load_hf_weights`` or
+        ``params_from_jax``; bf16 or int8), handed to the runner as it is,
+        or None for random weights from ``seed``."""
         self.config = config
         self.decode_window = config.resolve_decode_window()
         self.prefill_chunk_tokens = config.resolve_prefill_chunk_tokens()
@@ -242,9 +245,9 @@ class GPUEngine(AsyncEngine):
                 f"{cfg.max_model_len}")
         unsupported = []
         if req.adapter:
-            unsupported.append("LoRA adapters")
+            unsupported.append("LoRA adapters (ROADMAP item 11)")
         if req.mm_embeds:
-            unsupported.append("multimodal embeddings")
+            unsupported.append("multimodal embeddings (ROADMAP item 15)")
         if unsupported:
             raise ValueError("not ported yet: " + ", ".join(unsupported))
         s = req.sampling_options

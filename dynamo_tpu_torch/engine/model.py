@@ -5,7 +5,12 @@ Parameters are a dict with the reference's tree and layouts: per-layer
 weights stacked on a leading ``L`` axis, projections stored ``[in, out]``.
 Numerics follow the reference: bf16 weights and activations, fp32 for
 norms, RoPE, softmax and the logits. The forwards loop over layers in
-Python, where the reference scans.
+Python, where the reference scans. With int8 weights (``--quant int8``)
+the big matmuls, the embedding and an untied head are ``quant.QTensor``
+leaves, applied with the reference's numerics (``mm``, ``embed_lookup``,
+``lm_logits``): the int8 operand converts to bf16 for a bf16 matmul and
+the float32 scale multiplies the output, or, for a tied head, the
+activations.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import torch.nn.functional as F
 from dynamo_tpu_torch.engine.config import ModelSpec
 from dynamo_tpu_torch.engine.kv_quant import (gather_pages_folded,
                                               scatter_pages)
+from dynamo_tpu_torch.engine.quant import QUANT_LAYER_KEYS, QTensor
 
 Params = dict[str, Any]
 NEG_INF = -1e30
@@ -27,26 +33,48 @@ NEG_INF = -1e30
 # Building blocks
 # ---------------------------------------------------------------------------
 
-def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x [..., in] @ w [in, out] in the weights' dtype (fp32 accumulate)."""
+def mm(x: torch.Tensor, w) -> torch.Tensor:
+    """x [..., in] @ w [in, out] in bf16 (fp32 accumulate). A QTensor's
+    int8 operand converts to bf16 for the matmul, whose bf16 output the
+    [1, out] scale then multiplies in fp32."""
+    if isinstance(w, QTensor):
+        y = torch.matmul(x, w.q.to(torch.bfloat16))
+        return (y.float() * w.s).to(torch.bfloat16)
     return torch.matmul(x, w)
 
 
-def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+def embed_lookup(embed, tokens: torch.Tensor) -> torch.Tensor:
+    """Token-embedding gather; int8 tables gather q rows and scale by the
+    per-hidden-channel scale."""
+    if isinstance(embed, QTensor):
+        rows = embed.q[tokens.long()].float() * embed.s[0]
+        return rows.to(torch.bfloat16)
     return embed[tokens.long()]
+
+
+def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """bf16 operands, fp32 output (the reference's
+    preferred_element_type=f32)."""
+    if x.is_cuda:
+        return torch.mm(x, w, out_dtype=torch.float32)
+    return torch.matmul(x.float(), w.float())
 
 
 def lm_logits(x: torch.Tensor, params: Params, spec: ModelSpec
               ) -> torch.Tensor:
-    """Final hidden [B, H] -> fp32 logits [B, V] (bf16 operands, fp32
-    output, as the reference's preferred_element_type=f32)."""
+    """Final hidden [B, H] -> fp32 logits [B, V]. A tied int8 embedding
+    contracts over H, whose scale therefore folds into the activations; an
+    untied int8 head scales the output columns."""
     if spec.tie_word_embeddings:
-        w = params["embed"].t()
-    else:
-        w = params["lm_head"]
-    if x.is_cuda:
-        return torch.mm(x, w, out_dtype=torch.float32)
-    return torch.matmul(x.float(), w.float())
+        w = params["embed"]
+        if isinstance(w, QTensor):
+            xs = (x.float() * w.s[0]).to(torch.bfloat16)
+            return _mm_f32(xs, w.q.to(torch.bfloat16).t())
+        return _mm_f32(x, w.t())
+    w = params["lm_head"]
+    if isinstance(w, QTensor):
+        return _mm_f32(x, w.q.to(torch.bfloat16)) * w.s
+    return _mm_f32(x, w)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float
@@ -92,7 +120,12 @@ def ffn_block(h2: torch.Tensor, lp: dict, spec: ModelSpec) -> torch.Tensor:
 # Parameters
 # ---------------------------------------------------------------------------
 
-def param_shapes(spec: ModelSpec) -> dict:
+def param_shapes(spec: ModelSpec, quantized: bool | None = None) -> dict:
+    """The param tree's shapes. ``quantized`` (default: ``spec.quant ==
+    "int8"``) gives the int8 tree's, with a QTensor of (q, s) shapes for
+    each quantized leaf."""
+    if quantized is None:
+        quantized = spec.quant == "int8"
     h, d = spec.hidden_size, spec.head_dim
     nh, nkv, L = spec.num_heads, spec.num_kv_heads, spec.num_layers
     i = spec.intermediate_size
@@ -115,6 +148,16 @@ def param_shapes(spec: ModelSpec) -> dict:
               "layers": layers}
     if not spec.tie_word_embeddings:
         shapes["lm_head"] = (h, spec.vocab_size)
+    if quantized:
+        for key in QUANT_LAYER_KEYS:
+            if key in layers:
+                shape = layers[key]
+                layers[key] = QTensor(q=shape,
+                                      s=(*shape[:-2], 1, shape[-1]))
+        shapes["embed"] = QTensor(q=(spec.vocab_size, h), s=(1, h))
+        if "lm_head" in shapes:
+            shapes["lm_head"] = QTensor(q=(h, spec.vocab_size),
+                                        s=(1, spec.vocab_size))
     return shapes
 
 
@@ -139,7 +182,7 @@ def init_params(spec: ModelSpec, generator: torch.Generator,
                         device=device)
         return w.mul_(torch.tensor(1.0 / shape[-2] ** 0.5, dtype=dtype))
 
-    shapes = param_shapes(spec)
+    shapes = param_shapes(spec, quantized=False)
     params: Params = {k: init_one(v) for k, v in shapes.items()
                       if k != "layers"}
     params["layers"] = {k: init_one(v) for k, v in shapes["layers"].items()}
@@ -152,8 +195,10 @@ def init_params(spec: ModelSpec, generator: torch.Generator,
 
 
 def layer_params(params: Params, layer: int) -> dict:
-    """One layer's weights: views into the stacked tensors (no copy)."""
-    return {k: v[layer] for k, v in params["layers"].items()}
+    """One layer's weights: views into the stacked tensors (no copy); a
+    QTensor's q and s are both sliced."""
+    return {k: QTensor(v.q[layer], v.s[layer]) if isinstance(v, QTensor)
+            else v[layer] for k, v in params["layers"].items()}
 
 
 # ---------------------------------------------------------------------------

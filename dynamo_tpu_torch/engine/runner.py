@@ -19,6 +19,9 @@
   token, saturating at 255. Logprobs (the chosen token's and the top
   ``TOP_LOGPROBS``) are computed only when some row asks for them.
 
+Weights are bf16, or int8 with float32 per-channel scales (``--quant
+int8``, ``quant.QTensor`` leaves): a bf16 tree given with an int8 spec is
+quantized here, before the pool is sized from the memory it leaves free.
 The pool is bf16, or int8 with per-token scales (``--quant-kv int8``,
 ``kv_quant.QuantKV``): the prefill scatter and the window commit quantize,
 and the attention reads dequantize. Every decode step of every layer runs
@@ -42,6 +45,8 @@ from dynamo_tpu_torch.engine.kv_quant import QuantKV, scatter_tokens
 from dynamo_tpu_torch.engine.model import (decode_window_step, init_params,
                                            prefill_forward,
                                            prefill_with_history)
+from dynamo_tpu_torch.engine.quant import (QTensor, is_quantized,
+                                           quantize_params)
 from dynamo_tpu_torch.engine.sampler import (gumbel_noise,
                                              sample_tokens_per_row)
 from dynamo_tpu_torch.runtime.logging import get_logger
@@ -108,21 +113,28 @@ def apply_penalties(logits: torch.Tensor, counts: torch.Tensor,
 
 
 def _unsupported(config: EngineConfig) -> list[str]:
+    """What the engine cannot serve of ``config``, each with the ROADMAP
+    item that ports it (or why nothing will)."""
     spec = config.model
     out = []
     for name in ("tp", "dp", "pp", "sp"):
         if getattr(config, name) != 1:
-            out.append(f"{name}={getattr(config, name)}")
+            out.append(f"{name}={getattr(config, name)} (ROADMAP item 16)")
     if spec.num_experts:
-        out.append("MoE")
-    if spec.quant:
-        out.append("int8 weights")
+        out.append(f"MoE ({spec.num_experts} experts; ROADMAP item 14)")
+    if spec.q_per_kv > attention.MAX_QPK:
+        out.append(f"{spec.num_heads} query heads over {spec.num_kv_heads} "
+                   f"KV heads: more than {attention.MAX_QPK} query heads per "
+                   f"KV head (kMaxQpk of the paged attention kernel, "
+                   f"csrc/paged_attention.cu)")
+    if spec.quant not in (None, "int8"):
+        out.append(f"weight quantization {spec.quant!r} (only int8)")
     if config.spec_decode:
-        out.append("spec decode")
+        out.append("spec decode (ROADMAP item 10)")
     if config.max_adapters:
-        out.append("LoRA")
+        out.append("LoRA (ROADMAP item 11)")
     if config.host_cache_pages or config.kv_disk_cache_dir:
-        out.append("KV host/disk tiers")
+        out.append("KV host/disk tiers (ROADMAP item 9)")
     if config.attention_backend not in ("auto", "pallas"):
         out.append(f"attention_backend={config.attention_backend!r} (the "
                    f"port always runs its paged attention kernel)")
@@ -131,12 +143,18 @@ def _unsupported(config: EngineConfig) -> list[str]:
     return out
 
 
+def check_supported(config: EngineConfig) -> None:
+    """Raise ValueError naming everything of ``config`` the engine cannot
+    serve; the entry points call it before they read any weights."""
+    missing = _unsupported(config)
+    if missing:
+        raise ValueError("not ported yet: " + ", ".join(missing))
+
+
 class ModelRunner:
     def __init__(self, config: EngineConfig, params: dict | None = None,
                  seed: int = 0):
-        missing = _unsupported(config)
-        if missing:
-            raise ValueError("not ported yet: " + ", ".join(missing))
+        check_supported(config)
         # KV-pool quantization with the DTPU_QUANT_KV override applied.
         self.quant_kv = config.resolve_quant_kv()
         if self.quant_kv not in (None, "int8"):
@@ -151,14 +169,21 @@ class ModelRunner:
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = init_params(spec, gen, self.device)
+        if spec.quant == "int8" and not is_quantized(params):
+            # The bf16 tree (the runner's own for random weights) is dropped
+            # here; _sized_pages empties the allocator's cache before it
+            # reads the free memory, so the pool is not sized as if the
+            # bf16 weights were still resident.
+            params = quantize_params(params)
         self.params = params
+        del params
         self._sized_pages()
         kv_shape = (spec.num_layers, spec.num_kv_heads, self.num_pages,
                     config.page_size, spec.head_dim)
         self.k_cache = self._zero_pool(kv_shape)
         self.v_cache = self._zero_pool(kv_shape)
         self.param_bytes = sum(t.numel() * t.element_size()
-                               for t in _leaves(params))
+                               for t in _leaves(self.params))
         # The pool's real bytes: bf16 values, or int8 values + f32 scales.
         self.kv_pool_bytes = self.k_cache.nbytes + self.v_cache.nbytes
         # Noise for unseeded sampling rows.
@@ -198,6 +223,7 @@ class ModelRunner:
         if self.device.type != "cuda":
             raise ValueError("num_pages must be set when the runner is not "
                              "on a GPU (there is no free memory to size from)")
+        torch.cuda.empty_cache()
         free, _ = torch.cuda.mem_get_info(self.device)
         budget = max(64 << 20, int(free * cfg.hbm_kv_budget_frac))
         page_bytes = cfg.kv_token_bytes() * cfg.page_size
@@ -450,8 +476,11 @@ class ModelRunner:
 
 
 def _leaves(tree):
+    """Every tensor of a param tree (both of a QTensor's)."""
     for v in tree.values():
         if isinstance(v, dict):
             yield from _leaves(v)
+        elif isinstance(v, QTensor):
+            yield from v
         else:
             yield v

@@ -1,19 +1,154 @@
-"""Weights: the reference's parameter tree as the port's tensors.
+"""Weights: HF checkpoints and the reference's parameter tree as the port's
+tensors.
 
-``params_from_jax`` takes the tree that ``dynamo_tpu.engine.model.init_params``
-builds, as numpy arrays (the caller converts with ``np.asarray``; this
-module never imports JAX), and returns the same tree of torch tensors on
-``device``. Layouts are kept as they are: stacked ``[L, ...]`` layers and
-``[in, out]`` projections. Loading HF safetensors is a later slice.
+``load_hf_weights`` reads a HF Llama/Qwen2 checkpoint directory (every
+``*.safetensors`` in it, in sorted order, so sharded checkpoints load;
+``engine/safetensors_lite.py`` reads them) into the stacked ``[L, ...]``
+tree of ``model.param_shapes``, as ``dynamo_tpu.engine.weights`` does:
+projections transposed from HF's ``[out, in]`` to ``[in, out]``, Qwen2's
+q/k/v biases, ``lm_head`` only when the embeddings are not tied, and every
+dtype converted to bf16 by round-to-nearest-even (``ml_dtypes``' rounding
+in the reference), so the leaves are the reference's bits. It fills
+preallocated device tensors one HF tensor at a time: the file's bytes go
+to the device as they are, and the conversion and transpose run there, so
+device memory peaks about one tensor above the final tree and host memory
+holds no copy of the checkpoint. With ``spec.quant == "int8"`` each
+quantized leaf is quantized as soon as it is loaded (``quant.py``), so the
+bf16 tree never exists whole.
+
+``params_from_jax`` takes the tree that ``dynamo_tpu.engine.model
+.init_params`` (or the JAX ``quantize_params``) builds, as numpy arrays
+(the caller converts with ``np.asarray``; this module never imports JAX),
+and returns the same tree of torch tensors on ``device``.
 """
 
 from __future__ import annotations
+
+import contextlib
+import glob
+import os
 
 import numpy as np
 import torch
 
 from dynamo_tpu_torch.engine.config import ModelSpec
 from dynamo_tpu_torch.engine.model import param_shapes
+from dynamo_tpu_torch.engine.quant import (QUANT_LAYER_KEYS, QTensor,
+                                           quantize_embedding,
+                                           quantize_weight)
+from dynamo_tpu_torch.engine.safetensors_lite import SafeOpen
+from dynamo_tpu_torch.runtime.logging import get_logger
+
+log = get_logger("weights")
+
+# Layer leaf -> (HF name inside "model.layers.{i}.", transposed).
+HF_LAYER_NAMES = {
+    "input_norm": ("input_layernorm.weight", False),
+    "post_attn_norm": ("post_attention_layernorm.weight", False),
+    "wq": ("self_attn.q_proj.weight", True),
+    "wk": ("self_attn.k_proj.weight", True),
+    "wv": ("self_attn.v_proj.weight", True),
+    "wo": ("self_attn.o_proj.weight", True),
+    "w_gate": ("mlp.gate_proj.weight", True),
+    "w_up": ("mlp.up_proj.weight", True),
+    "w_down": ("mlp.down_proj.weight", True),
+    "bq": ("self_attn.q_proj.bias", False),
+    "bk": ("self_attn.k_proj.bias", False),
+    "bv": ("self_attn.v_proj.bias", False),
+}
+_WANTED_PREFIXES = ("model.", "lm_head.")
+
+
+def _device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device is cuda but no GPU is available")
+    return device
+
+
+def load_hf_weights(spec: ModelSpec, model_dir: str,
+                    device: str | torch.device = "cuda") -> dict:
+    """Load ``model_dir``'s safetensors into the param tree on ``device``
+    (bf16; int8 QTensor leaves with ``spec.quant == "int8"``). Raises,
+    naming what is missing, on a missing tensor, a wrong shape or an
+    unsupported dtype; nothing is left random."""
+    if spec.num_experts:
+        raise NotImplementedError(
+            f"{model_dir}: MoE checkpoints (num_local_experts="
+            f"{spec.num_experts}) are not ported yet: they wait for ROADMAP "
+            f"item 14 (MoE)")
+    if spec.quant not in (None, "int8"):
+        raise ValueError(f"weight quantization {spec.quant!r} is not "
+                         f"supported (None or 'int8')")
+    device = _device(device)
+    files = sorted(glob.glob(os.path.join(model_dir, "*.safetensors")))
+    if not files:
+        raise FileNotFoundError(f"no safetensors under {model_dir}")
+    quant = spec.quant == "int8"
+    with contextlib.ExitStack() as stack:
+        # HF name -> the open file holding it; a later file's tensor of the
+        # same name wins, as in the reference's dict.
+        where: dict[str, SafeOpen] = {}
+        for path in files:
+            fh = stack.enter_context(SafeOpen(path))
+            for name in fh.keys():
+                if name.startswith(_WANTED_PREFIXES):
+                    where[name] = fh
+
+        def read(name: str, shape: tuple, transposed: bool) -> torch.Tensor:
+            """One HF tensor as bf16 on the device, [in, out] if
+            ``transposed``."""
+            if name not in where:
+                raise KeyError(f"{model_dir}: missing tensor {name}")
+            hf_shape = tuple(reversed(shape)) if transposed else tuple(shape)
+            if where[name].shape_of(name) != hf_shape:
+                raise ValueError(f"{model_dir}: tensor {name} has shape "
+                                 f"{list(where[name].shape_of(name))}, "
+                                 f"expected {list(hf_shape)} for "
+                                 f"{spec.name}")
+            src = where[name].get_tensor(name)
+            # The raw bytes go over as they are (a copy, even on the CPU:
+            # nothing returned may still view the mapped file); the dtype
+            # conversion and the transpose run on the device.
+            t = src.to(device, copy=True).to(torch.bfloat16)
+            return t.t() if transposed else t
+
+        shapes = param_shapes(spec, quantized=False)
+        layers = {}
+        for key, shape in shapes["layers"].items():
+            hf_name, transposed = HF_LAYER_NAMES[key]
+            qkey = quant and key in QUANT_LAYER_KEYS
+            if qkey:
+                dst = QTensor(
+                    torch.empty(shape, dtype=torch.int8, device=device),
+                    torch.empty((shape[0], 1, shape[-1]),
+                                dtype=torch.float32, device=device))
+            else:
+                dst = torch.empty(shape, dtype=torch.bfloat16, device=device)
+            for i in range(spec.num_layers):
+                t = read(f"model.layers.{i}.{hf_name}", shape[1:],
+                         transposed)
+                if qkey:
+                    dst.q[i], dst.s[i] = quantize_weight(t)
+                else:
+                    dst[i].copy_(t)
+                del t
+            layers[key] = dst
+        params = {"embed": read("model.embed_tokens.weight", shapes["embed"],
+                                False),
+                  "final_norm": read("model.norm.weight",
+                                     shapes["final_norm"], False),
+                  "layers": layers}
+        if quant:
+            params["embed"] = quantize_embedding(params["embed"])
+        if not spec.tie_word_embeddings:
+            head = read("lm_head.weight", shapes["lm_head"], True)
+            params["lm_head"] = (quantize_weight(head) if quant
+                                 else head.contiguous())
+            del head
+    log.info("loaded %d tensors from %s (%d files)", len(where), model_dir,
+             len(files))
+    return params
 
 
 def _to_tensor(arr: np.ndarray, device) -> torch.Tensor:
@@ -26,15 +161,22 @@ def _to_tensor(arr: np.ndarray, device) -> torch.Tensor:
     return t.to(device)
 
 
+def _is_qtensor(leaf) -> bool:
+    """A (q, s) pair: the reference's QTensor NamedTuple or the port's."""
+    return getattr(leaf, "_fields", None) == ("q", "s")
+
+
 def params_from_jax(np_params: dict, spec: ModelSpec,
                     device: str | torch.device = "cuda") -> dict:
-    """Convert the reference's param tree (numpy leaves) to bf16 tensors,
-    checking every leaf against the spec's shapes."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("params_from_jax: device is cuda but no GPU is "
-                           "available")
-    shapes = param_shapes(spec)
+    """Convert the reference's param tree (numpy leaves; int8 weights as
+    QTensor (q, s) pairs) to the port's tensors, checking every leaf
+    against ``param_shapes``: bf16 leaves, int8 q and float32 s."""
+    device = _device(device)
+    shapes = param_shapes(spec, quantized=_is_qtensor(np_params.get("embed")))
+
+    def check(arr, shape, key):
+        if tuple(arr.shape) != tuple(shape):
+            raise ValueError(f"param {key}: shape {arr.shape} != {shape}")
 
     def convert(tree: dict, want: dict) -> dict:
         if set(tree) != set(want):
@@ -44,12 +186,22 @@ def params_from_jax(np_params: dict, spec: ModelSpec,
         for key, shape in want.items():
             if isinstance(shape, dict):
                 out[key] = convert(tree[key], shape)
-                continue
-            arr = np.asarray(tree[key])
-            if tuple(arr.shape) != tuple(shape):
-                raise ValueError(f"param {key}: shape {arr.shape} != "
-                                 f"{shape}")
-            out[key] = _to_tensor(arr, device)
+            elif isinstance(shape, QTensor):
+                if not _is_qtensor(tree[key]):
+                    raise ValueError(f"param {key}: expected an int8 "
+                                     f"(q, s) pair")
+                q, s = (np.asarray(a) for a in tree[key])
+                check(q, shape.q, key + ".q")
+                check(s, shape.s, key + ".s")
+                if q.dtype != np.int8 or s.dtype != np.float32:
+                    raise ValueError(f"param {key}: q {q.dtype} and s "
+                                     f"{s.dtype}, expected int8 and float32")
+                out[key] = QTensor(torch.from_numpy(q.copy()).to(device),
+                                   torch.from_numpy(s.copy()).to(device))
+            else:
+                arr = np.asarray(tree[key])
+                check(arr, shape, key)
+                out[key] = _to_tensor(arr, device)
         return out
 
     return convert(np_params, shapes)

@@ -9,15 +9,22 @@ workers (``python -m dynamo_tpu_torch.backends.gpu``, or the JAX
 package's) register there.
 
     python -m dynamo_tpu_torch.launch in=http out=gpu --model llama-3-8b
+    python -m dynamo_tpu_torch.launch --model /path/to/checkpoint --quant int8
     python -m dynamo_tpu_torch.launch --model tiny-test --device cpu
     python -m dynamo_tpu_torch.launch in=http out=dyn --coordinator-url tcp://127.0.0.1:4222
 
-The weights are random from ``--seed``; the tokenizer is ``--tokenizer
-PATH`` (a ``tokenizer.json``) or the repo's test tokenizer. It prints
-``LAUNCH_READY in=http out=<gpu|dyn> port=N`` once it serves, and stops
-on SIGINT or SIGTERM. ``build_engine`` assembles the engine alone
-(``chip_smoke.py``, ``profile_decode.py``); ``add_engine_args`` and
-``build_engine_config`` are shared with the worker main.
+``--model`` is a preset (random weights from ``--seed``), a HF Llama or
+Qwen2 checkpoint directory (``config.json`` and ``*.safetensors``), or a
+hub id already in the local HF cache (``engine/hub.py``; nothing is
+downloaded). ``--quant int8`` serves int8 weights with float32 per-channel
+scales. The tokenizer is the checkpoint's own ``tokenizer.json`` (the
+reference launcher's choice), else ``--tokenizer PATH`` (a
+``tokenizer.json`` or a ``.gguf``), else, for a preset, the repo's test
+tokenizer. It prints ``LAUNCH_READY in=http out=<gpu|dyn> port=N`` once
+it serves, and stops on SIGINT or SIGTERM. ``build_engine`` assembles the
+engine alone (``chip_smoke.py``, ``profile_decode.py``);
+``add_engine_args``, ``build_engine_config`` and ``load_engine`` are
+shared with the worker main.
 """
 
 from __future__ import annotations
@@ -29,8 +36,11 @@ import os
 import signal
 import sys
 
-from dynamo_tpu_torch.engine.config import PRESETS, EngineConfig
+from dynamo_tpu_torch.engine.config import EngineConfig
 from dynamo_tpu_torch.engine.engine import GPUEngine
+from dynamo_tpu_torch.engine.hub import resolve_model
+from dynamo_tpu_torch.engine.runner import check_supported
+from dynamo_tpu_torch.engine.weights import load_hf_weights
 from dynamo_tpu_torch.llm.backend import Backend
 from dynamo_tpu_torch.llm.discovery import (ModelManager, ModelWatcher,
                                             ServedModel)
@@ -88,10 +98,15 @@ def add_refused_flags(parser: argparse.ArgumentParser, flags) -> None:
 def add_engine_args(parser: argparse.ArgumentParser) -> None:
     """The engine's flags, shared by the launcher and the worker main."""
     parser.add_argument("--model", default="tiny-test",
-                        choices=sorted(PRESETS))
+                        help="a preset, a HF checkpoint directory or a hub "
+                             "id in the local HF cache (never downloaded)")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--seed", type=int, default=0,
-                        help="seed of the random weights")
+                        help="seed of a preset's random weights")
+    parser.add_argument("--quant", default=None, choices=["int8"],
+                        help="weight-only int8: int8 weights with a float32 "
+                             "scale per output channel, bf16 compute (half "
+                             "the weight bytes)")
     parser.add_argument("--num-pages", type=int, default=None)
     parser.add_argument("--max-num-seqs", type=int, default=32)
     parser.add_argument("--page-size", type=int, default=16)
@@ -114,8 +129,9 @@ def add_engine_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--model-name", default=None,
                         help="served model name (default: --model)")
     parser.add_argument("--tokenizer", default=None,
-                        help="path of a tokenizer.json (default: the repo's "
-                             "test tokenizer)")
+                        help="path of a tokenizer.json or .gguf (default: "
+                             "the checkpoint's, or the repo's test tokenizer "
+                             "for a preset)")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -154,8 +170,18 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def build_engine_config(args) -> EngineConfig:
+    """Resolve ``--model`` (``hub.resolve_model``; exits naming why when it
+    does not resolve) and set ``args.resolved_checkpoint`` to the
+    checkpoint directory, or None for a preset."""
+    try:
+        spec, ckpt = resolve_model(args.model)
+    except FileNotFoundError as exc:
+        raise SystemExit(str(exc)) from exc
+    if args.quant:
+        spec = dataclasses.replace(spec, quant=args.quant)
+    args.resolved_checkpoint = ckpt
     return EngineConfig(
-        model=PRESETS[args.model], page_size=args.page_size,
+        model=spec, page_size=args.page_size,
         num_pages=args.num_pages, max_pages_per_seq=args.max_pages_per_seq,
         max_num_seqs=args.max_num_seqs, decode_window=args.decode_window,
         pipeline_depth=args.pipeline_depth,
@@ -163,15 +189,45 @@ def build_engine_config(args) -> EngineConfig:
         device=args.device)
 
 
+def load_engine(config: EngineConfig, checkpoint: str | None,
+                seed: int = 0) -> GPUEngine:
+    """A started engine for ``config``: the checkpoint's weights, or
+    random ones from ``seed`` when ``checkpoint`` is None. What the engine
+    cannot serve is refused before any weight is read."""
+    check_supported(config)
+    params = (load_hf_weights(config.model, checkpoint, config.device)
+              if checkpoint else None)
+    engine = GPUEngine(config, params=params, seed=seed)
+    engine.start()
+    return engine
+
+
 def build_engine(args, **overrides) -> GPUEngine:
-    """The real engine, in-process, with random weights from args.seed;
-    ``overrides`` set EngineConfig fields that have no flag."""
+    """The real engine, in-process: ``--model``'s weights (random from
+    ``--seed`` for a preset); ``overrides`` set EngineConfig fields that
+    have no flag."""
     if args.output != "gpu":
         raise ValueError(f"out={args.output} is not served by the port")
     config = dataclasses.replace(build_engine_config(args), **overrides)
-    engine = GPUEngine(config, seed=args.seed)
-    engine.start()
-    return engine
+    return load_engine(config, args.resolved_checkpoint, args.seed)
+
+
+def load_tokenizer(checkpoint: str | None, path: str | None,
+                   checkpoint_first: bool) -> Tokenizer:
+    """The served tokenizer. The launcher takes a checkpoint's own
+    ``tokenizer.json`` first, then ``--tokenizer`` (``checkpoint_first``);
+    the worker main takes ``--tokenizer`` first, as their references do. A
+    checkpoint without a ``tokenizer.json`` and no ``--tokenizer`` raises
+    FileNotFoundError; only a preset gets the repo's test tokenizer."""
+    own = checkpoint and os.path.exists(
+        os.path.join(checkpoint, "tokenizer.json"))
+    if checkpoint_first and own:
+        return Tokenizer.from_pretrained_dir(checkpoint)
+    if path:
+        return Tokenizer.from_file(path)
+    if checkpoint:
+        return Tokenizer.from_pretrained_dir(checkpoint)
+    return make_test_tokenizer()
 
 
 def build_local_served(args, engine: GPUEngine | None = None
@@ -179,9 +235,11 @@ def build_local_served(args, engine: GPUEngine | None = None
     """Static pipeline: Preprocessor -> Backend -> GPUEngine, no network.
     ``engine``: a started engine to serve from (default: ``build_engine``
     of ``args``)."""
-    tokenizer = (Tokenizer.from_file(args.tokenizer) if args.tokenizer
-                 else make_test_tokenizer())
-    engine = engine or build_engine(args)
+    config = build_engine_config(args)
+    tokenizer = load_tokenizer(args.resolved_checkpoint, args.tokenizer,
+                               checkpoint_first=True)
+    engine = engine or load_engine(config, args.resolved_checkpoint,
+                                   args.seed)
     name = args.model_name or os.path.basename(args.model.rstrip("/"))
     card = ModelDeploymentCard(name=name, chat_template=DEFAULT_CHAT_TEMPLATE,
                                context_length=args.context_length)

@@ -4,7 +4,8 @@
 
 ``DecodeStream`` emits UTF-8-safe text deltas token by token; the
 ``StopSequenceChecker`` holds back a tail that may still become a stop
-string. GGUF files are not read.
+string. ``from_file`` reads a ``tokenizer.json`` or, by its ``.gguf``
+suffix, a GGUF file's embedded vocabulary (``llm/gguf.py``).
 """
 
 from __future__ import annotations
@@ -24,9 +25,15 @@ class Tokenizer:
     def __init__(self, bpe: BPETokenizer, blob: bytes):
         self._bpe = bpe
         self._blob = blob
+        # Explicit EOS ids (e.g. from GGUF metadata) override the
+        # name-convention discovery in eos_token_ids().
+        self.eos_override: list[int] | None = None
 
     @classmethod
     def from_file(cls, path: str | os.PathLike) -> "Tokenizer":
+        if str(path).endswith(".gguf"):
+            from dynamo_tpu_torch.llm.gguf import tokenizer_from_gguf
+            return tokenizer_from_gguf(str(path))
         return cls.from_bytes(Path(path).read_bytes())
 
     @classmethod
@@ -60,6 +67,8 @@ class Tokenizer:
 
     def eos_token_ids(self) -> list[int]:
         """Best-effort EOS discovery from common conventions."""
+        if self.eos_override is not None:
+            return list(self.eos_override)
         ids = []
         for tok in ("</s>", "<|endoftext|>", "<|eot_id|>", "<|end_of_text|>",
                     "<|im_end|>", "<eos>"):

@@ -1,8 +1,8 @@
 """The port stands alone: no file of dynamo_tpu_torch/, and not
 chip_smoke.py, imports jax or anything of the JAX package dynamo_tpu, nor
 a package the card's machine lacks (aiohttp, pydantic, tokenizers, jinja2,
-msgpack, xxhash, regex), nor ``tomli`` (the port reads TOML with the
-standard library's ``tomllib``)."""
+msgpack, xxhash, regex, safetensors, ml_dtypes, huggingface_hub), nor
+``tomli`` (the port reads TOML with the standard library's ``tomllib``)."""
 
 import ast
 import subprocess
@@ -15,7 +15,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "dynamo_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 FORBIDDEN = {"jax", "jaxlib", "dynamo_tpu", "aiohttp", "pydantic",
-             "tokenizers", "jinja2", "msgpack", "xxhash", "regex", "tomli"}
+             "tokenizers", "jinja2", "msgpack", "xxhash", "regex", "tomli",
+             "safetensors", "ml_dtypes", "huggingface_hub"}
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -47,6 +48,13 @@ def test_port_files_found():
     "runtime/service.py", "runtime/client.py", "runtime/distributed.py",
     "llm/migration.py"])
 def test_scan_reaches_the_distributed_modules(module):
+    assert ROOT / "dynamo_tpu_torch" / module in PORT_FILES
+
+
+@pytest.mark.parametrize("module", [
+    "engine/safetensors_lite.py", "engine/hub.py", "engine/quant.py",
+    "engine/weights.py", "llm/gguf.py"])
+def test_scan_reaches_the_checkpoint_modules(module):
     assert ROOT / "dynamo_tpu_torch" / module in PORT_FILES
 
 

@@ -298,8 +298,14 @@ def test_invalid_quant_kv_rejected():
 
 
 def test_int8_weights_still_refused():
+    """int8 weights compose with the int8 pool; a weight quantization
+    other than int8 is still refused."""
     import dataclasses
 
     spec = dataclasses.replace(tcfg.PRESETS["tiny-test"], quant="int8")
-    with pytest.raises(ValueError, match="int8 weights"):
+    runner = TRunner(_runner_cfg("int8", model=spec))
+    assert runner.params["embed"].q.dtype == torch.int8
+    assert runner.k_cache.data.dtype == torch.int8
+    spec = dataclasses.replace(spec, quant="int4")
+    with pytest.raises(ValueError, match="weight quantization 'int4'"):
         TRunner(_runner_cfg("int8", model=spec))
