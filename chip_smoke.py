@@ -119,6 +119,57 @@ Phases, in order; any failure exits non-zero without the final line:
    device ms per step of a window run alone (torch.profiler), round 1's
    tok/s for each, and the device ms of one int8-weight mm against the
    bf16 matmul at [32, 4096] x [4096, 14336].
+8. disaggregated prefill and decode at full width, after phase 7's
+   engines are released. Two seed-0 llama-3-8b engines, each built as
+   ``backends.gpu --mode prefill|decode`` builds it with DISAGG_PAGES
+   pages (8 GiB of bf16 pages each, so both fit the card), serve in this
+   process over TCP on 127.0.0.1: a decode worker runtime with an
+   embedded coordinator (``backends.gpu.decode_handler`` and
+   ``serve_engine``: DisaggDecodeHandler, the model registered), a
+   prefill worker runtime (``backends.gpu.serve_prefill``: the prefill
+   handler and the prefill-queue worker, with its KvPlaneServer) and a
+   frontend runtime (``launch.start_front``). Traffic, from http.client
+   threads as streamed completions of token ids with ignore_eos: round
+   1's eight prompts (6 greedy, top-p, seeded; 64 tokens each) and round
+   2's 6000-token prompt (32 tokens), max_local_prefill_length 512 (the
+   128- and 300-token prompts stay local). Four passes, each on a fresh
+   stack with both prefix caches first cleared through the decode
+   handler's clear_kv_blocks (which fans out to the prefill worker):
+   bf16 pools over the KV plane; bf16 pools inline (no plane); the
+   decode pool rebuilt as int8 with bf16 parcels quantized on insert;
+   the prefill pool rebuilt as int8 too (packed parcels). Checked in
+   each: every request finishes at its max_tokens; remote_prefills
+   equals the prompts over 512 tokens, remote_failures is 0, each of
+   them was admitted with its parcel (no local fallback at admission)
+   and the rest prefilled locally; paged_attention_hist (the int8 entry on the
+   int8 pool) launched windows x M x 32 times on the decode worker and
+   the other entry 0 times, and the prefill worker ran no window; the
+   plane pulled every parcel and the long prompt streamed as three page
+   groups (128, 128, 119 pages); greedy ids equal phase 3's (bf16 pool)
+   or phase 4's (int8 pool) aggregated ids, or split only at a near-tie
+   of the teacher-forced logits (the long prompt of the mixed pass,
+   whose chunks ran over bf16 history, against the plain path of that
+   computation); the seeded request's tokens equal the same request
+   served aggregated, alone, by the decode worker's engine; on the card,
+   for both pools, a parcel extracted from the prefill pool equals its
+   pages (bf16 bits, or pack_parcel of the int8 values and scales) and,
+   inserted into free pages of the decode pool and extracted again, is
+   bit-exact, with both pools' bytes equal at those pages, and neither
+   the extract's dispatch nor the insert synchronizes the card; and the
+   int8 pool's pages from bf16 parcels equal quantize_np of the prefill
+   pool's pages. It prints, per remote request, the parcel bytes, the
+   extract's device ms (gathers and copies to pinned memory), the pull
+   ms (its wait for the first page group, and the receive and GB/s
+   after it), the insert's device and host ms, TTFT and TPOT at the
+   decode worker's handler beside phase 3's (or 4's) engine-boundary
+   TTFT of the same prompt, and the client's first chunk (the test
+   tokenizer decodes most ids to no text, so few chunks reach the
+   client); per pass its tok/s. Then the coordinator, ``python -m
+   dynamo_tpu_torch.backends.gpu --mode prefill`` and ``--mode decode
+   --max-local-prefill-length 8`` (tiny-test, no --device: each must log
+   an engine on cuda) and the frontend run as subprocesses: a streamed
+   chat over the threshold is prefilled on the prefill worker and
+   answered, and all four exit 0 on SIGTERM.
 The last lines are the kernels' JSON summary, the card's name and power
 limit, and {"ok": true, "device": {...}}.
 """
@@ -126,6 +177,7 @@ limit, and {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import gc
 import json
 import sys
@@ -476,6 +528,15 @@ def main_path(attention, model, quant_kv: str | None) -> dict:
     log(f"teacher-forced logits on the {kind} pool, kernel vs plain path: "
         f"max|diff|={worst:.4f} (tolerance {LOGIT_ATOL})")
     stats["teacher_forced_max_abs_diff"] = worst
+    # Phase 8's reference (and with the bf16 pool phase 7's): the seed-0
+    # preset's round 1, its long prompt of round 2 and their tokens, and the
+    # teacher-forced logits.
+    stats["_round1"] = {"prompts": prompts,
+                        "tokens": [r["tokens"] for r in results],
+                        "ttft_s": [r["ttft_s"] for r in results],
+                        "long_prompt": round2["_prompts"][-1],
+                        "long_tokens": round2["_results"][-1]["tokens"],
+                        "tf_logits": [lg.cpu() for lg in logits]}
     if quant_kv:
         _, ref = teacher_forced_check(quant=False, **tf)
         cos = min_cosine(logits, ref)
@@ -483,12 +544,6 @@ def main_path(attention, model, quant_kv: str | None) -> dict:
             f"{cos:.6f} over {len(ref)} steps (gate > {MIN_COSINE})")
         assert cos > MIN_COSINE, cos
         stats["int8_vs_bf16_min_cosine"] = cos
-    else:
-        # Phase 7's reference: the seed-0 preset's round 1 and its
-        # teacher-forced logits.
-        stats["_round1"] = {"prompts": prompts,
-                            "tokens": [r["tokens"] for r in results],
-                            "tf_logits": [lg.cpu() for lg in logits]}
     # Release the engine's weights and pool before the next phase.
     del engine, runner, tf, logits, round2
     gc.collect()
@@ -1247,6 +1302,41 @@ def dist_phase(attention, engine, tokenizer, on_loop, traffic) -> dict:
     return stats
 
 
+def _spawn(procs: list, *argv):
+    """Start ``python -m *argv`` from the checkout's root, its output
+    lines collected; appends (process, line queue, lines seen) to
+    ``procs`` and returns it."""
+    import os
+    import queue
+    import subprocess
+    import threading
+    proc = subprocess.Popen(
+        [sys.executable, "-m", *argv], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=dict(os.environ, DTPU_LOG="info"))
+    lines: queue.Queue = queue.Queue()
+    for pipe in (proc.stdout, proc.stderr):
+        threading.Thread(target=lambda p=pipe: [lines.put(x) for x in p],
+                         daemon=True).start()
+    procs.append((proc, lines, []))
+    return procs[-1]
+
+
+def _wait_line(entry, text, timeout=300) -> str:
+    """The first line of a ``_spawn`` process that holds ``text``."""
+    import queue
+    proc, lines, seen = entry
+    t0 = time.monotonic()
+    while not any(text in x for x in seen):
+        try:
+            seen.append(lines.get(timeout=1))
+        except queue.Empty:
+            assert proc.poll() is None, (proc.returncode, seen[-20:])
+            assert time.monotonic() - t0 < timeout, seen[-20:]
+    return next(x for x in seen if text in x).strip()
+
+
 def dist_subprocesses() -> dict:
     """The distributed entry points as subprocesses on the card: ``python
     -m dynamo_tpu_torch.runtime.coordinator --port 0``, ``python -m
@@ -1254,53 +1344,23 @@ def dist_subprocesses() -> dict:
     engine on cuda, no --device given) and ``python -m
     dynamo_tpu_torch.frontend --http-port 0``; one streamed chat is
     answered and all three exit 0 on SIGTERM, the worker first."""
-    import os
-    import queue
     import signal
-    import subprocess
-    import threading
-
-    cwd = os.path.dirname(os.path.abspath(__file__))
     procs = []
-
-    def start(*argv):
-        proc = subprocess.Popen(
-            [sys.executable, "-m", *argv], stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True, cwd=cwd,
-            env=dict(os.environ, DTPU_LOG="info"))
-        lines: queue.Queue = queue.Queue()
-        for pipe in (proc.stdout, proc.stderr):
-            threading.Thread(target=lambda p=pipe: [lines.put(x) for x in p],
-                             daemon=True).start()
-        procs.append((proc, lines, []))
-        return procs[-1]
-
-    def wait_line(entry, text, timeout=300):
-        proc, lines, seen = entry
-        t0 = time.monotonic()
-        while not any(text in x for x in seen):
-            try:
-                seen.append(lines.get(timeout=1))
-            except queue.Empty:
-                assert proc.poll() is None, (proc.returncode, seen[-20:])
-                assert time.monotonic() - t0 < timeout, seen[-20:]
-        return next(x for x in seen if text in x).strip()
-
     t0 = time.monotonic()
     try:
-        coord = start("dynamo_tpu_torch.runtime.coordinator", "--host",
-                      "127.0.0.1", "--port", "0")
-        url = "tcp://127.0.0.1:" + wait_line(
+        coord = _spawn(procs, "dynamo_tpu_torch.runtime.coordinator",
+                       "--host", "127.0.0.1", "--port", "0")
+        url = "tcp://127.0.0.1:" + _wait_line(
             coord, "COORDINATOR_READY").rsplit("=", 1)[1]
-        worker = start("dynamo_tpu_torch.backends.gpu", "--model",
-                       "tiny-test", "--coordinator-url", url)
-        front = start("dynamo_tpu_torch.frontend", "--http-host",
-                      "127.0.0.1", "--http-port", "0", "--coordinator-url",
-                      url)
-        ready = wait_line(worker, "GPU_WORKER_READY")
-        device = wait_line(worker, "from an engine on")
+        worker = _spawn(procs, "dynamo_tpu_torch.backends.gpu", "--model",
+                        "tiny-test", "--coordinator-url", url)
+        front = _spawn(procs, "dynamo_tpu_torch.frontend", "--http-host",
+                       "127.0.0.1", "--http-port", "0", "--coordinator-url",
+                       url)
+        ready = _wait_line(worker, "GPU_WORKER_READY")
+        device = _wait_line(worker, "from an engine on")
         assert "from an engine on cuda" in device, device
-        port = int(wait_line(front, "FRONTEND_READY").rsplit("=", 1)[1])
+        port = int(_wait_line(front, "FRONTEND_READY").rsplit("=", 1)[1])
         deadline = time.monotonic() + 60
         while [m["id"] for m in http_call(port, "GET", "/v1/models")[
                 "json"]["data"]] != ["tiny-test"]:
@@ -1335,36 +1395,17 @@ def launcher_subprocess(args=("--model", "tiny-test"),
     with ``args`` as a subprocess: it must log an engine on cuda (no
     --device given), answer one streamed chat for ``model`` and exit 0 on
     SIGTERM."""
-    import os
-    import queue
     import signal
-    import subprocess
-    import threading
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "dynamo_tpu_torch.launch", "in=http",
-         "out=gpu", "--http-port", "0", *args],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        cwd=os.path.dirname(os.path.abspath(__file__)),
-        env=dict(os.environ, DTPU_LOG="info"))
-    lines: queue.Queue = queue.Queue()
-    for pipe in (proc.stdout, proc.stderr):
-        threading.Thread(target=lambda p=pipe: [lines.put(x) for x in p],
-                         daemon=True).start()
-    seen = []
+    procs = []
+    t0 = time.monotonic()
     try:
-        t0 = time.monotonic()
-        while not (any(x.startswith("LAUNCH_READY") for x in seen)
-                   and any("from an engine on" in x for x in seen)):
-            try:
-                seen.append(lines.get(timeout=1))
-            except queue.Empty:
-                assert proc.poll() is None, (proc.returncode, seen[-20:])
-                assert time.monotonic() - t0 < 300, seen[-20:]
+        launcher = _spawn(procs, "dynamo_tpu_torch.launch", "in=http",
+                          "out=gpu", "--http-port", "0", *args)
+        ready = _wait_line(launcher, "LAUNCH_READY")
+        device = _wait_line(launcher, "from an engine on")
         ready_s = time.monotonic() - t0
-        ready = next(x for x in seen if x.startswith("LAUNCH_READY"))
-        device = next(x for x in seen if "from an engine on" in x)
         assert "from an engine on cuda" in device, device
-        port = int(ready.strip().rsplit("=", 1)[1])
+        port = int(ready.rsplit("=", 1)[1])
         res = http_call(port, "POST", "/v1/chat/completions", {
             "model": model, "stream": True, "max_tokens": 8,
             "ignore_eos": True, "stream_options": {"include_usage": True},
@@ -1372,16 +1413,18 @@ def launcher_subprocess(args=("--model", "tiny-test"),
         s = stream_summary(res)
         assert res["status"] == 200 and s["finish"] == "length", s
         assert s["usage"]["completion_tokens"] == 8, s
+        proc, _, seen = launcher
         proc.send_signal(signal.SIGTERM)
         code = proc.wait(timeout=120)
         assert code == 0, (code, seen[-20:])
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait(timeout=60)
-    log(f"launcher subprocess ({' '.join(args)}): {ready.strip()}, "
-        f"{device.strip()}, ready in {ready_s:.1f}s, answered a streamed "
-        f"chat, exited 0 on SIGTERM")
+        for proc, _, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+    log(f"launcher subprocess ({' '.join(args)}): {ready}, {device}, "
+        f"ready in {ready_s:.1f}s, answered a streamed chat, exited 0 on "
+        f"SIGTERM")
     return {"ready_s": ready_s, "usage": s["usage"]}
 
 
@@ -1537,13 +1580,14 @@ def decode_step_device_ms(engine, rows: int = 8, hist: int = 1224) -> float:
     return _busy_seconds(intervals) * 1e3 / engine.decode_window
 
 
-def greedy_agree(runner, model, prompts, tokens, ref_tokens) -> int:
-    """Greedy requests (the first 6 of round 1) against the reference's
-    tokens: equal, or split only at a near-tie of the teacher-forced
-    logits (top-2 margin within 2 x LOGIT_ATOL). Returns how many are
-    equal throughout."""
+def greedy_agree(runner, model, prompts, tokens, ref_tokens,
+                 rows=range(6)) -> int:
+    """Greedy requests (by default the first 6 of round 1) against the
+    reference's tokens: equal, or split only at a near-tie of the
+    teacher-forced logits (top-2 margin within 2 x LOGIT_ATOL). Returns
+    how many are equal throughout."""
     equal = 0
-    for i in range(6):
+    for i in rows:
         got, want = tokens[i], ref_tokens[i]
         j = next((k for k, (a, b) in enumerate(zip(got, want)) if a != b),
                  None)
@@ -1762,12 +1806,638 @@ def checkpoint_phase(attention, model, ref: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: disaggregated prefill and decode at full width
+# ---------------------------------------------------------------------------
+
+# Pool pages of each of phase 8's two engines: 8 GiB of bf16 pages (2 MiB
+# each at llama-3-8b's widths), so two full-width engines fit one card.
+DISAGG_PAGES = 4096
+# Prompts longer than this prefill on the prefill worker.
+DISAGG_MAX_LOCAL = 512
+
+
+def disagg_engine(mode: str, quant_kv: str | None):
+    """An engine built as ``python -m dynamo_tpu_torch.backends.gpu --mode
+    MODE`` builds it (seed-0 llama-3-8b, DISAGG_PAGES pages), with phase
+    3's prefill program size."""
+    import dataclasses
+
+    from dynamo_tpu_torch.backends import gpu
+    from dynamo_tpu_torch.launch import load_engine
+    from dynamo_tpu_torch.profile_decode import MAX_PREFILL_TOKENS, MODEL
+    argv = ["--mode", mode, "--model", MODEL, "--seed", "0", "--device",
+            DEVICE, "--num-pages", str(DISAGG_PAGES)]
+    if quant_kv:
+        argv += ["--quant-kv", quant_kv]
+    args = gpu.parse_args(argv)
+    config = dataclasses.replace(gpu.build_engine_config(args),
+                                 max_prefill_tokens=MAX_PREFILL_TOKENS)
+    t0 = time.monotonic()
+    engine = load_engine(config, args.resolved_checkpoint, args.seed)
+    log(f"{mode} engine ({quant_kv or 'bf16'} pool): pages="
+        f"{engine.runner.num_pages} pool="
+        f"{engine.runner.kv_pool_bytes / 2**30:.2f} GiB setup="
+        f"{time.monotonic() - t0:.1f}s")
+    return engine
+
+
+def disagg_traffic(spec, ref: dict) -> list[dict]:
+    """Round 1's eight prompts (6 greedy, top-p, seeded; 64 tokens each)
+    and round 2's 6000-token prompt (32 tokens), as completions of token
+    ids."""
+    from dynamo_tpu_torch.profile_decode import (MAX_TOKENS, MODEL,
+                                                 ROUND2_MAX_TOKENS)
+    sampling = [{}] * 6 + [{"temperature": 0.8, "top_p": 0.9},
+                           {"temperature": 0.8, "seed": 1234}]
+    out = []
+    for ids, s, n in zip(ref["prompts"] + [ref["long_prompt"]],
+                         sampling + [{}], [MAX_TOKENS] * 8
+                         + [ROUND2_MAX_TOKENS]):
+        out.append({"model": MODEL, "prompt": ids, "stream": True,
+                    "ignore_eos": True, "max_tokens": n,
+                    "stream_options": {"include_usage": True}, **s})
+    return out
+
+
+class DisaggProbe:
+    """Per remote request (keyed by prompt length): the prefill worker's
+    extract device ms (the gathers and their copies to pinned host memory,
+    by CUDA events), the plane groups staged, the decode worker's pull
+    seconds and bytes and its insert ms; per prompt, the decode handler's
+    tokens and the times of its outputs. Wraps methods on the instances
+    only, and ``close`` takes every wrapper off again."""
+
+    def __init__(self, p_engine, d_engine):
+        self.extracts: dict[int, list] = {}
+        self.groups: dict[int, list] = {}
+        self.pulls: dict[int, tuple] = {}
+        self.inserts: dict[int, list] = {}
+        self.tokens: dict[tuple, list] = {}
+        self.times: dict[tuple, list] = {}
+        self._key = None
+        self._wrapped: list = []
+        for name in ("prefill_extract", "prefill_extract_staged"):
+            self._wrap(p_engine, name, self._keyed(getattr(p_engine, name)))
+        runner = p_engine.runner
+        inner_extract = runner.extract_pages_async
+
+        def extract(pages):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            handle = inner_extract(pages)
+            ev[1].record()
+            self.extracts.setdefault(self._key, []).append(ev)
+            return handle
+
+        self._wrap(runner, "extract_pages_async", extract)
+        d_runner = d_engine.runner
+        inner_insert = d_runner.insert_pages
+
+        def insert(kv, pages):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            t0 = time.perf_counter()
+            ev[0].record()
+            inner_insert(kv, pages)
+            ev[1].record()
+            self.inserts[len(pages)] = [ev, time.perf_counter() - t0,
+                                        kv.nbytes]
+
+        self._wrap(d_runner, "insert_pages", insert)
+
+    def _wrap(self, obj, name: str, fn) -> None:
+        setattr(obj, name, fn)
+        self._wrapped.append((obj, name))
+
+    def _keyed(self, inner):
+        def job(req, *args, **kwargs):
+            self._key = len(req.token_ids)
+            return inner(req, *args, **kwargs)
+        return job
+
+    def watch_plane(self, plane) -> None:
+        inner = plane.stage
+
+        def stage(**kwargs):
+            groups = kwargs.get("resolve_groups")
+            self.groups[kwargs["prompt_len"]] = [n for n, _ in groups or []]
+            return inner(**kwargs)
+
+        self._wrap(plane, "stage", stage)
+
+    def watch_handler(self, handler) -> None:
+        client, inner_pull = handler.plane_client, handler.plane_client.pull_sync
+
+        def pull(ticket):
+            t0 = time.perf_counter()
+            kv = inner_pull(ticket)
+            seconds = time.perf_counter() - t0
+            _, header_s, end_s, nbytes = next(
+                r for r in reversed(client.recent) if r[0] == ticket["id"])
+            self.pulls[ticket["prompt_len"]] = (seconds, header_s, end_s,
+                                                nbytes)
+            return kv
+
+        self._wrap(client, "pull_sync", pull)
+        inner_gen = handler.generate
+
+        async def generate(request, context):
+            key = tuple(request["token_ids"])
+            ids = self.tokens.setdefault(key, [])
+            times = self.times.setdefault(key, [time.perf_counter()])
+            async for item in inner_gen(request, context):
+                ids.extend(item.get("token_ids", []))
+                times.append(time.perf_counter())
+                yield item
+
+        self._wrap(handler, "generate", generate)
+
+    def close(self) -> None:
+        for obj, name in reversed(self._wrapped):
+            delattr(obj, name)
+
+
+def pool_pages(runner, pages) -> list[np.ndarray]:
+    """The pool's bytes at ``pages``: K and V values, and for an int8 pool
+    their scales, on the host."""
+    from dynamo_tpu_torch.engine.kv_quant import QuantKV
+    idx = torch.tensor(pages, device=runner.device)
+    out = []
+    for cache in (runner.k_cache, runner.v_cache):
+        for t in (cache if isinstance(cache, QuantKV) else (cache,)):
+            t = t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+            out.append(t[:, :, idx].cpu().numpy())
+    return out
+
+
+@contextlib.contextmanager
+def no_stream_sync():
+    """Any operation in the block that makes the host wait for the card
+    (a blocking copy, a stream or device synchronize) raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def pool_pages_check(on_loop, p_engine, d_engine, prompt) -> dict:
+    """Extract and insert on the card, each on its engine's thread: the
+    prefill pool's pages that hold ``prompt``'s complete blocks
+    (registered when it was prefilled) are extracted; the parcel is those
+    pages as they are (bf16 bits, or pack_parcel of the int8 values and
+    scales); inserted into as many free pages of the decode pool (a pool
+    of the same type) and extracted again, it is bit-exact, and the two
+    pools' bytes at those pages are equal. Neither the extract's dispatch
+    nor the insert waits for the card (``no_stream_sync``), so neither
+    stalls the engine thread behind queued work."""
+    from dynamo_tpu_torch.engine.kv_quant import pack_parcel
+    from dynamo_tpu_torch.llm.tokens import compute_block_hashes
+    hashes = compute_block_hashes(prompt, p_engine.config.page_size)
+
+    def src_job():
+        runner = p_engine.runner
+        pages = p_engine.allocator.lookup(hashes)
+        with no_stream_sync():
+            handle = runner.extract_pages_async(pages)
+        return runner.finalize_extract(handle), pool_pages(runner, pages)
+
+    def dst_job(kv):
+        alloc = d_engine.allocator
+        pages = alloc.allocate(kv.shape[3])
+        assert pages is not None
+        try:
+            with no_stream_sync():
+                d_engine.runner.insert_pages(kv, pages)
+            return (d_engine.runner.extract_pages(pages),
+                    pool_pages(d_engine.runner, pages))
+        finally:
+            alloc.release(pages)
+
+    kv, src = on_loop(p_engine.run_job(src_job))
+    assert kv.shape[3] >= 8, kv.shape
+    want = (pack_parcel(np.stack(src[0::2]), np.stack(src[1::2]))
+            if len(src) == 4 else np.stack(src).view(np.uint16))
+    assert np.array_equal(kv, want), "the parcel is not the pool's pages"
+    back, dst = on_loop(d_engine.run_job(lambda: dst_job(kv)))
+    assert np.array_equal(back, kv), "extract after insert is not bit-exact"
+    assert all(np.array_equal(a, b) for a, b in zip(src, dst))
+    return {"pages": int(kv.shape[3]), "parcel_bytes": int(kv.nbytes),
+            "dtype": str(kv.dtype)}
+
+
+def quantized_insert_check(on_loop, p_engine, d_engine, prompt) -> int:
+    """A bf16 parcel inserted into the decode worker's int8 pool holds
+    quantize_np of that parcel: the prompt's complete blocks in the
+    decode pool against the prefill pool's same blocks, extracted and
+    quantized on the host (each engine's part on its own thread).
+    Returns the pages compared."""
+    from dynamo_tpu_torch.engine.kv_quant import quantize_np
+    from dynamo_tpu_torch.llm.tokens import compute_block_hashes
+    hashes = compute_block_hashes(prompt, p_engine.config.page_size)
+    q, s = quantize_np(on_loop(p_engine.run_job(
+        lambda: p_engine.runner.extract_pages(
+            p_engine.allocator.lookup(hashes)))))
+    k_q, k_s, v_q, v_s = on_loop(d_engine.run_job(
+        lambda: pool_pages(d_engine.runner,
+                           d_engine.allocator.lookup(hashes))))
+    assert q.shape[3] == k_q.shape[2] >= 8, (q.shape, k_q.shape)
+    assert np.array_equal(q, np.stack([k_q, v_q]))
+    assert np.array_equal(s.view(np.uint32),
+                          np.stack([k_s, v_s]).view(np.uint32))
+    log(f"bf16 parcels quantized on insert: {q.shape[3]} pages of the int8 "
+        f"pool equal quantize_np of the prefill pool's pages")
+    return int(q.shape[3])
+
+
+def disagg_phase(attention, model, refs: dict) -> dict:
+    """Phase 8 (see the module docstring)."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dynamo_tpu_torch.backends.gpu import (close_decode_handler,
+                                               decode_handler, serve_engine,
+                                               serve_prefill)
+    from dynamo_tpu_torch.launch import start_front
+    from dynamo_tpu_torch.llm.kv_plane import KvPlaneServer
+    from dynamo_tpu_torch.llm.model_card import deregister_llm
+    from dynamo_tpu_torch.llm.tokenizer import make_test_tokenizer
+    from dynamo_tpu_torch.profile_decode import MODEL, serve
+    from dynamo_tpu_torch.runtime.config import RuntimeConfig
+    from dynamo_tpu_torch.runtime.context import Context
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+
+    t_phase = time.monotonic()
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, daemon=True)
+    thread.start()
+
+    def on_loop(coro, timeout=600):
+        return asyncio.run_coroutine_threadsafe(coro, loop).result(timeout)
+
+    tokenizer = make_test_tokenizer()
+
+    async def up(p_engine, d_engine, plane_on: bool, probe):
+        decode_rt = await DistributedRuntime.with_embedded_coordinator(
+            RuntimeConfig())
+        url = decode_rt.config.coordinator_url
+        prefill_rt = await DistributedRuntime.from_settings(
+            RuntimeConfig(coordinator_url=url))
+        plane = None
+        if plane_on:
+            plane = KvPlaneServer()
+            plane.start()
+            probe.watch_plane(plane)
+        p_server, queue_worker = await serve_prefill(prefill_rt, p_engine,
+                                                     MODEL, plane)
+        handler = await decode_handler(decode_rt, d_engine, MODEL,
+                                       DISAGG_MAX_LOCAL)
+        probe.watch_handler(handler)
+        await handler.prefill_client.wait_for_instances(60)
+        d_server = await serve_engine(decode_rt, d_engine, MODEL, tokenizer,
+                                      handler=handler.handler())
+        front_rt = await DistributedRuntime.from_settings(
+            RuntimeConfig(coordinator_url=url))
+        service, watcher = await start_front(front_rt, "127.0.0.1", 0)
+        deadline = time.monotonic() + 60
+        while watcher.manager.get(MODEL) is None:
+            assert time.monotonic() < deadline, "the model was not discovered"
+            await asyncio.sleep(0.02)
+        return dict(decode_rt=decode_rt, prefill_rt=prefill_rt, plane=plane,
+                    p_server=p_server, queue_worker=queue_worker,
+                    handler=handler, d_server=d_server, front_rt=front_rt,
+                    service=service, watcher=watcher)
+
+    async def down(st):
+        await st["service"].stop()
+        await st["watcher"].stop()
+        await st["front_rt"].close()
+        await deregister_llm(st["decode_rt"], MODEL)
+        await st["d_server"].shutdown()
+        await close_decode_handler(st["handler"])
+        if st["queue_worker"] is not None:
+            await st["queue_worker"].stop()
+        await st["p_server"].shutdown()
+        if st["plane"] is not None:
+            st["plane"].close()
+        await st["prefill_rt"].close()
+        await st["decode_rt"].close()
+
+    def run_pass(label, p_engine, d_engine, plane_on, ref) -> dict:
+        """One pass of the traffic through a fresh stack on the given
+        engines, with both prefix caches cleared first (the decode
+        handler's clear_kv_blocks fans out to the prefill worker)."""
+        probe = DisaggProbe(p_engine, d_engine)
+        st = on_loop(up(p_engine, d_engine, plane_on, probe), 300)
+        spec = d_engine.runner.spec
+        bodies = disagg_traffic(spec, ref)
+        prompts = [b["prompt"] for b in bodies]
+        try:
+            async def clear():
+                return [i async for i in st["handler"].handler()(
+                    {"clear_kv_blocks": True}, Context())]
+            cleared = on_loop(clear())
+            assert len(cleared) == 1 and cleared[0]["cleared"] >= 0, cleared
+            assert not p_engine.allocator.inactive
+            assert not d_engine.allocator.inactive
+            port = st["service"].port
+            handler = st["handler"]
+            attention.KERNEL.launches = 0
+            attention.KERNEL.launches_int8 = 0
+            d_windows0 = d_engine.windows_dispatched
+            p_windows0 = p_engine.windows_dispatched
+            injected0 = d_engine.injected_admissions
+            t0 = time.monotonic()
+            with ThreadPoolExecutor(len(bodies)) as pool:
+                futures = [pool.submit(http_call, port, "POST",
+                                       "/v1/completions", b) for b in bodies]
+                results = [f.result(SSE_TIMEOUT_S) for f in futures]
+            wall = time.monotonic() - t0
+            torch.cuda.synchronize()
+            launches = {"paged_attention_hist": attention.KERNEL.launches,
+                        "paged_attention_hist_int8":
+                            attention.KERNEL.launches_int8}
+            d_windows = d_engine.windows_dispatched - d_windows0
+            assert p_engine.windows_dispatched == p_windows0, (
+                "the prefill worker ran decode windows")
+            summaries = []
+            for i, (res, body) in enumerate(zip(results, bodies)):
+                assert res["status"] == 200, (i, res)
+                s = stream_summary(res)
+                summaries.append(s)
+                assert s["finish"] == "length", (i, s["finish"])
+                assert s["usage"]["completion_tokens"] == body["max_tokens"]
+                assert s["usage"]["prompt_tokens"] == len(body["prompt"])
+            remote = [len(p) > DISAGG_MAX_LOCAL for p in prompts]
+            assert handler.remote_prefills == sum(remote), (
+                handler.remote_prefills, sum(remote))
+            assert handler.remote_failures == 0, handler.remote_failures
+            assert handler.local_prefills == len(prompts) - sum(remote)
+            injected = d_engine.injected_admissions - injected0
+            assert injected == sum(remote), (
+                f"{injected} of {sum(remote)} remote prompts were admitted "
+                f"with their parcel: the rest fell back to a local prefill")
+            ran, idle = (("paged_attention_hist_int8",
+                          "paged_attention_hist")
+                         if d_engine.runner.quant_kv == "int8" else
+                         ("paged_attention_hist",
+                          "paged_attention_hist_int8"))
+            expected = d_windows * d_engine.decode_window * spec.num_layers
+            assert launches[ran] == expected > 0, (launches, expected)
+            assert launches[idle] == 0, launches
+            tokens = [probe.tokens[tuple(p)] for p in prompts]
+            for i, (t, b) in enumerate(zip(tokens, bodies)):
+                assert len(t) == b["max_tokens"], (i, len(t))
+            long_len = len(prompts[-1])
+            if plane_on:
+                page = d_engine.config.page_size
+                chunk = p_engine.config.max_prompt_len // page
+                n_long = -(-long_len // page)
+                want = [chunk, chunk, n_long - 2 * chunk]
+                assert probe.groups[long_len] == want, (
+                    probe.groups[long_len], want)
+                assert st["plane"].transfers == sum(remote)
+            rows = []
+            for i, p in enumerate(prompts):
+                if not remote[i]:
+                    continue
+                n_pages = -(-len(p) // d_engine.config.page_size)
+                ev, insert_host_s, nbytes = probe.inserts[n_pages]
+                extract_ms = sum(a.elapsed_time(b)
+                                 for a, b in probe.extracts[len(p)])
+                # TTFT and TPOT at the decode worker's handler, the
+                # boundary of phase 3's TTFT (the test tokenizer decodes
+                # most ids to no text, so few chunks reach the client).
+                times = probe.times[tuple(p)]
+                row = {"pass": label, "prompt_tokens": len(p),
+                       "parcel_bytes": nbytes, "extract_ms": extract_ms,
+                       "insert_ms": ev[0].elapsed_time(ev[1]),
+                       "insert_host_ms": insert_host_s * 1e3,
+                       "ttft_ms": (times[1] - times[0]) * 1e3,
+                       "tpot_ms": (times[-1] - times[1])
+                       / (len(tokens[i]) - 1) * 1e3,
+                       "client_first_chunk_ms": summaries[i]["ttft_ms"]}
+                if i < len(ref["ttft_s"]):
+                    row["aggregated_engine_ttft_ms"] = ref["ttft_s"][i] * 1e3
+                if plane_on:
+                    # The header waits for the first page group's copy;
+                    # GB/s reads the bytes after it (for the long prompt
+                    # they include the later chunks' waits).
+                    pull_s, header_s, end_s, pull_bytes = probe.pulls[len(p)]
+                    assert pull_bytes == nbytes
+                    row.update(pull_ms=pull_s * 1e3,
+                               pull_wait_ms=header_s * 1e3,
+                               pull_recv_ms=(end_s - header_s) * 1e3,
+                               pull_GBps=pull_bytes / (end_s - header_s)
+                               / 1e9)
+                    if len(p) == long_len:
+                        row["plane_groups"] = probe.groups[long_len]
+                log(json.dumps({"disagg_request": row}))
+                rows.append(row)
+            n_tok = sum(s["usage"]["completion_tokens"] for s in summaries)
+            stats = {"pass": label, "plane": plane_on,
+                     "prefill_pool": p_engine.runner.quant_kv or "bf16",
+                     "decode_pool": d_engine.runner.quant_kv or "bf16",
+                     "requests": len(summaries), "tokens": n_tok,
+                     "wall_s": wall, "tok_per_s": n_tok / wall,
+                     "remote_prefills": handler.remote_prefills,
+                     "remote_failures": handler.remote_failures,
+                     "local_prefills": handler.local_prefills,
+                     "cleared_pages": cleared[0]["cleared"],
+                     "windows": d_windows,
+                     "window_steps": d_engine.decode_window,
+                     "kernel_launches": launches[ran], "launches": launches,
+                     "requests_remote": rows, "_tokens": tokens,
+                     "_prompts": prompts, "_bodies": bodies}
+            if plane_on and p_engine.runner.quant_kv == d_engine.runner.quant_kv:
+                stats["pool_pages_check"] = pool_pages_check(
+                    on_loop, p_engine, d_engine, prompts[-2])
+                log(f"extract/insert on the card ({label}): "
+                    f"{stats['pool_pages_check']}: the parcel is the "
+                    f"prefill pool's pages; inserted into the decode pool "
+                    f"and extracted again, bit-exact")
+            if p_engine.runner.quant_kv != d_engine.runner.quant_kv:
+                stats["quantized_insert_pages"] = quantized_insert_check(
+                    on_loop, p_engine, d_engine, prompts[-2])
+            return stats
+        finally:
+            on_loop(down(st), 300)
+            probe.close()
+
+    def check_tokens(stats, d_engine, ref, mixed: bool = False) -> None:
+        """Greedy ids against phase 3's (bf16 pool) or phase 4's (int8
+        pool) aggregated ids at clear margins, the long prompt's too. With
+        ``mixed`` (bf16 parcels into the int8 pool) the long prompt's
+        chunks ran over bf16 history where phase 4's ran over int8
+        history, so its tokens are held against the plain path of this
+        computation instead (whole-prompt prefill, teacher-forced decode
+        over the int8 pool): its argmax, or within 2 x LOGIT_ATOL of it."""
+        tokens, prompts = stats["_tokens"], stats["_prompts"]
+        runner = d_engine.runner
+        equal = greedy_agree(runner, model, prompts[:8], tokens[:8],
+                             ref["tokens"])
+        stats["greedy_equal_of_6"] = equal
+        if mixed:
+            logits = plain_forced_logits(runner, model, prompts[-1],
+                                         tokens[-1], quant=True)
+            agree = 0
+            for i, (tok, lg) in enumerate(zip(tokens[-1], logits)):
+                gap = float(lg.max() - lg[tok])
+                assert gap <= 2 * LOGIT_ATOL, (
+                    f"long prompt token {i}: {tok} is {gap} below the "
+                    f"plain path's argmax")
+                agree += gap == 0.0
+            stats["long_prompt_plain_argmax_of_n"] = [agree, len(logits)]
+            long_note = (f"long prompt: {agree}/{len(logits)} tokens the "
+                         f"plain path's argmax, the rest at a near-tie")
+        else:
+            long_equal = greedy_agree(runner, model, [prompts[-1]],
+                                      [tokens[-1]], [ref["long_tokens"]],
+                                      rows=[0])
+            stats["long_prompt_equal"] = bool(long_equal)
+            long_note = f"{long_equal}/1 long prompt"
+        log(f"{stats['pass']}: greedy ids equal the aggregated ones in "
+            f"{equal}/6 round-1 requests; {long_note} (others split at a "
+            f"near-tie)")
+
+    def seeded_alone(d_engine, stats) -> bool:
+        """The seeded request served aggregated, alone, by the decode
+        worker's engine (no cache can serve it: seeded requests take the
+        no-reuse path) against its disaggregated tokens."""
+        body = stats["_bodies"][7]
+        req = {"model": MODEL, "token_ids": body["prompt"],
+               "stop_conditions": {"max_tokens": body["max_tokens"],
+                                   "ignore_eos": True},
+               "sampling_options": {"temperature": body["temperature"],
+                                    "seed": body["seed"]}}
+        agg = asyncio.run(serve(d_engine, [req]))[0]["tokens"]
+        assert agg == stats["_tokens"][7], (agg, stats["_tokens"][7])
+        return True
+
+    def free() -> None:
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    passes = []
+    try:
+        p_engine = disagg_engine("prefill", None)
+        d_engine = disagg_engine("decode", None)
+        for label, plane_on in (("bf16 plane", True),
+                                ("bf16 inline", False)):
+            st = run_pass(label, p_engine, d_engine, plane_on, refs["bf16"])
+            check_tokens(st, d_engine, refs["bf16"])
+            st["seeded_equal"] = seeded_alone(d_engine, st)
+            passes.append(st)
+        d_engine.stop()
+        del d_engine
+        free()
+        d_engine = disagg_engine("decode", "int8")
+        st = run_pass("bf16 parcels into int8 pool", p_engine, d_engine,
+                      True, refs["int8"])
+        check_tokens(st, d_engine, refs["int8"], mixed=True)
+        passes.append(st)
+        p_engine.stop()
+        del p_engine
+        free()
+        p_engine = disagg_engine("prefill", "int8")
+        st = run_pass("int8 plane", p_engine, d_engine, True, refs["int8"])
+        check_tokens(st, d_engine, refs["int8"])
+        st["seeded_equal"] = seeded_alone(d_engine, st)
+        passes.append(st)
+        p_engine.stop()
+        d_engine.stop()
+        del p_engine, d_engine
+    finally:
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(60)
+        loop.close()
+    free()
+    log(f"released: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still "
+        f"allocated")
+    sub = disagg_subprocesses()
+    out = {"passes": [{k: v for k, v in p.items() if not k.startswith("_")}
+                      for p in passes],
+           "subprocesses": sub, "phase_s": time.monotonic() - t_phase}
+    for p in out["passes"]:
+        log(json.dumps({"disagg_pass": {k: v for k, v in p.items()
+                                        if k != "requests_remote"}}))
+    log(f"phase 8: {out['phase_s']:.1f}s")
+    return out
+
+
+def disagg_subprocesses() -> dict:
+    """1P1D as processes on the card: the coordinator, ``python -m
+    dynamo_tpu_torch.backends.gpu --mode prefill --model tiny-test`` and
+    ``--mode decode --max-local-prefill-length 8`` (each must log an
+    engine on cuda, no --device given) and the frontend; a streamed chat
+    over the threshold is prefilled on the prefill worker and answered,
+    and all four exit 0 on SIGTERM."""
+    import signal
+    procs = []
+    t0 = time.monotonic()
+    try:
+        coord = _spawn(procs, "dynamo_tpu_torch.runtime.coordinator",
+                       "--host", "127.0.0.1", "--port", "0")
+        url = "tcp://127.0.0.1:" + _wait_line(
+            coord, "COORDINATOR_READY").rsplit("=", 1)[1]
+        # Explicit pools: two engines sizing theirs from the free memory at
+        # once would both count the same memory.
+        common = ("--model", "tiny-test", "--num-pages", "1024",
+                  "--coordinator-url", url)
+        prefill = _spawn(procs, "dynamo_tpu_torch.backends.gpu", "--mode",
+                         "prefill", *common)
+        decode = _spawn(procs, "dynamo_tpu_torch.backends.gpu", "--mode",
+                        "decode", "--max-local-prefill-length", "8", *common)
+        front = _spawn(procs, "dynamo_tpu_torch.frontend", "--http-host",
+                       "127.0.0.1", "--http-port", "0", "--coordinator-url",
+                       url)
+        ready = [_wait_line(w, "GPU_WORKER_READY") for w in (prefill, decode)]
+        assert ready[0].startswith("GPU_WORKER_READY mode=prefill"), ready
+        assert ready[1].startswith("GPU_WORKER_READY mode=decode"), ready
+        for w in (prefill, decode):
+            device = _wait_line(w, "from an engine on")
+            assert "from an engine on cuda" in device, device
+        port = int(_wait_line(front, "FRONTEND_READY").rsplit("=", 1)[1])
+        deadline = time.monotonic() + 60
+        while [m["id"] for m in http_call(port, "GET", "/v1/models")[
+                "json"]["data"]] != ["tiny-test"]:
+            assert time.monotonic() < deadline, "the model was not served"
+            time.sleep(0.05)
+        ready_s = time.monotonic() - t0
+        res = http_call(port, "POST", "/v1/chat/completions", {
+            "model": "tiny-test", "stream": True, "max_tokens": 8,
+            "ignore_eos": True, "stream_options": {"include_usage": True},
+            "messages": [{"role": "user",
+                          "content": "the quick brown fox jumps"}]})
+        s = stream_summary(res)
+        assert res["status"] == 200 and s["finish"] == "length", s
+        assert s["usage"]["completion_tokens"] == 8, s
+        assert s["usage"]["prompt_tokens"] > 8, s
+        staged = _wait_line(prefill, "prefill parcel staged")
+        for proc, _, seen in (front, decode, prefill, coord):
+            proc.send_signal(signal.SIGTERM)
+            code = proc.wait(timeout=120)
+            assert code == 0, (code, seen[-20:])
+    finally:
+        for proc, _, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+    log(f"1P1D subprocesses: {ready[0]}; {ready[1]}; engines on cuda; "
+        f"serving in {ready_s:.1f}s; {staged}; answered a streamed chat of "
+        f"{s['usage']['prompt_tokens']} prompt tokens; all four exited 0 "
+        f"on SIGTERM")
+    return {"ready_s": ready_s, "usage": s["usage"]}
+
+
 def kernel_entry(name, variant, timing, main, max_err, stats,
-                 http_launches, dist_launches, ckpt_launches) -> dict:
+                 http_launches, dist_launches, ckpt_launches,
+                 disagg_launches) -> dict:
     """One kernel's summary: times at the B=32 x 2048 shape, and the same
     numbers at the main path's mid-round shape under ``main_shape``;
-    launches in round 1, round 2, the HTTP phase, the distributed phase
-    and phase 7's round-1 runs on loaded checkpoints."""
+    launches in round 1, round 2, the HTTP phase, the distributed phase,
+    phase 7's round-1 runs on loaded checkpoints and phase 8's passes (on
+    the decode worker)."""
     return {"name": name, "route": "cuda",
             "source": "dynamo_tpu_torch/csrc/paged_attention.cu",
             "replaces": "dynamo_tpu/engine/attention.py:72",
@@ -1776,6 +2446,7 @@ def kernel_entry(name, variant, timing, main, max_err, stats,
             "launches_http": http_launches,
             "launches_dist": dist_launches,
             "launches_checkpoint": ckpt_launches,
+            "launches_disagg": disagg_launches,
             "max_abs_err": max(max_err, timing["max_abs_err"],
                                main["max_abs_err"]),
             "ms": timing["ms"], "plain_ms": timing["plain_ms"],
@@ -1822,7 +2493,10 @@ def main() -> int:
         stats_http = http_phase(attention)
         launcher_subprocess()
         dist_subprocesses()
-        ckpt = checkpoint_phase(attention, model, stats_bf16.pop("_round1"))
+        refs = {"bf16": stats_bf16.pop("_round1"),
+                "int8": stats_int8.pop("_round1")}
+        ckpt = checkpoint_phase(attention, model, refs["bf16"])
+        disagg = disagg_phase(attention, model, refs)
     except Exception:  # noqa: BLE001 — report and fail the run
         traceback.print_exc()
         return 1
@@ -1831,19 +2505,24 @@ def main() -> int:
         return {run: ckpt[run]["launches"][kernel] for run in (
             "bf16_weights", "int8_weights", "int8_weights_int8_pool")}
 
+    def disagg_launches(kernel):
+        return {p["pass"]: p["launches"][kernel] for p in disagg["passes"]}
+
     log(json.dumps({"kernels": [
         kernel_entry("paged_attention_hist", "bf16 pool", timing_bf16,
                      main_bf16, err_bf16, stats_bf16,
                      stats_http["launches"]["paged_attention_hist"],
                      stats_http["dist"]["launches"]["paged_attention_hist"],
-                     ckpt_launches("paged_attention_hist")),
+                     ckpt_launches("paged_attention_hist"),
+                     disagg_launches("paged_attention_hist")),
         kernel_entry("paged_attention_hist_int8",
                      "int8 pool, _decode_kernel(quantized=True)",
                      timing_int8, main_int8, err_int8, stats_int8,
                      stats_http["launches"]["paged_attention_hist_int8"],
                      stats_http["dist"]["launches"][
                          "paged_attention_hist_int8"],
-                     ckpt_launches("paged_attention_hist_int8"))]}))
+                     ckpt_launches("paged_attention_hist_int8"),
+                     disagg_launches("paged_attention_hist_int8"))]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

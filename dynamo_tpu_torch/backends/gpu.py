@@ -1,17 +1,20 @@
-"""GPU worker: serves GPUEngine as a registered model (the aggregated mode
-of ``dynamo_tpu.backends.tpu``).
+"""GPU worker: serves GPUEngine (counterpart of
+``dynamo_tpu.backends.tpu``), aggregated or as one side of disaggregated
+prefill and decode.
 
     python -m dynamo_tpu_torch.backends.gpu --model llama-3-8b --coordinator-url tcp://127.0.0.1:4222
     python -m dynamo_tpu_torch.backends.gpu --model /path/to/checkpoint --quant int8
+    python -m dynamo_tpu_torch.backends.gpu --mode prefill --model llama-3-8b
+    python -m dynamo_tpu_torch.backends.gpu --mode decode --model llama-3-8b --max-local-prefill-length 512
 
 connects to the coordinator (and fails with its connection error when it
 cannot be reached), builds the engine off the event loop so lease
 keepalives keep flowing while the weights load, serves
 ``{namespace}/{component}/{endpoint}`` (``gpu/generate`` by default) on
 the request plane, registers the model with ``register_llm`` and prints
-``GPU_WORKER_READY mode=agg port=N worker=<hex> pages=N``. On SIGINT or
-SIGTERM it deregisters, stops the endpoint and the engine, closes the
-runtime and exits 0. The engine runs on ``--device`` (``cuda`` by
+``GPU_WORKER_READY mode=<agg|prefill|decode> port=N worker=<hex>
+pages=N``. On SIGINT or SIGTERM it deregisters, stops the endpoint and the
+engine, closes the runtime and exits 0. The engine runs on ``--device`` (``cuda`` by
 default; the CPU only under ``--device cpu``). ``--model`` resolves as in
 the launcher (``engine/hub.py``: a preset with random weights from
 ``--seed``, a checkpoint directory, or a hub id in the local HF cache;
@@ -22,6 +25,21 @@ tokenizer.
 
 The reference worker's other flags are refused with the ROADMAP item each
 waits for; none is accepted and then ignored.
+
+``--mode prefill`` serves ``llm/disagg.make_prefill_handler`` at
+``{namespace}/{--prefill-component}/generate`` (``prefill`` by default)
+and registers no model; with its KV plane (``llm/kv_plane.py``, bound to
+``--kv-plane-host``) it stages parcels there and also pops the shared
+prefill queue (``llm/prefill_queue.py``); with ``--no-kv-plane`` parcels
+go inline. ``--mode decode`` serves ``DisaggDecodeHandler`` under
+``--component`` and registers the model: prompts longer than
+``--max-local-prefill-length`` (or the coordinator's ``disagg/<model>``)
+prefill on a prefill worker, found by round robin or, with
+``--prefill-dispatch queue``, through the queue under
+``--max-prefill-queue-depth``. Only a prefill worker starts a KV plane
+(the G4 block source that would serve from every worker waits for ROADMAP
+item 9), and the ``SetRole`` flips, standby and scale directives of the
+reference's role manager wait for the planner's ROADMAP items.
 """
 
 from __future__ import annotations
@@ -31,11 +49,18 @@ import asyncio
 import signal
 
 from dynamo_tpu_torch.engine.engine import GPUEngine
+from dynamo_tpu_torch.llm.disagg import (PREFILL_COMPONENT, PREFILL_ENDPOINT,
+                                         DisaggDecodeHandler,
+                                         DisaggRouterConfig,
+                                         make_prefill_handler)
+from dynamo_tpu_torch.llm.kv_plane import KvPlaneServer
 from dynamo_tpu_torch.launch import (add_engine_args, add_refused_flags,
                                      build_engine_config, load_engine,
                                      load_tokenizer)
 from dynamo_tpu_torch.llm.model_card import (ModelRuntimeConfig,
                                              deregister_llm, register_llm)
+from dynamo_tpu_torch.llm.prefill_queue import (QueuePrefillDispatcher,
+                                                QueuePrefillWorker)
 from dynamo_tpu_torch.llm.tokenizer import Tokenizer
 from dynamo_tpu_torch.runtime.config import RuntimeConfig
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
@@ -44,7 +69,6 @@ from dynamo_tpu_torch.runtime.service import EndpointServer
 
 log = get_logger("gpu_worker")
 
-_DISAGG = "ROADMAP item 8 (disaggregated prefill and decode, the KV plane)"
 _PARALLEL = "ROADMAP item 16 (parallelism across GPUs and nodes)"
 _TIERS = "ROADMAP item 9 (host and disk KV tiers)"
 _LORA = "ROADMAP item 11 (batched LoRA)"
@@ -56,13 +80,6 @@ _PARSERS = "the ROADMAP item of the tool-call and reasoning parsers"
 # (flag, what it waits for, add_argument keywords). A value in "allowed"
 # is the reference's default, which leaves the feature off.
 REFUSED_FLAGS = (
-    ("--mode", _DISAGG, {"type": str, "allowed": ("agg",)}),
-    ("--max-local-prefill-length", _DISAGG, {"type": int}),
-    ("--prefill-dispatch", _DISAGG, {"type": str}),
-    ("--max-prefill-queue-depth", _DISAGG, {"type": int}),
-    ("--prefill-component", _DISAGG, {"type": str}),
-    ("--kv-plane-host", _DISAGG, {"type": str}),
-    ("--no-kv-plane", _DISAGG, {}),
     ("--lora", _LORA, {"type": str}),
     ("--max-adapters", _LORA, {"type": int}),
     ("--max-lora-rank", _LORA, {"type": int}),
@@ -96,7 +113,7 @@ REFUSED_FLAGS = (
 
 def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(
-        description="dynamo_tpu_torch GPU engine worker (aggregated mode)")
+        description="dynamo_tpu_torch GPU engine worker")
     add_engine_args(parser)
     parser.add_argument("--namespace", default=None)
     parser.add_argument("--component", default="gpu")
@@ -105,22 +122,58 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="default: DTPU_COORDINATOR_URL, else "
                              "tcp://127.0.0.1:4222")
     parser.add_argument("--migration-limit", type=int, default=0)
+    parser.add_argument("--mode", default="agg",
+                        choices=["agg", "prefill", "decode"],
+                        help="agg = fully local; prefill = prefill-only "
+                             "worker (serves KV parcels); decode = decode "
+                             "worker forwarding long prompts to prefill "
+                             "workers")
+    parser.add_argument("--max-local-prefill-length", type=int, default=512,
+                        help="decode mode: prompts longer than this prefill "
+                             "remotely (dynamic through the coordinator's "
+                             "disagg/<model> key)")
+    parser.add_argument("--prefill-dispatch", default="direct",
+                        choices=["direct", "queue"],
+                        help="decode mode: round robin to the prefill "
+                             "workers, or the shared coordinator queue "
+                             "with depth backpressure")
+    parser.add_argument("--max-prefill-queue-depth", type=int, default=8,
+                        help="queue dispatch: enqueue only while the queue "
+                             "is shallower than this, else prefill locally")
+    parser.add_argument("--prefill-component", default=None,
+                        help="component the prefill workers serve under "
+                             f"(default: {PREFILL_COMPONENT!r})")
+    parser.add_argument("--kv-plane-host", default="127.0.0.1",
+                        help="address the prefill worker's KV plane binds "
+                             "and advertises; peers must reach it")
+    parser.add_argument("--no-kv-plane", action="store_true",
+                        help="no KV plane: parcels ride the request plane "
+                             "inline, and a prefill worker does not pop "
+                             "the prefill queue")
     add_refused_flags(parser, REFUSED_FLAGS)
-    return parser.parse_args(argv)
+    args = parser.parse_args(argv)
+    if args.prefill_dispatch == "queue" and args.no_kv_plane:
+        parser.error("--prefill-dispatch queue needs the KV plane (queue "
+                     "replies carry plane tickets); drop --no-kv-plane or "
+                     "use --prefill-dispatch direct")
+    return args
 
 
 async def serve_engine(runtime: DistributedRuntime, engine: GPUEngine,
                        model_name: str, tokenizer: Tokenizer,
                        component: str = "gpu", endpoint: str = "generate",
-                       migration_limit: int = 0) -> EndpointServer:
-    """Serve ``engine.handler()`` at ``{namespace}/{component}/{endpoint}``
-    and register the model on the runtime's primary lease; the caller
-    deregisters and shuts the server down."""
+                       migration_limit: int = 0,
+                       handler=None) -> EndpointServer:
+    """Serve ``handler`` (default ``engine.handler()``; a decode worker's
+    is ``DisaggDecodeHandler.handler()``) at
+    ``{namespace}/{component}/{endpoint}`` and register the model on the
+    runtime's primary lease; the caller deregisters and shuts the server
+    down."""
     cfg = engine.config
     ep = runtime.namespace().component(component).endpoint(endpoint)
     # Fast shutdown: in-flight streams end typed "incomplete", so the
     # front's migration re-issues them elsewhere.
-    server = await ep.serve_endpoint(engine.handler(),
+    server = await ep.serve_endpoint(handler or engine.handler(),
                                      graceful_shutdown=False)
     try:
         await register_llm(
@@ -138,6 +191,56 @@ async def serve_engine(runtime: DistributedRuntime, engine: GPUEngine,
     return server
 
 
+async def serve_prefill(runtime: DistributedRuntime, engine: GPUEngine,
+                        model_name: str, plane: KvPlaneServer | None,
+                        component: str = PREFILL_COMPONENT):
+    """Serve the prefill handler at ``{namespace}/{component}/generate``
+    (no model is registered) and, with a KV plane, pop the shared prefill
+    queue. Returns (server, queue worker or None); the caller stops
+    both."""
+    ep = runtime.namespace().component(component).endpoint(PREFILL_ENDPOINT)
+    server = await ep.serve_endpoint(make_prefill_handler(engine, plane),
+                                     graceful_shutdown=True)
+    queue_worker = None
+    if plane is not None:
+        queue_worker = QueuePrefillWorker(
+            engine, runtime.require_coordinator(), model_name, plane)
+        queue_worker.start()
+    else:
+        log.warning("no KV plane: this prefill worker does not pop the "
+                    "prefill queue (queue replies carry plane tickets)")
+    return server, queue_worker
+
+
+async def decode_handler(runtime: DistributedRuntime, engine: GPUEngine,
+                         model_name: str, max_local_prefill_length: int = 512,
+                         prefill_component: str = PREFILL_COMPONENT,
+                         dispatch: str = "direct",
+                         max_queue_depth: int = 8) -> DisaggDecodeHandler:
+    """The decode worker's handler: a client of the prefill workers'
+    endpoint, the watched ``disagg/<model>`` threshold and, with
+    ``dispatch="queue"``, the queue dispatcher. ``close_decode_handler``
+    releases them."""
+    ep = runtime.namespace().component(prefill_component).endpoint(
+        PREFILL_ENDPOINT)
+    prefill_client = await ep.client()
+    config = await DisaggRouterConfig.from_coordinator_with_watch(
+        runtime.require_coordinator(), model_name,
+        default_max_local=max_local_prefill_length)
+    handler = DisaggDecodeHandler(engine, prefill_client, config)
+    if dispatch == "queue":
+        handler.queue_dispatcher = QueuePrefillDispatcher(
+            runtime.require_coordinator(), model_name, handler.plane_client,
+            max_queue_depth=max_queue_depth)
+    return handler
+
+
+async def close_decode_handler(handler: DisaggDecodeHandler) -> None:
+    await handler.prefill_client.close()
+    await handler.config.close()
+    handler.plane_client.close()
+
+
 async def run(args: argparse.Namespace) -> None:
     cfg = RuntimeConfig.from_settings()
     if args.coordinator_url:
@@ -148,7 +251,8 @@ async def run(args: argparse.Namespace) -> None:
     runtime = await DistributedRuntime.from_settings(cfg)
     for sig in (signal.SIGINT, signal.SIGTERM):
         loop.add_signal_handler(sig, runtime.shutdown)
-    engine = server = None
+    engine = server = plane = queue_worker = disagg = None
+    registered = False
     try:
         engine_cfg = build_engine_config(args)
         ckpt = args.resolved_checkpoint
@@ -159,10 +263,27 @@ async def run(args: argparse.Namespace) -> None:
         # off the event loop so the coordinator lease keepalives flow.
         engine = await loop.run_in_executor(None, load_engine, engine_cfg,
                                             ckpt, args.seed)
-        server = await serve_engine(runtime, engine, model_name, tokenizer,
-                                    args.component, args.endpoint,
-                                    args.migration_limit)
-        print(f"GPU_WORKER_READY mode=agg port={server.port} "
+        prefill_component = args.prefill_component or PREFILL_COMPONENT
+        if args.mode == "prefill":
+            if not args.no_kv_plane:
+                plane = KvPlaneServer(host=args.kv_plane_host)
+                plane.start()
+            server, queue_worker = await serve_prefill(
+                runtime, engine, model_name, plane, prefill_component)
+        else:
+            handler = None
+            if args.mode == "decode":
+                disagg = await decode_handler(
+                    runtime, engine, model_name,
+                    args.max_local_prefill_length, prefill_component,
+                    args.prefill_dispatch, args.max_prefill_queue_depth)
+                handler = disagg.handler()
+            server = await serve_engine(runtime, engine, model_name,
+                                        tokenizer, args.component,
+                                        args.endpoint, args.migration_limit,
+                                        handler=handler)
+            registered = True
+        print(f"GPU_WORKER_READY mode={args.mode} port={server.port} "
               f"worker={runtime.instance_id:x} "
               f"pages={engine.runner.num_pages}", flush=True)
         log.info("serving %s from an engine on %s", model_name,
@@ -171,9 +292,16 @@ async def run(args: argparse.Namespace) -> None:
     finally:
         for sig in (signal.SIGINT, signal.SIGTERM):
             loop.remove_signal_handler(sig)
-        if server is not None:
+        if registered:
             await deregister_llm(runtime, model_name)
+        if queue_worker is not None:
+            await queue_worker.stop()
+        if server is not None:
             await server.shutdown()
+        if disagg is not None:
+            await close_decode_handler(disagg)
+        if plane is not None:
+            plane.close()
         if engine is not None:
             engine.stop()
         await runtime.close()

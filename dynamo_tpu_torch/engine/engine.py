@@ -24,14 +24,24 @@ KV pressure: when the pool is exhausted mid-decode the engine preempts
 the youngest slot (or a request still prefilling), releases its pages
 and requeues the request to re-prefill from its accumulated tokens.
 
+Disaggregation (``llm/disagg.py``): other threads hand the engine thread
+jobs (``run_job``), which it runs between iterations. A prefill worker's
+job prefills a prompt and extracts its pages (``prefill_extract``, or
+``prefill_extract_staged`` onto the KV plane, streamed one page group per
+chunk). A decode worker's
+``generate_injected`` request carries a parcel: admission inserts it into
+fresh pages and the request decodes from the prefill worker's first
+token, under the same seeded and penalty rules as a local prefill.
+
 Not ported yet (later slices): spec decode, LoRA, multimodal, KV host and
-disk tiers, KV events, disaggregation, metrics publishing.
+disk tiers, KV events, metrics publishing.
 """
 
 from __future__ import annotations
 
 import asyncio
 import collections
+import concurrent.futures
 import dataclasses
 import queue
 import threading
@@ -43,6 +53,7 @@ import torch
 
 from dynamo_tpu_torch.engine.config import EngineConfig
 from dynamo_tpu_torch.engine.kv_cache import PageAllocator
+from dynamo_tpu_torch.engine.kv_quant import KV_SCALE_BYTES
 from dynamo_tpu_torch.engine.runner import (
     PK_CAP, PK_FREQPEN, PK_LOGPROB, PK_OVERRIDE, PK_POS, PK_PREFIX,
     PK_PRESPEN, PK_SEED, PK_SEEDED, PK_SEQLEN, PK_TEMP, PK_TOKEN, PK_TOPK,
@@ -145,6 +156,9 @@ class _Request:
     # skip the slot). prefill_pos is the next prompt position to dispatch.
     prefilling: bool = False
     prefill_pos: int = 0
+    # (first token, host parcel) of a remotely prefilled prompt, until
+    # admission inserts the parcel.
+    injected: tuple | None = None
 
     def push(self, item) -> None:
         self.loop.call_soon_threadsafe(self.out_q.put_nowait, item)
@@ -218,6 +232,10 @@ class GPUEngine(AsyncEngine):
         # "device_ms" (None on the CPU)}.
         self.chunk_records: collections.deque[dict] = \
             collections.deque(maxlen=4096)
+        # Engine-thread jobs: (fn, concurrent future).
+        self._jobs: queue.Queue = queue.Queue()
+        self.streamed_extracts = 0  # chunk-streamed extracts staged
+        self.injected_admissions = 0  # parcels inserted at admission
 
     # -- lifecycle ------------------------------------------------------------
     def start(self) -> None:
@@ -233,6 +251,13 @@ class GPUEngine(AsyncEngine):
         if self._thread:
             self._thread.join(timeout=30)
             self._thread = None
+        while True:  # jobs the loop will never run
+            try:
+                _, fut = self._jobs.get_nowait()
+            except queue.Empty:
+                break
+            if fut.set_running_or_notify_cancel():
+                fut.set_exception(RuntimeError("engine stopped"))
 
     # -- AsyncEngine ----------------------------------------------------------
     def _validate(self, req: PreprocessedRequest) -> None:
@@ -294,20 +319,268 @@ class GPUEngine(AsyncEngine):
             if item.get("finish_reason"):
                 return
 
+    async def generate_injected(self, request, context: Context,
+                                first_token: int,
+                                kv) -> AsyncIterator[dict]:
+        """Serve a request whose prompt was prefilled REMOTELY: admission
+        inserts the parcel ``kv`` into fresh pages and decoding starts at
+        ``first_token``, which is the stream's first item. With no free
+        pages the request falls back to a local prefill; a failed insert
+        ends the stream with its error."""
+        self.start()
+        req = (request if isinstance(request, PreprocessedRequest)
+               else PreprocessedRequest.from_wire(request))
+        self._validate(req)
+        r = _Request(req=req, ctx=context, out_q=asyncio.Queue(),
+                     loop=asyncio.get_running_loop(),
+                     tokens_all=list(req.token_ids),
+                     injected=(int(first_token), kv),
+                     len_cap=len(req.token_ids)
+                     + (req.stop_conditions.max_tokens or 2**30))
+        self.waiting.put(r)
+        while True:
+            item = await r.out_q.get()
+            if item is None:
+                return
+            if isinstance(item, Exception):
+                raise item
+            yield item
+            if item.get("finish_reason"):
+                return
+
     def handler(self):
-        """The endpoint handler that serves ``generate`` on the request
-        plane (``Endpoint.serve_endpoint``). The reference's control
-        requests are refused, never answered with an empty stream."""
+        """The endpoint handler that serves ``generate`` and the admin
+        ``clear_kv_blocks`` on the request plane
+        (``Endpoint.serve_endpoint``). ``embed`` requests are refused,
+        never answered with an empty stream."""
         async def handle(request, context):
-            for verb in ("clear_kv_blocks", "embed"):
-                if isinstance(request, dict) and request.get(verb):
-                    raise InvalidRequestError(
-                        f"{verb} requests are not ported yet: they wait "
-                        "for ROADMAP items 12 and 13")
+            if isinstance(request, dict) and request.get("clear_kv_blocks"):
+                yield {"cleared": await self.clear_kv_blocks()}
+                return
+            if isinstance(request, dict) and request.get("embed"):
+                raise InvalidRequestError(
+                    "embed requests are not ported yet: they wait for "
+                    "ROADMAP item 13")
             async for out in self.generate(request, context):
                 yield out
 
         return handle
+
+    async def clear_kv_blocks(self) -> int:
+        """Admin: drop the reusable (inactive) prefix cache. Returns the
+        pages freed."""
+        return await self.run_job(self.allocator.clear_inactive)
+
+    # -- engine-thread jobs (the disaggregation control path) -----------------
+    async def run_job(self, fn):
+        """Run ``fn`` on the engine thread, which owns all device work,
+        between loop iterations; await its result."""
+        self.start()
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+        self._jobs.put((fn, fut))
+        return await asyncio.wrap_future(fut)
+
+    def _run_jobs(self) -> None:
+        while True:
+            try:
+                fn, fut = self._jobs.get_nowait()
+            except queue.Empty:
+                return
+            if not fut.set_running_or_notify_cancel():
+                continue
+            try:
+                fut.set_result(fn())
+            except Exception as exc:  # noqa: BLE001 — deliver to the caller
+                fut.set_exception(exc)
+
+    @staticmethod
+    def _reject_adapter_extract(req: PreprocessedRequest) -> None:
+        """Disaggregated prefill serves the base model only: the decode
+        side keeps adapter requests local, so an adapter reaching a
+        prefill worker is a routing fault and fails typed."""
+        if req.adapter:
+            raise InvalidRequestError(
+                f"disaggregated prefill does not serve LoRA adapter "
+                f"requests (adapter={req.adapter!r}); the decode worker "
+                f"prefills these locally")
+
+    def _extract_request(self, req: PreprocessedRequest):
+        """A prefill-only request with its pages planned: (request, plan)
+        where plan is a PrefillSeq or "chunked"."""
+        self._reject_adapter_extract(req)
+        self._validate(req)
+        r = _Request(req=req, ctx=Context(), out_q=None,  # type: ignore[arg-type]
+                     loop=None, tokens_all=list(req.token_ids))  # type: ignore[arg-type]
+        plan = self._plan_prefill(r)
+        if plan is None:
+            raise RuntimeError("prefill worker KV pool exhausted")
+        return r, plan
+
+    def _extract_chunks(self, r: _Request, plan):
+        """The prefill programs of an extract, [(start, n_tok, final)]
+        from the reused prefix on: the whole rest for a PrefillSeq plan,
+        else page-aligned chunks of at most max_prompt_len."""
+        prompt_len, start = len(r.tokens_all), r.reuse_tokens
+        if plan != "chunked":
+            return [(start, prompt_len - start, True)]
+        chunks = []
+        while start < prompt_len:
+            n_tok = min(self.config.max_prompt_len, prompt_len - start)
+            chunks.append((start, n_tok, start + n_tok >= prompt_len))
+            start += n_tok
+        return chunks
+
+    def _prefill_extract_chunk(self, r: _Request, plan, start: int,
+                               n_tok: int, final: bool) -> int | None:
+        """Dispatch one prefill program of an extract; the final one
+        samples and returns the first token (a host read)."""
+        seq = (plan if plan != "chunked"
+               else self._chunk_seq(r, start, n_tok, final))
+        if not final:
+            self.runner.prefill_chunk_async(seq)
+            return None
+        rows = self._count_row_of(r)[None] if any(seq.penalties) else None
+        return int(self.runner.prefill_batch([seq], count_rows=rows)[0][0])
+
+    def _register_blocks(self, r: _Request) -> None:
+        for idx, h in enumerate(r.blocks.block_hashes):
+            self.allocator.register(r.pages[idx], h)
+
+    def prefill_extract(self, req: PreprocessedRequest):
+        """ENGINE THREAD ONLY (call through run_job). Prefill a prompt,
+        register its blocks for prefix reuse and extract its pages to the
+        host. Returns (first_token, parcel, prompt_len)."""
+        first_token, handles, prompt_len = self._prefill_for_extract(req, 1)
+        return (first_token, self.runner.finalize_extract(handles[0][0]),
+                prompt_len)
+
+    def _prefill_for_extract(self, req: PreprocessedRequest, groups: int):
+        """Prefill and dispatch the page gather in up to ``groups`` page
+        groups; returns their unresolved extract handles with their page
+        counts, so that the copies overlap what the caller does next."""
+        r, plan = self._extract_request(req)
+        try:
+            for chunk in self._extract_chunks(r, plan):
+                first_token = self._prefill_extract_chunk(r, plan, *chunk)
+            self._register_blocks(r)
+            n = len(r.pages)
+            per = -(-n // min(groups, n))
+            handles = [(self.runner.extract_pages_async(r.pages[i:i + per]),
+                        len(r.pages[i:i + per])) for i in range(0, n, per)]
+        finally:
+            # The gather is dispatched: stream order has it read the pages
+            # before any later work can rewrite them, so they release now.
+            self.allocator.release(r.pages)
+            r.pages = []
+        return first_token, handles, len(r.tokens_all)
+
+    def _parcel_meta(self, n_pages: int) -> dict:
+        spec = self.runner.spec
+        shape = [2, spec.num_layers, spec.num_kv_heads, n_pages,
+                 self.config.page_size, spec.head_dim]
+        if self.runner.quant_kv == "int8":
+            shape[-1] += KV_SCALE_BYTES
+            return {"shape": shape, "dtype": "uint8"}
+        return {"shape": shape, "dtype": "bfloat16"}
+
+    def prefill_extract_staged(self, req: PreprocessedRequest, plane,
+                               on_ticket=None):
+        """ENGINE THREAD ONLY (call through run_job). Disaggregated prefill
+        over the KV plane: prefill, stage the extract with ``plane`` (its
+        host copies resolve on the plane's thread when the decode worker
+        pulls) and return (first_token, ticket, prompt_len).
+
+        With ``on_ticket`` (a thread-safe callable) the extract is
+        chunk-streamed: the ticket is staged and delivered BEFORE the
+        prefill, one page group per chunk, so the decode worker pulls
+        while later chunks compute. Without it (the prefill queue) the
+        extract is split into up to 4 page groups, so sending one
+        overlaps the next one's copy. The reference also stages in one
+        piece after the prefill when device-to-host fetches are slow, as
+        over a tunnelled TPU host; a locally attached card never is."""
+        n = -(-len(req.token_ids) // self.config.page_size)
+        meta = self._parcel_meta(n)
+        if on_ticket is not None:
+            return self._prefill_extract_streamed(req, plane, meta,
+                                                  on_ticket)
+        first_token, handles, prompt_len = self._prefill_for_extract(req, 4)
+        groups = [(pages, (lambda hh=h: self.runner.finalize_extract(hh)))
+                  for h, pages in handles]
+        ticket = plane.stage(meta=meta, resolve_groups=groups,
+                             prompt_len=prompt_len)
+        return first_token, ticket, prompt_len
+
+    # Backstop for a streamed group's resolver: the plane's thread waits
+    # for its chunk's extract at most this long (a failed prefill sets the
+    # events, so only a wedged engine thread reaches it).
+    STREAM_RESOLVE_TIMEOUT_S = 120.0
+
+    def _prefill_extract_streamed(self, req: PreprocessedRequest, plane,
+                                  meta: dict, on_ticket):
+        """ENGINE THREAD ONLY. Chunk-streamed extract: stage the ticket
+        first, with one page group per chunk (and one for a reused
+        prefix), each gated on an event its extract dispatch sets; deliver
+        it through ``on_ticket``; then run the chunks. A failure marks
+        every pending group failed, so the pull errors, and re-raises."""
+        r, plan = self._extract_request(req)
+        page = self.config.page_size
+        prompt_len = len(r.tokens_all)
+        chunks = self._extract_chunks(r, plan)
+        first_page = r.reuse_tokens // page
+        bounds = [(0, first_page)] if first_page else []
+        bounds += [(start // page, -(-(start + n_tok) // page))
+                   for start, n_tok, _ in chunks]
+        state: dict = {"handles": {}, "error": None}
+        events = [threading.Event() for _ in bounds]
+        timeout_s = self.STREAM_RESOLVE_TIMEOUT_S
+
+        def resolver(idx: int):
+            def resolve():
+                if not events[idx].wait(timeout=timeout_s):
+                    raise RuntimeError(f"streamed extract group {idx} never "
+                                       "became ready (prefill wedged?)")
+                if state["error"] is not None:
+                    raise RuntimeError(
+                        f"chunked prefill failed: {state['error']}")
+                return self.runner.finalize_extract(state["handles"][idx])
+            return resolve
+
+        try:
+            groups = [(hi - lo, resolver(i))
+                      for i, (lo, hi) in enumerate(bounds)]
+            ticket = plane.stage(meta=meta, resolve_groups=groups,
+                                 prompt_len=prompt_len)
+            self.streamed_extracts += 1
+            on_ticket(ticket)
+
+            def extract(gi: int) -> None:
+                lo, hi = bounds[gi]
+                state["handles"][gi] = self.runner.extract_pages_async(
+                    r.pages[lo:hi])
+                events[gi].set()
+
+            gi = 0
+            if first_page:
+                extract(0)
+                gi = 1
+            for chunk in chunks:
+                first_token = self._prefill_extract_chunk(r, plan, *chunk)
+                extract(gi)
+                gi += 1
+            self._register_blocks(r)
+            return first_token, ticket, prompt_len
+        except BaseException as exc:
+            # Pending resolvers fail fast instead of waiting out the
+            # backstop.
+            state["error"] = f"{type(exc).__name__}: {exc}"
+            for ev in events:
+                ev.set()
+            raise
+        finally:
+            # Every extract is dispatched (or the parcel has failed):
+            # stream order protects the pages.
+            self.allocator.release(r.pages)
+            r.pages = []
 
     # -- engine loop ----------------------------------------------------------
     def _engine_loop(self) -> None:
@@ -316,6 +589,7 @@ class GPUEngine(AsyncEngine):
                  self.decode_window, self.prefill_chunk_tokens)
         depth = max(1, self.config.pipeline_depth)
         while self._running:
+            self._run_jobs()
             self._resolve_ready_first()
             self._retire_chunks()
             try:
@@ -361,7 +635,8 @@ class GPUEngine(AsyncEngine):
                 self._retire_chunks(block=True)
             elif self._pending_first:
                 self._resolve_ready_first(force=True)
-            elif not admitted and not have_active and not self._prefilling:
+            elif (not admitted and not have_active and not self._prefilling
+                  and self._jobs.empty()):
                 time.sleep(0.002)  # idle
 
     def _release_ready_pages(self) -> None:
@@ -449,6 +724,19 @@ class GPUEngine(AsyncEngine):
                     token_ids=[],
                     finish_reason=FinishReason.CANCELLED).to_wire())
                 continue
+            if r.injected is not None:
+                slot = free_slots.pop(0)
+                try:
+                    if self._admit_injected(r, slot):
+                        continue
+                except Exception as exc:  # noqa: BLE001
+                    log.exception("KV injection failed")
+                    r.push(RuntimeError(f"kv injection failed: {exc}"))
+                    free_slots.insert(0, slot)
+                    continue
+                # No pages for the parcel: prefill the whole prompt here.
+                free_slots.insert(0, slot)
+                r.injected = None
             try:
                 plan = self._plan_prefill(r)
             except Exception as exc:  # noqa: BLE001
@@ -518,6 +806,53 @@ class GPUEngine(AsyncEngine):
             self._pending_first.append({"handle": _Readback(outs),
                                         "rows": rows})
         return True
+
+    def _admit_injected(self, r: _Request, slot: int) -> bool:
+        """Place a remotely prefilled request: allocate its pages, insert
+        the parcel and start decoding at its first token. False when the
+        pool has no room (the caller prefills locally)."""
+        page = self.config.page_size
+        first_token, kv = r.injected
+        prompt = r.tokens_all
+        total_pages = -(-len(prompt) // page)
+        if kv.shape[3] != total_pages:
+            raise ValueError(f"transferred KV has {kv.shape[3]} pages, the "
+                             f"prompt needs {total_pages}")
+        if self.allocator.num_free - total_pages < self._stalled_pages:
+            return False
+        pages = self.allocator.allocate(total_pages)
+        if pages is None:
+            return False
+        try:
+            self.runner.insert_pages(kv, pages)
+        except BaseException:
+            self.allocator.release(pages)
+            raise
+        r.blocks = TokenBlockSequence(page, prompt)
+        r.pages = pages
+        r.injected = None
+        self.injected_admissions += 1
+        self._place_in_slot(r, slot, first_token)
+        return True
+
+    def _place_in_slot(self, r: _Request, slot: int, first_token: int) -> None:
+        """Occupy a slot with a first token known on the host (an injected
+        request): emit it, and let the next window take it as the slot's
+        override token."""
+        self._place_in_slot_pending(r, slot)
+        r.generated += 1
+        finish = self._check_finish(r, first_token)
+        self._emit(r, [first_token], finish)
+        r.last_token = first_token
+        r.tokens_all.append(first_token)
+        if finish is not None:
+            self._finish_slot(slot, register=True)
+            return
+        if any(self._penalties_of(r)):
+            # The count row covers the first token, as a local prefill's
+            # bumped row does.
+            self.runner.set_count_rows([slot], self._count_row_of(r)[None])
+        self.overrides[slot] = first_token
 
     def _plan_prefill(self, r: _Request):
         """Pin the cached prefix pages and allocate the rest. Returns a

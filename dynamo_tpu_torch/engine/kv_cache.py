@@ -7,8 +7,9 @@ The host side hands out page ids. The engine registers each complete
 block's page under its chained block hash (``llm/tokens.py``): at placement
 for the prompt's blocks, and as generated tokens complete blocks. Pages of
 finished sequences stay registered and are reused on prefix hits
-(``acquire_cached``) until evicted. The reference's KVBM demotion, admin
-clear, router events and telemetry are not copied.
+(``acquire_cached``) until evicted, or until the admin clear
+(``clear_inactive``, the ``clear_kv_blocks`` request) drops them. The
+reference's KVBM demotion, router events and telemetry are not copied.
 
 Lifecycle invariant (as in the reference): a page is either FREE
 (unregistered, refcount 0), ACTIVE (refcount > 0 — held by one or more
@@ -148,3 +149,16 @@ class PageAllocator:
                 self.free.append(page)
             else:
                 self.inactive[h] = page
+
+    def clear_inactive(self) -> int:
+        """Drop every INACTIVE prefix-cache registration (pages held by
+        live sequences are untouched): the reference's clear_kv_blocks
+        admin operation. Returns the number of pages freed."""
+        n = 0
+        for h, page in list(self.inactive.items()):
+            del self.inactive[h]
+            self.cached.pop(h, None)
+            self.cached_by_page.pop(page, None)
+            self.free.append(page)
+            n += 1
+        return n

@@ -30,6 +30,15 @@ pool's type on CUDA tensors; CPU tensors take its plain version. Prefill
 attention over history is plain torch, as it is XLA in the reference.
 Nothing here reads a device value on the host: windows and prefills are
 enqueued and the engine reads results back when they are ready.
+
+Disaggregation moves a prompt's pages between pools as host parcels
+(``kv_quant``'s layouts). ``extract_pages_async`` gathers the pages on the
+device, starts a non-blocking copy into pinned host memory and records a
+CUDA event; ``finalize_extract`` (any thread) waits on that event alone
+and packs int8 pages on the host. ``insert_pages`` uploads a parcel and
+scatters it into the pool, converting between the bf16 and packed forms
+as the reference does. Gathers and scatters are plain torch indexing, as
+they are XLA in the reference.
 """
 
 from __future__ import annotations
@@ -41,7 +50,9 @@ import torch
 
 from dynamo_tpu_torch.engine import attention
 from dynamo_tpu_torch.engine.config import EngineConfig
-from dynamo_tpu_torch.engine.kv_quant import QuantKV, scatter_tokens
+from dynamo_tpu_torch.engine.kv_quant import (
+    BF16, QuantKV, is_packed_parcel, pack_parcel, parcel_to_bf16, quantize_np,
+    scatter_tokens, unpack_parcel)
 from dynamo_tpu_torch.engine.model import (decode_window_step, init_params,
                                            prefill_forward,
                                            prefill_with_history)
@@ -473,6 +484,77 @@ class ModelRunner:
         scatter_tokens(self.k_cache, kbuf.transpose(2, 3), dest, off)
         scatter_tokens(self.v_cache, vbuf.transpose(2, 3), dest, off)
         return toks, lps, top_vs, top_is
+
+    # -- KV page transfer (disaggregation) ------------------------------------
+    def extract_pages_async(self, pages: list[int]):
+        """Gather ``pages`` of both pools on the device and start their
+        copy to pinned host memory without waiting; returns the handle
+        for ``finalize_extract``. Stream order puts the gather before any
+        later work that rewrites the pages, so the caller may release
+        them at once."""
+        idx = self._upload(np.asarray(pages, np.int64))
+        if isinstance(self.k_cache, QuantKV):
+            dev = (torch.stack([self.k_cache.data[:, :, idx],
+                                self.v_cache.data[:, :, idx]]),
+                   torch.stack([self.k_cache.scale[:, :, idx],
+                                self.v_cache.scale[:, :, idx]]))
+        else:
+            dev = (torch.stack([self.k_cache[:, :, idx],
+                                self.v_cache[:, :, idx]]),)
+        if self.device.type != "cuda":
+            return dev, None
+        host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                     for t in dev)
+        for h, t in zip(host, dev):
+            h.copy_(t, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        # The device gather stays referenced until the copy is waited on.
+        return host, (event, dev)
+
+    def finalize_extract(self, handle) -> np.ndarray:
+        """The host parcel of an ``extract_pages_async`` handle: bf16 bits
+        ``[2, L, Nkv, n, page, D]``, or for an int8 pool the packed
+        ``[2, L, Nkv, n, page, D + 4]`` uint8. Waits on the copy's event
+        only and touches no device tensor, so the KV plane's thread may
+        call it while the engine thread goes on."""
+        host, fence = handle
+        if fence is not None:
+            fence[0].synchronize()
+        if len(host) == 2:
+            return pack_parcel(host[0].numpy(), host[1].numpy())
+        return host[0].view(torch.int16).numpy().view(BF16)
+
+    def extract_pages(self, pages: list[int]) -> np.ndarray:
+        """The host parcel of ``pages`` (see ``finalize_extract``)."""
+        return self.finalize_extract(self.extract_pages_async(pages))
+
+    def insert_pages(self, kv: np.ndarray, pages: list[int]) -> None:
+        """Write a transferred parcel into ``pages`` of this pool. Either
+        form goes into either pool, as in the reference: a packed parcel
+        into a bf16 pool is dequantized, and a bf16 parcel into an int8
+        pool is quantized on the host by ``quantize_np``, so the pool's
+        bytes are the reference runner's."""
+        n = len(pages)
+        spec = self.spec
+        if kv.ndim != 6 or kv.shape[:4] != (2, spec.num_layers,
+                                             spec.num_kv_heads, n):
+            raise ValueError(
+                f"parcel of shape {tuple(kv.shape)} does not fit {n} pages "
+                f"of {spec.num_layers} layers x {spec.num_kv_heads} KV heads")
+        idx = self._upload(np.asarray(pages, np.int64))
+        if isinstance(self.k_cache, QuantKV):
+            data, scale = (unpack_parcel(kv) if is_packed_parcel(kv)
+                           else quantize_np(kv))
+            data, scale = self._upload(data), self._upload(scale)
+            for i, cache in enumerate((self.k_cache, self.v_cache)):
+                cache.data[:, :, idx] = data[i]
+                cache.scale[:, :, idx] = scale[i]
+            return
+        bits = self._upload(parcel_to_bf16(kv).view(np.int16))
+        vals = bits.view(torch.bfloat16)
+        self.k_cache[:, :, idx] = vals[0]
+        self.v_cache[:, :, idx] = vals[1]
 
 
 def _leaves(tree):

@@ -1,7 +1,7 @@
 """Retry policy: jittered exponential backoff and retry budgets (copy of
 ``dynamo_tpu.runtime.retry``'s ``RetryPolicy``, ``RetryBudget``,
-``Backoff`` and the policies the coordinator client and ``Migration``
-use).
+``Backoff`` and the policies the coordinator client, ``Migration``, the
+KV plane and the prefill queue use).
 
 A ``RetryPolicy`` describes the curve, a ``Backoff`` walks it for one
 operation, and a shared ``RetryBudget`` (token bucket) keeps a fleet of
@@ -88,6 +88,18 @@ class Backoff:
         await asyncio.sleep(d)
         return True
 
+    def sleep_sync(self) -> bool:
+        """Back off once on a plain thread (KV-plane pulls)."""
+        d = self.next_delay()
+        if d is None:
+            return False
+        time.sleep(d)
+        return True
+
+    def reset(self) -> None:
+        """Re-arm the curve after a success."""
+        self.attempt = 0
+
 
 class policies:
     """The named retry policies: the one place delay constants live."""
@@ -98,6 +110,13 @@ class policies:
     # Redial after a coordinator crash/restart: forever, capped.
     COORD_RECONNECT = RetryPolicy(initial_delay_s=0.25, max_delay_s=5.0,
                                   multiplier=1.5, jitter=0.2)
+    # Prefill-queue pops after a failure: forever, capped.
+    QUEUE_POP = RetryPolicy(initial_delay_s=0.25, max_delay_s=5.0,
+                            multiplier=2.0, jitter=0.2)
+    # KV-plane parcel pulls: bounded; past a few attempts the decode
+    # worker prefills locally.
+    KV_PULL = RetryPolicy(initial_delay_s=0.05, max_delay_s=1.0,
+                          multiplier=2.0, jitter=0.2, max_attempts=3)
     # Request-plane migration retries: near-immediate (the stream is
     # user-visible latency) but jittered so a worker death does not make
     # every migrated stream redial in lockstep.

@@ -698,8 +698,8 @@ def test_entry_points_as_processes():
 
 
 @pytest.mark.parametrize("main,argv,words", [
-    (gpu.parse_args, ["--mode", "prefill"], "ROADMAP item 8"),
-    (gpu.parse_args, ["--mode", "decode"], "ROADMAP item 8"),
+    (gpu.parse_args, ["--spec-k", "3"], "ROADMAP item 10"),
+    (gpu.parse_args, ["--max-adapters", "2"], "ROADMAP item 11"),
     (gpu.parse_args, ["--lora", "x=y"], "ROADMAP item 11"),
     (gpu.parse_args, ["--spec-decode", "ngram"], "ROADMAP item 10"),
     (gpu.parse_args, ["--host-cache-pages", "64"], "ROADMAP item 9"),
@@ -729,7 +729,7 @@ def test_defaults_of_the_entry_points():
 
 def test_refused_flags_in_a_process():
     proc = subprocess.run(
-        [sys.executable, "-m", "dynamo_tpu_torch.backends.gpu", "--mode",
-         "prefill"], cwd=ROOT, capture_output=True, text=True,
+        [sys.executable, "-m", "dynamo_tpu_torch.backends.gpu", "--lora",
+         "x=y"], cwd=ROOT, capture_output=True, text=True,
         timeout=TIMEOUT_S)
-    assert proc.returncode != 0 and "ROADMAP item 8" in proc.stderr
+    assert proc.returncode != 0 and "ROADMAP item 11" in proc.stderr
