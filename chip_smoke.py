@@ -170,6 +170,44 @@ Phases, in order; any failure exits non-zero without the final line:
    an engine on cuda) and the frontend run as subprocesses: a streamed
    chat over the threshold is prefilled on the prefill worker and
    answered, and all four exit 0 on SIGTERM.
+9. KV-cache-aware routing at full width, after phase 8's engines are
+   released. Two seed-0 llama-3-8b engines, each built as ``backends.gpu``
+   builds it in agg mode with DISAGG_PAGES pages, each behind its own
+   worker runtime (the first embeds the coordinator) with its three
+   publishers (``backends.gpu.make_publishers``: KV events, load metrics,
+   inventory digests; the engine started on the phase's event loop) and
+   ``serve_engine``, and a frontend runtime with ``launch.start_front``
+   under ``--router-mode kv`` at the reference's defaults. Traffic, from
+   http.client threads as streamed completions of token ids with
+   ignore_eos: wave 1, four 1024-token prefixes at once (16 tokens, one
+   greedy request each); then, once the router's index holds their 256
+   blocks, wave 2: sixteen requests at once, four per prefix with their
+   own 128-token suffixes (32 tokens; three greedy, the last seeded at
+   temperature 0.8), in KV_WAVE2_ROUNDS' order, which alternates between
+   the two holders and puts every prefix at two even and two odd places.
+   Then the same two waves again on a fresh front under round robin,
+   after both prefix caches are cleared with clear_kv_blocks. Checked:
+   every request finishes at its max_tokens; wave 1 split 2 and 2; every
+   wave-2 decision chose the best overlap, at least 64 blocks, and went to
+   the prefix's holder; each worker hit at least 6 x 64 blocks in wave 2
+   (three greedy requests on each of its two prefixes: a seeded request
+   takes the no-reuse path); the kv pass hit more blocks than the
+   round-robin pass; the greedy ids of the two passes are equal or split
+   at a near-tie of the teacher-forced logits; paged_attention_hist
+   launched windows x M x 32 times over both workers in each pass, the
+   int8 entry 0 times; both workers' load metrics and inventory digests
+   reached the router (``kv_status()``). It prints each wave-2 request's
+   TTFT and TPOT at the worker's engine boundary under both routers, each
+   pass's tok/s and prefix hit blocks, the time from the send of wave 1
+   and from its last finish to the index holding its blocks, and the
+   phase's seconds. Then the coordinator, two ``python -m
+   dynamo_tpu_torch.backends.gpu --model tiny-test`` workers (no
+   --device: each must log an engine on cuda) and ``python -m
+   dynamo_tpu_torch.frontend --router-mode kv`` run as subprocesses; this
+   process subscribes to the kv_events and load_metrics subjects, the
+   same streamed chat goes twice, the second reaches the worker whose
+   stored events hold the prompt's blocks, and all four exit 0 on
+   SIGTERM.
 The last lines are the kernels' JSON summary, the card's name and power
 limit, and {"ok": true, "device": {...}}.
 """
@@ -2430,14 +2468,544 @@ def disagg_subprocesses() -> dict:
     return {"ready_s": ready_s, "usage": s["usage"]}
 
 
+# Phase 9: KV-aware routing. Four prefixes of 64 complete blocks each.
+KV_PREFIX_TOKENS = 1024
+KV_SUFFIX_TOKENS = 128
+KV_WAVE1_TOKENS = 16
+KV_WAVE2_TOKENS = 32
+KV_SEED = 1234
+# Wave 2's rounds, as positions in [first holder's 1st, other's 1st,
+# first holder's 2nd, other's 2nd]: rounds 0-1 go A,B,A,B and rounds 2-3
+# B,A,B,A, so the holders alternate (one repeat where the halves meet)
+# and every prefix stands at two even and two odd places of the wave.
+KV_WAVE2_ROUNDS = ((0, 1, 2, 3), (0, 1, 2, 3), (1, 0, 3, 2), (1, 0, 3, 2))
+# Each prefix's seeded request (temperature 0.8) is its last round.
+KV_SEEDED_ROUND = 3
+
+
+class EngineTap:
+    """Per prompt (a tuple of ids), the tokens an engine emitted and the
+    times of its outputs, the request's arrival first; wraps ``generate``
+    on the instance, and ``close`` takes the wrapper off."""
+
+    def __init__(self, engines):
+        self.tokens: dict[tuple, list] = {}
+        self.times: dict[tuple, list] = {}
+        self.served_by: dict[tuple, int] = {}
+        self._engines = engines
+        for i, engine in enumerate(engines):
+            engine.generate = self._wrap(i, engine.generate)
+
+    def _wrap(self, index, inner):
+        async def generate(request, context):
+            key = tuple(request["token_ids"])
+            self.served_by[key] = index
+            ids = self.tokens.setdefault(key, [])
+            times = self.times.setdefault(key, [time.perf_counter()])
+            async for item in inner(request, context):
+                ids.extend(item.get("token_ids", []))
+                times.append(time.perf_counter())
+                yield item
+        return generate
+
+    def close(self) -> None:
+        for engine in self._engines:
+            del engine.generate
+
+
+def kv_engine():
+    """An engine built as ``python -m dynamo_tpu_torch.backends.gpu``
+    builds it in agg mode (seed-0 llama-3-8b, DISAGG_PAGES pages), not
+    started: the worker starts it on its event loop."""
+    import dataclasses
+
+    from dynamo_tpu_torch.backends import gpu
+    from dynamo_tpu_torch.launch import load_engine
+    from dynamo_tpu_torch.profile_decode import MAX_PREFILL_TOKENS, MODEL
+    args = gpu.parse_args(["--model", MODEL, "--seed", "0", "--device",
+                           DEVICE, "--num-pages", str(DISAGG_PAGES)])
+    config = dataclasses.replace(gpu.build_engine_config(args),
+                                 max_prefill_tokens=MAX_PREFILL_TOKENS)
+    t0 = time.monotonic()
+    engine = load_engine(config, args.resolved_checkpoint, args.seed,
+                         start=False)
+    log(f"agg engine: pages={engine.runner.num_pages} pool="
+        f"{engine.runner.kv_pool_bytes / 2**30:.2f} GiB "
+        f"setup={time.monotonic() - t0:.1f}s")
+    return engine
+
+
+def kv_traffic(spec) -> dict:
+    """The four prefixes, wave 1's bodies (one per prefix, greedy) and,
+    per prefix and round, wave 2's suffixes."""
+    from dynamo_tpu_torch.profile_decode import MODEL
+    rng = np.random.default_rng(KV_SEED)
+    prefixes = [rng.integers(0, spec.vocab_size,
+                             KV_PREFIX_TOKENS).tolist() for _ in range(4)]
+    suffixes = [[rng.integers(0, spec.vocab_size,
+                              KV_SUFFIX_TOKENS).tolist() for _ in range(4)]
+                for _ in range(4)]
+    wave1 = [{"model": MODEL, "prompt": p, "stream": True,
+              "ignore_eos": True, "max_tokens": KV_WAVE1_TOKENS,
+              "stream_options": {"include_usage": True}} for p in prefixes]
+    return {"prefixes": prefixes, "suffixes": suffixes, "wave1": wave1}
+
+
+def kv_wave2(traffic, order: list[int]) -> list[dict]:
+    """Wave 2's sixteen bodies: ``order`` lists the prefixes as [first
+    holder's 1st, other's 1st, first holder's 2nd, other's 2nd], and each
+    round of KV_WAVE2_ROUNDS takes them in its order; a prefix's request
+    in KV_SEEDED_ROUND is seeded at temperature 0.8, the others greedy."""
+    from dynamo_tpu_torch.profile_decode import MODEL
+    bodies = []
+    for r, positions in enumerate(KV_WAVE2_ROUNDS):
+        for pos in positions:
+            p = order[pos]
+            body = {"model": MODEL, "stream": True, "ignore_eos": True,
+                    "prompt": traffic["prefixes"][p]
+                    + traffic["suffixes"][p][r],
+                    "max_tokens": KV_WAVE2_TOKENS,
+                    "stream_options": {"include_usage": True},
+                    "_prefix": p, "_round": r}
+            if r == KV_SEEDED_ROUND:
+                body.update(temperature=0.8, seed=KV_SEED + p)
+            bodies.append(body)
+    return bodies
+
+
+def kv_routing_phase(attention, model) -> dict:
+    """Phase 9 (see the module docstring)."""
+    import collections
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dynamo_tpu_torch.backends.gpu import make_publishers, serve_engine
+    from dynamo_tpu_torch.launch import start_front
+    from dynamo_tpu_torch.llm.kv_router import make_kv_router_factory
+    from dynamo_tpu_torch.llm.model_card import deregister_llm
+    from dynamo_tpu_torch.llm.tokenizer import make_test_tokenizer
+    from dynamo_tpu_torch.llm.tokens import compute_block_hashes
+    from dynamo_tpu_torch.profile_decode import MODEL
+    from dynamo_tpu_torch.runtime.config import RuntimeConfig
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+
+    t_phase = time.monotonic()
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, daemon=True)
+    thread.start()
+
+    def on_loop(coro, timeout=600):
+        return asyncio.run_coroutine_threadsafe(coro, loop).result(timeout)
+
+    tokenizer = make_test_tokenizer()
+
+    async def up(engines, mode: str):
+        """Two worker runtimes (the first embeds the coordinator), each
+        with its engine's three publishers and serve_engine, and a
+        frontend runtime with launch.start_front in ``mode``."""
+        rts, servers, inventory = [], [], []
+        for engine in engines:
+            rt = await (DistributedRuntime.with_embedded_coordinator(
+                RuntimeConfig()) if not rts else
+                DistributedRuntime.from_settings(RuntimeConfig(
+                    coordinator_url=rts[0].config.coordinator_url)))
+            kv_pub, metrics_pub, inv_pub = make_publishers(rt)
+            engine.kv_publisher = kv_pub
+            engine.metrics_publisher = metrics_pub
+            engine.inventory_publisher = inv_pub
+            engine.start()  # on this loop, which the publishers use
+            inv_pub.start_periodic(engine.inventory_digest)
+            servers.append(await serve_engine(rt, engine, MODEL, tokenizer))
+            rts.append(rt)
+            inventory.append(inv_pub)
+        front_rt = await DistributedRuntime.from_settings(RuntimeConfig(
+            coordinator_url=rts[0].config.coordinator_url))
+        factory = make_kv_router_factory() if mode == "kv" else None
+        service, watcher = await start_front(front_rt, "127.0.0.1", 0, mode,
+                                             factory)
+        deadline = time.monotonic() + 60
+        while (watcher.manager.get(MODEL) is None
+               or len(watcher.manager.get(MODEL).client.instance_ids()) < 2):
+            assert time.monotonic() < deadline, "workers not discovered"
+            await asyncio.sleep(0.02)
+        return dict(engines=engines, rts=rts, servers=servers,
+                    inventory=inventory, front_rt=front_rt, service=service,
+                    watcher=watcher, router=watcher.manager.get(MODEL).router)
+
+    async def down(st):
+        await st["service"].stop()
+        await st["watcher"].stop()
+        await st["front_rt"].close()
+        for engine, rt, server, inv in reversed(list(zip(
+                st["engines"], st["rts"], st["servers"], st["inventory"]))):
+            inv.stop_periodic()
+            engine.kv_publisher = engine.metrics_publisher = None
+            engine.inventory_publisher = None
+            await deregister_llm(rt, MODEL)
+            await server.shutdown()
+            await rt.close()
+
+    def send(port, bodies) -> tuple[list, float]:
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(bodies)) as pool:
+            futures = [pool.submit(http_call, port, "POST", "/v1/completions",
+                                   {k: v for k, v in b.items()
+                                    if not k.startswith("_")})
+                       for b in bodies]
+            results = [f.result(SSE_TIMEOUT_S) for f in futures]
+        for i, (res, b) in enumerate(zip(results, bodies)):
+            assert res["status"] == 200, (i, res)
+            s = stream_summary(res)
+            assert s["finish"] == "length", (i, s["finish"])
+            assert s["usage"]["completion_tokens"] == b["max_tokens"], s
+            assert s["usage"]["prompt_tokens"] == len(b["prompt"]), s
+            res["summary"] = s
+            res["end_s"] = t0 + res["times"][-1]
+        return results, time.perf_counter() - t0
+
+    def run_pass(mode, engines, traffic, order) -> dict:
+        st = on_loop(up(engines, mode), 300)
+        tap = EngineTap(engines)
+        try:
+            worker_of = {rt.instance_id: i for i, rt in enumerate(st["rts"])}
+            attention.KERNEL.launches = 0
+            attention.KERNEL.launches_int8 = 0
+            windows0 = [e.windows_dispatched for e in engines]
+            hits0 = [e.prefix_hit_blocks for e in engines]
+            want = 4 * KV_PREFIX_TOKENS // 16
+            index_full: list[float] = []
+            stop_poll = threading.Event()
+
+            def poll_index():
+                # The moment the router's index first holds all of wave
+                # 1's prefix blocks, polled beside the wave (1 ms).
+                while not stop_poll.is_set():
+                    if st["router"].indexer.tree.num_blocks >= want:
+                        index_full.append(time.perf_counter())
+                        return
+                    time.sleep(0.001)
+
+            poller = threading.Thread(target=poll_index, daemon=True)
+            if mode == "kv":
+                poller.start()
+            t_send = time.perf_counter()
+            wave1, wall1 = send(st["service"].port, traffic["wave1"])
+            last_finish = max(r["end_s"] for r in wave1)
+            # Prefill done: each wave-1 request's first output at the
+            # engine boundary (its prefix blocks are registered by then).
+            last_prefilled = max(tap.times[tuple(b["prompt"])][1]
+                                 for b in traffic["wave1"])
+            out = {"mode": mode}
+            if mode == "kv":
+                router = st["router"]
+                poller.join(10)
+                stop_poll.set()
+                assert index_full, (
+                    "the router's index never held wave 1's blocks",
+                    router.indexer.tree.num_blocks)
+                t_index = index_full[0]
+                holders = []
+                for p in traffic["prefixes"]:
+                    m = router.indexer.tree.find_matches(
+                        compute_block_hashes(p, 16))
+                    assert sorted(m.values()) == [64], (
+                        "a prefix is held by other than one worker", m)
+                    holders.append(next(iter(m)))
+                split = collections.Counter(holders)
+                assert sorted(split.values()) == [2, 2], (
+                    "wave 1 did not split 2 and 2", holders)
+                first = holders[0]
+                a = [p for p, h in enumerate(holders) if h == first]
+                b = [p for p, h in enumerate(holders) if h != first]
+                order[:] = [a[0], b[0], a[1], b[1]]
+                out.update(
+                    wave1_holders=[f"{h:x}" for h in holders],
+                    event_lag_after_last_finish_ms=(t_index - last_finish)
+                    * 1e3,
+                    event_lag_after_last_first_token_ms=(
+                        t_index - last_prefilled) * 1e3,
+                    index_full_after_send_ms=(t_index - t_send) * 1e3)
+                log(f"kv wave 1: holders {out['wave1_holders']}; the "
+                    f"router's index held all {want} prefix blocks "
+                    f"{out['index_full_after_send_ms']:.1f} ms after the "
+                    f"send, "
+                    f"{out['event_lag_after_last_first_token_ms']:.1f} ms "
+                    f"after wave 1's last first token and "
+                    f"{out['event_lag_after_last_finish_ms']:.1f} ms after "
+                    f"its last finish (negative: before it)")
+                decisions0 = router.decisions.decisions
+            wave2_bodies = kv_wave2(traffic, order)
+            hits_mid = [e.prefix_hit_blocks for e in engines]
+            wave2, wall2 = send(st["service"].port, wave2_bodies)
+            torch.cuda.synchronize()
+            launches = {"paged_attention_hist": attention.KERNEL.launches,
+                        "paged_attention_hist_int8":
+                            attention.KERNEL.launches_int8}
+            windows = [e.windows_dispatched - w0
+                       for e, w0 in zip(engines, windows0)]
+            spec = engines[0].runner.spec
+            expected = sum(windows) * engines[0].decode_window \
+                * spec.num_layers
+            assert all(w > 0 for w in windows), windows
+            assert launches["paged_attention_hist"] == expected, (
+                launches, expected)
+            assert launches["paged_attention_hist_int8"] == 0, launches
+            wave2_hits = [e.prefix_hit_blocks - h
+                          for e, h in zip(engines, hits_mid)]
+            pass_hits = [e.prefix_hit_blocks - h
+                         for e, h in zip(engines, hits0)]
+            rows = []
+            for body, res in zip(wave2_bodies, wave2):
+                key = tuple(body["prompt"])
+                times = tap.times[key]
+                toks = tap.tokens[key]
+                assert len(toks) == body["max_tokens"], (len(toks), body)
+                rows.append({
+                    "prefix": body["_prefix"], "round": body["_round"],
+                    "seeded": "seed" in body,
+                    "worker": tap.served_by[key],
+                    "ttft_ms": (times[1] - times[0]) * 1e3,
+                    "tpot_ms": (times[-1] - times[1]) / (len(toks) - 1) * 1e3,
+                    "client_first_chunk_ms": res["summary"]["ttft_ms"]})
+            n_tok = sum(r["summary"]["usage"]["completion_tokens"]
+                        for r in wave2)
+            out.update(
+                windows=windows, window_steps=engines[0].decode_window,
+                launches=launches, prefix_hit_blocks=pass_hits,
+                wave2_hit_blocks=wave2_hits,
+                total_hit_blocks=sum(pass_hits),
+                wave1_s=wall1, wave2_s=wall2,
+                wave2_tok_per_s=n_tok / wall2,
+                wave2=rows,
+                _tokens=[tap.tokens[tuple(b["prompt"])]
+                         for b in wave2_bodies],
+                _bodies=wave2_bodies)
+            if mode == "kv":
+                status = router.kv_status()
+                got = status["decisions"]["recent"][-16:]
+                assert router.decisions.decisions - decisions0 == 16
+                for i, d in enumerate(got):
+                    assert d["chosen"] == d["best"] \
+                        >= KV_PREFIX_TOKENS // 16, (
+                        f"wave 2 decision {i}: worker {d['worker']} chose "
+                        f"overlap {d['chosen']} of best {d['best']}", got)
+                for i, (row, body) in enumerate(zip(rows, wave2_bodies)):
+                    want_worker = worker_of[holders[body["_prefix"]]]
+                    assert row["worker"] == want_worker, (
+                        f"wave 2 request {i} went to worker {row['worker']}, "
+                        f"its prefix is on {want_worker}")
+                # The three greedy requests of each of a worker's two
+                # prefixes hit 64 blocks; a seeded request takes the
+                # no-reuse path by design (engine._plan_prefill).
+                for w, h in enumerate(wave2_hits):
+                    assert h >= 6 * KV_PREFIX_TOKENS // 16, (w, wave2_hits)
+                for wid in worker_of:
+                    assert f"{wid:x}" in status["load"], (
+                        "no ForwardPassMetrics from", wid, status["load"])
+                    assert f"{wid:x}" in status["fleet"]["workers"], (
+                        "no inventory digest from", wid)
+                out.update(kv_status={k: status[k] for k in (
+                    "index", "outcomes", "federation_sources")},
+                    decisions=status["decisions"]["cache_aware_rate"])
+            for r in rows:
+                log(json.dumps({"kv_wave2_request": dict(r, mode=mode)}))
+            log(f"{mode} pass: wave 2 {n_tok} tokens in {wall2:.2f}s "
+                f"({n_tok / wall2:.1f} tok/s); prefix hit blocks "
+                f"{pass_hits} (wave 2 {wave2_hits}); windows {windows}; "
+                f"paged_attention_hist launches "
+                f"{launches['paged_attention_hist']}")
+            return out
+        finally:
+            tap.close()
+            on_loop(down(st), 300)
+
+    passes = {}
+    try:
+        engines = [kv_engine(), kv_engine()]
+        spec = engines[0].runner.spec
+        traffic = kv_traffic(spec)
+        order: list[int] = []
+        passes["kv"] = run_pass("kv", engines, traffic, order)
+        for engine in engines:
+            cleared = on_loop(engine.clear_kv_blocks())
+            assert cleared > 0 and not engine.allocator.inactive, cleared
+        passes["round_robin"] = run_pass("round_robin", engines, traffic,
+                                         order)
+        kv, rr = passes["kv"], passes["round_robin"]
+        assert kv["total_hit_blocks"] > rr["total_hit_blocks"], (
+            kv["total_hit_blocks"], rr["total_hit_blocks"])
+        greedy = [i for i, b in enumerate(kv["_bodies"]) if "seed" not in b]
+        prompts = [b["prompt"] for b in kv["_bodies"]]
+        equal = greedy_agree(engines[0].runner, model, prompts,
+                             kv["_tokens"], rr["_tokens"], rows=greedy)
+        kv["greedy_equal_round_robin"] = [equal, len(greedy)]
+        seeded = [i for i in range(len(prompts)) if i not in greedy]
+        log(f"kv vs round robin: greedy ids equal in {equal}/{len(greedy)} "
+            f"wave-2 requests (the rest split at a near-tie); seeded ids "
+            f"kv {[kv['_tokens'][i][:8] for i in seeded]} round robin "
+            f"{[rr['_tokens'][i][:8] for i in seeded]}")
+        for engine in engines:
+            engine.stop()
+        del engines
+    finally:
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(60)
+        loop.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    sub = kv_routing_subprocesses()
+    out = {"passes": {k: {x: y for x, y in v.items()
+                          if not x.startswith("_")}
+                      for k, v in passes.items()},
+           "subprocesses": sub, "phase_s": time.monotonic() - t_phase}
+    for k, v in out["passes"].items():
+        log(json.dumps({"kv_routing_pass": {x: y for x, y in v.items()
+                                            if x != "wave2"}}))
+    log(f"phase 9: {out['phase_s']:.1f}s")
+    return out
+
+
+def kv_routing_subprocesses() -> dict:
+    """KV routing as processes on the card: the coordinator, two ``python
+    -m dynamo_tpu_torch.backends.gpu --model tiny-test`` workers (each
+    must log an engine on cuda, no --device given) and ``python -m
+    dynamo_tpu_torch.frontend --router-mode kv``; this process subscribes
+    to the kv_events and load_metrics subjects. The same streamed chat
+    goes twice: the second reaches the worker whose stored events hold
+    the prompt's blocks (it hits them, and no other worker stores them),
+    and all four exit 0 on SIGTERM."""
+    import signal
+
+    from dynamo_tpu_torch.llm.kv_router.protocols import (
+        ForwardPassMetrics, RouterEvent, kv_events_subject,
+        load_metrics_subject)
+    from dynamo_tpu_torch.runtime.config import RuntimeConfig
+    from dynamo_tpu_torch.runtime.coordinator_client import CoordinatorClient
+
+    procs = []
+    t0 = time.monotonic()
+    ns = RuntimeConfig.from_settings().namespace
+    loop = thread = None
+    try:
+        coord = _spawn(procs, "dynamo_tpu_torch.runtime.coordinator",
+                       "--host", "127.0.0.1", "--port", "0")
+        cport = int(_wait_line(coord, "COORDINATOR_READY").rsplit("=", 1)[1])
+        url = f"tcp://127.0.0.1:{cport}"
+        stored: dict[int, set] = {}
+        metrics: dict[int, ForwardPassMetrics] = {}
+        loop = asyncio.new_event_loop()
+
+        async def listen():
+            client = await CoordinatorClient.connect("127.0.0.1", cport)
+            ev = await client.subscribe(kv_events_subject(ns, "gpu"))
+            lm = await client.subscribe(load_metrics_subject(ns, "gpu"))
+
+            async def events():
+                async for msg in ev:
+                    e = RouterEvent.from_wire(msg["payload"])
+                    if e.event.kind == "stored":
+                        stored.setdefault(e.worker_id, set()).update(
+                            e.event.block_hashes)
+
+            async def loads():
+                async for msg in lm:
+                    m = ForwardPassMetrics.from_wire(msg["payload"])
+                    metrics[m.worker_id] = m
+            return client, [asyncio.ensure_future(events()),
+                            asyncio.ensure_future(loads())]
+
+        import threading
+        thread = threading.Thread(target=loop.run_forever, daemon=True)
+        thread.start()
+        client, tasks = asyncio.run_coroutine_threadsafe(
+            listen(), loop).result(60)
+        common = ("--model", "tiny-test", "--num-pages", "1024",
+                  "--coordinator-url", url)
+        workers = [_spawn(procs, "dynamo_tpu_torch.backends.gpu", *common)
+                   for _ in range(2)]
+        front = _spawn(procs, "dynamo_tpu_torch.frontend", "--router-mode",
+                       "kv", "--http-host", "127.0.0.1", "--http-port", "0",
+                       "--coordinator-url", url)
+        ready = [_wait_line(w, "GPU_WORKER_READY") for w in workers]
+        wids = [int(r.split("worker=")[1].split()[0], 16) for r in ready]
+        for w in workers:
+            device = _wait_line(w, "from an engine on")
+            assert "from an engine on cuda" in device, device
+        port = int(_wait_line(front, "FRONTEND_READY").rsplit("=", 1)[1])
+        deadline = time.monotonic() + 60
+        while [m["id"] for m in http_call(port, "GET", "/v1/models")[
+                "json"]["data"]] != ["tiny-test"]:
+            assert time.monotonic() < deadline, "the model was not served"
+            time.sleep(0.05)
+        ready_s = time.monotonic() - t0
+        body = {"model": "tiny-test", "stream": True, "max_tokens": 8,
+                "ignore_eos": True, "stream_options": {"include_usage": True},
+                "messages": [{"role": "user", "content": " ".join(
+                    WORDS * 3)}]}
+
+        def chat():
+            res = http_call(port, "POST", "/v1/chat/completions", body)
+            s = stream_summary(res)
+            assert res["status"] == 200 and s["finish"] == "length", s
+            assert s["usage"]["completion_tokens"] == 8, s
+            return s
+
+        first = chat()
+        deadline = time.monotonic() + 10
+        while not stored:
+            assert time.monotonic() < deadline, "no kv event arrived"
+            time.sleep(0.01)
+        time.sleep(0.5)
+        assert len(stored) == 1, stored
+        holder, blocks = next(iter(stored.items()))
+        assert holder in wids and len(blocks) >= 4, (holder, wids, blocks)
+        second = chat()
+        deadline = time.monotonic() + 10
+        while not (holder in metrics and metrics[
+                holder].kv_stats.gpu_prefix_cache_hit_rate > 0):
+            assert time.monotonic() < deadline, (
+                "the holder's metrics show no prefix hit", metrics)
+            time.sleep(0.01)
+        time.sleep(0.5)
+        others = {w: hs & blocks for w, hs in stored.items() if w != holder}
+        assert not any(others.values()), (
+            "the second chat's blocks were stored on another worker", others)
+
+        async def unlisten():
+            for t in tasks:
+                t.cancel()
+            await client.close()
+        asyncio.run_coroutine_threadsafe(unlisten(), loop).result(30)
+        for proc, _, seen in (front, *workers, coord):
+            proc.send_signal(signal.SIGTERM)
+            code = proc.wait(timeout=120)
+            assert code == 0, (code, seen[-20:])
+    finally:
+        if loop is not None:
+            loop.call_soon_threadsafe(loop.stop)
+            thread.join(30)
+        for proc, _, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+    hit = metrics[holder].kv_stats.gpu_prefix_cache_hit_rate
+    log(f"kv routing subprocesses: {ready[0]}; {ready[1]}; engines on cuda; "
+        f"serving in {ready_s:.1f}s; the chat's {len(blocks)} blocks stored "
+        f"on {holder:x}, the repeat went there (prefix hit rate {hit:.3f}); "
+        f"all four exited 0 on SIGTERM")
+    return {"ready_s": ready_s, "blocks": len(blocks),
+            "holder_hit_rate": hit, "usage": [first["usage"],
+                                              second["usage"]]}
+
+
 def kernel_entry(name, variant, timing, main, max_err, stats,
                  http_launches, dist_launches, ckpt_launches,
-                 disagg_launches) -> dict:
+                 disagg_launches, kv_launches) -> dict:
     """One kernel's summary: times at the B=32 x 2048 shape, and the same
     numbers at the main path's mid-round shape under ``main_shape``;
     launches in round 1, round 2, the HTTP phase, the distributed phase,
-    phase 7's round-1 runs on loaded checkpoints and phase 8's passes (on
-    the decode worker)."""
+    phase 7's round-1 runs on loaded checkpoints, phase 8's passes (on
+    the decode worker) and phase 9's passes (both workers)."""
     return {"name": name, "route": "cuda",
             "source": "dynamo_tpu_torch/csrc/paged_attention.cu",
             "replaces": "dynamo_tpu/engine/attention.py:72",
@@ -2447,6 +3015,7 @@ def kernel_entry(name, variant, timing, main, max_err, stats,
             "launches_dist": dist_launches,
             "launches_checkpoint": ckpt_launches,
             "launches_disagg": disagg_launches,
+            "launches_kv_routing": kv_launches,
             "max_abs_err": max(max_err, timing["max_abs_err"],
                                main["max_abs_err"]),
             "ms": timing["ms"], "plain_ms": timing["plain_ms"],
@@ -2497,6 +3066,7 @@ def main() -> int:
                 "int8": stats_int8.pop("_round1")}
         ckpt = checkpoint_phase(attention, model, refs["bf16"])
         disagg = disagg_phase(attention, model, refs)
+        kv = kv_routing_phase(attention, model)
     except Exception:  # noqa: BLE001 — report and fail the run
         traceback.print_exc()
         return 1
@@ -2508,13 +3078,18 @@ def main() -> int:
     def disagg_launches(kernel):
         return {p["pass"]: p["launches"][kernel] for p in disagg["passes"]}
 
+    def kv_launches(kernel):
+        return {mode: p["launches"][kernel]
+                for mode, p in kv["passes"].items()}
+
     log(json.dumps({"kernels": [
         kernel_entry("paged_attention_hist", "bf16 pool", timing_bf16,
                      main_bf16, err_bf16, stats_bf16,
                      stats_http["launches"]["paged_attention_hist"],
                      stats_http["dist"]["launches"]["paged_attention_hist"],
                      ckpt_launches("paged_attention_hist"),
-                     disagg_launches("paged_attention_hist")),
+                     disagg_launches("paged_attention_hist"),
+                     kv_launches("paged_attention_hist")),
         kernel_entry("paged_attention_hist_int8",
                      "int8 pool, _decode_kernel(quantized=True)",
                      timing_int8, main_int8, err_int8, stats_int8,
@@ -2522,7 +3097,8 @@ def main() -> int:
                      stats_http["dist"]["launches"][
                          "paged_attention_hist_int8"],
                      ckpt_launches("paged_attention_hist_int8"),
-                     disagg_launches("paged_attention_hist_int8"))]}))
+                     disagg_launches("paged_attention_hist_int8"),
+                     kv_launches("paged_attention_hist_int8"))]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

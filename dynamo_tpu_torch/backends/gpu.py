@@ -26,6 +26,13 @@ tokenizer.
 The reference worker's other flags are refused with the ROADMAP item each
 waits for; none is accepted and then ignored.
 
+In ``agg`` and ``decode`` mode the worker publishes, on its instance id,
+its KV events, load metrics and inventory digests
+(``llm/kv_router/publisher.py``) for a frontend under ``--router-mode
+kv``: the engine is started on the event loop, which its publishers use,
+and the digest is republished every two seconds while idle. A prefill
+worker registers no model and publishes nothing, as in the reference.
+
 ``--mode prefill`` serves ``llm/disagg.make_prefill_handler`` at
 ``{namespace}/{--prefill-component}/generate`` (``prefill`` by default)
 and registers no model; with its KV plane (``llm/kv_plane.py``, bound to
@@ -46,6 +53,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import functools
 import signal
 
 from dynamo_tpu_torch.engine.engine import GPUEngine
@@ -54,6 +62,9 @@ from dynamo_tpu_torch.llm.disagg import (PREFILL_COMPONENT, PREFILL_ENDPOINT,
                                          DisaggRouterConfig,
                                          make_prefill_handler)
 from dynamo_tpu_torch.llm.kv_plane import KvPlaneServer
+from dynamo_tpu_torch.llm.kv_router.publisher import (KvEventPublisher,
+                                                      KvInventoryPublisher,
+                                                      WorkerMetricsPublisher)
 from dynamo_tpu_torch.launch import (add_engine_args, add_refused_flags,
                                      build_engine_config, load_engine,
                                      load_tokenizer)
@@ -159,6 +170,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
+def make_publishers(runtime: DistributedRuntime, component: str = "gpu"
+                    ) -> tuple[KvEventPublisher, WorkerMetricsPublisher,
+                               KvInventoryPublisher]:
+    """The KV event, load metrics and inventory publishers of a worker
+    serving under ``component``, on the runtime's instance id."""
+    ns, wid = runtime.config.namespace, runtime.instance_id
+    return (KvEventPublisher(runtime, ns, component, wid),
+            WorkerMetricsPublisher(runtime, ns, component, wid),
+            KvInventoryPublisher(runtime, ns, component, wid))
+
+
 async def serve_engine(runtime: DistributedRuntime, engine: GPUEngine,
                        model_name: str, tokenizer: Tokenizer,
                        component: str = "gpu", endpoint: str = "generate",
@@ -251,7 +273,7 @@ async def run(args: argparse.Namespace) -> None:
     runtime = await DistributedRuntime.from_settings(cfg)
     for sig in (signal.SIGINT, signal.SIGTERM):
         loop.add_signal_handler(sig, runtime.shutdown)
-    engine = server = plane = queue_worker = disagg = None
+    engine = server = plane = queue_worker = disagg = inventory_pub = None
     registered = False
     try:
         engine_cfg = build_engine_config(args)
@@ -259,10 +281,20 @@ async def run(args: argparse.Namespace) -> None:
         tokenizer = load_tokenizer(ckpt, args.tokenizer,
                                    checkpoint_first=False)
         model_name = args.model_name or engine_cfg.model.name
+        kv_pub = metrics_pub = inventory_pub = None
+        if args.mode != "prefill":
+            kv_pub, metrics_pub, inventory_pub = make_publishers(
+                runtime, args.component)
         # Engine construction blocks for seconds (weights, KV pool); run it
         # off the event loop so the coordinator lease keepalives flow.
-        engine = await loop.run_in_executor(None, load_engine, engine_cfg,
-                                            ckpt, args.seed)
+        engine = await loop.run_in_executor(None, functools.partial(
+            load_engine, engine_cfg, ckpt, args.seed, start=False,
+            kv_publisher=kv_pub, metrics_publisher=metrics_pub))
+        # Started here, on the loop the publishers run on.
+        engine.inventory_publisher = inventory_pub
+        engine.start()
+        if inventory_pub is not None:
+            inventory_pub.start_periodic(engine.inventory_digest)
         prefill_component = args.prefill_component or PREFILL_COMPONENT
         if args.mode == "prefill":
             if not args.no_kv_plane:
@@ -292,6 +324,8 @@ async def run(args: argparse.Namespace) -> None:
     finally:
         for sig in (signal.SIGINT, signal.SIGTERM):
             loop.remove_signal_handler(sig)
+        if inventory_pub is not None:
+            inventory_pub.stop_periodic()
         if registered:
             await deregister_llm(runtime, model_name)
         if queue_worker is not None:

@@ -33,8 +33,15 @@ chunk). A decode worker's
 fresh pages and the request decodes from the prefill worker's first
 token, under the same seeded and penalty rules as a local prefill.
 
+KV routing (``llm/kv_router``): after each processed window the engine
+drains the allocator's stored and removed block hashes and, with
+publishers set, schedules one coroutine on the event loop captured by
+``start()`` that publishes them, the load metrics (``ForwardPassMetrics``)
+and, when due, the inventory digest. The engine thread never waits on
+that loop.
+
 Not ported yet (later slices): spec decode, LoRA, multimodal, KV host and
-disk tiers, KV events, metrics publishing.
+disk tiers.
 """
 
 from __future__ import annotations
@@ -59,6 +66,10 @@ from dynamo_tpu_torch.engine.runner import (
     PK_PRESPEN, PK_SEED, PK_SEEDED, PK_SEQLEN, PK_TEMP, PK_TOKEN, PK_TOPK,
     PK_TOPP, TOP_LOGPROBS, ModelRunner, PrefillSeq, mask_seed)
 from dynamo_tpu_torch.engine.sampler import MAX_TOPK
+from dynamo_tpu_torch.llm.kv_router.protocols import (ForwardPassMetrics,
+                                                      KvInventoryDigest,
+                                                      KvStats, WorkerStats,
+                                                      kmin_sketch)
 from dynamo_tpu_torch.llm.protocols import (FinishReason, LLMEngineOutput,
                                             PreprocessedRequest)
 from dynamo_tpu_torch.llm.tokens import TokenBlockSequence
@@ -176,11 +187,17 @@ class _Window:
 
 class GPUEngine(AsyncEngine):
     def __init__(self, config: EngineConfig, params: dict | None = None,
-                 seed: int = 0):
+                 seed: int = 0, kv_publisher=None, metrics_publisher=None):
         """``params``: a loaded tree (``weights.load_hf_weights`` or
         ``params_from_jax``; bf16 or int8), handed to the runner as it is,
-        or None for random weights from ``seed``."""
+        or None for random weights from ``seed``. ``kv_publisher`` and
+        ``metrics_publisher`` (``llm/kv_router/publisher.py``) publish the
+        KV events and load metrics; ``inventory_publisher`` is set as an
+        attribute before ``start()``."""
         self.config = config
+        self.kv_publisher = kv_publisher
+        self.metrics_publisher = metrics_publisher
+        self.inventory_publisher = None
         self.decode_window = config.resolve_decode_window()
         self.prefill_chunk_tokens = config.resolve_prefill_chunk_tokens()
         self.runner = ModelRunner(config, params=params, seed=seed)
@@ -214,6 +231,8 @@ class GPUEngine(AsyncEngine):
         self._chunk_inflight: collections.deque[dict] = collections.deque()
         self._running = False
         self._thread: threading.Thread | None = None
+        # The event loop the publishers run on (captured by start()).
+        self._publish_loop: asyncio.AbstractEventLoop | None = None
         self.windows_dispatched = 0    # windows with device work
         self.preempt_count = 0
         self.prefix_hit_blocks = 0     # cached blocks pinned at admission
@@ -242,6 +261,10 @@ class GPUEngine(AsyncEngine):
         if self._running:
             return
         self._running = True
+        try:
+            self._publish_loop = asyncio.get_running_loop()
+        except RuntimeError:
+            self._publish_loop = None
         self._thread = threading.Thread(target=self._engine_loop,
                                         name="gpu-engine", daemon=True)
         self._thread.start()
@@ -371,6 +394,95 @@ class GPUEngine(AsyncEngine):
         pages freed."""
         return await self.run_job(self.allocator.clear_inactive)
 
+    # -- KV observability -----------------------------------------------------
+    @property
+    def num_waiting(self) -> int:
+        """Requests queued for admission."""
+        return self.waiting.qsize()
+
+    def inventory_digest(self) -> KvInventoryDigest:
+        """What KV lives here, for the event plane: registered blocks on
+        the device (tier ``g1``; the host and disk tiers wait for ROADMAP
+        item 9), capacity headroom, and a k-min sketch of the hashes."""
+        hashes = list(self.allocator.cached)
+        return KvInventoryDigest(
+            blocks=len(hashes), tier_blocks={"g1": len(hashes)},
+            pages_total=self.allocator.num_pages,
+            pages_free=self.allocator.num_free,
+            pages_active=self.allocator.num_active,
+            sketch=kmin_sketch(hashes))
+
+    def kv_status(self) -> dict:
+        """This worker's KV status (the reference's /debug/kv body):
+        allocator counters, reuse and the current digest. ``tiers``,
+        ``kvbm``, ``remote``, ``plane`` and ``adapters`` belong to ROADMAP
+        items 9, 11 and the engine-owned KV plane, none of them ported."""
+        return {
+            "role": "engine",
+            "allocator": self.allocator.stats(),
+            "tiers": {},
+            "reuse": {
+                "prefix_hit_blocks": self.prefix_hit_blocks,
+                "prefix_lookup_blocks": self.prefix_lookup_blocks,
+                "onboard_blocks_host": 0,
+                "onboard_blocks_peer": 0,
+            },
+            "plane": None,
+            "remote": None,
+            "kvbm": None,
+            "adapters": None,
+            "digest": self.inventory_digest().to_wire(),
+        }
+
+    def _publish(self) -> None:
+        """Drain the allocator's KV events and, when a loop was captured,
+        schedule their publication with the load metrics and (when due)
+        the inventory digest. Runs on the engine thread; never waits on
+        the loop."""
+        stored, removed = self.allocator.drain_events()
+        loop = self._publish_loop
+        if loop is None or loop.is_closed():
+            return
+        digest = None
+        if self.inventory_publisher is not None \
+                and self.inventory_publisher.due(time.monotonic()):
+            digest = self.inventory_digest()
+        if (self.kv_publisher is None and self.metrics_publisher is None
+                and digest is None):
+            return
+        active = sum(1 for r in self.slot_req if r is not None)
+        waiting = self.num_waiting
+        alloc = self.allocator
+        metrics = ForwardPassMetrics(
+            worker_stats=WorkerStats(
+                request_active_slots=active,
+                request_total_slots=self.config.max_num_seqs,
+                num_requests_waiting=waiting),
+            kv_stats=KvStats(
+                kv_active_blocks=alloc.num_active,
+                kv_total_blocks=alloc.num_pages,
+                gpu_cache_usage_perc=alloc.num_active / alloc.num_pages,
+                gpu_prefix_cache_hit_rate=(
+                    self.prefix_hit_blocks / self.prefix_lookup_blocks
+                    if self.prefix_lookup_blocks else 0.0)))
+
+        async def do_publish():
+            try:
+                if self.kv_publisher is not None:
+                    if stored:
+                        await self.kv_publisher.stored(stored)
+                    if removed:
+                        await self.kv_publisher.removed(removed)
+                if self.metrics_publisher is not None:
+                    await self.metrics_publisher.publish(
+                        metrics, force=active == 0 and waiting == 0)
+                if digest is not None:
+                    await self.inventory_publisher.publish(digest)
+            except Exception:  # noqa: BLE001
+                log.exception("publish failed")
+
+        asyncio.run_coroutine_threadsafe(do_publish(), loop)
+
     # -- engine-thread jobs (the disaggregation control path) -----------------
     async def run_job(self, fn):
         """Run ``fn`` on the engine thread, which owns all device work,
@@ -392,6 +504,10 @@ class GPUEngine(AsyncEngine):
                 fut.set_result(fn())
             except Exception as exc:  # noqa: BLE001 — deliver to the caller
                 fut.set_exception(exc)
+            # A job registers or drops blocks (a prefill worker's extract,
+            # clear_kv_blocks) and a prefill worker runs no windows:
+            # publish now, so its events neither wait nor pile up.
+            self._publish()
 
     @staticmethod
     def _reject_adapter_extract(req: PreprocessedRequest) -> None:
@@ -623,10 +739,15 @@ class GPUEngine(AsyncEngine):
                         dispatched = True
             # Process the oldest window once the pipe is full (or drain it
             # when nothing new could be dispatched).
-            if self._inflight and (len(self._inflight) >= depth
-                                   or not dispatched):
+            processed = bool(self._inflight) and (
+                len(self._inflight) >= depth or not dispatched)
+            if processed:
                 self._do_process(self._inflight.popleft())
             self._release_ready_pages()
+            if processed:
+                # After the release, so a worker gone idle reports the
+                # pages its last finished requests held as free.
+                self._publish()
             if self._inflight or chunk_dispatched:
                 continue
             if not have_active and self._chunk_inflight:

@@ -8,8 +8,14 @@ block's page under its chained block hash (``llm/tokens.py``): at placement
 for the prompt's blocks, and as generated tokens complete blocks. Pages of
 finished sequences stay registered and are reused on prefix hits
 (``acquire_cached``) until evicted, or until the admin clear
-(``clear_inactive``, the ``clear_kv_blocks`` request) drops them. The
-reference's KVBM demotion, router events and telemetry are not copied.
+(``clear_inactive``, the ``clear_kv_blocks`` request) drops them. Every
+registration, and every registration dropped (eviction, a replaced hash,
+``unregister``, ``clear_inactive``), is buffered as a stored or removed
+block hash for the KV router's index, at the reference's points;
+``drain_events`` hands them to the engine's publisher. ``stats`` gives the
+reference's occupancy and lifecycle counters. The reference's KVBM
+(watermark demotion and the evict hook into host tiers) waits for ROADMAP
+item 9, so ``demoted_blocks`` stays 0.
 
 Lifecycle invariant (as in the reference): a page is either FREE
 (unregistered, refcount 0), ACTIVE (refcount > 0 — held by one or more
@@ -42,6 +48,16 @@ class PageAllocator:
         self.inactive: OrderedDict[int, int] = OrderedDict()
         # Active references: page id -> refcount.
         self.refs: dict[int, int] = {}
+        # Router event buffers.
+        self.stored_events: list[int] = []
+        self.removed_events: list[int] = []
+        # Telemetry (plain ints on the engine thread's hot path).
+        self.reuse_hit_blocks = 0      # cached pages pinned on prefix hits
+        self.reuse_lookup_blocks = 0   # blocks probed by acquire_cached
+        self.evicted_blocks = 0        # LRU evictions under allocation
+        self.demoted_blocks = 0        # watermark demotions (ROADMAP item 9)
+        self.cleared_blocks = 0        # pages reclaimed by clear_inactive
+        self.clear_inactive_calls = 0
 
     # -- queries --------------------------------------------------------------
     @property
@@ -78,6 +94,8 @@ class PageAllocator:
                 h, page = self.inactive.popitem(last=False)
                 del self.cached[h]
                 del self.cached_by_page[page]
+                self.removed_events.append(h)
+                self.evicted_blocks += 1
             assert page not in self.refs, \
                 f"allocator invariant violated: page {page} already active"
             self.refs[page] = 1
@@ -87,10 +105,12 @@ class PageAllocator:
     def acquire_cached(self, block_hashes: list[int]) -> list[int]:
         """Pin the cached prefix pages for reuse; returns their page ids."""
         pages = []
+        self.reuse_lookup_blocks += len(block_hashes)
         for h in block_hashes:
             page = self.cached.get(h)
             if page is None:
                 break
+            self.reuse_hit_blocks += 1
             # Inactive -> active (stays registered so other sequences can
             # share — refcount tracks active users).
             self.inactive.pop(h, None)
@@ -109,6 +129,7 @@ class PageAllocator:
             del self.cached_by_page[page]
             self.cached.pop(existing, None)
             self.inactive.pop(existing, None)
+            self.removed_events.append(existing)
         if block_hash in self.cached:
             # Another page already holds this block; keep the older one. A
             # page whose old registration we just dropped must not leak out
@@ -120,6 +141,7 @@ class PageAllocator:
         self.cached_by_page[page] = block_hash
         if page not in self.refs:
             self.inactive[block_hash] = page
+        self.stored_events.append(block_hash)
 
     def unregister(self, pages: list[int]) -> None:
         """Drop these pages' prefix-cache registrations (used when a request
@@ -129,6 +151,7 @@ class PageAllocator:
             if h is not None:
                 self.cached.pop(h, None)
                 self.inactive.pop(h, None)
+                self.removed_events.append(h)
                 if page not in self.refs:
                     self.free.append(page)
 
@@ -159,6 +182,34 @@ class PageAllocator:
             del self.inactive[h]
             self.cached.pop(h, None)
             self.cached_by_page.pop(page, None)
+            self.removed_events.append(h)
             self.free.append(page)
             n += 1
+        self.clear_inactive_calls += 1
+        self.cleared_blocks += n
         return n
+
+    def stats(self) -> dict:
+        """Occupancy and lifecycle counters (the reference's keys)."""
+        return {
+            "pages_total": self.num_pages,
+            "pages_free": len(self.free),
+            "pages_active": len(self.refs),
+            "pages_inactive": len(self.inactive),
+            "cached_blocks": len(self.cached),
+            "occupancy": (len(self.refs) / self.num_pages
+                          if self.num_pages else 0.0),
+            "reuse_hit_blocks": self.reuse_hit_blocks,
+            "reuse_lookup_blocks": self.reuse_lookup_blocks,
+            "evicted_blocks": self.evicted_blocks,
+            "demoted_blocks": self.demoted_blocks,
+            "cleared_blocks": self.cleared_blocks,
+            "clear_inactive_calls": self.clear_inactive_calls,
+        }
+
+    def drain_events(self) -> tuple[list[int], list[int]]:
+        """The (stored, removed) block hashes buffered since the last
+        drain."""
+        stored, self.stored_events = self.stored_events, []
+        removed, self.removed_events = self.removed_events, []
+        return stored, removed

@@ -7,7 +7,11 @@ connects to the coordinator (and fails with its connection error when it
 cannot be reached), builds a ``ModelWatcher`` over the port's
 ``HttpService``, prints ``FRONTEND_READY port=N`` (``--http-port 0`` picks
 a free port) and serves every model that workers of either package
-register, until SIGINT or SIGTERM (exit 0). The reference frontend's
+register, until SIGINT or SIGTERM (exit 0). ``--router-mode kv`` routes
+each request to the worker whose KV cache holds most of its prefix,
+weighed against load (``llm/kv_router``), under the reference's
+``--kv-overlap-score-weight``, ``--kv-router-temperature``,
+``--no-kv-federation`` and ``--busy-threshold``. The reference frontend's
 other flags are refused with the ROADMAP item each waits for.
 """
 
@@ -18,12 +22,12 @@ import asyncio
 import signal
 
 from dynamo_tpu_torch.launch import add_refused_flags, start_front
-from dynamo_tpu_torch.llm.discovery import check_router_mode
+from dynamo_tpu_torch.llm.discovery import ROUTER_MODES
+from dynamo_tpu_torch.llm.kv_router import make_kv_router_factory
 from dynamo_tpu_torch.runtime.config import RuntimeConfig
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
 
 
-_KV_ROUTER = "ROADMAP item 7 (KV events and the KV router)"
 _OVERLOAD = "ROADMAP item 12 (overload admission and brownout)"
 _SLO = "ROADMAP item 12 (the SLO plane and request accounting)"
 _CANARY = "ROADMAP item 12 (canary probes and circuit breakers)"
@@ -31,10 +35,6 @@ _CANARY = "ROADMAP item 12 (canary probes and circuit breakers)"
 # The reference frontend's flags that the port does not serve:
 # (flag, what it waits for, add_argument keywords).
 REFUSED_FLAGS = (
-    ("--kv-overlap-score-weight", _KV_ROUTER, {"type": float}),
-    ("--kv-router-temperature", _KV_ROUTER, {"type": float}),
-    ("--no-kv-federation", _KV_ROUTER, {}),
-    ("--busy-threshold", _KV_ROUTER, {"type": float}),
     ("--no-overload-defense", _OVERLOAD, {}),
     ("--overload-target-ms", _OVERLOAD, {"type": float}),
     ("--overload-max-concurrency", _OVERLOAD, {"type": int}),
@@ -68,15 +68,30 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="default: DTPU_COORDINATOR_URL, else "
                              "tcp://127.0.0.1:4222")
     parser.add_argument("--router-mode", default="round_robin",
-                        help="round_robin or random ('kv' is not ported "
-                             "yet)")
+                        choices=ROUTER_MODES,
+                        help="worker selection policy (kv = KV-cache-aware)")
+    parser.add_argument("--kv-overlap-score-weight", type=float, default=1.0)
+    parser.add_argument("--kv-router-temperature", type=float, default=0.0)
+    parser.add_argument("--no-kv-federation", action="store_true",
+                        help="score candidates by the radix index only "
+                             "(no inventory-sketch overlap union)")
+    parser.add_argument("--busy-threshold", type=float, default=None,
+                        help="reject (503) when all workers exceed this "
+                             "fraction of their KV blocks in use")
     add_refused_flags(parser, REFUSED_FLAGS)
-    args = parser.parse_args(argv)
-    try:
-        check_router_mode(args.router_mode)
-    except ValueError as exc:
-        parser.error(str(exc))
-    return args
+    return parser.parse_args(argv)
+
+
+def kv_router_factory(args: argparse.Namespace):
+    """The KV router factory of ``--router-mode kv`` and its flags, else
+    None."""
+    if args.router_mode != "kv":
+        return None
+    return make_kv_router_factory(
+        overlap_score_weight=args.kv_overlap_score_weight,
+        temperature=args.kv_router_temperature,
+        busy_threshold=args.busy_threshold,
+        federation=not args.no_kv_federation)
 
 
 async def run(args: argparse.Namespace) -> None:
@@ -93,7 +108,8 @@ async def run(args: argparse.Namespace) -> None:
     try:
         service, watcher = await start_front(runtime, args.http_host,
                                              args.http_port,
-                                             args.router_mode)
+                                             args.router_mode,
+                                             kv_router_factory(args))
         print(f"FRONTEND_READY port={service.port}", flush=True)
         await runtime.wait_for_shutdown()
     finally:

@@ -190,15 +190,18 @@ def build_engine_config(args) -> EngineConfig:
 
 
 def load_engine(config: EngineConfig, checkpoint: str | None,
-                seed: int = 0) -> GPUEngine:
-    """A started engine for ``config``: the checkpoint's weights, or
-    random ones from ``seed`` when ``checkpoint`` is None. What the engine
+                seed: int = 0, start: bool = True, **engine_kw) -> GPUEngine:
+    """An engine for ``config``: the checkpoint's weights, or random ones
+    from ``seed`` when ``checkpoint`` is None; started unless ``start`` is
+    False (a worker starts it on its event loop, which its publishers
+    use). ``engine_kw`` go to GPUEngine (the publishers). What the engine
     cannot serve is refused before any weight is read."""
     check_supported(config)
     params = (load_hf_weights(config.model, checkpoint, config.device)
               if checkpoint else None)
-    engine = GPUEngine(config, params=params, seed=seed)
-    engine.start()
+    engine = GPUEngine(config, params=params, seed=seed, **engine_kw)
+    if start:
+        engine.start()
     return engine
 
 
@@ -267,13 +270,17 @@ async def start_http(args, engine: GPUEngine | None = None
 
 
 async def start_front(runtime: DistributedRuntime, host: str, port: int,
-                      router_mode: str = "round_robin"
+                      router_mode: str = "round_robin",
+                      kv_router_factory=None
                       ) -> tuple[HttpService, ModelWatcher]:
     """The distributed front: an HTTP front over a ModelWatcher of the
     coordinator's models/ prefix (``out=dyn`` and ``python -m
-    dynamo_tpu_torch.frontend``); the caller stops both."""
+    dynamo_tpu_torch.frontend``); ``kv_router_factory``
+    (``llm/kv_router.make_kv_router_factory``) builds the router under
+    ``router_mode="kv"``. The caller stops both."""
     manager = ModelManager()
-    watcher = ModelWatcher(runtime, manager, router_mode=router_mode)
+    watcher = ModelWatcher(runtime, manager, router_mode=router_mode,
+                           kv_router_factory=kv_router_factory)
     service = HttpService(manager, host=host, port=port)
     try:
         await watcher.start()

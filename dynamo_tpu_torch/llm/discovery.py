@@ -1,13 +1,18 @@
 """Model discovery: watcher, manager and routed pipeline assembly (copy of
-``dynamo_tpu.llm.discovery`` without the KV router, storage plug-in,
-fleet hooks, journal events and spans).
+``dynamo_tpu.llm.discovery`` without the storage plug-in, fleet hooks,
+journal events and spans).
 
 ``ModelWatcher`` watches the coordinator's ``models/`` prefix. On the first
 instance of a model it fetches the tokenizer from the object store and
-assembles Preprocessor -> Backend (detokenize) -> Migration ->
-RouterEngine (endpoint client); on lease-expiry deletes it drops the model
-when its last instance is gone. The one-process launcher fills a
-``ModelManager`` with a local ``ServedModel`` instead.
+assembles Preprocessor -> Backend (detokenize) -> Migration -> router:
+a RouterEngine (endpoint client, round robin or random) or, under
+``router_mode="kv"``, the KV router that ``kv_router_factory`` builds
+(``make_kv_router_factory()`` at its defaults when none is given),
+shared by every model name served by the same worker endpoint. On
+lease-expiry deletes it tells the KV router at once that the worker left
+(``note_worker_leave``) and drops the model when its last instance is
+gone. The one-process launcher fills a ``ModelManager`` with a local
+``ServedModel`` instead.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import asyncio
 from typing import AsyncIterator
 
 from dynamo_tpu_torch.llm.backend import Backend
+from dynamo_tpu_torch.llm.kv_router.router import make_kv_router_factory
 from dynamo_tpu_torch.llm.migration import Migration
 from dynamo_tpu_torch.llm.model_card import (MODEL_ROOT, ModelEntry,
                                              fetch_tokenizer, model_slug)
@@ -27,15 +33,14 @@ from dynamo_tpu_torch.runtime.logging import get_logger
 log = get_logger("discovery")
 
 
+ROUTER_MODES = ("round_robin", "random", "kv")
+
+
 def check_router_mode(mode: str) -> None:
     """Raise ``ValueError`` for a router mode the port does not serve."""
-    if mode == "kv":
-        raise ValueError("router mode 'kv' (KV-cache-aware routing) is not "
-                         "ported yet: it waits for ROADMAP item 7 (KV events "
-                         "and the KV router's inputs)")
-    if mode not in ("round_robin", "random"):
-        raise ValueError(f"router mode must be round_robin or random, got "
-                         f"{mode!r}")
+    if mode not in ROUTER_MODES:
+        raise ValueError(f"router mode must be one of "
+                         f"{', '.join(ROUTER_MODES)}, got {mode!r}")
 
 
 class RouterEngine(AsyncEngine):
@@ -59,10 +64,11 @@ class ServedModel:
     it is routed to workers, its endpoint client."""
 
     def __init__(self, entry: ModelEntry, preprocessor: OpenAIPreprocessor,
-                 client=None):
+                 client=None, router=None):
         self.entry = entry
         self.preprocessor = preprocessor
         self.client = client
+        self.router = router
         self.instances: set[int] = set()
 
     @property
@@ -86,11 +92,19 @@ class ModelManager:
 
 class ModelWatcher:
     def __init__(self, runtime, manager: ModelManager,
-                 router_mode: str = "round_robin"):
+                 router_mode: str = "round_robin", kv_router_factory=None):
         check_router_mode(router_mode)
         self._runtime = runtime
         self.manager = manager
         self.router_mode = router_mode
+        if router_mode == "kv" and kv_router_factory is None:
+            kv_router_factory = make_kv_router_factory()
+        self._kv_router_factory = kv_router_factory
+        # KV routers shared by the model names served at the SAME worker
+        # endpoint, so one radix and fleet view covers them; keyed by
+        # (namespace, component, endpoint), with the names using each, so
+        # the last one out closes it.
+        self._router_share: dict[tuple, dict] = {}
         self._task: asyncio.Task | None = None
         self._watch = None
         self._lock = asyncio.Lock()
@@ -141,23 +155,57 @@ class ModelWatcher:
             for name, served in list(self.manager.models.items()):
                 if model_slug(name) != slug:
                     continue
-                served.instances.discard(iid)
+                if iid is not None and iid in served.instances:
+                    served.instances.discard(iid)
+                    # Membership beats staleness: the KV router drops the
+                    # worker's index and inventory now, so a gone worker
+                    # attracts no more requests.
+                    note_leave = getattr(served.router, "note_worker_leave",
+                                         None)
+                    if note_leave is not None:
+                        note_leave(iid)
                 if not served.instances:
                     log.info("model %s: last instance gone; removing", name)
+                    await self._close_served(served)
                     del self.manager.models[name]
-                    await served.client.close()
+
+    async def _close_served(self, served: ServedModel) -> None:
+        for key, share in list(self._router_share.items()):
+            if share["router"] is served.router:
+                share["users"].discard(served.name)
+                if share["users"]:
+                    return  # other served names still use it
+                del self._router_share[key]
+                break
+        router_close = getattr(served.router, "close", None)
+        if router_close is not None:
+            await router_close()  # also closes the endpoint client
+        elif served.client is not None:
+            await served.client.close()
 
     async def _build(self, entry: ModelEntry) -> ServedModel:
         coordinator = self._runtime.require_coordinator()
         tokenizer = await fetch_tokenizer(coordinator, entry.card)
         endpoint = (self._runtime.namespace(entry.namespace)
                     .component(entry.component).endpoint(entry.endpoint))
-        client = await endpoint.client()
-        chain = Migration(entry.card.migration_limit,
-                          inner=RouterEngine(client, self.router_mode))
+        if self.router_mode == "kv":
+            share_key = (entry.namespace, entry.component, entry.endpoint)
+            share = self._router_share.get(share_key)
+            if share is None:
+                client = await endpoint.client()
+                router = await self._kv_router_factory(self._runtime, entry,
+                                                       client)
+                share = {"router": router, "client": client, "users": set()}
+                self._router_share[share_key] = share
+            client, router = share["client"], share["router"]
+            share["users"].add(entry.model_name)
+        else:
+            client = await endpoint.client()
+            router = RouterEngine(client, self.router_mode)
+        chain = Migration(entry.card.migration_limit, inner=router)
         backend = Backend(tokenizer, inner=chain)
         preprocessor = OpenAIPreprocessor(entry.card, tokenizer, inner=backend)
-        return ServedModel(entry, preprocessor, client)
+        return ServedModel(entry, preprocessor, client, router)
 
     async def stop(self) -> None:
         if self._task:
@@ -165,6 +213,5 @@ class ModelWatcher:
         if self._watch:
             await self._watch.cancel()
         for served in list(self.manager.models.values()):
-            if served.client is not None:
-                await served.client.close()
+            await self._close_served(served)
         self.manager.models.clear()

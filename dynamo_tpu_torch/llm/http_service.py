@@ -8,7 +8,9 @@ Routes: ``POST /v1/chat/completions`` and ``POST /v1/completions``
 body that does not parse or validate and for ``ValueError`` /
 ``InvalidRequestError`` from the pipeline, 404 for an unknown model, 503
 with ``Retry-After: 1`` when a routed model has no live worker
-(``NoInstancesError``), 500 otherwise. A streamed response pulls its
+(``NoInstancesError``), 503 ``overloaded`` with ``Retry-After: 1`` when
+the KV router finds every worker above its busy threshold
+(``OverloadedError``), 500 otherwise. A streamed response pulls its
 first chunk before it sends headers, so pipeline errors keep their
 status.
 
@@ -32,7 +34,8 @@ from dynamo_tpu_torch.llm.protocols import (ChatCompletionRequest,
                                             CompletionRequest, usage_block)
 from dynamo_tpu_torch.runtime.context import Context
 from dynamo_tpu_torch.runtime.errors import (InvalidRequestError,
-                                             NoInstancesError)
+                                             NoInstancesError,
+                                             OverloadedError)
 from dynamo_tpu_torch.runtime.logging import get_logger
 
 log = get_logger("http")
@@ -245,12 +248,14 @@ class HttpService:
             payload = await run(req, served, ex)
         except ConnectionError:
             raise
-        except NoInstancesError as exc:
+        except (NoInstancesError, OverloadedError) as exc:
             if ex.streaming:
                 raise
-            # The reference's Retry-After with no overload limiter: its
-            # default of one second.
-            code, payload = _error_body(str(exc), "service_unavailable", 503)
+            # The reference's Retry-After with no overload limiter (nor a
+            # hint on the error): its default of one second.
+            kind = ("overloaded" if isinstance(exc, OverloadedError)
+                    else "service_unavailable")
+            code, payload = _error_body(str(exc), kind, 503)
             extra = {"Retry-After": "1"}
         except (ValueError, InvalidRequestError) as exc:
             if ex.streaming:

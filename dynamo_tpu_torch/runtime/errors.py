@@ -7,7 +7,9 @@ by a drain or the handler's ``GeneratorExit``; the client raises
 ``StreamIncompleteError``, which ``Migration`` retries), ``killed`` (the
 client's own kill echoed back), ``invalid_request: <text>`` (the request
 failed validation; the client raises ``InvalidRequestError``, HTTP 400),
-or the handler's error as ``<ExceptionClass>: <text>`` (the client raises
+``overloaded: <text>`` (no capacity; ``OverloadedError``, HTTP 503 with
+``Retry-After``; a JAX worker's admission sends it, the port's worker
+does not yet, ROADMAP item 12a), or the handler's error as ``<ExceptionClass>: <text>`` (the client raises
 ``EngineError``). The tokens are the JAX package's.
 """
 
@@ -37,6 +39,19 @@ class NoInstancesError(EngineError):
     answers 503."""
 
 
+class OverloadedError(EngineError):
+    """Capacity rejection: every worker busy (the KV router's
+    ``busy_threshold``). The front answers 503 with ``Retry-After``; on
+    the wire the class rides an ``overloaded: `` prefix."""
+
+    WIRE_PREFIX = "overloaded: "
+
+    def __init__(self, message: str = "overloaded",
+                 retry_after_s: float | None = None):
+        super().__init__(message)
+        self.retry_after_s = retry_after_s
+
+
 class InvalidRequestError(EngineError):
     """The request itself is invalid (engine-level validation: unsupported
     sampling features, over-length prompts). Maps to HTTP 400 at the
@@ -55,4 +70,6 @@ def error_from_wire(payload) -> EngineError:
         if payload.startswith(InvalidRequestError.WIRE_PREFIX):
             return InvalidRequestError(
                 payload[len(InvalidRequestError.WIRE_PREFIX):])
+        if payload.startswith(OverloadedError.WIRE_PREFIX):
+            return OverloadedError(payload[len(OverloadedError.WIRE_PREFIX):])
     return EngineError(payload)

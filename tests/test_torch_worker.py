@@ -708,7 +708,8 @@ def test_entry_points_as_processes():
     (gpu.parse_args, ["--tp", "2"], "ROADMAP item 16"),
     (gpu.parse_args, ["--standby"], "planner"),
     (gpu.parse_args, ["--tool-call-parser", "hermes"], "parsers"),
-    (frontend_main.parse_args, ["--router-mode", "kv"], "ROADMAP item 7"),
+    (frontend_main.parse_args, ["--slo-ttft-p99-ms", "500"],
+     "ROADMAP item 12"),
     (frontend_main.parse_args, ["--grpc-port", "9"], "gRPC"),
     (frontend_main.parse_args, ["--canary"], "ROADMAP item 12"),
 ], ids=lambda v: " ".join(v) if isinstance(v, list) else None)
@@ -725,6 +726,22 @@ def test_defaults_of_the_entry_points():
         "cuda", "gpu", "generate", "agg")
     args = frontend_main.parse_args([])
     assert (args.router_mode, args.http_port) == ("round_robin", 8000)
+    assert frontend_main.kv_router_factory(args) is None
+    # The KV router's flags, at the reference frontend's defaults.
+    args = frontend_main.parse_args(["--router-mode", "kv"])
+    assert (args.kv_overlap_score_weight, args.kv_router_temperature,
+            args.no_kv_federation, args.busy_threshold) == (
+        1.0, 0.0, False, None)
+    assert callable(frontend_main.kv_router_factory(args))
+    args = frontend_main.parse_args(
+        ["--router-mode", "kv", "--kv-overlap-score-weight", "2",
+         "--kv-router-temperature", "0.5", "--no-kv-federation",
+         "--busy-threshold", "0.9"])
+    assert (args.kv_overlap_score_weight, args.kv_router_temperature,
+            args.no_kv_federation, args.busy_threshold) == (
+        2.0, 0.5, True, 0.9)
+    with pytest.raises(SystemExit):
+        frontend_main.parse_args(["--router-mode", "least_loaded"])
 
 
 def test_refused_flags_in_a_process():
