@@ -21,7 +21,10 @@ Phases, in order; any failure exits non-zero without the final line:
    its device time by CUDA-graph replay, with its eager and host time per
    call beside it (dynamo_tpu_torch/time_attention.py). The build's report
    gives each kernel's registers, spills and dynamic shared memory, and
-   each timing its split count S.
+   each timing its split count S. Then the sampling noise:
+   sampler.gumbel_field on the card equals the CPU's bits over seeded and
+   unseeded keys at the llama-3-8b vocabulary, and gumbel_of_bits over
+   all 2^24 uniforms.
 3. main path, bf16 pool: build the engine with launch.build_engine for
    llama-3-8b at full width (random weights, seed 0; one prefill program
    takes at most 2048 tokens), serve 8 concurrent requests through
@@ -42,7 +45,14 @@ Phases, in order; any failure exits non-zero without the final line:
    tokens and logprobs against a teacher-forced plain path with the same
    penalties. It prints the round's tok/s and TTFTs, the prefix hit
    ratio, each chunk's device ms, peak memory, hashing ms per 1000 tokens
-   and a window's ms with and without a logprobs row. The engine is then
+   and a window's ms with and without a logprobs row beside the decode
+   device ms a step (torch.profiler). A window replayed from its
+   program's CUDA graph equals the same program's body run eagerly on
+   the same packed state (greedy tokens equal, chosen and top-5 logprobs
+   within 1e-5), and the engine's window programs are printed: made,
+   captured, capture seconds, warmup seconds (launch.build_engine leaves
+   warmup_windows off, as the reference's launcher does: these programs
+   are captured at first use) and graph-pool bytes. The engine is then
    released.
 4. main path, int8 pool: the same with --quant-kv int8: every decode step
    of every layer, in both rounds, launches the int8 kernel and never the
@@ -208,7 +218,12 @@ Phases, in order; any failure exits non-zero without the final line:
    same streamed chat goes twice, the second reaches the worker whose
    stored events hold the prompt's blocks, and all four exit 0 on
    SIGTERM.
-The last lines are the kernels' JSON summary, the card's name and power
+In every phase from 3 to 9, each decode window an engine dispatched was
+a replay of its program's CUDA graph (the runner's replay count rises by
+the windows dispatched), and the warmed engines of phases 8-9 (built as
+``backends.gpu`` builds them, warmup_windows set) print their programs
+after the warmup and after each pass. The last lines are the script's
+total seconds, the kernels' JSON summary, the card's name and power
 limit, and {"ok": true, "device": {...}}.
 """
 
@@ -555,6 +570,13 @@ def main_path(attention, model, quant_kv: str | None) -> dict:
     round2.update(round2_plain_checks(engine, model, round2,
                                       quant=bool(quant_kv)))
     round2.update(time_windows(engine))
+    round2["decode_step_device_ms"] = decode_step_device_ms(engine)
+    win_ms = round2["window_ms_without_logprobs"]
+    log(f"decode window alone: {win_ms:.2f} ms a window, "
+        f"{win_ms / engine.decode_window:.2f} ms a step, against "
+        f"{round2['decode_step_device_ms']:.2f} device ms a step")
+    round2["replay_vs_eager_max_abs_logprob_diff"] = replay_check(engine)
+    round2["window_programs"] = graph_stats(engine, f"{kind} pool")
     log(json.dumps({"round2": {k: v for k, v in round2.items()
                                if not k.startswith("_")}}))
     stats["round2"] = {k: v for k, v in round2.items()
@@ -615,6 +637,7 @@ def round1(engine, attention, prompts) -> tuple[list, dict]:
     attention.KERNEL.launches = 0
     attention.KERNEL.launches_int8 = 0
     windows0 = engine.windows_dispatched
+    replays0 = engine.runner.window_replays
     seconds0 = len(engine.window_seconds)
     t0 = time.monotonic()
     results = asyncio.run(serve(engine, requests))
@@ -622,6 +645,7 @@ def round1(engine, attention, prompts) -> tuple[list, dict]:
     launches = {"paged_attention_hist": attention.KERNEL.launches,
                 "paged_attention_hist_int8": attention.KERNEL.launches_int8}
     windows = engine.windows_dispatched - windows0
+    check_replays(engine, replays0, windows)
     for i, r in enumerate(results):
         assert r["finish"] == "length", (i, r["finish"])
         assert len(r["tokens"]) == MAX_TOKENS, (i, len(r["tokens"]))
@@ -683,6 +707,7 @@ def second_round(engine, attention, round1_prompts) -> dict:
 
     hits0, lookups0 = engine.prefix_hit_blocks, engine.prefix_lookup_blocks
     windows0, chunks0 = engine.windows_dispatched, len(engine.chunk_records)
+    replays0 = engine.runner.window_replays
     runner.prefill_batch = capture
     attention.KERNEL.launches = 0
     attention.KERNEL.launches_int8 = 0
@@ -700,6 +725,7 @@ def second_round(engine, attention, round1_prompts) -> dict:
         del runner.prefill_batch
     peak = torch.cuda.max_memory_allocated()
     windows = engine.windows_dispatched - windows0
+    check_replays(engine, replays0, windows)
     for i, r in enumerate(results):
         assert r["finish"] == "length", (i, r["finish"])
         assert len(r["tokens"]) == ROUND2_MAX_TOKENS, (i, len(r["tokens"]))
@@ -903,6 +929,86 @@ def time_windows(engine, rows: int = 8, hist: int = 1224,
                                   "with_logprobs": times[True]}}
 
 
+def check_replays(engine, replays0: int, windows: int) -> None:
+    """Every window ``engine`` dispatched since its runner had replayed
+    ``replays0`` windows was a CUDA-graph replay: the card has no eager
+    window path, so a window that did not replay did not run."""
+    replays = engine.runner.window_replays - replays0
+    assert replays == windows, (f"{windows} windows dispatched, {replays} "
+                                f"replayed")
+
+
+def graph_stats(engine, label: str) -> dict:
+    """The engine's window programs: made, captured, their capture
+    seconds, the warmup's seconds (0 without warmup_windows) and the graph
+    pool's bytes; logged."""
+    stats = dict(engine.runner.window_programs(),
+                 warmup_s=engine.warmup_seconds)
+    log(f"window programs ({label}): {stats['programs']} made, "
+        f"{stats['captured']} captured in {stats['capture_s']:.2f} s; "
+        f"warmup {stats['warmup_s']:.2f} s; graph pool "
+        f"{stats['graph_pool_bytes']} bytes "
+        f"({stats['graph_pool_bytes'] / 2**20:.1f} MiB)")
+    return stats
+
+
+def replay_check(engine) -> float:
+    """One window run alone on the stopped engine (alone_window, one row
+    asking for logprobs), replayed from its program's graph and then run
+    through the same program's body eagerly on the same packed state
+    (tokens_dev and the noise step put back between the two): greedy
+    tokens equal, and the chosen and top-5 logprobs within 1e-5 (the same
+    kernels in the same order: 0 is expected). Returns the largest
+    logprob difference."""
+    from dynamo_tpu_torch.engine import runner as trunner
+    runner, M = engine.runner, engine.decode_window
+    packed, pages = alone_window(engine, 8, 1224)
+    packed[1, trunner.PK_LOGPROB] = 1
+    key = (M, packed.shape[1] - trunner.PK_PREFIX, False, False, True)
+    try:
+        tokens = runner.tokens_dev.clone()
+        step = runner._noise_step.clone()
+        replays0 = runner.window_replays
+        replayed = [t.clone() for t in runner.decode_window(packed, M)]
+        assert runner.window_replays == replays0 + 1
+        runner.tokens_dev.copy_(tokens)
+        runner._noise_step.copy_(step)
+        eager = runner._window_cache[key].run_eager(packed)
+        torch.cuda.synchronize()
+    finally:
+        engine.allocator.release(pages)
+    assert torch.equal(replayed[0], eager[0]), "replay and eager tokens"
+    assert torch.equal(replayed[3][..., :5], eager[3][..., :5])
+    diff = max(float((replayed[1] - eager[1]).abs().max()),
+               float((replayed[2][..., :5] - eager[2][..., :5]).abs().max()))
+    log(f"replayed window vs its eager body ({runner.quant_kv or 'bf16'} "
+        f"pool, key {key}): tokens equal, max|logprob diff| {diff} "
+        f"(tolerance 1e-5)")
+    assert diff <= 1e-5, diff
+    return diff
+
+
+def noise_check(vocab: int) -> None:
+    """sampler.gumbel_field on the card equals the CPU's bits for seeded
+    keys (request seeds at token positions) and unseeded ones (a runner's
+    keys at noise steps) over ``vocab`` tokens, and gumbel_of_bits maps
+    every one of the 2^24 uniforms to the same fp32 value on both."""
+    from dynamo_tpu_torch.engine import sampler
+    keys = torch.tensor([0, 1, 1234, 4321, 2**31 - 1, 2**32, 2**32 + 31,
+                         2**33 + 7], dtype=torch.int64)
+    counters = torch.tensor([0, 1, 1200, 6033, 2**31 - 1, 0, 5, 987654],
+                            dtype=torch.int64)
+    cpu = sampler.gumbel_field(keys, counters, vocab)
+    card = sampler.gumbel_field(keys.cuda(), counters.cuda(), vocab).cpu()
+    assert torch.equal(cpu.view(torch.int32), card.view(torch.int32))
+    bits = torch.arange(1 << sampler.UNIFORM_BITS, dtype=torch.int64)
+    cpu = sampler.gumbel_of_bits(bits)
+    card = sampler.gumbel_of_bits(bits.cuda()).cpu()
+    assert torch.equal(cpu.view(torch.int32), card.view(torch.int32))
+    log(f"gumbel_field: card == CPU bit for bit over {len(keys)} keys x "
+        f"{vocab} tokens and all {len(bits)} uniforms")
+
+
 # ---------------------------------------------------------------------------
 # Phase 5: the OpenAI front at full width
 # ---------------------------------------------------------------------------
@@ -1080,6 +1186,7 @@ def http_phase(attention) -> dict:
         attention.KERNEL.launches = 0
         attention.KERNEL.launches_int8 = 0
         windows0 = engine.windows_dispatched
+        replays0 = engine.runner.window_replays
         for path in ("/v1/models", "/health"):
             res = http_call(port, "GET", path)
             assert res["status"] == 200, res
@@ -1134,6 +1241,7 @@ def http_phase(attention) -> dict:
                     "paged_attention_hist_int8":
                         attention.KERNEL.launches_int8}
         windows = engine.windows_dispatched - windows0
+        check_replays(engine, replays0, windows)
         expected = windows * engine.decode_window * spec.num_layers
         assert launches["paged_attention_hist"] == expected > 0, (
             launches, expected)
@@ -1170,6 +1278,7 @@ def http_phase(attention) -> dict:
                    "summaries": summaries, "alone_summary": streamed,
                    "names": names}
         stats["dist"] = dist_phase(attention, engine, tok, on_loop, traffic)
+        stats["window_programs"] = graph_stats(engine, "phases 5-6")
     finally:
         on_loop(service.stop(), 60)
         engine.stop()
@@ -1260,6 +1369,7 @@ def dist_phase(attention, engine, tokenizer, on_loop, traffic) -> dict:
         attention.KERNEL.launches = 0
         attention.KERNEL.launches_int8 = 0
         windows0 = engine.windows_dispatched
+        replays0 = engine.runner.window_replays
         models = http_call(port, "GET", "/v1/models")
         assert models["status"] == 200, models
         assert [m["id"] for m in models["json"]["data"]] == [MODEL], models
@@ -1297,6 +1407,7 @@ def dist_phase(attention, engine, tokenizer, on_loop, traffic) -> dict:
                     "paged_attention_hist_int8":
                         attention.KERNEL.launches_int8}
         windows = engine.windows_dispatched - windows0
+        check_replays(engine, replays0, windows)
         expected = windows * engine.decode_window * spec.num_layers
         assert launches["paged_attention_hist"] == expected > 0, (
             launches, expected)
@@ -1692,7 +1803,8 @@ def checkpoint_engine(attention, model, directory, ref, extra=()) -> dict:
             float((a.cpu() - b).abs().max())
             for a, b in zip(logits, ref["tf_logits"])),
         "tf_min_cosine_vs_preset": min_cosine(logits, ref["tf_logits"]),
-        "decode_step_device_ms": decode_step_device_ms(engine)})
+        "decode_step_device_ms": decode_step_device_ms(engine),
+        "window_programs": graph_stats(engine, f"checkpoint {argv[2:]}")})
     log(json.dumps({"checkpoint_engine": argv[2:], **stats}))
     stats["_engine"] = engine
     return stats
@@ -1877,6 +1989,7 @@ def disagg_engine(mode: str, quant_kv: str | None):
         f"{engine.runner.num_pages} pool="
         f"{engine.runner.kv_pool_bytes / 2**30:.2f} GiB setup="
         f"{time.monotonic() - t0:.1f}s")
+    graph_stats(engine, f"{mode} engine after its warmup")
     return engine
 
 
@@ -2184,6 +2297,8 @@ def disagg_phase(attention, model, refs: dict) -> dict:
             attention.KERNEL.launches_int8 = 0
             d_windows0 = d_engine.windows_dispatched
             p_windows0 = p_engine.windows_dispatched
+            d_replays0 = d_engine.runner.window_replays
+            p_replays0 = p_engine.runner.window_replays
             injected0 = d_engine.injected_admissions
             t0 = time.monotonic()
             with ThreadPoolExecutor(len(bodies)) as pool:
@@ -2198,6 +2313,9 @@ def disagg_phase(attention, model, refs: dict) -> dict:
             d_windows = d_engine.windows_dispatched - d_windows0
             assert p_engine.windows_dispatched == p_windows0, (
                 "the prefill worker ran decode windows")
+            check_replays(d_engine, d_replays0, d_windows)
+            check_replays(p_engine, p_replays0, 0)
+            graph_stats(d_engine, f"{label}: decode engine")
             summaries = []
             for i, (res, body) in enumerate(zip(results, bodies)):
                 assert res["status"] == 200, (i, res)
@@ -2613,7 +2731,10 @@ def kv_routing_phase(attention, model) -> dict:
             engine.kv_publisher = kv_pub
             engine.metrics_publisher = metrics_pub
             engine.inventory_publisher = inv_pub
-            engine.start()  # on this loop, which the publishers use
+            # For this loop, which the publishers use, from an executor:
+            # the warmup takes seconds and the leases must keep flowing.
+            await asyncio.get_running_loop().run_in_executor(
+                None, engine.start, loop)
             inv_pub.start_periodic(engine.inventory_digest)
             servers.append(await serve_engine(rt, engine, MODEL, tokenizer))
             rts.append(rt)
@@ -2671,6 +2792,7 @@ def kv_routing_phase(attention, model) -> dict:
             attention.KERNEL.launches = 0
             attention.KERNEL.launches_int8 = 0
             windows0 = [e.windows_dispatched for e in engines]
+            replays0 = [e.runner.window_replays for e in engines]
             hits0 = [e.prefix_hit_blocks for e in engines]
             want = 4 * KV_PREFIX_TOKENS // 16
             index_full: list[float] = []
@@ -2743,6 +2865,9 @@ def kv_routing_phase(attention, model) -> dict:
                             attention.KERNEL.launches_int8}
             windows = [e.windows_dispatched - w0
                        for e, w0 in zip(engines, windows0)]
+            for i, (e, r0, w) in enumerate(zip(engines, replays0, windows)):
+                check_replays(e, r0, w)
+                graph_stats(e, f"{mode} pass: worker {i}")
             spec = engines[0].runner.spec
             expected = sum(windows) * engines[0].decode_window \
                 * spec.num_layers
@@ -3041,6 +3166,7 @@ def main() -> int:
               "(dynamo_tpu_torch not importable)", file=sys.stderr)
         traceback.print_exc()
         return 1
+    t_start = time.monotonic()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
@@ -3056,6 +3182,7 @@ def main() -> int:
         timing_int8 = time_kernel(attention, True, "uniform")
         main_bf16 = time_kernel(attention, False, "main")
         main_int8 = time_kernel(attention, True, "main")
+        noise_check(128256)
         torch.cuda.empty_cache()
         stats_bf16 = main_path(attention, model, None)
         stats_int8 = main_path(attention, model, "int8")
@@ -3082,6 +3209,7 @@ def main() -> int:
         return {mode: p["launches"][kernel]
                 for mode, p in kv["passes"].items()}
 
+    log(f"chip_smoke: {time.monotonic() - t_start:.1f} s in all")
     log(json.dumps({"kernels": [
         kernel_entry("paged_attention_hist", "bf16 pool", timing_bf16,
                      main_bf16, err_bf16, stats_bf16,

@@ -53,6 +53,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import dataclasses
 import functools
 import signal
 
@@ -65,9 +66,10 @@ from dynamo_tpu_torch.llm.kv_plane import KvPlaneServer
 from dynamo_tpu_torch.llm.kv_router.publisher import (KvEventPublisher,
                                                       KvInventoryPublisher,
                                                       WorkerMetricsPublisher)
+from dynamo_tpu_torch import launch
+from dynamo_tpu_torch.engine.config import EngineConfig
 from dynamo_tpu_torch.launch import (add_engine_args, add_refused_flags,
-                                     build_engine_config, load_engine,
-                                     load_tokenizer)
+                                     load_engine, load_tokenizer)
 from dynamo_tpu_torch.llm.model_card import (ModelRuntimeConfig,
                                              deregister_llm, register_llm)
 from dynamo_tpu_torch.llm.prefill_queue import (QueuePrefillDispatcher,
@@ -120,6 +122,14 @@ REFUSED_FLAGS = (
     ("--warmup-prefill-ladder", "no ROADMAP item: the port compiles no "
                                 "prefill programs", {}),
 )
+
+
+def build_engine_config(args: argparse.Namespace) -> EngineConfig:
+    """The launcher's engine config with ``warmup_windows`` set: a worker
+    makes the smallest bucket's window programs before it serves, as the
+    reference's worker does."""
+    return dataclasses.replace(launch.build_engine_config(args),
+                               warmup_windows=True)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -290,9 +300,10 @@ async def run(args: argparse.Namespace) -> None:
         engine = await loop.run_in_executor(None, functools.partial(
             load_engine, engine_cfg, ckpt, args.seed, start=False,
             kv_publisher=kv_pub, metrics_publisher=metrics_pub))
-        # Started here, on the loop the publishers run on.
+        # Started for the loop the publishers run on, from an executor:
+        # the warmup takes seconds, and the lease keepalives must flow.
         engine.inventory_publisher = inventory_pub
-        engine.start()
+        await loop.run_in_executor(None, engine.start, loop)
         if inventory_pub is not None:
             inventory_pub.start_periodic(engine.inventory_digest)
         prefill_component = args.prefill_component or PREFILL_COMPONENT

@@ -24,10 +24,12 @@ ctypes; nothing is built or imported when this module is imported.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -77,14 +79,37 @@ class PagedAttentionKernel:
     ``launches_int8`` (int8 pool, ``paged_attention_hist_int8``) each go up
     by one for every launch of that entry point and nowhere else, so a
     caller can zero them, drive a path, and read how many times that path
-    ran each variant."""
+    ran each variant. Under a CUDA graph capture the wrapper's call only
+    records the launch: the capturing thread wraps the capture in
+    ``recording()``, which collects its calls in a tally instead of the
+    counts, and adds the tally to the counts on every replay with
+    ``add_replay``."""
 
     def __init__(self):
         self.launches = 0
         self.launches_int8 = 0
         self._lib = None
+        self._local = threading.local()
         self.build_log = ""
         self.build_seconds = 0.0
+
+    @contextlib.contextmanager
+    def recording(self):
+        """Within this block, this thread's calls go to the yielded tally
+        ``[bf16, int8]`` and not to the counts (other threads' calls still
+        count)."""
+        tally = [0, 0]
+        outer = getattr(self._local, "tally", None)
+        self._local.tally = tally
+        try:
+            yield tally
+        finally:
+            self._local.tally = outer
+
+    def add_replay(self, tally) -> None:
+        """Count the launches one replay of a captured graph makes."""
+        self.launches += tally[0]
+        self.launches_int8 += tally[1]
 
     def build(self) -> None:
         """Compile the source (if the library is missing or older than it)
@@ -204,7 +229,10 @@ class PagedAttentionKernel:
                 *ints)
         if err != 0:
             raise RuntimeError(f"{name} launch failed: cudaError {err}")
-        if quant:
+        tally = getattr(self._local, "tally", None)
+        if tally is not None:
+            tally[int(quant)] += 1
+        elif quant:
             self.launches_int8 += 1
         else:
             self.launches += 1

@@ -50,6 +50,7 @@ import asyncio
 import collections
 import concurrent.futures
 import dataclasses
+import itertools
 import queue
 import threading
 import time
@@ -255,19 +256,38 @@ class GPUEngine(AsyncEngine):
         self._jobs: queue.Queue = queue.Queue()
         self.streamed_extracts = 0  # chunk-streamed extracts staged
         self.injected_admissions = 0  # parcels inserted at admission
+        self.warmup_seconds = 0.0     # _warmup_window_programs' wall time
 
     # -- lifecycle ------------------------------------------------------------
-    def start(self) -> None:
+    def start(self, loop: asyncio.AbstractEventLoop | None = None) -> None:
+        """Start the engine thread. ``loop`` is the event loop the
+        publishers run on (default: the running loop, if any). With
+        ``config.warmup_windows`` the thread first warms the window
+        programs (``_warmup_window_programs``); this waits for that and
+        raises what it raised, and the engine does not start. A caller on
+        an event loop that must keep running passes its loop and calls
+        this from an executor."""
         if self._running:
             return
         self._running = True
-        try:
-            self._publish_loop = asyncio.get_running_loop()
-        except RuntimeError:
-            self._publish_loop = None
+        if loop is None:
+            try:
+                loop = asyncio.get_running_loop()
+            except RuntimeError:
+                loop = None
+        self._publish_loop = loop
+        ready = threading.Event()
+        failure: list[BaseException] = []
         self._thread = threading.Thread(target=self._engine_loop,
+                                        args=(ready, failure),
                                         name="gpu-engine", daemon=True)
         self._thread.start()
+        ready.wait()
+        if failure:
+            self._thread.join()
+            self._thread = None
+            raise RuntimeError("engine start failed: window program warmup "
+                               "raised") from failure[0]
 
     def stop(self) -> None:
         self._running = False
@@ -699,10 +719,58 @@ class GPUEngine(AsyncEngine):
             r.pages = []
 
     # -- engine loop ----------------------------------------------------------
-    def _engine_loop(self) -> None:
+    def _warmup_window_programs(self) -> None:
+        """Make the smallest page bucket's window programs before serving
+        (captured on the card), then prefill the smallest prefill bucket:
+        the counterpart of the reference's warmup. The runner makes a
+        program at its key's first use on the engine thread, so without
+        this the first requests stall on the captures; larger buckets are
+        still made at first use. The work is inert: all-zero packed rows
+        are inactive (PK_SEQLEN 0), so the windows write only the scratch
+        page 0 and leave ``tokens_dev`` and ``counts`` as they are, and
+        the prefill row writes only page 0."""
+        start = t0 = time.monotonic()
+        runner, M = self.runner, self.decode_window
+        packed = np.zeros((self.config.max_num_seqs,
+                           PK_PREFIX + runner.bucket_pages_for(1)), np.int32)
+        one = np.float32(1.0).view(np.int32)
+        for penalized, seeded, logprobs in itertools.product((False, True),
+                                                             repeat=3):
+            rows = packed.copy()
+            rows[0, PK_FREQPEN] = one if penalized else 0
+            rows[0, PK_SEEDED] = int(seeded)
+            rows[0, PK_LOGPROB] = int(logprobs)
+            _Readback(runner.decode_window(rows, M)).numpy()
+        stats = runner.window_programs()
+        log.info("warmed %d window programs M=%d in %.1fs (%.1fs capturing; "
+                 "graph pool %.1f MiB)", stats["programs"], M,
+                 time.monotonic() - t0, stats["capture_s"],
+                 stats["graph_pool_bytes"] / 2**20)
+        t0 = time.monotonic()
+        bucket = self.config.prefill_buckets[0]
+        seq = PrefillSeq(tokens=np.zeros(min(4, bucket), np.int32),
+                         chunk_pages=np.zeros(1, np.int32),  # scratch page
+                         sampling=(0.0, 0, 1.0))
+        _Readback(self.runner.prefill_batch([seq])).numpy()
+        self.warmup_seconds = time.monotonic() - start
+        log.info("warmed prefill bucket %d in %.1fs", bucket,
+                 time.monotonic() - t0)
+
+    def _engine_loop(self, ready: threading.Event,
+                     failure: list[BaseException]) -> None:
         log.info("engine loop starting (slots=%d pages=%d window=%d "
                  "chunk=%d)", self.config.max_num_seqs, self.runner.num_pages,
                  self.decode_window, self.prefill_chunk_tokens)
+        try:
+            if self.config.warmup_windows:
+                self._warmup_window_programs()
+        except Exception as exc:  # start() raises it
+            log.exception("window program warmup failed")
+            failure.append(exc)
+            self._running = False
+            return
+        finally:
+            ready.set()
         depth = max(1, self.config.pipeline_depth)
         while self._running:
             self._run_jobs()

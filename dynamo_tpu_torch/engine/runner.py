@@ -11,13 +11,23 @@
   uploads one packed int32 control array per window (the ``PK_*`` columns,
   byte-identical to the reference), tokens chain on the device, the
   window's K/V collects in a small buffer, and one commit scatter writes
-  it into the pool at the end.
+  it into the pool at the end. As in the reference, where each window key
+  is one compiled program (``_get_window``), each key here is one
+  ``WindowProgram``: on the CPU its body runs eagerly every window; on
+  the card it is captured once as a CUDA graph and every window replays
+  it. The card has no eager window path.
 - OpenAI frequency/presence penalties read a ``[max_num_seqs, vocab]``
   uint8 count state on the device (``counts``): prefills install a slot's
   row, penalised windows subtract ``freq * count + pres * (count > 0)``
   before temperature and top-k and bump the count of each live sampled
   token, saturating at 255. Logprobs (the chosen token's and the top
   ``TOP_LOGPROBS``) are computed only when some row asks for them.
+- Sampling noise comes from ``sampler.gumbel_field`` on the device: a
+  seeded row's field is keyed by (seed, position of the token being
+  sampled), in prefill and in windows alike, so a seeded request's draw at
+  a position does not depend on the batch, on which program sampled it or
+  on a preemption; unseeded rows are keyed by (runner, row) and a device
+  counter, ``_noise_step``, that every sampling step advances.
 
 Weights are bf16, or int8 with float32 per-channel scales (``--quant
 int8``, ``quant.QTensor`` leaves): a bf16 tree given with an int8 spec is
@@ -44,6 +54,8 @@ they are XLA in the reference.
 from __future__ import annotations
 
 import dataclasses
+import threading
+import time
 
 import numpy as np
 import torch
@@ -58,7 +70,7 @@ from dynamo_tpu_torch.engine.model import (decode_window_step, init_params,
                                            prefill_with_history)
 from dynamo_tpu_torch.engine.quant import (QTensor, is_quantized,
                                            quantize_params)
-from dynamo_tpu_torch.engine.sampler import (gumbel_noise,
+from dynamo_tpu_torch.engine.sampler import (gumbel_field,
                                              sample_tokens_per_row)
 from dynamo_tpu_torch.runtime.logging import get_logger
 
@@ -86,6 +98,13 @@ PK_PREFIX = 14    # page table starts here
 TOP_LOGPROBS = 8  # alternatives returned when logprobs are requested
 
 SEED_MASK = 0x7FFFFFFF  # seeds ride int32 control columns: 31 usable bits
+# Unseeded rows' noise keys are (runner seed + 1) * 2^32 + row: above every
+# masked request seed, so the two key sets never meet.
+UNSEEDED_KEY_STRIDE = 1 << 32
+
+# One CUDA graph capture at a time in the process: two engines may share
+# it, and the caching allocator must not empty its cache during a capture.
+CAPTURE_LOCK = threading.Lock()
 
 
 def mask_seed(seed: int) -> int:
@@ -149,6 +168,9 @@ def _unsupported(config: EngineConfig) -> list[str]:
     if config.attention_backend not in ("auto", "pallas"):
         out.append(f"attention_backend={config.attention_backend!r} (the "
                    f"port always runs its paged attention kernel)")
+    if config.warmup_prefill_ladder:
+        out.append("warmup_prefill_ladder (no ROADMAP item: the port's "
+                   "prefill is eager and has no programs to compile)")
     if config.dtype != "bfloat16":
         out.append(f"dtype={config.dtype}")
     return out
@@ -197,11 +219,22 @@ class ModelRunner:
                                for t in _leaves(self.params))
         # The pool's real bytes: bf16 values, or int8 values + f32 scales.
         self.kv_pool_bytes = self.k_cache.nbytes + self.v_cache.nbytes
-        # Noise for unseeded sampling rows.
-        self._rng = torch.Generator(device=self.device).manual_seed(seed + 1)
-        # The chained next-token per slot, on device.
+        # Unseeded sampling rows: key base and the device step counter.
+        self._unseeded_key = (seed + 1) * UNSEEDED_KEY_STRIDE
+        self._noise_step = torch.zeros(1, dtype=torch.int64,
+                                       device=self.device)
+        # The chained next-token per slot, on device: one fixed tensor,
+        # written in place by prefills and by every window program.
         self.tokens_dev = torch.zeros(config.max_num_seqs, dtype=torch.int32,
                                       device=self.device)
+        # Window programs by key (``_get_window``); on the card they are
+        # CUDA graphs sharing one memory pool and one capture stream.
+        self.use_graphs = self.device.type == "cuda"
+        self._window_cache: dict[tuple, WindowProgram] = {}
+        self._graph_pool = None
+        self._capture_stream = None
+        self.window_replays = 0   # windows run as graph replays
+        self.capture_seconds = 0.0
         # Penalty state: generated-token counts per slot (saturating).
         self.counts = torch.zeros((config.max_num_seqs, spec.vocab_size),
                                   dtype=torch.uint8, device=self.device)
@@ -234,7 +267,8 @@ class ModelRunner:
         if self.device.type != "cuda":
             raise ValueError("num_pages must be set when the runner is not "
                              "on a GPU (there is no free memory to size from)")
-        torch.cuda.empty_cache()
+        with CAPTURE_LOCK:  # another engine's capture may be under way
+            torch.cuda.empty_cache()
         free, _ = torch.cuda.mem_get_info(self.device)
         budget = max(64 << 20, int(free * cfg.hbm_kv_budget_frac))
         page_bytes = cfg.kv_token_bytes() * cfg.page_size
@@ -242,28 +276,44 @@ class ModelRunner:
         log.info("KV pool: %d pages of %d tokens (%.1f GiB)", self.num_pages,
                  cfg.page_size, self.num_pages * page_bytes / (1 << 30))
 
+    def _pinned(self, arr: np.ndarray) -> torch.Tensor:
+        """Host array as a CPU tensor, page-locked when the runner is on
+        the card. Torch's pinned allocator does not hand the block out
+        again before the copies queued from it have run, so a fresh
+        buffer per upload never races a queued copy."""
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        return t.pin_memory() if self.device.type == "cuda" else t
+
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         """Host array -> device without waiting for queued device work."""
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
+        return self._pinned(arr).to(self.device, non_blocking=True)
+
+    def _draw(self, seeded: torch.Tensor | None, seeds: torch.Tensor,
+              positions: torch.Tensor) -> torch.Tensor:
+        """Gumbel noise [B, V] for one sampling step, on the device. Row b
+        is keyed by (seeds[b], positions[b]: the position of the token
+        being sampled) where ``seeded[b]``, else by (this runner, b) and
+        the noise step, which this advances; ``seeded`` None means no
+        seeded row."""
+        b = positions.shape[0]
+        keys = self._unseeded_key + torch.arange(b, device=self.device)
+        counters = self._noise_step.expand(b)
+        if seeded is not None:
+            keys = torch.where(seeded, seeds.long(), keys)
+            counters = torch.where(seeded, positions.long(), counters)
+        noise = gumbel_field(keys, counters, self.spec.vocab_size)
+        self._noise_step += 1
+        return noise
 
     def _noise(self, sampling: np.ndarray, seeds: np.ndarray,
                seeded: np.ndarray, positions: np.ndarray):
-        """Gumbel noise [B, V] for one sampling step, or None when no row
-        samples. Unseeded rows share one draw from the runner's generator;
-        a seeded row draws from a generator keyed by (seed, position of the
-        token being sampled), so its draw depends on nothing else."""
+        """A prefill's first-token noise [B, V] (``_draw``), or None when
+        no row samples."""
         if not sampling.any():
             return None
-        b, v = len(sampling), self.spec.vocab_size
-        noise = gumbel_noise((b, v), self._rng, self.device)
-        for i in np.flatnonzero(sampling & seeded):
-            gen = torch.Generator(device=self.device).manual_seed(
-                (int(seeds[i]) << 32) | (int(positions[i]) & 0xFFFFFFFF))
-            noise[i] = gumbel_noise((v,), gen, self.device)
-        return noise
+        mask = self._upload(np.asarray(seeded, bool)) if seeded.any() else None
+        return self._draw(mask, self._upload(np.asarray(seeds, np.int64)),
+                          self._upload(np.asarray(positions, np.int64)))
 
     # -- public API (called from the engine thread) --------------------------
     def _prefill_logits(self, seqs: list[PrefillSeq]) -> torch.Tensor:
@@ -383,18 +433,30 @@ class ModelRunner:
             b *= 2
         return min(b, maxp)
 
+    def _get_window(self, window: int, bucket_pages: int,
+                    penalized: bool, seeded: bool,
+                    logprobs: bool) -> "WindowProgram":
+        """The window program of one key (``WindowProgram``), made at its
+        first use; on the card it is captured then."""
+        key = (window, bucket_pages, penalized, seeded, logprobs)
+        prog = self._window_cache.get(key)
+        if prog is None:
+            prog = self._window_cache[key] = WindowProgram(self, key)
+        return prog
+
     def decode_window(self, packed: np.ndarray, window: int):
         """Run one M-step decode window.
 
-        packed [B, PK_PREFIX + bucket_pages] int32 (see PK_* columns).
-        Returns (tokens [M,B] int32, logprobs [M,B], top values [M,B,K],
-        top ids [M,B,K]) as device tensors, the last three None unless
-        some slot sets PK_LOGPROB."""
+        packed [max_num_seqs, PK_PREFIX + bucket_pages] int32 (see PK_*
+        columns). Returns (tokens [M,B] int32, logprobs [M,B], top values
+        [M,B,K], top ids [M,B,K]) as device tensors, the last three None
+        unless some slot sets PK_LOGPROB. On the card they are the
+        program's output buffers: valid until the next window's replay, so
+        the caller queues their copies before it dispatches another."""
         M = int(window)
         spec, page = self.spec, self.config.page_size
         if packed[:, PK_ADAPTER].any():
             raise ValueError("LoRA adapters are not ported yet")
-        B = packed.shape[0]
         h_hist = np.maximum(packed[:, PK_SEQLEN].astype(np.int64) - 1, 0)
         if (h_hist > (packed.shape[1] - PK_PREFIX) * page).any():
             raise ValueError("a slot's history is longer than its page-table "
@@ -403,10 +465,39 @@ class ModelRunner:
         per_launch = attention.hist_flash_bytes(h_hist, spec.num_heads,
                                                 self.k_cache)
         self.attention_bytes += M * spec.num_layers * per_launch
-        penalized = bool(packed[:, PK_FREQPEN].any()
-                         or packed[:, PK_PRESPEN].any())
-        want_lp = bool(packed[:, PK_LOGPROB].any())
-        dev = self._upload(packed)
+        prog = self._get_window(
+            M, packed.shape[1] - PK_PREFIX,
+            penalized=bool(packed[:, PK_FREQPEN].any()
+                           or packed[:, PK_PRESPEN].any()),
+            seeded=bool(packed[:, PK_SEEDED].any()),
+            logprobs=bool(packed[:, PK_LOGPROB].any()))
+        return prog.run(packed)
+
+    def _window_outputs(self, key: tuple) -> tuple:
+        """Fresh output tensors of one window of ``key``: tokens [M, B]
+        and, for a logprobs program, logprobs and the top values and ids;
+        None for those otherwise."""
+        M, logprobs = key[0], key[4]
+        B, dev = self.config.max_num_seqs, self.device
+        toks = torch.empty((M, B), dtype=torch.int32, device=dev)
+        if not logprobs:
+            return toks, None, None, None
+        return (toks, torch.empty((M, B), dtype=torch.float32, device=dev),
+                torch.empty((M, B, TOP_LOGPROBS), dtype=torch.float32,
+                            device=dev),
+                torch.empty((M, B, TOP_LOGPROBS), dtype=torch.int32,
+                            device=dev))
+
+    def _window_body(self, key: tuple, dev: torch.Tensor, outs: tuple) -> None:
+        """The window program's body (the reference's ``run_window``) for
+        ``key``, reading the packed control array ``dev`` on the device
+        and writing ``outs`` (``_window_outputs``), ``tokens_dev``, the
+        pool, ``counts`` (penalized programs) and the noise step in place.
+        It branches on the key only, never on a value of ``dev``."""
+        M, _, penalized, seeded, want_lp = key
+        toks, lps, top_vs, top_is = outs
+        spec, page = self.spec, self.config.page_size
+        B = dev.shape[0]
         tokens = torch.where(dev[:, PK_OVERRIDE] > 0, dev[:, PK_TOKEN],
                              self.tokens_dev)
         positions0 = dev[:, PK_POS]
@@ -417,6 +508,7 @@ class ModelRunner:
         top_p = dev[:, PK_TOPP].view(torch.float32)
         freq_pen = dev[:, PK_FREQPEN].view(torch.float32)
         pres_pen = dev[:, PK_PRESPEN].view(torch.float32)
+        seed_rows = dev[:, PK_SEEDED] > 0 if seeded else None
         page_table = dev[:, PK_PREFIX:].contiguous()
         # The cache-resident history is fixed across the window: the
         # window's own tokens live in kbuf/vbuf until the commit below.
@@ -425,24 +517,11 @@ class ModelRunner:
         kbuf = torch.zeros((L, nkv, B, M, d), dtype=self.k_cache.dtype,
                            device=self.device)
         vbuf = torch.zeros_like(kbuf)
-        # Host copy of each slot's position per step (a slot advances
-        # while live and below its cap), for the seeded noise streams.
-        h_pos0 = packed[:, PK_POS].astype(np.int64)
-        h_cap = packed[:, PK_CAP].astype(np.int64)
-        h_sampling = packed[:, PK_TEMP].view(np.float32) > 0
-        h_seeds = packed[:, PK_SEED].astype(np.int64)
-        h_seeded = packed[:, PK_SEEDED] > 0
-        toks = torch.empty((M, B), dtype=torch.int32, device=self.device)
-        lps = top_vs = top_is = None
-        if want_lp:
-            lps = torch.empty((M, B), dtype=torch.float32, device=self.device)
-            top_vs = torch.empty((M, B, TOP_LOGPROBS), dtype=torch.float32,
-                                 device=self.device)
-            top_is = torch.empty((M, B, TOP_LOGPROBS), dtype=torch.int32,
-                                 device=self.device)
         rows = torch.arange(B, device=self.device)
         positions = positions0
         for m in range(M):
+            # A slot advances while live and below its cap, and freezes
+            # at the cap (the host emits LENGTH when it sees it).
             live = (seq_lens0 > 0) & (positions < cap)
             logits, k_new, v_new = decode_window_step(
                 self.params, spec, self.k_cache, self.v_cache, kbuf, vbuf, m,
@@ -454,8 +533,8 @@ class ModelRunner:
                 # Subtracted before temperature and top-k.
                 logits = apply_penalties(logits, self.counts, freq_pen,
                                          pres_pen)
-            h_pos = h_pos0 + np.clip(np.minimum(m, h_cap - h_pos0), 0, None)
-            noise = self._noise(h_sampling, h_seeds, h_seeded, h_pos + 1)
+            # The token being sampled lands at positions + 1.
+            noise = self._draw(seed_rows, dev[:, PK_SEED], positions + 1)
             sampled = sample_tokens_per_row(logits, temp, top_k, top_p, noise)
             toks[m] = sampled
             if penalized:
@@ -468,7 +547,7 @@ class ModelRunner:
                 lps[m], top_vs[m], top_is[m] = logprobs_of(logits, sampled)
             tokens = torch.where(live, sampled, tokens)
             positions = positions + live.to(positions.dtype)
-        self.tokens_dev = tokens
+        self.tokens_dev.copy_(tokens)
         # Commit: every (step, slot) entry into its page; frozen and
         # inactive entries land on the scratch page 0.
         m_idx = torch.arange(M, device=self.device)[:, None]
@@ -483,7 +562,24 @@ class ModelRunner:
         # kbuf [L,Nkv,B,M,D] -> [L,Nkv,M,B,D] to match [M,B] indices.
         scatter_tokens(self.k_cache, kbuf.transpose(2, 3), dest, off)
         scatter_tokens(self.v_cache, vbuf.transpose(2, 3), dest, off)
-        return toks, lps, top_vs, top_is
+
+    def window_programs(self) -> dict:
+        """Programs made, of them captured, their capture seconds and the
+        graph pool's bytes (0 before any capture)."""
+        return {"programs": len(self._window_cache),
+                "captured": sum(p.graph is not None
+                                for p in self._window_cache.values()),
+                "capture_s": self.capture_seconds,
+                "graph_pool_bytes": self.graph_pool_bytes()}
+
+    def graph_pool_bytes(self) -> int:
+        """Device memory the window graphs' pool holds (its segments in
+        the caching allocator's snapshot)."""
+        if self._graph_pool is None:
+            return 0
+        pool = tuple(self._graph_pool)
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg["segment_pool_id"]) == pool)
 
     # -- KV page transfer (disaggregation) ------------------------------------
     def extract_pages_async(self, pages: list[int]):
@@ -555,6 +651,91 @@ class ModelRunner:
         vals = bits.view(torch.bfloat16)
         self.k_cache[:, :, idx] = vals[0]
         self.v_cache[:, :, idx] = vals[1]
+
+
+class WindowProgram:
+    """One decode-window program, the counterpart of one ``_get_window``
+    jit of the reference, for its key ``(window, bucket_pages, penalized,
+    seeded, logprobs)``. The first four members are the reference's.
+    ``logprobs`` is the port's own: the reference computes a window's
+    logprobs under ``lax.cond`` inside one program, and a CUDA graph cannot
+    branch on a value, so a window with a logprobs row runs a program that
+    computes them and any other window one that does not.
+
+    On the CPU, ``run`` runs the body eagerly with fresh outputs. On the
+    card the first ``run`` captures the body as a CUDA graph (``capture``)
+    and every ``run`` uploads the packed array into the program's device
+    buffer and replays the graph, whose outputs are the program's static
+    buffers (valid until the next replay of any program). A capture that
+    fails raises; nothing runs the window eagerly instead."""
+
+    def __init__(self, runner: ModelRunner, key: tuple):
+        self.runner = runner
+        self.key = key
+        self.graph = None
+        self.packed = None   # device control array the graph reads
+        self.outs = None     # static outputs the graph writes
+        self.tally = (0, 0)  # kernel launches of one replay (bf16, int8)
+
+    def run(self, packed: np.ndarray) -> tuple:
+        r = self.runner
+        if not r.use_graphs:
+            return self.run_eager(packed)
+        if self.graph is None:
+            self.capture()
+        self.packed.copy_(r._pinned(packed), non_blocking=True)
+        self.graph.replay()
+        attention.KERNEL.add_replay(self.tally)
+        r.window_replays += 1
+        return self.outs
+
+    def run_eager(self, packed: np.ndarray) -> tuple:
+        """The body run eagerly on ``packed`` into fresh outputs (the CPU
+        path; on the card only checks call it)."""
+        outs = self.runner._window_outputs(self.key)
+        self.runner._window_body(self.key, self.runner._upload(packed), outs)
+        return outs
+
+    def capture(self) -> None:
+        """Capture the body into a CUDA graph in the runner's pool, on its
+        capture stream, in thread-local mode (other threads of the process
+        may wait on events meanwhile). The body runs once eagerly first,
+        over all-inactive rows: that run is inert (it writes only the
+        scratch page 0 and leaves ``tokens_dev`` and ``counts`` as they
+        are; the noise step it advances is put back), and it makes the
+        libraries' one-time set-up happen outside the capture. Neither
+        run counts as kernel launches; every replay adds the capture's."""
+        r = self.runner
+        t0 = time.monotonic()
+        b, width = r.config.max_num_seqs, PK_PREFIX + self.key[1]
+        packed = torch.zeros((b, width), dtype=torch.int32, device=r.device)
+        outs = r._window_outputs(self.key)
+        graph = torch.cuda.CUDAGraph()
+        with CAPTURE_LOCK:
+            if r._graph_pool is None:
+                r._graph_pool = torch.cuda.graph_pool_handle()
+                r._capture_stream = torch.cuda.Stream(r.device)
+            stream = r._capture_stream
+            stream.wait_stream(torch.cuda.current_stream(r.device))
+            with torch.cuda.stream(stream):
+                step = r._noise_step.clone()
+                with attention.KERNEL.recording():
+                    r._window_body(self.key, packed, outs)
+                r._noise_step.copy_(step)
+                with attention.KERNEL.recording() as tally:
+                    graph.capture_begin(pool=r._graph_pool,
+                                        capture_error_mode="thread_local")
+                    try:
+                        r._window_body(self.key, packed, outs)
+                    finally:
+                        graph.capture_end()
+            torch.cuda.current_stream(r.device).wait_stream(stream)
+        self.graph, self.packed, self.outs = graph, packed, outs
+        self.tally = tuple(tally)
+        seconds = time.monotonic() - t0
+        r.capture_seconds += seconds
+        log.info("captured window program (window, bucket_pages, penalized, "
+                 "seeded, logprobs)=%s in %.2fs", self.key, seconds)
 
 
 def _leaves(tree):

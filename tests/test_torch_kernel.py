@@ -300,3 +300,60 @@ def test_kv_quantize_on_gpu_is_bit_identical_to_cpu():
         q_g, s_g = kv_quantize(xt.cuda())
         assert torch.equal(q_g.cpu(), q_c)
         assert torch.equal(s_g.cpu().view(torch.int32), s_c.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant_kv", [None, "int8"], ids=["bf16", "int8"])
+def test_window_graph_replay_equals_eager_body_on_gpu(quant_kv):
+    """A window program replayed from its CUDA graph equals its body run
+    eagerly on the same state (greedy tokens equal; the chosen and top-5
+    logprobs within 1e-5, where the same kernels in the same order give
+    0), and every replay counts M x L launches of the pool's entry point
+    and none of the other."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA graphs have no CPU mode")
+    from dynamo_tpu_torch.engine import config as tcfg
+    from dynamo_tpu_torch.engine import runner as trunner
+    spec = tcfg.PRESETS["tiny-test"]
+    M, B, page = 4, 4, 16
+    r = trunner.ModelRunner(tcfg.EngineConfig(
+        model=spec, num_pages=64, max_num_seqs=B, max_pages_per_seq=16,
+        prefill_buckets=(64, 128), max_prefill_tokens=128, quant_kv=quant_kv,
+        device="cuda"))
+    rng = np.random.default_rng(21)
+    lens = (40, 77, 100)
+    seqs = [trunner.PrefillSeq(
+        tokens=rng.integers(0, spec.vocab_size, n).astype(np.int32),
+        chunk_pages=np.arange(1 + 8 * i, 1 + 8 * i + -(-n // page)),
+        sampling=(0.0, 0, 1.0)) for i, n in enumerate(lens)]
+    r.prefill_batch(seqs, slots=[0, 1, 2])
+    width = r.bucket_pages_for(8)
+    packed = np.zeros((B, trunner.PK_PREFIX + width), np.int32)
+    for i, n in enumerate(lens):
+        packed[i, trunner.PK_POS] = n
+        packed[i, trunner.PK_SEQLEN] = n + 1
+        packed[i, trunner.PK_TOPP] = np.float32(1.0).view(np.int32)
+        packed[i, trunner.PK_CAP] = 8 * page
+        packed[i, trunner.PK_PREFIX:trunner.PK_PREFIX + 8] = \
+            np.arange(1 + 8 * i, 9 + 8 * i)
+    packed[1, trunner.PK_LOGPROB] = 1
+    tokens, step = r.tokens_dev.clone(), r._noise_step.clone()
+    prog = r._get_window(M, width, False, False, True)
+    replayed = [t.clone() for t in prog.run(packed)]
+    assert prog.graph is not None and r.window_replays == 1
+    r.tokens_dev.copy_(tokens)
+    r._noise_step.copy_(step)
+    eager = prog.run_eager(packed)
+    torch.cuda.synchronize()
+    assert torch.equal(replayed[0], eager[0]), (replayed[0], eager[0])
+    diff = max(float((replayed[1] - eager[1]).abs().max()),
+               float((replayed[2][..., :5] - eager[2][..., :5]).abs().max()))
+    print(f"replay vs eager body: max |logprob diff| {diff}")
+    assert diff <= 1e-5, diff
+    assert torch.equal(replayed[3][..., :5], eager[3][..., :5])
+    attention.KERNEL.launches = attention.KERNEL.launches_int8 = 0
+    for _ in range(3):
+        prog.run(packed)
+    torch.cuda.synchronize()
+    want = 3 * M * spec.num_layers
+    assert _counts() == ((0, want) if quant_kv else (want, 0)), _counts()

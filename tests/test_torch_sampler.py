@@ -1,10 +1,11 @@
 """Port sampler == the JAX package's sampling rule.
 
-Torch generators cannot reproduce JAX's threefry bits, so the two samplers
-are held to each other where the rule is deterministic (greedy; which
-tokens a filtered draw can pick) and to the softmax target by chi-square
-where it is random. Seeded noise is held within the port: the same seed
-and position give the same draw, whatever the other rows hold.
+The port's counter-based noise cannot reproduce JAX's threefry bits, so
+the two samplers are held to each other where the rule is deterministic
+(greedy; which tokens a filtered draw can pick) and to the softmax target
+by chi-square where it is random. Seeded noise is held within the port:
+the same seed and position give the same draw, whatever the other rows
+hold.
 """
 
 import jax
@@ -20,6 +21,12 @@ from dynamo_tpu_torch.engine import sampler as tsampler
 from dynamo_tpu_torch.engine.runner import ModelRunner
 
 torch.set_num_threads(1)
+
+
+def _field(b, v, key=0, counter=0):
+    """Noise of b rows keyed key, key + 1, ... at one counter."""
+    return tsampler.gumbel_field(torch.arange(key, key + b),
+                                 torch.full((b,), counter), v)
 
 
 def _rows(n, v, seed=0):
@@ -38,7 +45,7 @@ def test_greedy_equals_jax_greedy():
     args = (torch.from_numpy(logits), torch.from_numpy(temp),
             torch.from_numpy(top_k), torch.from_numpy(top_p))
     got_none = tsampler.sample_tokens_per_row(*args, None)
-    got_noise = tsampler.sample_tokens(*args, torch.Generator().manual_seed(1))
+    got_noise = tsampler.sample_tokens_per_row(*args, _field(16, 300))
     np.testing.assert_array_equal(got_none.numpy(), want)
     np.testing.assert_array_equal(got_noise.numpy(), want)
     assert got_none.dtype == torch.int32
@@ -98,9 +105,9 @@ def test_chi_square_against_softmax(temp, top_k, top_p):
     v, n = 16, 4000
     row = _rows(1, v, seed=5)[0]
     logits = torch.from_numpy(np.tile(row, (n, 1)))
-    out = tsampler.sample_tokens(
+    out = tsampler.sample_tokens_per_row(
         logits, torch.full((n,), temp), torch.full((n,), top_k),
-        torch.full((n,), top_p), torch.Generator().manual_seed(7)).numpy()
+        torch.full((n,), top_p), _field(n, v, key=7)).numpy()
     p = _target(row, temp, top_k, top_p)
     counts = np.bincount(out, minlength=v).astype(np.float64)
     assert counts[p == 0].sum() == 0, "token outside the candidate set"
@@ -114,16 +121,13 @@ def test_row_draw_independent_of_other_rows():
     """A row's token depends only on its own logits and noise field."""
     v = 50
     base = _rows(1, v, seed=8)[0]
-    noise_row = tsampler.gumbel_noise((v,), torch.Generator().manual_seed(3),
-                                      "cpu")
+    noise_row = _field(1, v, key=3)[0]
     outs = []
     for others in range(3):
         b = 2 + others
         logits = torch.from_numpy(_rows(b, v, seed=20 + others))
         logits[1] = torch.from_numpy(base)
-        noise = tsampler.gumbel_noise((b, v),
-                                      torch.Generator().manual_seed(others),
-                                      "cpu")
+        noise = _field(b, v, key=10 * others)
         noise[1] = noise_row
         temp = torch.rand(b, generator=torch.Generator().manual_seed(others))
         temp[1] = 0.9
@@ -137,22 +141,23 @@ def test_row_draw_independent_of_other_rows():
 
 
 def test_seeded_noise_is_a_function_of_seed_and_position():
-    """The runner's seeded noise: same (seed, position) -> the same field,
-    whatever the batch; a new position -> a new field."""
+    """gumbel_field keyed by (seed, position): same (seed, position) ->
+    the same field, whatever the batch; a new position -> a new field; and
+    the runner's prefill noise draws nothing when no row samples."""
+    def field(seeds, positions):
+        return tsampler.gumbel_field(torch.tensor(seeds),
+                                     torch.tensor(positions), 361)
+
+    one = field([7], [20])
+    many = field([3, 7, 7], [20, 20, 21])
+    again = field([7], [20])
+    later = field([7], [21])
+    torch.testing.assert_close(one[0], many[1], rtol=0, atol=0)
+    torch.testing.assert_close(one, again, rtol=0, atol=0)
+    torch.testing.assert_close(later[0], many[2], rtol=0, atol=0)
+    assert not torch.equal(one, later)
     cfg = tcfg.EngineConfig(model=tcfg.PRESETS["tiny-test"], num_pages=8,
                             max_num_seqs=4, device="cpu")
     runner = ModelRunner(cfg)
-    one = runner._noise(np.array([True]), np.array([7]), np.array([True]),
-                        np.array([20]))
-    many = runner._noise(np.array([True, True, False]), np.array([3, 7, 7]),
-                         np.array([False, True, True]),
-                         np.array([20, 20, 21]))
-    again = runner._noise(np.array([True]), np.array([7]), np.array([True]),
-                          np.array([20]))
-    later = runner._noise(np.array([True]), np.array([7]), np.array([True]),
-                          np.array([21]))
-    torch.testing.assert_close(one[0], many[1], rtol=0, atol=0)
-    torch.testing.assert_close(one, again, rtol=0, atol=0)
-    assert not torch.equal(one, later)
     assert runner._noise(np.array([False, False]), np.zeros(2),
                          np.zeros(2, bool), np.zeros(2)) is None
