@@ -24,7 +24,16 @@ Phases, in order; any failure exits non-zero without the final line:
    each timing its split count S. Then the sampling noise:
    sampler.gumbel_field on the card equals the CPU's bits over seeded and
    unseeded keys at the llama-3-8b vocabulary, and gumbel_of_bits over
-   all 2^24 uniforms.
+   all 2^24 uniforms. Then the verify route of speculative decoding
+   (paged_verify_attention: each entry point launched once over a slot's
+   S positions folded into the batch) against its plain version
+   (model.paged_verify_attention_plain) on both pools within OUTPUT_TOL:
+   ragged and zero histories, 0, some and all window columns valid, S in
+   {1, 4}, GQA and MQA, layer > 0; and its times at B=32 x S=4 over
+   history 2048 and the main path's mid-round histories (the kernel's
+   launch alone and the wrapper by graph replay, the plain version, SDPA
+   over the gathered pages), with the bytes its launch moves (each slot's
+   pages read S times) beside the bound (read once).
 3. main path, bf16 pool: build the engine with launch.build_engine for
    llama-3-8b at full width (random weights, seed 0; one prefill program
    takes at most 2048 tokens), serve 8 concurrent requests through
@@ -218,9 +227,35 @@ Phases, in order; any failure exits non-zero without the final line:
    same streamed chat goes twice, the second reaches the worker whose
    stored events hold the prompt's blocks, and all four exit 0 on
    SIGTERM.
-In every phase from 3 to 9, each decode window an engine dispatched was
+10. speculative decoding at full width, after phase 9's engines are
+   released: a seed-0 llama-3-8b engine built as ``python -m
+   dynamo_tpu_torch.backends.gpu --spec-decode ngram --spec-k 3`` builds
+   it (bf16 pool of DISAGG_PAGES pages, warmup_windows set: its one spec
+   program is captured at start) serves 8 concurrent requests of 64
+   tokens through GPUEngine.generate: four greedy code-like prompts of
+   600-1500 tokens (a block of ids repeated with a few renamed, the
+   drafter's best case), two greedy random prompts, one seeded at
+   temperature 0.8 and one at 0.8 / top_p 0.9. Checked: every request
+   finishes at 64 tokens; every window was a replay of the spec program's
+   graph; paged_attention_hist launched windows x m_outer x 32 times (the
+   verify route), the int8 entry 0 times; the device accepted at least
+   one draft on the code-like prompts; each greedy id is the argmax of
+   the teacher-forced plain path's logits over the request's own tokens
+   (plain_forced_logits) or sits at a near-tie (top-2 margin within 2 x
+   LOGIT_ATOL); two verify blocks at full width (the second over the
+   first's K/V in the window buffer) give the same logits through the
+   kernel route, the plain route and the single-step plain path within
+   LOGIT_ATOL; a spec window replayed from its graph equals its body run
+   eagerly on the same state (tokens, emitted counts, drafts, and the
+   chained tokens, positions and history after). It prints the round's
+   tok/s, TTFT and TPOT, the acceptance rate and the emit histogram, a
+   spec window's ms run alone (8 rows x 1224 tokens) and a verify step's
+   device ms (torch.profiler) with its top ops beside phase 3's decode
+   device ms a step, the spec program's capture seconds and graph-pool
+   bytes, and the phase's seconds.
+In every phase from 3 to 10, each decode window an engine dispatched was
 a replay of its program's CUDA graph (the runner's replay count rises by
-the windows dispatched), and the warmed engines of phases 8-9 (built as
+the windows dispatched), and the warmed engines of phases 8-10 (built as
 ``backends.gpu`` builds them, warmup_windows set) print their programs
 after the warmup and after each pass. The last lines are the script's
 total seconds, the kernels' JSON summary, the card's name and power
@@ -439,6 +474,116 @@ def time_kernel(attention, quant: bool, shape: str) -> dict:
             log(json.dumps({"timing": what, "kernel": name,
                             "shape": out["shape"], "ms": out[key]}))
     log(json.dumps({"timing": name, **out}))
+    return out
+
+
+def check_verify(attention, model, quant: bool) -> float:
+    """The speculative verify wrapper (attention.paged_verify_attention:
+    one launch of the pool's entry point over a slot's S positions folded
+    into the batch, then the window and block columns merged) against its
+    plain version (model.paged_verify_attention_plain) on the same card
+    inputs, bf16 or int8 pool, within OUTPUT_TOL, over ragged and zero
+    histories, window buffers with 0, some and all W columns valid, S in
+    {1, 4}, GQA and MQA, layer > 0. Returns the largest absolute error."""
+    from dynamo_tpu_torch.time_attention import make_verify_case, verify_args
+    kind = "int8" if quant else "bf16"
+    gen = torch.Generator().manual_seed(5 if quant else 6)
+    cases = [
+        # (d, nkv, qpk, hist, S, wlen (W = 8), layer)
+        (32, 2, 2, [0, 5, 17, 140], 4, [0, 3, 8, 1], 1),
+        (64, 2, 4, [300, 0, 131], 1, [2, 0, 8], 1),
+        (128, 1, 8, [129, 700], 4, [8, 0], 1),                 # MQA
+        (128, 8, 4, [0, 33, 1000, 2049], 4, [4, 4, 0, 8], 1),  # llama-3
+        (128, 8, 4, [2048] * 4, 1, [0, 8, 3, 5], 0),
+    ]
+    worst = 0.0
+    for d, nkv, qpk, hist, s, wlen, layer in cases:
+        c = make_verify_case(gen, d, len(hist), nkv, qpk, hist, s, wlen,
+                             quant=quant)
+        args = verify_args(c, layer)
+        before = (attention.KERNEL.launches, attention.KERNEL.launches_int8)
+        got = attention.paged_verify_attention(*args)
+        want = model.paged_verify_attention_plain(*args)
+        torch.cuda.synchronize()
+        after = (attention.KERNEL.launches, attention.KERNEL.launches_int8)
+        assert after == ((before[0], before[1] + 1) if quant
+                         else (before[0] + 1, before[1])), (before, after)
+        torch.testing.assert_close(got.float(), want.float(), **OUTPUT_TOL)
+        err = float((got.float() - want.float()).abs().max())
+        worst = max(worst, err)
+        log(f"{kind} verify route ok: D={d} B={len(hist)} Nkv={nkv} "
+            f"qpk={qpk} hist={hist} S={s} wlen={wlen} layer={layer} "
+            f"max|err|={err:.3g}")
+    return worst
+
+
+def time_verify(attention, model, quant: bool, shape: str) -> dict:
+    """The verify route at llama-3-8b widths, B=32 slots x S=4 positions
+    with 4 of 8 window columns valid (time_attention.timed_verify_case),
+    at history 2048 ("uniform") or the main path's mid-round histories
+    ("main"): the kernel's one launch over the 128 folded rows and the
+    whole wrapper by CUDA-graph replay (and the wrapper eager and on the
+    host), its plain version, and SDPA over the live rows' pages gathered
+    beforehand (q [B, Nh, S, D], the history columns only, masked past
+    each row's history). ``bytes_s_reads`` is what the launch moves with
+    each slot's pages read S times; the bound counts them once."""
+    import itertools
+
+    from dynamo_tpu_torch.engine.kv_quant import gather_pages_folded
+    from dynamo_tpu_torch.time_attention import (
+        SHAPE, VERIFY, eager_ms, graph_ms, timed_verify_case, verify_args,
+        verify_caller)
+    b, nkv, qpk, d, page = (SHAPE[k] for k in ("b", "nkv", "qpk", "d",
+                                               "page"))
+    S, nh = VERIFY["s"], SHAPE["nkv"] * SHAPE["qpk"]
+    c, hist, layers = timed_verify_case(quant, shape)
+    fold = attention.fold_rows
+    fq = c["qv"].reshape(b * S, nh, d)
+    fpt, fhl = fold(c["pt"], S), fold(c["hl"], S)
+    turn = itertools.cycle(layers)
+    kernel_ms = graph_ms(lambda: attention.KERNEL(
+        fq, c["kc"], c["vc"], next(turn), fpt, fhl, qpk))
+    wrapper = verify_caller(attention.paged_verify_attention, c, layers)
+    ms = graph_ms(wrapper)
+    eager, host = eager_ms(wrapper)
+    plain_ms = graph_ms(verify_caller(model.paged_verify_attention_plain, c,
+                                      layers))
+    got = attention.paged_verify_attention(*verify_args(c, 1))
+    want = model.paged_verify_attention_plain(*verify_args(c, 1))
+    live = c["hl"] > 0
+    torch.testing.assert_close(got[live].float(), want[live].float(),
+                               **OUTPUT_TOL)
+    max_err = float((got[live].float() - want[live].float()).abs().max())
+    rows = live.nonzero().flatten()
+    span = -(-max(hist) // page)
+    pt = c["pt"][rows, :span].long()
+    k = gather_pages_folded(c["kc"], 1, pt).transpose(0, 1).contiguous()
+    v = gather_pages_folded(c["vc"], 1, pt).transpose(0, 1).contiguous()
+    q = c["qv"][rows].transpose(1, 2).contiguous()
+    mask = (torch.arange(span * page, device=q.device)[None, :]
+            < c["hl"][rows, None])[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sdpa_ms = graph_ms(lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True))
+    bytes_s = attention.hist_flash_bytes(fhl, nh, c["kc"])
+    bytes_once = attention.hist_flash_bytes(c["hl"], nh * S, c["kc"])
+    flops = 4 * sum(hist) * nh * S * d
+    bound_bytes = bytes_once / H100_BYTES_PER_S * 1e3
+    bound_ops = flops / H100_BF16_FLOPS * 1e3
+    name = "paged_attention_hist_int8" if quant else "paged_attention_hist"
+    out = {"shape": f"B={b} S={S} W={VERIFY['w']} wlen={VERIFY['wlen']} "
+                    f"Nkv={nkv} qpk={qpk} D={d} page={page} "
+                    f"maxp={SHAPE['maxp']} "
+                    f"hist={hist if shape != 'uniform' else 2048}",
+           "kernel_launch_ms": kernel_ms, "ms": ms, "eager_ms": eager,
+           "host_ms": host, "plain_ms": plain_ms,
+           "bound_ms": max(bound_bytes, bound_ops),
+           "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+           "bytes_s_reads": bytes_s, "bytes_once": bytes_once,
+           "flops": flops, "max_abs_err": max_err,
+           ("library_ms" if not quant else "sdpa_bf16_ms"): sdpa_ms}
+    if quant:
+        out["library_ms"] = None
+    log(json.dumps({"timing": f"{name} verify route", **out}))
     return out
 
 
@@ -3123,14 +3268,409 @@ def kv_routing_subprocesses() -> dict:
                                               second["usage"]]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: speculative decoding at full width
+# ---------------------------------------------------------------------------
+
+SPEC_K = 3
+# Four greedy code-like prompts (the drafter's best case), two greedy
+# random ones, one seeded at temperature 0.8 and one at 0.8 / top_p 0.9.
+SPEC_CODE_LENS = (600, 900, 1200, 1500)
+SPEC_RANDOM_LENS = (777, 1000)
+SPEC_SAMPLED_LENS = (520, 1300)
+SPEC_SEED = 4321
+
+
+def code_like_prompt(rng, vocab: int, n: int) -> list[int]:
+    """``n`` ids of a looping, code-like span: a block of 40-120 random ids
+    (a function body) repeated, each copy with three ids renamed (its
+    identifiers), as document and code completion sends."""
+    block = rng.integers(0, vocab, int(rng.integers(40, 121)))
+    out: list[int] = []
+    while len(out) < n:
+        copy = block.copy()
+        copy[rng.choice(len(copy), 3, replace=False)] = rng.integers(
+            0, vocab, 3)
+        out.extend(copy.tolist())
+    return out[:n]
+
+
+def spec_requests(spec) -> tuple[list[dict], list[str]]:
+    """Phase 10's eight requests and each one's kind."""
+    from dynamo_tpu_torch.profile_decode import MAX_TOKENS
+    rng = np.random.default_rng(SPEC_SEED)
+    prompts, sampling, kinds = [], [], []
+    for n in SPEC_CODE_LENS:
+        prompts.append(code_like_prompt(rng, spec.vocab_size, n))
+        sampling.append({})
+        kinds.append("code")
+    for n in SPEC_RANDOM_LENS:
+        prompts.append(rng.integers(0, spec.vocab_size, n).tolist())
+        sampling.append({})
+        kinds.append("random")
+    for n, s in zip(SPEC_SAMPLED_LENS, (
+            {"temperature": 0.8, "seed": SPEC_SEED},
+            {"temperature": 0.8, "top_p": 0.9})):
+        prompts.append(code_like_prompt(rng, spec.vocab_size, n))
+        sampling.append(s)
+        kinds.append("seeded" if "seed" in s else "sampled")
+    return ([{"model": spec.name, "token_ids": p,
+              "stop_conditions": {"max_tokens": MAX_TOKENS,
+                                  "ignore_eos": True},
+              "sampling_options": s} for p, s in zip(prompts, sampling)],
+            kinds)
+
+
+def spec_engine():
+    """A seed-0 llama-3-8b engine built as ``python -m
+    dynamo_tpu_torch.backends.gpu --spec-decode ngram --spec-k 3`` builds
+    it (warmup_windows set, DISAGG_PAGES pages, bf16 pool), with phase 3's
+    prefill program size; started, so its spec program is captured."""
+    import dataclasses
+
+    from dynamo_tpu_torch.backends import gpu
+    from dynamo_tpu_torch.launch import load_engine
+    from dynamo_tpu_torch.profile_decode import MAX_PREFILL_TOKENS, MODEL
+    args = gpu.parse_args(["--model", MODEL, "--seed", "0", "--device",
+                           DEVICE, "--num-pages", str(DISAGG_PAGES),
+                           "--spec-decode", "ngram",
+                           "--spec-k", str(SPEC_K)])
+    config = dataclasses.replace(gpu.build_engine_config(args),
+                                 max_prefill_tokens=MAX_PREFILL_TOKENS)
+    assert config.warmup_windows and config.spec_decode == "ngram", config
+    t0 = time.monotonic()
+    engine = load_engine(config, args.resolved_checkpoint, args.seed)
+    log(f"spec engine: pages={engine.runner.num_pages} m_outer="
+        f"{engine.spec_m_outer} k={SPEC_K} setup="
+        f"{time.monotonic() - t0:.1f}s")
+    return engine
+
+
+def alone_spec_window(engine, rows: int = 8, hist: int = 1224):
+    """(packed array, pages) of one spec window run alone on the stopped
+    engine's runner over ``rows`` greedy rows whose history is ``hist``
+    ids of a code-like span (seeded into hist_dev), each fed the span's
+    next id by override, so the drafter finds its bigrams; the caller
+    releases the pages."""
+    from dynamo_tpu_torch.engine import runner as trunner
+    runner, cfg = engine.runner, engine.config
+    page, M = cfg.page_size, engine.decode_window
+    per_row = -(-(hist + M) // page)
+    pages = engine.allocator.allocate(rows * per_row)
+    packed = np.zeros((cfg.max_num_seqs,
+                       trunner.PK_PREFIX + runner.bucket_pages_for(per_row)),
+                      np.int32)
+    rng = np.random.default_rng(SPEC_SEED + 1)
+    entries = []
+    for i in range(rows):
+        span = code_like_prompt(rng, runner.spec.vocab_size, hist + 1)
+        entries.append((i, np.asarray(span[:hist], np.int32), 0, False,
+                        None))
+        packed[i, trunner.PK_OVERRIDE] = 1
+        packed[i, trunner.PK_TOKEN] = span[hist]
+        packed[i, trunner.PK_POS] = hist
+        packed[i, trunner.PK_SEQLEN] = hist + 1
+        packed[i, trunner.PK_TOPP] = np.float32(1.0).view(np.int32)
+        packed[i, trunner.PK_CAP] = per_row * page
+        packed[i, trunner.PK_PREFIX:trunner.PK_PREFIX + per_row] = \
+            pages[i * per_row:(i + 1) * per_row]
+    runner.seed_history(entries)
+    return packed, pages
+
+
+def time_spec_window(engine, reps: int = 7) -> dict:
+    """Host ms (call to synchronised return) and device ms (CUDA events)
+    of one spec window run alone (alone_spec_window), after one unmeasured
+    run; then the device busy ms of one verify step (torch.profiler: the
+    union of the device events over m_outer) and its top ops by device
+    time."""
+    from dynamo_tpu_torch.profile_decode import _busy_seconds
+    runner, k = engine.runner, SPEC_K
+    m_outer = engine.spec_m_outer
+    packed, pages = alone_spec_window(engine)
+    host, device = [], []
+    try:
+        runner.decode_spec_window(packed, m_outer, k)
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            runner.decode_spec_window(packed, m_outer, k)
+            end.record()
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+            device.append(start.elapsed_time(end))
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            runner.decode_spec_window(packed, m_outer, k)
+            torch.cuda.synchronize()
+    finally:
+        engine.allocator.release(pages)
+    intervals, by_name = [], {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            intervals.append((e.time_range.start, e.time_range.end))
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3)
+    if not intervals:
+        raise RuntimeError("the profiler recorded no device activity")
+    step_ms = _busy_seconds(intervals) * 1e3 / m_outer
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    out = {"rows": 8, "hist": 1224, "m_outer": m_outer, "k": k,
+           "window_ms_median": sorted(host)[len(host) // 2],
+           "window_device_ms_median": sorted(device)[len(device) // 2],
+           "window_ms": host, "window_device_ms": device,
+           "verify_step_device_ms": step_ms,
+           "top_ops_device_ms_per_step": [(n[:80], t / m_outer)
+                                          for n, t in top]}
+    log(f"spec window alone (8 rows x 1224 tokens, m_outer={m_outer}, "
+        f"k={k}): {out['window_ms_median']:.2f} ms "
+        f"(device {out['window_device_ms_median']:.2f}); verify step "
+        f"{step_ms:.2f} device ms")
+    return out
+
+
+def spec_replay_check(engine) -> None:
+    """One spec window run alone (alone_spec_window), replayed from its
+    program's graph, then its body run eagerly on the same state
+    (tokens_dev, positions_dev, hist_dev and the noise step put back):
+    tokens, emitted counts and drafts equal, and the chained state after
+    both equal; some row drafted."""
+    from dynamo_tpu_torch.engine.runner import PK_PREFIX
+    runner = engine.runner
+    packed, pages = alone_spec_window(engine)
+    key = ("spec", engine.spec_m_outer, SPEC_K, packed.shape[1] - PK_PREFIX)
+    state = (runner.tokens_dev, runner.positions_dev, runner.hist_dev,
+             runner._noise_step)
+    try:
+        before = [t.clone() for t in state]
+        replays0 = runner.window_replays
+        replayed = [t.clone() for t in runner.decode_spec_window(
+            packed, engine.spec_m_outer, SPEC_K)]
+        assert runner.window_replays == replays0 + 1
+        after = [t.clone() for t in state]
+        for t, b in zip(state, before):
+            t.copy_(b)
+        eager = runner._window_cache[key].run_eager(packed)
+        torch.cuda.synchronize()
+    finally:
+        engine.allocator.release(pages)
+    for name, a, b in zip(("tokens", "emitted", "drafts"), replayed, eager):
+        assert torch.equal(a, b), (name, a, b)
+    for a, t in zip(after, state):
+        assert torch.equal(a, t)
+    assert int(replayed[2].sum()) > 0, "no row drafted"
+    log(f"replayed spec window vs its eager body (key {key}): tokens, "
+        f"emitted counts and drafts equal; emitted per step "
+        f"{replayed[1][:, :8].tolist()}")
+
+
+def verify_forced_check(runner, model, attention, prompt, tokens) -> float:
+    """Two verify blocks at full width on a private bf16 pool holding
+    ``prompt``: tokens[0:4] at positions n..n+3 with an empty window
+    buffer, then tokens[4:8] with the first block's K/V in the buffer
+    (wlen 4), each through the kernel route and the plain route (logits
+    within LOGIT_ATOL), and both against the single-step teacher-forced
+    plain path's logits of the same positions (plain_forced_logits).
+    Returns the largest difference."""
+    spec, cfg, dev = runner.spec, runner.config, runner.device
+    page, n, S = cfg.page_size, len(prompt), SPEC_K + 1
+    bucket = cfg.bucket_for(n)
+    pages = bucket // page + 2
+    shape = (spec.num_layers, spec.num_kv_heads, pages + 1, page,
+             spec.head_dim)
+    kc = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+    vc = torch.zeros_like(kc)
+    table = torch.arange(1, pages + 1, dtype=torch.int32, device=dev)[None]
+    tok = torch.zeros((1, bucket), dtype=torch.int32, device=dev)
+    tok[0, :n] = torch.tensor(prompt, dtype=torch.int32)
+    pos = torch.clamp(torch.arange(bucket, device=dev), max=n - 1)[None]
+    model.prefill_forward(runner.params, spec, kc, vc, tok,
+                          pos.to(torch.int32), table[:, :bucket // page],
+                          torch.tensor([n], dtype=torch.int32, device=dev))
+    single = plain_forced_logits(runner, model, prompt, tokens[:2 * S + 1],
+                                 quant=False)
+    hist = torch.tensor([n], dtype=torch.int32, device=dev)
+    kbuf = torch.zeros((spec.num_layers, spec.num_kv_heads, 1, 2 * S,
+                        spec.head_dim), dtype=torch.bfloat16, device=dev)
+    vbuf = torch.zeros_like(kbuf)
+    worst = 0.0
+    for blk in range(2):
+        args = (runner.params, spec, kc, vc, kbuf, vbuf,
+                torch.tensor([blk * S], dtype=torch.int32, device=dev),
+                torch.tensor([tokens[blk * S:(blk + 1) * S]],
+                             dtype=torch.int32, device=dev),
+                (n + blk * S + torch.arange(S, device=dev))[None].to(
+                    torch.int32), table, hist)
+        lk, k_new, v_new = model.decode_window_multi_step(
+            *args, attention_impl=attention.paged_verify_attention)
+        lp, _, _ = model.decode_window_multi_step(*args)
+        kbuf[:, :, 0, blk * S:(blk + 1) * S] = k_new[:, 0].transpose(1, 2)
+        vbuf[:, :, 0, blk * S:(blk + 1) * S] = v_new[:, 0].transpose(1, 2)
+        for j in range(S):
+            ref = single[blk * S + j + 1]
+            for lg in (lk[0, j], lp[0, j]):
+                assert torch.isfinite(lg).all()
+                worst = max(worst, float((lg - ref).abs().max()))
+            worst = max(worst, float((lk[0, j] - lp[0, j]).abs().max()))
+    assert worst <= LOGIT_ATOL, worst
+    return worst
+
+
+def spec_phase(attention, model, decode_step_ms: float) -> dict:
+    """Phase 10 (see the module docstring)."""
+    import collections
+
+    from dynamo_tpu_torch.profile_decode import MAX_TOKENS, serve
+    t_phase = time.monotonic()
+    engine = spec_engine()
+    runner, spec = engine.runner, engine.runner.spec
+    warm = graph_stats(engine, "spec engine after its warmup")
+    assert list(runner._window_cache) == [
+        ("spec", engine.spec_m_outer, SPEC_K, runner.bucket_pages_for(1))], \
+        list(runner._window_cache)
+    requests, kinds = spec_requests(spec)
+    prompts = [r["token_ids"] for r in requests]
+    # Verify steps that emitted, tokens they emitted and drafts accepted,
+    # on the device, for each request's slot (by prompt).
+    steps, emitted, accepted = (collections.Counter() for _ in range(3))
+    walk = engine._process_spec_window
+
+    def tap(w, outs, emits, ndrafts):
+        for i, snap in enumerate(w.slots):
+            if snap is not None:
+                key, e = tuple(snap[0].req.token_ids[:32]), emits[:, i]
+                steps[key] += int((e > 0).sum())
+                emitted[key] += int(e.sum())
+                accepted[key] += int((e[ndrafts[:, i] > 0] - 1).clip(
+                    min=0).sum())
+        return walk(w, outs, emits, ndrafts)
+
+    engine._process_spec_window = tap
+    counters0 = (engine.spec_drafts, engine.spec_tokens, engine.spec_accepted,
+                 list(engine.spec_emit_hist))
+    windows0, replays0 = engine.windows_dispatched, runner.window_replays
+    attention.KERNEL.launches = 0
+    attention.KERNEL.launches_int8 = 0
+    try:
+        t0 = time.monotonic()
+        results = asyncio.run(serve(engine, requests))
+        wall = time.monotonic() - t0
+        torch.cuda.synchronize()
+        launches = {"paged_attention_hist": attention.KERNEL.launches,
+                    "paged_attention_hist_int8":
+                        attention.KERNEL.launches_int8}
+    finally:
+        del engine._process_spec_window
+        engine.stop()
+    windows = engine.windows_dispatched - windows0
+    check_replays(engine, replays0, windows)
+    assert all(key[0] == "spec" for key in runner._window_cache), \
+        list(runner._window_cache)
+    for i, r in enumerate(results):
+        assert r["finish"] == "length", (i, r["finish"])
+        assert len(r["tokens"]) == MAX_TOKENS, (i, len(r["tokens"]))
+        assert all(0 <= t < spec.vocab_size for t in r["tokens"])
+    expected = windows * engine.spec_m_outer * spec.num_layers
+    assert launches["paged_attention_hist"] == expected and expected > 0, (
+        launches, expected)
+    assert launches["paged_attention_hist_int8"] == 0, launches
+    drafts = engine.spec_drafts - counters0[0]
+    draft_tokens = engine.spec_tokens - counters0[1]
+    accepted_total = engine.spec_accepted - counters0[2]
+    hist = [a - b for a, b in zip(engine.spec_emit_hist, counters0[3])]
+    code_accepted = sum(accepted[tuple(p[:32])]
+                        for p, kind in zip(prompts, kinds) if kind == "code")
+    assert code_accepted > 0, ("no draft accepted on the code-like prompts",
+                               dict(accepted))
+    # Greedy ids against the teacher-forced plain path's argmax: equal, or
+    # at a near-tie (top-2 margin within 2 x LOGIT_ATOL).
+    agree, total = 0, 0
+    for p, r, kind in zip(prompts, results, kinds):
+        if kind not in ("code", "random"):
+            continue
+        logits = plain_forced_logits(runner, model, p, r["tokens"],
+                                     quant=False)
+        for j, (tok, lg) in enumerate(zip(r["tokens"], logits)):
+            total += 1
+            if int(lg.argmax()) == tok:
+                agree += 1
+                continue
+            top2 = torch.topk(lg, 2).values
+            margin = float(top2[0] - top2[1])
+            assert margin <= 2 * LOGIT_ATOL, (
+                f"{kind} request, token {j}: {tok} is not the plain path's "
+                f"argmax {int(lg.argmax())} (margin {margin})")
+    code = next(i for i, kind in enumerate(kinds) if kind == "code")
+    verify_diff = verify_forced_check(runner, model, attention, prompts[code],
+                                      results[code]["tokens"])
+    log(f"verify blocks at full width, kernel route vs plain route vs "
+        f"single-step plain path: max|logit diff| {verify_diff:.4f} "
+        f"(tolerance {LOGIT_ATOL})")
+    timing = time_spec_window(engine)
+    spec_replay_check(engine)
+    ttft = sorted(r["ttft_s"] * 1e3 for r in results)
+    tpot = sorted((r["total_s"] - r["ttft_s"]) / (len(r["tokens"]) - 1)
+                  * 1e3 for r in results)
+    n_tok = sum(len(r["tokens"]) for r in results)
+    out = {"requests": len(results), "kinds": kinds, "tokens": n_tok,
+           "wall_s": wall, "tok_per_s": n_tok / wall,
+           "ttft_ms_median": ttft[len(ttft) // 2], "ttft_ms_max": ttft[-1],
+           "tpot_ms_median": tpot[len(tpot) // 2], "tpot_ms_max": tpot[-1],
+           "windows": windows, "m_outer": engine.spec_m_outer, "k": SPEC_K,
+           "launches": launches, "kernel_launches": expected,
+           "verify_steps_with_drafts": drafts,
+           "draft_tokens": draft_tokens, "accepted_tokens": accepted_total,
+           "acceptance_rate": (accepted_total / draft_tokens
+                               if draft_tokens else None),
+           "emit_hist": hist,
+           "by_kind": {k: {name: sum(c[tuple(p[:32])]
+                                     for p, kk in zip(prompts, kinds)
+                                     if kk == k)
+                               for name, c in (("verify_steps", steps),
+                                               ("tokens", emitted),
+                                               ("accepted", accepted))}
+                       for k in sorted(set(kinds))},
+           "greedy_tokens_at_plain_argmax": f"{agree}/{total}",
+           "verify_forced_max_abs_diff": verify_diff,
+           "phase3_decode_step_device_ms": decode_step_ms,
+           **timing,
+           "program": {k: warm[k] for k in ("capture_s",
+                                             "graph_pool_bytes",
+                                             "warmup_s")}}
+    out["tokens_per_verify_step"] = {
+        k: v["tokens"] / v["verify_steps"]
+        for k, v in out["by_kind"].items() if v["verify_steps"]}
+    log(f"phase 10: {n_tok / wall:.1f} tok/s, TTFT median "
+        f"{out['ttft_ms_median']:.0f} ms, TPOT median "
+        f"{out['tpot_ms_median']:.2f} ms; acceptance "
+        f"{accepted_total}/{draft_tokens}, emit histogram {hist}, tokens "
+        f"per verify step {out['tokens_per_verify_step']}; verify "
+        f"step {timing['verify_step_device_ms']:.2f} device ms against a "
+        f"decode step's {decode_step_ms:.2f} (phase 3)")
+    del engine, runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.monotonic() - t_phase
+    log(json.dumps({"spec_phase": out}))
+    log(f"phase 10: {out['phase_s']:.1f}s")
+    return out
+
+
 def kernel_entry(name, variant, timing, main, max_err, stats,
                  http_launches, dist_launches, ckpt_launches,
-                 disagg_launches, kv_launches) -> dict:
+                 disagg_launches, kv_launches, verify, spec_launches) -> dict:
     """One kernel's summary: times at the B=32 x 2048 shape, and the same
     numbers at the main path's mid-round shape under ``main_shape``;
     launches in round 1, round 2, the HTTP phase, the distributed phase,
     phase 7's round-1 runs on loaded checkpoints, phase 8's passes (on
-    the decode worker) and phase 9's passes (both workers)."""
+    the decode worker), phase 9's passes (both workers) and phase 10's
+    spec round (the verify route); the verify route's numbers at both
+    shapes under ``verify_route`` (``verify``: its check's error and the
+    two timings)."""
     return {"name": name, "route": "cuda",
             "source": "dynamo_tpu_torch/csrc/paged_attention.cu",
             "replaces": "dynamo_tpu/engine/attention.py:72",
@@ -3141,8 +3681,11 @@ def kernel_entry(name, variant, timing, main, max_err, stats,
             "launches_checkpoint": ckpt_launches,
             "launches_disagg": disagg_launches,
             "launches_kv_routing": kv_launches,
+            "launches_spec": spec_launches,
             "max_abs_err": max(max_err, timing["max_abs_err"],
-                               main["max_abs_err"]),
+                               main["max_abs_err"], verify["err"],
+                               verify["uniform"]["max_abs_err"],
+                               verify["main"]["max_abs_err"]),
             "ms": timing["ms"], "plain_ms": timing["plain_ms"],
             "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
             "library_ms": timing["library_ms"],
@@ -3150,7 +3693,10 @@ def kernel_entry(name, variant, timing, main, max_err, stats,
             "main_shape": {k: main[k] for k in (
                 "ms", "eager_ms", "host_ms", "plain_ms", "bound_ms",
                 "bound_by", "splits", "sdpa_per_row_ms")}
-            | {"sdpa_ms": main.get("library_ms") or main["sdpa_bf16_ms"]}}
+            | {"sdpa_ms": main.get("library_ms") or main["sdpa_bf16_ms"]},
+            "verify_route": {shape: {k: v for k, v in verify[shape].items()
+                                     if k != "shape"}
+                             for shape in ("uniform", "main")}}
 
 
 def main() -> int:
@@ -3183,6 +3729,11 @@ def main() -> int:
         main_bf16 = time_kernel(attention, False, "main")
         main_int8 = time_kernel(attention, True, "main")
         noise_check(128256)
+        verify = {quant: {"err": check_verify(attention, model, quant),
+                          **{shape: time_verify(attention, model, quant,
+                                                shape)
+                             for shape in ("uniform", "main")}}
+                  for quant in (False, True)}
         torch.cuda.empty_cache()
         stats_bf16 = main_path(attention, model, None)
         stats_int8 = main_path(attention, model, "int8")
@@ -3194,6 +3745,8 @@ def main() -> int:
         ckpt = checkpoint_phase(attention, model, refs["bf16"])
         disagg = disagg_phase(attention, model, refs)
         kv = kv_routing_phase(attention, model)
+        spec = spec_phase(attention, model,
+                          stats_bf16["round2"]["decode_step_device_ms"])
     except Exception:  # noqa: BLE001 — report and fail the run
         traceback.print_exc()
         return 1
@@ -3217,7 +3770,8 @@ def main() -> int:
                      stats_http["dist"]["launches"]["paged_attention_hist"],
                      ckpt_launches("paged_attention_hist"),
                      disagg_launches("paged_attention_hist"),
-                     kv_launches("paged_attention_hist")),
+                     kv_launches("paged_attention_hist"), verify[False],
+                     spec["launches"]["paged_attention_hist"]),
         kernel_entry("paged_attention_hist_int8",
                      "int8 pool, _decode_kernel(quantized=True)",
                      timing_int8, main_int8, err_int8, stats_int8,
@@ -3226,7 +3780,8 @@ def main() -> int:
                          "paged_attention_hist_int8"],
                      ckpt_launches("paged_attention_hist_int8"),
                      disagg_launches("paged_attention_hist_int8"),
-                     kv_launches("paged_attention_hist_int8"))]}))
+                     kv_launches("paged_attention_hist_int8"), verify[True],
+                     spec["launches"]["paged_attention_hist_int8"])]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

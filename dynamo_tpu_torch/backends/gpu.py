@@ -6,6 +6,7 @@ prefill and decode.
     python -m dynamo_tpu_torch.backends.gpu --model /path/to/checkpoint --quant int8
     python -m dynamo_tpu_torch.backends.gpu --mode prefill --model llama-3-8b
     python -m dynamo_tpu_torch.backends.gpu --mode decode --model llama-3-8b --max-local-prefill-length 512
+    python -m dynamo_tpu_torch.backends.gpu --model llama-3-8b --spec-decode ngram --spec-k 3
 
 connects to the coordinator (and fails with its connection error when it
 cannot be reached), builds the engine off the event loop so lease
@@ -22,6 +23,10 @@ nothing is downloaded) and ``--quant int8`` serves int8 weights. The
 tokenizer is, as in the reference worker, ``--tokenizer`` first, then the
 checkpoint's ``tokenizer.json``, then, for a preset, the repo's test
 tokenizer.
+
+``--spec-decode ngram`` serves speculative decoding with ``--spec-k``
+drafts a verify step (3 by default), as the reference worker does; the
+launcher has no such flag, as the reference's has none.
 
 The reference worker's other flags are refused with the ROADMAP item each
 waits for; none is accepted and then ignored.
@@ -85,7 +90,6 @@ log = get_logger("gpu_worker")
 _PARALLEL = "ROADMAP item 16 (parallelism across GPUs and nodes)"
 _TIERS = "ROADMAP item 9 (host and disk KV tiers)"
 _LORA = "ROADMAP item 11 (batched LoRA)"
-_SPEC = "ROADMAP item 10 (speculative decode)"
 _ADMISSION = "ROADMAP item 12 (SLA admission and brownout)"
 _PARSERS = "the ROADMAP item of the tool-call and reasoning parsers"
 
@@ -96,8 +100,6 @@ REFUSED_FLAGS = (
     ("--lora", _LORA, {"type": str}),
     ("--max-adapters", _LORA, {"type": int}),
     ("--max-lora-rank", _LORA, {"type": int}),
-    ("--spec-decode", _SPEC, {"type": str}),
-    ("--spec-k", _SPEC, {"type": int}),
     ("--host-cache-pages", _TIERS, {"type": int, "allowed": (0,)}),
     ("--kv-disk-cache-dir", _TIERS, {"type": str}),
     ("--kv-watermarks", _TIERS, {"type": str}),
@@ -125,11 +127,13 @@ REFUSED_FLAGS = (
 
 
 def build_engine_config(args: argparse.Namespace) -> EngineConfig:
-    """The launcher's engine config with ``warmup_windows`` set: a worker
+    """The launcher's engine config with ``warmup_windows`` set (a worker
     makes the smallest bucket's window programs before it serves, as the
-    reference's worker does."""
+    reference's worker does) and the worker's speculative decoding."""
     return dataclasses.replace(launch.build_engine_config(args),
-                               warmup_windows=True)
+                               warmup_windows=True,
+                               spec_decode=args.spec_decode,
+                               spec_k=args.spec_k)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -167,6 +171,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--kv-plane-host", default="127.0.0.1",
                         help="address the prefill worker's KV plane binds "
                              "and advertises; peers must reach it")
+    parser.add_argument("--spec-decode", default=None, choices=["ngram"],
+                        help="speculative decoding: 'ngram' = prompt-"
+                             "lookup self-drafting verified in-window; "
+                             "serves greedy and temperature/top-k/top-p/"
+                             "seeded sampling (on-device rejection "
+                             "sampling keeps the exact output "
+                             "distribution); logprobs and penalties "
+                             "are not supported under spec decode")
+    parser.add_argument("--spec-k", type=int, default=3,
+                        help="drafts verified per speculative step")
     parser.add_argument("--no-kv-plane", action="store_true",
                         help="no KV plane: parcels ride the request plane "
                              "inline, and a prefill worker does not pop "

@@ -13,7 +13,9 @@ per entry point launches both kernels. A bf16 pool goes to the entry point
 ``paged_attention_hist``; an int8 pool (``QuantKV``: int8 values and f32
 per-token scales) to ``paged_attention_hist_int8``. The wrappers then
 flash-merge the in-window buffer columns ``j < m`` and the current token's
-column in torch (``_merge_extra``), as the JAX wrappers do.
+column in torch (``_merge_extra``), as the JAX wrappers do. The verify
+wrapper of speculative decode (``paged_verify_attention``) runs the same
+kernel with a slot's S verify positions folded into its batch.
 
 Which version runs follows the tensors: CPU tensors take the plain
 version (that is what the CPU tests run), CUDA tensors launch the kernel
@@ -366,3 +368,45 @@ def paged_window_attention(q, k_cache, v_cache, layer: int, page_table,
         | (torch.arange(M + 1, device=q.device) == M)
     return _merge_extra(q, num, l_star, m_s, k_extra, v_extra,
                         col_mask[None, None, None, :], q_per_kv)
+
+
+def fold_rows(x: torch.Tensor, s: int) -> torch.Tensor:
+    """Each row of ``x`` [B, ...] repeated ``s`` times, as a contiguous
+    [B*s, ...] (row b*s + j is x[b]; the kernel takes contiguous tables):
+    an expand and a copy, with no host sync."""
+    return x[:, None].expand(x.shape[0], s, *x.shape[1:]).reshape(
+        x.shape[0] * s, *x.shape[1:]).contiguous()
+
+
+def paged_verify_attention(q, k_cache, v_cache, layer: int, page_table,
+                           hist_lens, k_win, v_win, wlen, k_blk, v_blk,
+                           q_per_kv: int):
+    """Attention of a speculative verify block, the kernel route: q
+    [B,S,Nh,D] for S positions per slot; the paged history page_table
+    [B,maxP] up to hist_lens [B] (cache-resident tokens, the same for every
+    position of a slot); this window's earlier columns k_win/v_win
+    [Nkv,B,W,D] (cols < wlen [B] valid); the block's own k_blk/v_blk
+    [B,S,Nkv,D], causal within the block. Returns [B,S,Nh,D].
+
+    The S verify rows fold into the kernel's batch: one launch over B*S
+    rows, each row's page-table row and history length repeated, so each
+    slot's pages are read S times. The window and block columns then merge
+    as extra columns (``_merge_extra``)."""
+    b, s, nh, d = q.shape
+    w = k_win.shape[2]
+    qf = q.reshape(b * s, nh, d)
+    num, l_star, m_s = hist_flash(qf, k_cache, v_cache, layer,
+                                  fold_rows(page_table, s),
+                                  fold_rows(hist_lens, s), q_per_kv)
+    k_extra = torch.cat([k_win.transpose(0, 1), k_blk.transpose(1, 2)], dim=2)
+    v_extra = torch.cat([v_win.transpose(0, 1), v_blk.transpose(1, 2)], dim=2)
+    cols = torch.arange(w + s, device=q.device)
+    row_j = torch.arange(s, device=q.device)
+    # Row (b, j): window cols < wlen[b], block col w + t for t <= j.
+    win_ok = (cols[None, :] < wlen.long()[:, None])[:, None, :]   # [B,1,W+S]
+    blk_ok = ((cols[None, :] >= w)
+              & (cols[None, :] - w <= row_j[:, None]))[None]       # [1,S,W+S]
+    mask = (win_ok | blk_ok).reshape(b * s, 1, 1, w + s)
+    out = _merge_extra(qf, num, l_star, m_s, fold_rows(k_extra, s),
+                       fold_rows(v_extra, s), mask, q_per_kv)
+    return out.reshape(b, s, nh, d)

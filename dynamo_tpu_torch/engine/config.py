@@ -3,7 +3,7 @@
 ModelSpec (with ``from_hf_config``), EngineConfig and PRESETS are copied
 field for field so a configuration means the same thing in both packages.
 EngineConfig adds one field, ``device``. Fields that select features this
-port does not serve yet (tp/pp/sp, MoE, spec decode, LoRA, tiers) keep
+port does not serve yet (tp/pp/sp, MoE, LoRA, tiers) keep
 their defaults; the runner rejects non-default values rather than ignore
 them.
 """

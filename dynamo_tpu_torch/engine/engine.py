@@ -40,8 +40,16 @@ publishers set, schedules one coroutine on the event loop captured by
 and, when due, the inventory digest. The engine thread never waits on
 that loop.
 
-Not ported yet (later slices): spec decode, LoRA, multimodal, KV host and
-disk tiers.
+Speculative decoding (``spec_decode="ngram"``): every window is one
+``runner.decode_spec_window`` of ``spec_m_outer`` verify steps, each
+drafting up to ``spec_k`` tokens from the slot's own history on the device
+and emitting the accepted drafts and one more token. Admission writes each
+prompt into that history (``runner.seed_history``), and the host walk of a
+window (``_process_spec_window``) corrects the dispatch-time worst-case
+position by what the device actually emitted. Logprobs and penalties are
+refused under it, as in the reference.
+
+Not ported yet (later slices): LoRA, multimodal, KV host and disk tiers.
 """
 
 from __future__ import annotations
@@ -69,7 +77,9 @@ from dynamo_tpu_torch.engine.runner import (
 from dynamo_tpu_torch.engine.sampler import MAX_TOPK
 from dynamo_tpu_torch.llm.kv_router.protocols import (ForwardPassMetrics,
                                                       KvInventoryDigest,
-                                                      KvStats, WorkerStats,
+                                                      KvStats,
+                                                      SpecDecodeStats,
+                                                      WorkerStats,
                                                       kmin_sketch)
 from dynamo_tpu_torch.llm.protocols import (FinishReason, LLMEngineOutput,
                                             PreprocessedRequest)
@@ -184,6 +194,7 @@ class _Window:
     size: int
     serial: int = 0         # dispatch order (deferred-release fencing)
     t0: float = 0.0         # dispatch time
+    spec: bool = False      # a speculative window (tokens, emitted, drafts)
 
 
 class GPUEngine(AsyncEngine):
@@ -257,6 +268,19 @@ class GPUEngine(AsyncEngine):
         self.streamed_extracts = 0  # chunk-streamed extracts staged
         self.injected_admissions = 0  # parcels inserted at admission
         self.warmup_seconds = 0.0     # _warmup_window_programs' wall time
+        # Speculative decoding: verify steps per window, sized so that a
+        # window emits at most M tokens (all drafts accepted) and reads the
+        # weights m_outer times. Stats feed SpecDecodeStats.
+        self.spec_m_outer = (max(1, self.decode_window
+                                 // (config.spec_k + 1))
+                             if config.spec_decode else 0)
+        self.spec_drafts = 0        # verify steps that had drafts
+        self.spec_tokens = 0        # draft tokens proposed
+        self.spec_accepted = 0      # draft tokens accepted
+        # Verify steps by tokens emitted: index e = 1 (no draft accepted)
+        # .. spec_k + 1 (all accepted); index 0 counts frozen steps.
+        self.spec_emit_hist = ([0] * (config.spec_k + 2)
+                               if config.spec_decode else [])
 
     # -- lifecycle ------------------------------------------------------------
     def start(self, loop: asyncio.AbstractEventLoop | None = None) -> None:
@@ -307,6 +331,21 @@ class GPUEngine(AsyncEngine):
         cfg = self.config
         if not req.token_ids:
             raise ValueError("empty token_ids")
+        if cfg.spec_decode:
+            # The spec window samples temperature / top-k / top-p / seed
+            # as data; it has no logprob taps and no count state.
+            s = req.sampling_options
+            refused = []
+            if s.logprobs is not None:
+                refused.append("logprobs")
+            if s.frequency_penalty or s.presence_penalty:
+                refused.append("frequency/presence penalties")
+            if refused:
+                raise ValueError(
+                    f"speculative decoding ({cfg.spec_decode}) does not "
+                    f"support: {', '.join(refused)}. Disable spec_decode or "
+                    f"drop these options (temperature/top_k/top_p/seed are "
+                    f"supported)")
         if len(req.token_ids) >= cfg.max_model_len:
             raise ValueError(
                 f"prompt length {len(req.token_ids)} exceeds max model len "
@@ -484,7 +523,12 @@ class GPUEngine(AsyncEngine):
                 gpu_cache_usage_perc=alloc.num_active / alloc.num_pages,
                 gpu_prefix_cache_hit_rate=(
                     self.prefix_hit_blocks / self.prefix_lookup_blocks
-                    if self.prefix_lookup_blocks else 0.0)))
+                    if self.prefix_lookup_blocks else 0.0)),
+            spec_decode_stats=(SpecDecodeStats(
+                num_spec_tokens=self.spec_tokens,
+                num_drafts=self.spec_drafts,
+                num_accepted_tokens=self.spec_accepted)
+                if self.config.spec_decode else None))
 
         async def do_publish():
             try:
@@ -733,14 +777,20 @@ class GPUEngine(AsyncEngine):
         runner, M = self.runner, self.decode_window
         packed = np.zeros((self.config.max_num_seqs,
                            PK_PREFIX + runner.bucket_pages_for(1)), np.int32)
-        one = np.float32(1.0).view(np.int32)
-        for penalized, seeded, logprobs in itertools.product((False, True),
-                                                             repeat=3):
-            rows = packed.copy()
-            rows[0, PK_FREQPEN] = one if penalized else 0
-            rows[0, PK_SEEDED] = int(seeded)
-            rows[0, PK_LOGPROB] = int(logprobs)
-            _Readback(runner.decode_window(rows, M)).numpy()
+        if self.config.spec_decode:
+            # One spec program serves every sampling mix (they are data),
+            # and no plain window runs beside it.
+            _Readback(runner.decode_spec_window(
+                packed, self.spec_m_outer, self.config.spec_k)).numpy()
+        else:
+            one = np.float32(1.0).view(np.int32)
+            for penalized, seeded, logprobs in itertools.product(
+                    (False, True), repeat=3):
+                rows = packed.copy()
+                rows[0, PK_FREQPEN] = one if penalized else 0
+                rows[0, PK_SEEDED] = int(seeded)
+                rows[0, PK_LOGPROB] = int(logprobs)
+                _Readback(runner.decode_window(rows, M)).numpy()
         stats = runner.window_programs()
         log.info("warmed %d window programs M=%d in %.1fs (%.1fs capturing; "
                  "graph pool %.1f MiB)", stats["programs"], M,
@@ -992,6 +1042,13 @@ class GPUEngine(AsyncEngine):
             for row, (r, slot, _) in enumerate(group):
                 self._place_in_slot_pending(r, slot)
                 rows.append((row, r, slot, r.epoch))
+            if self.config.spec_decode:
+                # The whole prompt (a reused prefix and a requeued request's
+                # generated tokens too) into the draft history; the first
+                # token follows from tokens_dev.
+                self.runner.seed_history([
+                    (slot, np.asarray(r.tokens_all, np.int32), 0, True, None)
+                    for r, slot, _ in group])
             self._pending_first.append({"handle": _Readback(outs),
                                         "rows": rows})
         return True
@@ -1021,6 +1078,11 @@ class GPUEngine(AsyncEngine):
         r.pages = pages
         r.injected = None
         self.injected_admissions += 1
+        if self.config.spec_decode:
+            # No local prefill ran: the history's first token comes from
+            # the host.
+            self.runner.seed_history([(slot, np.asarray(prompt, np.int32),
+                                       0, True, int(first_token))])
         self._place_in_slot(r, slot, first_token)
         return True
 
@@ -1170,6 +1232,9 @@ class GPUEngine(AsyncEngine):
             self._prefilling.remove(r)
             r.prefilling = False
             self._place_in_slot_pending(r, r.slot)
+            if self.config.spec_decode:
+                self.runner.seed_history([(r.slot, np.asarray(
+                    r.tokens_all, np.int32), 0, True, None)])
             self._pending_first.append({"handle": _Readback(outs),
                                         "rows": [(0, r, r.slot, r.epoch)]})
         self._chunk_inflight.append({"fence": fence.close(),
@@ -1378,17 +1443,25 @@ class GPUEngine(AsyncEngine):
             self.disp_positions[i] += adv
             self.disp_seq_lens[i] += adv
         t0 = time.monotonic()
-        outs = self.runner.decode_window(packed, M)
+        spec = bool(cfg.spec_decode)
+        if spec:
+            outs = self.runner.decode_spec_window(packed, self.spec_m_outer,
+                                                  cfg.spec_k)
+        else:
+            outs = self.runner.decode_window(packed, M)
         self.windows_dispatched += 1
         return _Window(toks=_Readback(outs), slots=slots, frozen=frozen,
-                       size=M, serial=self._dispatch_serial, t0=t0)
+                       size=M, serial=self._dispatch_serial, t0=t0,
+                       spec=spec)
 
     def _process_window(self, w: _Window) -> None:
         page = self.config.page_size
         toks = None
         if w.toks is not None:
-            toks, lps, top_vs, top_is = w.toks.numpy()
+            arrays = w.toks.numpy()
             self.window_seconds.append(time.monotonic() - w.t0)
+            if not w.spec:
+                toks, lps, top_vs, top_is = arrays
         self._release_ready_pages()
         # The host token chains need every touched slot's first token.
         if self._pending_first:
@@ -1408,7 +1481,10 @@ class GPUEngine(AsyncEngine):
                 self._finish_slot(i, register=False)
             else:
                 self._requeue_slot(i)
-        if toks is None:
+        if w.toks is None:
+            return
+        if w.spec:
+            self._process_spec_window(w, *arrays)
             return
         for i, snap in enumerate(w.slots):
             if snap is None:
@@ -1453,6 +1529,76 @@ class GPUEngine(AsyncEngine):
             if finish is None and r.ctx.is_stopped:
                 finish = FinishReason.CANCELLED
             self._emit(r, accepted, finish, lp_out)
+            if finish is not None:
+                self._finish_slot(i, register=True)
+
+    def _process_spec_window(self, w: _Window, outs: np.ndarray,
+                             emits: np.ndarray, ndrafts: np.ndarray) -> None:
+        """Host walk of a speculative window (the reference's
+        ``_process_spec_window``): step m of slot i emitted its first
+        emits[m, i] tokens of outs[m, i] (0: the slot froze at its cap).
+        The host appends them in order under the stop conditions,
+        registers each page a token completes, and corrects its
+        dispatch-time position, which assumed M tokens, by what the device
+        emitted, in either direction."""
+        page = self.config.page_size
+        steps = outs.shape[0]
+        for i, snap in enumerate(w.slots):
+            if snap is None:
+                continue
+            r, epoch, start, cap = snap
+            if self.slot_req[i] is not r or r.epoch != epoch:
+                continue  # slot reassigned since dispatch
+            if r.ctx.is_killed:
+                r.push(None)
+                self._finish_slot(i, register=True)
+                continue
+            accepted: list[int] = []
+            finish = None
+            inp = r.last_token
+            pos = start
+            for m in range(steps):
+                e = int(emits[m, i])
+                self.spec_emit_hist[e] += 1
+                if e == 0:
+                    if pos >= cap:
+                        finish = FinishReason.LENGTH
+                    break
+                nd = int(ndrafts[m, i])
+                if nd:
+                    self.spec_drafts += 1
+                    self.spec_tokens += nd
+                    self.spec_accepted += e - 1
+                for j in range(e):
+                    token = int(outs[m, i, j])
+                    r.generated += 1
+                    # The fed token now has K/V in the pool: register the
+                    # page it completes under its chained hash.
+                    new_block = r.blocks.append(inp)
+                    if new_block is not None:
+                        self.allocator.register(
+                            r.pages[len(r.blocks.tokens) // page - 1],
+                            new_block)
+                    accepted.append(token)
+                    r.tokens_all.append(token)
+                    inp = token
+                    finish = self._check_finish(r, token)
+                    if finish is not None:
+                        break
+                pos += e
+                if finish is not None:
+                    break
+            r.last_token = inp
+            if finish is None and r.ctx.is_stopped:
+                finish = FinishReason.CANCELLED
+            if finish is None:
+                # Dispatch assumed min(M, cap - start) tokens; the device's
+                # chain may also be ahead of a dispatch-time clamp, so the
+                # correction goes both ways.
+                delta = min(w.size, max(0, cap - start)) - (pos - start)
+                self.disp_positions[i] -= delta
+                self.disp_seq_lens[i] -= delta
+            self._emit(r, accepted, finish)
             if finish is not None:
                 self._finish_slot(i, register=True)
 

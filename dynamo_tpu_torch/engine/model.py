@@ -297,6 +297,47 @@ def paged_window_attention(q, k_cache, v_cache, layer: int, page_table,
     return out.reshape(b, nh, d)
 
 
+def paged_verify_attention_plain(q, k_cache, v_cache, layer: int, page_table,
+                                 hist_lens, k_win, v_win, wlen, k_blk, v_blk,
+                                 q_per_kv: int) -> torch.Tensor:
+    """Plain attention of a speculative verify block (the einsum body of
+    the reference's ``decode_window_multi_step``): q [B,S,Nh,D] over the
+    gathered history (hist_lens tokens), the window buffer k_win/v_win
+    [Nkv,B,W,D] (cols < wlen [B]) and the block's own k_blk/v_blk
+    [B,S,Nkv,D] (causal: position j sees block cols t <= j). One fp32
+    softmax, bf16 probabilities into the PV products."""
+    b, s, nh, d = q.shape
+    nkv, page = k_cache.shape[1], k_cache.shape[3]
+    maxp = page_table.shape[1]
+    w = k_win.shape[2]
+    k_all = gather_pages_folded(k_cache, layer, page_table).float()
+    v_all = gather_pages_folded(v_cache, layer, page_table)
+    qg = q.reshape(b, s, nkv, q_per_kv, d).float()
+    scale = 1.0 / d ** 0.5
+    s_hist = torch.einsum("bsngd,nbld->bnsgl", qg, k_all) * scale
+    lpos = torch.arange(maxp * page, device=q.device)[None, :]
+    s_hist = torch.where(
+        (lpos < hist_lens.long()[:, None])[:, None, None, None, :],
+        s_hist, NEG_INF)
+    s_win = torch.einsum("bsngd,nbjd->bnsgj", qg, k_win.float()) * scale
+    wvalid = (torch.arange(w, device=q.device)[None, :]
+              < wlen.long()[:, None])[:, None, None, None, :]
+    s_win = torch.where(wvalid, s_win, NEG_INF)
+    s_blk = torch.einsum("bsngd,btnd->bnsgt", qg, k_blk.float()) * scale
+    causal = (torch.arange(s, device=q.device)[:, None]
+              >= torch.arange(s, device=q.device)[None, :])
+    s_blk = torch.where(causal[None, None, :, None, :], s_blk, NEG_INF)
+    probs = torch.softmax(torch.cat([s_hist, s_win, s_blk], dim=-1), dim=-1)
+    h = maxp * page
+    p_hist = probs[..., :h].to(q.dtype)
+    p_win = probs[..., h:h + w].to(q.dtype)
+    p_blk = probs[..., h + w:].to(q.dtype)
+    out = (torch.einsum("bnsgl,nbld->bsngd", p_hist, v_all)
+           + torch.einsum("bnsgj,nbjd->bsngd", p_win, v_win)
+           + torch.einsum("bnsgt,btnd->bsngd", p_blk, v_blk))
+    return out.reshape(b, s, nh, d)
+
+
 def paged_decode_attention(q, k_cache, v_cache, layer: int, page_table,
                            hist_lens, k_self, v_self,
                            q_per_kv: int) -> torch.Tensor:
@@ -429,4 +470,38 @@ def decode_window_step(params: Params, spec: ModelSpec, k_cache, v_cache,
         v_layers.append(v)
     x = rms_norm(x, params["final_norm"], spec.rms_norm_eps)
     return (lm_logits(x, params, spec), torch.stack(k_layers),
+            torch.stack(v_layers))
+
+
+def decode_window_multi_step(params: Params, spec: ModelSpec, k_cache,
+                             v_cache, k_buf, v_buf, wlen, tokens, positions,
+                             page_table, hist_lens, attention_impl=None):
+    """Speculative verify step inside a window: S tokens per slot (the
+    chained token and up to S-1 drafts) forwarded together, so one read
+    of the weights verifies S positions. The caches are read-only here.
+
+    tokens/positions [B,S]; k_buf/v_buf [L,Nkv,B,W,D] hold this window's
+    committed columns (< wlen [B]); hist_lens [B]: cache-resident tokens.
+    Position j attends the paged history, the buffer's valid columns and
+    the block's columns t <= j. Returns (logits [B,S,V] fp32, k_new,
+    v_new [L,B,S,Nkv,D])."""
+    b, s = tokens.shape
+    x = embed_lookup(params["embed"], tokens)              # [B,S,H]
+    cos, sin = rope_tables(positions, spec.head_dim, spec.rope_theta)
+    attn_fn = attention_impl or paged_verify_attention_plain
+    k_layers, v_layers = [], []
+    for layer in range(spec.num_layers):
+        lp = layer_params(params, layer)
+        h = rms_norm(x, lp["input_norm"], spec.rms_norm_eps)
+        q, k, v = _qkv(h, lp, spec, cos, sin)              # [B,S,N,D]
+        attn = attn_fn(q, k_cache, v_cache, layer, page_table, hist_lens,
+                       k_buf[layer], v_buf[layer], wlen, k, v, spec.q_per_kv)
+        x = x + mm(attn.reshape(b, s, -1), lp["wo"])
+        h2 = rms_norm(x, lp["post_attn_norm"], spec.rms_norm_eps)
+        x = x + ffn_block(h2, lp, spec)
+        k_layers.append(k)
+        v_layers.append(v)
+    x = rms_norm(x, params["final_norm"], spec.rms_norm_eps)
+    logits = lm_logits(x.reshape(b * s, -1), params, spec)
+    return (logits.reshape(b, s, -1), torch.stack(k_layers),
             torch.stack(v_layers))

@@ -16,6 +16,13 @@
   ``WindowProgram``: on the CPU its body runs eagerly every window; on
   the card it is captured once as a CUDA graph and every window replays
   it. The card has no eager window path.
+- ``decode_spec_window`` (``spec_decode="ngram"``): a window of
+  ``m_outer`` speculative verify steps, each drafting up to k tokens by
+  bigram lookup in the slot's token history on the device (``hist_dev``)
+  and verifying them in one [B, k+1] forward over the paged attention
+  kernel; the data-dependent positions chain on the device
+  (``positions_dev``), and ``seed_history`` writes each admitted prompt
+  into the history. It is one more ``WindowProgram`` key.
 - OpenAI frequency/presence penalties read a ``[max_num_seqs, vocab]``
   uint8 count state on the device (``counts``): prefills install a slot's
   row, penalised windows subtract ``freq * count + pres * (count > 0)``
@@ -65,7 +72,8 @@ from dynamo_tpu_torch.engine.config import EngineConfig
 from dynamo_tpu_torch.engine.kv_quant import (
     BF16, QuantKV, is_packed_parcel, pack_parcel, parcel_to_bf16, quantize_np,
     scatter_tokens, unpack_parcel)
-from dynamo_tpu_torch.engine.model import (decode_window_step, init_params,
+from dynamo_tpu_torch.engine.model import (decode_window_multi_step,
+                                           decode_window_step, init_params,
                                            prefill_forward,
                                            prefill_with_history)
 from dynamo_tpu_torch.engine.quant import (QTensor, is_quantized,
@@ -159,8 +167,8 @@ def _unsupported(config: EngineConfig) -> list[str]:
                    f"csrc/paged_attention.cu)")
     if spec.quant not in (None, "int8"):
         out.append(f"weight quantization {spec.quant!r} (only int8)")
-    if config.spec_decode:
-        out.append("spec decode (ROADMAP item 10)")
+    if config.spec_decode not in (None, "ngram"):
+        out.append(f"spec_decode={config.spec_decode!r} (only 'ngram')")
     if config.max_adapters:
         out.append("LoRA (ROADMAP item 11)")
     if config.host_cache_pages or config.kv_disk_cache_dir:
@@ -227,6 +235,20 @@ class ModelRunner:
         # written in place by prefills and by every window program.
         self.tokens_dev = torch.zeros(config.max_num_seqs, dtype=torch.int32,
                                       device=self.device)
+        # Speculative decoding only: every slot's token history, which the
+        # drafter looks up on the device, and its next position, which
+        # chains between windows on the device because a window advances
+        # a slot by how many drafts it accepted. Each has one sink entry
+        # past the end (column H of hist_dev, slot max_num_seqs of
+        # positions_dev) that takes the writes the reference drops.
+        self.hist_dev = self.positions_dev = None
+        if config.spec_decode:
+            hist_w = config.max_pages_per_seq * config.page_size
+            self.hist_dev = torch.zeros((config.max_num_seqs, hist_w + 1),
+                                        dtype=torch.int32, device=self.device)
+            self.positions_dev = torch.zeros(config.max_num_seqs + 1,
+                                             dtype=torch.int32,
+                                             device=self.device)
         # Window programs by key (``_get_window``); on the card they are
         # CUDA graphs sharing one memory pool and one capture stream.
         self.use_graphs = self.device.type == "cuda"
@@ -433,16 +455,39 @@ class ModelRunner:
             b *= 2
         return min(b, maxp)
 
-    def _get_window(self, window: int, bucket_pages: int,
-                    penalized: bool, seeded: bool,
-                    logprobs: bool) -> "WindowProgram":
+    def _program(self, key: tuple) -> "WindowProgram":
         """The window program of one key (``WindowProgram``), made at its
         first use; on the card it is captured then."""
-        key = (window, bucket_pages, penalized, seeded, logprobs)
         prog = self._window_cache.get(key)
         if prog is None:
             prog = self._window_cache[key] = WindowProgram(self, key)
         return prog
+
+    def _get_window(self, window: int, bucket_pages: int,
+                    penalized: bool, seeded: bool,
+                    logprobs: bool) -> "WindowProgram":
+        return self._program((window, bucket_pages, penalized, seeded,
+                              logprobs))
+
+    def _get_spec_window(self, m_outer: int, k: int,
+                         bucket_pages: int) -> "WindowProgram":
+        """The speculative window program (the reference's
+        ``_get_spec_window``): m_outer verify steps of up to ``k`` drafts.
+        Temperature, top-k, top-p and seed are data, so one program serves
+        every sampling mix of a bucket."""
+        return self._program(("spec", m_outer, k, bucket_pages))
+
+    def _window_history(self, packed: np.ndarray) -> np.ndarray:
+        """Host checks of a window's packed array; returns each slot's
+        cache-resident history at dispatch (PK_SEQLEN - 1)."""
+        if packed[:, PK_ADAPTER].any():
+            raise ValueError("LoRA adapters are not ported yet")
+        h_hist = np.maximum(packed[:, PK_SEQLEN].astype(np.int64) - 1, 0)
+        if (h_hist > (packed.shape[1] - PK_PREFIX)
+                * self.config.page_size).any():
+            raise ValueError("a slot's history is longer than its page-table "
+                             "row covers")
+        return h_hist
 
     def decode_window(self, packed: np.ndarray, window: int):
         """Run one M-step decode window.
@@ -454,13 +499,8 @@ class ModelRunner:
         program's output buffers: valid until the next window's replay, so
         the caller queues their copies before it dispatches another."""
         M = int(window)
-        spec, page = self.spec, self.config.page_size
-        if packed[:, PK_ADAPTER].any():
-            raise ValueError("LoRA adapters are not ported yet")
-        h_hist = np.maximum(packed[:, PK_SEQLEN].astype(np.int64) - 1, 0)
-        if (h_hist > (packed.shape[1] - PK_PREFIX) * page).any():
-            raise ValueError("a slot's history is longer than its page-table "
-                             "row covers")
+        spec = self.spec
+        h_hist = self._window_history(packed)
         # Every step of every layer launches the kernel over this history.
         per_launch = attention.hist_flash_bytes(h_hist, spec.num_heads,
                                                 self.k_cache)
@@ -473,12 +513,95 @@ class ModelRunner:
             logprobs=bool(packed[:, PK_LOGPROB].any()))
         return prog.run(packed)
 
+    def decode_spec_window(self, packed: np.ndarray, m_outer: int, k: int):
+        """Run one speculative window: ``m_outer`` verify steps of up to
+        ``k`` n-gram drafts each (``_spec_body``). Tokens, positions and
+        the token history chain on the device (``tokens_dev``,
+        ``positions_dev``, ``hist_dev``); a slot with PK_OVERRIDE starts
+        at PK_TOKEN and PK_POS instead.
+
+        Returns (tokens [m_outer,B,k+1], emitted [m_outer,B], drafts
+        [m_outer,B]) int32 device tensors: step m of slot b emitted its
+        first emitted[m,b] tokens (0: frozen or inactive; 1: no draft
+        accepted) after proposing drafts[m,b]. On the card they are the
+        program's output buffers, as in ``decode_window``."""
+        if self.hist_dev is None:
+            raise ValueError("decode_spec_window needs spec_decode set")
+        spec = self.spec
+        h_hist = self._window_history(packed)
+        # Every verify step of every layer launches the kernel once over
+        # the k+1 rows of each slot, each reading the slot's history (the
+        # host's dispatch-time bound on it).
+        per_launch = attention.hist_flash_bytes(np.repeat(h_hist, k + 1),
+                                                spec.num_heads, self.k_cache)
+        self.attention_bytes += m_outer * spec.num_layers * per_launch
+        prog = self._get_spec_window(int(m_outer), int(k),
+                                     packed.shape[1] - PK_PREFIX)
+        return prog.run(packed)
+
+    def seed_history(self, entries: list[tuple]) -> None:
+        """Write prompt tokens into ``hist_dev`` and set ``positions_dev``
+        for spec decode (a no-op without it), as the reference's
+        ``seed_history``. Entries: (slot, tokens, start_pos, final,
+        first_token). A ``final`` entry also writes the chained first token
+        at start_pos + len(tokens), ``first_token`` when the host knows it
+        (not None) and else ``tokens_dev[slot]``, and sets the slot's
+        position there. Rows pad to power-of-two buckets as in the
+        reference; every write the reference drops goes to a sink (column
+        H of the history, slot max_num_seqs of the positions), so no two
+        kept writes share an index. One scatter into each buffer."""
+        if self.hist_dev is None or not entries:
+            return
+        n_max = max(len(t) for _, t, _, _, _ in entries)
+        bucket = 64
+        while bucket < n_max:
+            bucket *= 2
+        bp = 1
+        while bp < len(entries):
+            bp *= 2
+        H = self.hist_dev.shape[1] - 1
+        toks = np.zeros((bp, bucket + 1), np.int32)
+        cols = np.full((bp, bucket + 1), H, np.int64)
+        slots = np.zeros(bp, np.int64)
+        lens = np.zeros(bp, np.int64)
+        first = np.full(bp, -1, np.int32)      # -1: from tokens_dev
+        pslot = np.full(bp, self.positions_dev.shape[0] - 1, np.int64)
+        pval = np.zeros(bp, np.int32)
+        for i, (slot, t, start, final, first_tok) in enumerate(entries):
+            n = len(t)
+            toks[i, :n] = t
+            idx = start + np.arange(n + int(bool(final)))
+            cols[i, :len(idx)] = np.where(idx < H, idx, H)
+            slots[i], lens[i] = slot, n
+            if final:
+                pslot[i], pval[i] = slot, start + n
+                if first_tok is not None:
+                    first[i] = first_tok
+        slots_dev = self._upload(slots)
+        first_dev = self._upload(first)
+        vals = self._upload(toks)
+        # Column len of a final row holds its first token.
+        vals.scatter_(1, self._upload(lens)[:, None], torch.where(
+            first_dev >= 0, first_dev, self.tokens_dev[slots_dev])[:, None])
+        self.hist_dev[slots_dev[:, None], self._upload(cols)] = vals
+        self.positions_dev[self._upload(pslot)] = self._upload(pval)
+
+    def _spec_outputs(self, key: tuple) -> tuple:
+        """Fresh output tensors of one spec window of ``key``: tokens
+        [m_outer, B, k+1], emitted and drafts [m_outer, B]."""
+        _, m_outer, k, _ = key
+        B, dev = self.config.max_num_seqs, self.device
+        return (torch.empty((m_outer, B, k + 1), dtype=torch.int32,
+                            device=dev),
+                torch.empty((m_outer, B), dtype=torch.int32, device=dev),
+                torch.empty((m_outer, B), dtype=torch.int32, device=dev))
+
     def _window_outputs(self, key: tuple) -> tuple:
         """Fresh output tensors of one window of ``key``: tokens [M, B]
         and, for a logprobs program, logprobs and the top values and ids;
         None for those otherwise."""
-        M, logprobs = key[0], key[4]
         B, dev = self.config.max_num_seqs, self.device
+        M, logprobs = key[0], key[4]
         toks = torch.empty((M, B), dtype=torch.int32, device=dev)
         if not logprobs:
             return toks, None, None, None
@@ -562,6 +685,123 @@ class ModelRunner:
         # kbuf [L,Nkv,B,M,D] -> [L,Nkv,M,B,D] to match [M,B] indices.
         scatter_tokens(self.k_cache, kbuf.transpose(2, 3), dest, off)
         scatter_tokens(self.v_cache, vbuf.transpose(2, 3), dest, off)
+
+    def _spec_body(self, key: tuple, dev: torch.Tensor, outs: tuple) -> None:
+        """The spec program's body (the reference's ``run_spec``), reading
+        the packed array ``dev`` and writing ``outs``, ``tokens_dev``,
+        ``positions_dev``, ``hist_dev``, the pool and the noise step in
+        place. Each verify step:
+
+        1. feeds each live slot's chained token at its position (recorded
+           in the history: hist[pos] is the token fed);
+        2. drafts up to k tokens by bigram lookup: the latest earlier j
+           with hist[j:j+2] equal to (hist[pos-1], token), the drafts
+           being hist[j+2:j+2+k], valid as a prefix, inside the history
+           and below the slot's cap;
+        3. forwards the token and its drafts as one [B, k+1] block
+           (``decode_window_multi_step`` over ``paged_verify_attention``);
+        4. draws one target sample per position, keyed for a seeded row by
+           (seed, landing position pos+1+j) and else by (runner, row,
+           column) and the noise step; a draft is accepted while the
+           sample reproduces it (rejection sampling for a point-mass
+           drafter), and the slot emits its a accepted drafts' samples
+           and the next, e = a + 1 tokens (0 when frozen or inactive);
+        5. appends the emitted positions' K/V to the window buffer and
+           their tokens to the history.
+
+        After the steps one scatter commits the buffer's columns < wlen
+        into the pool. Writes the reference drops land on sinks: column W
+        of the window buffer and column H of the history. It branches on
+        the key only."""
+        _, m_outer, k, _ = key
+        out_t, emit_t, ndraft_t = outs
+        spec, page, dv = self.spec, self.config.page_size, self.device
+        S, W = k + 1, m_outer * (k + 1)
+        B = dev.shape[0]
+        hist = self.hist_dev
+        H = hist.shape[1] - 1
+        override = dev[:, PK_OVERRIDE] > 0
+        tokens = torch.where(override, dev[:, PK_TOKEN], self.tokens_dev)
+        pos0 = torch.where(override, dev[:, PK_POS], self.positions_dev[:B])
+        active = dev[:, PK_SEQLEN] > 0
+        cap = dev[:, PK_CAP]
+        # Per (row, verify column) sampling: a column takes its row's.
+        temp_s = attention.fold_rows(dev[:, PK_TEMP].view(torch.float32), S)
+        top_k_s = attention.fold_rows(dev[:, PK_TOPK], S)
+        top_p_s = attention.fold_rows(dev[:, PK_TOPP].view(torch.float32), S)
+        seeded_s = attention.fold_rows(dev[:, PK_SEEDED] > 0, S)
+        seed_s = attention.fold_rows(dev[:, PK_SEED], S)
+        page_table = dev[:, PK_PREFIX:].contiguous()
+        # The cache-resident history is fixed across the window (pos0):
+        # what the window produces lives in the buffer until the commit.
+        hist_lens = torch.where(active, pos0, 0)
+        L, nkv, d = spec.num_layers, spec.num_kv_heads, spec.head_dim
+        kbuf = torch.zeros((L, nkv, B, W + 1, d), dtype=self.k_cache.dtype,
+                           device=dv)
+        vbuf = torch.zeros_like(kbuf)
+        rows = torch.arange(B, device=dv)
+        j_s = torch.arange(S, device=dv)
+        j_k = j_s[:k]
+        jidx = torch.arange(H - 1, device=dv)
+        pos = pos0
+        wlen = torch.zeros(B, dtype=torch.int32, device=dv)
+        for m in range(m_outer):
+            live = active & (pos < cap)
+            safe = torch.clamp(pos, 0, H - 1).long()
+            hist[rows, safe] = torch.where(live, tokens, hist[rows, safe])
+            x1 = hist[rows, torch.clamp(pos - 1, 0, H - 1).long()]
+            match = ((hist[:, :H - 1] == x1[:, None])
+                     & (hist[:, 1:H] == tokens[:, None])
+                     & (jidx[None, :] + 1 < pos[:, None]))
+            jstar = torch.where(match, jidx[None, :], -1).amax(dim=1)
+            found = (jstar >= 0) & (pos >= 1) & live
+            didx = jstar[:, None] + 2 + j_k[None, :]                 # [B,k]
+            drafts = hist[rows[:, None], torch.clamp(didx, 0, H - 1)]
+            dvalid = (found[:, None] & (didx <= pos[:, None])
+                      & (pos[:, None] + 1 + j_k[None, :] < cap[:, None]))
+            dvalid = torch.cumprod(dvalid.to(torch.int32), dim=1).bool()
+            tok_blk = torch.cat([tokens[:, None],
+                                 torch.where(dvalid, drafts, 0)], dim=1)
+            logits, k_new, v_new = decode_window_multi_step(
+                self.params, spec, self.k_cache, self.v_cache,
+                kbuf[:, :, :, :W], vbuf[:, :, :, :W], wlen, tok_blk,
+                pos[:, None] + j_s[None, :], page_table, hist_lens,
+                attention_impl=attention.paged_verify_attention)
+            # Column j's token lands at pos + 1 + j.
+            noise = self._draw(seeded_s, seed_s,
+                               (pos[:, None] + 1 + j_s[None, :]).reshape(-1))
+            out = sample_tokens_per_row(
+                logits.reshape(B * S, -1), temp_s, top_k_s, top_p_s,
+                noise).reshape(B, S)
+            eq = (drafts == out[:, :k]) & dvalid
+            a = torch.cumprod(eq.to(torch.int32), dim=1).sum(
+                dim=1, dtype=torch.int32)
+            e = torch.where(live, a + 1, 0)
+            kept = j_s[None, :] < e[:, None]
+            cols = torch.where(kept, wlen[:, None] + j_s[None, :], W).long()
+            kbuf[:, :, rows[:, None], cols] = k_new.permute(0, 3, 1, 2, 4)
+            vbuf[:, :, rows[:, None], cols] = v_new.permute(0, 3, 1, 2, 4)
+            hidx = pos[:, None] + 1 + j_s[None, :]
+            hist[rows[:, None], torch.where(kept & (hidx < H), hidx,
+                                            H).long()] = out
+            tokens = torch.where(live, out[rows, a.long()], tokens)
+            pos = pos + e
+            wlen = wlen + e
+            out_t[m] = out
+            emit_t[m] = e
+            ndraft_t[m] = dvalid.sum(dim=1, dtype=torch.int32)
+        self.tokens_dev.copy_(tokens)
+        self.positions_dev[:B].copy_(pos)
+        # Commit: buffer column c holds position pos0 + c; columns >= wlen
+        # land on the scratch page 0.
+        c = torch.arange(W, device=dv)[None, :]
+        abspos = pos0[:, None] + c
+        valid = c < wlen[:, None]
+        pidx = torch.clamp(abspos // page, 0, page_table.shape[1] - 1)
+        dest = torch.where(valid, torch.gather(page_table, 1, pidx.long()), 0)
+        off = torch.where(valid, abspos % page, 0)
+        scatter_tokens(self.k_cache, kbuf[:, :, :, :W], dest, off)
+        scatter_tokens(self.v_cache, vbuf[:, :, :, :W], dest, off)
 
     def window_programs(self) -> dict:
         """Programs made, of them captured, their capture seconds and the
@@ -660,7 +900,9 @@ class WindowProgram:
     ``logprobs`` is the port's own: the reference computes a window's
     logprobs under ``lax.cond`` inside one program, and a CUDA graph cannot
     branch on a value, so a window with a logprobs row runs a program that
-    computes them and any other window one that does not.
+    computes them and any other window one that does not. A speculative
+    window's program has the key ``("spec", m_outer, k, bucket_pages)``,
+    the reference's ``_get_spec_window`` key.
 
     On the CPU, ``run`` runs the body eagerly with fresh outputs. On the
     card the first ``run`` captures the body as a CUDA graph (``capture``)
@@ -672,6 +914,11 @@ class WindowProgram:
     def __init__(self, runner: ModelRunner, key: tuple):
         self.runner = runner
         self.key = key
+        spec = key[0] == "spec"
+        self.bucket_pages = key[3] if spec else key[1]
+        self._outputs = runner._spec_outputs if spec else \
+            runner._window_outputs
+        self._body = runner._spec_body if spec else runner._window_body
         self.graph = None
         self.packed = None   # device control array the graph reads
         self.outs = None     # static outputs the graph writes
@@ -692,8 +939,8 @@ class WindowProgram:
     def run_eager(self, packed: np.ndarray) -> tuple:
         """The body run eagerly on ``packed`` into fresh outputs (the CPU
         path; on the card only checks call it)."""
-        outs = self.runner._window_outputs(self.key)
-        self.runner._window_body(self.key, self.runner._upload(packed), outs)
+        outs = self._outputs(self.key)
+        self._body(self.key, self.runner._upload(packed), outs)
         return outs
 
     def capture(self) -> None:
@@ -701,15 +948,16 @@ class WindowProgram:
         capture stream, in thread-local mode (other threads of the process
         may wait on events meanwhile). The body runs once eagerly first,
         over all-inactive rows: that run is inert (it writes only the
-        scratch page 0 and leaves ``tokens_dev`` and ``counts`` as they
-        are; the noise step it advances is put back), and it makes the
+        scratch page 0 and the sinks of ``hist_dev`` and leaves
+        ``tokens_dev``, ``positions_dev``, ``hist_dev`` and ``counts`` as
+        they are; the noise step it advances is put back), and it makes the
         libraries' one-time set-up happen outside the capture. Neither
         run counts as kernel launches; every replay adds the capture's."""
         r = self.runner
         t0 = time.monotonic()
-        b, width = r.config.max_num_seqs, PK_PREFIX + self.key[1]
+        b, width = r.config.max_num_seqs, PK_PREFIX + self.bucket_pages
         packed = torch.zeros((b, width), dtype=torch.int32, device=r.device)
-        outs = r._window_outputs(self.key)
+        outs = self._outputs(self.key)
         graph = torch.cuda.CUDAGraph()
         with CAPTURE_LOCK:
             if r._graph_pool is None:
@@ -720,13 +968,13 @@ class WindowProgram:
             with torch.cuda.stream(stream):
                 step = r._noise_step.clone()
                 with attention.KERNEL.recording():
-                    r._window_body(self.key, packed, outs)
+                    self._body(self.key, packed, outs)
                 r._noise_step.copy_(step)
                 with attention.KERNEL.recording() as tally:
                     graph.capture_begin(pool=r._graph_pool,
                                         capture_error_mode="thread_local")
                     try:
-                        r._window_body(self.key, packed, outs)
+                        self._body(self.key, packed, outs)
                     finally:
                         graph.capture_end()
             torch.cuda.current_stream(r.device).wait_stream(stream)
@@ -734,8 +982,7 @@ class WindowProgram:
         self.tally = tuple(tally)
         seconds = time.monotonic() - t0
         r.capture_seconds += seconds
-        log.info("captured window program (window, bucket_pages, penalized, "
-                 "seeded, logprobs)=%s in %.2fs", self.key, seconds)
+        log.info("captured window program %s in %.2fs", self.key, seconds)
 
 
 def _leaves(tree):

@@ -3,6 +3,9 @@ llama-3-8b decode widths (Nkv=8, qpk=4, D=128, page 16, B=32 slots, a
 128-page bucket), bf16 and int8 pools, at two shapes: history 2048 in
 every row ("uniform") and the main path's mid-round histories ("main": 8
 live rows at their prompt plus 31 generated tokens, the rest empty).
+The verify wrapper of speculative decode (``paged_verify_attention``: 4
+positions a slot folded into one kernel launch, a window buffer of 8
+columns) is timed at the same two shapes.
 
     python3 dynamo_tpu_torch/time_attention.py [--tree DIR]
 
@@ -38,27 +41,80 @@ SHAPE = dict(b=32, nkv=8, qpk=4, d=128, page=16, maxp=128)
 
 
 def make_case(gen, d, b, nkv, qpk, hist, L=2, page=16, M=8, extra_pages=3,
-              quant=False, maxp=None):
-    """Random bf16 (or int8-quantized) pools on the card, a shuffled page
-    table (entries past the live pages point anywhere), q, the window
-    buffer and the current token's K/V, from the torch generator ``gen``."""
+              quant=False, maxp=None, device="cuda"):
+    """Random bf16 (or int8-quantized) pools on ``device`` (the card by
+    default), a shuffled page table (entries past the live pages point
+    anywhere), q, the window buffer and the current token's K/V, from the
+    torch generator ``gen``."""
     if maxp is None:
         maxp = max(1, max(-(-h // page) for h in hist)) + extra_pages
     npages = b * maxp + 2
 
     def rnd(*shape):
-        return torch.randn(shape, generator=gen).to(torch.bfloat16).cuda()
+        return torch.randn(shape, generator=gen).to(torch.bfloat16).to(device)
 
     perm = torch.randperm(npages - 1, generator=gen) + 1
-    pt = perm[:b * maxp].reshape(b, maxp).to(torch.int32).cuda()
+    pt = perm[:b * maxp].reshape(b, maxp).to(torch.int32).to(device)
     kc, vc = rnd(L, nkv, npages, page, d), rnd(L, nkv, npages, page, d)
     if quant:
         from dynamo_tpu_torch.engine.kv_quant import QuantKV, kv_quantize
         kc, vc = QuantKV(*kv_quantize(kc)), QuantKV(*kv_quantize(vc))
     return dict(q=rnd(b, nkv * qpk, d), kc=kc, vc=vc, pt=pt,
-                hl=torch.tensor(hist, dtype=torch.int32).cuda(),
+                hl=torch.tensor(hist, dtype=torch.int32).to(device),
                 ks=rnd(b, nkv, d), vs=rnd(b, nkv, d),
                 kw=rnd(nkv, b, M, d), vw=rnd(nkv, b, M, d), qpk=qpk)
+
+
+def make_verify_case(gen, d, b, nkv, qpk, hist, s, wlen, w=8, **kw):
+    """``make_case`` with a speculative verify block: q [B,S,Nh,D] under
+    "qv", the window buffer of ``w`` columns with ``wlen`` [B] valid under
+    "kw"/"vw" and "wl", and the block's own K/V [B,S,Nkv,D] under
+    "kb"/"vb"."""
+    c = make_case(gen, d, b, nkv, qpk, hist, M=w, **kw)
+    dev = c["pt"].device
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen).to(torch.bfloat16).to(dev)
+
+    c.update(qv=rnd(b, s, nkv * qpk, d), kb=rnd(b, s, nkv, d),
+             vb=rnd(b, s, nkv, d),
+             wl=torch.tensor(wlen, dtype=torch.int32, device=dev))
+    return c
+
+
+def verify_args(c, layer: int = 1) -> tuple:
+    """The arguments of ``paged_verify_attention`` (and its plain version)
+    for a ``make_verify_case`` case."""
+    return (c["qv"], c["kc"], c["vc"], layer, c["pt"], c["hl"], c["kw"],
+            c["vw"], c["wl"], c["kb"], c["vb"], c["qpk"])
+
+
+# The verify block of speculative decode on the main path: k = 3 drafts
+# (S = 4 positions a slot), M = 8 so m_outer = 2 steps and a window buffer
+# of 8 columns, timed at the second step with one full step in the buffer.
+VERIFY = dict(s=4, w=8, wlen=4)
+
+
+def timed_verify_case(quant: bool, shape: str):
+    """The verify case of one timed shape (as ``timed_case``): B=32 slots x
+    S=4 positions over history 2048 in every row ("uniform") or the main
+    path's mid-round histories ("main")."""
+    s = SHAPE
+    hist, layers = (([2048] * s["b"], [1]) if shape == "uniform"
+                    else (main_shape_hist(s["b"]), [0, 1, 2, 3]))
+    wlen = [VERIFY["wlen"] if h else 0 for h in hist]
+    c = make_verify_case(torch.Generator().manual_seed(4), s["d"], s["b"],
+                         s["nkv"], s["qpk"], hist, VERIFY["s"], wlen,
+                         w=VERIFY["w"], L=max(layers) + 1, page=s["page"],
+                         quant=quant, maxp=s["maxp"])
+    return c, hist, layers
+
+
+def verify_caller(fn, c, layers):
+    """A call of the verify wrapper ``fn`` on the case, each call on the
+    next of ``layers``."""
+    turn = itertools.cycle(layers)
+    return lambda: fn(*verify_args(c, next(turn)))
 
 
 def main_shape_hist(b: int = 32) -> list[int]:
@@ -168,6 +224,14 @@ def main() -> int:
         out = wrapper_times(attention, quant, shape)
         print(json.dumps({"tree": str(tree), "pool": "int8" if quant
                           else "bf16", "shape": shape, **out}), flush=True)
+        c, _, layers = timed_verify_case(quant, shape)
+        fn = verify_caller(attention.paged_verify_attention, c, layers)
+        e, h = eager_ms(fn)
+        print(json.dumps({"tree": str(tree), "pool": "int8" if quant
+                          else "bf16", "shape": shape,
+                          "wrapper": "paged_verify_attention",
+                          "graph_ms": graph_ms(fn), "eager_ms": e,
+                          "host_ms": h}), flush=True)
     print(smi_line())
     return 0
 

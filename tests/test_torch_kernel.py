@@ -7,6 +7,9 @@ with the card and no JAX:
     python -m pytest --noconftest -q -m gpu tests/test_torch_kernel.py
 
 The gpu-marked tests skip without a card: a CUDA kernel has no CPU mode.
+They include speculative decoding's verify route (the kernel over a
+slot's folded verify rows, against its einsum version) and its window
+program (a graph replay against the eager body).
 Tolerance on the card: kernel and plain version accumulate in fp32 from the
 same bf16 inputs. The kernel's score products are exact (bf16 x bf16 in
 fp32), and it carries each PV weight as a bf16 high part plus a bf16
@@ -356,4 +359,97 @@ def test_window_graph_replay_equals_eager_body_on_gpu(quant_kv):
         prog.run(packed)
     torch.cuda.synchronize()
     want = 3 * M * spec.num_layers
+    assert _counts() == ((0, want) if quant_kv else (want, 0)), _counts()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("d,nkv,qpk,hist,s,wlen,layer", [
+    (32, 2, 2, [0, 5, 17, 140], 4, [0, 3, 8, 1], 1),   # ragged, zero, W
+    (64, 2, 4, [300, 0, 131], 1, [2, 0, 8], 0),        # S=1, GQA
+    (128, 1, 8, [129, 700], 4, [8, 0], 1),             # MQA
+    (128, 8, 4, [0, 33, 1000, 2049], 4, [4, 4, 0, 8], 1),
+])
+def test_verify_route_matches_plain_on_gpu(d, nkv, qpk, hist, s, wlen, layer,
+                                           quant):
+    """The speculative verify wrapper on the card (one kernel launch over
+    the B*S folded rows) against its einsum version on CPU copies of the
+    same inputs, within two bf16 ulps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from dynamo_tpu_torch.engine.model import paged_verify_attention_plain
+    from dynamo_tpu_torch.time_attention import make_verify_case, verify_args
+    c = make_verify_case(torch.Generator().manual_seed(d + s), d, len(hist),
+                         nkv, qpk, hist, s, wlen, quant=quant)
+    bf16, int8 = _counts()
+    got = attention.paged_verify_attention(*verify_args(c, layer))
+    torch.cuda.synchronize()
+    assert _counts() == ((bf16, int8 + 1) if quant else (bf16 + 1, int8))
+    want = paged_verify_attention_plain(*verify_args(
+        {k: _to_cpu(v) for k, v in c.items()}, layer))
+    torch.testing.assert_close(got.float().cpu(), want.float(),
+                               atol=1.6e-2, rtol=1.6e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant_kv", [None, "int8"], ids=["bf16", "int8"])
+def test_spec_window_graph_replay_equals_eager_body_on_gpu(quant_kv):
+    """A speculative window program replayed from its CUDA graph equals its
+    body run eagerly on the same state (tokens_dev, positions_dev, hist_dev
+    and the noise step put back): tokens, emitted counts and drafts equal,
+    the chained state too, and every replay counts m_outer x L launches of
+    the pool's entry point and none of the other."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA graphs have no CPU mode")
+    from dynamo_tpu_torch.engine import config as tcfg
+    from dynamo_tpu_torch.engine import runner as trunner
+    spec = tcfg.PRESETS["tiny-test"]
+    B, page, m_outer, k = 4, 16, 2, 3
+    r = trunner.ModelRunner(tcfg.EngineConfig(
+        model=spec, num_pages=64, max_num_seqs=B, max_pages_per_seq=16,
+        prefill_buckets=(64, 128), max_prefill_tokens=128, quant_kv=quant_kv,
+        spec_decode="ngram", spec_k=k, device="cuda"))
+    rng = np.random.default_rng(22)
+    lens = (40, 77, 100)
+    prompts = [np.tile(rng.integers(0, spec.vocab_size, 5), 30)[:n]
+               .astype(np.int32) for n in lens]
+    r.prefill_batch([trunner.PrefillSeq(
+        tokens=p, chunk_pages=np.arange(1 + 8 * i, 1 + 8 * i + -(-n // page)),
+        sampling=(0.0, 0, 1.0)) for i, (p, n) in enumerate(zip(prompts,
+                                                                lens))],
+        slots=[0, 1, 2])
+    r.seed_history([(i, p, 0, True, None) for i, p in enumerate(prompts)])
+    width = r.bucket_pages_for(8)
+    packed = np.zeros((B, trunner.PK_PREFIX + width), np.int32)
+    for i, n in enumerate(lens):
+        packed[i, trunner.PK_POS] = n
+        packed[i, trunner.PK_SEQLEN] = n + 1
+        packed[i, trunner.PK_TEMP] = np.float32(0.7 * (i == 2)).view(
+            np.int32)
+        packed[i, trunner.PK_TOPP] = np.float32(1.0).view(np.int32)
+        packed[i, trunner.PK_CAP] = 8 * page
+        packed[i, trunner.PK_SEED] = 9
+        packed[i, trunner.PK_SEEDED] = int(i == 2)
+        packed[i, trunner.PK_PREFIX:trunner.PK_PREFIX + 8] = \
+            np.arange(1 + 8 * i, 9 + 8 * i)
+    state = (r.tokens_dev, r.positions_dev, r.hist_dev, r._noise_step)
+    before = [t.clone() for t in state]
+    prog = r._get_spec_window(m_outer, k, width)
+    replayed = [t.clone() for t in prog.run(packed)]
+    after = [t.clone() for t in state]
+    assert prog.graph is not None and r.window_replays == 1
+    for t, b in zip(state, before):
+        t.copy_(b)
+    eager = prog.run_eager(packed)
+    torch.cuda.synchronize()
+    for a, b in zip(replayed, eager):
+        assert torch.equal(a, b), (a, b)
+    for a, t in zip(after, state):
+        assert torch.equal(a, t)
+    assert int(replayed[1][:, :3].min()) >= 1
+    attention.KERNEL.launches = attention.KERNEL.launches_int8 = 0
+    for _ in range(3):
+        prog.run(packed)
+    torch.cuda.synchronize()
+    want = 3 * m_outer * spec.num_layers
     assert _counts() == ((0, want) if quant_kv else (want, 0)), _counts()

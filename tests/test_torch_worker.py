@@ -698,10 +698,8 @@ def test_entry_points_as_processes():
 
 
 @pytest.mark.parametrize("main,argv,words", [
-    (gpu.parse_args, ["--spec-k", "3"], "ROADMAP item 10"),
     (gpu.parse_args, ["--max-adapters", "2"], "ROADMAP item 11"),
     (gpu.parse_args, ["--lora", "x=y"], "ROADMAP item 11"),
-    (gpu.parse_args, ["--spec-decode", "ngram"], "ROADMAP item 10"),
     (gpu.parse_args, ["--host-cache-pages", "64"], "ROADMAP item 9"),
     (gpu.parse_args, ["--kv-disk-cache-dir", "/x"], "ROADMAP item 9"),
     (gpu.parse_args, ["--num-nodes", "2"], "ROADMAP item 16"),
@@ -718,6 +716,28 @@ def test_refused_flags_name_their_item(main, argv, words, capsys):
         main(argv)
     assert exc.value.code != 0
     assert words in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["--spec-decode", "ngram", "--spec-k", "3"], ("ngram", 3)),
+    (["--spec-decode", "ngram", "--spec-k", "5"], ("ngram", 5)),
+    ([], (None, 3)),
+    (["--spec-decode", "foo"], "invalid choice: 'foo'"),
+], ids=lambda v: " ".join(v) if isinstance(v, list) else None)
+def test_spec_decode_flags(argv, want, capsys):
+    """The worker serves --spec-decode (choices: ngram) and --spec-k, as
+    the reference worker does; another choice is refused by argparse."""
+    argv = ["--model", "tiny-test", "--device", "cpu", "--num-pages", "8",
+            *argv]
+    if isinstance(want, str):
+        with pytest.raises(SystemExit) as exc:
+            gpu.parse_args(argv)
+        assert exc.value.code == 2
+        assert want in capsys.readouterr().err
+        return
+    config = gpu.build_engine_config(gpu.parse_args(argv))
+    assert (config.spec_decode, config.spec_k) == want
+    assert config.warmup_windows
 
 
 def test_defaults_of_the_entry_points():
