@@ -190,8 +190,10 @@ Phases, in order; any failure exits non-zero without the final line:
    chat over the threshold is prefilled on the prefill worker and
    answered, and all four exit 0 on SIGTERM.
 9. KV-cache-aware routing at full width, after phase 8's engines are
-   released. Two seed-0 llama-3-8b engines, each built as ``backends.gpu``
-   builds it in agg mode with DISAGG_PAGES pages, each behind its own
+   released. Two seed-0 llama-3-8b engines cut to KV_LAYERS of its 32
+   layers (every width kept; the phase compares its two passes with each
+   other, never with phase 3), each built as ``backends.gpu`` builds it in
+   agg mode with DISAGG_PAGES pages, each behind its own
    worker runtime (the first embeds the coordinator) with its three
    publishers (``backends.gpu.make_publishers``: KV events, load metrics,
    inventory digests; the engine started on the phase's event loop) and
@@ -213,7 +215,8 @@ Phases, in order; any failure exits non-zero without the final line:
    takes the no-reuse path); the kv pass hit more blocks than the
    round-robin pass; the greedy ids of the two passes are equal or split
    at a near-tie of the teacher-forced logits; paged_attention_hist
-   launched windows x M x 32 times over both workers in each pass, the
+   launched windows x M x KV_LAYERS times over both workers in each pass,
+   the
    int8 entry 0 times; both workers' load metrics and inventory digests
    reached the router (``kv_status()``). It prints each wave-2 request's
    TTFT and TPOT at the worker's engine boundary under both routers, each
@@ -253,12 +256,47 @@ Phases, in order; any failure exits non-zero without the final line:
    device ms (torch.profiler) with its top ops beside phase 3's decode
    device ms a step, the spec program's capture seconds and graph-pool
    bytes, and the phase's seconds.
-In every phase from 3 to 10, each decode window an engine dispatched was
+11. batched LoRA at full width, after phase 10's engine is released:
+   three HF PEFT adapters for llama-3-8b are written from seeds with the
+   port's safetensors writer (a: rank 8 and b: rank 16 on all seven
+   targets, c: rank 4 with lora_alpha 12 on the attention projections),
+   and a seed-0 llama-3-8b engine is built as ``python -m
+   dynamo_tpu_torch.backends.gpu --lora a=... --lora b=... --lora c=...
+   --max-adapters 2 --max-lora-rank 16`` builds it (bf16 pool of
+   DISAGG_PAGES pages, warmup_windows set). Round A: round 1's 8 prompts
+   concurrently, 3 on the base model, 3 on a, 2 on b (six greedy, one at
+   temperature 0.8 / top_p 0.9, one seeded). Round B: a request on c,
+   which hot-loads into the slot LRU frees (b's) while captured programs
+   exist, beside one on a; while both are held a request on b is
+   answered OverloadedError, and an unknown name AdapterNotFoundError.
+   Checked: every request finishes at 64 tokens and every window was a
+   graph replay; paged_attention_hist launched windows x 8 x 32 times
+   and the int8 entry 0 times; slot 0 is bit-identical to the base model
+   (one decode step's logits with the LoRA stacks and ids 0 equal those
+   without, and the same window through a runner built without adapters
+   on the same parameter tensors and pool gives the same tokens and
+   logprobs); every delta of one eager decode step with rows on slots
+   0, 1 and 2 (7 targets x 32 layers, model.lora_delta on the card)
+   equals a per-row gather computed here without it (x @ A[id] in fp32,
+   rounded to bf16, @ B[id]) within LORA_DELTA_RTOL of the delta's
+   largest entry, slot-0 rows exact zeros; the greedy base rows equal
+   phase 3's ids or split at a near-tie; each greedy adapter row's id is
+   the argmax of the eager teacher-forced plain path through its adapter or sits at a near-tie
+   (top-2 margin within 2 x LOGIT_ATOL); after the hot-load, a window
+   program captured before it, replayed with rows on a and c, equals its
+   body run eagerly (tokens equal, logprobs within 1e-5). It prints the
+   round's tok/s, TTFT and TPOT, the decode device ms a step with all 8
+   rows on adapters beside the same window on the base runner and phase
+   3's (torch.profiler; their difference is the LoRA ops' cost), the ms
+   of one hot-load of b (rank 16, about 84 MB host to device), the
+   stacks' bytes and the phase's seconds.
+In every phase from 3 to 11, each decode window an engine dispatched was
 a replay of its program's CUDA graph (the runner's replay count rises by
-the windows dispatched), and the warmed engines of phases 8-10 (built as
+the windows dispatched), and the warmed engines of phases 8-11 (built as
 ``backends.gpu`` builds them, warmup_windows set) print their programs
-after the warmup and after each pass. The last lines are the script's
-total seconds, the kernels' JSON summary, the card's name and power
+after the warmup and after each pass. The last lines are the seconds of
+each group of phases, the script's total seconds, the kernels' JSON
+summary, the card's name and power
 limit, and {"ok": true, "device": {...}}.
 """
 
@@ -917,11 +955,13 @@ def second_round(engine, attention, round1_prompts) -> dict:
     return out
 
 
-def plain_forced_logits(runner, model, prompt, tokens, quant: bool):
+def plain_forced_logits(runner, model, prompt, tokens, quant: bool,
+                        slot: int | None = None):
     """The plain path's logits behind each of ``tokens``: the first from a
     whole-prompt prefill of ``prompt`` into a private pool (int8 with
     ``quant``), the others from teacher-forced decode steps fed
-    ``tokens[:-1]`` with the plain gather attention."""
+    ``tokens[:-1]`` with the plain gather attention; with ``slot``, through
+    the runner's LoRA stacks at that slot (eager, no graph)."""
     from dynamo_tpu_torch.engine.kv_quant import QuantKV
     spec, cfg, dev = runner.spec, runner.config, runner.device
     page, n = cfg.page_size, len(prompt)
@@ -943,10 +983,14 @@ def plain_forced_logits(runner, model, prompt, tokens, quant: bool):
     tok = torch.zeros((1, bucket), dtype=torch.int32, device=dev)
     tok[0, :n] = torch.tensor(prompt, dtype=torch.int32)
     pos = torch.clamp(torch.arange(bucket, device=dev), max=n - 1)[None]
+    lora = {}
+    if slot is not None:
+        lora = dict(lora=runner.lora, adapter_ids=torch.tensor(
+            [slot], dtype=torch.int32, device=dev))
     first, _, _ = model.prefill_forward(
         runner.params, spec, kc, vc, tok, pos.to(torch.int32),
         table[:, :bucket // page],
-        torch.tensor([n], dtype=torch.int32, device=dev))
+        torch.tensor([n], dtype=torch.int32, device=dev), **lora)
     out = [first[0]]
     if steps:
         hist = torch.tensor([n], dtype=torch.int32, device=dev)
@@ -958,7 +1002,7 @@ def plain_forced_logits(runner, model, prompt, tokens, quant: bool):
             runner.params, spec, kc, vc, kbuf, vbuf, m,
             torch.tensor([tokens[m]], dtype=torch.int32, device=dev),
             torch.tensor([n + m], dtype=torch.int32, device=dev), table,
-            hist)
+            hist, **lora)
         kbuf[:, :, :, m] = k_new.transpose(1, 2)
         vbuf[:, :, :, m] = v_new.transpose(1, 2)
         out.append(logits[0])
@@ -1097,18 +1141,21 @@ def graph_stats(engine, label: str) -> dict:
     return stats
 
 
-def replay_check(engine) -> float:
+def replay_check(engine, adapter_ids=None) -> float:
     """One window run alone on the stopped engine (alone_window, one row
-    asking for logprobs), replayed from its program's graph and then run
-    through the same program's body eagerly on the same packed state
-    (tokens_dev and the noise step put back between the two): greedy
-    tokens equal, and the chosen and top-5 logprobs within 1e-5 (the same
-    kernels in the same order: 0 is expected). Returns the largest
-    logprob difference."""
+    asking for logprobs; with ``adapter_ids``, the 8 rows on those LoRA
+    slots), replayed from its program's graph and then run through the
+    same program's body eagerly on the same packed state (tokens_dev and
+    the noise step put back between the two): greedy tokens equal, and
+    the chosen and top-5 logprobs within 1e-5 (the same kernels in the
+    same order: 0 is expected). Returns the largest logprob
+    difference."""
     from dynamo_tpu_torch.engine import runner as trunner
     runner, M = engine.runner, engine.decode_window
     packed, pages = alone_window(engine, 8, 1224)
     packed[1, trunner.PK_LOGPROB] = 1
+    if adapter_ids is not None:
+        packed[:8, trunner.PK_ADAPTER] = adapter_ids
     key = (M, packed.shape[1] - trunner.PK_PREFIX, False, False, True)
     try:
         tokens = runner.tokens_dev.clone()
@@ -1855,23 +1902,38 @@ def decode_step_device_ms(engine, rows: int = 8, hist: int = 1224) -> float:
     """Device busy ms per decode step of one window run alone on the
     stopped engine (``rows`` greedy rows of ``hist`` tokens), under
     torch.profiler: the union of the device events' intervals over M."""
-    from dynamo_tpu_torch.profile_decode import _busy_seconds
     packed, pages = alone_window(engine, rows, hist)
     try:
-        engine.runner.decode_window(packed, engine.decode_window)
-        torch.cuda.synchronize()
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            engine.runner.decode_window(packed, engine.decode_window)
-            torch.cuda.synchronize()
+        return profiled_step_ms(engine.runner, packed,
+                                engine.decode_window)[0]
     finally:
         engine.allocator.release(pages)
-    intervals = [(e.time_range.start, e.time_range.end) for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def profiled_step_ms(runner, packed, window: int) -> tuple[float, list]:
+    """Device busy ms per step of one ``window``-step window of
+    ``packed`` on ``runner`` (run once unprofiled first), under
+    torch.profiler: the union of the device events' intervals over the
+    steps; and the top device ops by ms a step."""
+    from dynamo_tpu_torch.profile_decode import _busy_seconds
+    runner.decode_window(packed, window)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        runner.decode_window(packed, window)
+        torch.cuda.synchronize()
+    intervals, by_name = [], {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            intervals.append((e.time_range.start, e.time_range.end))
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3)
     if not intervals:
         raise RuntimeError("the profiler recorded no device activity")
-    return _busy_seconds(intervals) * 1e3 / engine.decode_window
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return (_busy_seconds(intervals) * 1e3 / window,
+            [(n[:80], t / window) for n, t in top])
 
 
 def greedy_agree(runner, model, prompts, tokens, ref_tokens,
@@ -2733,6 +2795,10 @@ def disagg_subprocesses() -> dict:
 
 # Phase 9: KV-aware routing. Four prefixes of 64 complete blocks each.
 KV_PREFIX_TOKENS = 1024
+# Phase 9's depth: routing, the index and the prefix cache see no layer
+# count, and a quarter of the layers takes a quarter of the graph
+# captures' host time (the script's longest waits).
+KV_LAYERS = 8
 KV_SUFFIX_TOKENS = 128
 KV_WAVE1_TOKENS = 16
 KV_WAVE2_TOKENS = 32
@@ -2778,8 +2844,9 @@ class EngineTap:
 
 def kv_engine():
     """An engine built as ``python -m dynamo_tpu_torch.backends.gpu``
-    builds it in agg mode (seed-0 llama-3-8b, DISAGG_PAGES pages), not
-    started: the worker starts it on its event loop."""
+    builds it in agg mode (seed-0 llama-3-8b at KV_LAYERS layers,
+    DISAGG_PAGES pages), not started: the worker starts it on its event
+    loop."""
     import dataclasses
 
     from dynamo_tpu_torch.backends import gpu
@@ -2787,13 +2854,15 @@ def kv_engine():
     from dynamo_tpu_torch.profile_decode import MAX_PREFILL_TOKENS, MODEL
     args = gpu.parse_args(["--model", MODEL, "--seed", "0", "--device",
                            DEVICE, "--num-pages", str(DISAGG_PAGES)])
-    config = dataclasses.replace(gpu.build_engine_config(args),
-                                 max_prefill_tokens=MAX_PREFILL_TOKENS)
+    config = gpu.build_engine_config(args)
+    config = dataclasses.replace(
+        config, max_prefill_tokens=MAX_PREFILL_TOKENS,
+        model=dataclasses.replace(config.model, num_layers=KV_LAYERS))
     t0 = time.monotonic()
     engine = load_engine(config, args.resolved_checkpoint, args.seed,
                          start=False)
-    log(f"agg engine: pages={engine.runner.num_pages} pool="
-        f"{engine.runner.kv_pool_bytes / 2**30:.2f} GiB "
+    log(f"agg engine: layers={KV_LAYERS} pages={engine.runner.num_pages} "
+        f"pool={engine.runner.kv_pool_bytes / 2**30:.2f} GiB "
         f"setup={time.monotonic() - t0:.1f}s")
     return engine
 
@@ -3660,15 +3729,464 @@ def spec_phase(attention, model, decode_step_ms: float) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: batched LoRA at full width
+# ---------------------------------------------------------------------------
+
+LORA_SEED = 2468
+ATTN_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj")
+ALL_TARGETS = ATTN_TARGETS + ("gate_proj", "up_proj", "down_proj")
+# name -> (rank, lora_alpha, PEFT target modules): a and b on every
+# target, c (alpha != r) on attention only.
+LORA_ADAPTERS = {"a": (8, 16.0, ALL_TARGETS), "b": (16, 32.0, ALL_TARGETS),
+                 "c": (4, 12.0, ATTN_TARGETS)}
+LORA_MAX_ADAPTERS = 2
+# Slots of the rows of the decode step whose deltas are held to a per-row
+# gather, and the bound on |delta - gather| relative to the delta's
+# largest entry: the two differ only where a bf16 rounding of u or of the
+# output falls the other way (2^-8 of an entry).
+LORA_DELTA_IDS = (0, 1, 2, 1, 2, 0, 2, 1)
+LORA_DELTA_RTOL = 2e-2
+LORA_MAX_RANK = 16
+# Round A on round 1's prompts: 3 base, 3 on a, 2 on b; the first six
+# greedy, then one at temperature 0.8 / top_p 0.9 and one seeded at 0.8.
+LORA_ROUND_A = (None, "a", "b", None, "a", "b", "a", None)
+LORA_ROUND_A_SAMPLING = [{}] * 6 + [{"temperature": 0.8, "top_p": 0.9},
+                                    {"temperature": 0.8, "seed": 1234}]
+# Round B: a fresh prompt on c (hot-loaded into the slot LRU frees) and
+# one on a.
+LORA_ROUND_B = (("c", 900), ("a", 600))
+
+
+def write_peft_adapter(directory: str, spec, rank: int, alpha: float,
+                       targets, seed: int) -> int:
+    """A HF PEFT LoRA adapter for ``spec`` in ``directory``
+    (adapter_config.json, and adapter_model.safetensors under PEFT's
+    tensor names, written by the port's safetensors_lite): A ~ N(0, 1 /
+    d_in) and B ~ N(0, 1 / r) / 4 in bf16 from ``seed``, so each delta is
+    about half its projection's output at alpha / r = 2. Returns the
+    tensors' bytes."""
+    import os
+
+    from dynamo_tpu_torch.engine import safetensors_lite
+    os.makedirs(directory)
+    with open(os.path.join(directory, "adapter_config.json"), "w") as fh:
+        json.dump({"peft_type": "LORA", "r": rank, "lora_alpha": alpha,
+                   "target_modules": list(targets)}, fh)
+    h, i = spec.hidden_size, spec.intermediate_size
+    q, kv = spec.num_heads * spec.head_dim, spec.num_kv_heads * spec.head_dim
+    dims = {"q_proj": (h, q), "k_proj": (h, kv), "v_proj": (h, kv),
+            "o_proj": (q, h), "gate_proj": (h, i), "up_proj": (h, i),
+            "down_proj": (i, h)}
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    tensors = {}
+    for li in range(spec.num_layers):
+        for mod in targets:
+            d_in, d_out = dims[mod]
+            block = "self_attn" if mod in ATTN_TARGETS else "mlp"
+            base = f"base_model.model.model.layers.{li}.{block}.{mod}"
+            tensors[f"{base}.lora_A.weight"] = (torch.randn(
+                (rank, d_in), generator=gen, device=DEVICE)
+                / d_in ** 0.5).to(torch.bfloat16)
+            tensors[f"{base}.lora_B.weight"] = (torch.randn(
+                (d_out, rank), generator=gen, device=DEVICE)
+                / (4 * rank ** 0.5)).to(torch.bfloat16)
+    safetensors_lite.save_file(tensors, os.path.join(
+        directory, "adapter_model.safetensors"))
+    return sum(t.numel() * t.element_size() for t in tensors.values())
+
+
+def lora_engine(dirs: dict):
+    """A seed-0 llama-3-8b engine built as ``python -m
+    dynamo_tpu_torch.backends.gpu --lora a=... --lora b=... --lora c=...
+    --max-adapters 2 --max-lora-rank 16`` builds it (bf16 pool of
+    DISAGG_PAGES pages, warmup_windows set), with phase 3's prefill
+    program size: weights loaded, the adapters registered, then started
+    (the warmup captures). Returns it and the registration seconds."""
+    import dataclasses
+
+    from dynamo_tpu_torch.backends import gpu
+    from dynamo_tpu_torch.launch import load_engine, lora_args
+    from dynamo_tpu_torch.profile_decode import MAX_PREFILL_TOKENS, MODEL
+    argv = ["--model", MODEL, "--seed", "0", "--device", DEVICE,
+            "--num-pages", str(DISAGG_PAGES), "--max-adapters",
+            str(LORA_MAX_ADAPTERS), "--max-lora-rank", str(LORA_MAX_RANK)]
+    for name, directory in dirs.items():
+        argv += ["--lora", f"{name}={directory}"]
+    args = gpu.parse_args(argv)
+    config = dataclasses.replace(gpu.build_engine_config(args),
+                                 max_prefill_tokens=MAX_PREFILL_TOKENS)
+    assert config.warmup_windows and (config.max_adapters,
+                                      config.lora_max_rank) == (
+        LORA_MAX_ADAPTERS, LORA_MAX_RANK), config
+    engine = load_engine(config, args.resolved_checkpoint, args.seed,
+                         start=False)
+    t0 = time.monotonic()
+    for name, path in lora_args(args):
+        engine.register_adapter(name, path=path)
+    register_s = time.monotonic() - t0
+    engine.start()
+    return engine, register_s
+
+
+def lora_request(spec, prompt, adapter, sampling=None) -> dict:
+    from dynamo_tpu_torch.profile_decode import MAX_TOKENS
+    return {"model": spec.name, "token_ids": prompt, "adapter": adapter,
+            "stop_conditions": {"max_tokens": MAX_TOKENS},
+            "sampling_options": sampling or {}}
+
+
+def lora_served(engine, attention, run) -> tuple:
+    """``run()`` (a coroutine function serving requests on ``engine``)
+    with the kernel counts from 0: (its results, wall seconds, launches,
+    windows). Checks that every window replayed its graph, every request
+    finished at MAX_TOKENS, and every step of every layer launched the
+    bf16 entry and never the int8 one."""
+    from dynamo_tpu_torch.profile_decode import MAX_TOKENS
+    attention.KERNEL.launches = 0
+    attention.KERNEL.launches_int8 = 0
+    windows0, replays0 = engine.windows_dispatched, engine.runner.window_replays
+    t0 = time.monotonic()
+    results = asyncio.run(run())
+    wall = time.monotonic() - t0
+    torch.cuda.synchronize()
+    launches = {"paged_attention_hist": attention.KERNEL.launches,
+                "paged_attention_hist_int8": attention.KERNEL.launches_int8}
+    windows = engine.windows_dispatched - windows0
+    check_replays(engine, replays0, windows)
+    for i, r in enumerate(results):
+        assert r["finish"] == "length", (i, r["finish"])
+        assert len(r["tokens"]) == MAX_TOKENS, (i, len(r["tokens"]))
+    expected = windows * engine.decode_window * engine.runner.spec.num_layers
+    assert launches["paged_attention_hist"] == expected and expected > 0, (
+        launches, expected)
+    assert launches["paged_attention_hist_int8"] == 0, launches
+    return results, wall, launches, windows
+
+
+def adapter_rows_check(runner, model, prompts, results, adapters,
+                       slots) -> str:
+    """Each greedy adapter row's ids against the argmax of the
+    teacher-forced plain path through its adapter's slot (eager, no
+    graph): equal, or at a near-tie (top-2 margin within 2 x
+    LOGIT_ATOL)."""
+    agree = total = 0
+    for p, r, name in zip(prompts, results, adapters):
+        if name is None:
+            continue
+        logits = plain_forced_logits(runner, model, p, r["tokens"],
+                                     quant=False, slot=slots[name])
+        for j, (tok, lg) in enumerate(zip(r["tokens"], logits)):
+            total += 1
+            if int(lg.argmax()) == tok:
+                agree += 1
+                continue
+            top2 = torch.topk(lg, 2).values
+            margin = float(top2[0] - top2[1])
+            assert margin <= 2 * LOGIT_ATOL, (
+                f"adapter {name}, token {j}: {tok} is not the plain path's "
+                f"argmax {int(lg.argmax())} (margin {margin})")
+    return f"{agree}/{total}"
+
+
+def gathered_delta(x, ll: dict, ids: list[int]) -> torch.Tensor:
+    """``x @ A[id] @ B[id]`` row by row, as the reference's gathered
+    einsums compute it: u = x A[id] with fp32 accumulation, rounded to
+    bf16, then u B[id] in bf16 (no use of model.lora_delta)."""
+    rows = []
+    for i, sid in enumerate(ids):
+        u = (x[i:i + 1].float() @ ll["a"][sid].float()).to(x.dtype)
+        rows.append(u @ ll["b"][sid])
+    return torch.cat(rows)
+
+
+def delta_check(runner, model, attention, args) -> dict:
+    """Every LoRA delta of one eager decode step (``args`` as
+    decode_window_step takes them) with rows on LORA_DELTA_IDS: each call
+    of model.lora_delta is recorded with its inputs and held to
+    ``gathered_delta`` on the same inputs."""
+    ids = list(LORA_DELTA_IDS)
+    calls, lora_delta = [], model.lora_delta
+
+    def recording(x, ll, rows):
+        out = lora_delta(x, ll, rows)
+        calls.append((x, ll, out))
+        return out
+    model.lora_delta = recording
+    try:
+        model.decode_window_step(
+            *args, attention_impl=attention.paged_window_attention,
+            lora=runner.lora, adapter_ids=torch.tensor(
+                ids, dtype=torch.int32, device=runner.device))
+    finally:
+        model.lora_delta = lora_delta
+    assert len(calls) == len(runner.lora) * runner.spec.num_layers, len(calls)
+    base = torch.tensor([i == 0 for i in ids], device=runner.device)
+    worst = 0.0
+    for x, ll, out in calls:
+        want = gathered_delta(x, ll, ids).float()
+        scale = float(want.abs().max())
+        err = float((out.float() - want).abs().max())
+        assert scale > 0 and err <= LORA_DELTA_RTOL * scale, (err, scale)
+        assert not out[base].any(), "a slot-0 row's delta is not zero"
+        worst = max(worst, err / scale)
+    log(f"LoRA deltas of one decode step (rows on slots {ids}): "
+        f"{len(calls)} calls equal a per-row gather within "
+        f"{worst:.2e} of each delta's largest entry (bound "
+        f"{LORA_DELTA_RTOL}); slot-0 rows zero")
+    return {"calls": len(calls), "max_rel_err": worst}
+
+
+def slot0_check(engine, model, attention) -> dict:
+    """Slot 0 against a runner built without adapters on the same
+    parameter tensors and the same pool (no second copy of either): one
+    decode step of 8 rows (alone_window) through the model with the LoRA
+    stacks and ids 0 gives the same logits bit for bit; the same window
+    (one logprobs row, all rows on slot 0) replayed from each runner's
+    program gives the same tokens, logprobs and top-8. Also times a
+    decode step of that window with all 8 rows on adapters (slots 1 and
+    2 in turns) against the base runner's (torch.profiler), which is the
+    LoRA ops' cost. Returns the numbers and the base runner."""
+    import dataclasses
+
+    from dynamo_tpu_torch.engine import runner as trunner
+    runner, M = engine.runner, engine.decode_window
+    spec, dev = runner.spec, runner.device
+    base = trunner.ModelRunner(dataclasses.replace(
+        engine.config, max_adapters=0, num_pages=16, warmup_windows=False),
+        params=runner.params)
+    base.k_cache, base.v_cache = runner.k_cache, runner.v_cache
+    packed, pages = alone_window(engine, 8, 1224)
+    packed[1, trunner.PK_LOGPROB] = 1
+    try:
+        # One step through the model, eager, with and without the stacks.
+        table = torch.from_numpy(packed[:8, trunner.PK_PREFIX:]).to(dev)
+        hist = torch.full((8,), 1224, dtype=torch.int32, device=dev)
+        kbuf = torch.zeros((spec.num_layers, spec.num_kv_heads, 8, M,
+                            spec.head_dim), dtype=torch.bfloat16, device=dev)
+        args = (runner.params, spec, runner.k_cache, runner.v_cache, kbuf,
+                torch.zeros_like(kbuf), 0,
+                torch.arange(8, dtype=torch.int32, device=dev) * 97
+                % spec.vocab_size,
+                hist.clone(), table, hist)
+        with_lora = model.decode_window_step(
+            *args, attention_impl=attention.paged_window_attention,
+            lora=runner.lora, adapter_ids=torch.zeros(
+                8, dtype=torch.int32, device=dev))
+        without = model.decode_window_step(
+            *args, attention_impl=attention.paged_window_attention)
+        for a, b in zip(with_lora, without):
+            assert torch.equal(a, b), "slot 0 is not the base model"
+        deltas = delta_check(runner, model, attention, args)
+        # The same window through both runners' programs.
+        outs = [[t.clone() for t in r.decode_window(packed, M)]
+                for r in (runner, base)]
+        torch.cuda.synchronize()
+        for a, b in zip(*outs):
+            assert torch.equal(a, b), "slot-0 window differs from the base"
+        # In turns: base, every row on an adapter, base.
+        base_ms, _ = profiled_step_ms(base, packed, M)
+        packed[:8, trunner.PK_ADAPTER] = [1, 2] * 4
+        lora_ms, top = profiled_step_ms(runner, packed, M)
+        packed[:, trunner.PK_ADAPTER] = 0
+        base_again, _ = profiled_step_ms(base, packed, M)
+    finally:
+        engine.allocator.release(pages)
+    out = {"step_device_ms_8_rows_on_adapters": lora_ms,
+           "step_device_ms_base_runner": [base_ms, base_again],
+           "lora_ops_device_ms": lora_ms - min(base_ms, base_again),
+           "lora_ops_share": (lora_ms - min(base_ms, base_again)) / lora_ms,
+           "top_ops_device_ms_per_step": top, "delta_check": deltas}
+    log(f"slot 0: one decode step's logits with the LoRA stacks (ids 0) "
+        f"and without are equal bit for bit; a window replayed by this "
+        f"runner and by a runner without adapters on the same tensors "
+        f"gives the same tokens and logprobs. Decode step, 8 rows x 1224 "
+        f"tokens: {lora_ms:.3f} device ms with every row on an adapter "
+        f"against {base_ms:.3f} / {base_again:.3f} without LoRA "
+        f"(LoRA ops {out['lora_ops_device_ms']:.3f} ms, "
+        f"{out['lora_ops_share']:.1%})")
+    return out
+
+
+def hot_load_times(engine, reps: int = 3) -> dict:
+    """ms of one hot-load of adapter b (rank 16, every target) into a
+    free slot: ``AdapterStore.acquire`` from its call until the device
+    copies are done (set_adapter_slot: page-locked staging and the host
+    to device copies), ``reps`` times, evicting b in between."""
+    store = engine.adapters
+    full = store._full_weights("b")
+    nbytes = sum(t.numel() * t.element_size() for pair in full.values()
+                 for t in pair)
+    times = []
+    for _ in range(reps):
+        for name, slot in list(store.status()["resident"].items()):
+            if slot == LORA_MAX_ADAPTERS:
+                assert store.evict(name), name
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        slot = store.acquire("b")
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        store.release("b")
+        assert slot == LORA_MAX_ADAPTERS, slot
+    got = engine.runner.lora["w_down"]["b"][:, slot]
+    assert torch.equal(got.cpu(), full["w_down"][1]), "slot content"
+    out = {"ms": times, "ms_median": sorted(times)[len(times) // 2],
+           "bytes": nbytes}
+    log(f"hot-load of b (rank {LORA_MAX_RANK}, {nbytes / 1e6:.1f} MB host "
+        f"to device): {out['ms_median']:.2f} ms median of {times}")
+    return out
+
+
+def lora_phase(attention, model, ref: dict, decode_step_ms: float) -> dict:
+    """Phase 11 (see the module docstring)."""
+    import shutil
+    import tempfile
+
+    from dynamo_tpu_torch.profile_decode import MODEL, serve
+    from dynamo_tpu_torch.runtime.errors import (AdapterNotFoundError,
+                                                 OverloadedError)
+    t_phase = time.monotonic()
+    from dynamo_tpu_torch.engine.config import PRESETS
+    spec = PRESETS[MODEL]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lora_")
+    try:
+        dirs, written = {}, {}
+        for i, (name, (rank, alpha, targets)) in enumerate(
+                LORA_ADAPTERS.items()):
+            dirs[name] = f"{tmp}/{name}"
+            written[name] = write_peft_adapter(dirs[name], spec, rank, alpha,
+                                               targets, LORA_SEED + i)
+        engine, register_s = lora_engine(dirs)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    runner = engine.runner
+    warm = graph_stats(engine, "LoRA engine after its warmup")
+    log(f"LoRA engine: stacks {runner.lora_bytes} bytes "
+        f"({runner.lora_bytes / 2**20:.1f} MiB, {LORA_MAX_ADAPTERS + 1} "
+        f"slots x rank {LORA_MAX_RANK}); adapters written "
+        f"{ {k: v / 1e6 for k, v in written.items()} } MB, registered in "
+        f"{register_s:.2f} s")
+    prompts = round1_prompts(spec)
+    requests = [lora_request(spec, p, a, s) for p, a, s in zip(
+        prompts, LORA_ROUND_A, LORA_ROUND_A_SAMPLING)]
+    try:
+        results, wall, launches_a, windows_a = lora_served(
+            engine, attention, lambda: serve(engine, requests))
+    finally:
+        engine.stop()
+    status = engine.adapters.status()
+    assert status["resident"] == {"a": 1, "b": 2}, status
+    # Slot-0 rows: bit-identical to a runner without adapters (this also
+    # captures the logprobs window program that the replay check below
+    # replays after round B's hot-load), and the greedy base rows at
+    # phase 3's ids or split at a near-tie; the greedy adapter rows at the
+    # teacher-forced plain path's argmax through their slots.
+    slot0 = slot0_check(engine, model, attention)
+    base_rows = [i for i in range(6) if LORA_ROUND_A[i] is None]
+    base_equal = greedy_agree(runner, model, prompts,
+                              [r["tokens"] for r in results], ref["tokens"],
+                              rows=base_rows)
+    rows = [i for i in range(6) if LORA_ROUND_A[i] is not None]
+    agree_a = adapter_rows_check(
+        runner, model, [prompts[i] for i in rows],
+        [results[i] for i in rows], [LORA_ROUND_A[i] for i in rows],
+        status["resident"])
+    # Round B: c hot-loads into the slot LRU frees (b's: a was used last)
+    # while a decodes beside it; meanwhile b finds both slots held, and an
+    # unknown name is refused.
+    rng = np.random.default_rng(LORA_SEED)
+    b_prompts = [rng.integers(0, spec.vocab_size, n).tolist()
+                 for _, n in LORA_ROUND_B]
+    b_requests = [lora_request(spec, p, a) for p, (a, _) in zip(
+        b_prompts, LORA_ROUND_B)]
+    refused = {}
+
+    async def round_b():
+        task = asyncio.ensure_future(serve(engine, b_requests))
+        while set(engine.adapters.status()["active_refs"]) != {"a", "c"}:
+            assert not task.done(), "round B ended before both were held"
+            await asyncio.sleep(0.002)
+        for name, exc_type in (("b", OverloadedError),
+                               ("nobody", AdapterNotFoundError)):
+            try:
+                await serve(engine, [lora_request(spec, b_prompts[1],
+                                                  name)])
+            except exc_type as exc:
+                refused[name] = f"{type(exc).__name__}: {exc}"
+        return await task
+
+    engine.start()
+    try:
+        results_b, wall_b, launches_b, windows_b = lora_served(
+            engine, attention, round_b)
+    finally:
+        engine.stop()
+    assert set(refused) == {"b", "nobody"}, refused
+    status = engine.adapters.status()
+    assert status["resident"] == {"a": 1, "c": 2}, status
+    assert (status["loads_total"], status["evictions_total"]) == (3, 1), \
+        status
+    log(f"round B: c hot-loaded into slot 2 (b evicted); refused: "
+        f"{refused}")
+    agree_b = adapter_rows_check(runner, model, b_prompts, results_b,
+                                 [a for a, _ in LORA_ROUND_B],
+                                 status["resident"])
+    # The program slot0_check captured before the hot-load, replayed with
+    # rows on a and c, against its body run eagerly.
+    replay_diff = replay_check(engine, adapter_ids=[1, 2] * 4)
+    hot = hot_load_times(engine)
+    ttft = sorted(r["ttft_s"] * 1e3 for r in results)
+    tpot = sorted((r["total_s"] - r["ttft_s"]) / (len(r["tokens"]) - 1)
+                  * 1e3 for r in results)
+    n_tok = sum(len(r["tokens"]) for r in results)
+    out = {"requests": len(results), "adapters": list(LORA_ROUND_A),
+           "tokens": n_tok, "wall_s": wall, "tok_per_s": n_tok / wall,
+           "ttft_ms_median": ttft[len(ttft) // 2], "ttft_ms_max": ttft[-1],
+           "tpot_ms_median": tpot[len(tpot) // 2], "tpot_ms_max": tpot[-1],
+           "windows": windows_a, "launches": launches_a,
+           "round_b": {"windows": windows_b, "launches": launches_b,
+                       "wall_s": wall_b, "refused": refused},
+           "launches_total": {k: launches_a[k] + launches_b[k]
+                              for k in launches_a},
+           "base_rows_equal_phase3": f"{base_equal}/{len(base_rows)}",
+           "greedy_at_plain_argmax": {"round_a": agree_a,
+                                      "round_b": agree_b},
+           "replay_vs_eager_after_hot_load_max_abs_logprob_diff":
+               replay_diff,
+           "phase3_decode_step_device_ms": decode_step_ms, **slot0,
+           "hot_load": hot, "stacks_bytes": runner.lora_bytes,
+           "adapter_bytes": written, "register_s": register_s,
+           "program": {k: warm[k] for k in ("capture_s", "graph_pool_bytes",
+                                             "warmup_s")}}
+    log(f"phase 11: {n_tok / wall:.1f} tok/s, TTFT median "
+        f"{out['ttft_ms_median']:.0f} ms, TPOT median "
+        f"{out['tpot_ms_median']:.2f} ms; base rows equal to phase 3 "
+        f"{out['base_rows_equal_phase3']}; greedy adapter ids at the plain "
+        f"argmax "
+        f"{out['greedy_at_plain_argmax']}; decode step with 8 adapter rows "
+        f"{slot0['step_device_ms_8_rows_on_adapters']:.3f} device ms "
+        f"against phase 3's {decode_step_ms:.3f}")
+    del engine, runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.monotonic() - t_phase
+    log(json.dumps({"lora_phase": out}))
+    log(f"phase 11: {out['phase_s']:.1f}s")
+    return out
+
+
 def kernel_entry(name, variant, timing, main, max_err, stats,
                  http_launches, dist_launches, ckpt_launches,
-                 disagg_launches, kv_launches, verify, spec_launches) -> dict:
+                 disagg_launches, kv_launches, verify, spec_launches,
+                 lora_launches) -> dict:
     """One kernel's summary: times at the B=32 x 2048 shape, and the same
     numbers at the main path's mid-round shape under ``main_shape``;
     launches in round 1, round 2, the HTTP phase, the distributed phase,
     phase 7's round-1 runs on loaded checkpoints, phase 8's passes (on
-    the decode worker), phase 9's passes (both workers) and phase 10's
-    spec round (the verify route); the verify route's numbers at both
+    the decode worker), phase 9's passes (both workers), phase 10's
+    spec round (the verify route) and phase 11's LoRA rounds A and B;
+    the verify route's numbers at both
     shapes under ``verify_route`` (``verify``: its check's error and the
     two timings)."""
     return {"name": name, "route": "cuda",
@@ -3682,6 +4200,7 @@ def kernel_entry(name, variant, timing, main, max_err, stats,
             "launches_disagg": disagg_launches,
             "launches_kv_routing": kv_launches,
             "launches_spec": spec_launches,
+            "launches_lora": lora_launches,
             "max_abs_err": max(max_err, timing["max_abs_err"],
                                main["max_abs_err"], verify["err"],
                                verify["uniform"]["max_abs_err"],
@@ -3713,6 +4232,12 @@ def main() -> int:
         traceback.print_exc()
         return 1
     t_start = time.monotonic()
+    seconds, t_last = {}, [t_start]
+
+    def phase_done(label: str) -> None:
+        now = time.monotonic()
+        seconds[label] = now - t_last[0]
+        t_last[0] = now
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
@@ -3735,18 +4260,28 @@ def main() -> int:
                              for shape in ("uniform", "main")}}
                   for quant in (False, True)}
         torch.cuda.empty_cache()
+        phase_done("1-2 build, kernels")
         stats_bf16 = main_path(attention, model, None)
         stats_int8 = main_path(attention, model, "int8")
+        phase_done("3-4 main path")
         stats_http = http_phase(attention)
         launcher_subprocess()
         dist_subprocesses()
+        phase_done("5-6 http, dist")
         refs = {"bf16": stats_bf16.pop("_round1"),
                 "int8": stats_int8.pop("_round1")}
         ckpt = checkpoint_phase(attention, model, refs["bf16"])
+        phase_done("7 checkpoints")
         disagg = disagg_phase(attention, model, refs)
+        phase_done("8 disagg")
         kv = kv_routing_phase(attention, model)
+        phase_done("9 kv routing")
         spec = spec_phase(attention, model,
                           stats_bf16["round2"]["decode_step_device_ms"])
+        phase_done("10 spec decode")
+        lora = lora_phase(attention, model, refs["bf16"],
+                          stats_bf16["round2"]["decode_step_device_ms"])
+        phase_done("11 lora")
     except Exception:  # noqa: BLE001 — report and fail the run
         traceback.print_exc()
         return 1
@@ -3762,6 +4297,7 @@ def main() -> int:
         return {mode: p["launches"][kernel]
                 for mode, p in kv["passes"].items()}
 
+    log(json.dumps({"phase_seconds": seconds}))
     log(f"chip_smoke: {time.monotonic() - t_start:.1f} s in all")
     log(json.dumps({"kernels": [
         kernel_entry("paged_attention_hist", "bf16 pool", timing_bf16,
@@ -3771,7 +4307,8 @@ def main() -> int:
                      ckpt_launches("paged_attention_hist"),
                      disagg_launches("paged_attention_hist"),
                      kv_launches("paged_attention_hist"), verify[False],
-                     spec["launches"]["paged_attention_hist"]),
+                     spec["launches"]["paged_attention_hist"],
+                     lora["launches_total"]["paged_attention_hist"]),
         kernel_entry("paged_attention_hist_int8",
                      "int8 pool, _decode_kernel(quantized=True)",
                      timing_int8, main_int8, err_int8, stats_int8,
@@ -3781,7 +4318,8 @@ def main() -> int:
                      ckpt_launches("paged_attention_hist_int8"),
                      disagg_launches("paged_attention_hist_int8"),
                      kv_launches("paged_attention_hist_int8"), verify[True],
-                     spec["launches"]["paged_attention_hist_int8"])]}))
+                     spec["launches"]["paged_attention_hist_int8"],
+                     lora["launches_total"]["paged_attention_hist_int8"])]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

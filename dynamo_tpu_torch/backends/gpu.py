@@ -7,6 +7,7 @@ prefill and decode.
     python -m dynamo_tpu_torch.backends.gpu --mode prefill --model llama-3-8b
     python -m dynamo_tpu_torch.backends.gpu --mode decode --model llama-3-8b --max-local-prefill-length 512
     python -m dynamo_tpu_torch.backends.gpu --model llama-3-8b --spec-decode ngram --spec-k 3
+    python -m dynamo_tpu_torch.backends.gpu --model llama-3-8b --lora a=/path/to/peft_a --lora b=/path/to/peft_b
 
 connects to the coordinator (and fails with its connection error when it
 cannot be reached), builds the engine off the event loop so lease
@@ -27,6 +28,16 @@ tokenizer.
 ``--spec-decode ngram`` serves speculative decoding with ``--spec-k``
 drafts a verify step (3 by default), as the reference worker does; the
 launcher has no such flag, as the reference's has none.
+
+``--lora NAME=PATH`` (repeatable; a HF PEFT directory) serves a LoRA
+adapter on the base model: the engine registers it (``engine/lora.py``),
+and an agg or decode worker registers one adapter card per name on its
+endpoint (``model_card.register_adapter``), so the OpenAI ``model`` field
+NAME reaches this worker with the adapter set. ``--max-adapters`` device
+slots (default ``max(4, number of --lora)``) hold resident adapters, the
+rest hot-load on demand; ``--max-lora-rank`` (default 8) is the rank
+every adapter pads to. A prefill worker advertises no adapter names: the
+decode side keeps adapter requests local.
 
 The reference worker's other flags are refused with the ROADMAP item each
 waits for; none is accepted and then ignored.
@@ -73,10 +84,12 @@ from dynamo_tpu_torch.llm.kv_router.publisher import (KvEventPublisher,
                                                       WorkerMetricsPublisher)
 from dynamo_tpu_torch import launch
 from dynamo_tpu_torch.engine.config import EngineConfig
-from dynamo_tpu_torch.launch import (add_engine_args, add_refused_flags,
+from dynamo_tpu_torch.launch import (add_engine_args, add_lora_args,
+                                     add_refused_flags, lora_args,
                                      load_engine, load_tokenizer)
 from dynamo_tpu_torch.llm.model_card import (ModelRuntimeConfig,
-                                             deregister_llm, register_llm)
+                                             deregister_llm, register_adapter,
+                                             register_llm)
 from dynamo_tpu_torch.llm.prefill_queue import (QueuePrefillDispatcher,
                                                 QueuePrefillWorker)
 from dynamo_tpu_torch.llm.tokenizer import Tokenizer
@@ -89,7 +102,6 @@ log = get_logger("gpu_worker")
 
 _PARALLEL = "ROADMAP item 16 (parallelism across GPUs and nodes)"
 _TIERS = "ROADMAP item 9 (host and disk KV tiers)"
-_LORA = "ROADMAP item 11 (batched LoRA)"
 _ADMISSION = "ROADMAP item 12 (SLA admission and brownout)"
 _PARSERS = "the ROADMAP item of the tool-call and reasoning parsers"
 
@@ -97,9 +109,6 @@ _PARSERS = "the ROADMAP item of the tool-call and reasoning parsers"
 # (flag, what it waits for, add_argument keywords). A value in "allowed"
 # is the reference's default, which leaves the feature off.
 REFUSED_FLAGS = (
-    ("--lora", _LORA, {"type": str}),
-    ("--max-adapters", _LORA, {"type": int}),
-    ("--max-lora-rank", _LORA, {"type": int}),
     ("--host-cache-pages", _TIERS, {"type": int, "allowed": (0,)}),
     ("--kv-disk-cache-dir", _TIERS, {"type": str}),
     ("--kv-watermarks", _TIERS, {"type": str}),
@@ -127,9 +136,10 @@ REFUSED_FLAGS = (
 
 
 def build_engine_config(args: argparse.Namespace) -> EngineConfig:
-    """The launcher's engine config with ``warmup_windows`` set (a worker
-    makes the smallest bucket's window programs before it serves, as the
-    reference's worker does) and the worker's speculative decoding."""
+    """The launcher's engine config (with its LoRA slots) with
+    ``warmup_windows`` set (a worker makes the smallest bucket's window
+    programs before it serves, as the reference's worker does) and the
+    worker's speculative decoding."""
     return dataclasses.replace(launch.build_engine_config(args),
                                warmup_windows=True,
                                spec_decode=args.spec_decode,
@@ -140,6 +150,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(
         description="dynamo_tpu_torch GPU engine worker")
     add_engine_args(parser)
+    add_lora_args(parser)
     parser.add_argument("--namespace", default=None)
     parser.add_argument("--component", default="gpu")
     parser.add_argument("--endpoint", default="generate")
@@ -209,28 +220,35 @@ async def serve_engine(runtime: DistributedRuntime, engine: GPUEngine,
                        model_name: str, tokenizer: Tokenizer,
                        component: str = "gpu", endpoint: str = "generate",
                        migration_limit: int = 0,
-                       handler=None) -> EndpointServer:
+                       handler=None, adapters=()) -> EndpointServer:
     """Serve ``handler`` (default ``engine.handler()``; a decode worker's
     is ``DisaggDecodeHandler.handler()``) at
-    ``{namespace}/{component}/{endpoint}`` and register the model on the
-    runtime's primary lease; the caller deregisters and shuts the server
-    down."""
+    ``{namespace}/{component}/{endpoint}`` and register the model, and one
+    adapter card for each name in ``adapters`` (registered on the engine),
+    on the runtime's primary lease; the caller deregisters them
+    (``deregister_llm``) and shuts the server down."""
     cfg = engine.config
     ep = runtime.namespace().component(component).endpoint(endpoint)
     # Fast shutdown: in-flight streams end typed "incomplete", so the
     # front's migration re-issues them elsewhere.
     server = await ep.serve_endpoint(handler or engine.handler(),
                                      graceful_shutdown=False)
+    card_kw = dict(context_length=cfg.max_model_len,
+                   kv_cache_block_size=cfg.page_size,
+                   migration_limit=migration_limit)
+
+    def runtime_config():
+        return ModelRuntimeConfig(
+            total_kv_blocks=engine.runner.num_pages,
+            max_num_seqs=cfg.max_num_seqs,
+            extra={"hidden_size": cfg.model.hidden_size})
     try:
-        await register_llm(
-            runtime, ep, model_name, tokenizer,
-            context_length=cfg.max_model_len,
-            kv_cache_block_size=cfg.page_size,
-            migration_limit=migration_limit,
-            runtime_config=ModelRuntimeConfig(
-                total_kv_blocks=engine.runner.num_pages,
-                max_num_seqs=cfg.max_num_seqs,
-                extra={"hidden_size": cfg.model.hidden_size}))
+        await register_llm(runtime, ep, model_name, tokenizer,
+                           runtime_config=runtime_config(), **card_kw)
+        for name in adapters:
+            await register_adapter(runtime, ep, name, model_name, tokenizer,
+                                   runtime_config=runtime_config(),
+                                   **card_kw)
     except BaseException:
         await server.shutdown(drain_s=0)
         raise
@@ -298,7 +316,7 @@ async def run(args: argparse.Namespace) -> None:
     for sig in (signal.SIGINT, signal.SIGTERM):
         loop.add_signal_handler(sig, runtime.shutdown)
     engine = server = plane = queue_worker = disagg = inventory_pub = None
-    registered = False
+    registered: list[str] = []  # model names whose cards we put
     try:
         engine_cfg = build_engine_config(args)
         ckpt = args.resolved_checkpoint
@@ -317,6 +335,13 @@ async def run(args: argparse.Namespace) -> None:
         # Started for the loop the publishers run on, from an executor:
         # the warmup takes seconds, and the lease keepalives must flow.
         engine.inventory_publisher = inventory_pub
+        loras = lora_args(args)
+        if loras:
+            # Host work (parse, transpose, pad); the uploads happen at
+            # first use on the engine thread. Off the loop, so large
+            # adapters do not stall the lease keepalives.
+            await loop.run_in_executor(None, lambda: [
+                engine.register_adapter(n, path=p) for n, p in loras])
         await loop.run_in_executor(None, engine.start, loop)
         if inventory_pub is not None:
             inventory_pub.start_periodic(engine.inventory_digest)
@@ -335,11 +360,13 @@ async def run(args: argparse.Namespace) -> None:
                     args.max_local_prefill_length, prefill_component,
                     args.prefill_dispatch, args.max_prefill_queue_depth)
                 handler = disagg.handler()
+            adapter_names = [n for n, _ in loras]
             server = await serve_engine(runtime, engine, model_name,
                                         tokenizer, args.component,
                                         args.endpoint, args.migration_limit,
-                                        handler=handler)
-            registered = True
+                                        handler=handler,
+                                        adapters=adapter_names)
+            registered = [model_name, *adapter_names]
         print(f"GPU_WORKER_READY mode={args.mode} port={server.port} "
               f"worker={runtime.instance_id:x} "
               f"pages={engine.runner.num_pages}", flush=True)
@@ -351,8 +378,8 @@ async def run(args: argparse.Namespace) -> None:
             loop.remove_signal_handler(sig)
         if inventory_pub is not None:
             inventory_pub.stop_periodic()
-        if registered:
-            await deregister_llm(runtime, model_name)
+        for name in registered:
+            await deregister_llm(runtime, name)
         if queue_worker is not None:
             await queue_worker.stop()
         if server is not None:

@@ -3,7 +3,7 @@
 ModelSpec (with ``from_hf_config``), EngineConfig and PRESETS are copied
 field for field so a configuration means the same thing in both packages.
 EngineConfig adds one field, ``device``. Fields that select features this
-port does not serve yet (tp/pp/sp, MoE, LoRA, tiers) keep
+port does not serve yet (tp/pp/sp, MoE, tiers) keep
 their defaults; the runner rejects non-default values rather than ignore
 them.
 """
@@ -202,6 +202,24 @@ class EngineConfig:
         else:
             per_head = 2 * m.head_dim
         return 2 * m.num_layers * m.num_kv_heads * per_head
+
+    def lora_target_shapes(self) -> dict[str, tuple[int, int]]:
+        """(d_in, d_out) per LoRA target projection: the attention
+        projections and the dense MLP's (the port has no MoE, whose
+        expert weights the reference leaves untargeted). The one source
+        of the stacks' shapes in the runner, the loader's padding and the
+        adapter store's checks."""
+        m = self.model
+        d = m.head_dim
+        return {
+            "wq": (m.hidden_size, m.num_heads * d),
+            "wk": (m.hidden_size, m.num_kv_heads * d),
+            "wv": (m.hidden_size, m.num_kv_heads * d),
+            "wo": (m.num_heads * d, m.hidden_size),
+            "w_gate": (m.hidden_size, m.intermediate_size),
+            "w_up": (m.hidden_size, m.intermediate_size),
+            "w_down": (m.intermediate_size, m.hidden_size),
+        }
 
     def bucket_for(self, length: int) -> int:
         for b in self.prefill_buckets:

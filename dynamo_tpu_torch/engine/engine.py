@@ -49,7 +49,16 @@ window (``_process_spec_window``) corrects the dispatch-time worst-case
 position by what the device actually emitted. Logprobs and penalties are
 refused under it, as in the reference.
 
-Not ported yet (later slices): LoRA, multimodal, KV host and disk tiers.
+Batched LoRA (``max_adapters > 0``): ``register_adapter`` adds an adapter
+to the store (``engine/lora.py``); admission resolves a request's adapter
+to a resident device slot (hot-loading it on a miss) before it touches any
+page, every prefill row and window row carries that slot id, and the slot
+is released when the request finishes, is preempted or aborts. An
+adapter's KV hashes under the adapter's chain salt (``tokens.chain_salt``),
+so its pages are never reused for base requests or another adapter's, and
+its KV events name the chain the KV router computes for it.
+
+Not ported yet (later slices): multimodal, KV host and disk tiers.
 """
 
 from __future__ import annotations
@@ -70,8 +79,9 @@ import torch
 from dynamo_tpu_torch.engine.config import EngineConfig
 from dynamo_tpu_torch.engine.kv_cache import PageAllocator
 from dynamo_tpu_torch.engine.kv_quant import KV_SCALE_BYTES
+from dynamo_tpu_torch.engine.lora import AdapterStore
 from dynamo_tpu_torch.engine.runner import (
-    PK_CAP, PK_FREQPEN, PK_LOGPROB, PK_OVERRIDE, PK_POS, PK_PREFIX,
+    PK_ADAPTER, PK_CAP, PK_FREQPEN, PK_LOGPROB, PK_OVERRIDE, PK_POS, PK_PREFIX,
     PK_PRESPEN, PK_SEED, PK_SEEDED, PK_SEQLEN, PK_TEMP, PK_TOKEN, PK_TOPK,
     PK_TOPP, TOP_LOGPROBS, ModelRunner, PrefillSeq, mask_seed)
 from dynamo_tpu_torch.engine.sampler import MAX_TOPK
@@ -83,10 +93,11 @@ from dynamo_tpu_torch.llm.kv_router.protocols import (ForwardPassMetrics,
                                                       kmin_sketch)
 from dynamo_tpu_torch.llm.protocols import (FinishReason, LLMEngineOutput,
                                             PreprocessedRequest)
-from dynamo_tpu_torch.llm.tokens import TokenBlockSequence
+from dynamo_tpu_torch.llm.tokens import TokenBlockSequence, chain_salt
 from dynamo_tpu_torch.runtime.context import Context
 from dynamo_tpu_torch.runtime.engine import AsyncEngine
-from dynamo_tpu_torch.runtime.errors import InvalidRequestError
+from dynamo_tpu_torch.runtime.errors import (AdapterNotFoundError,
+                                             InvalidRequestError)
 from dynamo_tpu_torch.runtime.logging import get_logger
 
 log = get_logger("gpu_engine")
@@ -181,6 +192,10 @@ class _Request:
     # (first token, host parcel) of a remotely prefilled prompt, until
     # admission inserts the parcel.
     injected: tuple | None = None
+    # Batched LoRA: the resident slot the request's adapter occupies (0 =
+    # base model) and the store reference it holds while admitted.
+    adapter_slot: int = 0
+    adapter_ref: str | None = None
 
     def push(self, item) -> None:
         self.loop.call_soon_threadsafe(self.out_q.put_nowait, item)
@@ -214,6 +229,11 @@ class GPUEngine(AsyncEngine):
         self.prefill_chunk_tokens = config.resolve_prefill_chunk_tokens()
         self.runner = ModelRunner(config, params=params, seed=seed)
         self.allocator = PageAllocator(self.runner.num_pages, config.page_size)
+        # Multi-tenant LoRA: the store registers adapters and places them
+        # in device slots, resolved at admission on the engine thread.
+        self.adapters = (AdapterStore(self.runner, config.max_adapters,
+                                      config.lora_max_rank)
+                         if config.max_adapters > 0 else None)
         b = config.max_num_seqs
         # Slot state (host view; tokens chain on the device between windows).
         self.slot_req: list[_Request | None] = [None] * b
@@ -226,6 +246,7 @@ class GPUEngine(AsyncEngine):
         self.pres_pen = np.zeros(b, np.float32)
         self.seeds = np.zeros(b, np.int32)
         self.seeded = np.zeros(b, bool)
+        self.adapter_ids = np.zeros(b, np.int32)  # PK_ADAPTER per slot
         self.overrides: dict[int, int] = {}  # slot -> first token next window
         self.waiting: queue.Queue[_Request] = queue.Queue()
         # Dispatched-but-unprocessed windows, oldest first.
@@ -350,13 +371,19 @@ class GPUEngine(AsyncEngine):
             raise ValueError(
                 f"prompt length {len(req.token_ids)} exceeds max model len "
                 f"{cfg.max_model_len}")
-        unsupported = []
         if req.adapter:
-            unsupported.append("LoRA adapters (ROADMAP item 11)")
+            if self.adapters is None:
+                raise AdapterNotFoundError(
+                    f"adapter {req.adapter!r} requested but this engine "
+                    f"serves no adapters (--max-adapters 0)")
+            if not self.adapters.registered(req.adapter):
+                # Fail fast here; admission resolves the slot.
+                raise AdapterNotFoundError(
+                    f"adapter {req.adapter!r} is not registered on this "
+                    f"worker (serving: {self.adapters.names() or 'none'})")
         if req.mm_embeds:
-            unsupported.append("multimodal embeddings (ROADMAP item 15)")
-        if unsupported:
-            raise ValueError("not ported yet: " + ", ".join(unsupported))
+            raise ValueError("not ported yet: multimodal embeddings "
+                             "(ROADMAP item 15)")
         s = req.sampling_options
         if s.logprobs is not None and s.logprobs > TOP_LOGPROBS:
             log.warning("top_logprobs=%d exceeds cap %d; clamping",
@@ -473,9 +500,10 @@ class GPUEngine(AsyncEngine):
 
     def kv_status(self) -> dict:
         """This worker's KV status (the reference's /debug/kv body):
-        allocator counters, reuse and the current digest. ``tiers``,
-        ``kvbm``, ``remote``, ``plane`` and ``adapters`` belong to ROADMAP
-        items 9, 11 and the engine-owned KV plane, none of them ported."""
+        allocator counters, reuse, the adapter store's status and the
+        current digest. ``tiers``, ``kvbm``, ``remote`` and ``plane``
+        belong to ROADMAP item 9 and the engine-owned KV plane, neither of
+        them ported."""
         return {
             "role": "engine",
             "allocator": self.allocator.stats(),
@@ -489,7 +517,8 @@ class GPUEngine(AsyncEngine):
             "plane": None,
             "remote": None,
             "kvbm": None,
-            "adapters": None,
+            "adapters": (self.adapters.status()
+                         if self.adapters is not None else None),
             "digest": self.inventory_digest().to_wire(),
         }
 
@@ -762,6 +791,41 @@ class GPUEngine(AsyncEngine):
             self.allocator.release(r.pages)
             r.pages = []
 
+    # -- batched LoRA -----------------------------------------------------------
+    def register_adapter(self, name: str, path: str | None = None,
+                         weights: dict | None = None) -> None:
+        """Register a LoRA adapter by PEFT directory or host weights (host
+        work: the device upload happens at its first use, on the engine
+        thread). Safe from any thread; ``engine.adapters.pin(name)`` keeps
+        it resident."""
+        if self.adapters is None:
+            raise RuntimeError(
+                "engine built without adapters (config.max_adapters=0)")
+        self.adapters.register(name, path=path, weights=weights)
+
+    def _acquire_adapter(self, r: _Request) -> bool:
+        """Resolve the request's adapter to a resident slot (hot-loading
+        on a miss; engine thread; ``_validate`` let in only requests whose
+        adapter this engine registered). False after pushing the typed
+        error when that fails: an adapter since unknown (404 at the front)
+        or every slot held (503)."""
+        name = r.req.adapter
+        if not name or r.adapter_ref is not None:
+            return True
+        try:
+            r.adapter_slot = self.adapters.acquire(name)
+        except Exception as exc:  # noqa: BLE001 — typed errors reach the stream
+            r.push(exc)
+            return False
+        r.adapter_ref = name
+        return True
+
+    def _release_adapter(self, r: _Request | None) -> None:
+        if r is not None and r.adapter_ref is not None:
+            self.adapters.release(r.adapter_ref)
+            r.adapter_ref = None
+            r.adapter_slot = 0
+
     # -- engine loop ----------------------------------------------------------
     def _warmup_window_programs(self) -> None:
         """Make the smallest page bucket's window programs before serving
@@ -963,6 +1027,11 @@ class GPUEngine(AsyncEngine):
                     token_ids=[],
                     finish_reason=FinishReason.CANCELLED).to_wire())
                 continue
+            # The adapter first (its hot-load is device work): an unknown
+            # one fails here and a slot-starved store answers overloaded,
+            # before any page is touched.
+            if not self._acquire_adapter(r):
+                continue
             if r.injected is not None:
                 slot = free_slots.pop(0)
                 try:
@@ -972,6 +1041,7 @@ class GPUEngine(AsyncEngine):
                     log.exception("KV injection failed")
                     r.push(RuntimeError(f"kv injection failed: {exc}"))
                     free_slots.insert(0, slot)
+                    self._release_adapter(r)
                     continue
                 # No pages for the parcel: prefill the whole prompt here.
                 free_slots.insert(0, slot)
@@ -981,9 +1051,12 @@ class GPUEngine(AsyncEngine):
             except Exception as exc:  # noqa: BLE001
                 log.exception("prefill planning failed")
                 r.push(RuntimeError(f"prefill failed: {exc}"))
+                self._release_adapter(r)
                 continue
             if plan is None:
-                # No KV room: put back and stop admitting.
+                # No KV room: put back and stop admitting (the adapter
+                # reference goes too, so a queued request pins no slot).
+                self._release_adapter(r)
                 self.waiting.put(r)
                 break
             slot = free_slots.pop(0)
@@ -1036,6 +1109,7 @@ class GPUEngine(AsyncEngine):
                 for r, _, _ in group:
                     self.allocator.release(r.pages)
                     r.pages = []
+                    self._release_adapter(r)
                     r.push(RuntimeError(f"prefill failed: {exc}"))
                 continue
             rows = []
@@ -1074,7 +1148,8 @@ class GPUEngine(AsyncEngine):
         except BaseException:
             self.allocator.release(pages)
             raise
-        r.blocks = TokenBlockSequence(page, prompt)
+        r.blocks = TokenBlockSequence(page, prompt,
+                                      salt=chain_salt(r.req.adapter))
         r.pages = pages
         r.injected = None
         self.injected_admissions += 1
@@ -1112,7 +1187,12 @@ class GPUEngine(AsyncEngine):
         cfg = self.config
         page = cfg.page_size
         prompt = r.tokens_all
-        r.blocks = TokenBlockSequence(page, prompt)
+        # An adapter's KV must never alias the base model's or another
+        # adapter's: the same tokens through adapter A give other K/V, so
+        # its hash chain roots at the adapter's salt, for prefix reuse and
+        # KV events alike.
+        r.blocks = TokenBlockSequence(page, prompt,
+                                      salt=chain_salt(r.req.adapter))
         hashes = r.blocks.block_hashes
         # Exact reproduction for seeded sampling: prefix reuse changes
         # which program computes the tail, and low-bit logit differences
@@ -1149,7 +1229,8 @@ class GPUEngine(AsyncEngine):
             hist_pages=np.asarray(cached, np.int32) if cached else None,
             sampling=self._sampling_of(r),
             logprobs=s.logprobs is not None,
-            penalties=self._penalties_of(r), seed=s.seed)
+            penalties=self._penalties_of(r), seed=s.seed,
+            adapter_id=r.adapter_slot)
 
     # -- stall-free chunked prefill -------------------------------------------
     def _chunk_seq(self, r: _Request, start: int, n: int,
@@ -1165,7 +1246,8 @@ class GPUEngine(AsyncEngine):
                 r.pages[first_page:first_page + -(-n // page)], np.int32),
             sampling=(0.0, 0, 1.0), start_pos=start,
             hist_pages=(np.asarray(r.pages[:first_page], np.int32)
-                        if first_page else None))
+                        if first_page else None),
+            adapter_id=r.adapter_slot)
         if final:
             s = r.req.sampling_options
             seq.sampling = self._sampling_of(r)
@@ -1326,6 +1408,7 @@ class GPUEngine(AsyncEngine):
         seed = r.req.sampling_options.seed
         self.seeded[slot] = seed is not None
         self.seeds[slot] = 0 if seed is None else mask_seed(seed)
+        self.adapter_ids[slot] = r.adapter_slot
         self.overrides.pop(slot, None)
 
     # -- decode windows -------------------------------------------------------
@@ -1437,6 +1520,7 @@ class GPUEngine(AsyncEngine):
             packed[i, PK_PRESPEN] = self.pres_pen[i:i + 1].view(np.int32)[0]
             packed[i, PK_SEED] = self.seeds[i]
             packed[i, PK_SEEDED] = int(self.seeded[i])
+            packed[i, PK_ADAPTER] = self.adapter_ids[i]
             packed[i, PK_PREFIX:PK_PREFIX + len(r.pages)] = r.pages
             slots[i] = (r, r.epoch, start, cap)
             adv = min(M, max(0, cap - start))
@@ -1630,9 +1714,11 @@ class GPUEngine(AsyncEngine):
         self.slot_req[slot] = None
         self.disp_positions[slot] = 0
         self.disp_seq_lens[slot] = 0
+        self.adapter_ids[slot] = 0
         self.overrides.pop(slot, None)
         if r is None:
             return
+        self._release_adapter(r)
         r.slot = -1
         r.epoch += 1
         if not register:

@@ -43,6 +43,37 @@ def mm(x: torch.Tensor, w) -> torch.Tensor:
     return torch.matmul(x, w)
 
 
+def lora_delta(x: torch.Tensor, ll: dict, ids: torch.Tensor) -> torch.Tensor:
+    """The batched low-rank correction ``x @ A[ids] @ B[ids]`` of one
+    layer's target (the reference's ``lora_delta``, the S-LoRA / Punica
+    step): x [N, H] or [B, T, H]; ``ll`` = {"a": [S, H, r], "b": [S, r, D]}
+    over every slot; ids [N] or [B] slot ids, data on the device (0 = the
+    base model, whose stacks are zeros).
+
+    Each stack is read once, whatever the mix of slots: one batched
+    product of x against every slot's A (fp32 accumulate and output), the
+    columns of every slot but the row's own zeroed and the rest rounded to
+    bf16, then one product against the B stacks laid as [S*r, D] with a
+    bf16 output. Per row that is the reference's two gathered einsums: the
+    other slots' columns are exact zeros in the second sum, and a slot-0
+    row gets exact zeros. Gathering A[ids] and B[ids] instead would write
+    and read one copy of a slot's stacks per row."""
+    shape = x.shape
+    xf = x.reshape(-1, shape[-1])
+    rows = ids.reshape(-1)
+    if xf.shape[0] != rows.shape[0]:  # [B, T, H]: a row's T positions
+        rows = rows[:, None].expand(-1, xf.shape[0] // rows.shape[0])
+        rows = rows.reshape(-1)
+    a, b = ll["a"], ll["b"]
+    s, r = a.shape[0], a.shape[2]
+    u = _mm_f32(xf.expand(s, -1, -1), a)                       # [S, N, r]
+    own = (rows.long()[None, :] == torch.arange(s, device=x.device)[:, None])
+    u = torch.where(own[..., None], u, 0.0).to(x.dtype)
+    u = u.permute(1, 0, 2).reshape(-1, s * r)                  # [N, S*r]
+    out = torch.matmul(u, b.reshape(s * r, -1))
+    return out.reshape(*shape[:-1], out.shape[-1])
+
+
 def embed_lookup(embed, tokens: torch.Tensor) -> torch.Tensor:
     """Token-embedding gather; int8 tables gather q rows and scale by the
     per-hidden-channel scale."""
@@ -54,9 +85,11 @@ def embed_lookup(embed, tokens: torch.Tensor) -> torch.Tensor:
 
 def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """bf16 operands, fp32 output (the reference's
-    preferred_element_type=f32)."""
+    preferred_element_type=f32): [N, K] @ [K, D], or batched [S, N, K] @
+    [S, K, D]."""
     if x.is_cuda:
-        return torch.mm(x, w, out_dtype=torch.float32)
+        product = torch.bmm if x.dim() == 3 else torch.mm
+        return product(x, w, out_dtype=torch.float32)
     return torch.matmul(x.float(), w.float())
 
 
@@ -106,14 +139,24 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
     return torch.cat([out1, out2], dim=-1).to(x.dtype)
 
 
-def ffn_block(h2: torch.Tensor, lp: dict, spec: ModelSpec) -> torch.Tensor:
-    """Dense SwiGLU over normalized hidden states [..., H]."""
+def ffn_block(h2: torch.Tensor, lp: dict, spec: ModelSpec,
+              ll: dict | None = None,
+              ids: torch.Tensor | None = None) -> torch.Tensor:
+    """Dense SwiGLU over normalized hidden states [..., H]; with one
+    layer's LoRA stacks ``ll`` the gate, up and down projections take
+    their rows' adapter deltas."""
     if spec.num_experts:
         raise NotImplementedError("MoE is not ported yet")
     gate = mm(h2, lp["w_gate"])
     up = mm(h2, lp["w_up"])
+    if ll is not None:
+        gate = gate + lora_delta(h2, ll["w_gate"], ids)
+        up = up + lora_delta(h2, ll["w_up"], ids)
     ff = F.silu(gate.float()).to(h2.dtype) * up
-    return mm(ff, lp["w_down"])
+    down = mm(ff, lp["w_down"])
+    if ll is not None:
+        down = down + lora_delta(ff, ll["w_down"], ids)
+    return down
 
 
 # ---------------------------------------------------------------------------
@@ -199,6 +242,15 @@ def layer_params(params: Params, layer: int) -> dict:
     QTensor's q and s are both sliced."""
     return {k: QTensor(v.q[layer], v.s[layer]) if isinstance(v, QTensor)
             else v[layer] for k, v in params["layers"].items()}
+
+
+def layer_lora(lora: dict | None, layer: int) -> dict | None:
+    """One layer's LoRA stacks ({key: {"a": [S, d_in, r], "b": [S, r,
+    d_out]}}, views), or None without adapters."""
+    if lora is None:
+        return None
+    return {k: {"a": v["a"][layer], "b": v["b"][layer]}
+            for k, v in lora.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -356,12 +408,33 @@ def paged_decode_attention(q, k_cache, v_cache, layer: int, page_table,
 # Forward passes
 # ---------------------------------------------------------------------------
 
-def _qkv(h: torch.Tensor, lp: dict, spec: ModelSpec, cos, sin):
-    """Projected, biased, head-split and rotated q, k, v for one layer."""
+def qkv_lora(q, k, v, h, ll: dict, ids: torch.Tensor):
+    """The wq/wk/wv deltas of freshly projected q/k/v (h: the normed layer
+    input the projections read)."""
+    return (q + lora_delta(h, ll["wq"], ids), k + lora_delta(h, ll["wk"], ids),
+            v + lora_delta(h, ll["wv"], ids))
+
+
+def _out_proj(attn: torch.Tensor, lp: dict, ll: dict | None,
+              ids: torch.Tensor | None) -> torch.Tensor:
+    """The attention output projection, with its wo delta under LoRA."""
+    proj = mm(attn, lp["wo"])
+    if ll is not None:
+        proj = proj + lora_delta(attn, ll["wo"], ids)
+    return proj
+
+
+def _qkv(h: torch.Tensor, lp: dict, spec: ModelSpec, cos, sin,
+         ll: dict | None = None, ids: torch.Tensor | None = None):
+    """Projected, biased, head-split and rotated q, k, v for one layer.
+    With LoRA stacks the deltas go in before the bias, as in the
+    reference."""
     d = spec.head_dim
     q = mm(h, lp["wq"])
     k = mm(h, lp["wk"])
     v = mm(h, lp["wv"])
+    if ll is not None:
+        q, k, v = qkv_lora(q, k, v, h, ll, ids)
     if spec.qkv_bias:
         q = q + lp["bq"]
         k = k + lp["bk"]
@@ -373,21 +446,24 @@ def _qkv(h: torch.Tensor, lp: dict, spec: ModelSpec, cos, sin):
 
 
 def prefill_forward(params: Params, spec: ModelSpec, k_cache, v_cache,
-                    tokens, positions, page_table, seq_lens):
+                    tokens, positions, page_table, seq_lens, lora=None,
+                    adapter_ids=None):
     """Whole-prompt prefill; writes K/V into pages.
 
     tokens/positions [B,S] (S a multiple of page_size), page_table
     [B, S//page_size] (pages covering the prompt; padding entries 0 = the
-    scratch page), seq_lens [B]. Returns (last-token logits [B,V] fp32,
-    k_cache, v_cache); the caches are updated in place (an int8 pool is
-    quantized on the way in)."""
+    scratch page), seq_lens [B]. ``lora`` (the runner's stacks, ``{key:
+    {"a": [L, S, d_in, r], "b": [L, S, r, d_out]}}``) with adapter_ids [B]
+    adds each row's adapter deltas at every target. Returns (last-token
+    logits [B,V] fp32, k_cache, v_cache); the caches are updated in place
+    (an int8 pool is quantized on the way in)."""
     return _prefill(params, spec, k_cache, v_cache, tokens, positions,
-                    page_table, seq_lens, None, None)
+                    page_table, seq_lens, None, None, lora, adapter_ids)
 
 
 def prefill_with_history(params: Params, spec: ModelSpec, k_cache, v_cache,
                          tokens, positions, page_table, seq_lens, hist_table,
-                         hist_lens):
+                         hist_lens, lora=None, adapter_ids=None):
     """Chunk prefill over history (reference
     ``runner._prefill_with_history``): ``prefill_forward`` whose queries
     also attend to the sequence's earlier tokens, read from the pool
@@ -395,13 +471,15 @@ def prefill_with_history(params: Params, spec: ModelSpec, k_cache, v_cache,
     hist_lens [B]. Serves a prompt's later chunks and the rest of a prompt
     after a prefix-cache hit, over a bf16 or an int8 pool. The history
     pages are disjoint from the chunk's, which are written after every
-    layer has read the history."""
+    layer has read the history. ``lora`` and ``adapter_ids`` as in
+    ``prefill_forward``."""
     return _prefill(params, spec, k_cache, v_cache, tokens, positions,
-                    page_table, seq_lens, hist_table, hist_lens)
+                    page_table, seq_lens, hist_table, hist_lens, lora,
+                    adapter_ids)
 
 
 def _prefill(params, spec, k_cache, v_cache, tokens, positions, page_table,
-             seq_lens, hist_table, hist_lens):
+             seq_lens, hist_table, hist_lens, lora, adapter_ids):
     b, s = tokens.shape
     d = spec.head_dim
     page = k_cache.shape[3]
@@ -411,9 +489,9 @@ def _prefill(params, spec, k_cache, v_cache, tokens, positions, page_table,
              < seq_lens[:, None])
     k_layers, v_layers = [], []
     for layer in range(spec.num_layers):
-        lp = layer_params(params, layer)
+        lp, ll = layer_params(params, layer), layer_lora(lora, layer)
         h = rms_norm(x, lp["input_norm"], spec.rms_norm_eps)
-        q, k, v = _qkv(h, lp, spec, cos, sin)
+        q, k, v = _qkv(h, lp, spec, cos, sin, ll, adapter_ids)
         hist = {}
         if hist_table is not None:
             hist = dict(k_hist=gather_pages_folded(k_cache, layer, hist_table),
@@ -421,9 +499,9 @@ def _prefill(params, spec, k_cache, v_cache, tokens, positions, page_table,
                         hist_lens=hist_lens)
         attn = causal_attention(q, k, v, positions, valid, spec.q_per_kv,
                                 **hist)
-        x = x + mm(attn.reshape(b, s, -1), lp["wo"])
+        x = x + _out_proj(attn.reshape(b, s, -1), lp, ll, adapter_ids)
         h2 = rms_norm(x, lp["post_attn_norm"], spec.rms_norm_eps)
-        x = x + ffn_block(h2, lp, spec)
+        x = x + ffn_block(h2, lp, spec, ll, adapter_ids)
         k_layers.append(k)
         v_layers.append(v)
     L, nkv = spec.num_layers, spec.num_kv_heads
@@ -443,14 +521,16 @@ def _prefill(params, spec, k_cache, v_cache, tokens, positions, page_table,
 
 def decode_window_step(params: Params, spec: ModelSpec, k_cache, v_cache,
                        k_buf, v_buf, m: int, tokens, positions, page_table,
-                       hist_lens, attention_impl=None):
+                       hist_lens, attention_impl=None, lora=None,
+                       adapter_ids=None):
     """One decode step inside an M-step window. The caches are read-only
     here; this window's earlier tokens come from k_buf/v_buf
     [L,Nkv,B,M,D] (cols j < m), and the step's fresh K/V is returned as
     [L,B,Nkv,D] for the caller to append to the buffers.
 
-    hist_lens [B]: tokens cache-resident before the window. Returns
-    (logits [B,V] fp32, k_new, v_new)."""
+    hist_lens [B]: tokens cache-resident before the window; ``lora`` and
+    adapter_ids [B] as in ``prefill_forward``. Returns (logits [B,V] fp32,
+    k_new, v_new)."""
     d = spec.head_dim
     b = tokens.shape[0]
     x = embed_lookup(params["embed"], tokens)
@@ -458,14 +538,14 @@ def decode_window_step(params: Params, spec: ModelSpec, k_cache, v_cache,
     attn_fn = attention_impl or paged_window_attention
     k_layers, v_layers = [], []
     for layer in range(spec.num_layers):
-        lp = layer_params(params, layer)
+        lp, ll = layer_params(params, layer), layer_lora(lora, layer)
         h = rms_norm(x, lp["input_norm"], spec.rms_norm_eps)
-        q, k, v = _qkv(h, lp, spec, cos, sin)
+        q, k, v = _qkv(h, lp, spec, cos, sin, ll, adapter_ids)
         attn = attn_fn(q, k_cache, v_cache, layer, page_table, hist_lens,
                        k_buf[layer], v_buf[layer], m, k, v, spec.q_per_kv)
-        x = x + mm(attn.reshape(b, -1), lp["wo"])
+        x = x + _out_proj(attn.reshape(b, -1), lp, ll, adapter_ids)
         h2 = rms_norm(x, lp["post_attn_norm"], spec.rms_norm_eps)
-        x = x + ffn_block(h2, lp, spec)
+        x = x + ffn_block(h2, lp, spec, ll, adapter_ids)
         k_layers.append(k)
         v_layers.append(v)
     x = rms_norm(x, params["final_norm"], spec.rms_norm_eps)
@@ -475,7 +555,8 @@ def decode_window_step(params: Params, spec: ModelSpec, k_cache, v_cache,
 
 def decode_window_multi_step(params: Params, spec: ModelSpec, k_cache,
                              v_cache, k_buf, v_buf, wlen, tokens, positions,
-                             page_table, hist_lens, attention_impl=None):
+                             page_table, hist_lens, attention_impl=None,
+                             lora=None, adapter_ids=None):
     """Speculative verify step inside a window: S tokens per slot (the
     chained token and up to S-1 drafts) forwarded together, so one read
     of the weights verifies S positions. The caches are read-only here.
@@ -483,22 +564,23 @@ def decode_window_multi_step(params: Params, spec: ModelSpec, k_cache,
     tokens/positions [B,S]; k_buf/v_buf [L,Nkv,B,W,D] hold this window's
     committed columns (< wlen [B]); hist_lens [B]: cache-resident tokens.
     Position j attends the paged history, the buffer's valid columns and
-    the block's columns t <= j. Returns (logits [B,S,V] fp32, k_new,
-    v_new [L,B,S,Nkv,D])."""
+    the block's columns t <= j. ``lora`` and adapter_ids [B] as in
+    ``prefill_forward`` (a slot's S positions take its adapter). Returns
+    (logits [B,S,V] fp32, k_new, v_new [L,B,S,Nkv,D])."""
     b, s = tokens.shape
     x = embed_lookup(params["embed"], tokens)              # [B,S,H]
     cos, sin = rope_tables(positions, spec.head_dim, spec.rope_theta)
     attn_fn = attention_impl or paged_verify_attention_plain
     k_layers, v_layers = [], []
     for layer in range(spec.num_layers):
-        lp = layer_params(params, layer)
+        lp, ll = layer_params(params, layer), layer_lora(lora, layer)
         h = rms_norm(x, lp["input_norm"], spec.rms_norm_eps)
-        q, k, v = _qkv(h, lp, spec, cos, sin)              # [B,S,N,D]
+        q, k, v = _qkv(h, lp, spec, cos, sin, ll, adapter_ids)  # [B,S,N,D]
         attn = attn_fn(q, k_cache, v_cache, layer, page_table, hist_lens,
                        k_buf[layer], v_buf[layer], wlen, k, v, spec.q_per_kv)
-        x = x + mm(attn.reshape(b, s, -1), lp["wo"])
+        x = x + _out_proj(attn.reshape(b, s, -1), lp, ll, adapter_ids)
         h2 = rms_norm(x, lp["post_attn_norm"], spec.rms_norm_eps)
-        x = x + ffn_block(h2, lp, spec)
+        x = x + ffn_block(h2, lp, spec, ll, adapter_ids)
         k_layers.append(k)
         v_layers.append(v)
     x = rms_norm(x, params["final_norm"], spec.rms_norm_eps)

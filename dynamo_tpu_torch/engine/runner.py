@@ -36,6 +36,17 @@
   on a preemption; unseeded rows are keyed by (runner, row) and a device
   counter, ``_noise_step``, that every sampling step advances.
 
+Batched LoRA (``max_adapters > 0``, ``engine/lora.py``): the runner holds
+one pair of stacks per target projection, ``A [L, S, d_in, r]`` and
+``B [L, S, r, d_out]`` with ``S = max_adapters + 1`` slots (slot 0 the
+base model, all zeros) and every rank padded to ``lora_max_rank``,
+allocated once. Every prefill, chunk, window and spec program adds each
+row's low-rank delta at every target (``model.lora_delta``); the rows'
+slot ids are data (``PrefillSeq.adapter_id``, the packed ``PK_ADAPTER``
+column), never part of a program key, so heterogeneous adapters share one
+window. ``set_adapter_slot`` writes a slot in place: the window graphs
+captured the stacks' addresses.
+
 Weights are bf16, or int8 with float32 per-channel scales (``--quant
 int8``, ``quant.QTensor`` leaves): a bf16 tree given with an int8 spec is
 quantized here, before the pool is sized from the memory it leaves free.
@@ -100,7 +111,7 @@ PK_FREQPEN = 9    # float32 bits: OpenAI frequency_penalty (0 = off)
 PK_PRESPEN = 10   # float32 bits: OpenAI presence_penalty (0 = off)
 PK_SEED = 11      # int32 sampling seed (meaningful when PK_SEEDED)
 PK_SEEDED = 12    # 1 -> slot uses a per-request seeded noise stream
-PK_ADAPTER = 13   # LoRA adapter slot id (0 = base; not served by the port)
+PK_ADAPTER = 13   # resident LoRA adapter slot id (0 = base model)
 PK_PREFIX = 14    # page table starts here
 
 TOP_LOGPROBS = 8  # alternatives returned when logprobs are requested
@@ -131,6 +142,7 @@ class PrefillSeq:
     logprobs: bool = False      # row wants first-token logprobs
     penalties: tuple[float, float] = (0.0, 0.0)  # (frequency, presence)
     seed: int | None = None     # per-request sampling seed
+    adapter_id: int = 0         # resident LoRA slot (0 = base model)
 
 
 def logprobs_of(logits: torch.Tensor, sampled: torch.Tensor):
@@ -169,8 +181,6 @@ def _unsupported(config: EngineConfig) -> list[str]:
         out.append(f"weight quantization {spec.quant!r} (only int8)")
     if config.spec_decode not in (None, "ngram"):
         out.append(f"spec_decode={config.spec_decode!r} (only 'ngram')")
-    if config.max_adapters:
-        out.append("LoRA (ROADMAP item 11)")
     if config.host_cache_pages or config.kv_disk_cache_dir:
         out.append("KV host/disk tiers (ROADMAP item 9)")
     if config.attention_backend not in ("auto", "pallas"):
@@ -266,6 +276,20 @@ class ModelRunner:
         # Bytes the paged attention launches of all windows so far must
         # move (attention.hist_flash_bytes), counted on the host.
         self.attention_bytes = 0
+        # Batched LoRA stacks, allocated once: set_adapter_slot writes
+        # slots in place, so the window graphs' addresses stay valid.
+        self.lora = None
+        if config.max_adapters > 0:
+            S, r, L = (config.max_adapters + 1, config.lora_max_rank,
+                       spec.num_layers)
+            self.lora = {
+                key: {"a": torch.zeros((L, S, d_in, r), dtype=torch.bfloat16,
+                                       device=self.device),
+                      "b": torch.zeros((L, S, r, d_out), dtype=torch.bfloat16,
+                                       device=self.device)}
+                for key, (d_in, d_out) in config.lora_target_shapes().items()}
+        self.lora_bytes = sum(t.nbytes for ab in (self.lora or {}).values()
+                              for t in ab.values())
 
     # -- setup ---------------------------------------------------------------
     def _zero_pool(self, shape):
@@ -355,19 +379,26 @@ class ModelRunner:
         # Padding page-table entries stay 0 = the allocator's scratch page.
         table = np.zeros((b, bucket // page), np.int32)
         lens = np.zeros(b, np.int32)
+        ids = np.zeros(b, np.int32)
         for i, s in enumerate(seqs):
             n = len(s.tokens)
             tokens[i, :n] = s.tokens
             positions[i] = s.start_pos + np.minimum(np.arange(bucket), n - 1)
             table[i, :len(s.chunk_pages)] = s.chunk_pages
             lens[i] = n
+            ids[i] = s.adapter_id
+        self._check_adapter_ids(ids)
         args = (self.params, self.spec, self.k_cache, self.v_cache,
                 self._upload(tokens), self._upload(positions),
                 self._upload(table), self._upload(lens))
+        lora = {}
+        if self.lora is not None:
+            # Every prefill carries the stacks: the rows' ids are data.
+            lora = dict(lora=self.lora, adapter_ids=self._upload(ids))
         with_hist = [i for i, s in enumerate(seqs)
                      if s.hist_pages is not None and len(s.hist_pages)]
         if not with_hist:
-            return prefill_forward(*args)[0]
+            return prefill_forward(*args, **lora)[0]
         # Rows without history keep hist_lens 0 and read nothing.
         width = self.bucket_pages_for(max(len(seqs[i].hist_pages)
                                           for i in with_hist))
@@ -383,7 +414,7 @@ class ModelRunner:
             hist_table[i, :len(s.hist_pages)] = s.hist_pages
             hist_lens[i] = s.start_pos
         return prefill_with_history(*args, self._upload(hist_table),
-                                    self._upload(hist_lens))[0]
+                                    self._upload(hist_lens), **lora)[0]
 
     def prefill_batch(self, seqs: list[PrefillSeq],
                       slots: list[int] | None = None,
@@ -477,11 +508,18 @@ class ModelRunner:
         every sampling mix of a bucket."""
         return self._program(("spec", m_outer, k, bucket_pages))
 
+    def _check_adapter_ids(self, ids: np.ndarray) -> None:
+        """Rows' adapter slots must be resident slots of this runner."""
+        top = self.config.max_adapters if self.lora is not None else 0
+        if ((ids < 0) | (ids > top)).any():
+            raise ValueError(f"adapter slot ids {sorted(set(ids.tolist()))} "
+                             f"outside [0, {top}] (max_adapters "
+                             f"{self.config.max_adapters})")
+
     def _window_history(self, packed: np.ndarray) -> np.ndarray:
         """Host checks of a window's packed array; returns each slot's
         cache-resident history at dispatch (PK_SEQLEN - 1)."""
-        if packed[:, PK_ADAPTER].any():
-            raise ValueError("LoRA adapters are not ported yet")
+        self._check_adapter_ids(packed[:, PK_ADAPTER])
         h_hist = np.maximum(packed[:, PK_SEQLEN].astype(np.int64) - 1, 0)
         if (h_hist > (packed.shape[1] - PK_PREFIX)
                 * self.config.page_size).any():
@@ -611,6 +649,14 @@ class ModelRunner:
                 torch.empty((M, B, TOP_LOGPROBS), dtype=torch.int32,
                             device=dev))
 
+    def _lora_of(self, dev: torch.Tensor) -> dict:
+        """The forwards' LoRA arguments for a program over the packed
+        array ``dev``: the stacks and the rows' PK_ADAPTER slot ids, read
+        on the device (none without adapters)."""
+        if self.lora is None:
+            return {}
+        return dict(lora=self.lora, adapter_ids=dev[:, PK_ADAPTER])
+
     def _window_body(self, key: tuple, dev: torch.Tensor, outs: tuple) -> None:
         """The window program's body (the reference's ``run_window``) for
         ``key``, reading the packed control array ``dev`` on the device
@@ -632,6 +678,7 @@ class ModelRunner:
         freq_pen = dev[:, PK_FREQPEN].view(torch.float32)
         pres_pen = dev[:, PK_PRESPEN].view(torch.float32)
         seed_rows = dev[:, PK_SEEDED] > 0 if seeded else None
+        lora = self._lora_of(dev)
         page_table = dev[:, PK_PREFIX:].contiguous()
         # The cache-resident history is fixed across the window: the
         # window's own tokens live in kbuf/vbuf until the commit below.
@@ -649,7 +696,7 @@ class ModelRunner:
             logits, k_new, v_new = decode_window_step(
                 self.params, spec, self.k_cache, self.v_cache, kbuf, vbuf, m,
                 tokens, positions, page_table, hist_lens,
-                attention_impl=attention.paged_window_attention)
+                attention_impl=attention.paged_window_attention, **lora)
             kbuf[:, :, :, m] = k_new.transpose(1, 2)
             vbuf[:, :, :, m] = v_new.transpose(1, 2)
             if penalized:
@@ -731,6 +778,7 @@ class ModelRunner:
         top_p_s = attention.fold_rows(dev[:, PK_TOPP].view(torch.float32), S)
         seeded_s = attention.fold_rows(dev[:, PK_SEEDED] > 0, S)
         seed_s = attention.fold_rows(dev[:, PK_SEED], S)
+        lora = self._lora_of(dev)
         page_table = dev[:, PK_PREFIX:].contiguous()
         # The cache-resident history is fixed across the window (pos0):
         # what the window produces lives in the buffer until the commit.
@@ -766,7 +814,7 @@ class ModelRunner:
                 self.params, spec, self.k_cache, self.v_cache,
                 kbuf[:, :, :, :W], vbuf[:, :, :, :W], wlen, tok_blk,
                 pos[:, None] + j_s[None, :], page_table, hist_lens,
-                attention_impl=attention.paged_verify_attention)
+                attention_impl=attention.paged_verify_attention, **lora)
             # Column j's token lands at pos + 1 + j.
             noise = self._draw(seeded_s, seed_s,
                                (pos[:, None] + 1 + j_s[None, :]).reshape(-1))
@@ -820,6 +868,39 @@ class ModelRunner:
         pool = tuple(self._graph_pool)
         return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
                    if tuple(seg["segment_pool_id"]) == pool)
+
+    # -- batched LoRA (engine/lora.py) ----------------------------------------
+    def set_adapter_slot(self, slot: int, host: dict) -> None:
+        """Write one adapter into device slot ``slot`` (the adapter
+        store's hot-load, on the engine thread). ``host`` is the whole
+        target set ``{key: (A [L, d_in, r], B [L, r, d_out])}`` of bf16
+        host tensors: projections an adapter does not target come as
+        zeros, so a slot never keeps a previous tenant's deltas.
+
+        The slot is written in place (``copy_`` into ``[:, slot]``), never
+        rebound: every window program captured the stacks' addresses. The
+        copies queue on the stream behind the windows already dispatched,
+        which may still read the slot's old weights for rows whose results
+        nobody reads; on the card from page-locked copies, so the host
+        does not wait for them."""
+        if self.lora is None:
+            raise RuntimeError("runner built without max_adapters")
+        if not 1 <= slot <= self.config.max_adapters:
+            raise ValueError(f"adapter slot {slot} outside "
+                             f"[1, {self.config.max_adapters}]")
+        if set(host) != set(self.lora):
+            raise ValueError(f"adapter targets {sorted(host)} != the "
+                             f"runner's {sorted(self.lora)}")
+        cuda = self.device.type == "cuda"
+        for key, pair in host.items():
+            for name, src in zip(("a", "b"), pair):
+                dst = self.lora[key][name][:, slot]
+                if tuple(src.shape) != tuple(dst.shape):
+                    raise ValueError(f"adapter {key}.{name}: shape "
+                                     f"{tuple(src.shape)} != "
+                                     f"{tuple(dst.shape)}")
+                src = src.to(torch.bfloat16)
+                dst.copy_(src.pin_memory() if cuda else src, non_blocking=cuda)
 
     # -- KV page transfer (disaggregation) ------------------------------------
     def extract_pages_async(self, pages: list[int]):

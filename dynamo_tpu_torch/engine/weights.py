@@ -16,6 +16,10 @@ holds no copy of the checkpoint. With ``spec.quant == "int8"`` each
 quantized leaf is quantized as soon as it is loaded (``quant.py``), so the
 bf16 tree never exists whole.
 
+``load_lora_weights`` reads a HF PEFT LoRA adapter directory into the
+host stacks the adapter store uploads, bit-equal to the reference's
+loader.
+
 ``params_from_jax`` takes the tree that ``dynamo_tpu.engine.model
 .init_params`` (or the JAX ``quantize_params``) builds, as numpy arrays
 (the caller converts with ``np.asarray``; this module never imports JAX),
@@ -26,6 +30,7 @@ from __future__ import annotations
 
 import contextlib
 import glob
+import json
 import os
 
 import numpy as np
@@ -205,3 +210,83 @@ def params_from_jax(np_params: dict, spec: ModelSpec,
         return out
 
     return convert(np_params, shapes)
+
+
+# HF PEFT module suffix -> the stacked projection key it targets.
+LORA_PROJ_OF = {"q_proj": "wq", "k_proj": "wk", "v_proj": "wv",
+                "o_proj": "wo", "gate_proj": "w_gate", "up_proj": "w_up",
+                "down_proj": "w_down"}
+
+
+def load_lora_weights(spec: ModelSpec, adapter_dir: str, max_rank: int
+                      ) -> dict[str, tuple[torch.Tensor, torch.Tensor]]:
+    """A HF PEFT LoRA checkpoint as ``{key: (A [L, d_in, max_rank],
+    B [L, max_rank, d_out])}`` bf16 host tensors over the projections it
+    targets (the reference's ``load_lora_weights``).
+
+    Reads ``adapter_config.json`` (``r``, ``lora_alpha``) and every
+    ``*.safetensors`` of ``adapter_dir``. PEFT stores ``lora_A.weight`` as
+    [r, in] and ``lora_B.weight`` as [out, r]; these are the transposes,
+    with the ``lora_alpha / r`` scale folded into B in float32 before the
+    bf16 rounding, so serving pays no extra multiply. Ranks below
+    ``max_rank`` are zero-padded (padded columns contribute exact zeros);
+    a rank above it raises. Layers a checkpoint does not cover stay zero."""
+    with open(os.path.join(adapter_dir, "adapter_config.json")) as fh:
+        cfg = json.load(fh)
+    rank = int(cfg.get("r", 8))
+    alpha = float(cfg.get("lora_alpha", rank))
+    if rank > max_rank:
+        raise ValueError(
+            f"adapter rank {rank} exceeds lora_max_rank {max_rank} "
+            f"({adapter_dir}); raise --max-lora-rank or re-train smaller")
+    scale = alpha / max(1, rank)
+    files = sorted(glob.glob(os.path.join(adapter_dir, "*.safetensors")))
+    if not files:
+        raise FileNotFoundError(f"no safetensors under {adapter_dir}")
+    L = spec.num_layers
+    found: dict[str, dict[int, list]] = {}
+    for path in files:
+        with SafeOpen(path) as fh:
+            for name in fh.keys():
+                # base_model.model.model.layers.{i}.self_attn.q_proj
+                # .lora_A.weight
+                parts = name.split(".")
+                if "layers" not in parts or parts[-1] != "weight":
+                    continue
+                li = int(parts[parts.index("layers") + 1])
+                key = LORA_PROJ_OF.get(parts[-3])
+                kind = parts[-2]
+                if key is None or kind not in ("lora_A", "lora_B") \
+                        or li >= L:
+                    continue
+                # float32 on the host (exact from bf16/f16/f32), a copy
+                # that outlives the mapping.
+                arr = fh.get_tensor(name).float().numpy().copy()
+                pair = found.setdefault(key, {}).setdefault(li, [None, None])
+                pair[0 if kind == "lora_A" else 1] = arr
+    if not found:
+        raise ValueError(
+            f"{adapter_dir}: no LoRA tensors matched the target "
+            f"projections {sorted(LORA_PROJ_OF.values())}")
+    out = {}
+    for key, per_layer in found.items():
+        a0, b0 = next(iter(per_layer.values()))
+        if a0 is None or b0 is None:
+            li = next(iter(per_layer))
+            raise ValueError(f"{adapter_dir}: layer {li} {key} has only one "
+                             f"of lora_A/lora_B")
+        a_st = np.zeros((L, a0.shape[1], max_rank), np.float32)
+        b_st = np.zeros((L, max_rank, b0.shape[0]), np.float32)
+        for li, (a, b) in per_layer.items():
+            if a is None or b is None:
+                raise ValueError(f"{adapter_dir}: layer {li} {key} has only "
+                                 f"one of lora_A/lora_B")
+            r = a.shape[0]
+            a_st[li, :, :r] = a.T
+            b_st[li, :r, :] = b.T * np.float32(scale)
+        # float32 -> bf16 rounds to nearest even, as ml_dtypes does.
+        out[key] = (torch.from_numpy(a_st).to(torch.bfloat16),
+                    torch.from_numpy(b_st).to(torch.bfloat16))
+    log.info("loaded LoRA adapter from %s: rank %d (padded to %d), "
+             "targets %s", adapter_dir, rank, max_rank, sorted(out))
+    return out

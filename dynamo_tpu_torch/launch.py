@@ -11,6 +11,7 @@ package's) register there.
     python -m dynamo_tpu_torch.launch in=http out=gpu --model llama-3-8b
     python -m dynamo_tpu_torch.launch --model /path/to/checkpoint --quant int8
     python -m dynamo_tpu_torch.launch --model tiny-test --device cpu
+    python -m dynamo_tpu_torch.launch --model llama-3-8b --lora a=/path/to/peft_a
     python -m dynamo_tpu_torch.launch in=http out=dyn --coordinator-url tcp://127.0.0.1:4222
 
 ``--model`` is a preset (random weights from ``--seed``), a HF Llama or
@@ -21,10 +22,15 @@ scales. The tokenizer is the checkpoint's own ``tokenizer.json`` (the
 reference launcher's choice), else ``--tokenizer PATH`` (a
 ``tokenizer.json`` or a ``.gguf``), else, for a preset, the repo's test
 tokenizer. It prints ``LAUNCH_READY in=http out=<gpu|dyn> port=N`` once
-it serves, and stops on SIGINT or SIGTERM. ``build_engine`` assembles the
-engine alone (``chip_smoke.py``, ``profile_decode.py``);
-``add_engine_args``, ``build_engine_config`` and ``load_engine`` are
-shared with the worker main.
+it serves, and stops on SIGINT or SIGTERM. ``--lora NAME=PATH``
+(repeatable, ``out=gpu`` only, as in the reference) registers a HF PEFT
+adapter on the engine and serves NAME as a model of its own, whose card
+binds it to the base model (``served.adapter_served``);
+``--max-adapters`` and ``--max-lora-rank`` size the engine's LoRA slots.
+``build_engine`` assembles the engine alone (``chip_smoke.py``,
+``profile_decode.py``); ``add_engine_args``, ``add_lora_args``,
+``build_engine_config`` and ``load_engine`` are shared with the worker
+main.
 """
 
 from __future__ import annotations
@@ -46,7 +52,8 @@ from dynamo_tpu_torch.llm.discovery import (ModelManager, ModelWatcher,
                                             ServedModel)
 from dynamo_tpu_torch.llm.http_service import HttpService
 from dynamo_tpu_torch.llm.model_card import (DEFAULT_CHAT_TEMPLATE,
-                                             ModelDeploymentCard, ModelEntry)
+                                             ModelDeploymentCard, ModelEntry,
+                                             ModelRuntimeConfig)
 from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
 from dynamo_tpu_torch.llm.tokenizer import Tokenizer, make_test_tokenizer
 from dynamo_tpu_torch.runtime.config import RuntimeConfig
@@ -134,6 +141,46 @@ def add_engine_args(parser: argparse.ArgumentParser) -> None:
                              "for a preset)")
 
 
+def add_lora_args(parser: argparse.ArgumentParser) -> None:
+    """The LoRA flags, shared by the launcher and the worker main."""
+    parser.add_argument("--lora", action="append", default=[],
+                        metavar="NAME=PATH",
+                        help="serve a LoRA adapter: NAME becomes a served "
+                             "model name riding the base model; PATH is a "
+                             "HF PEFT directory (adapter_config.json and "
+                             "*.safetensors). Repeatable: heterogeneous "
+                             "adapters batch into one decode window")
+    parser.add_argument("--max-adapters", type=int, default=None,
+                        help="resident device adapter slots (default: "
+                             "max(4, number of --lora flags)); registered "
+                             "adapters beyond them hot-load on demand with "
+                             "LRU eviction")
+    parser.add_argument("--max-lora-rank", type=int, default=8,
+                        help="adapter ranks pad to this maximum so the "
+                             "stacks keep fixed shapes (a checkpoint of a "
+                             "larger rank is refused)")
+
+
+def lora_args(args) -> list[tuple[str, str]]:
+    """The repeated ``--lora NAME=PATH`` flags as (name, path) pairs."""
+    out = []
+    for item in getattr(args, "lora", None) or []:
+        name, sep, path = str(item).partition("=")
+        if not sep or not name or not path:
+            raise SystemExit(f"--lora expects NAME=PATH, got {item!r}")
+        out.append((name, path))
+    return out
+
+
+def max_adapters_arg(args) -> int:
+    """``--max-adapters``, else max(4, number of --lora), else 0."""
+    explicit = getattr(args, "max_adapters", None)
+    if explicit is not None:
+        return explicit
+    loras = lora_args(args)
+    return max(4, len(loras)) if loras else 0
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     argv = list(sys.argv[1:] if argv is None else argv)
     io = {"in": "http", "out": "gpu"}
@@ -147,6 +194,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(
         description="dynamo_tpu_torch launcher (in=http out=gpu|dyn)")
     add_engine_args(parser)
+    add_lora_args(parser)
     parser.add_argument("--context-length", type=int, default=8192)
     parser.add_argument("--http-host", default="127.0.0.1")
     parser.add_argument("--http-port", type=int, default=8000,
@@ -165,6 +213,8 @@ def parse_args(argv=None) -> argparse.Namespace:
         parser.error(f"in= must be http, got {io['in']!r}")
     if io["out"] not in ("gpu", "dyn"):
         parser.error(f"out= must be gpu or dyn, got {io['out']!r}")
+    if args.lora and io["out"] != "gpu":
+        parser.error("--lora needs the real engine (out=gpu)")
     args.input, args.output = io["in"], io["out"]
     return args
 
@@ -186,7 +236,8 @@ def build_engine_config(args) -> EngineConfig:
         max_num_seqs=args.max_num_seqs, decode_window=args.decode_window,
         pipeline_depth=args.pipeline_depth,
         prefill_chunk_tokens=args.prefill_chunk_tokens, quant_kv=args.quant_kv,
-        device=args.device)
+        max_adapters=max_adapters_arg(args),
+        lora_max_rank=getattr(args, "max_lora_rank", 8), device=args.device)
 
 
 def load_engine(config: EngineConfig, checkpoint: str | None,
@@ -237,20 +288,36 @@ def build_local_served(args, engine: GPUEngine | None = None
                        ) -> tuple[ServedModel, GPUEngine]:
     """Static pipeline: Preprocessor -> Backend -> GPUEngine, no network.
     ``engine``: a started engine to serve from (default: ``build_engine``
-    of ``args``)."""
+    of ``args``). With ``--lora`` each adapter registers on the engine
+    and its name becomes a ServedModel of its own (in
+    ``served.adapter_served``) whose card binds it to the base model, as
+    a distributed front resolves discovered adapter cards."""
     config = build_engine_config(args)
     tokenizer = load_tokenizer(args.resolved_checkpoint, args.tokenizer,
                                checkpoint_first=True)
     engine = engine or load_engine(config, args.resolved_checkpoint,
                                    args.seed)
     name = args.model_name or os.path.basename(args.model.rstrip("/"))
-    card = ModelDeploymentCard(name=name, chat_template=DEFAULT_CHAT_TEMPLATE,
-                               context_length=args.context_length)
-    entry = ModelEntry(model_name=name, namespace="local", component="local",
-                       endpoint="generate", model_type="chat", card=card)
     backend = Backend(tokenizer, inner=engine)
-    return ServedModel(entry, OpenAIPreprocessor(card, tokenizer,
-                                                 inner=backend)), engine
+
+    def served_model(model: str, extra: dict) -> ServedModel:
+        card = ModelDeploymentCard(
+            name=model, chat_template=DEFAULT_CHAT_TEMPLATE,
+            context_length=args.context_length,
+            runtime_config=ModelRuntimeConfig(extra=extra))
+        entry = ModelEntry(model_name=model, namespace="local",
+                           component="local", endpoint="generate",
+                           model_type="chat", card=card)
+        return ServedModel(entry, OpenAIPreprocessor(card, tokenizer,
+                                                     inner=backend))
+
+    served = served_model(name, {})
+    served.adapter_served = []
+    for lname, path in lora_args(args):
+        engine.register_adapter(lname, path=path)
+        served.adapter_served.append(served_model(
+            lname, {"lora_base": name, "adapter": lname}))
+    return served, engine
 
 
 async def start_http(args, engine: GPUEngine | None = None
@@ -259,7 +326,8 @@ async def start_http(args, engine: GPUEngine | None = None
     event loop; the caller stops both."""
     served, engine = build_local_served(args, engine)
     manager = ModelManager()
-    manager.models[served.name] = served
+    for model in (served, *served.adapter_served):
+        manager.models[model.name] = model
     service = HttpService(manager, host=args.http_host, port=args.http_port)
     try:
         await service.start()

@@ -6,7 +6,9 @@ Routes: ``POST /v1/chat/completions`` and ``POST /v1/completions``
 ``data: [DONE]\\n\\n``, or not streamed), ``GET /v1/models``, ``GET
 /health`` and ``GET /live``. Errors are OpenAI error bodies: 400 for a
 body that does not parse or validate and for ``ValueError`` /
-``InvalidRequestError`` from the pipeline, 404 for an unknown model, 503
+``InvalidRequestError`` from the pipeline, 404 for an unknown model, 404
+``adapter_not_found`` when a model name resolves to a LoRA adapter its
+worker does not hold (``AdapterNotFoundError``), 503
 with ``Retry-After: 1`` when a routed model has no live worker
 (``NoInstancesError``), 503 ``overloaded`` with ``Retry-After: 1`` when
 the KV router finds every worker above its busy threshold
@@ -33,7 +35,8 @@ from dynamo_tpu_torch.llm.preprocessor import aggregate_chat_stream
 from dynamo_tpu_torch.llm.protocols import (ChatCompletionRequest,
                                             CompletionRequest, usage_block)
 from dynamo_tpu_torch.runtime.context import Context
-from dynamo_tpu_torch.runtime.errors import (InvalidRequestError,
+from dynamo_tpu_torch.runtime.errors import (AdapterNotFoundError,
+                                             InvalidRequestError,
                                              NoInstancesError,
                                              OverloadedError)
 from dynamo_tpu_torch.runtime.logging import get_logger
@@ -257,6 +260,13 @@ class HttpService:
                     else "service_unavailable")
             code, payload = _error_body(str(exc), kind, 503)
             extra = {"Retry-After": "1"}
+        except AdapterNotFoundError as exc:
+            # The model name resolved to an adapter card whose worker does
+            # not hold the adapter: a naming error, 404 like an unknown
+            # model, typed so clients can tell which.
+            if ex.streaming:
+                raise
+            code, payload = _error_body(str(exc), "adapter_not_found", 404)
         except (ValueError, InvalidRequestError) as exc:
             if ex.streaming:
                 raise

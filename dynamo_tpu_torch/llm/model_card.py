@@ -160,6 +160,31 @@ async def register_llm(
     return entry
 
 
+async def register_adapter(
+    runtime,
+    endpoint,
+    adapter_name: str,
+    base_name: str,
+    tokenizer: Tokenizer,
+    runtime_config: ModelRuntimeConfig | None = None,
+    **kwargs,
+) -> ModelEntry:
+    """Register a LoRA adapter as a served model name: a whole model card
+    under ``models/{adapter-slug}`` pointing at the base model's worker
+    endpoint, whose ``runtime_config.extra`` carries the binding
+    ``{"lora_base": base_name, "adapter": adapter_name}`` (the reference's
+    keys, so either package's front resolves either package's adapter
+    cards). The front resolves the OpenAI ``model`` field to this card
+    like any other; its preprocessor then puts ``adapter=<name>`` on the
+    request, which the worker maps to a LoRA slot (``engine/lora.py``).
+    ``kwargs`` go to ``register_llm``."""
+    rc = runtime_config or ModelRuntimeConfig()
+    rc.extra = dict(rc.extra or {})
+    rc.extra.update({"lora_base": base_name, "adapter": adapter_name})
+    return await register_llm(runtime, endpoint, adapter_name, tokenizer,
+                              runtime_config=rc, **kwargs)
+
+
 async def deregister_llm(runtime, model_name: str) -> None:
     """Remove this worker's model-card registration."""
     key = model_key(model_name, runtime.instance_id)

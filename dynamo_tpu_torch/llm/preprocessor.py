@@ -114,10 +114,15 @@ class OpenAIPreprocessor(Operator):
         annotations: dict[str, Any] = {}
         if formatted_prompt is not None:
             annotations["formatted_prompt"] = formatted_prompt
+        # An adapter card (model_card.register_adapter) names the base
+        # model it rides on: the request carries the adapter, which the
+        # worker maps to a resident LoRA slot.
+        extra = self.card.runtime_config.extra or {}
+        adapter = extra.get("adapter") if extra.get("lora_base") else None
         return PreprocessedRequest(
             model=model, token_ids=token_ids, stop_conditions=stop,
             sampling_options=sampling, eos_token_ids=self.eos_ids,
-            annotations=annotations)
+            annotations=annotations, adapter=adapter)
 
     # -- operator interface ---------------------------------------------------
     async def generate(self, request: ChatCompletionRequest,

@@ -8,9 +8,11 @@ by a drain or the handler's ``GeneratorExit``; the client raises
 client's own kill echoed back), ``invalid_request: <text>`` (the request
 failed validation; the client raises ``InvalidRequestError``, HTTP 400),
 ``overloaded: <text>`` (no capacity; ``OverloadedError``, HTTP 503 with
-``Retry-After``; a JAX worker's admission sends it, the port's worker
-does not yet, ROADMAP item 12a), or the handler's error as ``<ExceptionClass>: <text>`` (the client raises
-``EngineError``). The tokens are the JAX package's.
+``Retry-After``: every LoRA slot held, or a JAX worker's admission),
+``adapter_not_found: <text>`` (the request named a LoRA adapter the worker
+does not serve; ``AdapterNotFoundError``, HTTP 404), or the handler's
+error as ``<ExceptionClass>: <text>`` (the client raises ``EngineError``).
+The tokens are the JAX package's.
 """
 
 INCOMPLETE = "incomplete"
@@ -61,6 +63,15 @@ class InvalidRequestError(EngineError):
     WIRE_PREFIX = "invalid_request: "
 
 
+class AdapterNotFoundError(EngineError):
+    """The request named a LoRA adapter this worker does not serve (an
+    ``AdapterStore`` registry miss). The front answers 404: a naming
+    error, not a capacity condition, and not retryable as it is. On the
+    wire the class rides an ``adapter_not_found: `` prefix."""
+
+    WIRE_PREFIX = "adapter_not_found: "
+
+
 def error_from_wire(payload) -> EngineError:
     """The exception a client raises for an ``err`` frame's payload."""
     if isinstance(payload, str):
@@ -72,4 +83,7 @@ def error_from_wire(payload) -> EngineError:
                 payload[len(InvalidRequestError.WIRE_PREFIX):])
         if payload.startswith(OverloadedError.WIRE_PREFIX):
             return OverloadedError(payload[len(OverloadedError.WIRE_PREFIX):])
+        if payload.startswith(AdapterNotFoundError.WIRE_PREFIX):
+            return AdapterNotFoundError(
+                payload[len(AdapterNotFoundError.WIRE_PREFIX):])
     return EngineError(payload)

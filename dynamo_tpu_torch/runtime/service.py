@@ -19,7 +19,9 @@ from typing import Any, AsyncIterator, Callable
 from dynamo_tpu_torch.runtime.component import Endpoint, Instance
 from dynamo_tpu_torch.runtime.context import Context
 from dynamo_tpu_torch.runtime.errors import (INCOMPLETE, KILLED,
-                                             InvalidRequestError)
+                                             AdapterNotFoundError,
+                                             InvalidRequestError,
+                                             OverloadedError)
 from dynamo_tpu_torch.runtime.frame import read_frame, write_frame
 from dynamo_tpu_torch.runtime.logging import get_logger
 
@@ -167,6 +169,11 @@ class EndpointServer:
                 await self._send_err(send, rid,
                                      INCOMPLETE)
             raise
+        except (AdapterNotFoundError, OverloadedError) as exc:
+            # An unknown LoRA adapter (404 at the front) or no free adapter
+            # slot (503): typed on the wire, as the reference's server
+            # types them.
+            await self._send_err(send, rid, f"{exc.WIRE_PREFIX}{exc}")
         except (ValueError, InvalidRequestError) as exc:
             # Request validation: typed on the wire so the front answers
             # 400, not 500.

@@ -34,6 +34,7 @@ from dynamo_tpu_torch.engine import config as tcfg
 from dynamo_tpu_torch.engine.engine import GPUEngine
 from dynamo_tpu_torch.engine.weights import params_from_jax
 from dynamo_tpu_torch.runtime.context import Context as TContext
+from dynamo_tpu_torch.runtime.errors import AdapterNotFoundError
 
 torch.set_num_threads(1)
 
@@ -239,11 +240,13 @@ async def test_stop_conditions_and_validation(engines):
     stop["stop_conditions"]["stop_token_ids"] = [ref[idx]]
     got, finish = await _collect(teng, stop, TContext())
     assert finish == "stop" and got == ref[:idx + 1]
-    # Only max_model_len bounds a prompt; LoRA and multimodal requests
-    # are refused until their slices are ported.
+    # Only max_model_len bounds a prompt; an adapter request to an engine
+    # built without LoRA slots is the reference's typed not-found (404 at
+    # a front), and multimodal requests are refused until their slice is
+    # ported.
     with pytest.raises(ValueError, match="max model len"):
         await _collect(teng, _wire(list(range(256)), 4), TContext())
-    with pytest.raises(ValueError, match="not ported yet: LoRA"):
+    with pytest.raises(AdapterNotFoundError, match="serves no adapters"):
         await _collect(teng, dict(_wire(prompt, 4), adapter="a"), TContext())
     with pytest.raises(ValueError, match="not ported yet: multimodal"):
         await _collect(teng, dict(_wire(prompt, 4), mm_embeds=[{"start": 0}]),

@@ -453,3 +453,121 @@ def test_spec_window_graph_replay_equals_eager_body_on_gpu(quant_kv):
     torch.cuda.synchronize()
     want = 3 * m_outer * spec.num_layers
     assert _counts() == ((0, want) if quant_kv else (want, 0)), _counts()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant_kv", [None, "int8"], ids=["bf16", "int8"])
+def test_lora_window_graph_after_a_hot_load_equals_eager_body_on_gpu(
+        quant_kv):
+    """A window program with rows on LoRA slots 0, 1 and 2, captured,
+    then adapter 2 hot-loaded into slot 1 through the store (an in-place
+    write, no stack rebound): the replay equals the body run eagerly on
+    the same state (tokens equal, chosen and top-5 logprobs within 1e-5)
+    and differs from the replay before the hot-load on the slot-1 row
+    only."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA graphs have no CPU mode")
+    from dynamo_tpu_torch.engine import config as tcfg
+    from dynamo_tpu_torch.engine import runner as trunner
+    from dynamo_tpu_torch.engine.lora import AdapterStore
+    spec = tcfg.PRESETS["tiny-test"]
+    M, B, page, rank = 4, 4, 16, 8
+    cfg = tcfg.EngineConfig(
+        model=spec, num_pages=64, max_num_seqs=B, max_pages_per_seq=16,
+        prefill_buckets=(64, 128), max_prefill_tokens=128, quant_kv=quant_kv,
+        max_adapters=2, lora_max_rank=rank, device="cuda")
+    r = trunner.ModelRunner(cfg)
+    gen = torch.Generator().manual_seed(5)
+
+    def adapter():
+        return {k: (torch.randn((spec.num_layers, i, rank), generator=gen)
+                    .mul(0.2).to(torch.bfloat16),
+                    torch.randn((spec.num_layers, rank, o), generator=gen)
+                    .mul(0.2).to(torch.bfloat16))
+                for k, (i, o) in cfg.lora_target_shapes().items()}
+    store = AdapterStore(r, 2, rank)
+    for name in ("one", "two", "three"):
+        store.register(name, weights=adapter())
+    assert (store.acquire("one"), store.acquire("two")) == (1, 2)
+    rng = np.random.default_rng(23)
+    lens = (40, 77, 100)
+    seqs = [trunner.PrefillSeq(
+        tokens=rng.integers(0, spec.vocab_size, n).astype(np.int32),
+        chunk_pages=np.arange(1 + 8 * i, 1 + 8 * i + -(-n // page)),
+        sampling=(0.0, 0, 1.0), adapter_id=i) for i, n in enumerate(lens)]
+    r.prefill_batch(seqs, slots=[0, 1, 2])
+    width = r.bucket_pages_for(8)
+    packed = np.zeros((B, trunner.PK_PREFIX + width), np.int32)
+    for i, n in enumerate(lens):
+        packed[i, trunner.PK_OVERRIDE] = 1
+        packed[i, trunner.PK_TOKEN] = 11 + i
+        packed[i, trunner.PK_POS] = n
+        packed[i, trunner.PK_SEQLEN] = n + 1
+        packed[i, trunner.PK_TOPP] = np.float32(1.0).view(np.int32)
+        packed[i, trunner.PK_CAP] = 8 * page
+        packed[i, trunner.PK_LOGPROB] = 1
+        packed[i, trunner.PK_ADAPTER] = i
+        packed[i, trunner.PK_PREFIX:trunner.PK_PREFIX + 8] = \
+            np.arange(1 + 8 * i, 9 + 8 * i)
+    prog = r._get_window(M, width, False, False, True)
+    first = [t.clone() for t in prog.run(packed)]
+    ptrs = [t.data_ptr() for ab in r.lora.values() for t in ab.values()]
+    store.release("one")
+    assert store.acquire("three") == 1  # LRU: "one" leaves slot 1
+    assert ptrs == [t.data_ptr() for ab in r.lora.values()
+                    for t in ab.values()]
+    step = r._noise_step.clone()
+    replayed = [t.clone() for t in prog.run(packed)]
+    assert r.window_replays == 2
+    r._noise_step.copy_(step)
+    eager = prog.run_eager(packed)
+    torch.cuda.synchronize()
+    assert torch.equal(replayed[0], eager[0]), (replayed[0], eager[0])
+    diff = max(float((replayed[1] - eager[1]).abs().max()),
+               float((replayed[2][..., :5] - eager[2][..., :5]).abs().max()))
+    print(f"LoRA replay after a hot-load vs eager body: max |logprob diff| "
+          f"{diff}")
+    assert diff <= 1e-5, diff
+    assert torch.equal(replayed[3][..., :5], eager[3][..., :5])
+    # Slots 0 and 2 did not change: their rows replay as before.
+    for row in (0, 2):
+        assert torch.equal(replayed[1][:, row], first[1][:, row]), row
+    assert not torch.equal(replayed[1][:, 1], first[1][:, 1])
+
+
+# lora_delta's tolerance in test_torch_lora.py (its CPU branch against the
+# reference): a bf16 rounding of u or of the output may fall one ulp apart.
+LORA_DELTA_TOL = dict(atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ndim", [2, 3])
+@pytest.mark.parametrize("s,h,r,d,n", [(3, 128, 8, 96, 5),
+                                       (3, 4096, 16, 1024, 8)],
+                         ids=["small", "llama"])
+def test_lora_delta_on_gpu_matches_cpu_branch(ndim, s, h, r, d, n):
+    """The card's branch of ``model.lora_delta`` (bmm with an fp32
+    output) against its CPU branch, which test_torch_lora.py holds to the
+    reference, on the same bf16 inputs with mixed slots, within that
+    test's tolerance; slot-0 rows are exact zeros on the card too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the card's branch runs only there")
+    from dynamo_tpu_torch.engine import model
+    g = torch.Generator().manual_seed(ndim * 100 + h)
+    a = (torch.randn((s, h, r), generator=g) * 0.2).to(torch.bfloat16)
+    b = (torch.randn((s, r, d), generator=g) * 0.2).to(torch.bfloat16)
+    a[0], b[0] = 0, 0
+    ids = torch.tensor([(i * 2 + 1) % s for i in range(n)], dtype=torch.int32)
+    ids[0] = 0
+    shape = (n, h) if ndim == 2 else (n, 3, h)
+    x = torch.randn(shape, generator=g).to(torch.bfloat16)
+    want = model.lora_delta(x, {"a": a, "b": b}, ids)
+    got = model.lora_delta(x.cuda(), {"a": a.cuda(), "b": b.cuda()},
+                            ids.cuda())
+    assert got.is_cuda and got.dtype == torch.bfloat16
+    got = got.cpu()
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                               **LORA_DELTA_TOL)
+    base = (ids == 0).numpy()
+    assert not got.float().numpy()[base].any()
+    assert np.abs(got.float().numpy()[~base]).max() > 0.5

@@ -60,7 +60,14 @@ from dynamo_tpu_torch.runtime.context import Context as TContext
 torch.set_num_threads(1)
 
 MODEL = "tiny-test"
+# The lease-expiry test's TTL: a lost worker leaves within a few of these.
 LEASE_TTL_S = 1.0
+# Every other test's TTL. Their workers, fronts and coordinator share one
+# event loop with CPU engines, and under a loaded machine keepalives every
+# LEASE_TTL_S / 3 can arrive late: the coordinator then expires a live
+# worker's lease, the router drops that worker's blocks from its index (as
+# it must for a lost worker), and a later decision sees no overlap.
+STEADY_LEASE_TTL_S = 10.0
 PREFIX = np.random.default_rng(5).integers(0, SPEC_T.vocab_size,
                                            64).tolist()
 
@@ -106,12 +113,12 @@ def port_engine(**kw) -> GPUEngine:
                                        **dict(ENGINE_KW, **kw)), seed=0)
 
 
-async def start_port_worker(url, engine):
+async def start_port_worker(url, engine, lease_ttl_s=STEADY_LEASE_TTL_S):
     """A worker as ``backends.gpu`` builds one: the three publishers on
     its instance id, the engine started on this loop, the inventory's
     periodic republish, the handler served and the model registered."""
     rt = await tdist.DistributedRuntime.from_settings(
-        tconfig.RuntimeConfig(coordinator_url=url, lease_ttl_s=LEASE_TTL_S))
+        tconfig.RuntimeConfig(coordinator_url=url, lease_ttl_s=lease_ttl_s))
     kv_pub, metrics_pub, inv_pub = gpu.make_publishers(rt)
     metrics_pub.min_interval_s = 0.01
     engine.kv_publisher, engine.metrics_publisher = kv_pub, metrics_pub
@@ -131,9 +138,10 @@ async def start_port_worker(url, engine):
                                  stop=stop, id=rt.instance_id)
 
 
-async def start_port_front(url, **factory_kw):
+async def start_port_front(url, lease_ttl_s=STEADY_LEASE_TTL_S,
+                           **factory_kw):
     rt = await tdist.DistributedRuntime.from_settings(
-        tconfig.RuntimeConfig(coordinator_url=url, lease_ttl_s=LEASE_TTL_S))
+        tconfig.RuntimeConfig(coordinator_url=url, lease_ttl_s=lease_ttl_s))
     service, watcher = await launch.start_front(
         rt, "127.0.0.1", 0, "kv", tkr.make_kv_router_factory(**factory_kw))
 
@@ -292,7 +300,7 @@ async def test_jax_front_routes_to_the_port_worker_holding_the_prefix():
     workers = [await start_port_worker(coord.url, port_engine())
                for _ in range(2)]
     rt = await jdist.DistributedRuntime.from_settings(jconfig.RuntimeConfig(
-        coordinator_url=coord.url, lease_ttl_s=LEASE_TTL_S))
+        coordinator_url=coord.url, lease_ttl_s=STEADY_LEASE_TTL_S))
     manager = jdisc.ModelManager()
     watcher = jdisc.ModelWatcher(
         rt, manager, router_mode="kv",
@@ -320,7 +328,7 @@ async def test_jax_front_routes_to_the_port_worker_holding_the_prefix():
 
 async def start_jax_worker(url, jparams):
     rt = await jdist.DistributedRuntime.from_settings(jconfig.RuntimeConfig(
-        coordinator_url=url, lease_ttl_s=LEASE_TTL_S))
+        coordinator_url=url, lease_ttl_s=STEADY_LEASE_TTL_S))
     ns = rt.config.namespace
     kv_pub = jpub.KvEventPublisher(rt, ns, "tpu", rt.instance_id)
     m_pub = jpub.WorkerMetricsPublisher(rt, ns, "tpu", rt.instance_id,
@@ -490,9 +498,10 @@ async def test_port_and_jax_routers_pick_the_same_workers(seed):
 async def test_lease_expiry_drops_the_worker_from_the_index_at_once():
     coord = tcoord.Coordinator("127.0.0.1", 0)
     await coord.start()
-    workers = [await start_port_worker(coord.url, port_engine())
+    workers = [await start_port_worker(coord.url, port_engine(),
+                                       lease_ttl_s=LEASE_TTL_S)
                for _ in range(2)]
-    front = await start_port_front(coord.url)
+    front = await start_port_front(coord.url, lease_ttl_s=LEASE_TTL_S)
     try:
         router = await served_router(front, 2)
         await complete(front.port, PREFIX + _ids(3, 5))
