@@ -290,7 +290,54 @@ Phases, in order; any failure exits non-zero without the final line:
    3's (torch.profiler; their difference is the LoRA ops' cost), the ms
    of one hot-load of b (rank 16, about 84 MB host to device), the
    stacks' bytes and the phase's seconds.
-In every phase from 3 to 11, each decode window an engine dispatched was
+12. KV tiers at full width, after phase 11's engine is released: worker
+   A is built as ``python -m dynamo_tpu_torch.backends.gpu --num-pages 512
+   --host-cache-pages 256 --kv-disk-cache-dir DIR --kv-watermarks
+   0.2,0.3`` builds it (seed-0 llama-3-8b, bf16 pool; DIR a temporary
+   directory whose free space is printed first, its G3 holding
+   TIER_DISK_PAGES pages), worker B is a second engine of 512 pages with
+   no local tiers and no warmup on the same parameter tensors, and both
+   run their KV plane, registration and peer watch
+   (``backends.gpu.start_kv_plane``) on an embedded coordinator. One
+   throwaway request a worker captures the programs of the traffic's page
+   bucket; its blocks are dropped. Traffic on A, 4 greedy prompts a set,
+   16 tokens each: set A (1024 tokens), sets B and C (1536 tokens; they
+   evict A's blocks into G2 and G2's overflow into G3), the set-B prompt
+   with the most blocks in G2, set A again, and set A once more at once;
+   then A clears its G1 and B serves set A, the head of each prompt's
+   blocks coming over G4 from A's host tiers: B runs the worker's G4
+   budget (0.1 s a consult) and asks A for as many blocks as that budget
+   carries at A's measured rate; then B serves a fresh prompt with a
+   dead peer address ahead of A. Then decode under eviction pressure:
+   the same traffic (a fill round, then TIER_PRESSURE_PROMPTS fresh
+   prompts of TIER_PRESSURE_LEN tokens decoding TIER_PRESSURE_TOKENS
+   each, which evict the fill's blocks) on B (no local tiers) and on A
+   (tiers on). Last, the G2 put's copy alone on A's engine thread, from
+   a flush's page-locked buffer and from pageable memory, into fresh,
+   reused and newly mapped memory. Checked: every request finishes
+   and every window replayed; paged_attention_hist launched windows x 8 x
+   32 times in every round and the int8 entry never; the replay onboarded
+   every block up to (len - 1) // 16 from the tiers (G3 hits among them)
+   and the repeat found them all in G1; the pool bytes of every onboarded
+   block, on A and on B, equal the bytes that block had in A's pool
+   before it was evicted, with blocks read from G2 and from G3 among
+   them; the first-token logits of every replayed prompt, on A and on B,
+   against the whole prompt prefilled by the plain path within
+   LOGIT_ATOL; the dead peer's breaker opens, its consult stays within
+   the G4 budget and the request recomputes; over G4 every consult of B
+   got all the blocks it asked for (at least one), within the budget,
+   with no failed, slow or skipped consult, and every such block's pool
+   bytes equal A's before eviction; the watermark sweep demoted and A
+   settles at or above its low watermark; no spill, upload or peer pull
+   failed; A's digest reports g2 and g3. A's spill dispatch and
+   readiness poll and both workers' onboard uploads run under
+   ``no_stream_sync``. It prints, beside the card's name and power
+   limit, the spill extract's device and host ms per block, G2 put/get
+   us and G3 put/get ms per block, the onboard upload's device ms per
+   block, the G4 asks, pulls' ms and GB/s, the TTFT of set A cold,
+   onboarded, from G1 and on B over G4, the TPOT of the pressure round
+   on A and on B, and the copy's us a block in each of its five forms.
+In every phase from 3 to 12, each decode window an engine dispatched was
 a replay of its program's CUDA graph (the runner's replay count rises by
 the windows dispatched), and the warmed engines of phases 8-11 (built as
 ``backends.gpu`` builds them, warmup_windows set) print their programs
@@ -4176,16 +4223,723 @@ def lora_phase(attention, model, ref: dict, decode_step_ms: float) -> dict:
     return out
 
 
+# -- phase 12: KV tiers ------------------------------------------------------
+
+TIER_PAGES = 512
+TIER_HOST_PAGES = 256
+# G3 must outlast the replay's own churn: every G3 hit the replay reads is
+# promoted into G2, which sends G2's LRU block down to G3, and the
+# replay's allocations spill more of set C; at 512 pages G3 drops blocks
+# of set A before the replay reaches them (a CPU rehearsal at these page
+# counts lost 62 of 252), at 1024 none.
+TIER_DISK_PAGES = 1024
+TIER_WATERMARKS = "0.2,0.3"
+TIER_SETS = (("A", 1024), ("B", 1536), ("C", 1536))
+TIER_PROMPTS = 4
+TIER_MAX_TOKENS = 16
+TIER_SEED = 1357
+# Decode under eviction pressure: a fill round, then as many fresh prompts
+# of the same shape, which evict the fill's blocks while they prefill and
+# decode. Both rounds decode TIER_PRESSURE_TOKENS, so the load round runs
+# in page buckets the fill round captured.
+TIER_PRESSURE_PROMPTS = 6
+TIER_PRESSURE_LEN = 1024
+TIER_PRESSURE_TOKENS = 128
+TIER_COPY_BLOCKS = 32  # blocks a form of the G2 put's copy is timed over
+
+
+def tier_engines(disk_dir: str):
+    """Worker A as ``python -m dynamo_tpu_torch.backends.gpu --num-pages
+    512 --host-cache-pages 256 --kv-disk-cache-dir DIR --kv-watermarks
+    0.2,0.3`` builds it (seed-0 llama-3-8b, bf16 pool, phase 3's prefill
+    program size; its G3 holds TIER_DISK_PAGES pages), and worker B, an
+    engine of the same config without local tiers on A's parameter tensors
+    (the same seed-0 weights, without a second copy) and without the
+    warmup, whose smallest-bucket programs the phase never runs. Neither
+    started."""
+    import dataclasses
+
+    from dynamo_tpu_torch.backends import gpu
+    from dynamo_tpu_torch.engine.engine import GPUEngine
+    from dynamo_tpu_torch.launch import load_engine
+    from dynamo_tpu_torch.profile_decode import MAX_PREFILL_TOKENS, MODEL
+    args = gpu.parse_args([
+        "--model", MODEL, "--seed", "0", "--device", DEVICE,
+        "--num-pages", str(TIER_PAGES),
+        "--host-cache-pages", str(TIER_HOST_PAGES),
+        "--kv-disk-cache-dir", disk_dir, "--kv-watermarks", TIER_WATERMARKS])
+    config = dataclasses.replace(gpu.build_engine_config(args),
+                                 max_prefill_tokens=MAX_PREFILL_TOKENS,
+                                 disk_cache_pages=TIER_DISK_PAGES)
+    t0 = time.monotonic()
+    a = load_engine(config, args.resolved_checkpoint, args.seed, start=False)
+    b = GPUEngine(dataclasses.replace(
+        config, host_cache_pages=0, kv_disk_cache_dir=None,
+        kv_demote_low_watermark=0.0, kv_demote_high_watermark=0.0,
+        warmup_windows=False), params=a.runner.params)
+    log(f"tier engines: pages={a.runner.num_pages} each, pool "
+        f"{a.runner.kv_pool_bytes / 2**30:.2f} GiB each, A's policy "
+        f"{a.kvbm.status()['policy']}, setup={time.monotonic() - t0:.1f}s")
+    return a, b
+
+
+class TierProbe:
+    """Timers around the tier paths of workers A and B, set as instance
+    attributes before the planes start (``close`` takes them off):
+
+    - A's spill extracts (``runner.extract_pages_async``): CUDA events
+      around each and its host seconds, with the pages it took;
+    - the onboard uploads of both (``runner.insert_pages``): CUDA events;
+    - A's G2 and G3 puts and gets: host seconds, a G2 time only for calls
+      that touched no disk file (a put's while G2 fills), a put's own
+      time with its G3 write taken out for the others (once G2 is full);
+      and per block hash, where A's host tier found it last ("g2" in
+      DRAM, "g3" read from its file);
+    - B's G4 pulls (``fetch_blocks_sync``: seconds, bytes, blocks, the
+      blocks asked for) and
+      consults (``RemoteBlockSource.fetch``: seconds, hashes returned);
+    - the first-token logits of every prefill row over history.
+
+    A's spill dispatch and readiness poll and both onboard uploads run
+    under ``no_stream_sync``: none may wait for the card."""
+
+    def __init__(self, a, b):
+        import threading
+        self.a, self.b = a, b
+        self.spills, self.uploads = [], []
+        self.g2 = {"put": [], "get": []}
+        # A put's own seconds when it also wrote G2's LRU block to G3 (the
+        # G3 write taken out): the steady state once G2 is full.
+        self.g2_put_cascading = []
+        self.g3 = {"put": [], "get": []}
+        self.sources: dict[int, str] = {}
+        self.pulls, self.consults = [], []
+        self.captured: list[tuple] = []
+        self._local = threading.local()
+        self._set = []
+        ra = a.runner
+        self._wrap(ra, "extract_pages_async", self._extract)
+        self._wrap(ra, "extract_ready", self._no_sync)
+        self._wrap(a, "_flush_spills", self._no_sync)
+        for engine in (a, b):
+            self._wrap(engine.runner, "insert_pages", self._upload)
+            self._wrap(engine.runner, "prefill_batch", self._prefill)
+        hc = a.host_cache
+        for kind in ("put", "get"):
+            self._wrap(hc.disk, kind, self._disk(kind))
+            self._wrap(hc, kind, self._host(kind))
+
+    def _wrap(self, obj, name, make) -> None:
+        setattr(obj, name, make(getattr(obj, name), obj))
+        self._set.append((obj, name))
+
+    def watch_g4(self) -> None:
+        """B's G4 source exists once its plane is up."""
+        src = self.b.remote_source
+        self._wrap(src.client, "fetch_blocks_sync", self._pull)
+        self._wrap(src, "fetch", self._consult)
+
+    def close(self) -> None:
+        for obj, name in reversed(self._set):
+            delattr(obj, name)
+        self._set.clear()
+
+    @staticmethod
+    def _no_sync(inner, _obj):
+        def f(*args, **kw):
+            with no_stream_sync():
+                return inner(*args, **kw)
+        return f
+
+    def _extract(self, inner, _obj):
+        def f(pages):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            t0 = time.perf_counter()
+            handle = inner(pages)
+            host = time.perf_counter() - t0
+            ev[1].record()
+            self.spills.append((ev, host, len(pages)))
+            return handle
+        return f
+
+    def _upload(self, inner, runner):
+        def f(kv, pages):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            with no_stream_sync():
+                inner(kv, pages)
+            ev[1].record()
+            self.uploads.append((runner is self.a.runner, ev, len(pages)))
+        return f
+
+    def _prefill(self, inner, runner):
+        def f(seqs, slots=None, count_rows=None):
+            out = inner(seqs, slots=slots, count_rows=count_rows)
+            for i, seq in enumerate(seqs):
+                if seq.start_pos:
+                    self.captured.append((
+                        runner is self.a.runner, seq.start_pos,
+                        seq.tokens.tolist(),
+                        runner.last_prefill_logits[i].clone()))
+            return out
+        return f
+
+    def _disk(self, kind):
+        def make(inner, _obj):
+            def f(*args, **kw):
+                t0 = time.perf_counter()
+                out = inner(*args, **kw)
+                dt = time.perf_counter() - t0
+                self.g3[kind].append(dt)
+                self._local.disk = True
+                self._local.disk_s = getattr(self._local, "disk_s", 0.0) + dt
+                return out
+            return f
+        return make
+
+    def _host(self, kind):
+        def make(inner, _obj):
+            def f(*args, **kw):
+                local = self._local
+                outer = not getattr(local, "depth", 0)
+                if outer:
+                    local.disk, local.disk_s = False, 0.0
+                local.depth = getattr(local, "depth", 0) + 1
+                t0 = time.perf_counter()
+                try:
+                    out = inner(*args, **kw)
+                finally:
+                    local.depth -= 1
+                dt = time.perf_counter() - t0
+                if outer:
+                    if not local.disk:
+                        self.g2[kind].append(dt)
+                    elif kind == "put":
+                        self.g2_put_cascading.append(dt - local.disk_s)
+                    if kind == "get" and out is not None:
+                        self.sources[args[0]] = "g3" if local.disk else "g2"
+                return out
+            return f
+        return make
+
+    def _pull(self, inner, _obj):
+        def f(addr, hashes, *args, **kw):
+            t0 = time.perf_counter()
+            found, arr = inner(addr, hashes, *args, **kw)
+            self.pulls.append((time.perf_counter() - t0,
+                               0 if arr is None else arr.nbytes, len(found),
+                               len(hashes)))
+            return found, arr
+        return f
+
+    def _consult(self, inner, _obj):
+        def f(*args, **kw):
+            t0 = time.perf_counter()
+            out = inner(*args, **kw)
+            self.consults.append((time.perf_counter() - t0,
+                                  [h for h, _ in out]))
+            return out
+        return f
+
+    def numbers(self) -> dict:
+        """Per-block times, after a synchronize."""
+        torch.cuda.synchronize()
+
+        def per_block(rows):
+            n = sum(r[-1] for r in rows)
+            return (sum(r[0][0].elapsed_time(r[0][1]) for r in rows) / n
+                    if n else None)
+
+        def mean(xs, scale):
+            return sum(xs) / len(xs) * scale if xs else None
+        spill_blocks = sum(n for _, _, n in self.spills)
+        ups = {side: [(ev, n) for is_a, ev, n in self.uploads
+                      if is_a == (side == "A")] for side in ("A", "B")}
+        # GB/s over the pulls that brought blocks.
+        pull_s = sum(p[0] for p in self.pulls if p[2])
+        pull_b = sum(p[1] for p in self.pulls if p[2])
+        return {
+            "spill_flushes": len(self.spills), "spill_blocks": spill_blocks,
+            "spill_device_ms_per_block": per_block(self.spills),
+            "spill_host_ms_per_block": (
+                sum(h for _, h, _ in self.spills) / spill_blocks * 1e3
+                if spill_blocks else None),
+            "g2_put_us_per_block": mean(self.g2["put"], 1e6),
+            "g2_get_us_per_block": mean(self.g2["get"], 1e6),
+            "g2_put_cascading_us_per_block": mean(self.g2_put_cascading, 1e6),
+            "g3_put_ms_per_block": mean(self.g3["put"], 1e3),
+            "g3_get_ms_per_block": mean(self.g3["get"], 1e3),
+            "g2_samples": {k: len(v) for k, v in self.g2.items()},
+            "g2_put_cascading_samples": len(self.g2_put_cascading),
+            "g3_samples": {k: len(v) for k, v in self.g3.items()},
+            "upload_device_ms_per_block": {
+                side: per_block(rows) for side, rows in ups.items()},
+            "g4_pulls": len(self.pulls),
+            "g4_pull_ms": [p[0] * 1e3 for p in self.pulls],
+            "g4_pull_blocks": [p[2] for p in self.pulls],
+            "g4_ask_blocks": [p[3] for p in self.pulls],
+            "g4_gb_per_s": pull_b / pull_s / 1e9 if pull_s else None,
+        }
+
+
+def tier_round(engine, attention, on_loop, prompts, label: str,
+               max_tokens: int = TIER_MAX_TOKENS) -> dict:
+    """Serve ``prompts`` concurrently (greedy, ``max_tokens`` each) and
+    check them: every request finishes at its length, every window
+    replayed its graph, and every decode step of every layer launched
+    paged_attention_hist (never the int8 entry)."""
+    from dynamo_tpu_torch.profile_decode import MODEL, serve
+    spec = engine.runner.spec
+    requests = [{"model": MODEL, "token_ids": p,
+                 "stop_conditions": {"max_tokens": max_tokens,
+                                     "ignore_eos": True},
+                 "sampling_options": {}} for p in prompts]
+    attention.KERNEL.launches = 0
+    attention.KERNEL.launches_int8 = 0
+    windows0 = engine.windows_dispatched
+    replays0 = engine.runner.window_replays
+    t0 = time.monotonic()
+    results = on_loop(serve(engine, requests))
+    wall = time.monotonic() - t0
+    launches = {"paged_attention_hist": attention.KERNEL.launches,
+                "paged_attention_hist_int8": attention.KERNEL.launches_int8}
+    windows = engine.windows_dispatched - windows0
+    check_replays(engine, replays0, windows)
+    for i, r in enumerate(results):
+        assert r["finish"] == "length", (label, i, r["finish"])
+        assert len(r["tokens"]) == max_tokens, (label, i)
+        assert all(0 <= t < spec.vocab_size for t in r["tokens"])
+    expected = windows * engine.decode_window * spec.num_layers
+    assert launches["paged_attention_hist"] == expected > 0, (
+        label, launches, expected)
+    assert launches["paged_attention_hist_int8"] == 0, (label, launches)
+
+    def median(xs):
+        n = len(xs)
+        return (xs[n // 2 - 1] + xs[n // 2]) / 2 if n % 2 == 0 \
+            else xs[n // 2]
+    ttft = sorted(r["ttft_s"] * 1e3 for r in results)
+    tpot = sorted((r["total_s"] - r["ttft_s"]) / (max_tokens - 1) * 1e3
+                  for r in results)
+    return {"label": label, "windows": windows, "wall_s": wall,
+            "launches": launches, "ttft_ms": ttft,
+            "ttft_ms_median": median(ttft), "tpot_ms": tpot,
+            "tpot_ms_median": median(tpot),
+            "tok_per_s": len(results) * max_tokens / wall}
+
+
+def block_bytes(on_loop, engine, hashes) -> dict:
+    """The pool's bytes of the pages that hold ``hashes`` (all registered
+    on ``engine``), per hash, read on its engine thread."""
+    def job():
+        pages = engine.allocator.lookup(hashes)
+        assert len(pages) == len(hashes), (len(pages), len(hashes))
+        arrs = pool_pages(engine.runner, pages)
+        return {h: [a[:, :, i].copy() for a in arrs]
+                for i, h in enumerate(hashes)}
+    return on_loop(engine.run_job(job))
+
+
+def put_copy_forms(engine) -> dict:
+    """The G2 put's copy (``np.array(kv, copy=True)``) alone, on the
+    engine's thread: the median us a block over TIER_COPY_BLOCKS blocks
+    of one batched extract, in five forms. From the flush's page-locked
+    buffer through the strided one-block view ``_resolve_spills`` hands
+    the put: into pages newly mapped from the OS (a G2 growing into
+    memory the process never touched), into fresh memory (what the put
+    does; it may reuse memory the process freed) and into one reused
+    buffer; and from pageable contiguous copies of the same blocks, into
+    fresh and into reused memory. Fresh copies are kept, as G2 keeps
+    them."""
+    import mmap
+    runner = engine.runner
+    pages = list(engine.allocator.cached.values())[:TIER_COPY_BLOCKS]
+    assert len(pages) == TIER_COPY_BLOCKS, len(pages)
+    # The class's method: the probe's timers stay out of this.
+    kv = runner.finalize_extract(
+        type(runner).extract_pages_async(runner, pages))
+    views = [kv[:, :, :, i] for i in range(len(pages))]
+    pageable = [np.array(v) for v in views]
+    dst = np.array(views[0])
+
+    def median_us(srcs, copy) -> float:
+        times, kept = [], []
+        for v in srcs:
+            t0 = time.perf_counter()
+            kept.append(copy(v))
+            times.append(time.perf_counter() - t0)
+        times.sort()
+        n = len(times)
+        return (times[n // 2 - 1] + times[n // 2]) / 2 * 1e6
+
+    def to_new_pages(v):
+        buf = mmap.mmap(-1, v.nbytes)
+        out = np.frombuffer(buf, v.dtype).reshape(v.shape)
+        np.copyto(out, v)
+        return out
+
+    return {
+        "pinned_strided_to_new_pages": median_us(views, to_new_pages),
+        "pinned_strided_to_fresh": median_us(
+            views, lambda v: np.array(v, copy=True)),
+        "pinned_strided_to_reused": median_us(
+            views, lambda v: np.copyto(dst, v)),
+        "pageable_contiguous_to_fresh": median_us(
+            pageable, lambda v: np.array(v, copy=True)),
+        "pageable_contiguous_to_reused": median_us(
+            pageable, lambda v: np.copyto(dst, v)),
+        "block_bytes": int(views[0].nbytes)}
+
+
+def tier_phase(attention, model) -> dict:
+    """Phase 12 (see the module docstring)."""
+    import shutil
+    import socket
+    import tempfile
+    import threading
+
+    from dynamo_tpu_torch.backends.gpu import close_kv_plane, start_kv_plane
+    from dynamo_tpu_torch.engine.config import PRESETS
+    from dynamo_tpu_torch.llm.tokens import compute_block_hashes
+    from dynamo_tpu_torch.profile_decode import MODEL, smi_line
+    from dynamo_tpu_torch.runtime.config import RuntimeConfig
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+
+    t_phase = time.monotonic()
+    smi = smi_line()
+    spec = PRESETS[MODEL]
+    page = 16
+    rng = np.random.default_rng(TIER_SEED)
+    sets = {name: [rng.integers(0, spec.vocab_size, n).tolist()
+                   for _ in range(TIER_PROMPTS)] for name, n in TIER_SETS}
+    fresh = rng.integers(0, spec.vocab_size, 1024).tolist()
+    warm = rng.integers(0, spec.vocab_size, 1024).tolist()
+    allowed = {name: (n - 1) // page for name, n in TIER_SETS}
+    hashes = {name: [compute_block_hashes(p, page)[:allowed[name]]
+                     for p in sets[name]] for name in ("A", "B")}
+    hashes_a = hashes["A"]
+    disk_dir = tempfile.mkdtemp(prefix="chip_smoke_g3_")
+    log(f"G3 directory {disk_dir}: "
+        f"{shutil.disk_usage(disk_dir).free / 2**30:.1f} GiB free")
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, daemon=True)
+    thread.start()
+
+    def on_loop(coro, timeout=600):
+        return asyncio.run_coroutine_threadsafe(coro, loop).result(timeout)
+
+    a, b = tier_engines(disk_dir)
+    probe = TierProbe(a, b)
+    rts, planes = [], []
+
+    async def up():
+        for engine in (a, b):
+            rt = await (DistributedRuntime.with_embedded_coordinator(
+                RuntimeConfig()) if not rts else
+                DistributedRuntime.from_settings(RuntimeConfig(
+                    coordinator_url=rts[0].config.coordinator_url)))
+            rts.append(rt)
+            await asyncio.get_running_loop().run_in_executor(
+                None, engine.start, loop)
+            planes.append(await start_kv_plane(rt, engine, MODEL))
+        deadline = time.monotonic() + 60
+        while (b.remote_source.peers != [planes[0][0].address]
+               or a.remote_source.peers != [planes[1][0].address]):
+            assert time.monotonic() < deadline, "planes not discovered"
+            await asyncio.sleep(0.02)
+
+    async def down():
+        for engine, (plane, task) in reversed(list(zip((a, b), planes))):
+            await close_kv_plane(engine, plane, task)
+        for rt in reversed(rts):
+            await rt.close()
+
+    def counts(engine) -> dict:
+        hc = engine.host_cache.stats() if engine.host_cache else {}
+        return {"onboard": engine.onboard_blocks, "g4": engine.g4_blocks,
+                "hits": engine.prefix_hit_blocks,
+                "g2_hits": hc.get("g2_hits", 0),
+                "g3_hits": hc.get("g3_hits", 0)}
+
+    def delta(after, before):
+        return {k: after[k] - before[k] for k in after}
+
+    rounds, checks = [], {}
+    try:
+        on_loop(up())
+        graph_stats(a, "tier worker A after its warmup")
+        probe.watch_g4()
+        log(f"planes: A {planes[0][0].address} B {planes[1][0].address}; "
+            f"B's G4 peers {b.remote_source.peers}, budget "
+            f"{b.remote_source.budget_s} s")
+        # One throwaway request on each worker captures the window programs
+        # of the page bucket the traffic runs in (the warmup makes only
+        # the smallest bucket's), so no TTFT below holds a capture; then
+        # its blocks are dropped, not spilled.
+        for engine in (a, b):
+            tier_round(engine, attention, on_loop, [warm], "warm")
+            on_loop(engine.run_job(engine.allocator.clear_inactive))
+        # Sets A and B, each followed by its pool bytes (before anything
+        # evicts them), then set C.
+        snap = {}
+        for name in ("A", "B", "C"):
+            rounds.append(tier_round(a, attention, on_loop, sets[name],
+                                     f"{name} cold"))
+            for hs in hashes.get(name, ()):
+                snap.update(block_bytes(on_loop, a, hs))
+        on_loop(a.run_job(lambda: a._resolve_spills(force=True)))
+        log(f"after set C: G1 {a.allocator.stats()}, tiers "
+            f"{a.host_cache.stats()}")
+        # G2 holds what was evicted last: set B's blocks. The set-B prompt
+        # with the most of its blocks in DRAM, again: blocks from G2.
+        in_g2 = set(a.host_cache.block_hashes())
+        pick = max(range(TIER_PROMPTS),
+                   key=lambda i: sum(h in in_g2 for h in hashes["B"][i]))
+        probe.sources.clear()
+        probe.captured.clear()
+        before = counts(a)
+        rounds.append(tier_round(a, attention, on_loop, [sets["B"][pick]],
+                                 "one of B from G2"))
+        d = delta(counts(a), before)
+        g2_sources = dict(probe.sources)
+        g2_captured = list(probe.captured)
+        assert d["hits"] + d["onboard"] == allowed["B"], d
+        assert "g2" in g2_sources.values(), g2_sources
+        got = block_bytes(on_loop, a, list(g2_sources))
+        for h in g2_sources:
+            assert all(np.array_equal(x, y) for x, y in zip(got[h], snap[h])), \
+                f"onboarded block {h:x} differs from its evicted bytes"
+        checks["g2_replay"] = dict(d, prompt=pick, bit_identical_by_tier={
+            t: sum(v == t for v in g2_sources.values()) for t in ("g2", "g3")})
+        # The replay of set A: every allowed block from the host tiers.
+        probe.sources.clear()
+        before = counts(a)
+        probe.captured.clear()
+        rounds.append(tier_round(a, attention, on_loop, sets["A"],
+                                 "A onboarded"))
+        d = delta(counts(a), before)
+        replay_sources = dict(probe.sources)
+        replay_captured = list(probe.captured)
+        assert d["onboard"] == TIER_PROMPTS * allowed["A"], d
+        assert d["hits"] == 0 and d["g4"] == 0, d
+        assert d["g3_hits"] > 0, d
+        checks["replay"] = d
+        replayed = [h for hs in hashes_a for h in hs]
+        got = {}
+        for hs in hashes_a:
+            got.update(block_bytes(on_loop, a, hs))
+        by_src = {"g2": 0, "g3": 0}
+        for h in replayed:
+            assert all(np.array_equal(x, y) for x, y in zip(got[h], snap[h])), \
+                f"onboarded block {h:x} differs from its evicted bytes"
+            by_src[replay_sources[h]] += 1
+        checks["replay_bit_identical_by_tier"] = by_src
+        # One immediate repeat: the same prompts from G1.
+        before = counts(a)
+        rounds.append(tier_round(a, attention, on_loop, sets["A"],
+                                 "A from G1"))
+        d = delta(counts(a), before)
+        assert d["hits"] == TIER_PROMPTS * allowed["A"], d
+        assert d["onboard"] == 0, d
+        # After A's traffic: the watermark sweep demoted, and A settles at or above its low
+        # watermark (each sweep aims at the high one, at most
+        # max_demotions_per_sweep blocks at a time).
+        policy = a.kvbm.policy
+        deadline = time.monotonic() + 30
+        while a.kvbm.free_fraction() < policy.low_watermark:
+            assert time.monotonic() < deadline, a.kvbm.status()
+            time.sleep(0.05)
+        kvbm = a.kvbm.status()
+        assert kvbm["watermark_demotions"] > 0, kvbm
+        # Worker B serves set A over G4 from A's host tiers, at the
+        # worker's budget: each consult asks A for the head of the prompt
+        # that the budget carries, and B recomputes the rest.
+        on_loop(a.run_job(a.allocator.clear_inactive))
+        src = b.remote_source
+        probe.sources.clear()
+        probe.consults.clear()
+        probe.pulls.clear()
+        before = counts(b)
+        rs0 = src.stats()
+        rounds.append(tier_round(b, attention, on_loop, sets["A"],
+                                 "A on B over G4"))
+        d = delta(counts(b), before)
+        rs = {k: src.stats()[k] - rs0[k] for k in (
+            "fetch_failures", "slow_peer_cooldowns", "breaker_open_skips")}
+        asks = [(p[3], p[2], p[0]) for p in probe.pulls]
+        log(f"B's G4 pulls (asked, got, ms): "
+            f"{[(n, g, round(t * 1e3, 1)) for n, g, t in asks]}, budget "
+            f"{src.budget_s} s | {smi}")
+        assert not any(rs.values()), (rs, src.stats())
+        assert len(asks) == TIER_PROMPTS, asks
+        assert all(g == n >= 1 and t <= src.budget_s for n, g, t in asks), \
+            asks
+        pulled = [h for _, hs in probe.consults for h in hs]
+        assert d["g4"] == d["onboard"] == len(pulled) == sum(
+            g for _, g, _ in asks), (d, len(pulled))
+        g4_sources = {"g2": 0, "g3": 0}
+        for h in pulled:
+            g4_sources[probe.sources[h]] += 1
+        got = block_bytes(on_loop, b, pulled)
+        for h in pulled:
+            assert all(np.array_equal(x, y) for x, y in zip(got[h], snap[h])), \
+                f"G4 block {h:x} differs from its evicted bytes"
+        checks["g4"] = dict(d, pulled=len(pulled), remote=rs,
+                            asked=[n for n, _, _ in asks],
+                            a_side_sources=g4_sources)
+        # First-token logits of every replay row against the whole prompt.
+        worst = 0.0
+        for rows, runner, prompts in (
+                (g2_captured, a.runner, [sets["B"][pick]]),
+                (replay_captured, a.runner, sets["A"]),
+                ([c for c in probe.captured if not c[0]], b.runner,
+                 sets["A"])):
+            rows = [c for c in rows if c[1] > 0]
+            for p in prompts:
+                got_rows = [lg for _, s, toks, lg in rows
+                            if toks == p[s:]]
+                assert got_rows, "a replay row was not captured"
+                want = plain_forced_logits(runner, model, p, [0], False)[0]
+                diff = float((got_rows[-1] - want).abs().max())
+                assert torch.isfinite(got_rows[-1]).all()
+                assert diff <= LOGIT_ATOL, diff
+                worst = max(worst, diff)
+        checks["first_token_logit_max_abs_diff"] = worst
+        # A dead peer ahead of A: its breaker opens, the consult stays in
+        # its budget, and a prompt no tier holds recomputes.
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            dead = f"127.0.0.1:{s.getsockname()[1]}"
+        src.peers = [dead] + src.peers
+        probe.consults.clear()
+        fails0 = src.fetch_failures
+        rounds.append(tier_round(b, attention, on_loop, [fresh],
+                                 "fresh on B, dead peer first"))
+        consult_s = max(s for s, _ in probe.consults)
+        assert src.fetch_failures == fails0 + 1, src.stats()
+        assert src.stats()["breakers_open"] == 1, src.stats()
+        assert consult_s <= src.budget_s * 1.5, consult_s
+        checks["dead_peer"] = {"consult_ms": consult_s * 1e3,
+                               "budget_ms": src.budget_s * 1e3,
+                               "breaker": src.stats()}
+        src.drop_peer(dead)
+        # Decode under eviction pressure, the same traffic on B (no local
+        # tiers; first, so A's tiers hold none of it) and on A.
+        prng = np.random.default_rng(TIER_SEED + 1)
+        fill, load = ([prng.integers(0, spec.vocab_size,
+                                     TIER_PRESSURE_LEN).tolist()
+                       for _ in range(TIER_PRESSURE_PROMPTS)]
+                      for _ in range(2))
+        pressure = {}
+        for name, engine in (("B", b), ("A", a)):
+            on_loop(engine.run_job(engine.allocator.clear_inactive))
+            rounds.append(tier_round(engine, attention, on_loop, fill,
+                                     f"fill on {name}", TIER_PRESSURE_TOKENS))
+            alloc = engine.allocator
+            displaced0 = alloc.evicted_blocks + alloc.demoted_blocks
+            spills0 = len(probe.spills)
+            r = tier_round(engine, attention, on_loop, load,
+                           f"pressure on {name}", TIER_PRESSURE_TOKENS)
+            rounds.append(r)
+            pressure[name] = {
+                "tpot_ms_median": r["tpot_ms_median"],
+                "tpot_ms": r["tpot_ms"], "ttft_ms_median": r["ttft_ms_median"],
+                "tok_per_s": r["tok_per_s"],
+                "displaced_blocks": (alloc.evicted_blocks
+                                     + alloc.demoted_blocks - displaced0),
+                "spill_flushes": len(probe.spills) - spills0,
+                "spilled_blocks": sum(n for _, _, n in probe.spills[spills0:])}
+        # Both pools gave up the fill's blocks; only A spilled them.
+        assert pressure["A"]["displaced_blocks"] > 0, pressure
+        assert pressure["B"]["displaced_blocks"] > 0, pressure
+        assert pressure["A"]["spilled_blocks"] > 0, pressure
+        checks["pressure"] = pressure
+        log(f"phase 12 decode under eviction pressure | {smi}: TPOT median "
+            f"{pressure['A']['tpot_ms_median']:.2f} ms with tiers (A), "
+            f"{pressure['B']['tpot_ms_median']:.2f} ms without (B); "
+            f"{json.dumps(pressure)}")
+        copy_us = on_loop(a.run_job(lambda: put_copy_forms(a)))
+        log(f"phase 12 G2 put copy, us a 2 MiB block (median of "
+            f"{TIER_COPY_BLOCKS}) | {smi}: {json.dumps(copy_us)}")
+        for engine in (a, b):
+            status = engine.kv_status()["kvbm"]
+            fails = {k: status[k] for k in ("spill_failures",
+                                            "onboard_failures",
+                                            "peer_pull_failures")}
+            assert not any(fails.values()), fails
+        # The dead peer's consult is the only failed one of either worker.
+        assert b.kv_status()["remote"]["fetch_failures"] == 1, src.stats()
+        assert a.kv_status()["remote"]["fetch_failures"] == 0, \
+            a.remote_source.stats()
+        status_a = a.kv_status()
+        digest = status_a["digest"]["tier_blocks"]
+        assert digest.get("g2", 0) > 0 and digest.get("g3", 0) > 0, digest
+    finally:
+        probe.close()
+        try:
+            on_loop(down())
+        finally:
+            a.stop()
+            b.stop()
+            loop.call_soon_threadsafe(loop.stop)
+            thread.join(timeout=10)
+    numbers = probe.numbers()
+    cold, onboarded, g1 = (rounds[0]["ttft_ms_median"],
+                           rounds[4]["ttft_ms_median"],
+                           rounds[5]["ttft_ms_median"])
+    out = {"rounds": rounds, "checks": checks, "numbers": numbers,
+           "tiers": status_a["tiers"], "reuse": status_a["reuse"],
+           "kvbm": {k: kvbm[k] for k in (
+               "free_fraction", "watermark_demotions", "demotion_sweeps",
+               "promotions", "recompute_fallbacks")},
+           "digest_tier_blocks": digest,
+           "ttft_ms_median": {"A_cold": cold, "A_onboarded": onboarded,
+                              "A_from_g1": g1,
+                              "A_on_B_g4": rounds[6]["ttft_ms_median"],
+                              "fresh_on_B_dead_peer_first":
+                                  rounds[7]["ttft_ms_median"],
+                              "B_cold": rounds[1]["ttft_ms_median"],
+                              "one_of_B_from_g2": rounds[3]["ttft_ms"][0]},
+           "launches": {k: sum(r["launches"][k] for r in rounds)
+                        for k in rounds[0]["launches"]},
+           "pressure": pressure, "put_copy_us": copy_us, "smi": smi}
+    log(f"phase 12 tiers | {smi}: spill extract "
+        f"{numbers['spill_device_ms_per_block']} device ms and "
+        f"{numbers['spill_host_ms_per_block']} host ms per block; G2 put/get "
+        f"{numbers['g2_put_us_per_block']}/{numbers['g2_get_us_per_block']} "
+        f"us per block (a put once G2 is full, its G3 write taken out: "
+        f"{numbers['g2_put_cascading_us_per_block']} us); G3 put/get {numbers['g3_put_ms_per_block']}/"
+        f"{numbers['g3_get_ms_per_block']} ms per block; onboard upload "
+        f"{numbers['upload_device_ms_per_block']} device ms per block; G4 "
+        f"pulls {numbers['g4_pull_ms']} ms for {numbers['g4_pull_blocks']} "
+        f"blocks at {numbers['g4_gb_per_s']} GB/s")
+    log(f"phase 12 TTFT median | {smi}: set A cold {cold:.1f} ms, "
+        f"onboarded {onboarded:.1f} ms, from G1 {g1:.1f} ms, on B over G4 "
+        f"{out['ttft_ms_median']['A_on_B_g4']:.1f} ms")
+    del a, b, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(disk_dir, ignore_errors=True)
+    out["phase_s"] = time.monotonic() - t_phase
+    log(json.dumps({"tiers_phase": out}, default=str))
+    log(f"phase 12: {out['phase_s']:.1f}s")
+    return out
+
+
 def kernel_entry(name, variant, timing, main, max_err, stats,
                  http_launches, dist_launches, ckpt_launches,
                  disagg_launches, kv_launches, verify, spec_launches,
-                 lora_launches) -> dict:
+                 lora_launches, tier_launches) -> dict:
     """One kernel's summary: times at the B=32 x 2048 shape, and the same
     numbers at the main path's mid-round shape under ``main_shape``;
     launches in round 1, round 2, the HTTP phase, the distributed phase,
     phase 7's round-1 runs on loaded checkpoints, phase 8's passes (on
     the decode worker), phase 9's passes (both workers), phase 10's
-    spec round (the verify route) and phase 11's LoRA rounds A and B;
+    spec round (the verify route), phase 11's LoRA rounds A and B and
+    phase 12's rounds on the tier workers;
     the verify route's numbers at both
     shapes under ``verify_route`` (``verify``: its check's error and the
     two timings)."""
@@ -4201,6 +4955,7 @@ def kernel_entry(name, variant, timing, main, max_err, stats,
             "launches_kv_routing": kv_launches,
             "launches_spec": spec_launches,
             "launches_lora": lora_launches,
+            "launches_tiers": tier_launches,
             "max_abs_err": max(max_err, timing["max_abs_err"],
                                main["max_abs_err"], verify["err"],
                                verify["uniform"]["max_abs_err"],
@@ -4282,6 +5037,8 @@ def main() -> int:
         lora = lora_phase(attention, model, refs["bf16"],
                           stats_bf16["round2"]["decode_step_device_ms"])
         phase_done("11 lora")
+        tiers = tier_phase(attention, model)
+        phase_done("12 kv tiers")
     except Exception:  # noqa: BLE001 — report and fail the run
         traceback.print_exc()
         return 1
@@ -4308,7 +5065,8 @@ def main() -> int:
                      disagg_launches("paged_attention_hist"),
                      kv_launches("paged_attention_hist"), verify[False],
                      spec["launches"]["paged_attention_hist"],
-                     lora["launches_total"]["paged_attention_hist"]),
+                     lora["launches_total"]["paged_attention_hist"],
+                     tiers["launches"]["paged_attention_hist"]),
         kernel_entry("paged_attention_hist_int8",
                      "int8 pool, _decode_kernel(quantized=True)",
                      timing_int8, main_int8, err_int8, stats_int8,
@@ -4319,7 +5077,8 @@ def main() -> int:
                      disagg_launches("paged_attention_hist_int8"),
                      kv_launches("paged_attention_hist_int8"), verify[True],
                      spec["launches"]["paged_attention_hist_int8"],
-                     lora["launches_total"]["paged_attention_hist_int8"])]}))
+                     lora["launches_total"]["paged_attention_hist_int8"],
+                     tiers["launches"]["paged_attention_hist_int8"])]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,6 +8,7 @@ prefill and decode.
     python -m dynamo_tpu_torch.backends.gpu --mode decode --model llama-3-8b --max-local-prefill-length 512
     python -m dynamo_tpu_torch.backends.gpu --model llama-3-8b --spec-decode ngram --spec-k 3
     python -m dynamo_tpu_torch.backends.gpu --model llama-3-8b --lora a=/path/to/peft_a --lora b=/path/to/peft_b
+    python -m dynamo_tpu_torch.backends.gpu --model llama-3-8b --host-cache-pages 4096 --kv-disk-cache-dir /var/kv --kv-watermarks 0.2,0.3
 
 connects to the coordinator (and fails with its connection error when it
 cannot be reached), builds the engine off the event loop so lease
@@ -49,20 +50,34 @@ kv``: the engine is started on the event loop, which its publishers use,
 and the digest is republished every two seconds while idle. A prefill
 worker registers no model and publishes nothing, as in the reference.
 
+``--host-cache-pages N`` gives the engine a G2 host-DRAM tier of N pages
+and ``--kv-disk-cache-dir DIR`` a G3 disk tier behind it
+(``engine/kv_host_cache.py``): blocks evicted from the device pool are
+extracted there, and prefix hits on them are uploaded instead of
+recomputed. ``--kv-watermarks low,high`` turns on the KVBM's proactive
+demotion (``engine/kvbm.py``; DTPU_KV_WATERMARKS overrides).
+
+Every worker runs a KV plane server (``llm/kv_plane.py``, bound to
+``--kv-plane-host``) unless ``--no-kv-plane``: it serves peers' G4 block
+fetches from the host tiers, and a prefill worker stages parcels on it.
+The worker registers ``kvplane/{namespace}/{instance_id:x}`` under its
+primary lease and watches that prefix, so its engine's G4 source
+(``RemoteBlockSource``) consults the plane of every other worker of the
+same model.
+
 ``--mode prefill`` serves ``llm/disagg.make_prefill_handler`` at
 ``{namespace}/{--prefill-component}/generate`` (``prefill`` by default)
-and registers no model; with its KV plane (``llm/kv_plane.py``, bound to
-``--kv-plane-host``) it stages parcels there and also pops the shared
-prefill queue (``llm/prefill_queue.py``); with ``--no-kv-plane`` parcels
-go inline. ``--mode decode`` serves ``DisaggDecodeHandler`` under
-``--component`` and registers the model: prompts longer than
+and registers no model; with its KV plane it stages parcels there and
+also pops the shared prefill queue (``llm/prefill_queue.py``); with
+``--no-kv-plane`` parcels go inline. ``--mode decode`` serves
+``DisaggDecodeHandler`` under ``--component`` and registers the model:
+prompts longer than
 ``--max-local-prefill-length`` (or the coordinator's ``disagg/<model>``)
 prefill on a prefill worker, found by round robin or, with
 ``--prefill-dispatch queue``, through the queue under
-``--max-prefill-queue-depth``. Only a prefill worker starts a KV plane
-(the G4 block source that would serve from every worker waits for ROADMAP
-item 9), and the ``SetRole`` flips, standby and scale directives of the
-reference's role manager wait for the planner's ROADMAP items.
+``--max-prefill-queue-depth``. The ``SetRole`` flips, standby and scale
+directives of the reference's role manager wait for the planner's ROADMAP
+items.
 """
 
 from __future__ import annotations
@@ -78,12 +93,12 @@ from dynamo_tpu_torch.llm.disagg import (PREFILL_COMPONENT, PREFILL_ENDPOINT,
                                          DisaggDecodeHandler,
                                          DisaggRouterConfig,
                                          make_prefill_handler)
-from dynamo_tpu_torch.llm.kv_plane import KvPlaneServer
+from dynamo_tpu_torch.llm.kv_plane import KvPlaneServer, RemoteBlockSource
 from dynamo_tpu_torch.llm.kv_router.publisher import (KvEventPublisher,
                                                       KvInventoryPublisher,
                                                       WorkerMetricsPublisher)
 from dynamo_tpu_torch import launch
-from dynamo_tpu_torch.engine.config import EngineConfig
+from dynamo_tpu_torch.engine.config import EngineConfig, parse_watermarks
 from dynamo_tpu_torch.launch import (add_engine_args, add_lora_args,
                                      add_refused_flags, lora_args,
                                      load_engine, load_tokenizer)
@@ -96,12 +111,12 @@ from dynamo_tpu_torch.llm.tokenizer import Tokenizer
 from dynamo_tpu_torch.runtime.config import RuntimeConfig
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
 from dynamo_tpu_torch.runtime.logging import get_logger
+from dynamo_tpu_torch.runtime.retry import Backoff, policies
 from dynamo_tpu_torch.runtime.service import EndpointServer
 
 log = get_logger("gpu_worker")
 
 _PARALLEL = "ROADMAP item 16 (parallelism across GPUs and nodes)"
-_TIERS = "ROADMAP item 9 (host and disk KV tiers)"
 _ADMISSION = "ROADMAP item 12 (SLA admission and brownout)"
 _PARSERS = "the ROADMAP item of the tool-call and reasoning parsers"
 
@@ -109,9 +124,6 @@ _PARSERS = "the ROADMAP item of the tool-call and reasoning parsers"
 # (flag, what it waits for, add_argument keywords). A value in "allowed"
 # is the reference's default, which leaves the feature off.
 REFUSED_FLAGS = (
-    ("--host-cache-pages", _TIERS, {"type": int, "allowed": (0,)}),
-    ("--kv-disk-cache-dir", _TIERS, {"type": str}),
-    ("--kv-watermarks", _TIERS, {"type": str}),
     ("--num-nodes", _PARALLEL, {"type": int, "allowed": (1,)}),
     ("--node-rank", _PARALLEL, {"type": int, "allowed": (0,)}),
     ("--mh-group", _PARALLEL, {"type": str}),
@@ -136,14 +148,17 @@ REFUSED_FLAGS = (
 
 
 def build_engine_config(args: argparse.Namespace) -> EngineConfig:
-    """The launcher's engine config (with its LoRA slots) with
-    ``warmup_windows`` set (a worker makes the smallest bucket's window
-    programs before it serves, as the reference's worker does) and the
-    worker's speculative decoding."""
+    """The launcher's engine config (with its LoRA slots and KV tiers)
+    with ``warmup_windows`` set (a worker makes the smallest bucket's
+    window programs before it serves, as the reference's worker does),
+    the worker's speculative decoding and its KVBM watermarks."""
+    low, high = parse_watermarks(args.kv_watermarks)
     return dataclasses.replace(launch.build_engine_config(args),
                                warmup_windows=True,
                                spec_decode=args.spec_decode,
-                               spec_k=args.spec_k)
+                               spec_k=args.spec_k,
+                               kv_demote_low_watermark=low,
+                               kv_demote_high_watermark=high)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -180,8 +195,17 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="component the prefill workers serve under "
                              f"(default: {PREFILL_COMPONENT!r})")
     parser.add_argument("--kv-plane-host", default="127.0.0.1",
-                        help="address the prefill worker's KV plane binds "
-                             "and advertises; peers must reach it")
+                        help="address the worker's KV plane binds and "
+                             "advertises; peers must reach it")
+    parser.add_argument("--kv-watermarks", default=None,
+                        help="KVBM proactive demotion watermarks 'low,high' "
+                             "as fractions of the device pool's free list "
+                             "(engine/kvbm.py): while the free share is "
+                             "below low, each engine-loop sweep demotes at "
+                             "most 16 LRU inactive blocks to the host tier, "
+                             "toward high, so the pool settles just above "
+                             "low; needs --host-cache-pages "
+                             "(DTPU_KV_WATERMARKS overrides)")
     parser.add_argument("--spec-decode", default=None, choices=["ngram"],
                         help="speculative decoding: 'ngram' = prompt-"
                              "lookup self-drafting verified in-window; "
@@ -194,8 +218,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="drafts verified per speculative step")
     parser.add_argument("--no-kv-plane", action="store_true",
                         help="no KV plane: parcels ride the request plane "
-                             "inline, and a prefill worker does not pop "
-                             "the prefill queue")
+                             "inline, a prefill worker does not pop the "
+                             "prefill queue, and no G4 peer tier")
     add_refused_flags(parser, REFUSED_FLAGS)
     args = parser.parse_args(argv)
     if args.prefill_dispatch == "queue" and args.no_kv_plane:
@@ -253,6 +277,99 @@ async def serve_engine(runtime: DistributedRuntime, engine: GPUEngine,
         await server.shutdown(drain_s=0)
         raise
     return server
+
+
+async def start_kv_plane(runtime: DistributedRuntime, engine: GPUEngine,
+                         model_name: str, host: str = "127.0.0.1"
+                         ) -> tuple[KvPlaneServer, asyncio.Task]:
+    """Start the worker's KV plane server (serving G4 block fetches from
+    the engine's host tiers, if it has any), register it as
+    ``kvplane/{namespace}/{instance_id:x}`` under the primary lease, give
+    the engine a G4 source and watch the other planes of ``model_name``.
+    Returns (plane, peer watch task); ``close_kv_plane`` stops them."""
+    host_cache = engine.host_cache
+    plane = KvPlaneServer(host=host, block_provider=(
+        host_cache.get if host_cache is not None else None))
+    plane.start()
+    try:
+        coordinator = runtime.require_coordinator()
+        prefix = f"kvplane/{runtime.config.namespace}/"
+        await coordinator.kv_put(
+            f"{prefix}{runtime.instance_id:x}",
+            {"addr": plane.address, "model": model_name},
+            use_primary_lease=True)
+        runner = engine.runner
+        source = RemoteBlockSource(
+            self_addr=plane.address,
+            block_nbytes=runner.kv_pool_bytes // runner.num_pages)
+        watch = await coordinator.watch_prefix(prefix)
+    except BaseException:
+        plane.close()
+        raise
+    engine.plane = plane
+    engine.remote_source = source
+    task = asyncio.create_task(_watch_peers(coordinator, prefix, watch,
+                                            source, model_name))
+    return plane, task
+
+
+async def _watch_peers(coordinator, prefix: str, watch, source,
+                       model_name: str) -> None:
+    """Keep ``source.peers`` to the registered planes of ``model_name``
+    but its own: a put adds or moves a peer, a delete drops it with its
+    breaker state (``drop_peer``). It never dies silently: a frozen list
+    would miss new workers and keep consulting dead ones, so a failed
+    watch is logged and re-established."""
+    peers: dict[str, str] = {}
+
+    def reset(snapshot) -> None:
+        peers.clear()
+        peers.update({item["k"]: item["v"]["addr"] for item in snapshot
+                      if item["v"].get("model") == model_name})
+        publish()
+
+    def publish() -> None:
+        source.peers = [a for a in peers.values() if a != source.self_addr]
+
+    reset(watch.snapshot)
+    backoff = Backoff(policies.COORD_RECONNECT)
+    while True:
+        try:
+            async for event in watch:
+                if event["event"] == "put":
+                    if event["value"].get("model") == model_name:
+                        peers[event["key"]] = event["value"]["addr"]
+                else:
+                    gone = peers.pop(event["key"], None)
+                    if gone is not None:
+                        source.drop_peer(gone)
+                publish()
+        except asyncio.CancelledError:
+            raise
+        except Exception:  # noqa: BLE001 — log and re-watch
+            log.exception("kvplane peer watch failed; re-watching")
+        await backoff.sleep()
+        try:
+            watch = await coordinator.watch_prefix(prefix)
+            reset(watch.snapshot)
+            backoff.reset()
+        except (ConnectionError, OSError, RuntimeError):
+            log.warning("kvplane peer re-watch failed; will retry")
+
+
+async def close_kv_plane(engine: GPUEngine, plane: KvPlaneServer,
+                         task: asyncio.Task) -> None:
+    """Stop the peer watch, close the G4 source's client and the plane."""
+    task.cancel()
+    try:
+        await task
+    except asyncio.CancelledError:
+        pass
+    if engine.remote_source is not None:
+        engine.remote_source.client.close()
+        engine.remote_source = None
+    plane.close()
+    engine.plane = None
 
 
 async def serve_prefill(runtime: DistributedRuntime, engine: GPUEngine,
@@ -315,7 +432,8 @@ async def run(args: argparse.Namespace) -> None:
     runtime = await DistributedRuntime.from_settings(cfg)
     for sig in (signal.SIGINT, signal.SIGTERM):
         loop.add_signal_handler(sig, runtime.shutdown)
-    engine = server = plane = queue_worker = disagg = inventory_pub = None
+    engine = server = plane = peer_task = queue_worker = disagg = None
+    inventory_pub = None
     registered: list[str] = []  # model names whose cards we put
     try:
         engine_cfg = build_engine_config(args)
@@ -346,10 +464,10 @@ async def run(args: argparse.Namespace) -> None:
         if inventory_pub is not None:
             inventory_pub.start_periodic(engine.inventory_digest)
         prefill_component = args.prefill_component or PREFILL_COMPONENT
+        if not args.no_kv_plane:
+            plane, peer_task = await start_kv_plane(
+                runtime, engine, model_name, args.kv_plane_host)
         if args.mode == "prefill":
-            if not args.no_kv_plane:
-                plane = KvPlaneServer(host=args.kv_plane_host)
-                plane.start()
             server, queue_worker = await serve_prefill(
                 runtime, engine, model_name, plane, prefill_component)
         else:
@@ -387,7 +505,7 @@ async def run(args: argparse.Namespace) -> None:
         if disagg is not None:
             await close_decode_handler(disagg)
         if plane is not None:
-            plane.close()
+            await close_kv_plane(engine, plane, peer_task)
         if engine is not None:
             engine.stop()
         await runtime.close()

@@ -20,6 +20,16 @@ from dynamo_tpu_torch.engine.kv_quant import KV_SCALE_BYTES
 DEFAULT_HBM_GBPS = 3350.0
 
 
+def parse_watermarks(value) -> tuple[float, float]:
+    """KVBM watermarks ``'low[,high]'`` (comma or space separated) as
+    (low, high); empty or None is (0, 0), no proactive demotion. The one
+    parser of ``--kv-watermarks`` and DTPU_KV_WATERMARKS."""
+    parts = [p for p in str(value or "").replace(",", " ").split() if p]
+    if not parts:
+        return 0.0, 0.0
+    return float(parts[0]), float(parts[1]) if len(parts) > 1 else 0.0
+
+
 @dataclasses.dataclass
 class ModelSpec:
     name: str = "tiny-test"
@@ -191,6 +201,18 @@ class EngineConfig:
             env = env.strip().lower()
             return None if env in ("", "none", "off", "bf16") else env
         return self.quant_kv
+
+    def kvbm_policy(self):
+        """The KVBM tier policy of this config (``engine/kvbm.py``), with
+        the DTPU_KV_WATERMARKS="low,high" env override applied (the same
+        layering as DTPU_QUANT_KV)."""
+        from dynamo_tpu_torch.engine.kvbm import KvbmPolicy
+        low, high = (self.kv_demote_low_watermark,
+                     self.kv_demote_high_watermark)
+        env = os.environ.get("DTPU_KV_WATERMARKS")
+        if env:
+            low, high = parse_watermarks(env)
+        return KvbmPolicy(low_watermark=low, high_watermark=high)
 
     def kv_token_bytes(self) -> int:
         """Per-token bytes in the device KV pool (k+v, all layers/heads):

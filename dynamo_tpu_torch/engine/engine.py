@@ -58,7 +58,20 @@ adapter's KV hashes under the adapter's chain salt (``tokens.chain_salt``),
 so its pages are never reused for base requests or another adapter's, and
 its KV events name the chain the KV router computes for it.
 
-Not ported yet (later slices): multimodal, KV host and disk tiers.
+KV tiers (``host_cache_pages``, ``kv_disk_cache_dir``): a block the
+allocator evicts goes through ``evict_hook`` into a buffer that
+``_flush_spills`` extracts in one batched device-to-host copy, dispatched
+before any later program can rewrite those pages; ``_resolve_spills``
+stores the blocks in the host tier once the copy is done, without waiting
+for it. The KVBM (``engine/kvbm.py``) demotes LRU blocks ahead of demand
+under its watermarks, and admission extends a prefix hit with blocks from
+host, disk and peers (``_try_onboard``), uploaded into fresh pages instead
+of recomputed. Every tier step is best effort: a failed spill drops its
+blocks, a failed upload or peer consult recomputes; each failure is
+counted (``spill_failures``, ``onboard_failures``, the KVBM's
+``peer_pull_failures``).
+
+Not ported yet (later slices): multimodal.
 """
 
 from __future__ import annotations
@@ -78,7 +91,10 @@ import torch
 
 from dynamo_tpu_torch.engine.config import EngineConfig
 from dynamo_tpu_torch.engine.kv_cache import PageAllocator
-from dynamo_tpu_torch.engine.kv_quant import KV_SCALE_BYTES
+from dynamo_tpu_torch.engine.kv_host_cache import DiskKVCache, HostKVCache
+from dynamo_tpu_torch.engine.kv_quant import (KV_SCALE_BYTES, parcel_to_bf16,
+                                              parcel_to_packed)
+from dynamo_tpu_torch.engine.kvbm import KvBlockManager
 from dynamo_tpu_torch.engine.lora import AdapterStore
 from dynamo_tpu_torch.engine.runner import (
     PK_ADAPTER, PK_CAP, PK_FREQPEN, PK_LOGPROB, PK_OVERRIDE, PK_POS, PK_PREFIX,
@@ -229,6 +245,30 @@ class GPUEngine(AsyncEngine):
         self.prefill_chunk_tokens = config.resolve_prefill_chunk_tokens()
         self.runner = ModelRunner(config, params=params, seed=seed)
         self.allocator = PageAllocator(self.runner.num_pages, config.page_size)
+        # KV tiers (G2 host DRAM, G3 disk behind it): evicted blocks are
+        # extracted into them, and prefix hits on them are uploaded.
+        self.host_cache = None
+        if config.host_cache_pages > 0 or config.kv_disk_cache_dir:
+            disk = (DiskKVCache(config.kv_disk_cache_dir,
+                                config.disk_cache_pages)
+                    if config.kv_disk_cache_dir else None)
+            # A disk tier with no G2 capacity still needs a small DRAM
+            # front (demotions flow through it).
+            self.host_cache = HostKVCache(config.host_cache_pages or 16, disk)
+            self.allocator.evict_hook = self._on_evict
+        # The placement policy over pool, host, disk and peers; the engine
+        # keeps the device work.
+        self.kvbm = KvBlockManager(self.allocator, self.host_cache,
+                                   config.kvbm_policy())
+        self._evict_buffer: list[tuple[int, int]] = []  # (hash, page)
+        # Dispatched spill extracts: {"handle", "hashes"}.
+        self._pending_spills: list[dict] = []
+        self.onboard_blocks = 0    # tier blocks uploaded at admission
+        self.g4_blocks = 0         # of which came from peers
+        self.spill_failures = 0    # spill extracts or fetches that failed
+        self.onboard_failures = 0  # onboard uploads that failed
+        # The worker's KV plane server, once it runs one (its stats).
+        self.plane = None
         # Multi-tenant LoRA: the store registers adapters and places them
         # in device slots, resolved at admission on the engine thread.
         self.adapters = (AdapterStore(self.runner, config.max_adapters,
@@ -476,9 +516,14 @@ class GPUEngine(AsyncEngine):
         return handle
 
     async def clear_kv_blocks(self) -> int:
-        """Admin: drop the reusable (inactive) prefix cache. Returns the
-        pages freed."""
-        return await self.run_job(self.allocator.clear_inactive)
+        """Admin: drop the reusable (inactive) prefix cache; the host and
+        disk tiers flush too. Returns the device pages freed."""
+        def job():
+            n = self.allocator.clear_inactive()
+            if self.host_cache is not None:
+                self.host_cache.clear()
+            return n
+        return await self.run_job(job)
 
     # -- KV observability -----------------------------------------------------
     @property
@@ -487,12 +532,22 @@ class GPUEngine(AsyncEngine):
         return self.waiting.qsize()
 
     def inventory_digest(self) -> KvInventoryDigest:
-        """What KV lives here, for the event plane: registered blocks on
-        the device (tier ``g1``; the host and disk tiers wait for ROADMAP
-        item 9), capacity headroom, and a k-min sketch of the hashes."""
+        """What KV lives here, for the event plane: blocks per tier
+        (``g1`` registered on the device, ``g2`` host, ``g3`` disk),
+        capacity headroom, and a k-min sketch of every hash this worker
+        can serve."""
         hashes = list(self.allocator.cached)
+        tier_blocks = {"g1": len(hashes)}
+        if self.host_cache is not None:
+            host_hashes = self.host_cache.block_hashes()
+            tier_blocks["g2"] = len(host_hashes)
+            hashes.extend(host_hashes)
+            if self.host_cache.disk is not None:
+                disk_hashes = self.host_cache.disk.hashes()
+                tier_blocks["g3"] = len(disk_hashes)
+                hashes.extend(disk_hashes)
         return KvInventoryDigest(
-            blocks=len(hashes), tier_blocks={"g1": len(hashes)},
+            blocks=len(self.allocator.cached), tier_blocks=tier_blocks,
             pages_total=self.allocator.num_pages,
             pages_free=self.allocator.num_free,
             pages_active=self.allocator.num_active,
@@ -500,23 +555,29 @@ class GPUEngine(AsyncEngine):
 
     def kv_status(self) -> dict:
         """This worker's KV status (the reference's /debug/kv body):
-        allocator counters, reuse, the adapter store's status and the
-        current digest. ``tiers``, ``kvbm``, ``remote`` and ``plane``
-        belong to ROADMAP item 9 and the engine-owned KV plane, neither of
-        them ported."""
+        allocator counters, tier stats, reuse by tier, the KV plane's and
+        the G4 source's stats, the KVBM's status with the engine's tier
+        failure counts, the adapter store's status and the current
+        digest."""
         return {
             "role": "engine",
             "allocator": self.allocator.stats(),
-            "tiers": {},
+            "tiers": (self.host_cache.stats()
+                      if self.host_cache is not None else {}),
             "reuse": {
                 "prefix_hit_blocks": self.prefix_hit_blocks,
                 "prefix_lookup_blocks": self.prefix_lookup_blocks,
-                "onboard_blocks_host": 0,
-                "onboard_blocks_peer": 0,
+                "onboard_blocks_host": self.onboard_blocks - self.g4_blocks,
+                "onboard_blocks_peer": self.g4_blocks,
             },
-            "plane": None,
-            "remote": None,
-            "kvbm": None,
+            "plane": self.plane.stats() if self.plane is not None else None,
+            "remote": (self.remote_source.stats()
+                       if self.remote_source is not None else None),
+            # The engine's tier failure counts beside the KVBM's
+            # peer_pull_failures.
+            "kvbm": dict(self.kvbm.status(),
+                         spill_failures=self.spill_failures,
+                         onboard_failures=self.onboard_failures),
             "adapters": (self.adapters.status()
                          if self.adapters is not None else None),
             "digest": self.inventory_digest().to_wire(),
@@ -889,6 +950,8 @@ class GPUEngine(AsyncEngine):
         while self._running:
             self._run_jobs()
             self._resolve_ready_first()
+            self._resolve_spills()
+            self._maintain_kvbm()
             self._retire_chunks()
             try:
                 admitted = self._admit()
@@ -940,7 +1003,117 @@ class GPUEngine(AsyncEngine):
                 self._resolve_ready_first(force=True)
             elif (not admitted and not have_active and not self._prefilling
                   and self._jobs.empty()):
+                self._resolve_spills(force=True)
                 time.sleep(0.002)  # idle
+
+    # -- KV tiers (G2/G3 offload, onboarding from G2/G3/G4) -------------------
+    @property
+    def remote_source(self):
+        """The G4 tier (``kv_plane.RemoteBlockSource``), set by the worker
+        once its KV plane is up; it lives on the KVBM."""
+        return self.kvbm.remote_source
+
+    @remote_source.setter
+    def remote_source(self, source) -> None:
+        self.kvbm.remote_source = source
+
+    def _maintain_kvbm(self) -> None:
+        """The watermark sweep, once per loop iteration: its demotions
+        queue extracts through the evict hook, and the flush dispatches
+        them before any later program can rewrite the freed pages."""
+        if self.kvbm.maintain():
+            self._flush_spills()
+
+    def _to_local_parcel(self, kv: np.ndarray) -> np.ndarray:
+        """A block in this pool's parcel form: packed int8 + scales for an
+        int8 pool, bf16 bits otherwise (peers may run the other KV
+        dtype)."""
+        if self.runner.quant_kv == "int8":
+            return parcel_to_packed(kv)
+        return parcel_to_bf16(kv)
+
+    def _on_evict(self, block_hash: int, page: int) -> None:
+        self._evict_buffer.append((block_hash, page))
+
+    def _flush_spills(self) -> None:
+        """Dispatch one batched extract of the pages evicted since the
+        last flush. It must run after every allocation and before any
+        program that writes pages: stream order then puts the read before
+        the overwrite. The host copy resolves in ``_resolve_spills``."""
+        if not self._evict_buffer:
+            return
+        batch, self._evict_buffer = self._evict_buffer, []
+        try:
+            handle = self.runner.extract_pages_async([p for _, p in batch])
+        except Exception:  # noqa: BLE001 — offload is best effort
+            log.exception("spill extract failed; blocks dropped from tiers")
+            self.spill_failures += 1
+            return
+        self._pending_spills.append({"handle": handle,
+                                     "hashes": [h for h, _ in batch]})
+
+    def _resolve_spills(self, force: bool = False) -> None:
+        """Store the spilled blocks whose host copy is done in the host
+        tier; with ``force``, wait for every pending copy (the idle
+        loop)."""
+        for entry in list(self._pending_spills):
+            if not (force or self.runner.extract_ready(entry["handle"])):
+                continue
+            self._pending_spills.remove(entry)
+            try:
+                kv = self.runner.finalize_extract(entry["handle"])
+            except Exception:  # noqa: BLE001
+                log.exception("spill fetch failed; blocks dropped")
+                self.spill_failures += 1
+                continue
+            for i, h in enumerate(entry["hashes"]):
+                self.kvbm.offload(h, kv[:, :, :, i])
+
+    def _try_onboard(self, r: _Request, hashes: list[int],
+                     cached_pages: list[int]) -> tuple[list[int], int, int]:
+        """Extend the device prefix hit with consecutive G2/G3 blocks and,
+        past those, G4 blocks from peers' host tiers, uploaded into fresh
+        pages (registered for sharing) instead of recomputed. Returns
+        (pages, tokens, peer tokens)."""
+        page = self.config.page_size
+        if self.host_cache is None and self.remote_source is None:
+            return [], 0, 0
+        # Never past the second-to-last block: the last token is always
+        # recomputed for its logits, as for a device hit.
+        allowed = (len(r.tokens_all) - 1) // page - len(cached_pages)
+        if allowed <= 0:
+            return [], 0, 0
+        blocks, n_peer = self.kvbm.onboard_walk(hashes, len(cached_pages),
+                                                allowed)
+        if not blocks:
+            return [], 0, 0
+        # Peers (and a disk directory another worker wrote) may hold the
+        # other KV dtype: every block in this pool's form.
+        blocks = [(h, self._to_local_parcel(kv)) for h, kv in blocks]
+        if n_peer:
+            self.g4_blocks += n_peer
+            if self.host_cache is not None:
+                # Peer blocks land in the local G2 too, so the next hit is
+                # one hop shorter.
+                for h, kv in blocks[len(blocks) - n_peer:]:
+                    self.host_cache.put(h, kv, promotion=True)
+        pages = self.allocator.allocate(len(blocks))
+        if pages is None:
+            return [], 0, 0
+        self._flush_spills()  # the allocation may itself have evicted
+        stacked = np.stack([kv for _, kv in blocks], axis=3)
+        try:
+            self.runner.insert_pages(stacked, pages)
+        except Exception:  # noqa: BLE001 — recompute instead
+            log.exception("onboard upload failed; recomputing instead")
+            self.onboard_failures += 1
+            self.allocator.release(pages)
+            return [], 0, 0
+        for (h, _), p in zip(blocks, pages):
+            self.allocator.register(p, h)
+        self.onboard_blocks += len(blocks)
+        self.kvbm.note_promoted(len(blocks) - n_peer, n_peer)
+        return pages, len(blocks) * page, n_peer * page
 
     def _release_ready_pages(self) -> None:
         """Release deferred pages once no in-flight window can still
@@ -1143,6 +1316,7 @@ class GPUEngine(AsyncEngine):
         pages = self.allocator.allocate(total_pages)
         if pages is None:
             return False
+        self._flush_spills()
         try:
             self.runner.insert_pages(kv, pages)
         except BaseException:
@@ -1209,16 +1383,26 @@ class GPUEngine(AsyncEngine):
             drop = (len(cached) * page - len(prompt)) // page + 1
             self.allocator.release(cached[len(cached) - drop:])
             cached = cached[:len(cached) - drop]
-        reuse = len(cached) * page
         self.prefix_lookup_blocks += max(1, len(hashes))
         self.prefix_hit_blocks += len(cached)
         need = -(-len(prompt) // page) - len(cached)
-        new_pages = None
-        if self.allocator.num_free - need >= self._stalled_pages:
-            new_pages = self.allocator.allocate(need)
+        if self.allocator.num_free - need < self._stalled_pages:
+            self.allocator.release(cached)
+            return None
+        # Extend the hit from the host, disk and peer tiers before
+        # recomputing (seeded first admissions take no reuse at all).
+        if not canonical:
+            onboarded = self._try_onboard(r, hashes, cached)[0]
+            cached += onboarded
+            need -= len(onboarded)
+        reuse = len(cached) * page
+        new_pages = self.allocator.allocate(need)
         if new_pages is None:
             self.allocator.release(cached)
             return None
+        # Extract what the allocations evicted before the prefill
+        # overwrites those pages.
+        self._flush_spills()
         r.pages = cached + new_pages
         r.reuse_tokens = reuse
         if len(prompt) - reuse > cfg.max_prompt_len:
@@ -1485,6 +1669,9 @@ class GPUEngine(AsyncEngine):
                     freed += len(rp.pages)
                     self._preempt_prefilling(rp)
         self._stalled_pages = sum(deficits.values())
+        # The page growth above may have evicted: extract before the
+        # window writes those pages.
+        self._flush_spills()
         active_rows = [i for i in live if i not in frozen
                        and i not in stalled and i not in satisfied]
         # This dispatch's decision supersedes earlier preemption records

@@ -13,9 +13,10 @@ registration, and every registration dropped (eviction, a replaced hash,
 ``unregister``, ``clear_inactive``), is buffered as a stored or removed
 block hash for the KV router's index, at the reference's points;
 ``drain_events`` hands them to the engine's publisher. ``stats`` gives the
-reference's occupancy and lifecycle counters. The reference's KVBM
-(watermark demotion and the evict hook into host tiers) waits for ROADMAP
-item 9, so ``demoted_blocks`` stays 0.
+reference's occupancy and lifecycle counters. ``evict_hook`` hands every
+evicted block (allocation pressure or the KVBM watermark sweep,
+``demote_lru``) to the engine, which extracts it into the host tier
+(``engine/kv_host_cache.py``, policy in ``engine/kvbm.py``).
 
 Lifecycle invariant (as in the reference): a page is either FREE
 (unregistered, refcount 0), ACTIVE (refcount > 0 — held by one or more
@@ -55,9 +56,14 @@ class PageAllocator:
         self.reuse_hit_blocks = 0      # cached pages pinned on prefix hits
         self.reuse_lookup_blocks = 0   # blocks probed by acquire_cached
         self.evicted_blocks = 0        # LRU evictions under allocation
-        self.demoted_blocks = 0        # watermark demotions (ROADMAP item 9)
+        self.demoted_blocks = 0        # proactive watermark demotions (KVBM)
         self.cleared_blocks = 0        # pages reclaimed by clear_inactive
         self.clear_inactive_calls = 0
+        # Offload hook (G2 tiering): called as hook(block_hash, page) when
+        # an inactive registered page is evicted, BEFORE the page can be
+        # handed out; the engine schedules a device->host extract so the
+        # block survives in the host tier.
+        self.evict_hook = None
 
     # -- queries --------------------------------------------------------------
     @property
@@ -96,6 +102,8 @@ class PageAllocator:
                 del self.cached_by_page[page]
                 self.removed_events.append(h)
                 self.evicted_blocks += 1
+                if self.evict_hook is not None:
+                    self.evict_hook(h, page)
             assert page not in self.refs, \
                 f"allocator invariant violated: page {page} already active"
             self.refs[page] = 1
@@ -172,6 +180,32 @@ class PageAllocator:
                 self.free.append(page)
             else:
                 self.inactive[h] = page
+
+    def demote_lru(self, count: int,
+                   skip: frozenset | set = frozenset()) -> list[int]:
+        """Proactively demote up to ``count`` LRU *inactive* blocks out of
+        the pool (the KVBM watermark sweep, ``engine/kvbm.py``): the pages
+        return to the free list and the evict hook offloads their contents
+        to the host tier, as allocation-pressure eviction does, but before
+        an allocation burst has to pay for it. Hashes in ``skip`` (the
+        KVBM pin set) and ACTIVE pages are never taken. Returns the
+        demoted block hashes."""
+        out: list[int] = []
+        for h in list(self.inactive):
+            if len(out) >= count:
+                break
+            if h in skip:
+                continue
+            page = self.inactive.pop(h)
+            del self.cached[h]
+            del self.cached_by_page[page]
+            self.removed_events.append(h)
+            self.demoted_blocks += 1
+            if self.evict_hook is not None:
+                self.evict_hook(h, page)
+            self.free.append(page)
+            out.append(h)
+        return out
 
     def clear_inactive(self) -> int:
         """Drop every INACTIVE prefix-cache registration (pages held by

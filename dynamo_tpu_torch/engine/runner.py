@@ -181,8 +181,6 @@ def _unsupported(config: EngineConfig) -> list[str]:
         out.append(f"weight quantization {spec.quant!r} (only int8)")
     if config.spec_decode not in (None, "ngram"):
         out.append(f"spec_decode={config.spec_decode!r} (only 'ngram')")
-    if config.host_cache_pages or config.kv_disk_cache_dir:
-        out.append("KV host/disk tiers (ROADMAP item 9)")
     if config.attention_backend not in ("auto", "pallas"):
         out.append(f"attention_backend={config.attention_backend!r} (the "
                    f"port always runs its paged attention kernel)")
@@ -928,6 +926,14 @@ class ModelRunner:
         event.record()
         # The device gather stays referenced until the copy is waited on.
         return host, (event, dev)
+
+    @staticmethod
+    def extract_ready(handle) -> bool:
+        """Whether an ``extract_pages_async`` handle's host copy is done,
+        without waiting (its event's ``query``; always True on the
+        CPU)."""
+        _, fence = handle
+        return fence is None or fence[0].query()
 
     def finalize_extract(self, handle) -> np.ndarray:
         """The host parcel of an ``extract_pages_async`` handle: bf16 bits

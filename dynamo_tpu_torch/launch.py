@@ -133,6 +133,12 @@ def add_engine_args(parser: argparse.ArgumentParser) -> None:
                         help="store the paged KV pool as int8 with a f32 "
                              "scale per token and head (about 1.9x the "
                              "pages in the same memory)")
+    parser.add_argument("--host-cache-pages", type=int, default=0,
+                        help="G2 host-DRAM KV block cache capacity in pages "
+                             "(0 = none): pages evicted from the device "
+                             "pool offload here and onboard on prefix hits")
+    parser.add_argument("--kv-disk-cache-dir", default=None,
+                        help="G3 disk tier directory behind the host cache")
     parser.add_argument("--model-name", default=None,
                         help="served model name (default: --model)")
     parser.add_argument("--tokenizer", default=None,
@@ -236,6 +242,8 @@ def build_engine_config(args) -> EngineConfig:
         max_num_seqs=args.max_num_seqs, decode_window=args.decode_window,
         pipeline_depth=args.pipeline_depth,
         prefill_chunk_tokens=args.prefill_chunk_tokens, quant_kv=args.quant_kv,
+        host_cache_pages=args.host_cache_pages,
+        kv_disk_cache_dir=args.kv_disk_cache_dir,
         max_adapters=max_adapters_arg(args),
         lora_max_rank=getattr(args, "max_lora_rank", 8), device=args.device)
 

@@ -20,11 +20,24 @@ A ticket is served exactly once: a concurrent second pull is refused
 while the first transmits, and the parcel stays staged until its last
 byte is on the wire, so a send that fails leaves it for the sink's retry
 (``runtime/retry.py`` ``policies.KV_PULL``). Unclaimed tickets expire
-after ``STAGED_TTL_S``. ``blocks`` requests (the G4 remote tier) are
-answered as the reference answers them with no block source: empty.
+after ``STAGED_TTL_S``.
 
-Not ported: the same-host device path, the G4 block source and the
-chaos hooks (ROADMAP items 8, 9 and 18).
+The same socket serves ``{"op": "blocks", "hashes", "max"}``: the G4
+remote tier, where peers fetch KV blocks from this worker's host tiers by
+block hash (``block_provider``, the engine's ``host_cache.get``). The
+answer is the longest run of the requested hashes held, stopping at the
+first miss, as ``{"ok", "hashes", "shape", "dtype", "nbytes"}`` and the
+stacked blocks [n, 2, L, Nkv, page, D]; bf16 blocks travel labelled
+``"bfloat16"``, so JAX and port workers read each other's.
+``RemoteBlockSource`` is the consulting side: one wall-clock budget for a
+whole consult, a breaker per peer. Unlike the reference, it asks a peer
+(through ``max``) for only as many blocks as its share of the budget
+carries at the rate that peer last delivered, so a prefix too long for
+one budget still brings its head instead of timing out whole; the wire
+is unchanged.
+
+Not ported: the same-host device path and the chaos hooks (ROADMAP items
+8 and 18).
 """
 
 from __future__ import annotations
@@ -77,10 +90,20 @@ def _send_bulk(sock: socket.socket, arr: np.ndarray) -> None:
         sock.sendall(data[off:off + _SEND_CHUNK])
 
 
-def _recv_bulk_into(sock: socket.socket, buf: memoryview) -> None:
-    """Fill ``buf`` from the socket."""
+def _recv_bulk_into(sock: socket.socket, buf: memoryview,
+                    deadline: float | None = None) -> None:
+    """Fill ``buf`` from the socket. ``deadline`` (a time.monotonic value)
+    bounds the whole payload, not each recv: a per-recv timeout restarts
+    with every segment, so a trickling peer could stretch a transfer
+    without ever tripping it."""
     got, n = 0, len(buf)
     while got < n:
+        if deadline is not None:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                raise socket.timeout(
+                    f"bulk recv deadline exceeded ({got}/{n} bytes)")
+            sock.settimeout(remaining)
         r = sock.recv_into(buf[got:], n - got)
         if r == 0:
             raise ConnectionError("peer closed mid-payload")
@@ -109,13 +132,16 @@ class _Staged:
 
 
 class KvPlaneServer:
-    """Source side: stages parcels for a direct pull. One per worker
-    process; thread-based, so bulk socket I/O never shares the event loop
-    with the request plane."""
+    """Source side: stages parcels for a direct pull and serves host-tier
+    blocks to peers. One per worker process; thread-based, so bulk socket
+    I/O never shares the event loop with the request plane."""
 
-    def __init__(self, host: str = "127.0.0.1"):
+    def __init__(self, host: str = "127.0.0.1",
+                 block_provider: Callable[[int], np.ndarray | None]
+                 | None = None):
         self.host = host
         self.port = 0
+        self.block_provider = block_provider
         self._staged: dict[int, _Staged] = {}
         self._next_id = 1
         self._lock = threading.Lock()
@@ -125,12 +151,14 @@ class KvPlaneServer:
         self.transfers = 0
         self.bytes_out = 0
         self.block_requests = 0
+        self.blocks_served = 0
 
     def stats(self) -> dict:
         with self._lock:
             staged = len(self._staged)
         return {"transfers": self.transfers, "bytes_out": self.bytes_out,
-                "block_requests": self.block_requests, "staged": staged,
+                "block_requests": self.block_requests,
+                "blocks_served": self.blocks_served, "staged": staged,
                 "addr": self.address}
 
     # -- lifecycle ------------------------------------------------------------
@@ -231,7 +259,7 @@ class KvPlaneServer:
                 if op == "pull":
                     self._handle_pull(conn, req)
                 elif op == "blocks":
-                    self._handle_blocks(conn)
+                    self._handle_blocks(conn, req)
                 else:
                     _send_ctrl(conn, {"err": f"unknown op {op!r}"})
         except (ConnectionError, OSError, ValueError):
@@ -309,14 +337,35 @@ class KvPlaneServer:
         _send_bulk(conn, arr)
         return arr.nbytes, None
 
-    def _handle_blocks(self, conn: socket.socket) -> None:
-        """G4 remote-tier request: this worker has no block source (the
-        host tiers wait for ROADMAP item 9), so none of the hashes is
-        held."""
+    def _handle_blocks(self, conn: socket.socket, req: dict) -> None:
+        """G4 remote-tier request: which of the requested block hashes this
+        worker's host tiers hold, with their bytes, stopping at the first
+        miss (later blocks are useless without the earlier ones)."""
         with self._lock:
             self.block_requests += 1
-        _send_ctrl(conn, {"ok": True, "hashes": [], "shape": [],
-                          "dtype": "", "nbytes": 0})
+        provider = self.block_provider
+        found: list[np.ndarray] = []
+        found_hashes: list[int] = []
+        if provider is not None:
+            limit = int(req.get("max", 64))
+            for h in [int(h) for h in req.get("hashes", [])][:limit]:
+                kv = provider(h)
+                if kv is None:
+                    break
+                found.append(kv)
+                found_hashes.append(h)
+        if not found:
+            _send_ctrl(conn, {"ok": True, "hashes": [], "shape": [],
+                              "dtype": "", "nbytes": 0})
+            return
+        stacked = np.stack(found)  # [n, 2, L, Nkv, page, D]
+        _send_ctrl(conn, {"ok": True, "hashes": found_hashes,
+                          "shape": list(stacked.shape),
+                          "dtype": parcel_dtype_name(stacked),
+                          "nbytes": stacked.nbytes})
+        _send_bulk(conn, stacked)
+        with self._lock:
+            self.blocks_served += len(found)
 
 
 class KvPlaneClient:
@@ -436,6 +485,43 @@ class KvPlaneClient:
         return await asyncio.get_running_loop().run_in_executor(
             None, self.pull_sync, ticket)
 
+    def fetch_blocks_sync(self, addr: str, hashes: list[int],
+                          max_blocks: int = 64,
+                          timeout: float | None = None
+                          ) -> tuple[list[int], np.ndarray | None]:
+        """G4: ask a peer for a consecutive run of block hashes from its
+        host tiers. Returns (hashes found, [n, 2, L, Nkv, page, D]).
+        ``timeout`` bounds this whole request and answer (the consult's
+        overall budget is the caller's)."""
+        sock, conn_lock = self._conn_for(addr)
+        deadline = (time.monotonic() + timeout if timeout is not None
+                    else None)
+        try:
+            with conn_lock:
+                if timeout is not None:
+                    sock.settimeout(max(0.01, timeout))
+                _send_ctrl(sock, {"op": "blocks", "hashes": hashes,
+                                  "max": max_blocks})
+                resp = _recv_ctrl(sock)
+                if "err" in resp:
+                    raise ConnectionError(
+                        f"block fetch refused: {resp['err']}")
+                if not resp["hashes"]:
+                    if timeout is not None:
+                        sock.settimeout(self.timeout)
+                    return [], None
+                dt = parcel_dtype(resp["dtype"])
+                buf = np.empty(int(resp["nbytes"]), np.uint8)
+                _recv_bulk_into(sock, memoryview(buf), deadline=deadline)
+                if timeout is not None:
+                    sock.settimeout(self.timeout)
+        except (ConnectionError, OSError, ValueError):
+            self._drop_conn(addr)
+            raise
+        with self._lock:
+            self.bytes_in += buf.nbytes
+        return list(resp["hashes"]), buf.view(dt).reshape(resp["shape"])
+
     def close(self) -> None:
         with self._lock:
             conns, self._conns = dict(self._conns), {}
@@ -444,3 +530,144 @@ class KvPlaneClient:
                 sock.close()
             except OSError:
                 pass
+
+
+class RemoteBlockSource:
+    """G4 remote tier: KV blocks from peer workers' host tiers by block
+    hash. The engine's KVBM consults it when a prefix extension misses the
+    local tiers: one bounded round trip per peer, first hit wins.
+    Content-hashed blocks make the answer trustworthy whichever worker
+    computed them.
+
+    ``peers`` is replaced whole by the worker's watch of ``kvplane/``
+    registrations, so the engine thread only ever reads a consistent
+    list. A failing peer's breaker opens for a cooldown that walks
+    ``policies.G4_PEER_BREAKER``: successive failures back off
+    exponentially, the consult after a cooldown is the half-open probe,
+    and one success resets the curve."""
+
+    # G4 fetches run on the engine thread between windows: the whole
+    # consult, every peer together, gets one budget below a window period,
+    # so neither a dead peer nor a slow one stalls the decode streams for
+    # longer. Recomputing the prefix is always the safe fallback.
+    G4_BUDGET_S = 0.1
+    MAX_PEERS = 4  # peers consulted per fetch, in list order
+    # A consult asks a peer for the blocks that BUDGET_FILL of the time
+    # left carries at that peer's seconds a block, measured over its last
+    # answers (a slowdown counts at once, a speedup half). Fixed costs
+    # make small answers look slow a block, so the ask grows back until
+    # one answer takes BUDGET_FILL of the budget. Before a peer has
+    # answered, a block of ``block_nbytes`` is taken to move at
+    # FIRST_RATE_BPS; with ``block_nbytes`` unknown (0) the first ask is
+    # the whole run, as in the reference.
+    BUDGET_FILL = 0.5
+    FIRST_RATE_BPS = 0.1e9
+
+    def __init__(self, self_addr: str | None = None,
+                 budget_s: float | None = None, block_nbytes: int = 0):
+        self.budget_s = self.G4_BUDGET_S if budget_s is None else budget_s
+        self.block_nbytes = block_nbytes
+        self._s_per_block: dict[str, float] = {}  # addr -> measured
+        self.client = KvPlaneClient(timeout=self.budget_s)
+        self.self_addr = self_addr
+        self.peers: list[str] = []
+        self.breaker_policy = policies.G4_PEER_BREAKER
+        self._cooldown: dict[str, float] = {}  # addr -> half-open time
+        self._fail_streak: dict[str, int] = {}  # addr -> curve position
+        self.fetched_blocks = 0
+        self.fetch_failures = 0
+        self.slow_peer_cooldowns = 0
+        self.breaker_open_skips = 0   # consults skipped on open breakers
+
+    def stats(self) -> dict:
+        now = time.monotonic()
+        return {"peers": len(self.peers),
+                "fetched_blocks": self.fetched_blocks,
+                "fetch_failures": self.fetch_failures,
+                "slow_peer_cooldowns": self.slow_peer_cooldowns,
+                "breaker_open_skips": self.breaker_open_skips,
+                "breakers_open": sum(1 for t in self._cooldown.values()
+                                     if t > now),
+                **{f"client_{k}": v for k, v in self.client.stats().items()}}
+
+    def _open_breaker(self, addr: str, reason: str) -> None:
+        """One more failure on this peer: advance its breaker curve and
+        cool it down for the policy's delay at that position."""
+        streak = self._fail_streak.get(addr, 0)
+        delay = self.breaker_policy.delay(streak)
+        self._fail_streak[addr] = streak + 1
+        self._cooldown[addr] = time.monotonic() + delay
+        log.warning("G4 peer %s %s; breaker open %.1fs (streak %d)",
+                    addr, reason, delay, streak + 1)
+
+    def _note_success(self, addr: str) -> None:
+        self._cooldown.pop(addr, None)
+        self._fail_streak.pop(addr, None)
+
+    def drop_peer(self, addr: str) -> None:
+        """Forget a peer that left the fleet: its address leaves the
+        consult list and its breaker state goes with it, so a worker that
+        later rejoins on the same address starts with a closed breaker."""
+        self.peers = [a for a in self.peers if a != addr]
+        self._cooldown.pop(addr, None)
+        self._fail_streak.pop(addr, None)
+        self._s_per_block.pop(addr, None)
+
+    def ask(self, addr: str, remaining: float, wanted: int) -> int:
+        """How many of ``wanted`` blocks to ask ``addr`` for with
+        ``remaining`` seconds of the consult's budget left."""
+        s = self._s_per_block.get(addr)
+        if s is None:
+            if not self.block_nbytes:
+                return wanted
+            s = self.block_nbytes / self.FIRST_RATE_BPS
+        return max(1, min(wanted, int(remaining * self.BUDGET_FILL / s)))
+
+    def _note_rate(self, addr: str, seconds: float, blocks: int) -> None:
+        s = seconds / blocks
+        old = self._s_per_block.get(addr)
+        self._s_per_block[addr] = s if old is None or s > old \
+            else (old + s) / 2
+
+    def fetch(self, hashes: list[int],
+              max_blocks: int) -> list[tuple[int, np.ndarray]]:
+        """SYNC (engine thread, between windows): the longest consecutive
+        run of the requested blocks that one peer holds, within
+        ``budget_s`` of wall clock for the whole consult; from each peer at
+        most what ``ask`` allows."""
+        deadline = time.monotonic() + self.budget_s
+        for addr in list(self.peers)[:self.MAX_PEERS]:
+            if addr == self.self_addr or not addr:
+                continue
+            now = time.monotonic()
+            remaining = deadline - now
+            if remaining <= 0:
+                break
+            if self._cooldown.get(addr, 0.0) > now:
+                self.breaker_open_skips += 1
+                continue
+            n = self.ask(addr, remaining, min(max_blocks, len(hashes)))
+            try:
+                found, arr = self.client.fetch_blocks_sync(
+                    addr, hashes[:n], n, timeout=remaining)
+            except (ConnectionError, OSError) as exc:
+                self.fetch_failures += 1
+                slow = isinstance(exc, (socket.timeout, TimeoutError))
+                if slow:
+                    self.slow_peer_cooldowns += 1
+                self._open_breaker(addr,
+                                   "too slow" if slow else "unreachable")
+                continue
+            took = time.monotonic() - now
+            if took > self.budget_s:
+                # Answered, but ate the whole budget: treat it as slow and
+                # stop consulting it for a while.
+                self.slow_peer_cooldowns += 1
+                self._open_breaker(addr, "consult overran budget")
+            else:
+                self._note_success(addr)
+            if found:
+                self._note_rate(addr, took, len(found))
+                self.fetched_blocks += len(found)
+                return [(h, arr[i]) for i, h in enumerate(found)]
+        return []

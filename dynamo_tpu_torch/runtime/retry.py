@@ -122,3 +122,10 @@ class policies:
     # every migrated stream redial in lockstep.
     MIGRATION = RetryPolicy(initial_delay_s=0.05, max_delay_s=1.0,
                             multiplier=2.0, jitter=0.5)
+    # G4 peer-tier breaker curve (kv_plane.RemoteBlockSource): the
+    # cooldown after the Nth consecutive failure on one peer. Not a sleep
+    # (the consult runs on the engine thread) but how long that peer's
+    # breaker stays open; the consult after it is the half-open probe,
+    # and one success resets the curve.
+    G4_PEER_BREAKER = RetryPolicy(initial_delay_s=5.0, max_delay_s=120.0,
+                                  multiplier=2.0, jitter=0.0)

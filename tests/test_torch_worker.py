@@ -698,8 +698,8 @@ def test_entry_points_as_processes():
 
 
 @pytest.mark.parametrize("main,argv,words", [
-    (gpu.parse_args, ["--host-cache-pages", "64"], "ROADMAP item 9"),
-    (gpu.parse_args, ["--kv-disk-cache-dir", "/x"], "ROADMAP item 9"),
+    (gpu.parse_args, ["--pp", "2"], "ROADMAP item 16"),
+    (gpu.parse_args, ["--ttft-budget-ms", "500"], "ROADMAP item 12"),
     (gpu.parse_args, ["--num-nodes", "2"], "ROADMAP item 16"),
     (gpu.parse_args, ["--tp", "2"], "ROADMAP item 16"),
     (gpu.parse_args, ["--standby"], "planner"),
@@ -765,6 +765,6 @@ def test_defaults_of_the_entry_points():
 def test_refused_flags_in_a_process():
     proc = subprocess.run(
         [sys.executable, "-m", "dynamo_tpu_torch.backends.gpu",
-         "--host-cache-pages", "64"], cwd=ROOT, capture_output=True,
+         "--tp", "2"], cwd=ROOT, capture_output=True,
         text=True, timeout=TIMEOUT_S)
-    assert proc.returncode != 0 and "ROADMAP item 9" in proc.stderr
+    assert proc.returncode != 0 and "ROADMAP item 16" in proc.stderr
