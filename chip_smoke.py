@@ -154,7 +154,9 @@ Phases, in order; any failure exits non-zero without the final line:
    128- and 300-token prompts stay local). Four passes, each on a fresh
    stack with both prefix caches first cleared through the decode
    handler's clear_kv_blocks (which fans out to the prefill worker):
-   bf16 pools over the KV plane; bf16 pools inline (no plane); the
+   bf16 pools over the KV plane (its socket path: a pull in the process
+   that staged a parcel never takes the device path); bf16 pools inline
+   (no plane); the
    decode pool rebuilt as int8 with bf16 parcels quantized on insert;
    the prefill pool rebuilt as int8 too (packed parcels). Checked in
    each: every request finishes at its max_tokens; remote_prefills
@@ -183,7 +185,8 @@ Phases, in order; any failure exits non-zero without the final line:
    decode worker's handler beside phase 3's (or 4's) engine-boundary
    TTFT of the same prompt, and the client's first chunk (the test
    tokenizer decodes most ids to no text, so few chunks reach the
-   client); per pass its tok/s. Then the coordinator, ``python -m
+   client); per pass its tok/s. For phase 13 it keeps the plane pass's
+   traffic, tokens and remote rows. Then the coordinator, ``python -m
    dynamo_tpu_torch.backends.gpu --mode prefill`` and ``--mode decode
    --max-local-prefill-length 8`` (tiny-test, no --device: each must log
    an engine on cuda) and the frontend run as subprocesses: a streamed
@@ -337,9 +340,50 @@ Phases, in order; any failure exits non-zero without the final line:
    block, the G4 asks, pulls' ms and GB/s, the TTFT of set A cold,
    onboarded, from G1 and on B over G4, the TPOT of the pressure round
    on A and on B, and the copy's us a block in each of its five forms.
-In every phase from 3 to 12, each decode window an engine dispatched was
+13. the KV plane's device path (CUDA IPC between two processes on the
+   card), after phase 12's engines are released. a. This process fills
+   a llama-3-8b-shaped bf16 pool ([32, 8, P, 16, 128], from
+   PARCEL_SEED) and stages parcels of PARCEL_PAGES (1, 64 and 375) pages,
+   gathered from shuffled pages on the card, each twice: a ticket with
+   the device field and a socket-only one, on a KvPlaneServer whose probe
+   must pass; the gathers, events and staging run under
+   ``no_stream_sync``. A spawned process pulls all six into fresh pages
+   of its own pool of the same shape. Checked: each device ticket went
+   over the device path and each socket ticket over the socket, with no
+   failed open; the child's pool bytes at each parcel's pages have the
+   sha256 of the source's pages; the sinks' "done" (device) and the
+   socket sends free every staged tensor, so this process's allocated
+   memory goes back to where it was before staging. It prints per parcel
+   the path, bytes, pull ms and GB/s, and the handle open's ms (device)
+   or the wait for the first byte (socket). b. 1P1D at full width as
+   processes: the coordinator, ``python -m dynamo_tpu_torch.backends.gpu
+   --mode prefill --model llama-3-8b --num-pages 4096`` and ``--mode
+   decode ... --max-local-prefill-length 512`` (random weights from seed
+   0; each must log its plane's device path on) and the frontend. Phase
+   8's traffic (round 1's eight prompts of 64 tokens and the 6000-token
+   prompt of 32, ignore_eos) goes at once to the decode worker's endpoint
+   through the request plane, as the frontend sends it (its token ids
+   come back), then a fresh 600-token prompt as a streamed completion of
+   token ids through the frontend. Checked: every request finishes at
+   its max_tokens; from the workers' GPU_WORKER_EXIT lines, the decode
+   worker's device_pulls equal its remote prefills (every prompt over
+   512 tokens) with socket_pulls, device_pull_failures and
+   remote_failures 0, every remote prompt was admitted with its parcel,
+   the prefill worker staged as many device parcels, all freed by "done",
+   and ran no window; paged_attention_hist launched windows x M x 32
+   times on the decode worker (every window a replay), the int8 entry
+   never; the first token of each remote prompt equals phase 8's (the
+   unseeded top-p one aside); the greedy ids (rows 0-5 and the long
+   prompt, sent with top-2 logprobs) equal phase 8's bf16 plane pass or
+   split only where the top-2 margin behind the split, read from this
+   chain's logprobs (both chains hold the same tokens up to it), is
+   within 2 x LOGIT_ATOL; all four exit 0 on SIGTERM. It prints, per remote request, the parcel
+   bytes, pull ms, open ms and GB/s and the client's TTFT and TPOT beside
+   phase 8's socket pull ms and GB/s and handler TTFT for the same
+   prompt, each worker's peak device memory and the phase's seconds.
+In every phase from 3 to 13, each decode window an engine dispatched was
 a replay of its program's CUDA graph (the runner's replay count rises by
-the windows dispatched), and the warmed engines of phases 8-11 (built as
+the windows dispatched; in phase 13 the decode worker's own count), and the warmed engines of phases 8-11 (built as
 ``backends.gpu`` builds them, warmup_windows set) print their programs
 after the warmup and after each pass. The last lines are the seconds of
 each group of phases, the script's total seconds, the kernels' JSON
@@ -2337,7 +2381,7 @@ class DisaggProbe:
             t0 = time.perf_counter()
             kv = inner_pull(ticket)
             seconds = time.perf_counter() - t0
-            _, header_s, end_s, nbytes = next(
+            _, header_s, end_s, nbytes, _ = next(
                 r for r in reversed(client.recent) if r[0] == ticket["id"])
             self.pulls[ticket["prompt_len"]] = (seconds, header_s, end_s,
                                                 nbytes)
@@ -2490,7 +2534,10 @@ def disagg_phase(attention, model, refs: dict) -> dict:
             RuntimeConfig(coordinator_url=url))
         plane = None
         if plane_on:
-            plane = KvPlaneServer()
+            # The socket path: a pull in the exporting process never takes
+            # the device path, and a plane offering it would stage one
+            # parcel after the prefill instead of streaming page groups.
+            plane = KvPlaneServer(use_device_path=False)
             plane.start()
             probe.watch_plane(plane)
         p_server, queue_worker = await serve_prefill(prefill_rt, p_engine,
@@ -2737,6 +2784,11 @@ def disagg_phase(attention, model, refs: dict) -> dict:
             st = run_pass(label, p_engine, d_engine, plane_on, refs["bf16"])
             check_tokens(st, d_engine, refs["bf16"])
             st["seeded_equal"] = seeded_alone(d_engine, st)
+            if plane_on:
+                # Phase 13 serves this traffic again over the device path.
+                plane_pass = {"bodies": st["_bodies"],
+                              "tokens": st["_tokens"],
+                              "rows": st["requests_remote"]}
             passes.append(st)
         d_engine.stop()
         del d_engine
@@ -2767,7 +2819,8 @@ def disagg_phase(attention, model, refs: dict) -> dict:
     sub = disagg_subprocesses()
     out = {"passes": [{k: v for k, v in p.items() if not k.startswith("_")}
                       for p in passes],
-           "subprocesses": sub, "phase_s": time.monotonic() - t_phase}
+           "subprocesses": sub, "_plane_pass": plane_pass,
+           "phase_s": time.monotonic() - t_phase}
     for p in out["passes"]:
         log(json.dumps({"disagg_pass": {k: v for k, v in p.items()
                                         if k != "requests_remote"}}))
@@ -4929,17 +4982,443 @@ def tier_phase(attention, model) -> dict:
     return out
 
 
+# Phase 13: the KV plane's device path. 13a's parcels, in pages: one page,
+# 64 (a 1024-token prompt) and 375 (the 6000-token prompt's).
+PARCEL_PAGES = (1, 64, 375)
+PARCEL_SEED = 2718
+PARCEL_PAGE = 16  # the workers' --page-size
+# 13b: a fresh prompt sent once through the frontend over HTTP.
+FLEET_HTTP_PROMPT = 600
+
+
+def parcel_sink(conn, tickets, pool_shape, device, ipc) -> None:
+    """Phase 13a's second process: pull every ticket into fresh pages of
+    its own pool of ``pool_shape`` and send back, per ticket, the path
+    it took, the sha256 of its pool's bytes at those pages, the pull's
+    seconds, the handle open's (device) or the first byte's (socket), and
+    its client's counters. ``ipc``: the plane's exporter (None: CUDA
+    IPC)."""
+    import hashlib
+
+    from dynamo_tpu_torch.llm.kv_plane import KvPlaneClient
+    try:
+        if device == "cuda":
+            torch.cuda.set_device(0)
+        client = KvPlaneClient(ipc=ipc)
+        k = torch.zeros(pool_shape, dtype=torch.bfloat16, device=device)
+        v = torch.zeros_like(k)
+        pulls, first = [], 0
+        for ticket in tickets:
+            n = ticket["shape"][3]
+            idx = torch.arange(first, first + n, device=device)
+            first += n
+            t0 = time.perf_counter()
+            kv = client.pull_sync(ticket)
+            pull_s = time.perf_counter() - t0
+            if not torch.is_tensor(kv):
+                kv = torch.from_numpy(kv.view(np.int16)).view(
+                    torch.bfloat16).to(device)
+            k[:, :, idx] = kv[0]
+            v[:, :, idx] = kv[1]
+            bits = torch.stack([k[:, :, idx], v[:, :, idx]]).view(
+                torch.int16).cpu().numpy()
+            _, head_s, end_s, nbytes, path = client.recent[-1]
+            pulls.append({"pages": n, "path": path, "bytes": nbytes,
+                          "sha256": hashlib.sha256(bits.tobytes()).hexdigest(),
+                          "pull_s": pull_s, "head_s": head_s,
+                          "end_s": end_s})
+        client.close()
+        conn.send({"pulls": pulls, "stats": client.stats()})
+    except BaseException:
+        conn.send({"error": traceback.format_exc()})
+        raise
+    finally:
+        conn.close()
+
+
+def _page_index(pages, device):
+    """A page index on ``device`` without a blocking copy (the runner's
+    upload)."""
+    idx = torch.tensor(pages, dtype=torch.int64)
+    if device == "cuda":
+        idx = idx.pin_memory()
+    return idx.to(device, non_blocking=True)
+
+
+def _stage_parcel(server, k, v, pages, device_path: bool):
+    """Stage the pool pages ``pages`` as one parcel gathered on the card
+    (a device ticket, or a socket-only one), the gather, event and
+    staging dispatched under ``no_stream_sync``; returns the ticket and
+    the sha256 of the parcel's bytes."""
+    import hashlib
+
+    from dynamo_tpu_torch.engine.runner import ModelRunner
+    with no_stream_sync():
+        idx = _page_index(pages, DEVICE)
+        parcel = torch.stack([k[:, :, idx], v[:, :, idx]])
+        event = None   # the CPU rehearsal's
+        if DEVICE == "cuda":
+            event = torch.cuda.Event(interprocess=True)
+            event.record()
+        handle = (parcel, event)
+        ticket = server.stage(
+            meta={"shape": list(parcel.shape), "dtype": "bfloat16"},
+            device_tensor=parcel if device_path else None, event=event,
+            prompt_len=len(pages) * PARCEL_PAGE,
+            resolve=lambda: ModelRunner.device_parcel_to_host(handle))
+    assert ("cuda_ipc" in ticket) == device_path, ticket.keys()
+    return ticket, hashlib.sha256(
+        parcel.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+
+
+def parcel_check(ipc=None) -> dict:
+    """Phase 13a (see the module docstring). ``ipc``: the plane's exporter
+    for both processes (None: CUDA IPC; a CPU rehearsal passes a fake)."""
+    import multiprocessing
+
+    from dynamo_tpu_torch.engine.config import PRESETS
+    from dynamo_tpu_torch.llm.kv_plane import KvPlaneServer
+    from dynamo_tpu_torch.profile_decode import MODEL
+
+    t_phase = time.monotonic()
+    spec = PRESETS[MODEL]
+    total = sum(PARCEL_PAGES)
+    shape = (spec.num_layers, spec.num_kv_heads, total + 1, PARCEL_PAGE,
+             spec.head_dim)
+    gen = torch.Generator(device=DEVICE).manual_seed(PARCEL_SEED)
+    k, v = (torch.randn(shape, generator=gen, device=DEVICE).to(
+        torch.bfloat16) for _ in range(2))
+    # Each parcel's pages in a shuffled order, as a page table holds them.
+    order = torch.randperm(total, generator=torch.Generator().manual_seed(
+        PARCEL_SEED)).add(1).tolist()
+    server = KvPlaneServer(ipc=ipc)
+    assert server.device_path, server.device_path_reason
+    server.start()
+    sink = None
+    try:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        tickets, want, first = [], [], 0
+        for n in PARCEL_PAGES:
+            pages = order[first:first + n]
+            first += n
+            for device_path in (True, False):
+                ticket, sha = _stage_parcel(server, k, v, pages, device_path)
+                tickets.append(ticket)
+                want.append(sha)
+        staged_bytes = torch.cuda.memory_allocated() - base
+        ctx = multiprocessing.get_context("spawn")
+        here, there = ctx.Pipe()
+        sink_shape = shape[:2] + (2 * total,) + shape[3:]
+        t0 = time.monotonic()
+        sink = ctx.Process(target=parcel_sink, args=(
+            there, tickets, sink_shape, DEVICE, ipc))
+        sink.start()
+        assert here.poll(300), "the sink process did not answer"
+        got = here.recv()
+        sink_s = time.monotonic() - t0
+        assert "error" not in got, got["error"]
+        sink.join(60)
+        assert sink.exitcode == 0, sink.exitcode
+        pulls, stats = got["pulls"], got["stats"]
+        assert [p["path"] for p in pulls] == ["device", "socket"] * len(
+            PARCEL_PAGES), [p["path"] for p in pulls]
+        assert [p["sha256"] for p in pulls] == want, (
+            "a parcel's pages differ from the source's")
+        assert (stats["device_pulls"], stats["device_pull_failures"],
+                stats["socket_pulls"]) == (len(PARCEL_PAGES), 0,
+                                           len(PARCEL_PAGES)), stats
+        deadline = time.monotonic() + 30
+        while server.stats()["staged"]:
+            assert time.monotonic() < deadline, server.stats()
+            time.sleep(0.01)
+        st = server.stats()
+        assert st["device_done"] == st["device_stages"] == len(PARCEL_PAGES)
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+        assert after <= base, (
+            f"{after - base} bytes still allocated after every parcel was "
+            f"pulled: a staged tensor outlived its ticket")
+    finally:
+        server.close()
+        if sink is not None and sink.is_alive():
+            sink.kill()
+            sink.join(30)
+    rows = []
+    for p in pulls:
+        row = {"pages": p["pages"], "path": p["path"], "bytes": p["bytes"],
+               "pull_ms": p["pull_s"] * 1e3,
+               "GBps": p["bytes"] / p["pull_s"] / 1e9}
+        row["open_ms" if p["path"] == "device" else "first_byte_ms"] = (
+            p["head_s"] * 1e3)
+        rows.append(row)
+        log(json.dumps({"parcel_pull": row}))
+    out = {"pulls": rows, "staged_bytes": staged_bytes,
+           "allocated_after_minus_base": after - base, "sink_s": sink_s,
+           "probe": server.device_path_reason,
+           "phase_s": time.monotonic() - t_phase}
+    log(f"13a: {len(tickets)} parcels of {PARCEL_PAGES} pages pulled by a "
+        f"second process, each bit-exact over its path; staged "
+        f"{staged_bytes / 2**20:.1f} MiB on the card, all freed after the "
+        f"pulls; sink process {sink_s:.1f}s; probe: {out['probe']}")
+    del k, v
+    torch.cuda.empty_cache()
+    return out
+
+
+async def fleet_traffic(url: str, bodies: list[dict]) -> list[dict]:
+    """Phase 8's traffic to the decode worker's endpoint through the
+    request plane, as the frontend sends it, all at once, the greedy
+    requests with their top-2 logprobs: per request its token ids, the
+    top-2 margin behind each (None where no logprobs came: the sampled
+    requests, and the first token of a remote prompt, which comes from
+    the prefill worker) and the client's TTFT and TPOT."""
+    from dynamo_tpu_torch.profile_decode import MODEL
+    from dynamo_tpu_torch.runtime.config import RuntimeConfig
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    rt = await DistributedRuntime.from_settings(
+        RuntimeConfig(coordinator_url=url))
+    client = await rt.namespace().component("gpu").endpoint(
+        "generate").client()
+    try:
+        await client.wait_for_instances(60)
+
+        async def one(body):
+            sampling = {k: body[k] for k in ("temperature", "top_p", "seed")
+                        if k in body}
+            if "temperature" not in sampling:
+                sampling["logprobs"] = 2
+            wire = {"model": MODEL, "token_ids": body["prompt"],
+                    "stop_conditions": {"max_tokens": body["max_tokens"],
+                                        "ignore_eos": True},
+                    "sampling_options": sampling}
+            t0 = time.perf_counter()
+            ids, margins, times = [], [], []
+            async for item in await client.generate(wire):
+                if item.get("token_ids"):
+                    ids.extend(item["token_ids"])
+                    tops = item.get("top_log_probs") or [None] * len(
+                        item["token_ids"])
+                    margins.extend(None if t is None else
+                                   t[0]["logprob"] - t[1]["logprob"]
+                                   for t in tops)
+                    times.append(time.perf_counter() - t0)
+            return {"tokens": ids, "margins": margins,
+                    "ttft_ms": times[0] * 1e3,
+                    "tpot_ms": (times[-1] - times[0]) / (len(ids) - 1) * 1e3}
+        return list(await asyncio.gather(*[one(b) for b in bodies]))
+    finally:
+        await client.close()
+        await rt.close()
+
+
+def _exit_line(entry, timeout=120) -> dict:
+    """The ``GPU_WORKER_EXIT`` counters of a ``_spawn`` worker that was
+    sent SIGTERM: waits for its exit code 0, then for the line."""
+    import queue
+    proc, lines, seen = entry
+    code = proc.wait(timeout=timeout)
+    assert code == 0, (code, seen[-20:])
+    deadline = time.monotonic() + 30
+    while not any(x.startswith("GPU_WORKER_EXIT ") for x in seen):
+        assert time.monotonic() < deadline, seen[-20:]
+        try:
+            seen.append(lines.get(timeout=1))
+        except queue.Empty:
+            pass
+    line = next(x for x in seen if x.startswith("GPU_WORKER_EXIT "))
+    return json.loads(line.split(" ", 1)[1])
+
+
+def device_fleet(ref: dict) -> dict:
+    """Phase 13b (see the module docstring). ``ref``: phase 8's bf16
+    plane pass (its bodies, tokens and remote rows)."""
+    import signal
+
+    from dynamo_tpu_torch.engine.config import PRESETS
+    from dynamo_tpu_torch.profile_decode import MODEL
+
+    t_phase = time.monotonic()
+    spec = PRESETS[MODEL]
+    bodies, prompts = ref["bodies"], [b["prompt"] for b in ref["bodies"]]
+    remote = [len(p) > DISAGG_MAX_LOCAL for p in prompts]
+    http_prompt = np.random.default_rng(PARCEL_SEED).integers(
+        0, spec.vocab_size, FLEET_HTTP_PROMPT).tolist()
+    procs = []
+    try:
+        coord = _spawn(procs, "dynamo_tpu_torch.runtime.coordinator",
+                       "--host", "127.0.0.1", "--port", "0")
+        url = "tcp://127.0.0.1:" + _wait_line(
+            coord, "COORDINATOR_READY").rsplit("=", 1)[1]
+        common = ("--model", MODEL, "--num-pages", str(DISAGG_PAGES),
+                  "--coordinator-url", url)
+        if DEVICE == "cpu":
+            common += ("--device", "cpu")
+        prefill = _spawn(procs, "dynamo_tpu_torch.backends.gpu", "--mode",
+                         "prefill", *common)
+        decode = _spawn(procs, "dynamo_tpu_torch.backends.gpu", "--mode",
+                        "decode", "--max-local-prefill-length",
+                        str(DISAGG_MAX_LOCAL), *common)
+        front = _spawn(procs, "dynamo_tpu_torch.frontend", "--http-host",
+                       "127.0.0.1", "--http-port", "0", "--coordinator-url",
+                       url)
+        ready = [_wait_line(w, "GPU_WORKER_READY", timeout=600)
+                 for w in (prefill, decode)]
+        probes = [_wait_line(w, "KV plane device path") for w in (prefill,
+                                                                  decode)]
+        if DEVICE == "cuda":
+            assert all(" device path on: " in p for p in probes), probes
+        port = int(_wait_line(front, "FRONTEND_READY").rsplit("=", 1)[1])
+        deadline = time.monotonic() + 60
+        while [m["id"] for m in http_call(port, "GET", "/v1/models")[
+                "json"]["data"]] != [MODEL]:
+            assert time.monotonic() < deadline, "the model was not served"
+            time.sleep(0.05)
+        ready_s = time.monotonic() - t_phase
+        t0 = time.monotonic()
+        results = asyncio.run(fleet_traffic(url, bodies))
+        wall = time.monotonic() - t0
+        res = http_call(port, "POST", "/v1/completions", {
+            "model": MODEL, "prompt": http_prompt, "stream": True,
+            "max_tokens": 8, "ignore_eos": True,
+            "stream_options": {"include_usage": True}})
+        s = stream_summary(res)
+        assert res["status"] == 200 and s["finish"] == "length", s
+        assert (s["usage"]["prompt_tokens"], s["usage"]["completion_tokens"]
+                ) == (FLEET_HTTP_PROMPT, 8), s
+        staged = _wait_line(prefill, "prefill parcel staged")
+        if DEVICE == "cuda":
+            assert "(device path)" in staged, staged
+        for proc, _, _ in (front, decode, prefill, coord):
+            proc.send_signal(signal.SIGTERM)
+        d_exit, p_exit = _exit_line(decode), _exit_line(prefill)
+        for proc, _, seen in (front, coord):
+            code = proc.wait(timeout=120)
+            assert code == 0, (code, seen[-20:])
+    finally:
+        for proc, _, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+    n_remote = sum(remote) + 1
+    # A CPU rehearsal's workers have no device path: its pulls are the
+    # socket's.
+    path = "device" if DEVICE == "cuda" else "socket"
+    n_dev = n_remote if path == "device" else 0
+    for r, b in zip(results, bodies):
+        assert len(r["tokens"]) == b["max_tokens"], (len(r["tokens"]), b)
+    dis, client = d_exit["disagg"], d_exit["plane_client"]
+    assert (dis["remote_prefills"], dis["remote_failures"],
+            dis["local_prefills"]) == (n_remote, 0, len(prompts) + 1
+                                       - n_remote), dis
+    assert (client["device_pulls"], client["socket_pulls"],
+            client["device_pull_failures"]) == (n_dev, n_remote - n_dev,
+                                                0), client
+    assert d_exit["engine"]["injected_admissions"] == n_remote
+    server = p_exit["plane_server"]
+    assert (server["device_stages"], server["device_done"],
+            server["staged"]) == (n_dev, n_dev, 0), server
+    assert p_exit["engine"]["device_extracts"] == n_dev
+    assert p_exit["engine"]["windows"] == 0, "the prefill worker decoded"
+    eng = d_exit["engine"]
+    expected = eng["windows"] * eng["window_steps"] * eng["layers"]
+    if DEVICE == "cuda":
+        assert eng["launches"] == expected > 0, eng
+        assert eng["window_replays"] == eng["windows"], eng
+    assert eng["launches_int8"] == 0, eng
+    # The first token of each remote prompt, its prefill worker's sample,
+    # equals phase 8's (the unseeded top-p request samples anew). The
+    # greedy ids (rows 0-5 and the long prompt) equal phase 8's, or split
+    # only at a near-tie: up to the split both chains hold the same
+    # tokens, so the margin behind it is read from this chain's own top-2
+    # logprobs (ROADMAP's rule for chunked chains).
+    greedy = [i for i, b in enumerate(bodies) if "temperature" not in b]
+    equal, splits = 0, []
+    for i, r in enumerate(results):
+        got, want = r["tokens"], ref["tokens"][i]
+        if remote[i] and "top_p" not in bodies[i]:
+            assert got[0] == want[0], (i, got[0], want[0])
+        if i not in greedy:
+            continue
+        j = next((k for k, (a, b) in enumerate(zip(got, want)) if a != b),
+                 None)
+        if j is None:
+            equal += 1
+            continue
+        margin = r["margins"][j]
+        assert margin is not None and margin <= 2 * LOGIT_ATOL, (
+            f"request {i}: token {j} is {got[j]}, phase 8's {want[j]}, at "
+            f"margin {margin}")
+        splits.append({"request": i, "token": j, "margin": margin})
+    per_pages = 2 * spec.num_layers * spec.num_kv_heads * PARCEL_PAGE \
+        * spec.head_dim * 2
+    pulls = {rec[3] // per_pages: rec for rec in client["recent"]}
+    assert all(rec[4] == path for rec in pulls.values()), pulls
+    phase8 = {row["prompt_tokens"]: row for row in ref["rows"]}
+    rows = []
+    for i, p in enumerate(prompts):
+        if not remote[i]:
+            continue
+        _, open_s, end_s, nbytes, _ = pulls[-(-len(p) // PARCEL_PAGE)]
+        old = phase8[len(p)]
+        row = {"prompt_tokens": len(p), "parcel_bytes": nbytes,
+               "pull_ms": end_s * 1e3, "open_ms": open_s * 1e3,
+               "pull_GBps": nbytes / end_s / 1e9,
+               "client_ttft_ms": results[i]["ttft_ms"],
+               "client_tpot_ms": results[i]["tpot_ms"],
+               "phase8_socket_pull_ms": old["pull_ms"],
+               "phase8_socket_pull_GBps": old["pull_GBps"],
+               "phase8_handler_ttft_ms": old["ttft_ms"]}
+        rows.append(row)
+        log(json.dumps({"device_fleet_request": row}))
+    n_tok = sum(len(r["tokens"]) for r in results)
+    out = {"ready_s": ready_s, "wall_s": wall, "tok_per_s": n_tok / wall,
+           "remote_prefills": n_remote, "greedy_equal_of_7": equal,
+           "splits": splits, "requests_remote": rows,
+           "decode_engine": eng, "prefill_engine": p_exit["engine"],
+           "decode_peak_GiB": eng["peak_bytes"] / 2**30,
+           "prefill_peak_GiB": p_exit["engine"]["peak_bytes"] / 2**30,
+           "launches": {"paged_attention_hist": eng["launches"],
+                        "paged_attention_hist_int8": eng["launches_int8"]},
+           "phase_s": time.monotonic() - t_phase}
+    log(f"13b: 1P1D {MODEL} as processes ({ready[0]}; {ready[1]}; serving "
+        f"in {ready_s:.1f}s; {probes[0]}); {n_remote} remote prefills all "
+        f"over the {path} path ({staged}); greedy ids equal phase 8's in "
+        f"{equal}/7, splits at near-ties {splits}; peak memory prefill "
+        f"{out['prefill_peak_GiB']:.2f} GiB, decode "
+        f"{out['decode_peak_GiB']:.2f} GiB; all four exited 0 on SIGTERM")
+    return out
+
+
+def device_path_phase(phase8: dict, ipc=None) -> dict:
+    """Phase 13 (see the module docstring)."""
+    from dynamo_tpu_torch.profile_decode import smi_line
+    t_phase = time.monotonic()
+    smi = smi_line()
+    parcels = parcel_check(ipc)
+    fleet = device_fleet(phase8)
+    out = {"parcels": parcels, "fleet": fleet, "smi": smi,
+           "launches": fleet["launches"],
+           "phase_s": time.monotonic() - t_phase}
+    log(json.dumps({"device_path_phase": {
+        k: v for k, v in out.items() if k not in ("parcels", "fleet")}
+        | {"parcels_s": parcels["phase_s"], "fleet_s": fleet["phase_s"]}}))
+    log(f"phase 13: {out['phase_s']:.1f}s ({smi})")
+    return out
+
+
 def kernel_entry(name, variant, timing, main, max_err, stats,
                  http_launches, dist_launches, ckpt_launches,
                  disagg_launches, kv_launches, verify, spec_launches,
-                 lora_launches, tier_launches) -> dict:
+                 lora_launches, tier_launches, device_launches) -> dict:
     """One kernel's summary: times at the B=32 x 2048 shape, and the same
     numbers at the main path's mid-round shape under ``main_shape``;
     launches in round 1, round 2, the HTTP phase, the distributed phase,
     phase 7's round-1 runs on loaded checkpoints, phase 8's passes (on
     the decode worker), phase 9's passes (both workers), phase 10's
-    spec round (the verify route), phase 11's LoRA rounds A and B and
-    phase 12's rounds on the tier workers;
+    spec round (the verify route), phase 11's LoRA rounds A and B,
+    phase 12's rounds on the tier workers and phase 13's decode worker
+    process (the KV plane's device path);
     the verify route's numbers at both
     shapes under ``verify_route`` (``verify``: its check's error and the
     two timings)."""
@@ -4956,6 +5435,7 @@ def kernel_entry(name, variant, timing, main, max_err, stats,
             "launches_spec": spec_launches,
             "launches_lora": lora_launches,
             "launches_tiers": tier_launches,
+            "launches_kv_device": device_launches,
             "max_abs_err": max(max_err, timing["max_abs_err"],
                                main["max_abs_err"], verify["err"],
                                verify["uniform"]["max_abs_err"],
@@ -5039,6 +5519,8 @@ def main() -> int:
         phase_done("11 lora")
         tiers = tier_phase(attention, model)
         phase_done("12 kv tiers")
+        device = device_path_phase(disagg.pop("_plane_pass"))
+        phase_done("13 kv device path")
     except Exception:  # noqa: BLE001 — report and fail the run
         traceback.print_exc()
         return 1
@@ -5066,7 +5548,8 @@ def main() -> int:
                      kv_launches("paged_attention_hist"), verify[False],
                      spec["launches"]["paged_attention_hist"],
                      lora["launches_total"]["paged_attention_hist"],
-                     tiers["launches"]["paged_attention_hist"]),
+                     tiers["launches"]["paged_attention_hist"],
+                     device["launches"]["paged_attention_hist"]),
         kernel_entry("paged_attention_hist_int8",
                      "int8 pool, _decode_kernel(quantized=True)",
                      timing_int8, main_int8, err_int8, stats_int8,
@@ -5078,7 +5561,8 @@ def main() -> int:
                      kv_launches("paged_attention_hist_int8"), verify[True],
                      spec["launches"]["paged_attention_hist_int8"],
                      lora["launches_total"]["paged_attention_hist_int8"],
-                     tiers["launches"]["paged_attention_hist_int8"])]}))
+                     tiers["launches"]["paged_attention_hist_int8"],
+                     device["launches"]["paged_attention_hist_int8"])]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

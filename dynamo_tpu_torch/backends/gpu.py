@@ -17,7 +17,10 @@ keepalives keep flowing while the weights load, serves
 the request plane, registers the model with ``register_llm`` and prints
 ``GPU_WORKER_READY mode=<agg|prefill|decode> port=N worker=<hex>
 pages=N``. On SIGINT or SIGTERM it deregisters, stops the endpoint and the
-engine, closes the runtime and exits 0. The engine runs on ``--device`` (``cuda`` by
+engine, prints ``GPU_WORKER_EXIT {json}`` (``exit_counters``: windows and
+kernel launches since it began to serve, peak device memory, the KV
+plane's and the disaggregation counters), closes the runtime and exits
+0. The engine runs on ``--device`` (``cuda`` by
 default; the CPU only under ``--device cpu``). ``--model`` resolves as in
 the launcher (``engine/hub.py``: a preset with random weights from
 ``--seed``, a checkpoint directory, or a hub id in the local HF cache;
@@ -60,6 +63,11 @@ demotion (``engine/kvbm.py``; DTPU_KV_WATERMARKS overrides).
 Every worker runs a KV plane server (``llm/kv_plane.py``, bound to
 ``--kv-plane-host``) unless ``--no-kv-plane``: it serves peers' G4 block
 fetches from the host tiers, and a prefill worker stages parcels on it.
+On the card the plane probes its CUDA IPC device path at start and logs
+whether it is on and why; a bf16 prefill worker with it stages each
+parcel as one device tensor, which a decode worker on the same host pulls
+without a host copy (other sinks pull it over the socket). No flag turns
+it on or off, as in the reference.
 The worker registers ``kvplane/{namespace}/{instance_id:x}`` under its
 primary lease and watches that prefix, so its engine's G4 source
 (``RemoteBlockSource``) consults the plane of every other worker of the
@@ -86,8 +94,12 @@ import argparse
 import asyncio
 import dataclasses
 import functools
+import json
 import signal
 
+import torch
+
+from dynamo_tpu_torch.engine import attention
 from dynamo_tpu_torch.engine.engine import GPUEngine
 from dynamo_tpu_torch.llm.disagg import (PREFILL_COMPONENT, PREFILL_ENDPOINT,
                                          DisaggDecodeHandler,
@@ -99,7 +111,9 @@ from dynamo_tpu_torch.llm.kv_router.publisher import (KvEventPublisher,
                                                       WorkerMetricsPublisher)
 from dynamo_tpu_torch import launch
 from dynamo_tpu_torch.engine.config import EngineConfig, parse_watermarks
-from dynamo_tpu_torch.launch import (add_engine_args, add_lora_args,
+from dynamo_tpu_torch.launch import (ADMISSION, NO_PREFILL_PROGRAMS,
+                                     ONE_ATTENTION, PARALLEL, PARSERS,
+                                     add_engine_args, add_lora_args,
                                      add_refused_flags, lora_args,
                                      load_engine, load_tokenizer)
 from dynamo_tpu_torch.llm.model_card import (ModelRuntimeConfig,
@@ -116,34 +130,29 @@ from dynamo_tpu_torch.runtime.service import EndpointServer
 
 log = get_logger("gpu_worker")
 
-_PARALLEL = "ROADMAP item 16 (parallelism across GPUs and nodes)"
-_ADMISSION = "ROADMAP item 12 (SLA admission and brownout)"
-_PARSERS = "the ROADMAP item of the tool-call and reasoning parsers"
 
 # The reference worker's flags that the port does not serve:
 # (flag, what it waits for, add_argument keywords). A value in "allowed"
 # is the reference's default, which leaves the feature off.
 REFUSED_FLAGS = (
-    ("--num-nodes", _PARALLEL, {"type": int, "allowed": (1,)}),
-    ("--node-rank", _PARALLEL, {"type": int, "allowed": (0,)}),
-    ("--mh-group", _PARALLEL, {"type": str}),
-    ("--tp", _PARALLEL, {"type": int, "allowed": (1,)}),
-    ("--pp", _PARALLEL, {"type": int, "allowed": (1,)}),
-    ("--sp", _PARALLEL, {"type": int, "allowed": (1,)}),
-    ("--dp", _PARALLEL, {"type": int, "allowed": (1,)}),
-    ("--pp-microbatch", _PARALLEL, {}),
-    ("--ring-attention", _PARALLEL, {}),
+    ("--num-nodes", PARALLEL, {"type": int, "allowed": (1,)}),
+    ("--node-rank", PARALLEL, {"type": int, "allowed": (0,)}),
+    ("--mh-group", PARALLEL, {"type": str}),
+    ("--tp", PARALLEL, {"type": int, "allowed": (1,)}),
+    ("--pp", PARALLEL, {"type": int, "allowed": (1,)}),
+    ("--sp", PARALLEL, {"type": int, "allowed": (1,)}),
+    ("--dp", PARALLEL, {"type": int, "allowed": (1,)}),
+    ("--pp-microbatch", PARALLEL, {}),
+    ("--ring-attention", PARALLEL, {}),
     ("--standby", "the planner's ROADMAP items (standby workers and scale "
                   "directives)", {}),
-    ("--tool-call-parser", _PARSERS, {"type": str}),
-    ("--reasoning-parser", _PARSERS, {"type": str}),
-    ("--ttft-budget-ms", _ADMISSION, {"type": float}),
-    ("--admission-reject-factor", _ADMISSION, {"type": float}),
-    ("--attention-backend", "no ROADMAP item: the port has one attention "
-                            "path, its paged-attention kernel",
+    ("--tool-call-parser", PARSERS, {"type": str}),
+    ("--reasoning-parser", PARSERS, {"type": str}),
+    ("--ttft-budget-ms", ADMISSION, {"type": float}),
+    ("--admission-reject-factor", ADMISSION, {"type": float}),
+    ("--attention-backend", ONE_ATTENTION,
      {"type": str, "allowed": ("auto",)}),
-    ("--warmup-prefill-ladder", "no ROADMAP item: the port compiles no "
-                                "prefill programs", {}),
+    ("--warmup-prefill-ladder", NO_PREFILL_PROGRAMS, {}),
 )
 
 
@@ -283,13 +292,21 @@ async def start_kv_plane(runtime: DistributedRuntime, engine: GPUEngine,
                          model_name: str, host: str = "127.0.0.1"
                          ) -> tuple[KvPlaneServer, asyncio.Task]:
     """Start the worker's KV plane server (serving G4 block fetches from
-    the engine's host tiers, if it has any), register it as
+    the engine's host tiers, if it has any; with the device path when the
+    engine is on the card and the plane's probe passes, which it logs),
+    register it as
     ``kvplane/{namespace}/{instance_id:x}`` under the primary lease, give
     the engine a G4 source and watch the other planes of ``model_name``.
     Returns (plane, peer watch task); ``close_kv_plane`` stops them."""
     host_cache = engine.host_cache
+    on_card = engine.runner.device.type == "cuda"
     plane = KvPlaneServer(host=host, block_provider=(
-        host_cache.get if host_cache is not None else None))
+        host_cache.get if host_cache is not None else None),
+        use_device_path=None if on_card else False)
+    log.info("KV plane device path %s: %s",
+             "on" if plane.device_path else "off",
+             plane.device_path_reason if on_card
+             else f"the engine runs on {engine.runner.device}")
     plane.start()
     try:
         coordinator = runtime.require_coordinator()
@@ -422,6 +439,40 @@ async def close_decode_handler(handler: DisaggDecodeHandler) -> None:
     handler.plane_client.close()
 
 
+def engine_counters(engine: GPUEngine) -> dict:
+    """The engine's windows, replays and kernel launches so far."""
+    return {"windows": engine.windows_dispatched,
+            "window_replays": engine.runner.window_replays,
+            "launches": attention.KERNEL.launches,
+            "launches_int8": attention.KERNEL.launches_int8}
+
+
+def exit_counters(engine: GPUEngine, base: dict, plane, disagg) -> dict:
+    """What a worker prints as it exits (``GPU_WORKER_EXIT``): its
+    engine's counters since ``base`` (taken when it began to serve) and
+    its peak device memory, its KV plane server's counters and, on a
+    decode worker, the disaggregation handler's and its plane client's,
+    with the recent pulls ``(ticket, header s, end s, bytes, path)``."""
+    now = engine_counters(engine)
+    out = {"engine": {k: now[k] - base[k] for k in now} | {
+        "window_steps": engine.decode_window,
+        "layers": engine.runner.spec.num_layers,
+        "injected_admissions": engine.injected_admissions,
+        "device_extracts": engine.device_extracts,
+        "streamed_extracts": engine.streamed_extracts,
+        "peak_bytes": (torch.cuda.max_memory_allocated()
+                       if engine.runner.device.type == "cuda" else 0)}}
+    if plane is not None:
+        out["plane_server"] = plane.stats()
+    if disagg is not None:
+        out["disagg"] = {"remote_prefills": disagg.remote_prefills,
+                         "local_prefills": disagg.local_prefills,
+                         "remote_failures": disagg.remote_failures}
+        out["plane_client"] = disagg.plane_client.stats() | {
+            "recent": list(disagg.plane_client.recent)}
+    return out
+
+
 async def run(args: argparse.Namespace) -> None:
     cfg = RuntimeConfig.from_settings()
     if args.coordinator_url:
@@ -433,7 +484,7 @@ async def run(args: argparse.Namespace) -> None:
     for sig in (signal.SIGINT, signal.SIGTERM):
         loop.add_signal_handler(sig, runtime.shutdown)
     engine = server = plane = peer_task = queue_worker = disagg = None
-    inventory_pub = None
+    inventory_pub = base = None
     registered: list[str] = []  # model names whose cards we put
     try:
         engine_cfg = build_engine_config(args)
@@ -461,6 +512,7 @@ async def run(args: argparse.Namespace) -> None:
             await loop.run_in_executor(None, lambda: [
                 engine.register_adapter(n, path=p) for n, p in loras])
         await loop.run_in_executor(None, engine.start, loop)
+        base = engine_counters(engine)
         if inventory_pub is not None:
             inventory_pub.start_periodic(engine.inventory_digest)
         prefill_component = args.prefill_component or PREFILL_COMPONENT
@@ -508,6 +560,9 @@ async def run(args: argparse.Namespace) -> None:
             await close_kv_plane(engine, plane, peer_task)
         if engine is not None:
             engine.stop()
+            if base is not None:
+                print("GPU_WORKER_EXIT " + json.dumps(
+                    exit_counters(engine, base, plane, disagg)), flush=True)
         await runtime.close()
 
 

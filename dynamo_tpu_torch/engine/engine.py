@@ -27,9 +27,10 @@ and requeues the request to re-prefill from its accumulated tokens.
 Disaggregation (``llm/disagg.py``): other threads hand the engine thread
 jobs (``run_job``), which it runs between iterations. A prefill worker's
 job prefills a prompt and extracts its pages (``prefill_extract``, or
-``prefill_extract_staged`` onto the KV plane, streamed one page group per
-chunk). A decode worker's
-``generate_injected`` request carries a parcel: admission inserts it into
+``prefill_extract_staged`` onto the KV plane: one device parcel for its
+CUDA IPC path, else streamed one page group per chunk). A decode worker's
+``generate_injected`` request carries a parcel (a host parcel, or a
+device tensor from the plane's device path): admission inserts it into
 fresh pages and the request decodes from the prefill worker's first
 token, under the same seeded and penalty rules as a local prefill.
 
@@ -327,6 +328,7 @@ class GPUEngine(AsyncEngine):
         # Engine-thread jobs: (fn, concurrent future).
         self._jobs: queue.Queue = queue.Queue()
         self.streamed_extracts = 0  # chunk-streamed extracts staged
+        self.device_extracts = 0    # device parcels staged (one each)
         self.injected_admissions = 0  # parcels inserted at admission
         self.warmup_seconds = 0.0     # _warmup_window_programs' wall time
         # Speculative decoding: verify steps per window, sized so that a
@@ -472,10 +474,11 @@ class GPUEngine(AsyncEngine):
                                 first_token: int,
                                 kv) -> AsyncIterator[dict]:
         """Serve a request whose prompt was prefilled REMOTELY: admission
-        inserts the parcel ``kv`` into fresh pages and decoding starts at
-        ``first_token``, which is the stream's first item. With no free
-        pages the request falls back to a local prefill; a failed insert
-        ends the stream with its error."""
+        inserts the parcel ``kv`` (a host parcel, or a bf16 tensor on this
+        engine's device from the KV plane's device path) into fresh pages
+        and decoding starts at ``first_token``, which is the stream's first
+        item. With no free pages the request falls back to a local
+        prefill; a failed insert ends the stream with its error."""
         self.start()
         req = (request if isinstance(request, PreprocessedRequest)
                else PreprocessedRequest.from_wire(request))
@@ -486,6 +489,9 @@ class GPUEngine(AsyncEngine):
                      injected=(int(first_token), kv),
                      len_cap=len(req.token_ids)
                      + (req.stop_conditions.max_tokens or 2**30))
+        # Admission drops the request's reference once inserted; this
+        # frame must not keep a device parcel alive for the whole stream.
+        del kv
         self.waiting.put(r)
         while True:
             item = await r.out_q.get()
@@ -724,10 +730,13 @@ class GPUEngine(AsyncEngine):
         return (first_token, self.runner.finalize_extract(handles[0][0]),
                 prompt_len)
 
-    def _prefill_for_extract(self, req: PreprocessedRequest, groups: int):
+    def _prefill_for_extract(self, req: PreprocessedRequest, groups: int,
+                             device: bool = False):
         """Prefill and dispatch the page gather in up to ``groups`` page
         groups; returns their unresolved extract handles with their page
-        counts, so that the copies overlap what the caller does next."""
+        counts, so that the copies overlap what the caller does next.
+        ``device``: the gathers stay on the device
+        (``extract_pages_device``) with no host copy."""
         r, plan = self._extract_request(req)
         try:
             for chunk in self._extract_chunks(r, plan):
@@ -735,8 +744,10 @@ class GPUEngine(AsyncEngine):
             self._register_blocks(r)
             n = len(r.pages)
             per = -(-n // min(groups, n))
-            handles = [(self.runner.extract_pages_async(r.pages[i:i + per]),
-                        len(r.pages[i:i + per])) for i in range(0, n, per)]
+            extract = (self.runner.extract_pages_device if device
+                       else self.runner.extract_pages_async)
+            handles = [(extract(r.pages[i:i + per]), len(r.pages[i:i + per]))
+                       for i in range(0, n, per)]
         finally:
             # The gather is dispatched: stream order has it read the pages
             # before any later work can rewrite them, so they release now.
@@ -760,16 +771,33 @@ class GPUEngine(AsyncEngine):
         host copies resolve on the plane's thread when the decode worker
         pulls) and return (first_token, ticket, prompt_len).
 
-        With ``on_ticket`` (a thread-safe callable) the extract is
-        chunk-streamed: the ticket is staged and delivered BEFORE the
-        prefill, one page group per chunk, so the decode worker pulls
-        while later chunks compute. Without it (the prefill queue) the
-        extract is split into up to 4 page groups, so sending one
-        overlaps the next one's copy. The reference also stages in one
-        piece after the prefill when device-to-host fetches are slow, as
-        over a tunnelled TPU host; a locally attached card never is."""
+        When ``plane`` has its device path (``device_path``) and the pool
+        is bf16, the engine prefills, then stages ONE finished device
+        parcel (``extract_pages_device``) for a CUDA IPC pull, as the
+        reference stages one device array for its ``jax`` path; it does
+        not call ``on_ticket``. A packed int8 parcel always takes the
+        socket path, as in the reference. Otherwise, with ``on_ticket`` (a
+        thread-safe callable) the extract is chunk-streamed: the ticket is
+        staged and delivered BEFORE the prefill, one page group per chunk,
+        so the decode worker pulls while later chunks compute. Without it
+        (the prefill queue) the extract is split into up to 4 page groups,
+        so sending one overlaps the next one's copy. The reference also
+        stages in one piece after the prefill when device-to-host fetches
+        are slow, as over a tunnelled TPU host; a locally attached card
+        never is."""
         n = -(-len(req.token_ids) // self.config.page_size)
         meta = self._parcel_meta(n)
+        if getattr(plane, "device_path", False) and \
+                self.runner.quant_kv != "int8":
+            first_token, handles, prompt_len = self._prefill_for_extract(
+                req, 1, device=True)
+            handle = handles[0][0]
+            ticket = plane.stage(
+                meta=meta, device_tensor=handle[0], event=handle[1],
+                resolve=lambda: self.runner.device_parcel_to_host(handle),
+                prompt_len=prompt_len)
+            self.device_extracts += 1
+            return first_token, ticket, prompt_len
         if on_ticket is not None:
             return self._prefill_extract_streamed(req, plane, meta,
                                                   on_ticket)

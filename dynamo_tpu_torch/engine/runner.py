@@ -952,12 +952,51 @@ class ModelRunner:
         """The host parcel of ``pages`` (see ``finalize_extract``)."""
         return self.finalize_extract(self.extract_pages_async(pages))
 
-    def insert_pages(self, kv: np.ndarray, pages: list[int]) -> None:
+    def extract_pages_device(self, pages: list[int]):
+        """The gather of ``extract_pages_async`` with no host copy, for the
+        KV plane's device path: ``(parcel, event)``, the bf16 parcel
+        ``[2, L, Nkv, n, page, D]`` on the device and, on the card, an
+        interprocess event recorded after the gather (None on the CPU).
+        Nothing here waits for the card. A bf16 pool only: an int8 pool's
+        parcel is packed on the host."""
+        if isinstance(self.k_cache, QuantKV):
+            raise ValueError("device parcels come from a bf16 pool")
+        idx = self._upload(np.asarray(pages, np.int64))
+        parcel = torch.stack([self.k_cache[:, :, idx],
+                              self.v_cache[:, :, idx]])
+        if self.device.type != "cuda":
+            return parcel, None
+        event = torch.cuda.Event(interprocess=True)
+        event.record()
+        return parcel, event
+
+    @staticmethod
+    def device_parcel_to_host(handle) -> np.ndarray:
+        """bf16 bits of an ``extract_pages_device`` parcel on the host (the
+        socket path of a ticket staged for the device path). The copy runs
+        on a stream of its own that waits for the gather's event, so the
+        KV plane's thread may call this while the engine thread goes on,
+        and the wait is for the gather alone."""
+        parcel, event = handle
+        if event is None:
+            return parcel.view(torch.int16).numpy().view(BF16)
+        with torch.cuda.device(parcel.device):
+            stream = torch.cuda.Stream()
+            with torch.cuda.stream(stream):
+                stream.wait_event(event)
+                host = parcel.view(torch.int16).cpu()
+        return host.numpy().view(BF16)
+
+    def insert_pages(self, kv, pages: list[int]) -> None:
         """Write a transferred parcel into ``pages`` of this pool. Either
         form goes into either pool, as in the reference: a packed parcel
         into a bf16 pool is dequantized, and a bf16 parcel into an int8
         pool is quantized on the host by ``quantize_np``, so the pool's
-        bytes are the reference runner's."""
+        bytes are the reference runner's. ``kv`` may also be a bf16
+        tensor of this runner's device (the KV plane's device path): a
+        bf16 pool scatters it on the device with the same indices, and an
+        int8 pool copies it to the host and quantizes it as above (on the
+        device, that is ROADMAP item 20(a))."""
         n = len(pages)
         spec = self.spec
         if kv.ndim != 6 or kv.shape[:4] != (2, spec.num_layers,
@@ -965,6 +1004,24 @@ class ModelRunner:
             raise ValueError(
                 f"parcel of shape {tuple(kv.shape)} does not fit {n} pages "
                 f"of {spec.num_layers} layers x {spec.num_kv_heads} KV heads")
+        if torch.is_tensor(kv):
+            if (kv.dtype != torch.bfloat16
+                    or kv.device.type != self.device.type):
+                raise ValueError(f"a device parcel must be bf16 on "
+                                 f"{self.device}, not {kv.dtype} on "
+                                 f"{kv.device}")
+            if isinstance(self.k_cache, QuantKV):
+                kv = kv.view(torch.int16).cpu().numpy().view(BF16)
+            else:
+                if kv.is_cuda:
+                    # Made on the plane's stream: the allocator must not
+                    # hand its block out again before this stream's
+                    # scatter has read it.
+                    kv.record_stream(torch.cuda.current_stream(kv.device))
+                idx = self._upload(np.asarray(pages, np.int64))
+                self.k_cache[:, :, idx] = kv[0]
+                self.v_cache[:, :, idx] = kv[1]
+                return
         idx = self._upload(np.asarray(pages, np.int64))
         if isinstance(self.k_cache, QuantKV):
             data, scale = (unpack_parcel(kv) if is_packed_parcel(kv)

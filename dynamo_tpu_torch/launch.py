@@ -22,7 +22,10 @@ scales. The tokenizer is the checkpoint's own ``tokenizer.json`` (the
 reference launcher's choice), else ``--tokenizer PATH`` (a
 ``tokenizer.json`` or a ``.gguf``), else, for a preset, the repo's test
 tokenizer. It prints ``LAUNCH_READY in=http out=<gpu|dyn> port=N`` once
-it serves, and stops on SIGINT or SIGTERM. ``--lora NAME=PATH``
+it serves, and stops on SIGINT or SIGTERM. The reference launcher's other
+inputs and outputs (``in=text|batch|grpc``, ``out=echo|mocker``) and its
+flags that the port does not serve (``REFUSED_FLAGS``) exit naming the
+ROADMAP item each waits for; none is accepted and then ignored. ``--lora NAME=PATH``
 (repeatable, ``out=gpu`` only, as in the reference) registers a HF PEFT
 adapter on the engine and serves NAME as a model of its own, whose card
 binds it to the base model (``served.adapter_served``);
@@ -62,12 +65,47 @@ from dynamo_tpu_torch.runtime.logging import get_logger
 
 log = get_logger("launch")
 
-# in=/out= values of the reference's launcher that wait for later slices.
+# What the reference's flags and in=/out= values that the port does not
+# serve wait for (the worker main's refusals use the same texts).
+PARALLEL = "ROADMAP item 16 (parallelism across GPUs and nodes)"
+ADMISSION = "ROADMAP item 12 (SLA admission and brownout)"
+OBSERVABILITY = "ROADMAP item 12 (the SLO plane and request accounting)"
+PARSERS = "ROADMAP item 23 (the tool-call and reasoning parsers)"
+INPUTS = "ROADMAP item 24 (the launcher's interactive and batch inputs)"
+ONE_ATTENTION = ("no ROADMAP item: the port has one attention path, its "
+                 "paged-attention kernel")
+NO_PREFILL_PROGRAMS = ("no ROADMAP item: the port compiles no prefill "
+                       "programs")
+
 NOT_PORTED = {
-    "in=text": "the interactive and batch inputs",
-    "in=batch": "the interactive and batch inputs",
-    "in=grpc": "the KServe gRPC front",
+    "in=text": INPUTS,
+    "in=batch": INPUTS,
+    "in=grpc": "ROADMAP item 24 (the KServe gRPC front)",
+    "out=mocker": "ROADMAP item 25 (the mocker engine, with the planner)",
+    "out=echo": "no ROADMAP item: the echo engine is copied when a slice "
+                "needs it",
 }
+
+# The reference launcher's flags that the port does not serve:
+# (flag, what it waits for, add_argument keywords). A value in "allowed"
+# is the reference's default, which leaves the feature off.
+REFUSED_FLAGS = (
+    ("--tp", PARALLEL, {"type": int, "allowed": (1,)}),
+    ("--dp", PARALLEL, {"type": int, "allowed": (1,)}),
+    ("--pp", PARALLEL, {"type": int, "allowed": (1,)}),
+    ("--sp", PARALLEL, {"type": int, "allowed": (1,)}),
+    ("--attention-backend", ONE_ATTENTION,
+     {"type": str, "allowed": ("auto",)}),
+    ("--warmup-prefill-ladder", NO_PREFILL_PROGRAMS, {}),
+    ("--tool-call-parser", PARSERS, {"type": str}),
+    ("--reasoning-parser", PARSERS, {"type": str}),
+    ("--input-file", INPUTS, {"type": str}),
+    ("--output-file", INPUTS, {"type": str}),
+    ("--batch-concurrency", INPUTS, {"type": int, "allowed": (8,)}),
+    ("--batch-max-tokens", INPUTS, {"type": int, "allowed": (128,)}),
+    ("--slo-ttft-p99-ms", OBSERVABILITY, {"type": float}),
+    ("--request-log", OBSERVABILITY, {"type": str}),
+)
 
 
 def _auto_or_int(value: str):
@@ -209,12 +247,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="out=dyn: the coordinator to discover workers "
                              "on (default: DTPU_COORDINATOR_URL, else "
                              "tcp://127.0.0.1:4222)")
+    add_refused_flags(parser, REFUSED_FLAGS)
     args = parser.parse_args(rest)
     for key, value in io.items():
         wait = NOT_PORTED.get(f"{key}={value}")
         if wait:
             parser.error(f"{key}={value} is not ported yet: it waits for "
-                         f"the slice that ports {wait}")
+                         f"{wait}")
     if io["in"] != "http":
         parser.error(f"in= must be http, got {io['in']!r}")
     if io["out"] not in ("gpu", "dyn"):

@@ -5,14 +5,16 @@ conditional-disaggregation config (counterpart of
 - The PREFILL worker serves a prefill-only endpoint
   (``make_prefill_handler``): it prefills the prompt on its engine thread,
   samples the first token and sends the prompt's KV, either as a ticket
-  for its KV plane (``llm/kv_plane.py``; with a chunk-streamed extract the
+  for its KV plane (``llm/kv_plane.py``: a device parcel for a CUDA IPC
+  pull, or host page groups, where with a chunk-streamed extract the
   ticket goes out before the prefill ends) or inline as ``kv_chunk``
   frames (``llm/kv_transfer.py``), and then the first token. It registers
   no model: only decode workers discover it.
 - The DECODE worker (``DisaggDecodeHandler``) forwards prompts longer than
   ``max_local_prefill_length`` to a prefill worker (round robin, or the
-  shared queue of ``llm/prefill_queue.py``), inserts the parcel into its
-  own pool and decodes from the first token
+  shared queue of ``llm/prefill_queue.py``), inserts the parcel (a host
+  parcel, or a device tensor from the plane's device path) into its own
+  pool and decodes from the first token
   (``GPUEngine.generate_injected``). Shorter prompts, adapter requests
   and every remote failure prefill locally; ``remote_failures`` counts
   the failures.
@@ -167,8 +169,9 @@ def make_prefill_handler(engine, plane=None):
                     "ticket": ticket_fut.result()}).to_wire()
             first_token, ticket, prompt_len = await job
             log.info("prefill parcel staged%s: %d tokens, ticket %d",
-                     " (chunk-streamed)" if streamed else "", prompt_len,
-                     ticket["id"])
+                     " (chunk-streamed)" if streamed else
+                     " (device path)" if "cuda_ipc" in ticket else "",
+                     prompt_len, ticket["id"])
             if not streamed:
                 yield LLMEngineOutput(
                     disagg_params={"ticket": ticket}).to_wire()
@@ -243,9 +246,12 @@ class DisaggDecodeHandler:
             injected = await self._remote_prefill(req, context)
             if injected is not None:
                 self.remote_prefills += 1
-                first_token, kv = injected
-                async for out in self.engine.generate_injected(
-                        req, context, first_token, kv):
+                stream = self.engine.generate_injected(req, context,
+                                                       *injected)
+                # The engine drops the parcel once it is inserted; this
+                # frame must not hold a device parcel for the whole stream.
+                del injected
+                async for out in stream:
                     yield out
                 return
         self.local_prefills += 1

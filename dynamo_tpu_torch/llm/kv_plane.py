@@ -1,26 +1,46 @@
-"""Direct worker-to-worker KV data plane, socket path (counterpart of
-``dynamo_tpu.llm.kv_plane``).
+"""Direct worker-to-worker KV data plane (counterpart of
+``dynamo_tpu.llm.kv_plane``): a socket path between any two workers and
+a CUDA IPC device path between two processes on one host.
 
 A prefill worker STAGES a prompt's parcel with its ``KvPlaneServer`` and
 sends only a small ticket ``{"id", "addr", "shape", "dtype", "nbytes",
 "prompt_len"}`` over the request plane; the decode worker's
-``KvPlaneClient`` pulls the bulk bytes from the server's own listening
-socket into a preallocated buffer. The bytes stay off the request plane
-and the coordinator.
+``KvPlaneClient`` pulls the bulk bytes. The bytes stay off the request
+plane and the coordinator.
 
-Wire: a control frame is a 4-byte big-endian length and a msgpack map
-(``runtime/msgpack_lite.py``); bulk bytes follow raw. ``{"op": "pull",
-"id"}`` is answered ``{"ok": true, **meta}`` (with ``"groups": [pages,
-...]`` when the parcel streams as page groups along axis 3) and the
-parcel's bytes, or ``{"err"}``. These are the JAX package's frames, so a
-port sink pulls from a JAX source and back; a JAX ticket's ``jax_addr``
-(its device path) is ignored here and the ticket is pulled over ``addr``.
+Socket path. A control frame is a 4-byte big-endian length and a msgpack
+map (``runtime/msgpack_lite.py``); bulk bytes follow raw. ``{"op":
+"pull", "id"}`` is answered ``{"ok": true, **meta}`` (with ``"groups":
+[pages, ...]`` when the parcel streams as page groups along axis 3) and
+the parcel's bytes, or ``{"err"}``; the sink receives into a preallocated
+buffer. These are the JAX package's frames, so a port sink pulls from a
+JAX source and back; a JAX ticket's ``jax_addr``/``jax_uuid`` (its
+``jax.experimental.transfer`` path) are ignored here.
+
+Device path, the port's counterpart of the reference's ``jax`` path. A
+server whose probe passes (``CudaIpc.probe``: a CUDA device and an
+allocation that torch can export) stages a parcel that is still on the
+card (``stage(device_tensor=)``, bf16 only) by exporting its storage, and
+the ticket gains one field, ``"cuda_ipc"``: the source's host identity
+(hostname and boot id) and pid, the GPU's UUID, the storage's IPC handle,
+byte offset and size, and an interprocess event recorded after the
+gather. A sink on the same host, in another process, that has not yet
+failed a device open from that source address opens the handle on a
+stream of its own that waits on the event, copies the parcel into its own
+allocation, closes the mapping and sends ``{"op": "done", "id"}``, which
+frees the staged tensor (the reference's op). Every other sink, a JAX one
+too (it reads only ``jax_addr``), pulls the same ticket over the socket:
+the staged entry keeps a resolver that copies the tensor to the host.
+Each fall-through is counted (``socket_reasons``) and a failed open is
+counted (``device_pull_failures``) and logged, then the ticket goes over
+the socket; a same-process pull never takes the device path, because
+CUDA does not open a handle in the process that exported it.
 
 A ticket is served exactly once: a concurrent second pull is refused
 while the first transmits, and the parcel stays staged until its last
 byte is on the wire, so a send that fails leaves it for the sink's retry
 (``runtime/retry.py`` ``policies.KV_PULL``). Unclaimed tickets expire
-after ``STAGED_TTL_S``.
+after ``STAGED_TTL_S``; an expired device parcel is released.
 
 The same socket serves ``{"op": "blocks", "hashes", "max"}``: the G4
 remote tier, where peers fetch KV blocks from this worker's host tiers by
@@ -36,14 +56,15 @@ carries at the rate that peer last delivered, so a prefix too long for
 one budget still brings its head instead of timing out whole; the wire
 is unchanged.
 
-Not ported: the same-host device path and the chaos hooks (ROADMAP items
-8 and 18).
+Not ported: the chaos hooks (ROADMAP item 18); the journal events and
+spans of a pull wait for item 12.
 """
 
 from __future__ import annotations
 
 import asyncio
 import collections
+import os
 import socket
 import struct
 import threading
@@ -110,10 +131,134 @@ def _recv_bulk_into(sock: socket.socket, buf: memoryview,
         got += r
 
 
-class _Staged:
-    __slots__ = ("meta", "payload", "resolve", "groups", "t", "in_progress")
+def host_identity() -> str:
+    """This host as the device path compares it: hostname and boot id
+    (two machines, or two boots, never share one)."""
+    try:
+        with open("/proc/sys/kernel/random/boot_id") as f:
+            boot = f.read().strip()
+    except OSError:
+        boot = ""
+    return f"{socket.gethostname()}/{boot}"
 
-    def __init__(self, meta: dict, payload, resolve, groups):
+
+class CudaIpc:
+    """The CUDA IPC calls of the device path, behind one small interface:
+    torch's storage-sharing calls (the ones ``torch.multiprocessing``
+    makes, ``UntypedStorage._share_cuda_`` on the source and
+    ``_new_shared_cuda`` on the sink) plus an interprocess event. Tests
+    pass an object with the same four methods.
+
+    The handle covers the caching allocator's whole block, so the field
+    carries the storage's byte offset in it. torch counts the sink's
+    mapping in a shared counter (one at export, back to zero when the
+    sink frees its storage); ``release`` takes that count back for an
+    export no sink opened, or torch would keep the block in its limbo for
+    the life of the process."""
+
+    def __init__(self):
+        self._local = threading.local()  # per thread: {device: stream}
+        self._uuids: dict[str, int] | None = None
+
+    def probe(self) -> tuple[bool, str]:
+        """(usable, why) on the source's side only: a CUDA device, and an
+        allocation whose storage exports. Whether a sink can open it shows
+        only at the sink's first open (a loopback in one process proves
+        nothing: CUDA refuses a handle in its exporting process)."""
+        try:
+            import torch
+            if not torch.cuda.is_available():
+                return False, "no CUDA device"
+            probe = torch.empty(1 << 21, dtype=torch.uint8, device="cuda")
+            self.release(self.export(probe, None))
+            return True, (f"a 2 MiB block of {torch.cuda.get_device_name()} "
+                          f"exported")
+        except Exception as exc:  # noqa: BLE001 — any failure means off
+            return False, f"export failed: {type(exc).__name__}: {exc}"
+
+    def export(self, tensor, event) -> dict:
+        """The ticket field of a contiguous CUDA tensor: ``event`` (an
+        interprocess ``torch.cuda.Event`` recorded after the tensor was
+        written) orders the sink's read after the writes."""
+        import torch
+        if tensor.device.type != "cuda" or not tensor.is_contiguous():
+            raise ValueError("the device path exports contiguous CUDA "
+                             "tensors only")
+        (device, handle, size, offset, ref, ref_offset, share_event,
+         share_sync) = tensor.untyped_storage()._share_cuda_()
+        return {"host": host_identity(), "pid": os.getpid(),
+                "gpu": str(torch.cuda.get_device_properties(device).uuid),
+                "device": device, "handle": handle, "size": size,
+                "offset": offset, "elem_offset": tensor.storage_offset(),
+                "ref": ref, "ref_offset": ref_offset,
+                "event": event.ipc_handle() if event is not None else b"",
+                "share_event": share_event, "share_sync": share_sync}
+
+    def release(self, field: dict) -> None:
+        """Take back the sink's count of an export that no sink holds
+        (pulled over the socket, expired, or probed)."""
+        import torch
+        torch.UntypedStorage._release_ipc_counter(
+            field["ref"], field["ref_offset"], device=field["device"])
+
+    def _device_of(self, uuid: str) -> int:
+        import torch
+        if self._uuids is None:
+            self._uuids = {
+                str(torch.cuda.get_device_properties(i).uuid): i
+                for i in range(torch.cuda.device_count())}
+        if uuid not in self._uuids:
+            raise RuntimeError(f"GPU {uuid} is not visible to this process")
+        return self._uuids[uuid]
+
+    def _stream(self, device: int):
+        import torch
+        streams = self._local.__dict__.setdefault("streams", {})
+        if device not in streams:
+            streams[device] = torch.cuda.Stream(device)
+        return streams[device]
+
+    def open(self, field: dict, shape, dtype: str):
+        """(the parcel in an allocation of this process, seconds to open
+        the handle). On the calling thread's own stream (never the
+        default stream, where the engine's window graphs replay), which
+        waits on the source's event before the copy; the mapping is
+        closed before this returns."""
+        import torch
+        if dtype != "bfloat16":
+            raise ValueError(f"device parcels are bf16, not {dtype}")
+        device = self._device_of(field["gpu"])
+        torch.cuda.set_device(device)
+        stream = self._stream(device)
+        t0 = time.perf_counter()
+        with torch.cuda.stream(stream):
+            if field["event"]:
+                stream.wait_event(torch.cuda.Event.from_ipc_handle(
+                    device, field["event"]))
+            storage = torch.UntypedStorage._new_shared_cuda(
+                device, field["handle"], field["size"], field["offset"],
+                field["ref"], field["ref_offset"], field["share_event"],
+                field["share_sync"])
+            src = torch.empty(0, dtype=torch.bfloat16, device=device).set_(
+                storage, field["elem_offset"], tuple(shape))
+            del storage
+            open_s = time.perf_counter() - t0
+            try:
+                out = src.clone()
+                stream.synchronize()
+            finally:
+                # The last reference: the mapping closes here, on this
+                # stream, before the source hears "done".
+                del src
+        return out, open_s
+
+
+class _Staged:
+    __slots__ = ("meta", "payload", "resolve", "groups", "t", "in_progress",
+                 "device", "ipc")
+
+    def __init__(self, meta: dict, payload, resolve, groups, device=None,
+                 ipc=None):
         self.meta = meta
         self.payload = payload   # host parcel, once known
         self.resolve = resolve   # () -> parcel, or None
@@ -123,6 +268,10 @@ class _Staged:
         # Claimed by a pull connection (under the server lock) until its
         # send ends: a second concurrent pull must not also transmit.
         self.in_progress = False
+        # The device path: the staged tensor, kept until "done" or the
+        # TTL, and its exported field (None when it was not exported).
+        self.device = device
+        self.ipc = ipc
 
     def array(self) -> np.ndarray:
         if self.payload is None:
@@ -134,12 +283,23 @@ class _Staged:
 class KvPlaneServer:
     """Source side: stages parcels for a direct pull and serves host-tier
     blocks to peers. One per worker process; thread-based, so bulk socket
-    I/O never shares the event loop with the request plane."""
+    I/O never shares the event loop with the request plane.
+
+    ``use_device_path`` (the reference's ``use_jax_path``): None probes
+    ``ipc`` at construction; ``device_path`` and ``device_path_reason``
+    hold the outcome."""
 
     def __init__(self, host: str = "127.0.0.1",
                  block_provider: Callable[[int], np.ndarray | None]
-                 | None = None):
+                 | None = None, use_device_path: bool | None = None,
+                 ipc=None):
         self.host = host
+        self.ipc = ipc if ipc is not None else CudaIpc()
+        if use_device_path is None:
+            self.device_path, self.device_path_reason = self.ipc.probe()
+        else:
+            self.device_path = use_device_path
+            self.device_path_reason = "set by the caller"
         self.port = 0
         self.block_provider = block_provider
         self._staged: dict[int, _Staged] = {}
@@ -152,6 +312,9 @@ class KvPlaneServer:
         self.bytes_out = 0
         self.block_requests = 0
         self.blocks_served = 0
+        self.device_stages = 0          # tickets that carry the field
+        self.device_done = 0            # ... whose sink sent "done"
+        self.device_export_failures = 0
 
     def stats(self) -> dict:
         with self._lock:
@@ -159,6 +322,10 @@ class KvPlaneServer:
         return {"transfers": self.transfers, "bytes_out": self.bytes_out,
                 "block_requests": self.block_requests,
                 "blocks_served": self.blocks_served, "staged": staged,
+                "device_path": self.device_path,
+                "device_stages": self.device_stages,
+                "device_done": self.device_done,
+                "device_export_failures": self.device_export_failures,
                 "addr": self.address}
 
     # -- lifecycle ------------------------------------------------------------
@@ -201,18 +368,37 @@ class KvPlaneServer:
             except OSError:
                 pass
         with self._lock:
+            for staged in self._staged.values():
+                self._release(staged)
             self._staged.clear()
 
     # -- staging --------------------------------------------------------------
     def stage(self, kv: np.ndarray | None = None, meta: dict | None = None,
               resolve: Callable[[], np.ndarray] | None = None,
               prompt_len: int | None = None,
-              resolve_groups: list | None = None) -> dict:
+              resolve_groups: list | None = None, device_tensor=None,
+              event=None) -> dict:
         """Stage a parcel and return its ticket. Give ``kv`` (a host
         parcel), ``resolve`` (a deferred host fetch, run on the plane's
         thread at pull time) or ``resolve_groups`` ([(n_pages, resolver)]
         page groups along axis 3, sent in order as each resolves); the
-        last two need ``meta`` with the parcel's shape and wire dtype."""
+        last two need ``meta`` with the parcel's shape and wire dtype.
+
+        ``device_tensor`` (with ``resolve`` for the socket path, and
+        ``event``, recorded after the tensor was written) offers the
+        device path when this server has it: the tensor is exported on the
+        calling thread, stays referenced until the sink's ``done`` or the
+        TTL, and the ticket carries ``"cuda_ipc"``. A failed export is
+        counted and logged, and the ticket goes out without the field."""
+        field = None
+        if device_tensor is not None and self.device_path:
+            try:
+                field = self.ipc.export(device_tensor, event)
+            except Exception:  # noqa: BLE001 — counted; the socket remains
+                log.exception("device-path export failed; the ticket goes "
+                              "over the socket only")
+                with self._lock:
+                    self.device_export_failures += 1
         meta = dict(meta or {})
         if kv is not None:
             meta.setdefault("shape", list(kv.shape))
@@ -224,16 +410,34 @@ class KvPlaneServer:
         with self._lock:
             tid = self._next_id
             self._next_id += 1
-            self._staged[tid] = _Staged(meta, kv, resolve, resolve_groups)
+            self._staged[tid] = _Staged(
+                meta, kv, resolve, resolve_groups,
+                device=device_tensor if field is not None else None,
+                ipc=field)
+            self.device_stages += field is not None
             self._gc_locked()
-        return {"id": tid, "addr": self.address, **meta}
+        ticket = {"id": tid, "addr": self.address, **meta}
+        if field is not None:
+            ticket["cuda_ipc"] = field
+        return ticket
+
+    def _release(self, staged: _Staged) -> None:
+        """Drop a staged entry's device export that no sink holds (called
+        under the lock as the entry leaves, except after "done")."""
+        if staged.ipc is None:
+            return
+        try:
+            self.ipc.release(staged.ipc)
+        except Exception:  # noqa: BLE001 — the block stays in torch's limbo
+            log.exception("releasing a device export failed")
+        staged.ipc = staged.device = None
 
     def _gc_locked(self) -> None:
         now = time.monotonic()
         dead = [tid for tid, s in self._staged.items()
                 if now - s.t > STAGED_TTL_S]
         for tid in dead:
-            del self._staged[tid]
+            self._release(self._staged.pop(tid))
         if dead:
             log.warning("expired %d unclaimed KV transfers", len(dead))
 
@@ -260,6 +464,8 @@ class KvPlaneServer:
                     self._handle_pull(conn, req)
                 elif op == "blocks":
                     self._handle_blocks(conn, req)
+                elif op == "done":
+                    self._handle_done(req)
                 else:
                     _send_ctrl(conn, {"err": f"unknown op {op!r}"})
         except (ConnectionError, OSError, ValueError):
@@ -269,6 +475,17 @@ class KvPlaneServer:
                 conn.close()
             except OSError:
                 pass
+
+    def _handle_done(self, req: dict) -> None:
+        """A sink pulled the ticket over the device path and closed its
+        mapping (no answer, as in the reference): free the staged
+        tensor now instead of at the TTL."""
+        with self._lock:
+            staged = self._staged.get(int(req.get("id", -1)))
+            if staged is None or staged.in_progress:
+                return
+            del self._staged[int(req["id"])]
+            self.device_done += staged.ipc is not None
 
     def _handle_pull(self, conn: socket.socket, req: dict) -> None:
         tid = int(req["id"])
@@ -292,6 +509,7 @@ class KvPlaneServer:
             with self._lock:
                 if sent is not None:
                     self._staged.pop(tid, None)
+                    self._release(staged)
                     self.transfers += 1
                     self.bytes_out += sent
                 else:
@@ -369,27 +587,46 @@ class KvPlaneServer:
 
 
 class KvPlaneClient:
-    """Sink side: pulls staged parcels. Blocking socket I/O runs on
-    executor threads; one cached connection per source address, whose
-    lock serializes a full request/response cycle."""
+    """Sink side: pulls staged parcels, over the device path when the
+    ticket allows it (a device tensor comes back) and over the socket
+    otherwise (a host parcel). Blocking I/O runs on executor threads; one
+    cached connection per source address, whose lock serializes a full
+    request/response cycle."""
 
-    def __init__(self, timeout: float = 30.0):
+    def __init__(self, timeout: float = 30.0, ipc=None):
         self.timeout = timeout
+        self.ipc = ipc if ipc is not None else CudaIpc()
         self._conns: dict[str, tuple[socket.socket, threading.Lock]] = {}
         self._lock = threading.Lock()
+        self._host = host_identity()
+        self._device_failed: set[str] = set()  # source addresses
         self.transfers = 0
         self.bytes_in = 0
         self.pull_seconds_total = 0.0
         self.pull_failures = 0
+        self.device_pulls = 0
+        self.device_bytes_in = 0
+        self.device_pull_failures = 0
+        self.socket_pulls = 0
+        # Why a pull went over the socket: {reason: pulls}.
+        self.socket_reasons: collections.Counter = collections.Counter()
         # Recent pulls: (ticket id, seconds to the answer's header, seconds
-        # to its last byte, bytes). The header waits for the source's
-        # first page group; the rest is the transfer and any later groups.
+        # to its last byte, bytes, path). Over the socket the header waits
+        # for the source's first page group; the rest is the transfer and
+        # any later groups. Over the device path the "header" is the
+        # handle's open and the rest the copy.
         self.recent: collections.deque = collections.deque(maxlen=256)
 
     def stats(self) -> dict:
-        return {"transfers": self.transfers, "bytes_in": self.bytes_in,
-                "pull_seconds_total": self.pull_seconds_total,
-                "pull_failures": self.pull_failures}
+        with self._lock:
+            return {"transfers": self.transfers, "bytes_in": self.bytes_in,
+                    "pull_seconds_total": self.pull_seconds_total,
+                    "pull_failures": self.pull_failures,
+                    "device_pulls": self.device_pulls,
+                    "device_bytes_in": self.device_bytes_in,
+                    "device_pull_failures": self.device_pull_failures,
+                    "socket_pulls": self.socket_pulls,
+                    "socket_reasons": dict(self.socket_reasons)}
 
     def _conn_for(self, addr: str) -> tuple[socket.socket, threading.Lock]:
         with self._lock:
@@ -419,29 +656,106 @@ class KvPlaneClient:
             except OSError:
                 pass
 
-    def pull_sync(self, ticket: dict) -> np.ndarray:
-        """Pull a ticket's parcel. Transient failures (a reset mid-
-        transfer, a racing pull holding the claim) retry under
+    def pull_sync(self, ticket: dict):
+        """Pull a ticket's parcel: a CUDA tensor over the device path, or
+        a host parcel over the socket. The device path is taken only for a
+        ticket with the field, from this host, from another process, whose
+        source address has not failed a device open before; a failed open
+        is counted, logged and followed by the socket pull of the same
+        ticket. Over the socket, transient failures (a reset mid-transfer,
+        a racing pull holding the claim) retry under
         ``policies.KV_PULL``: the parcel stays staged until every byte
         lands. An expired or unknown ticket fails at once."""
         t0 = time.monotonic()
-        backoff = Backoff(policies.KV_PULL)
         failed = True
         try:
-            while True:
-                try:
-                    out = self._pull_socket_once(ticket)
+            refusal = self._device_refusal(ticket)
+            if refusal is None:
+                out = self._pull_device(ticket)
+                if out is not None:
                     failed = False
                     return out
-                except (ConnectionError, OSError) as exc:
-                    if ("expired transfer" in str(exc)
-                            or not backoff.sleep_sync()):
-                        raise
-                    log.warning("KV pull failed (%s); retrying", exc)
+                refusal = "the device open failed"
+            out = self._pull_socket(ticket, refusal)
+            failed = False
+            return out
         finally:
             with self._lock:
                 self.pull_seconds_total += time.monotonic() - t0
                 self.pull_failures += failed
+
+    def _device_refusal(self, ticket: dict) -> str | None:
+        """Why this ticket goes over the socket, or None for the device
+        path."""
+        field = ticket.get("cuda_ipc")
+        if not field:
+            return "no device field"
+        if field.get("host") != self._host:
+            return "another host"
+        if field.get("pid") == os.getpid():
+            return "the source is this process"
+        with self._lock:
+            if ticket["addr"] in self._device_failed:
+                return "a device open from this source failed before"
+        return None
+
+    def _pull_device(self, ticket: dict):
+        """The device pull (``CudaIpc.open``), then "done" to the source;
+        None after a failed open, which is counted and logged, and the
+        source remembered."""
+        addr, tid = ticket["addr"], int(ticket["id"])
+        t0 = time.perf_counter()
+        try:
+            out, open_s = self.ipc.open(ticket["cuda_ipc"], ticket["shape"],
+                                        ticket["dtype"])
+        except Exception as exc:  # noqa: BLE001 — counted, logged, socket
+            with self._lock:
+                self.device_pull_failures += 1
+                self._device_failed.add(addr)
+            log.warning("device pull of KV ticket %d from %s failed (%s: "
+                        "%s); it and later tickets of that source go over "
+                        "the socket", tid, addr, type(exc).__name__, exc)
+            return None
+        t_end = time.perf_counter() - t0
+        self._send_done(addr, tid)
+        with self._lock:
+            self.transfers += 1
+            self.device_pulls += 1
+            self.bytes_in += out.nbytes
+            self.device_bytes_in += out.nbytes
+            self.recent.append((tid, open_s, t_end, out.nbytes, "device"))
+        return out
+
+    def _send_done(self, addr: str, tid: int) -> None:
+        """Tell the source that its staged tensor is no longer needed (no
+        answer comes back); if this fails, its TTL frees it."""
+        try:
+            sock, conn_lock = self._conn_for(addr)
+            with conn_lock:
+                _send_ctrl(sock, {"op": "done", "id": tid})
+        except (ConnectionError, OSError) as exc:
+            self._drop_conn(addr)
+            log.warning("KV ticket %d: 'done' to %s failed (%s); the source "
+                        "frees it at its TTL", tid, addr, exc)
+
+    def _pull_socket(self, ticket: dict, reason: str) -> np.ndarray:
+        if reason != "no device field":
+            log.info("KV ticket %d goes over the socket: %s",
+                     int(ticket["id"]), reason)
+        with self._lock:
+            self.socket_reasons[reason] += 1
+        backoff = Backoff(policies.KV_PULL)
+        while True:
+            try:
+                out = self._pull_socket_once(ticket)
+                with self._lock:
+                    self.socket_pulls += 1
+                return out
+            except (ConnectionError, OSError) as exc:
+                if ("expired transfer" in str(exc)
+                        or not backoff.sleep_sync()):
+                    raise
+                log.warning("KV pull failed (%s); retrying", exc)
 
     def _pull_socket_once(self, ticket: dict) -> np.ndarray:
         addr = ticket["addr"]
@@ -478,10 +792,10 @@ class KvPlaneClient:
             self.transfers += 1
             self.bytes_in += out.nbytes
             self.recent.append((int(ticket["id"]), t_header, t_end,
-                                out.nbytes))
+                                out.nbytes, "socket"))
         return out
 
-    async def pull(self, ticket: dict) -> np.ndarray:
+    async def pull(self, ticket: dict):
         return await asyncio.get_running_loop().run_in_executor(
             None, self.pull_sync, ticket)
 

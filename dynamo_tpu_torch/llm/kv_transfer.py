@@ -43,11 +43,12 @@ def kv_from_chunks(meta: dict, chunks: list[bytes]) -> np.ndarray:
 
 
 async def collect_prefill_response(stream: AsyncIterator[dict],
-                                   plane_client=None) -> tuple[int, np.ndarray]:
+                                   plane_client=None) -> tuple[int, object]:
     """Assemble a prefill worker's response into (first_token, parcel).
 
     Two wire forms: a transfer TICKET (the parcel is staged on the
-    worker's KV plane: pull the bulk bytes there), or inline chunks. The
+    worker's KV plane: pull it there, a device tensor over the plane's
+    device path or a host parcel over its socket), or inline chunks. The
     pull starts the moment the ticket lands: a chunk-streamed prefill
     worker sends its ticket before the first token, so the bytes cross
     while later chunks still compute. If the stream dies, the pull is

@@ -86,7 +86,8 @@ class QueuePrefillWorker:
             first_token, ticket, prompt_len = await self.engine.run_job(
                 lambda: self.engine.prefill_extract_staged(req, self.plane))
             self.pulled += 1
-            log.info("queue prefill served: %d tokens, ticket %d",
+            log.info("queue prefill served%s: %d tokens, ticket %d",
+                     " (device path)" if "cuda_ipc" in ticket else "",
                      prompt_len, ticket["id"])
             await self.client.publish(
                 reply, {"first_token": first_token, "ticket": ticket})
@@ -102,7 +103,8 @@ class QueuePrefillWorker:
 
 class QueuePrefillDispatcher:
     """Decode-worker side: enqueue under depth backpressure, await the
-    reply, pull the parcel over the KV plane."""
+    reply, pull the parcel over the KV plane (a device tensor over its
+    device path, else a host parcel)."""
 
     def __init__(self, client, model_name: str, plane_client,
                  max_queue_depth: int = 8, reply_timeout: float = 120.0):

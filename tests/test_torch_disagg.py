@@ -35,6 +35,7 @@
 """
 
 import asyncio
+import json
 import time
 
 import jax
@@ -609,7 +610,9 @@ def test_worker_cli_accepts_the_disagg_flags():
 def test_1p1d_entry_points_as_processes(plane):
     """coordinator + ``--mode prefill`` + ``--mode decode`` + frontend,
     each a process on the CPU: a streamed chat over the threshold is
-    prefilled on the prefill worker, and all four exit 0 on SIGTERM."""
+    prefilled on the prefill worker, and all four exit 0 on SIGTERM; the
+    workers log their plane's device path off (a CPU engine) and print
+    their counters as they exit."""
     procs = []
     try:
         coord = Proc("dynamo_tpu_torch.runtime.coordinator", "--host",
@@ -641,8 +644,24 @@ def test_1p1d_entry_points_as_processes(plane):
         assert (status, ctype) == (200, "text/event-stream")
         assert sse_events(raw)[-1]["usage"]["completion_tokens"] == 8
         prefill.wait_line("chunk-streamed" if plane else "sent inline")
+        if plane:
+            assert "device path off: the engine runs on cpu" in \
+                prefill.wait_line("KV plane device path")
         for proc in (front, decode, prefill, coord):
             assert proc.stop() == 0, proc.seen[-20:]
+        counters = json.loads(decode.wait_line("GPU_WORKER_EXIT ").split(
+            " ", 1)[1])
+        assert counters["disagg"] == {"remote_prefills": 1,
+                                      "local_prefills": 0,
+                                      "remote_failures": 0}
+        assert counters["engine"]["injected_admissions"] == 1
+        client = counters["plane_client"]
+        assert (client["socket_pulls"], client["device_pulls"]) == (
+            (1, 0) if plane else (0, 0))
+        done = json.loads(prefill.wait_line("GPU_WORKER_EXIT ").split(
+            " ", 1)[1])
+        assert done["engine"]["windows"] == 0
+        assert ("plane_server" in done) == plane
     finally:
         for proc in procs:
             proc.kill()

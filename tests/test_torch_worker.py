@@ -619,18 +619,20 @@ class Proc:
                              daemon=True).start()
 
     def wait_line(self, text: str) -> str:
-        """The first line that holds ``text``, waiting for it."""
+        """The first line that holds ``text``, waiting for it (also from
+        a process that has exited, among the lines it wrote)."""
         deadline = time.monotonic() + TIMEOUT_S
         while True:
             for line in self.seen:
                 if text in line:
                     return line.strip()
-            assert self.p.poll() is None, (self.p.returncode, self.seen[-20:])
-            assert time.monotonic() < deadline, self.seen[-20:]
             try:
                 self.seen.append(self.lines.get(timeout=0.5))
+                continue
             except queue.Empty:
                 pass
+            assert self.p.poll() is None, (self.p.returncode, self.seen[-20:])
+            assert time.monotonic() < deadline, self.seen[-20:]
 
     def port(self, text: str) -> int:
         return int(self.wait_line(text).rsplit("port=", 1)[1].split()[0])
@@ -714,6 +716,42 @@ def test_refused_flags_name_their_item(main, argv, words, capsys):
         main(argv)
     assert exc.value.code != 0
     assert words in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv,words", [
+    (["--tp", "2"], "ROADMAP item 16"),
+    (["--dp", "2"], "ROADMAP item 16"),
+    (["--pp", "2"], "ROADMAP item 16"),
+    (["--sp", "2"], "ROADMAP item 16"),
+    (["--attention-backend", "pallas"], "no ROADMAP item"),
+    (["--warmup-prefill-ladder"], "no ROADMAP item"),
+    (["--tool-call-parser", "hermes"], "ROADMAP item 23"),
+    (["--reasoning-parser", "deepseek_r1"], "ROADMAP item 23"),
+    (["--input-file", "prompts.jsonl"], "ROADMAP item 24"),
+    (["--output-file", "out.jsonl"], "ROADMAP item 24"),
+    (["--batch-concurrency", "4"], "ROADMAP item 24"),
+    (["--batch-max-tokens", "64"], "ROADMAP item 24"),
+    (["--slo-ttft-p99-ms", "500"], "ROADMAP item 12"),
+    (["--request-log", "requests.jsonl"], "ROADMAP item 12"),
+    (["out=mocker"], "ROADMAP item 25"),
+    (["out=echo"], "no ROADMAP item"),
+], ids=lambda v: " ".join(v) if isinstance(v, list) else None)
+def test_launcher_refused_flags_name_their_item(argv, words, capsys):
+    """Every flag of the reference launcher that the port does not serve,
+    and out=echo|mocker, exit naming what they wait for."""
+    with pytest.raises(SystemExit) as exc:
+        launch.parse_args(["in=http", "out=gpu", *argv])
+    assert exc.value.code != 0
+    assert words in capsys.readouterr().err
+
+
+def test_launcher_takes_the_reference_defaults_of_refused_flags():
+    args = launch.parse_args([
+        "--tp", "1", "--dp", "1", "--pp", "1", "--sp", "1",
+        "--attention-backend", "auto", "--batch-concurrency", "8",
+        "--batch-max-tokens", "128"])
+    assert (args.input, args.output, args.tp, args.attention_backend) == (
+        "http", "gpu", 1, "auto")
 
 
 @pytest.mark.parametrize("argv,want", [
