@@ -61,13 +61,23 @@ Phases, in order; any failure exits non-zero without the final line:
    within 1e-5), and the engine's window programs are printed: made,
    captured, capture seconds, warmup seconds (launch.build_engine leaves
    warmup_windows off, as the reference's launcher does: these programs
-   are captured at first use) and graph-pool bytes. The engine is then
-   released.
+   are captured at first use) and graph-pool bytes. The engine carries a
+   metrics registry; after round 1 each request's trace holds its
+   engine.queue_wait, engine.prefill and engine.decode spans (the decode
+   spans carrying every token but the first), the flight ring holds one
+   row per processed window (idle-stable windows skipped, the token
+   column summing to the decode tokens) and decode_step_seconds counted
+   every window. After round 2, round 1's shape on fresh prompts is
+   served once to capture its programs, then six times, spans on and off
+   in turns (tracing.set_enabled): tok/s and the engine thread's host ms
+   per window (dispatch, processing and the flight row, less the wait for
+   the window's tokens) of each run, and their means over the runs that
+   captured no program, the cost of spans on the card. The engine is then released.
 4. main path, int8 pool: the same with --quant-kv int8: every decode step
    of every layer, in both rounds, launches the int8 kernel and never the
    bf16 one; the teacher-forced checks run on int8 pools, and round 1's
    logits stay cosine-close (> 0.99) to the bf16 pool's for the same
-   tokens.
+   tokens. The observability checks of round 1 run here too.
 5. the OpenAI front at full width: launch.start_http (what ``python -m
    dynamo_tpu_torch.launch in=http`` runs) builds llama-3-8b (bf16 pool,
    seed 0) behind the HTTP front on 127.0.0.1 port 0 in this process. The
@@ -381,7 +391,41 @@ Phases, in order; any failure exits non-zero without the final line:
    bytes, pull ms, open ms and GB/s and the client's TTFT and TPOT beside
    phase 8's socket pull ms and GB/s and handler TTFT for the same
    prompt, each worker's peak device memory and the phase's seconds.
-In every phase from 3 to 13, each decode window an engine dispatched was
+14. the observability plane, on phase 13b's fleet before its SIGTERM:
+   both workers run with DTPU_SYSTEM_ENABLED=1 (a status server each,
+   registered for the fleet pane) and their flight bundles in a temporary
+   directory. A chat of OBS_CHAT_WORDS words (a remote prefill) goes
+   through the frontend with a traceparent: the frontend's /debug/traces
+   holds its http.request (parented to the header's span) and
+   router.decide, the decode worker's status server its worker.request
+   (parented to http.request's span), engine.queue_wait, engine.decode,
+   kv.transfer.recv and kv.plane.pull, the prefill worker's its
+   worker.request and kv.transfer.send, all under that trace id. Then
+   two rounds of OBS_PROFILE_ROWS completions of OBS_PROFILE_TOKENS
+   tokens decode on the decode worker (the first captures every window
+   program the second needs), and while the second decodes POST
+   /debug/profile captures OBS_PROFILE_MS ms: the answer's mode is "torch" and it counts hist_flash_partial and
+   hist_flash_combine launches inside the graph replays, each at least a
+   window's (M x 32) and at most M x 32 per window processed during the
+   capture plus two. /metrics on the three processes agrees with the
+   traffic: the frontend's http_requests_total by route with status
+   200, each worker's requests_total, the decode worker's
+   request_queue_wait_seconds count equal to its requests, its
+   prefill_step_seconds count between 1 and its local prefills, and
+   (after the exit) its decode_step_seconds count equal to its windows; it prints
+   each scrape's ms. The frontend's /debug/timeline holds the decode
+   worker's worker_join (a prefill worker registers no model, so it has
+   none) and both workers' journal streams, with no journal_gap;
+   /debug/fleet lists both workers; the decode worker's /debug/flight
+   has rows, and each bundle the fleet wrote names its reason (a graph
+   captured at first use stalls the decode loop past the 2 s trigger:
+   decode_stall bundles are expected and reported). The decode worker's
+   own counters, printed on SIGUSR1 just before phase 14 and at its exit,
+   split its launches between 13b and 14: each share is M x 32 per window
+   of that share, and the /metrics window count at phase 14's start
+   equals the first reading's windows. Both shares join the kernels
+   line.
+In every phase from 3 to 14, each decode window an engine dispatched was
 a replay of its program's CUDA graph (the runner's replay count rises by
 the windows dispatched; in phase 13 the decode worker's own count), and the warmed engines of phases 8-11 (built as
 ``backends.gpu`` builds them, warmup_windows set) print their programs
@@ -809,14 +853,18 @@ def main_path(attention, model, quant_kv: str | None) -> dict:
     before this returns."""
     from dynamo_tpu_torch import launch
     from dynamo_tpu_torch.profile_decode import MAX_PREFILL_TOKENS, MODEL
+    from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
 
     argv = ["out=gpu", "--model", MODEL, "--seed", "0"]
     if quant_kv:
         argv += ["--quant-kv", quant_kv]
     kind = quant_kv or "bf16"
     t0 = time.monotonic()
-    engine = launch.build_engine(launch.parse_args(argv),
-                                 max_prefill_tokens=MAX_PREFILL_TOKENS)
+    registry = MetricsRegistry()
+    engine = launch.build_engine(
+        launch.parse_args(argv),
+        metrics_registry=registry.namespace("dynamo").component("gpu"),
+        max_prefill_tokens=MAX_PREFILL_TOKENS)
     setup_s = time.monotonic() - t0
     runner = engine.runner
     spec = runner.spec
@@ -835,10 +883,15 @@ def main_path(attention, model, quant_kv: str | None) -> dict:
         f"window={engine.decode_window} setup={setup_s:.1f}s")
     prompts = round1_prompts(spec)
     try:
+        obs0 = observe_start(engine)
         results, stats = round1(engine, attention, prompts)
         stats = {"pool": kind, **stats}
+        stats["observability"] = observe_check(engine, results,
+                                               stats["windows"], obs0)
         log(json.dumps({"main_path": stats}))
         round2 = second_round(engine, attention, prompts)
+        if not quant_kv:
+            stats["tracing_cost"] = tracing_cost(engine)
     finally:
         engine.stop()
     round2.update(round2_plain_checks(engine, model, round2,
@@ -887,11 +940,179 @@ def main_path(attention, model, quant_kv: str | None) -> dict:
     return stats
 
 
-def round1_prompts(spec) -> list[list[int]]:
+def round1_prompts(spec, seed: int = 0) -> list[list[int]]:
     from dynamo_tpu_torch.profile_decode import PROMPT_LENS
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     return [rng.integers(0, spec.vocab_size, size=n).tolist()
             for n in PROMPT_LENS]
+
+
+def round1_requests(spec, prompts) -> list[dict]:
+    """Round 1's requests over ``prompts``: 6 greedy, one top-p, one
+    seeded, MAX_TOKENS each."""
+    from dynamo_tpu_torch.profile_decode import MAX_TOKENS
+    sampling = [{}] * 6 + [{"temperature": 0.8, "top_p": 0.9},
+                           {"temperature": 0.8, "seed": 1234}]
+    return [{"model": spec.name, "token_ids": p,
+             "stop_conditions": {"max_tokens": MAX_TOKENS},
+             "sampling_options": s} for p, s in zip(prompts, sampling)]
+
+
+def observe_start(engine) -> dict:
+    """Before round 1: an empty flight ring, and the engine's processed
+    windows and phase histogram counts."""
+    from dynamo_tpu_torch.runtime import flight
+    flight.get_recorder().clear()
+    return {"steps": engine.step_count,
+            "decode": engine.phase.decode.get().count,
+            "queue_wait": engine.phase.queue_wait.get().count,
+            "prefill": engine.phase.prefill.get().count}
+
+
+def observe_check(engine, results, windows: int, obs0: dict) -> dict:
+    """After round 1 (phases 3 and 4): each request's trace holds its
+    engine.queue_wait, engine.prefill and engine.decode spans, the decode
+    spans carrying every token but the prefill's first; the flight ring
+    holds one row per processed window (idle-stable ones skipped), whose
+    token column sums to the decode tokens; decode_step_seconds counted
+    every window and request_queue_wait_seconds every request."""
+    from dynamo_tpu_torch.runtime import flight, tracing
+    rec = tracing.get_recorder()
+    want = {"engine.queue_wait", "engine.prefill", "engine.decode"}
+    decode_tokens = 0
+    for i, r in enumerate(results):
+        spans = rec.trace(r["trace_id"])
+        names = {s.name for s in spans}
+        assert want <= names, (i, names)
+        got = sum(s.attrs["tokens"] for s in spans
+                  if s.name == "engine.decode")
+        assert got == len(r["tokens"]) - 1, (i, got, len(r["tokens"]))
+        decode_tokens += got
+    processed = engine.step_count - obs0["steps"]
+    assert processed == windows, (processed, windows)
+    fr = flight.get_recorder()
+    meta = fr.meta()
+    rows = fr.dump()
+    assert not meta["frozen"], meta
+    assert len(rows) == min(windows - meta["skipped_idle"],
+                            fr.capacity), (meta, windows)
+    if windows <= fr.capacity:
+        assert sum(row["tokens"] for row in rows) == decode_tokens, (
+            sum(row["tokens"] for row in rows), decode_tokens)
+    counts = {k: getattr(engine.phase, k).get().count - obs0[k]
+              for k in ("decode", "queue_wait", "prefill")}
+    assert counts["decode"] == windows, (counts, windows)
+    assert counts["queue_wait"] == len(results), counts
+    assert 1 <= counts["prefill"] <= len(results), counts
+    out = {"spans_per_request": len(rec.trace(results[0]["trace_id"])),
+           "flight_rows": len(rows), "flight_skipped_idle":
+           meta["skipped_idle"], "decode_step_count": counts["decode"],
+           "prefill_step_count": counts["prefill"],
+           "decode_tokens": decode_tokens}
+    log(f"observability: every request's queue_wait/prefill/decode spans "
+        f"under its trace; {len(rows)} flight rows + "
+        f"{meta['skipped_idle']} idle-stable skipped = {windows} windows; "
+        f"decode_step_seconds counted {counts['decode']} windows")
+    return out
+
+
+class HostProbe:
+    """The engine thread's host seconds in decode-window dispatch and
+    processing (flight row included), less the waits for the window's
+    tokens on the host (``_Readback.numpy`` inside the processing)."""
+
+    def __init__(self, engine):
+        from dynamo_tpu_torch.engine import engine as teng
+        self.engine, self.readback = engine, teng._Readback
+        self.seconds = self.wait = 0.0
+        self.windows = 0
+        self._inside = False
+
+    def __enter__(self):
+        eng, probe = self.engine, self
+        numpy = self.readback.numpy
+
+        def timed(fn, count: bool = False):
+            def run(*a, **k):
+                t = time.perf_counter()
+                probe._inside = True
+                try:
+                    return fn(*a, **k)
+                finally:
+                    probe._inside = False
+                    probe.seconds += time.perf_counter() - t
+                    probe.windows += count
+            return run
+
+        def waited(rb):
+            t = time.perf_counter()
+            try:
+                return numpy(rb)
+            finally:
+                if probe._inside:
+                    probe.wait += time.perf_counter() - t
+
+        self._saved = numpy
+        eng._dispatch_window = timed(eng._dispatch_window)
+        eng._process_window = timed(eng._process_window, count=True)
+        eng._note_flight = timed(eng._note_flight)
+        self.readback.numpy = waited
+        return self
+
+    def __exit__(self, *exc):
+        for name in ("_dispatch_window", "_process_window", "_note_flight"):
+            del self.engine.__dict__[name]
+        self.readback.numpy = self._saved
+        return False
+
+    @property
+    def ms_per_window(self) -> float:
+        return (self.seconds - self.wait) * 1e3 / max(1, self.windows)
+
+
+def tracing_cost(engine, pairs: int = 3) -> dict:
+    """Round 1's shape on fresh prompts (no prefix hit), served once to
+    capture the window programs it reaches, then with spans on and off in
+    turns, ``pairs`` times: tok/s and the engine thread's host ms per
+    window of each run. A run that still captured a program (the keys a
+    round reaches depend on arrival timing) is kept in ``runs`` and left
+    out of the means."""
+    from dynamo_tpu_torch.profile_decode import serve
+    from dynamo_tpu_torch.runtime import tracing
+    spec = engine.runner.spec
+    asyncio.run(serve(engine, round1_requests(spec,
+                                              round1_prompts(spec, 99))))
+    runs = []
+    for k in range(2 * pairs):
+        on = k % 2 == 0
+        requests = round1_requests(spec, round1_prompts(spec, 100 + k))
+        captured0 = engine.runner.window_programs()["captured"]
+        tracing.set_enabled(on)
+        try:
+            with HostProbe(engine) as probe:
+                t0 = time.monotonic()
+                results = asyncio.run(serve(engine, requests))
+                wall = time.monotonic() - t0
+        finally:
+            tracing.set_enabled(True)
+        n_tok = sum(len(r["tokens"]) for r in results)
+        runs.append({"tracing": on, "tok_per_s": n_tok / wall,
+                     "wall_s": wall, "windows": probe.windows,
+                     "host_ms_per_window": probe.ms_per_window,
+                     "captures": engine.runner.window_programs()["captured"]
+                     - captured0})
+    out = {"runs": runs}
+    for on in (True, False):
+        sel = [r for r in runs if r["tracing"] is on and not r["captures"]]
+        key = "on" if on else "off"
+        out[f"clean_runs_{key}"] = len(sel)
+        out[f"tok_per_s_{key}"] = (sum(r["tok_per_s"] for r in sel)
+                                   / len(sel) if sel else None)
+        out[f"host_ms_per_window_{key}"] = (
+            sum(r["host_ms_per_window"] for r in sel) / len(sel)
+            if sel else None)
+    log(json.dumps({"tracing_cost": out}))
+    return out
 
 
 def round1(engine, attention, prompts) -> tuple[list, dict]:
@@ -903,11 +1124,7 @@ def round1(engine, attention, prompts) -> tuple[list, dict]:
     from dynamo_tpu_torch.profile_decode import MAX_TOKENS, serve
     runner = engine.runner
     spec = runner.spec
-    sampling = [{}] * 6 + [{"temperature": 0.8, "top_p": 0.9},
-                           {"temperature": 0.8, "seed": 1234}]
-    requests = [{"model": spec.name, "token_ids": p,
-                 "stop_conditions": {"max_tokens": MAX_TOKENS},
-                 "sampling_options": s} for p, s in zip(prompts, sampling)]
+    requests = round1_requests(spec, prompts)
     attention.KERNEL.launches = 0
     attention.KERNEL.launches_int8 = 0
     windows0 = engine.windows_dispatched
@@ -1315,12 +1532,14 @@ def chat_body(model: str, rng, n_words: int) -> dict:
                          {"role": "user", "content": text}]}
 
 
-def http_call(port: int, method: str, path: str, body=None) -> dict:
+def http_call(port: int, method: str, path: str, body=None,
+              headers: dict | None = None) -> dict:
     """One request over http.client. A streamed answer is read line by
     line: its SSE framing is checked (``data: `` events, each followed by
     a blank line, ``data: [DONE]`` last) and each event's arrival time
-    kept. Returns status, content type, and the JSON body or the events
-    with their seconds since the request was sent."""
+    kept. Returns status, content type, and the JSON body (or the text of
+    a ``text/plain`` one) or the events with their seconds since the
+    request was sent."""
     import http.client
     conn = http.client.HTTPConnection("127.0.0.1", port,
                                       timeout=SSE_TIMEOUT_S)
@@ -1329,10 +1548,14 @@ def http_call(port: int, method: str, path: str, body=None) -> dict:
         payload = body if isinstance(body, (bytes, type(None))) \
             else json.dumps(body).encode()
         conn.request(method, path, body=payload,
-                     headers={"Content-Type": "application/json"})
+                     headers={"Content-Type": "application/json",
+                              **(headers or {})})
         resp = conn.getresponse()
         out = {"status": resp.status,
                "content_type": resp.getheader("Content-Type")}
+        if out["content_type"].startswith("text/plain"):
+            out["text"] = resp.read().decode()
+            return out
         if out["content_type"] != "text/event-stream":
             out["json"] = json.loads(resp.read())
             return out
@@ -1734,10 +1957,10 @@ def dist_phase(attention, engine, tokenizer, on_loop, traffic) -> dict:
     return stats
 
 
-def _spawn(procs: list, *argv):
-    """Start ``python -m *argv`` from the checkout's root, its output
-    lines collected; appends (process, line queue, lines seen) to
-    ``procs`` and returns it."""
+def _spawn(procs: list, *argv, env: dict | None = None):
+    """Start ``python -m *argv`` from the checkout's root (``env`` added
+    to its environment), its output lines collected; appends (process,
+    line queue, lines seen) to ``procs`` and returns it."""
     import os
     import queue
     import subprocess
@@ -1746,7 +1969,7 @@ def _spawn(procs: list, *argv):
         [sys.executable, "-m", *argv], stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True,
         cwd=os.path.dirname(os.path.abspath(__file__)),
-        env=dict(os.environ, DTPU_LOG="info"))
+        env=dict(os.environ, DTPU_LOG="info", **(env or {})))
     lines: queue.Queue = queue.Queue()
     for pipe in (proc.stdout, proc.stderr):
         threading.Thread(target=lambda p=pipe: [lines.put(x) for x in p],
@@ -5234,12 +5457,15 @@ def device_fleet(ref: dict) -> dict:
     """Phase 13b (see the module docstring). ``ref``: phase 8's bf16
     plane pass (its bodies, tokens and remote rows)."""
     import signal
+    import tempfile
 
     from dynamo_tpu_torch.engine.config import PRESETS
     from dynamo_tpu_torch.profile_decode import MODEL
 
     t_phase = time.monotonic()
     spec = PRESETS[MODEL]
+    flight_dir = tempfile.mkdtemp(prefix="chip-smoke-fleet-")
+    status_env = {"DTPU_SYSTEM_ENABLED": "1", "DTPU_FLIGHT_DIR": flight_dir}
     bodies, prompts = ref["bodies"], [b["prompt"] for b in ref["bodies"]]
     remote = [len(p) > DISAGG_MAX_LOCAL for p in prompts]
     http_prompt = np.random.default_rng(PARCEL_SEED).integers(
@@ -5255,15 +5481,18 @@ def device_fleet(ref: dict) -> dict:
         if DEVICE == "cpu":
             common += ("--device", "cpu")
         prefill = _spawn(procs, "dynamo_tpu_torch.backends.gpu", "--mode",
-                         "prefill", *common)
+                         "prefill", *common, env=status_env)
         decode = _spawn(procs, "dynamo_tpu_torch.backends.gpu", "--mode",
                         "decode", "--max-local-prefill-length",
-                        str(DISAGG_MAX_LOCAL), *common)
+                        str(DISAGG_MAX_LOCAL), *common, env=status_env)
         front = _spawn(procs, "dynamo_tpu_torch.frontend", "--http-host",
                        "127.0.0.1", "--http-port", "0", "--coordinator-url",
                        url)
         ready = [_wait_line(w, "GPU_WORKER_READY", timeout=600)
                  for w in (prefill, decode)]
+        status = [int(_wait_line(w, "GPU_WORKER_STATUS").rsplit("=", 1)[1])
+                  for w in (prefill, decode)]
+        hexes = [line.split("worker=", 1)[1].split()[0] for line in ready]
         probes = [_wait_line(w, "KV plane device path") for w in (prefill,
                                                                   decode)]
         if DEVICE == "cuda":
@@ -5289,6 +5518,16 @@ def device_fleet(ref: dict) -> dict:
         staged = _wait_line(prefill, "prefill parcel staged")
         if DEVICE == "cuda":
             assert "(device path)" in staged, staged
+        n_remote = sum(remote) + 1
+        # The decode worker's counters as phase 14 begins (SIGUSR1 prints
+        # them): its exit counters less these are phase 14's share.
+        decode[0].send_signal(signal.SIGUSR1)
+        mid = json.loads(_wait_line(decode, "GPU_WORKER_COUNTERS ").split(
+            " ", 1)[1])["engine"]
+        obs = observability_phase(
+            port, status[1], status[0], hexes[1], hexes[0],
+            {"decode": len(bodies) + 1, "remote": n_remote,
+             "completions": 1}, flight_dir)
         for proc, _, _ in (front, decode, prefill, coord):
             proc.send_signal(signal.SIGTERM)
         d_exit, p_exit = _exit_line(decode), _exit_line(prefill)
@@ -5300,32 +5539,60 @@ def device_fleet(ref: dict) -> dict:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait(timeout=60)
-    n_remote = sum(remote) + 1
     # A CPU rehearsal's workers have no device path: its pulls are the
-    # socket's.
+    # socket's. Phase 14 added one remote prefill (its chat) and two
+    # rounds of OBS_PROFILE_ROWS local ones.
     path = "device" if DEVICE == "cuda" else "socket"
-    n_dev = n_remote if path == "device" else 0
+    all_remote = n_remote + 1
+    n_dev = all_remote if path == "device" else 0
     for r, b in zip(results, bodies):
         assert len(r["tokens"]) == b["max_tokens"], (len(r["tokens"]), b)
     dis, client = d_exit["disagg"], d_exit["plane_client"]
     assert (dis["remote_prefills"], dis["remote_failures"],
-            dis["local_prefills"]) == (n_remote, 0, len(prompts) + 1
-                                       - n_remote), dis
+            dis["local_prefills"]) == (
+        all_remote, 0, len(prompts) + 1 - n_remote + 2 * OBS_PROFILE_ROWS
+    ), dis
     assert (client["device_pulls"], client["socket_pulls"],
-            client["device_pull_failures"]) == (n_dev, n_remote - n_dev,
+            client["device_pull_failures"]) == (n_dev, all_remote - n_dev,
                                                 0), client
-    assert d_exit["engine"]["injected_admissions"] == n_remote
+    assert d_exit["engine"]["injected_admissions"] == all_remote
     server = p_exit["plane_server"]
     assert (server["device_stages"], server["device_done"],
             server["staged"]) == (n_dev, n_dev, 0), server
     assert p_exit["engine"]["device_extracts"] == n_dev
     assert p_exit["engine"]["windows"] == 0, "the prefill worker decoded"
     eng = d_exit["engine"]
-    expected = eng["windows"] * eng["window_steps"] * eng["layers"]
+    per_window = eng["window_steps"] * eng["layers"]
+    # The worker's own counters, split at phase 14's start: 13b's share,
+    # phase 14's, and the whole.
+    shares = {"13b": {k: mid[k] for k in (
+                  "windows", "window_replays", "launches", "launches_int8")},
+              "14": {k: eng[k] - mid[k] for k in (
+                  "windows", "window_replays", "launches", "launches_int8")},
+              "all": eng}
+    for name, c in shares.items():
+        assert c["windows"] > 0 and c["launches_int8"] == 0, (name, c)
+        if DEVICE == "cuda":
+            assert c["launches"] == c["windows"] * per_window, (name, c)
+            assert c["window_replays"] == c["windows"], (name, c)
+    # Phase 14: /metrics counted every window the worker processed, and
+    # the profile's kernels are consistent with the windows replayed in
+    # its capture (each step of a window launches both kernels once per
+    # layer, inside the graph replay).
+    assert obs["decode_windows"] == eng["windows"], (obs, eng)
+    assert obs["windows_before"] == mid["windows"], (obs, mid)
+    prof = obs["profile"]
     if DEVICE == "cuda":
-        assert eng["launches"] == expected > 0, eng
-        assert eng["window_replays"] == eng["windows"], eng
-    assert eng["launches_int8"] == 0, eng
+        assert min(prof["hist_flash_partial"],
+                   prof["hist_flash_combine"]) >= per_window, prof
+        assert prof["hist_flash_partial"] <= (
+            prof["windows_during"] + 2) * per_window, prof
+        assert abs(prof["hist_flash_partial"]
+                   - prof["hist_flash_combine"]) <= per_window, prof
+    obs["windows"] = shares["14"]["windows"]
+    obs["launches"] = {"paged_attention_hist": shares["14"]["launches"],
+                       "paged_attention_hist_int8":
+                       shares["14"]["launches_int8"]}
     # The first token of each remote prompt, its prefill worker's sample,
     # equals phase 8's (the unseeded top-p request samples anew). The
     # greedy ids (rows 0-5 and the long prompt) equal phase 8's, or split
@@ -5352,7 +5619,8 @@ def device_fleet(ref: dict) -> dict:
         splits.append({"request": i, "token": j, "margin": margin})
     per_pages = 2 * spec.num_layers * spec.num_kv_heads * PARCEL_PAGE \
         * spec.head_dim * 2
-    pulls = {rec[3] // per_pages: rec for rec in client["recent"]}
+    pulls = {rec[3] // per_pages: rec
+             for rec in client["recent"][:n_remote]}
     assert all(rec[4] == path for rec in pulls.values()), pulls
     phase8 = {row["prompt_tokens"]: row for row in ref["rows"]}
     rows = []
@@ -5378,8 +5646,10 @@ def device_fleet(ref: dict) -> dict:
            "decode_engine": eng, "prefill_engine": p_exit["engine"],
            "decode_peak_GiB": eng["peak_bytes"] / 2**30,
            "prefill_peak_GiB": p_exit["engine"]["peak_bytes"] / 2**30,
-           "launches": {"paged_attention_hist": eng["launches"],
-                        "paged_attention_hist_int8": eng["launches_int8"]},
+           "launches": {"paged_attention_hist": mid["launches"],
+                        "paged_attention_hist_int8": mid["launches_int8"]},
+           "windows_13b": mid["windows"],
+           "observability": obs,
            "phase_s": time.monotonic() - t_phase}
     log(f"13b: 1P1D {MODEL} as processes ({ready[0]}; {ready[1]}; serving "
         f"in {ready_s:.1f}s; {probes[0]}); {n_remote} remote prefills all "
@@ -5387,6 +5657,238 @@ def device_fleet(ref: dict) -> dict:
         f"{equal}/7, splits at near-ties {splits}; peak memory prefill "
         f"{out['prefill_peak_GiB']:.2f} GiB, decode "
         f"{out['decode_peak_GiB']:.2f} GiB; all four exited 0 on SIGTERM")
+    return out
+
+
+# Phase 14: the trace's chat (a remote prefill: over DISAGG_MAX_LOCAL
+# tokens), the profiled round (local prefills) and the capture's length.
+OBS_CHAT_WORDS = 880
+OBS_TRACE_ID = "0123456789abcdef0123456789abcdef"
+OBS_PARENT_ID = "feedfacecafebeef"
+OBS_PROFILE_ROWS = 8
+OBS_PROFILE_PROMPT = 128
+OBS_PROFILE_TOKENS = 384
+OBS_PROFILE_MS = 1000
+
+
+def scrape(port: int) -> tuple[dict, float]:
+    """GET /metrics: {(name, frozenset of label pairs): value}, and the
+    scrape's ms."""
+    import re
+    t0 = time.perf_counter()
+    res = http_call(port, "GET", "/metrics")
+    ms = (time.perf_counter() - t0) * 1e3
+    assert res["status"] == 200, res
+    label_re = re.compile(r'(\w+)="((?:[^"\\]|\\.)*)"')
+    out = {}
+    for line in res["text"].splitlines():
+        if not line or line.startswith("#"):
+            continue
+        head, value = line.rsplit(" ", 1)
+        name, _, labels = head.partition("{")
+        out[(name, frozenset(label_re.findall(labels)))] = float(value)
+    return out, ms
+
+
+def sample_sum(samples: dict, name: str, **labels) -> float:
+    """The sum of ``name``'s samples whose labels include ``labels``."""
+    want = set(labels.items())
+    return sum(v for (n, ls), v in samples.items()
+               if n == name and want <= set(ls))
+
+
+def trace_names(port: int, trace_id: str, want: set, timeout=30.0) -> list:
+    """The spans of ``trace_id`` on a process's /debug/traces, polled
+    until their names hold ``want``."""
+    deadline = time.monotonic() + timeout
+    while True:
+        res = http_call(port, "GET", f"/debug/traces?trace_id={trace_id}"
+                                     "&format=spans")
+        spans = res["json"].get("spans", []) if res["status"] == 200 else []
+        if want <= {s["name"] for s in spans}:
+            return spans
+        assert time.monotonic() < deadline, (port, res["status"], spans)
+        time.sleep(0.1)
+
+
+def observability_phase(front: int, decode: int, prefill: int,
+                        decode_hex: str, prefill_hex: str, before: dict,
+                        flight_dir: str) -> dict:
+    """Phase 14 (see the module docstring), against phase 13b's fleet
+    before its SIGTERM. ``front`` is the frontend's HTTP port, ``decode``
+    and ``prefill`` the workers' status server ports; ``before`` the
+    requests phase 13b sent (``decode``: to the decode worker's endpoint,
+    ``remote``: of them prefilled remotely, ``completions``: through the
+    frontend)."""
+    import os
+    import threading
+
+    from dynamo_tpu_torch.engine.config import PRESETS
+    from dynamo_tpu_torch.profile_decode import MODEL
+    t_phase = time.monotonic()
+    spec = PRESETS[MODEL]
+    base, _ = scrape(decode)
+    w0 = sample_sum(base, "dynamo_tpu_decode_step_seconds_count")
+    assert w0 > 0, "phase 13b's windows are not on the decode worker"
+    # a. One chat through the frontend with a traceparent: its trace
+    # crosses the frontend, the decode worker and the prefill worker.
+    chat = chat_body(MODEL, np.random.default_rng(PARCEL_SEED),
+                     OBS_CHAT_WORDS)
+    chat["stream"] = False
+    chat.pop("stream_options")
+    res = http_call(front, "POST", "/v1/chat/completions", chat, headers={
+        "traceparent": f"00-{OBS_TRACE_ID}-{OBS_PARENT_ID}-01"})
+    assert res["status"] == 200, res
+    f_spans = trace_names(front, OBS_TRACE_ID,
+                          {"http.request", "router.decide"})
+    d_spans = trace_names(decode, OBS_TRACE_ID, {
+        "worker.request", "engine.queue_wait", "engine.decode",
+        "kv.transfer.recv", "kv.plane.pull"})
+    p_spans = trace_names(prefill, OBS_TRACE_ID,
+                          {"worker.request", "kv.transfer.send"})
+    http_span = next(x for x in f_spans if x["name"] == "http.request")
+    assert http_span["parent_span_id"] == OBS_PARENT_ID, http_span
+    worker_span = next(x for x in d_spans if x["name"] == "worker.request")
+    assert worker_span["parent_span_id"] == http_span["span_id"], (
+        worker_span, http_span)
+    assert all(x["trace_id"] == OBS_TRACE_ID
+               for x in f_spans + d_spans + p_spans)
+    # b. A round decoding on the decode worker (local prefills), profiled
+    # for OBS_PROFILE_MS while it decodes. The same round's shape runs
+    # once before, so every window program it reaches is captured already
+    # (a capture at first use holds the engine thread for seconds).
+    def send_round(seed: int):
+        rng = np.random.default_rng(seed)
+        bodies = [{"model": MODEL, "max_tokens": OBS_PROFILE_TOKENS,
+                   "ignore_eos": True, "prompt": rng.integers(
+                       0, spec.vocab_size, OBS_PROFILE_PROMPT).tolist()}
+                  for _ in range(OBS_PROFILE_ROWS)]
+        answers: list = [None] * len(bodies)
+
+        def send(i):
+            answers[i] = http_call(front, "POST", "/v1/completions",
+                                   bodies[i])
+        senders = [threading.Thread(target=send, args=(i,))
+                   for i in range(len(bodies))]
+        for t in senders:
+            t.start()
+        return senders, answers
+
+    def finish_round(senders, answers) -> None:
+        for t in senders:
+            t.join(timeout=SSE_TIMEOUT_S)
+        assert all(a is not None and a["status"] == 200 for a in answers), [
+            a and (a["status"], a.get("json")) for a in answers]
+
+    finish_round(*send_round(PARCEL_SEED + 1))
+    w_warm, _ = scrape(decode)
+    w0_round = sample_sum(w_warm, "dynamo_tpu_decode_step_seconds_count")
+    senders, answers = send_round(PARCEL_SEED + 2)
+    # Wait until the round decodes, then profile.
+    deadline = time.monotonic() + 120
+    while True:
+        now_s, _ = scrape(decode)
+        w_start = sample_sum(now_s, "dynamo_tpu_decode_step_seconds_count")
+        if w_start >= w0_round + 2:
+            break
+        assert time.monotonic() < deadline, "the profiled round never decoded"
+        time.sleep(0.05)
+    out_dir = os.path.join(flight_dir, "profile")
+    t0 = time.perf_counter()
+    prof = http_call(decode, "POST", "/debug/profile",
+                     {"duration_ms": OBS_PROFILE_MS, "out_dir": out_dir})
+    profile_call_s = time.perf_counter() - t0
+    after_s, _ = scrape(decode)
+    w_end = sample_sum(after_s, "dynamo_tpu_decode_step_seconds_count")
+    finish_round(senders, answers)
+    assert prof["status"] == 200, prof
+    body = prof["json"]
+    assert body["mode"] == "torch", body
+    kernels = body["kernels"]
+    partial = sum(k["count"] for n, k in kernels.items()
+                  if "hist_flash_partial" in n)
+    combine = sum(k["count"] for n, k in kernels.items()
+                  if "hist_flash_combine" in n)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1]["device_us"])[:8]
+    # c. /metrics agrees with the traffic, on all three processes.
+    f_m, f_ms = scrape(front)
+    d_m, d_ms = scrape(decode)
+    p_m, p_ms = scrape(prefill)
+    assert sample_sum(f_m, "dynamo_tpu_http_requests_total",
+                      route="chat_completions", status="200") == 1, f_m
+    assert sample_sum(f_m, "dynamo_tpu_http_requests_total",
+                      route="completions", status="200") == \
+        before["completions"] + 2 * OBS_PROFILE_ROWS
+    d_req = sample_sum(d_m, "dynamo_tpu_requests_total",
+                       dynamo_endpoint="generate")
+    assert d_req == before["decode"] + 1 + 2 * OBS_PROFILE_ROWS, (
+        d_req, before)
+    p_req = sample_sum(p_m, "dynamo_tpu_requests_total")
+    assert p_req == before["remote"] + 1, (p_req, before)
+    assert sample_sum(d_m, "dynamo_tpu_request_errors_total") == 0
+    d_windows = sample_sum(d_m, "dynamo_tpu_decode_step_seconds_count")
+    d_prefills = sample_sum(d_m, "dynamo_tpu_prefill_step_seconds_count")
+    # Every request reached a slot once (nothing is preempted at this
+    # pool size); each local prefill batch is one prefill observation.
+    d_waits = sample_sum(d_m, "dynamo_tpu_request_queue_wait_seconds_count")
+    assert d_waits == d_req, (d_waits, d_req)
+    local = before["decode"] - before["remote"] + 2 * OBS_PROFILE_ROWS
+    assert 1 <= d_prefills <= local, (d_prefills, local)
+    # d. The frontend's merged timeline: the decode worker's worker_join
+    # (the frontend emits one per instance of a model; the prefill worker
+    # registers none), both workers' journal streams, no gap.
+    tl = http_call(front, "GET", "/debug/timeline")["json"]
+    kinds = [e["kind"] for e in tl["events"]]
+    joins = {e["attrs"].get("instance") for e in tl["events"]
+             if e["kind"] == "worker_join"}
+    assert decode_hex in joins, (joins, decode_hex)
+    assert "journal_gap" not in kinds, tl["events"][-10:]
+    assert {decode_hex, prefill_hex} <= set(tl["workers"]), tl["workers"]
+    # e. The fleet pane lists both workers.
+    fleet = http_call(front, "GET", "/debug/fleet")["json"]
+    assert set(fleet["workers"]) == {decode_hex, prefill_hex}, fleet
+    assert all(w["ok"] for w in fleet["workers"].values()), fleet
+    # f. The decode worker's flight ring has rows; every bundle says why.
+    fl = http_call(decode, "GET", "/debug/flight")["json"]
+    assert fl["meta"]["records"] > 0 and fl["windows"], fl["meta"]
+    bundles = []
+    for name in sorted(os.listdir(flight_dir)):
+        if name.startswith("flight-") and name.endswith(".json"):
+            with open(os.path.join(flight_dir, name)) as fh:
+                bundle = json.load(fh)
+            assert bundle["reason"], name
+            bundles.append({"file": name, "reason": bundle["reason"],
+                            "windows": len(bundle["flight"]["windows"])})
+    out = {"trace_spans": {"front": len(f_spans), "decode": len(d_spans),
+                           "prefill": len(p_spans)},
+           "profile": {"trace_bytes": body["trace_bytes"],
+                       "wall_s": body["wall_s"],
+                       **{k: body.get(k) for k in (
+                           "trace_events", "start_s", "stop_s", "export_s",
+                           "count_s")},
+                       "call_s": profile_call_s,
+                       "hist_flash_partial": partial,
+                       "hist_flash_combine": combine,
+                       "windows_during": w_end - w_start,
+                       "top_kernels": [(n, k["count"], k["device_us"])
+                                       for n, k in top]},
+           "scrape_ms": {"front": f_ms, "decode": d_ms, "prefill": p_ms},
+           "decode_windows": d_windows, "decode_prefill_steps": d_prefills,
+           "decode_requests": d_req, "prefill_requests": p_req,
+           "timeline_events": len(kinds),
+           "timeline_kinds": sorted(set(kinds)),
+           "flight_records": fl["meta"]["records"],
+           "flight_triggers": fl["triggers_total"], "bundles": bundles,
+           "windows_before": w0,
+           "phase_s": time.monotonic() - t_phase}
+    log(json.dumps({"observability_phase": out}))
+    log(f"14: one trace over frontend, decode and prefill workers; "
+        f"/metrics agree on three processes (scrape ms {f_ms:.2f} / "
+        f"{d_ms:.2f} / {p_ms:.2f}); /debug/profile mode torch, "
+        f"{partial} hist_flash_partial and {combine} hist_flash_combine "
+        f"over {w_end - w_start:.0f} windows, trace {body['trace_bytes']} "
+        f"bytes; timeline {len(kinds)} events; fleet of 2; flight bundles "
+        f"{[b['reason'] for b in bundles]}")
     return out
 
 
@@ -5410,15 +5912,17 @@ def device_path_phase(phase8: dict, ipc=None) -> dict:
 def kernel_entry(name, variant, timing, main, max_err, stats,
                  http_launches, dist_launches, ckpt_launches,
                  disagg_launches, kv_launches, verify, spec_launches,
-                 lora_launches, tier_launches, device_launches) -> dict:
+                 lora_launches, tier_launches, device_launches,
+                 obs_launches) -> dict:
     """One kernel's summary: times at the B=32 x 2048 shape, and the same
     numbers at the main path's mid-round shape under ``main_shape``;
     launches in round 1, round 2, the HTTP phase, the distributed phase,
     phase 7's round-1 runs on loaded checkpoints, phase 8's passes (on
     the decode worker), phase 9's passes (both workers), phase 10's
     spec round (the verify route), phase 11's LoRA rounds A and B,
-    phase 12's rounds on the tier workers and phase 13's decode worker
-    process (the KV plane's device path);
+    phase 12's rounds on the tier workers, phase 13b's decode worker
+    process until phase 14 begins (the KV plane's device path) and
+    phase 14's on that worker, both from the worker's own counters;
     the verify route's numbers at both
     shapes under ``verify_route`` (``verify``: its check's error and the
     two timings)."""
@@ -5436,6 +5940,7 @@ def kernel_entry(name, variant, timing, main, max_err, stats,
             "launches_lora": lora_launches,
             "launches_tiers": tier_launches,
             "launches_kv_device": device_launches,
+            "launches_observability": obs_launches,
             "max_abs_err": max(max_err, timing["max_abs_err"],
                                main["max_abs_err"], verify["err"],
                                verify["uniform"]["max_abs_err"],
@@ -5475,6 +5980,16 @@ def main() -> int:
         t_last[0] = now
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # Flight bundles of this process and of the workers it spawns go to a
+    # temporary directory; this process's in-process phases take no
+    # automatic decode-stall capture (a frozen ring would drop rows that
+    # phases 3 and 4 count), phase 14's workers keep the default trigger.
+    import os
+    import tempfile
+
+    from dynamo_tpu_torch.runtime import flight
+    os.environ["DTPU_FLIGHT_DIR"] = tempfile.mkdtemp(prefix="chip-smoke-")
+    flight.configure(bundle_dir=os.environ["DTPU_FLIGHT_DIR"], stall_s=0.0)
     smi = smi_line()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} | {smi}")
@@ -5520,7 +6035,9 @@ def main() -> int:
         tiers = tier_phase(attention, model)
         phase_done("12 kv tiers")
         device = device_path_phase(disagg.pop("_plane_pass"))
-        phase_done("13 kv device path")
+        phase_done("13-14 kv device path, observability")
+        seconds["14 observability (inside 13b)"] = \
+            device["fleet"]["observability"]["phase_s"]
     except Exception:  # noqa: BLE001 — report and fail the run
         traceback.print_exc()
         return 1
@@ -5536,6 +6053,7 @@ def main() -> int:
         return {mode: p["launches"][kernel]
                 for mode, p in kv["passes"].items()}
 
+    obs_launches = device["fleet"]["observability"]["launches"]
     log(json.dumps({"phase_seconds": seconds}))
     log(f"chip_smoke: {time.monotonic() - t_start:.1f} s in all")
     log(json.dumps({"kernels": [
@@ -5549,7 +6067,8 @@ def main() -> int:
                      spec["launches"]["paged_attention_hist"],
                      lora["launches_total"]["paged_attention_hist"],
                      tiers["launches"]["paged_attention_hist"],
-                     device["launches"]["paged_attention_hist"]),
+                     device["launches"]["paged_attention_hist"],
+                     obs_launches["paged_attention_hist"]),
         kernel_entry("paged_attention_hist_int8",
                      "int8 pool, _decode_kernel(quantized=True)",
                      timing_int8, main_int8, err_int8, stats_int8,
@@ -5562,7 +6081,8 @@ def main() -> int:
                      spec["launches"]["paged_attention_hist_int8"],
                      lora["launches_total"]["paged_attention_hist_int8"],
                      tiers["launches"]["paged_attention_hist_int8"],
-                     device["launches"]["paged_attention_hist_int8"])]}))
+                     device["launches"]["paged_attention_hist_int8"],
+                     obs_launches["paged_attention_hist_int8"])]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

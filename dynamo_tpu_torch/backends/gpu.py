@@ -20,7 +20,8 @@ pages=N``. On SIGINT or SIGTERM it deregisters, stops the endpoint and the
 engine, prints ``GPU_WORKER_EXIT {json}`` (``exit_counters``: windows and
 kernel launches since it began to serve, peak device memory, the KV
 plane's and the disaggregation counters), closes the runtime and exits
-0. The engine runs on ``--device`` (``cuda`` by
+0; SIGUSR1 prints the same counters as ``GPU_WORKER_COUNTERS {json}``
+and the worker serves on. The engine runs on ``--device`` (``cuda`` by
 default; the CPU only under ``--device cpu``). ``--model`` resolves as in
 the launcher (``engine/hub.py``: a preset with random weights from
 ``--seed``, a checkpoint directory, or a hub id in the local HF cache;
@@ -45,6 +46,19 @@ decode side keeps adapter requests local.
 
 The reference worker's other flags are refused with the ROADMAP item each
 waits for; none is accepted and then ignored.
+
+Observability: the engine's series go to the runtime's metrics registry
+under ``{namespace}/{component}``; the worker's journal events carry its
+instance id and ride the namespace's journal subject
+(``JournalPublisher``) to the frontend's ``/debug/timeline``; flight
+bundles carry the runtime config. With ``DTPU_SYSTEM_ENABLED=1`` the
+worker also runs the system status server (``runtime/health.py``, port
+``DTPU_SYSTEM_PORT``, 0 picks one): ``/health``, ``/live``, ``/metrics``
+and the debug routes, ``/debug/kv`` answering ``GPUEngine.kv_status``
+and ``/debug/profile`` capturing the card's kernels (the worker runs one
+empty profiler session at start: a process's first one records
+nothing); it registers the server for the frontend's ``/debug/fleet``
+and prints ``GPU_WORKER_STATUS port=N`` before the ready line.
 
 In ``agg`` and ``decode`` mode the worker publishes, on its instance id,
 its KV events, load metrics and inventory digests
@@ -122,8 +136,11 @@ from dynamo_tpu_torch.llm.model_card import (ModelRuntimeConfig,
 from dynamo_tpu_torch.llm.prefill_queue import (QueuePrefillDispatcher,
                                                 QueuePrefillWorker)
 from dynamo_tpu_torch.llm.tokenizer import Tokenizer
+from dynamo_tpu_torch.llm.fleet import register_status_server
+from dynamo_tpu_torch.runtime import flight, journal, tracing
 from dynamo_tpu_torch.runtime.config import RuntimeConfig
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+from dynamo_tpu_torch.runtime.health import SystemStatusServer
 from dynamo_tpu_torch.runtime.logging import get_logger
 from dynamo_tpu_torch.runtime.retry import Backoff, policies
 from dynamo_tpu_torch.runtime.service import EndpointServer
@@ -473,6 +490,39 @@ def exit_counters(engine: GPUEngine, base: dict, plane, disagg) -> dict:
     return out
 
 
+async def start_observability(runtime: DistributedRuntime,
+                              cfg: RuntimeConfig, engine: GPUEngine,
+                              model_name: str, component: str):
+    """The worker's observability plane: the flight recorder's bundle
+    context, the journal's worker identity and its delta publisher, and,
+    with ``cfg.system_enabled``, the system status server registered for
+    the fleet pane. Returns (journal publisher, status server or None);
+    the caller stops both."""
+    flight.configure(metrics=runtime.metrics,
+                     config_fingerprint=dataclasses.asdict(cfg))
+    worker = f"{runtime.instance_id:x}"
+    journal.configure(worker=worker, metrics=runtime.metrics)
+    journal_pub = journal.JournalPublisher(runtime.require_coordinator(),
+                                           cfg.namespace, worker)
+    # An empty first delta announces this worker's stream (its boot id)
+    # to the timeline before it has any event to ship.
+    await journal_pub.flush(force=True)
+    journal_pub.start_periodic()
+    status_server = None
+    if cfg.system_enabled:
+        status_server = SystemStatusServer(
+            runtime, host=cfg.bind_host, port=cfg.system_port,
+            kv_provider=engine.kv_status,
+            cuda=engine.runner.device.type == "cuda")
+        await status_server.start()
+        await register_status_server(
+            runtime, status_server.port,
+            extra={"backend": "gpu", "component": component,
+                   "model": model_name})
+        print(f"GPU_WORKER_STATUS port={status_server.port}", flush=True)
+    return journal_pub, status_server
+
+
 async def run(args: argparse.Namespace) -> None:
     cfg = RuntimeConfig.from_settings()
     if args.coordinator_url:
@@ -480,11 +530,16 @@ async def run(args: argparse.Namespace) -> None:
     if args.namespace:
         cfg.namespace = args.namespace
     loop = asyncio.get_running_loop()
+    if cfg.system_enabled and args.device == "cuda":
+        # /debug/profile's sessions start on this thread; the first one
+        # a process runs sets CUPTI up for seconds and records nothing,
+        # so pay it here, before the lease exists.
+        log.info("profiler prepared in %.1fs", tracing.prepare_profiler())
     runtime = await DistributedRuntime.from_settings(cfg)
     for sig in (signal.SIGINT, signal.SIGTERM):
         loop.add_signal_handler(sig, runtime.shutdown)
     engine = server = plane = peer_task = queue_worker = disagg = None
-    inventory_pub = base = None
+    inventory_pub = base = journal_pub = status_server = None
     registered: list[str] = []  # model names whose cards we put
     try:
         engine_cfg = build_engine_config(args)
@@ -500,7 +555,9 @@ async def run(args: argparse.Namespace) -> None:
         # off the event loop so the coordinator lease keepalives flow.
         engine = await loop.run_in_executor(None, functools.partial(
             load_engine, engine_cfg, ckpt, args.seed, start=False,
-            kv_publisher=kv_pub, metrics_publisher=metrics_pub))
+            kv_publisher=kv_pub, metrics_publisher=metrics_pub,
+            metrics_registry=runtime.metrics.namespace(cfg.namespace)
+            .component(args.component)))
         # Started for the loop the publishers run on, from an executor:
         # the warmup takes seconds, and the lease keepalives must flow.
         engine.inventory_publisher = inventory_pub
@@ -513,6 +570,8 @@ async def run(args: argparse.Namespace) -> None:
                 engine.register_adapter(n, path=p) for n, p in loras])
         await loop.run_in_executor(None, engine.start, loop)
         base = engine_counters(engine)
+        journal_pub, status_server = await start_observability(
+            runtime, cfg, engine, model_name, args.component)
         if inventory_pub is not None:
             inventory_pub.start_periodic(engine.inventory_digest)
         prefill_component = args.prefill_component or PREFILL_COMPONENT
@@ -542,12 +601,21 @@ async def run(args: argparse.Namespace) -> None:
               f"pages={engine.runner.num_pages}", flush=True)
         log.info("serving %s from an engine on %s", model_name,
                  engine.runner.device)
+        # SIGUSR1 prints the same counters and goes on serving: a phase's
+        # share of them is the difference of two readings.
+        loop.add_signal_handler(signal.SIGUSR1, lambda: print(
+            "GPU_WORKER_COUNTERS " + json.dumps(
+                exit_counters(engine, base, plane, disagg)), flush=True))
         await runtime.wait_for_shutdown()
     finally:
-        for sig in (signal.SIGINT, signal.SIGTERM):
+        for sig in (signal.SIGINT, signal.SIGTERM, signal.SIGUSR1):
             loop.remove_signal_handler(sig)
         if inventory_pub is not None:
             inventory_pub.stop_periodic()
+        if journal_pub is not None:
+            journal_pub.stop_periodic()
+        if status_server is not None:
+            await status_server.stop()
         for name in registered:
             await deregister_llm(runtime, name)
         if queue_worker is not None:

@@ -72,6 +72,20 @@ blocks, a failed upload or peer consult recomputes; each failure is
 counted (``spill_failures``, ``onboard_failures``, the KVBM's
 ``peer_pull_failures``).
 
+Observability (``metrics_registry``, a ``MetricsRegistry`` node): the
+phase histograms (queue wait at admission, prefill dispatch to first-token
+readback, decode dispatch to host processing), the chunk series and
+``decode_stall_seconds``, the gap between consecutive window dispatches
+while decode slots are live, measured before each dispatch. The engine
+thread records ``engine.queue_wait``, ``engine.prefill``,
+``prefill.chunk`` and ``engine.decode`` spans with explicit ids under each
+request's trace (``SpanRecorder.add``), one flight-recorder row per
+processed window, and a ``preempt`` journal event per preemption. All of
+it is host work between device programs: nothing lands inside a captured
+window graph and nothing synchronises the stream. ``KvMetricsUpdater``
+and ``AdapterMetricsUpdater`` export the KV and adapter telemetry on
+their throttle.
+
 Not ported yet (later slices): multimodal.
 """
 
@@ -111,11 +125,15 @@ from dynamo_tpu_torch.llm.kv_router.protocols import (ForwardPassMetrics,
 from dynamo_tpu_torch.llm.protocols import (FinishReason, LLMEngineOutput,
                                             PreprocessedRequest)
 from dynamo_tpu_torch.llm.tokens import TokenBlockSequence, chain_salt
+from dynamo_tpu_torch.runtime import flight, journal
 from dynamo_tpu_torch.runtime.context import Context
 from dynamo_tpu_torch.runtime.engine import AsyncEngine
 from dynamo_tpu_torch.runtime.errors import (AdapterNotFoundError,
                                              InvalidRequestError)
+from dynamo_tpu_torch.runtime.journal import EventKind
 from dynamo_tpu_torch.runtime.logging import get_logger
+from dynamo_tpu_torch.runtime.tracing import (_LATENCY_BUCKETS, get_recorder,
+                                              phase_metrics)
 
 log = get_logger("gpu_engine")
 
@@ -206,6 +224,8 @@ class _Request:
     # skip the slot). prefill_pos is the next prompt position to dispatch.
     prefilling: bool = False
     prefill_pos: int = 0
+    prefill_t0: float = 0.0  # chunked prefill start (engine.prefill span)
+    wait_noted: bool = False  # queue wait observed for this queue stint
     # (first token, host parcel) of a remotely prefilled prompt, until
     # admission inserts the parcel.
     injected: tuple | None = None
@@ -231,14 +251,21 @@ class _Window:
 
 class GPUEngine(AsyncEngine):
     def __init__(self, config: EngineConfig, params: dict | None = None,
-                 seed: int = 0, kv_publisher=None, metrics_publisher=None):
+                 seed: int = 0, kv_publisher=None, metrics_publisher=None,
+                 metrics_registry=None):
         """``params``: a loaded tree (``weights.load_hf_weights`` or
         ``params_from_jax``; bf16 or int8), handed to the runner as it is,
         or None for random weights from ``seed``. ``kv_publisher`` and
         ``metrics_publisher`` (``llm/kv_router/publisher.py``) publish the
         KV events and load metrics; ``inventory_publisher`` is set as an
-        attribute before ``start()``."""
+        attribute before ``start()``. ``metrics_registry`` (a
+        ``MetricsRegistry`` node) gets the engine's series; without one
+        the engine records spans and flight rows but no metrics."""
         self.config = config
+        # The process-global span ring; the histograms need a registry.
+        self._recorder = get_recorder()
+        self.phase = (phase_metrics(metrics_registry)
+                      if metrics_registry is not None else None)
         self.kv_publisher = kv_publisher
         self.metrics_publisher = metrics_publisher
         self.inventory_publisher = None
@@ -344,6 +371,40 @@ class GPUEngine(AsyncEngine):
         # .. spec_k + 1 (all accepted); index 0 counts frozen steps.
         self.spec_emit_hist = ([0] * (config.spec_k + 2)
                                if config.spec_decode else [])
+        # Observability: the chunk and stall series, the KV and adapter
+        # exporters, and the flight ring's per-window deltas.
+        self.step_count = 0               # windows processed
+        self.tokens_generated_total = 0   # decode-window tokens emitted
+        self.decode_stall_max_s = 0.0     # widest dispatch gap seen
+        self._last_decode_dispatch: float | None = None
+        self.m_chunk_tokens = self.m_chunks_inflight = None
+        self.m_decode_stall = None
+        self.kv_metrics = self.adapter_metrics = None
+        if metrics_registry is not None:
+            from dynamo_tpu_torch.engine.kv_metrics import (
+                AdapterMetricsUpdater, KvMetricsUpdater)
+            self.m_chunk_tokens = metrics_registry.counter(
+                "prefill_chunk_tokens_total",
+                "Prompt tokens dispatched as scheduled prefill chunks")
+            self.m_chunks_inflight = metrics_registry.gauge(
+                "prefill_chunks_inflight",
+                "Prefill chunk programs dispatched but not yet retired")
+            self.m_decode_stall = metrics_registry.histogram(
+                "decode_stall_seconds",
+                "Gap between consecutive decode-window dispatches while "
+                "decode slots are active",
+                buckets=_LATENCY_BUCKETS)
+            for bound in (self.m_chunk_tokens, self.m_chunks_inflight,
+                          self.m_decode_stall):
+                bound.ensure()
+            self.kv_metrics = KvMetricsUpdater(metrics_registry)
+            if self.adapters is not None:
+                self.adapter_metrics = AdapterMetricsUpdater(
+                    metrics_registry)
+        self._flight = flight.get_recorder()
+        self._flight_chunk_last = 0
+        self._flight_stall_last = 0.0
+        self._flight_tokens_last = 0
 
     # -- lifecycle ------------------------------------------------------------
     def start(self, loop: asyncio.AbstractEventLoop | None = None) -> None:
@@ -594,6 +655,11 @@ class GPUEngine(AsyncEngine):
         schedule their publication with the load metrics and (when due)
         the inventory digest. Runs on the engine thread; never waits on
         the loop."""
+        if self.kv_metrics is not None:
+            # /metrics needs no loop (in-process pipelines export too).
+            self.kv_metrics.update(self)
+        if self.adapter_metrics is not None:
+            self.adapter_metrics.update(self.adapters)
         stored, removed = self.allocator.drain_events()
         loop = self._publish_loop
         if loop is None or loop.is_closed():
@@ -994,8 +1060,10 @@ class GPUEngine(AsyncEngine):
                               for r in self.slot_req)
             if not have_active:
                 self._stalled_pages = 0  # no decode slot is waiting
+                self._last_decode_dispatch = None
             dispatched = False
             if have_active and len(self._inflight) < depth:
+                self._note_dispatch_gap()
                 try:
                     window = self._dispatch_window()
                 except Exception as exc:  # noqa: BLE001 — fail all, keep serving
@@ -1015,7 +1083,10 @@ class GPUEngine(AsyncEngine):
             processed = bool(self._inflight) and (
                 len(self._inflight) >= depth or not dispatched)
             if processed:
-                self._do_process(self._inflight.popleft())
+                window = self._inflight.popleft()
+                self._do_process(window)
+                self.step_count += 1
+                self._note_flight(window)
             self._release_ready_pages()
             if processed:
                 # After the release, so a worker gone idle reports the
@@ -1112,7 +1183,8 @@ class GPUEngine(AsyncEngine):
         if allowed <= 0:
             return [], 0, 0
         blocks, n_peer = self.kvbm.onboard_walk(hashes, len(cached_pages),
-                                                allowed)
+                                                allowed,
+                                                trace_id=r.ctx.trace_id)
         if not blocks:
             return [], 0, 0
         # Peers (and a disk directory another worker wrote) may hold the
@@ -1140,7 +1212,8 @@ class GPUEngine(AsyncEngine):
         for (h, _), p in zip(blocks, pages):
             self.allocator.register(p, h)
         self.onboard_blocks += len(blocks)
-        self.kvbm.note_promoted(len(blocks) - n_peer, n_peer)
+        self.kvbm.note_promoted(len(blocks) - n_peer, n_peer,
+                                trace_id=r.ctx.trace_id)
         return pages, len(blocks) * page, n_peer * page
 
     def _release_ready_pages(self) -> None:
@@ -1181,6 +1254,23 @@ class GPUEngine(AsyncEngine):
                     r.push(RuntimeError(f"prefill readback failed: {exc}"))
                     self._finish_slot(slot, register=False)
             return
+        t0 = entry.get("t0")
+        if t0:
+            # Prefill phase: dispatch to first-token readback.
+            t1 = time.monotonic()
+            if self.phase is not None:
+                self.phase.prefill.observe(t1 - t0)
+            rec = self._recorder
+            if rec.enabled:
+                for _, r, slot, epoch in entry["rows"]:
+                    if self.slot_req[slot] is r and r.epoch == epoch:
+                        rec.add("engine.prefill", r.ctx.trace_id,
+                                r.ctx.span_id, t0, t1,
+                                attrs={"prompt_tokens":
+                                       len(r.req.token_ids),
+                                       "reuse_tokens": r.reuse_tokens,
+                                       "chunked": bool(
+                                           entry.get("chunked"))})
         for row, r, slot, epoch in entry["rows"]:
             if self.slot_req[slot] is not r or r.epoch != epoch:
                 continue  # slot reassigned (failure path already notified)
@@ -1234,6 +1324,7 @@ class GPUEngine(AsyncEngine):
             if not self._acquire_adapter(r):
                 continue
             if r.injected is not None:
+                self._note_queue_wait(r)
                 slot = free_slots.pop(0)
                 try:
                     if self._admit_injected(r, slot):
@@ -1247,6 +1338,7 @@ class GPUEngine(AsyncEngine):
                 # No pages for the parcel: prefill the whole prompt here.
                 free_slots.insert(0, slot)
                 r.injected = None
+            self._note_queue_wait(r)
             try:
                 plan = self._plan_prefill(r)
             except Exception as exc:  # noqa: BLE001
@@ -1267,6 +1359,7 @@ class GPUEngine(AsyncEngine):
                 # slot until the final chunk places it.
                 r.prefilling = True
                 r.prefill_pos = r.reuse_tokens
+                r.prefill_t0 = time.monotonic()
                 r.slot = slot
                 self.slot_req[slot] = r
                 self.disp_positions[slot] = 0
@@ -1325,7 +1418,8 @@ class GPUEngine(AsyncEngine):
                     (slot, np.asarray(r.tokens_all, np.int32), 0, True, None)
                     for r, slot, _ in group])
             self._pending_first.append({"handle": _Readback(outs),
-                                        "rows": rows})
+                                        "rows": rows,
+                                        "t0": time.monotonic()})
         return True
 
     def _admit_injected(self, r: _Request, slot: int) -> bool:
@@ -1476,6 +1570,13 @@ class GPUEngine(AsyncEngine):
         anything was dispatched."""
         if not self._prefilling:
             return False
+        try:
+            return self._dispatch_chunk_pass()
+        finally:
+            if self.m_chunks_inflight is not None:
+                self.m_chunks_inflight.set(len(self._chunk_inflight))
+
+    def _dispatch_chunk_pass(self) -> bool:
         page = self.config.page_size
         depth = max(1, self.config.pipeline_depth)
         max_chunk = self.config.max_prompt_len
@@ -1530,12 +1631,17 @@ class GPUEngine(AsyncEngine):
                 self.runner.seed_history([(r.slot, np.asarray(
                     r.tokens_all, np.int32), 0, True, None)])
             self._pending_first.append({"handle": _Readback(outs),
-                                        "rows": [(0, r, r.slot, r.epoch)]})
+                                        "rows": [(0, r, r.slot, r.epoch)],
+                                        "t0": r.prefill_t0,
+                                        "chunked": True})
         self._chunk_inflight.append({"fence": fence.close(),
-                                     "record": record})
+                                     "record": record, "r": r,
+                                     "t0": time.monotonic()})
         r.prefill_pos = start + n
         self.chunk_tokens_total += n
         self.chunk_dispatch_count += 1
+        if self.m_chunk_tokens is not None:
+            self.m_chunk_tokens.inc(n)
 
     def _retire_chunks(self, block: bool = False) -> None:
         """Pop completed chunks off the in-flight deque (they complete in
@@ -1551,6 +1657,15 @@ class GPUEngine(AsyncEngine):
             self._chunk_inflight.popleft()
             self.chunk_records.append(
                 dict(entry["record"], device_ms=entry["fence"].device_ms()))
+            r = entry["r"]
+            if self._recorder.enabled:
+                self._recorder.add(
+                    "prefill.chunk", r.ctx.trace_id, r.ctx.span_id,
+                    entry["t0"], time.monotonic(),
+                    attrs={"tokens": entry["record"]["tokens"],
+                           "start": entry["record"]["start"]})
+        if self.m_chunks_inflight is not None:
+            self.m_chunks_inflight.set(len(self._chunk_inflight))
 
     def _abort_prefilling(self, r: _Request,
                           finish: FinishReason | None = None,
@@ -1759,6 +1874,8 @@ class GPUEngine(AsyncEngine):
         if w.toks is not None:
             arrays = w.toks.numpy()
             self.window_seconds.append(time.monotonic() - w.t0)
+            if self.phase is not None:
+                self.phase.decode.observe(time.monotonic() - w.t0)
             if not w.spec:
                 toks, lps, top_vs, top_is = arrays
         self._release_ready_pages()
@@ -1827,6 +1944,12 @@ class GPUEngine(AsyncEngine):
             r.last_token = inp
             if finish is None and r.ctx.is_stopped:
                 finish = FinishReason.CANCELLED
+            self.tokens_generated_total += len(accepted)
+            if self._recorder.enabled and accepted:
+                self._recorder.add(
+                    "engine.decode", r.ctx.trace_id, r.ctx.span_id,
+                    w.t0, time.monotonic(),
+                    attrs={"tokens": len(accepted), "window": w.size})
             self._emit(r, accepted, finish, lp_out)
             if finish is not None:
                 self._finish_slot(i, register=True)
@@ -1897,6 +2020,13 @@ class GPUEngine(AsyncEngine):
                 delta = min(w.size, max(0, cap - start)) - (pos - start)
                 self.disp_positions[i] -= delta
                 self.disp_seq_lens[i] -= delta
+            self.tokens_generated_total += len(accepted)
+            if self._recorder.enabled and accepted:
+                self._recorder.add(
+                    "engine.decode", r.ctx.trace_id, r.ctx.span_id,
+                    w.t0, time.monotonic(),
+                    attrs={"tokens": len(accepted), "window": w.size,
+                           "spec": True})
             self._emit(r, accepted, finish)
             if finish is not None:
                 self._finish_slot(i, register=True)
@@ -1957,7 +2087,72 @@ class GPUEngine(AsyncEngine):
                 finish_reason=FinishReason.CANCELLED).to_wire())
             return
         self.preempt_count += 1
+        r.wait_noted = False  # the next queue stint records its own wait
         log.warning("KV pool exhausted: preempting slot %d (request %s, "
                     "%d tokens so far) and requeueing", slot, r.ctx.id,
                     len(r.tokens_all))
+        # An autonomous capacity decision (lock-only emit, no I/O). The
+        # reference names a chaos injection as its cause when one drives
+        # the pressure; the port has no chaos plane (ROADMAP item 18).
+        journal.emit(EventKind.PREEMPT, cause=None,
+                     trace_id=r.ctx.trace_id, request=r.ctx.id, slot=slot,
+                     tokens=len(r.tokens_all),
+                     free_pages=self.allocator.num_free)
         self.waiting.put(r)
+
+    # -- observability (engine thread) ----------------------------------------
+    def _note_queue_wait(self, r: _Request) -> None:
+        """Admission reached: observe how long the request waited (a
+        requeued request keeps its first enqueue time, so this is its
+        time to a slot)."""
+        if r.wait_noted:
+            return
+        r.wait_noted = True
+        now = time.monotonic()
+        if self.phase is not None:
+            self.phase.queue_wait.observe(now - r.enqueue_t)
+        rec = self._recorder
+        if rec.enabled:
+            rec.add("engine.queue_wait", r.ctx.trace_id, r.ctx.span_id,
+                    r.enqueue_t, now)
+
+    def _note_dispatch_gap(self) -> None:
+        """Before a window dispatch while decode slots are live: the gap
+        since the previous dispatch (decode_stall_seconds), and the
+        flight recorder's decode-stall trigger."""
+        now = time.monotonic()
+        if self._last_decode_dispatch is not None:
+            gap = now - self._last_decode_dispatch
+            self.decode_stall_max_s = max(self.decode_stall_max_s, gap)
+            if self.m_decode_stall is not None:
+                self.m_decode_stall.observe(gap)
+            self._flight_stall_last = max(self._flight_stall_last, gap)
+            if flight.stall_threshold_s and gap >= flight.stall_threshold_s:
+                # A decode-stall spike: freeze the ring and write a
+                # bundle (throttled by the cooldown).
+                flight.trigger(f"decode_stall_{gap:.2f}s")
+        self._last_decode_dispatch = now
+
+    def _note_flight(self, w: _Window) -> None:
+        """One flight-recorder row per processed decode window (the ring
+        skips idle-stable windows itself)."""
+        fr = self._flight
+        if not fr.enabled:
+            return
+        now = time.monotonic()
+        tokens_total = self.tokens_generated_total
+        chunk_total = self.chunk_tokens_total
+        accepted = fr.record(
+            now, now - w.t0 if w.t0 else 0.0,
+            sum(1 for r in self.slot_req if r is not None),
+            self.num_waiting, self.allocator.num_free,
+            chunk_total - self._flight_chunk_last,
+            len(self._chunk_inflight), self.preempt_count, 0,
+            self._flight_stall_last, self.step_count,
+            tokens_total - self._flight_tokens_last)
+        if accepted:
+            # A frozen ring (a bundle being written) rejects the row: the
+            # deltas then land in the first row after it thaws.
+            self._flight_chunk_last = chunk_total
+            self._flight_stall_last = 0.0
+            self._flight_tokens_last = tokens_total

@@ -1,5 +1,5 @@
 """KVBM: the policy for KV block placement across tiers (copy of
-``dynamo_tpu.engine.kvbm`` without its journal events).
+``dynamo_tpu.engine.kvbm``).
 
 ``KvBlockManager`` makes the tier decisions over the mechanism objects
 (``PageAllocator``, ``HostKVCache`` with its ``DiskKVCache``, and the G4
@@ -24,13 +24,19 @@
 
 ``status`` is the one occupancy and counter surface. The manager does no
 device work: extracts and uploads stay in the engine, whose thread owns
-the runner; KVBM decides what moves where.
+the runner; KVBM decides what moves where. Demotion sweeps and promotions
+are journaled (``kv_demote``, ``kv_promote``, at most one event per kind
+per ``journal_min_interval_s``) with a cause ref, so ``/debug/timeline``
+shows tier movement beside the preemptions and peer pulls behind it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
+from dynamo_tpu_torch.runtime import journal
+from dynamo_tpu_torch.runtime.journal import EventKind
 from dynamo_tpu_torch.runtime.logging import get_logger
 
 log = get_logger("kvbm")
@@ -52,6 +58,10 @@ class KvbmPolicy:
     # on the engine thread between windows, and each demotion queues an
     # extract.
     max_demotions_per_sweep: int = 16
+    # At most one kv_demote / kv_promote journal event per this many
+    # seconds per kind: tier churn is per block, the timeline wants one
+    # event per burst.
+    journal_min_interval_s: float = 1.0
 
     def __post_init__(self):
         if self.low_watermark and not self.high_watermark:
@@ -84,6 +94,7 @@ class KvBlockManager:
         self.peer_pull_failures = 0
         self.recompute_fallbacks = 0  # tier walk ended short of the goal
         self.pinned_skips = 0         # sweeps that pins held back
+        self._journal_next: dict[str, float] = {}
 
     # -- pinning --------------------------------------------------------------
     def pin(self, block_hashes) -> None:
@@ -123,10 +134,18 @@ class KvBlockManager:
         if took:
             self.watermark_demotions += took
             self.demotion_sweeps += 1
+            if self._journal_due("demote"):
+                journal.emit(
+                    EventKind.KV_DEMOTE, blocks=took,
+                    tier_from="g1", tier_to="g2",
+                    free_frac=round(self.free_fraction(), 4),
+                    cause=journal.recent_ref(EventKind.KV_DEMOTE,
+                                             EventKind.PREEMPT))
         return took
 
     # -- tier walk (host -> disk -> peer) -------------------------------------
-    def onboard_walk(self, hashes: list[int], start: int, allowed: int):
+    def onboard_walk(self, hashes: list[int], start: int, allowed: int,
+                     trace_id: str | None = None):
         """Collect up to ``allowed`` consecutive blocks from
         ``hashes[start]`` on out of the tiers below the device pool.
         Returns (blocks [(hash, parcel)], n_peer): host and disk first
@@ -148,7 +167,8 @@ class KvBlockManager:
             want = hashes[at:at + (allowed - len(blocks))]
             if want:
                 try:
-                    remote = self.remote_source.fetch(want, len(want))
+                    remote = self.remote_source.fetch(
+                        want, len(want), trace_id=trace_id)
                 except Exception:  # noqa: BLE001 — peers are best-effort
                     log.exception("G4 remote fetch failed")
                     self.peer_pull_failures += 1
@@ -162,12 +182,29 @@ class KvBlockManager:
             self.recompute_fallbacks += 1
         return blocks, n_peer
 
-    def note_promoted(self, n_host: int, n_peer: int) -> None:
+    def note_promoted(self, n_host: int, n_peer: int,
+                      trace_id: str | None = None) -> None:
         """The engine uploaded ``n_host + n_peer`` tier blocks into device
-        pages (promote-on-hit completing)."""
+        pages (promote-on-hit completing): counted and journaled, the peer
+        share caused by the pull that sourced it."""
         n = n_host + n_peer
-        if n > 0:
-            self.promotions += n
+        if n <= 0:
+            return
+        self.promotions += n
+        if self._journal_due("promote"):
+            journal.emit(
+                EventKind.KV_PROMOTE, blocks=n, peer_blocks=n_peer,
+                tier_to="g1", trace_id=trace_id,
+                cause=journal.recent_ref(EventKind.KV_PEER_PULL,
+                                         EventKind.KV_DEMOTE))
+
+    def _journal_due(self, key: str) -> bool:
+        """Per-kind journal throttle."""
+        now = time.monotonic()
+        if now < self._journal_next.get(key, 0.0):
+            return False
+        self._journal_next[key] = now + self.policy.journal_min_interval_s
+        return True
 
     def offload(self, block_hash: int, kv) -> None:
         """Store one extracted block in the host tier (a demotion's data

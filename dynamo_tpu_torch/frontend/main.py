@@ -11,26 +11,33 @@ register, until SIGINT or SIGTERM (exit 0). ``--router-mode kv`` routes
 each request to the worker whose KV cache holds most of its prefix,
 weighed against load (``llm/kv_router``), under the reference's
 ``--kv-overlap-score-weight``, ``--kv-router-temperature``,
-``--no-kv-federation`` and ``--busy-threshold``. The reference frontend's
-other flags are refused with the ROADMAP item each waits for.
+``--no-kv-federation`` and ``--busy-threshold``. ``--tls-cert-path``
+with ``--tls-key-path`` serves HTTPS. The front serves ``/metrics`` and
+the debug routes; its ``/debug/timeline`` merges every worker's journal
+(``TimelineCollector``) with its own, and ``/debug/fleet`` fans out over
+the workers' status servers. The reference frontend's other flags are
+refused with the ROADMAP item each waits for.
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import dataclasses
 import signal
 
 from dynamo_tpu_torch.launch import add_refused_flags, start_front
 from dynamo_tpu_torch.llm.discovery import ROUTER_MODES
 from dynamo_tpu_torch.llm.kv_router import make_kv_router_factory
+from dynamo_tpu_torch.llm.timeline import TimelineCollector
+from dynamo_tpu_torch.runtime import flight, journal
 from dynamo_tpu_torch.runtime.config import RuntimeConfig
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
 
 
-_OVERLOAD = "ROADMAP item 12 (overload admission and brownout)"
-_SLO = "ROADMAP item 12 (the SLO plane and request accounting)"
-_CANARY = "ROADMAP item 12 (canary probes and circuit breakers)"
+_OVERLOAD = "ROADMAP item 12a (overload admission and brownout)"
+_SLO = "ROADMAP item 12a (the SLO plane and the request log)"
+_CANARY = "ROADMAP item 12a (canary probes and circuit breakers)"
 
 # The reference frontend's flags that the port does not serve:
 # (flag, what it waits for, add_argument keywords).
@@ -50,10 +57,6 @@ REFUSED_FLAGS = (
     ("--canary-gate-joins", _CANARY, {}),
     ("--grpc-port", "the ROADMAP item of the KServe gRPC front",
      {"type": int}),
-    ("--tls-cert-path", "ROADMAP item 12 (TLS on the HTTP front)",
-     {"type": str}),
-    ("--tls-key-path", "ROADMAP item 12 (TLS on the HTTP front)",
-     {"type": str}),
 )
 
 
@@ -78,6 +81,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--busy-threshold", type=float, default=None,
                         help="reject (503) when all workers exceed this "
                              "fraction of their KV blocks in use")
+    parser.add_argument("--tls-cert-path", default=None,
+                        help="serve HTTPS with this PEM certificate "
+                             "(needs --tls-key-path)")
+    parser.add_argument("--tls-key-path", default=None)
     add_refused_flags(parser, REFUSED_FLAGS)
     return parser.parse_args(argv)
 
@@ -104,12 +111,21 @@ async def run(args: argparse.Namespace) -> None:
     runtime = await DistributedRuntime.from_settings(cfg)
     for sig in (signal.SIGINT, signal.SIGTERM):
         loop.add_signal_handler(sig, runtime.shutdown)
-    service = watcher = None
+    service = watcher = collector = None
     try:
-        service, watcher = await start_front(runtime, args.http_host,
-                                             args.http_port,
-                                             args.router_mode,
-                                             kv_router_factory(args))
+        # Before discovery starts: the first worker_join events carry this
+        # process's id, not the "proc" placeholder.
+        journal.configure(worker=f"{runtime.instance_id:x}",
+                          metrics=runtime.metrics)
+        flight.configure(metrics=runtime.metrics,
+                         config_fingerprint=dataclasses.asdict(cfg))
+        collector = TimelineCollector(runtime)
+        await collector.start()
+        service, watcher = await start_front(
+            runtime, args.http_host, args.http_port, args.router_mode,
+            kv_router_factory(args), tls_cert_path=args.tls_cert_path,
+            tls_key_path=args.tls_key_path,
+            timeline_provider=collector.timeline_status)
         print(f"FRONTEND_READY port={service.port}", flush=True)
         await runtime.wait_for_shutdown()
     finally:
@@ -118,6 +134,8 @@ async def run(args: argparse.Namespace) -> None:
         if service is not None:
             await service.stop()
             await watcher.stop()
+        if collector is not None:
+            await collector.stop()
         await runtime.close()
 
 

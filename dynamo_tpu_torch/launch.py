@@ -60,16 +60,18 @@ from dynamo_tpu_torch.llm.model_card import (DEFAULT_CHAT_TEMPLATE,
 from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
 from dynamo_tpu_torch.llm.tokenizer import Tokenizer, make_test_tokenizer
 from dynamo_tpu_torch.runtime.config import RuntimeConfig
+from dynamo_tpu_torch.runtime import flight
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
 from dynamo_tpu_torch.runtime.logging import get_logger
+from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
 
 log = get_logger("launch")
 
 # What the reference's flags and in=/out= values that the port does not
 # serve wait for (the worker main's refusals use the same texts).
 PARALLEL = "ROADMAP item 16 (parallelism across GPUs and nodes)"
-ADMISSION = "ROADMAP item 12 (SLA admission and brownout)"
-OBSERVABILITY = "ROADMAP item 12 (the SLO plane and request accounting)"
+ADMISSION = "ROADMAP item 12a (SLA admission and brownout)"
+OBSERVABILITY = "ROADMAP item 12a (the SLO plane and the request log)"
 PARSERS = "ROADMAP item 23 (the tool-call and reasoning parsers)"
 INPUTS = "ROADMAP item 24 (the launcher's interactive and batch inputs)"
 ONE_ATTENTION = ("no ROADMAP item: the port has one attention path, its "
@@ -303,14 +305,16 @@ def load_engine(config: EngineConfig, checkpoint: str | None,
     return engine
 
 
-def build_engine(args, **overrides) -> GPUEngine:
+def build_engine(args, metrics_registry=None, **overrides) -> GPUEngine:
     """The real engine, in-process: ``--model``'s weights (random from
-    ``--seed`` for a preset); ``overrides`` set EngineConfig fields that
-    have no flag."""
+    ``--seed`` for a preset), its series on ``metrics_registry`` (a
+    ``MetricsRegistry`` node) when one is given; ``overrides`` set
+    EngineConfig fields that have no flag."""
     if args.output != "gpu":
         raise ValueError(f"out={args.output} is not served by the port")
     config = dataclasses.replace(build_engine_config(args), **overrides)
-    return load_engine(config, args.resolved_checkpoint, args.seed)
+    return load_engine(config, args.resolved_checkpoint, args.seed,
+                       metrics_registry=metrics_registry)
 
 
 def load_tokenizer(checkpoint: str | None, path: str | None,
@@ -331,11 +335,12 @@ def load_tokenizer(checkpoint: str | None, path: str | None,
     return make_test_tokenizer()
 
 
-def build_local_served(args, engine: GPUEngine | None = None
+def build_local_served(args, engine: GPUEngine | None = None,
+                       metrics_registry=None
                        ) -> tuple[ServedModel, GPUEngine]:
     """Static pipeline: Preprocessor -> Backend -> GPUEngine, no network.
     ``engine``: a started engine to serve from (default: ``build_engine``
-    of ``args``). With ``--lora`` each adapter registers on the engine
+    of ``args``, with its series on ``metrics_registry``). With ``--lora`` each adapter registers on the engine
     and its name becomes a ServedModel of its own (in
     ``served.adapter_served``) whose card binds it to the base model, as
     a distributed front resolves discovered adapter cards."""
@@ -343,7 +348,8 @@ def build_local_served(args, engine: GPUEngine | None = None
     tokenizer = load_tokenizer(args.resolved_checkpoint, args.tokenizer,
                                checkpoint_first=True)
     engine = engine or load_engine(config, args.resolved_checkpoint,
-                                   args.seed)
+                                   args.seed,
+                                   metrics_registry=metrics_registry)
     name = args.model_name or os.path.basename(args.model.rstrip("/"))
     backend = Backend(tokenizer, inner=engine)
 
@@ -370,12 +376,21 @@ def build_local_served(args, engine: GPUEngine | None = None
 async def start_http(args, engine: GPUEngine | None = None
                      ) -> tuple[HttpService, GPUEngine]:
     """Build the served model and start the HTTP front on the running
-    event loop; the caller stops both."""
-    served, engine = build_local_served(args, engine)
+    event loop; the caller stops both. One metrics registry holds the
+    front's series and, for an engine built here, the engine's (under
+    ``local``/``gpu``, the reference launcher's hierarchy); the flight
+    recorder's bundles snapshot it."""
+    metrics = MetricsRegistry()
+    served, engine = build_local_served(
+        args, engine,
+        metrics_registry=metrics.namespace("local").component("gpu"))
+    flight.configure(metrics=metrics,
+                     config_fingerprint=dataclasses.asdict(engine.config))
     manager = ModelManager()
     for model in (served, *served.adapter_served):
         manager.models[model.name] = model
-    service = HttpService(manager, host=args.http_host, port=args.http_port)
+    service = HttpService(manager, host=args.http_host, port=args.http_port,
+                          metrics=metrics)
     try:
         await service.start()
     except BaseException:
@@ -386,17 +401,23 @@ async def start_http(args, engine: GPUEngine | None = None
 
 async def start_front(runtime: DistributedRuntime, host: str, port: int,
                       router_mode: str = "round_robin",
-                      kv_router_factory=None
+                      kv_router_factory=None, tls_cert_path=None,
+                      tls_key_path=None, timeline_provider=None
                       ) -> tuple[HttpService, ModelWatcher]:
     """The distributed front: an HTTP front over a ModelWatcher of the
     coordinator's models/ prefix (``out=dyn`` and ``python -m
     dynamo_tpu_torch.frontend``); ``kv_router_factory``
     (``llm/kv_router.make_kv_router_factory``) builds the router under
-    ``router_mode="kv"``. The caller stops both."""
+    ``router_mode="kv"``, the TLS paths serve HTTPS, and
+    ``timeline_provider`` answers ``/debug/timeline``. The caller stops
+    both."""
     manager = ModelManager()
     watcher = ModelWatcher(runtime, manager, router_mode=router_mode,
                            kv_router_factory=kv_router_factory)
-    service = HttpService(manager, host=host, port=port)
+    service = HttpService(manager, host=host, port=port, runtime=runtime,
+                          tls_cert_path=tls_cert_path,
+                          tls_key_path=tls_key_path)
+    service.timeline_provider = timeline_provider
     try:
         await watcher.start()
         await service.start()

@@ -20,13 +20,17 @@ conditional-disaggregation config (counterpart of
   the failures.
 
 The threshold is dynamic: ``DisaggRouterConfig`` reads
-``disagg/<model>`` from the coordinator and watches it. Tracing spans and
-phase metrics wait for ROADMAP item 12.
+``disagg/<model>`` from the coordinator and watches it. The prefill side
+records a ``kv.transfer.send`` span per prompt (``path`` plane or
+inline), the decode side a ``kv.transfer.recv`` span, and both feed the
+engine's ``kv_transfer_seconds`` and ``kv_transfer_bytes`` histograms by
+``direction``.
 """
 
 from __future__ import annotations
 
 import asyncio
+import time
 from typing import AsyncIterator
 
 from dynamo_tpu_torch.llm.kv_plane import KvPlaneClient
@@ -38,6 +42,7 @@ from dynamo_tpu_torch.runtime.context import Context
 from dynamo_tpu_torch.runtime.errors import (EngineError, NoInstancesError,
                                              StreamIncompleteError)
 from dynamo_tpu_torch.runtime.logging import get_logger
+from dynamo_tpu_torch.runtime.tracing import span
 from dynamo_tpu_torch.runtime.retry import Backoff, policies
 
 log = get_logger("disagg")
@@ -146,6 +151,7 @@ def make_prefill_handler(engine, plane=None):
             return
         req = (request if isinstance(request, PreprocessedRequest)
                else PreprocessedRequest.from_wire(request))
+        phase = getattr(engine, "phase", None)  # tracing.PhaseMetrics
         if plane is not None:
             # The engine stages the ticket BEFORE prefilling when it
             # streams the extract and hands it over through on_ticket:
@@ -158,16 +164,25 @@ def make_prefill_handler(engine, plane=None):
                 loop.call_soon_threadsafe(
                     lambda: ticket_fut.done() or ticket_fut.set_result(t))
 
-            job = asyncio.ensure_future(engine.run_job(
-                lambda: engine.prefill_extract_staged(
-                    req, plane, on_ticket=on_ticket)))
-            await asyncio.wait({job, ticket_fut},
-                               return_when=asyncio.FIRST_COMPLETED)
-            streamed = ticket_fut.done() and not job.done()
-            if streamed:
-                yield LLMEngineOutput(disagg_params={
-                    "ticket": ticket_fut.result()}).to_wire()
-            first_token, ticket, prompt_len = await job
+            with span("kv.transfer.send", ctx=context, path="plane") as sp:
+                t0 = time.monotonic()
+                job = asyncio.ensure_future(engine.run_job(
+                    lambda: engine.prefill_extract_staged(
+                        req, plane, on_ticket=on_ticket)))
+                await asyncio.wait({job, ticket_fut},
+                                   return_when=asyncio.FIRST_COMPLETED)
+                streamed = ticket_fut.done() and not job.done()
+                if streamed:
+                    yield LLMEngineOutput(disagg_params={
+                        "ticket": ticket_fut.result()}).to_wire()
+                first_token, ticket, prompt_len = await job
+                sp.set(nbytes=int(ticket.get("nbytes", 0)),
+                       prompt_tokens=prompt_len, streamed=streamed)
+                if phase is not None:
+                    phase.kv_transfer.observe(time.monotonic() - t0,
+                                              direction="send")
+                    phase.kv_transfer_bytes.observe(
+                        ticket.get("nbytes", 0), direction="send")
             log.info("prefill parcel staged%s: %d tokens, ticket %d",
                      " (chunk-streamed)" if streamed else
                      " (device path)" if "cuda_ipc" in ticket else "",
@@ -177,17 +192,27 @@ def make_prefill_handler(engine, plane=None):
                     disagg_params={"ticket": ticket}).to_wire()
             yield LLMEngineOutput(token_ids=[first_token]).to_wire()
             return
-        first_token, kv, prompt_len = await engine.run_job(
-            lambda: engine.prefill_extract(req))
-        meta, chunks = kv_to_chunks(kv)
-        meta["prompt_len"] = prompt_len
-        log.info("prefill parcel sent inline: %d tokens, %d chunks",
-                 prompt_len, len(chunks))
-        yield LLMEngineOutput(disagg_params=meta).to_wire()
-        for chunk in chunks:
-            if context.is_killed or context.is_stopped:
-                return
-            yield LLMEngineOutput(disagg_params={"kv_chunk": chunk}).to_wire()
+        with span("kv.transfer.send", ctx=context, path="inline") as sp:
+            t0 = time.monotonic()
+            first_token, kv, prompt_len = await engine.run_job(
+                lambda: engine.prefill_extract(req))
+            meta, chunks = kv_to_chunks(kv)
+            meta["prompt_len"] = prompt_len
+            sp.set(nbytes=int(kv.nbytes), chunks=len(chunks),
+                   prompt_tokens=prompt_len)
+            log.info("prefill parcel sent inline: %d tokens, %d chunks",
+                     prompt_len, len(chunks))
+            yield LLMEngineOutput(disagg_params=meta).to_wire()
+            for chunk in chunks:
+                if context.is_killed or context.is_stopped:
+                    return
+                yield LLMEngineOutput(
+                    disagg_params={"kv_chunk": chunk}).to_wire()
+            if phase is not None:
+                phase.kv_transfer.observe(time.monotonic() - t0,
+                                          direction="send")
+                phase.kv_transfer_bytes.observe(kv.nbytes,
+                                                direction="send")
         yield LLMEngineOutput(token_ids=[first_token]).to_wire()
 
     return handle
@@ -270,7 +295,8 @@ class DisaggDecodeHandler:
             stream = await self.prefill_client.generate(
                 req.to_wire(), context=context, mode="round_robin")
             return await collect_prefill_response(
-                stream, plane_client=self.plane_client)
+                stream, plane_client=self.plane_client,
+                metrics=getattr(self.engine, "phase", None))
         except REMOTE_FAILURES as exc:
             self.remote_failures += 1
             log.warning("remote prefill failed (%s: %s); prefilling locally",

@@ -1,6 +1,6 @@
 """Model discovery: watcher, manager and routed pipeline assembly (copy of
-``dynamo_tpu.llm.discovery`` without the storage plug-in, fleet hooks,
-journal events and spans).
+``dynamo_tpu.llm.discovery`` without the storage plug-in and the canary's
+fleet hooks).
 
 ``ModelWatcher`` watches the coordinator's ``models/`` prefix. On the first
 instance of a model it fetches the tokenizer from the object store and
@@ -11,8 +11,10 @@ a RouterEngine (endpoint client, round robin or random) or, under
 shared by every model name served by the same worker endpoint. On
 lease-expiry deletes it tells the KV router at once that the worker left
 (``note_worker_leave``) and drops the model when its last instance is
-gone. The one-process launcher fills a ``ModelManager`` with a local
-``ServedModel`` instead.
+gone. Each instance that joins or leaves a model emits ``worker_join``
+or ``worker_leave`` on the journal, and each routing choice of a
+RouterEngine is a ``router.decide`` span. The one-process launcher fills
+a ``ModelManager`` with a local ``ServedModel`` instead.
 """
 
 from __future__ import annotations
@@ -26,9 +28,12 @@ from dynamo_tpu_torch.llm.migration import Migration
 from dynamo_tpu_torch.llm.model_card import (MODEL_ROOT, ModelEntry,
                                              fetch_tokenizer, model_slug)
 from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+from dynamo_tpu_torch.runtime import journal
 from dynamo_tpu_torch.runtime.context import Context
 from dynamo_tpu_torch.runtime.engine import AsyncEngine
+from dynamo_tpu_torch.runtime.journal import EventKind
 from dynamo_tpu_torch.runtime.logging import get_logger
+from dynamo_tpu_torch.runtime.tracing import span
 
 log = get_logger("discovery")
 
@@ -52,9 +57,10 @@ class RouterEngine(AsyncEngine):
         self.router_mode = router_mode
 
     async def generate(self, request, context: Context) -> AsyncIterator[dict]:
-        stream = await self.client.generate(
-            request if isinstance(request, dict) else request.to_wire(),
-            context=context, mode=self.router_mode)
+        with span("router.decide", mode=self.router_mode):
+            stream = await self.client.generate(
+                request if isinstance(request, dict) else request.to_wire(),
+                context=context, mode=self.router_mode)
         async for item in stream:
             yield item
 
@@ -138,9 +144,13 @@ class ModelWatcher:
                          entry.model_name, entry.namespace, entry.component,
                          entry.endpoint)
             try:
-                served.instances.add(int(instance_hex, 16))
+                iid = int(instance_hex, 16)
             except ValueError:
                 return
+            if iid not in served.instances:
+                served.instances.add(iid)
+                journal.emit(EventKind.WORKER_JOIN, model=entry.model_name,
+                             instance=instance_hex)
 
     async def _on_delete(self, key: str) -> None:
         parts = key[len(MODEL_ROOT):].split("/")
@@ -157,6 +167,10 @@ class ModelWatcher:
                     continue
                 if iid is not None and iid in served.instances:
                     served.instances.discard(iid)
+                    # The reference names a chaos injection as the cause
+                    # under chaos; the port has none (ROADMAP item 18).
+                    journal.emit(EventKind.WORKER_LEAVE, cause=None,
+                                 model=name, instance=instance_hex)
                     # Membership beats staleness: the KV router drops the
                     # worker's index and inventory now, so a gone worker
                     # attracts no more requests.
@@ -202,7 +216,8 @@ class ModelWatcher:
         else:
             client = await endpoint.client()
             router = RouterEngine(client, self.router_mode)
-        chain = Migration(entry.card.migration_limit, inner=router)
+        chain = Migration(entry.card.migration_limit, inner=router,
+                          metrics=self._runtime.metrics)
         backend = Backend(tokenizer, inner=chain)
         preprocessor = OpenAIPreprocessor(entry.card, tokenizer, inner=backend)
         return ServedModel(entry, preprocessor, client, router)

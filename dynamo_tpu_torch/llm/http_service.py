@@ -1,314 +1,375 @@
-"""OpenAI-compatible HTTP front on ``asyncio`` streams (the routes, bodies
-and error statuses of ``dynamo_tpu.llm.http_service``, without aiohttp).
+"""OpenAI-compatible HTTP front on the port's asyncio HTTP server (the
+routes, bodies, error statuses, metrics and spans of
+``dynamo_tpu.llm.http_service``, without aiohttp).
 
-Routes: ``POST /v1/chat/completions`` and ``POST /v1/completions``
-(streamed as server-sent events, ``data: {json}\\n\\n`` then
-``data: [DONE]\\n\\n``, or not streamed), ``GET /v1/models``, ``GET
-/health`` and ``GET /live``. Errors are OpenAI error bodies: 400 for a
-body that does not parse or validate and for ``ValueError`` /
-``InvalidRequestError`` from the pipeline, 404 for an unknown model, 404
-``adapter_not_found`` when a model name resolves to a LoRA adapter its
-worker does not hold (``AdapterNotFoundError``), 503
-with ``Retry-After: 1`` when a routed model has no live worker
+Routes: ``POST /v1/chat/completions``, ``POST /v1/completions`` and
+``POST /v1/responses`` (streamed as server-sent events, or not),
+``GET /v1/models``, ``GET /health``, ``GET /live``, ``GET /metrics``,
+``POST /clear_kv_blocks``, ``GET /debug/fleet`` and the debug routes of
+``runtime/health.add_debug_routes``. ``POST /v1/embeddings`` answers 501
+naming ROADMAP item 13 and ``POST /v1/audio/transcriptions`` 501 naming
+item 15. Errors are OpenAI error bodies: 400 for a body that does not
+parse or validate and for ``ValueError`` / ``InvalidRequestError`` from
+the pipeline, 404 for an unknown model, 404 ``adapter_not_found`` when a
+model name resolves to a LoRA adapter its worker does not hold, 503 with
+``Retry-After: 1`` when a routed model has no live worker
 (``NoInstancesError``), 503 ``overloaded`` with ``Retry-After: 1`` when
-the KV router finds every worker above its busy threshold
-(``OverloadedError``), 500 otherwise. A streamed response pulls its
-first chunk before it sends headers, so pipeline errors keep their
-status.
+the KV router finds every worker above its busy threshold, 500 otherwise.
+A streamed response pulls its first chunk before it sends headers, so
+pipeline errors keep their status.
 
-HTTP/1.1 with a ``Content-Length`` request body; every response closes
-its connection. A client that goes away (its side of the connection
-reaches EOF, or a write fails) kills the request's context, so the engine
-frees the slot.
+Each generate request runs under an ``http.request`` span, parented to an
+incoming W3C ``traceparent`` header, whose ids ride the request plane to
+the worker; it feeds the per-route series (``http_requests_total`` by
+route and status, ``http_inflight``, ``http_request_duration_seconds``)
+and, when streamed, ``ttft_seconds`` and ``itl_seconds`` by model, and it
+leaves one accounting record in the ``RequestLedger``
+(``/debug/requests``). ``tls_cert_path`` with ``tls_key_path`` serves
+HTTPS; one without the other fails at ``start``.
 """
 
 from __future__ import annotations
 
 import asyncio
-import contextlib
 import json
-from http import HTTPStatus
-from typing import AsyncIterator, Callable
+import ssl
+import time
+from typing import AsyncIterator
 
 from dynamo_tpu_torch.llm.discovery import ModelManager
 from dynamo_tpu_torch.llm.preprocessor import aggregate_chat_stream
 from dynamo_tpu_torch.llm.protocols import (ChatCompletionRequest,
                                             CompletionRequest, usage_block)
+from dynamo_tpu_torch.llm.recorder import finish_account, make_account
 from dynamo_tpu_torch.runtime.context import Context
 from dynamo_tpu_torch.runtime.errors import (AdapterNotFoundError,
                                              InvalidRequestError,
                                              NoInstancesError,
                                              OverloadedError)
-from dynamo_tpu_torch.runtime.logging import get_logger
+from dynamo_tpu_torch.runtime.health import add_debug_routes
+from dynamo_tpu_torch.runtime.http_server import (Exchange, HttpServer,
+                                                  Request, error_body)
+from dynamo_tpu_torch.runtime.logging import (current_trace, get_logger,
+                                              parse_traceparent)
+from dynamo_tpu_torch.runtime.metrics import CONTENT_TYPE, MetricsRegistry
+from dynamo_tpu_torch.runtime.tracing import span
 
 log = get_logger("http")
 
-JSON_TYPE = "application/json; charset=utf-8"
-MAX_BODY_BYTES = 32 << 20
-# A client that opens a connection and does not finish its request head
-# and body in this time is dropped.
-READ_TIMEOUT_S = 30.0
+# Accounting: multi-tenant attribution for /debug/requests.
+TENANT_HEADER = "x-tenant"
+
+NOT_PORTED_ROUTES = {
+    "/v1/embeddings": "embeddings are not ported: /v1/embeddings waits "
+                      "for ROADMAP item 13",
+    "/v1/audio/transcriptions": "audio input is not ported: "
+                                "/v1/audio/transcriptions waits for "
+                                "ROADMAP item 15",
+}
 
 
-def _error_body(message: str, err_type: str = "invalid_request_error",
-                code: int = 400) -> tuple[int, dict]:
-    return code, {"error": {"message": message, "type": err_type,
-                            "param": None, "code": None}}
+def _response_object(full: dict, model: str, text: str | None) -> dict:
+    """OpenAI Responses-API response object from an aggregated chat
+    result."""
+    usage = full.get("usage") or {}
+    return {
+        "id": f"resp-{full.get('id')}",
+        "object": "response",
+        "created_at": full.get("created"),
+        "model": model,
+        "status": "completed",
+        "output": [{
+            "type": "message", "role": "assistant",
+            "content": [{"type": "output_text", "text": text or ""}],
+        }],
+        "output_text": text or "",
+        "usage": {
+            "input_tokens": usage.get("prompt_tokens", 0),
+            "output_tokens": usage.get("completion_tokens", 0),
+            "total_tokens": usage.get("total_tokens", 0),
+        },
+    }
 
 
-class _BadRequest(Exception):
-    def __init__(self, code: int, message: str):
-        super().__init__(message)
-        self.code = code
+def _adapter_of(served) -> str | None:
+    """The LoRA adapter a served model name resolves to (None: base)."""
+    extra = served.entry.card.runtime_config.extra or {}
+    return extra.get("adapter") if extra.get("lora_base") else None
 
 
-def _head(code: int, content_type: str, length: int | None = None,
-          extra: dict | None = None) -> bytes:
-    lines = [f"HTTP/1.1 {code} {HTTPStatus(code).phrase}",
-             f"Content-Type: {content_type}"]
-    if length is not None:
-        lines.append(f"Content-Length: {length}")
-    lines += [f"{k}: {v}" for k, v in (extra or {}).items()]
-    lines += ["Connection: close", "", ""]
-    return "\r\n".join(lines).encode("latin-1")
+def _sse(payload: dict) -> bytes:
+    return b"data: " + json.dumps(payload).encode() + b"\n\n"
 
 
-async def _read_request(reader: asyncio.StreamReader,
-                        writer: asyncio.StreamWriter
-                        ) -> tuple[str, str, bytes]:
-    """(method, path, body) of one request; ``_BadRequest`` if malformed."""
-    try:
-        head = await reader.readuntil(b"\r\n\r\n")
-    except asyncio.LimitOverrunError:
-        raise _BadRequest(431, "request head too large") from None
-    lines = head.decode("latin-1").split("\r\n")
-    try:
-        method, target, _version = lines[0].split(" ", 2)
-        headers = {}
-        for line in lines[1:]:
-            if line:
-                name, value = line.split(":", 1)
-                headers[name.strip().lower()] = value.strip()
-        length = int(headers.get("content-length", "0"))
-    except ValueError:
-        raise _BadRequest(400, "malformed request head") from None
-    if "chunked" in headers.get("transfer-encoding", "").lower():
-        raise _BadRequest(411, "send the body with a Content-Length")
-    if not 0 <= length <= MAX_BODY_BYTES:
-        raise _BadRequest(413, f"body of {length} bytes is over the "
-                               f"{MAX_BODY_BYTES}-byte limit")
-    if length and headers.get("expect", "").lower() == "100-continue":
-        writer.write(b"HTTP/1.1 100 Continue\r\n\r\n")
-    body = await reader.readexactly(length)
-    return method.upper(), target.split("?", 1)[0], body
+class _Outcome(Exception):
+    """A finished request's status, raised out of a route body."""
 
-
-async def _until_eof(reader: asyncio.StreamReader) -> None:
-    """Return when the client's side of the connection is closed."""
-    with contextlib.suppress(ConnectionError):
-        while await reader.read(1 << 16):
-            pass
-
-
-class _Exchange:
-    """One request/response on one connection: where the handler writes,
-    and the context of the request it started, if any."""
-
-    def __init__(self, writer: asyncio.StreamWriter):
-        self.writer = writer
-        self.ctx: Context | None = None
-        self.streaming = False  # the 200 head of a stream is out
-
-    async def send_json(self, code: int, payload: dict,
-                        extra: dict | None = None) -> None:
-        body = json.dumps(payload).encode()
-        self.writer.write(_head(code, JSON_TYPE, len(body), extra) + body)
-        await self.writer.drain()
+    def __init__(self, code: int, payload: dict | None = None,
+                 extra: dict | None = None):
+        super().__init__(code)
+        self.code, self.payload, self.extra = code, payload, extra
 
 
 class HttpService:
     def __init__(self, manager: ModelManager, host: str = "127.0.0.1",
-                 port: int = 8000):
+                 port: int = 8000, runtime=None,
+                 metrics: MetricsRegistry | None = None,
+                 tls_cert_path: str | None = None,
+                 tls_key_path: str | None = None):
+        """``runtime`` (a DistributedRuntime) gives the metrics root and
+        the discovery plane of ``/debug/fleet``; without one, ``metrics``
+        (or a fresh registry) is the root and ``/debug/fleet`` answers
+        503."""
         self.manager = manager
         self.host, self.port = host, port
-        self._server: asyncio.Server | None = None
-        self._connections: set[asyncio.Task] = set()
-        self._routes = {
-            ("POST", "/v1/chat/completions"): self._chat,
-            ("POST", "/v1/completions"): self._completion,
-            ("GET", "/v1/models"): self._models,
-            ("GET", "/health"): self._health,
-            ("GET", "/live"): self._live,
-        }
+        self._runtime = runtime
+        self.metrics = (metrics if metrics is not None
+                        else runtime.metrics if runtime is not None
+                        else MetricsRegistry())
+        self.tls_cert_path = tls_cert_path
+        self.tls_key_path = tls_key_path
+        # GET /debug/timeline provider: the frontend installs its
+        # TimelineCollector's merged view before start(); left None, the
+        # route serves this process's own journal.
+        self.timeline_provider = None
+        self._server: HttpServer | None = None
+        m = self.metrics.namespace("http")
+        self._m_requests = m.counter(
+            "http_requests_total", "HTTP requests", ["route", "status"])
+        self._m_inflight = m.gauge(
+            "http_inflight", "In-flight HTTP requests", ["route"])
+        self._m_ttft = m.histogram(
+            "ttft_seconds", "Time to first token", ["model"],
+            buckets=[.01, .025, .05, .1, .25, .5, 1, 2.5, 5, 10])
+        self._m_itl = m.histogram(
+            "itl_seconds", "Inter-token latency", ["model"],
+            buckets=[.001, .0025, .005, .01, .025, .05, .1, .25, 1])
+        self._m_duration = m.histogram(
+            "http_request_duration_seconds", "Request duration", ["route"])
 
     # -- lifecycle ------------------------------------------------------------
     async def start(self) -> None:
-        self._server = await asyncio.start_server(self._connection,
-                                                  self.host, self.port)
-        self.port = self._server.sockets[0].getsockname()[1]
-        log.info("OpenAI HTTP service on %s:%d", self.host, self.port)
+        ssl_ctx = None
+        if self.tls_cert_path or self.tls_key_path:
+            if not (self.tls_cert_path and self.tls_key_path):
+                raise ValueError(
+                    "TLS needs BOTH tls_cert_path and tls_key_path")
+            ssl_ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+            ssl_ctx.load_cert_chain(self.tls_cert_path, self.tls_key_path)
+        server = HttpServer(self.host, self.port, ssl_ctx)
+        for method, path, handler in (
+                ("POST", "/v1/chat/completions", self._chat),
+                ("POST", "/v1/completions", self._completion),
+                ("POST", "/v1/responses", self._responses),
+                ("GET", "/v1/models", self._models),
+                ("POST", "/clear_kv_blocks", self._clear_kv_blocks),
+                ("GET", "/health", self._health),
+                ("GET", "/live", self._live),
+                ("GET", "/metrics", self._metrics),
+                ("GET", "/debug/fleet", self._debug_fleet)):
+            server.add(method, path, handler)
+        for path, message in NOT_PORTED_ROUTES.items():
+            server.add("POST", path, self._not_ported(message))
+        add_debug_routes(server, kv_provider=self._kv_router_status,
+                         timeline_provider=self.timeline_provider)
+        await server.start()
+        self._server = server
+        self.port = server.port
+        log.info("OpenAI %s service on %s:%d",
+                 "HTTPS" if ssl_ctx else "HTTP", self.host, self.port)
 
     async def stop(self) -> None:
-        if self._server is None:
-            return
-        self._server.close()
-        for task in list(self._connections):
-            task.cancel()
-        await asyncio.gather(*self._connections, return_exceptions=True)
-        await self._server.wait_closed()
-        self._server = None
+        if self._server is not None:
+            await self._server.stop()
+            self._server = None
 
-    # -- connections ----------------------------------------------------------
-    async def _connection(self, reader: asyncio.StreamReader,
-                          writer: asyncio.StreamWriter) -> None:
-        task = asyncio.current_task()
-        self._connections.add(task)
-        ex = _Exchange(writer)
+    # -- the generate routes --------------------------------------------------
+    async def _generate(self, req: Request, ex: Exchange, route: str,
+                        parse, run) -> None:
+        """One generate request: ``parse(body)`` gives the validated
+        request (``ValueError`` -> 400), ``run(parsed, served, ctx, acct)``
+        streams it (returning None) or returns the JSON body. Counts,
+        spans and accounts it, and maps errors to statuses."""
+        started = time.monotonic()
+        self._m_inflight.inc(route=route)
+        acct = None
+        ctx = None
+        code = None  # None: cancelled (the client went away)
         try:
             try:
-                method, path, body = await asyncio.wait_for(
-                    _read_request(reader, writer), READ_TIMEOUT_S)
-            except _BadRequest as exc:
-                await ex.send_json(*_error_body(str(exc), code=exc.code))
-                return
-            except (asyncio.IncompleteReadError, asyncio.TimeoutError,
-                    ConnectionError):
-                return
-            route = self._routes.get((method, path))
-            if route is None:
-                await ex.send_json(*_error_body(
-                    f"no route {method} {path}", "not_found", 404))
-                return
-            handler = asyncio.ensure_future(route(body, ex))
-            gone = asyncio.ensure_future(_until_eof(reader))
+                parsed = parse(req.json())
+            except ValueError as exc:  # JSON, UTF-8 or validation
+                raise _Outcome(*error_body(str(exc))) from None
+            served = self.manager.get(parsed.model)
+            if served is None:
+                raise _Outcome(*error_body(
+                    f"model {parsed.model!r} not found", "model_not_found",
+                    404))
+            acct = make_account(route, parsed.model)
+            acct["adapter"] = _adapter_of(served)
+            acct["tenant"] = req.headers.get(TENANT_HEADER)
+            ctx = self._make_context(req)
+            ex.ctx = ctx
+            acct["request_id"], acct["trace_id"] = ctx.id, ctx.trace_id
             try:
-                await asyncio.wait({handler, gone},
-                                   return_when=asyncio.FIRST_COMPLETED)
-            finally:
-                if not handler.done():
-                    # The client went away (or the service stops): kill the
-                    # request so the engine frees its slot.
-                    if ex.ctx is not None:
-                        ex.ctx.kill()
-                    handler.cancel()
-                gone.cancel()
-                await asyncio.gather(handler, gone, return_exceptions=True)
-            if not handler.cancelled() and handler.exception() is not None:
-                exc = handler.exception()
-                if not isinstance(exc, ConnectionError):
-                    log.error("%s %s failed", method, path, exc_info=exc)
+                with span("http.request", ctx=ctx, route=route,
+                          model=parsed.model):
+                    payload = await run(parsed, served, ex, acct)
+            except ConnectionError:
+                acct.update(status="cancelled", reason="client_disconnect")
+                code = 500
+                raise
+            except Exception as exc:  # noqa: BLE001 — mapped below
+                if ex.streaming:
+                    # The 200 head is out: the stream just ends.
+                    acct.update(status="error", reason=type(exc).__name__,
+                                http_status=500)
+                    code = 500
+                    raise
+                raise self._error_outcome(exc, acct) from None
+            code = 200
+            acct.update(status="ok", http_status=200)
+            if payload is not None:
+                await ex.send_json(200, payload)
+        except _Outcome as out:
+            code = out.code
+            await ex.send_json(out.code, out.payload, out.extra)
         finally:
-            writer.close()
-            self._connections.discard(task)
+            if code is not None:
+                self._m_requests.inc(route=route, status=str(code))
+            self._account_done(acct, ctx)
+            self._m_inflight.dec(route=route)
+            self._m_duration.observe(time.monotonic() - started,
+                                     route=route)
 
-    async def _sse_stream(self, ex: _Exchange,
-                          chunks: AsyncIterator[dict]) -> None:
-        # Pull the first chunk BEFORE sending headers so pipeline errors
-        # still surface as proper HTTP statuses.
+    @staticmethod
+    def _error_outcome(exc: Exception, acct: dict) -> _Outcome:
+        if isinstance(exc, NoInstancesError):
+            acct.update(status="shed", reason="no_instances",
+                        http_status=503)
+            return _Outcome(*error_body(str(exc), "service_unavailable",
+                                        503), {"Retry-After": "1"})
+        if isinstance(exc, OverloadedError):
+            acct.update(status="shed", reason="overloaded", http_status=503)
+            return _Outcome(*error_body(str(exc), "overloaded", 503),
+                            {"Retry-After": "1"})
+        if isinstance(exc, AdapterNotFoundError):
+            # A naming error, 404 like an unknown model, typed so clients
+            # can tell which.
+            acct.update(status="error", reason="adapter_not_found",
+                        http_status=404)
+            return _Outcome(*error_body(str(exc), "adapter_not_found", 404))
+        if isinstance(exc, (ValueError, InvalidRequestError)):
+            acct.update(status="error", reason="invalid_request",
+                        http_status=400)
+            return _Outcome(*error_body(str(exc)))
+        log.error("generate handler failed", exc_info=exc)
+        acct.update(status="error", reason=type(exc).__name__,
+                    http_status=500)
+        return _Outcome(*error_body(f"internal error: {exc}",
+                                    "internal_error", 500))
+
+    def _make_context(self, req: Request) -> Context:
+        header = req.headers.get("traceparent")
+        trace = parse_traceparent(header) if header else None
+        ctx = Context(trace_id=trace["trace_id"] if trace else None,
+                      parent_span_id=trace["parent_id"] if trace else None)
+        # Log lines of this handler task carry the request's trace.
+        current_trace.set({"trace_id": ctx.trace_id, "span_id": ctx.span_id})
+        return ctx
+
+    @staticmethod
+    def _account_done(acct: dict | None, ctx) -> None:
+        """Finalize and ledger the record once; a record with no outcome
+        is a client that went away."""
+        if acct is None or "_t0" not in acct:
+            return
+        status = acct.get("status") or "cancelled"
+        reason = acct.get("reason") or (
+            "client_disconnect" if status == "cancelled" else None)
+        finish_account(acct, status, reason, acct.get("http_status"),
+                       ctx=ctx)
+
+    @staticmethod
+    async def _timed(chunks: AsyncIterator[dict], acct: dict
+                     ) -> AsyncIterator[dict]:
+        """The accounting record's TTFT, inter-chunk gaps and usage
+        counts, from the chunks as they pass."""
+        started = time.monotonic()
+        last_t = None
+        async for chunk in chunks:
+            now = time.monotonic()
+            if last_t is None:
+                acct["ttft_s"] = now - started
+            else:
+                acct["_itls"].append(now - last_t)
+            last_t = now
+            usage = chunk.get("usage") if isinstance(chunk, dict) else None
+            if usage:
+                acct["prompt_tokens"] = usage.get("prompt_tokens")
+                acct["output_tokens"] = usage.get("completion_tokens")
+            yield chunk
+
+    async def _sse_stream(self, ex: Exchange, chunks: AsyncIterator[dict],
+                          model: str, frame=_sse) -> None:
+        """Stream ``chunks`` as server-sent events, ``frame(chunk)`` each,
+        then ``data: [DONE]``. The first chunk is pulled before the head
+        goes out, so pipeline errors keep their status."""
+        start_t = time.monotonic()
         aiter = chunks.__aiter__()
         try:
             first_chunk = await aiter.__anext__()
         except StopAsyncIteration:
             first_chunk = None
-        ex.writer.write(_head(200, "text/event-stream",
-                              extra={"Cache-Control": "no-cache"}))
-        ex.streaming = True
+        self._m_ttft.observe(time.monotonic() - start_t, model=model)
+        await ex.start_stream()
+        last_t = time.monotonic()
         try:
             if first_chunk is not None:
-                ex.writer.write(
-                    b"data: " + json.dumps(first_chunk).encode() + b"\n\n")
-                await ex.writer.drain()
+                await ex.write(frame(first_chunk))
             async for chunk in aiter:
-                ex.writer.write(
-                    b"data: " + json.dumps(chunk).encode() + b"\n\n")
-                await ex.writer.drain()
-            ex.writer.write(b"data: [DONE]\n\n")
-            await ex.writer.drain()
+                now = time.monotonic()
+                self._m_itl.observe(now - last_t, model=model)
+                last_t = now
+                await ex.write(frame(chunk))
+            await ex.write(b"data: [DONE]\n\n")
         except (ConnectionError, asyncio.CancelledError):
-            # Client went away: propagate kill so the engine frees the slot.
+            # The client went away: kill the request so the engine frees
+            # the slot.
             ex.ctx.kill()
             raise
 
-    # -- routes ---------------------------------------------------------------
-    async def _pipeline(self, body: bytes, ex: _Exchange, cls,
-                        run: Callable) -> None:
-        """Validate a ``cls`` body, find its model, and answer with what
-        ``run(request, served, exchange)`` returns (None once it streamed)
-        or with the error status of what it raises."""
-        try:
-            req = cls.model_validate(json.loads(body))
-        except ValueError as exc:  # JSON, UTF-8 or RequestValidationError
-            await ex.send_json(*_error_body(str(exc)))
-            return
-        served = self.manager.get(req.model)
-        if served is None:
-            await ex.send_json(*_error_body(
-                f"model {req.model!r} not found", "model_not_found", 404))
-            return
-        ex.ctx = Context()
-        extra = None
-        try:
-            payload = await run(req, served, ex)
-        except ConnectionError:
-            raise
-        except (NoInstancesError, OverloadedError) as exc:
-            if ex.streaming:
-                raise
-            # The reference's Retry-After with no overload limiter (nor a
-            # hint on the error): its default of one second.
-            kind = ("overloaded" if isinstance(exc, OverloadedError)
-                    else "service_unavailable")
-            code, payload = _error_body(str(exc), kind, 503)
-            extra = {"Retry-After": "1"}
-        except AdapterNotFoundError as exc:
-            # The model name resolved to an adapter card whose worker does
-            # not hold the adapter: a naming error, 404 like an unknown
-            # model, typed so clients can tell which.
-            if ex.streaming:
-                raise
-            code, payload = _error_body(str(exc), "adapter_not_found", 404)
-        except (ValueError, InvalidRequestError) as exc:
-            if ex.streaming:
-                raise
-            code, payload = _error_body(str(exc))
-        except Exception as exc:  # noqa: BLE001 — the 500 path
-            if ex.streaming:
-                raise
-            log.exception("%s failed", cls.__name__)
-            code, payload = _error_body(f"internal error: {exc}",
-                                        "internal_error", 500)
-        else:
-            if payload is None:
-                return
-            code = 200
-        await ex.send_json(code, payload, extra)
+    async def _chat(self, req: Request, ex: Exchange) -> None:
+        await self._generate(req, ex, "chat_completions",
+                             ChatCompletionRequest.model_validate,
+                             self._run_chat)
 
-    async def _chat(self, body: bytes, ex: _Exchange) -> None:
-        await self._pipeline(body, ex, ChatCompletionRequest, self._run_chat)
-
-    async def _run_chat(self, req: ChatCompletionRequest, served,
-                        ex: _Exchange) -> dict | None:
-        chunks = served.preprocessor.generate(req, ex.ctx)
-        if req.stream:
-            await self._sse_stream(ex, chunks)
+    async def _run_chat(self, chat: ChatCompletionRequest, served,
+                        ex: Exchange, acct: dict) -> dict | None:
+        chunks = self._timed(served.preprocessor.generate(chat, ex.ctx),
+                             acct)
+        if chat.stream:
+            await self._sse_stream(ex, chunks, chat.model)
             return None
         # Non-streaming: force the usage chunk through the delta stream so
         # the aggregate carries real token counts.
-        req.stream_options = {"include_usage": True}
+        chat.stream_options = {"include_usage": True}
         return await aggregate_chat_stream(chunks, 0)
 
-    async def _completion(self, body: bytes, ex: _Exchange) -> None:
-        await self._pipeline(body, ex, CompletionRequest,
+    async def _completion(self, req: Request, ex: Exchange) -> None:
+        await self._generate(req, ex, "completions",
+                             CompletionRequest.model_validate,
                              self._run_completion)
 
-    async def _run_completion(self, req: CompletionRequest, served,
-                              ex: _Exchange) -> dict | None:
-        if not req.stream:
+    async def _run_completion(self, comp: CompletionRequest, served,
+                              ex: Exchange, acct: dict) -> dict | None:
+        if not comp.stream:
             # Force the usage chunk so the folded response has counts.
-            req.stream_options = {"include_usage": True}
-        chunks = served.preprocessor.generate_completion(req, ex.ctx)
-        if req.stream:
-            await self._sse_stream(ex, chunks)
+            comp.stream_options = {"include_usage": True}
+        chunks = self._timed(
+            served.preprocessor.generate_completion(comp, ex.ctx), acct)
+        if comp.stream:
+            await self._sse_stream(ex, chunks, comp.model)
             return None
         texts: list[str] = []
         finish = None
@@ -322,18 +383,181 @@ class HttpService:
                 texts.append(choice.get("text") or "")
                 finish = choice.get("finish_reason") or finish
         return {"id": meta.get("id"), "object": "text_completion",
-                "created": meta.get("created"), "model": req.model,
+                "created": meta.get("created"), "model": comp.model,
                 "choices": [{"index": 0, "text": "".join(texts),
                              "finish_reason": finish, "logprobs": None}],
                 "usage": usage or usage_block(0, 0)}
 
-    async def _models(self, _body: bytes, ex: _Exchange) -> None:
+    async def _responses(self, req: Request, ex: Exchange) -> None:
+        """OpenAI /v1/responses over the chat pipeline."""
+        await self._generate(req, ex, "responses", self._parse_responses,
+                             self._run_responses)
+
+    @staticmethod
+    def _parse_responses(body) -> ChatCompletionRequest:
+        if not isinstance(body, dict) or "model" not in body:
+            raise ValueError("'model' is required")
+        raw_input = body.get("input", "")
+        if isinstance(raw_input, str):
+            messages = [{"role": "user", "content": raw_input}]
+        else:
+            messages = [{"role": m.get("role", "user"),
+                         "content": m.get("content", "")}
+                        for m in raw_input]
+        if body.get("instructions"):
+            messages.insert(0, {"role": "system",
+                                "content": body["instructions"]})
+        fields = {"model": body["model"], "messages": messages,
+                  "stream": bool(body.get("stream")),
+                  "stream_options": {"include_usage": True}}
+        for key, name in (("max_output_tokens", "max_tokens"),
+                          ("temperature", "temperature"),
+                          ("top_p", "top_p")):
+            if body.get(key) is not None:
+                fields[name] = body[key]
+        return ChatCompletionRequest.model_validate(fields)
+
+    async def _run_responses(self, chat: ChatCompletionRequest, served,
+                             ex: Exchange, acct: dict) -> dict | None:
+        chunks = self._timed(served.preprocessor.generate(chat, ex.ctx),
+                             acct)
+        if chat.stream:
+            await self._responses_sse(ex, chunks, chat.model)
+            return None
+        full = await aggregate_chat_stream(chunks, 0)
+        msg = full["choices"][0]["message"]
+        return _response_object(full, chat.model, msg.get("content"))
+
+    async def _responses_sse(self, ex: Exchange, chunks, model: str) -> None:
+        """Responses-API streaming: a ``response.output_text.delta`` event
+        per content delta, then ``response.completed`` with the final
+        object. The first chunk is pulled before the head goes out."""
+        aiter = chunks.__aiter__()
+        try:
+            first = await aiter.__anext__()
+        except StopAsyncIteration:
+            first = None
+        await ex.start_stream()
+
+        async def send(event: str, data: dict) -> None:
+            await ex.write(
+                f"event: {event}\ndata: {json.dumps(data)}\n\n".encode())
+
+        content: list[str] = []
+        meta: dict = {}
+        usage: dict = {}
+
+        async def rest():
+            if first is not None:
+                yield first
+            async for chunk in aiter:
+                yield chunk
+
+        try:
+            async for chunk in rest():
+                meta = {k: chunk.get(k, meta.get(k))
+                        for k in ("id", "created")}
+                if chunk.get("usage"):
+                    usage = chunk["usage"]
+                for choice in chunk.get("choices", []):
+                    piece = (choice.get("delta") or {}).get("content")
+                    if piece:
+                        content.append(piece)
+                        await send("response.output_text.delta",
+                                   {"delta": piece})
+            full = {"id": meta.get("id"), "created": meta.get("created"),
+                    "usage": usage}
+            await send("response.completed",
+                       {"response": _response_object(full, model,
+                                                     "".join(content))})
+        except (ConnectionError, asyncio.CancelledError):
+            ex.ctx.kill()
+            raise
+
+    # -- the other routes -----------------------------------------------------
+    @staticmethod
+    def _not_ported(message: str):
+        async def handler(_req: Request, ex: Exchange) -> None:
+            await ex.send_json(*error_body(message, "not_implemented", 501))
+        return handler
+
+    async def _clear_kv_blocks(self, _req: Request, ex: Exchange) -> None:
+        """Tell every worker of every served model to drop its reusable
+        prefix cache."""
+        results: dict[str, dict] = {}
+        for name, served in self.manager.models.items():
+            per_model: dict[str, int] = {}
+            if served.client is None:
+                engine = getattr(getattr(served.preprocessor, "inner",
+                                         None), "inner", None)
+                clear = getattr(engine, "clear_kv_blocks", None)
+                if clear is not None:
+                    per_model["local"] = await clear()
+            else:
+                for iid in served.client.instance_ids():
+                    try:
+                        stream = await served.client.generate(
+                            {"clear_kv_blocks": True}, instance_id=iid)
+                        async for item in stream:
+                            if "cleared" in item:
+                                per_model[f"{iid:x}"] = item["cleared"]
+                    except Exception as exc:  # noqa: BLE001 — per worker
+                        per_model[f"{iid:x}"] = -1
+                        log.warning("clear_kv_blocks failed on %x: %s",
+                                    iid, exc)
+            results[name] = per_model
+        await ex.send_json(200, {"cleared": results})
+
+    def _kv_router_status(self) -> dict:
+        """This front's /debug/kv: each model's KV router view, and the
+        KV state of in-process engines (the one-process launcher)."""
+        routers = {}
+        engines = {}
+        for name, served in self.manager.models.items():
+            status = getattr(served.router, "kv_status", None)
+            if status is not None:
+                routers[name] = status()
+            if served.client is None:
+                engine = getattr(getattr(served.preprocessor, "inner",
+                                         None), "inner", None)
+                engine_status = getattr(engine, "kv_status", None)
+                if engine_status is not None:
+                    engines[name] = engine_status()
+        return {"role": "frontend", "routers": routers, "engines": engines}
+
+    async def _debug_fleet(self, req: Request, ex: Exchange) -> None:
+        """Every registered worker status server's KV view, merged."""
+        from dynamo_tpu_torch.llm.fleet import (DEFAULT_CONCURRENCY,
+                                                DEFAULT_TIMEOUT_S,
+                                                fleet_kv_snapshot)
+        if self._runtime is None:
+            await ex.send_json(503, {
+                "error": "static runtime: no discovery plane to enumerate "
+                         "worker status servers"})
+            return
+        try:
+            timeout_s = float(req.query.get("timeout_s", DEFAULT_TIMEOUT_S))
+            concurrency = int(req.query.get("concurrency",
+                                            DEFAULT_CONCURRENCY))
+        except ValueError:
+            await ex.send_json(*error_body(
+                "timeout_s/concurrency must be numeric"))
+            return
+        snapshot = await fleet_kv_snapshot(
+            self._runtime, timeout_s=timeout_s, concurrency=concurrency,
+            router_view=self._kv_router_status)
+        await ex.send_json(200, snapshot)
+
+    async def _models(self, _req: Request, ex: Exchange) -> None:
         await ex.send_json(200, {"object": "list",
                                  "data": self.manager.list_models()})
 
-    async def _health(self, _body: bytes, ex: _Exchange) -> None:
+    async def _health(self, _req: Request, ex: Exchange) -> None:
         await ex.send_json(200, {"status": "healthy",
                                  "models": sorted(self.manager.models)})
 
-    async def _live(self, _body: bytes, ex: _Exchange) -> None:
+    async def _live(self, _req: Request, ex: Exchange) -> None:
         await ex.send_json(200, {"status": "live"})
+
+    async def _metrics(self, _req: Request, ex: Exchange) -> None:
+        await ex.send(200, CONTENT_TYPE, self.metrics.expose())

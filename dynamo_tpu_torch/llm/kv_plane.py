@@ -56,8 +56,9 @@ carries at the rate that peer last delivered, so a prefix too long for
 one budget still brings its head instead of timing out whole; the wire
 is unchanged.
 
-Not ported: the chaos hooks (ROADMAP item 18); the journal events and
-spans of a pull wait for item 12.
+Each parcel pull records a ``kv.plane.pull`` span, and each G4 consult
+that reaches a peer emits a ``kv_peer_pull`` journal event with its
+outcome. Not ported: the chaos hooks (ROADMAP item 18).
 """
 
 from __future__ import annotations
@@ -796,8 +797,12 @@ class KvPlaneClient:
         return out
 
     async def pull(self, ticket: dict):
-        return await asyncio.get_running_loop().run_in_executor(
-            None, self.pull_sync, ticket)
+        from dynamo_tpu_torch.runtime.tracing import span
+
+        with span("kv.plane.pull", ticket=ticket.get("id"),
+                  nbytes=ticket.get("nbytes")):
+            return await asyncio.get_running_loop().run_in_executor(
+                None, self.pull_sync, ticket)
 
     def fetch_blocks_sync(self, addr: str, hashes: list[int],
                           max_blocks: int = 64,
@@ -943,12 +948,15 @@ class RemoteBlockSource:
         self._s_per_block[addr] = s if old is None or s > old \
             else (old + s) / 2
 
-    def fetch(self, hashes: list[int],
-              max_blocks: int) -> list[tuple[int, np.ndarray]]:
+    def fetch(self, hashes: list[int], max_blocks: int,
+              trace_id: str | None = None) -> list[tuple[int, np.ndarray]]:
         """SYNC (engine thread, between windows): the longest consecutive
         run of the requested blocks that one peer holds, within
         ``budget_s`` of wall clock for the whole consult; from each peer at
-        most what ``ask`` allows."""
+        most what ``ask`` allows. Journals each peer's outcome."""
+        from dynamo_tpu_torch.runtime import journal
+        from dynamo_tpu_torch.runtime.journal import EventKind
+
         deadline = time.monotonic() + self.budget_s
         for addr in list(self.peers)[:self.MAX_PEERS]:
             if addr == self.self_addr or not addr:
@@ -971,6 +979,12 @@ class RemoteBlockSource:
                     self.slow_peer_cooldowns += 1
                 self._open_breaker(addr,
                                    "too slow" if slow else "unreachable")
+                # The reference names a chaos injection as the cause; the
+                # port has no chaos plane (ROADMAP item 18).
+                journal.emit(
+                    EventKind.KV_PEER_PULL, trace_id=trace_id,
+                    outcome="timeout" if slow else "error", peer=addr,
+                    cause=None)
                 continue
             took = time.monotonic() - now
             if took > self.budget_s:
@@ -983,5 +997,10 @@ class RemoteBlockSource:
             if found:
                 self._note_rate(addr, took, len(found))
                 self.fetched_blocks += len(found)
+                journal.emit(
+                    EventKind.KV_PEER_PULL, trace_id=trace_id,
+                    outcome="ok", peer=addr, blocks=len(found),
+                    nbytes=int(arr.nbytes),
+                    cause=journal.recent_ref(EventKind.KV_DEMOTE))
                 return [(h, arr[i]) for i, h in enumerate(found)]
         return []

@@ -9,15 +9,17 @@ straight to the worker with the best overlap/load cost
 consistent by publishing their add/mark/free decisions on router_sync
 and by dropping workers that discovery no longer lists.
 
-The reference's Prometheus gauges, counters and histogram and its
-``router.decide`` span wait for ROADMAP item 12 (the port has no
-``runtime/metrics.py`` or tracing yet); the decision and federation counts
-are plain integers in ``kv_status()``.
+Each decision is a ``router.decide`` span and feeds the reference's nine
+series on this process's ``/metrics``: the per-worker gauges of the
+published ``KvStats`` and inventory digests, the overlap histogram, and
+the decision and federation counters (also plain integers in
+``kv_status()``).
 """
 
 from __future__ import annotations
 
 import asyncio
+import time
 import uuid
 from typing import AsyncIterator
 
@@ -38,6 +40,7 @@ from dynamo_tpu_torch.llm.tokens import chain_salt, compute_block_hashes
 from dynamo_tpu_torch.runtime.context import Context
 from dynamo_tpu_torch.runtime.engine import AsyncEngine
 from dynamo_tpu_torch.runtime.logging import get_logger
+from dynamo_tpu_torch.runtime.tracing import span
 
 log = get_logger("kv_router")
 
@@ -67,6 +70,40 @@ class KvPushRouter(AsyncEngine):
         # worker's overlap ("radix", "inventory" or "none").
         self.outcomes = {"best": 0, "suboptimal": 0}
         self.federation_sources = {"radix": 0, "inventory": 0, "none": 0}
+        m = runtime.metrics.namespace(namespace).component(component)
+        self._g_usage = m.gauge(
+            "kv_worker_usage", "Per-worker KV pool usage fraction "
+            "(router view of published KvStats)", ["worker"])
+        self._g_active_blocks = m.gauge(
+            "kv_worker_active_blocks", "Per-worker active KV blocks",
+            ["worker"])
+        self._g_total_blocks = m.gauge(
+            "kv_worker_total_blocks", "Per-worker total KV blocks",
+            ["worker"])
+        self._g_hit_rate = m.gauge(
+            "kv_worker_prefix_hit_rate", "Per-worker prefix-cache hit rate",
+            ["worker"])
+        self._g_inventory = m.gauge(
+            "kv_fleet_inventory_blocks", "Registered KV blocks per worker "
+            "from inventory digests", ["worker"])
+        self._g_digest_age = m.gauge(
+            "kv_fleet_digest_age_seconds", "Age of the newest inventory "
+            "digest per worker", ["worker"])
+        self._h_overlap = m.histogram(
+            "kv_router_overlap_blocks", "Routing-decision overlap scores "
+            "in blocks", ["kind"],
+            buckets=[0, 1, 2, 4, 8, 16, 32, 64, 128, 256])
+        self._c_decisions = m.counter(
+            "kv_router_decisions_total", "Routing decisions by cache "
+            "awareness", ["outcome"])
+        for outcome in ("best", "suboptimal"):
+            self._c_decisions.ensure(outcome=outcome)
+        self._c_federation = m.counter(
+            "kv_federation_decisions_total", "Routing decisions by the "
+            "source of the chosen worker's overlap score",
+            ["source"])
+        for source in ("radix", "inventory", "none"):
+            self._c_federation.ensure(source=source)
 
     async def start(self) -> None:
         coord = self._runtime.require_coordinator()
@@ -103,15 +140,26 @@ class KvPushRouter(AsyncEngine):
     async def _load_loop(self, sub) -> None:
         async for msg in sub:
             try:
-                self.scheduler.update_metrics(
-                    ForwardPassMetrics.from_wire(msg["payload"]))
+                metrics = ForwardPassMetrics.from_wire(msg["payload"])
+                self.scheduler.update_metrics(metrics)
+                worker = f"{metrics.worker_id:x}"
+                ks = metrics.kv_stats
+                self._g_usage.set(ks.gpu_cache_usage_perc, worker=worker)
+                self._g_active_blocks.set(ks.kv_active_blocks, worker=worker)
+                self._g_total_blocks.set(ks.kv_total_blocks, worker=worker)
+                self._g_hit_rate.set(ks.gpu_prefix_cache_hit_rate,
+                                     worker=worker)
             except Exception:  # noqa: BLE001
                 log.exception("bad load metrics")
 
     async def _inventory_loop(self, sub) -> None:
         async for msg in sub:
             try:
-                self.fleet.apply(KvInventoryDigest.from_wire(msg["payload"]))
+                digest = KvInventoryDigest.from_wire(msg["payload"])
+                if self.fleet.apply(digest):
+                    worker = f"{digest.worker_id:x}"
+                    self._g_inventory.set(digest.blocks, worker=worker)
+                    self._g_digest_age.set(0.0, worker=worker)
             except Exception:  # noqa: BLE001
                 log.exception("bad kv inventory digest")
 
@@ -152,11 +200,24 @@ class KvPushRouter(AsyncEngine):
             for worker in list(absent):
                 if worker in live:
                     absent.pop(worker)
+            # The digest-age gauge climbs between digests, so a wedged
+            # publisher shows on the board.
+            now = time.monotonic()
+            for worker in self.fleet.workers():
+                entry = self.fleet._digests.get(worker)
+                if entry is not None:
+                    self._g_digest_age.set(now - entry[0],
+                                           worker=f"{worker:x}")
 
     def _drop_worker(self, worker_id: int) -> None:
         self.indexer.tree.remove_worker(worker_id)
         self.scheduler.remove_worker(worker_id)
         self.fleet.remove_worker(worker_id)
+        hexid = f"{worker_id:x}"
+        for gauge in (self._g_usage, self._g_active_blocks,
+                      self._g_total_blocks, self._g_hit_rate,
+                      self._g_inventory):
+            gauge.set(0, worker=hexid)
 
     def note_worker_leave(self, worker_id: int) -> None:
         """Discovery's worker-leave hook (scale-in, crash): drop the
@@ -193,8 +254,10 @@ class KvPushRouter(AsyncEngine):
         except (ConnectionError, RuntimeError):
             pass
 
-    def _decide(self, req: PreprocessedRequest) -> tuple[int, int, int]:
-        """(worker, its overlap, request blocks) for one request."""
+    def _decide(self, req: PreprocessedRequest
+                ) -> tuple[int, int, int, str, int]:
+        """(worker, its overlap, request blocks, the overlap's source, the
+        best overlap in the fleet) for one request."""
         # An adapter request hashes under the adapter's chain salt, the
         # chain its worker registers the adapter's KV under.
         block_hashes = compute_block_hashes(
@@ -223,14 +286,24 @@ class KvPushRouter(AsyncEngine):
         # federation-off routing show as regret.
         best_overlap = max(union.values(), default=0)
         self.decisions.note(worker_id, overlap, best_overlap, request_blocks)
-        self.outcomes["best" if overlap >= best_overlap else "suboptimal"] += 1
-        return worker_id, overlap, request_blocks
+        outcome = "best" if overlap >= best_overlap else "suboptimal"
+        self.outcomes[outcome] += 1
+        self._c_federation.inc(source=source)
+        self._h_overlap.observe(overlap, kind="chosen")
+        self._h_overlap.observe(best_overlap, kind="best")
+        self._c_decisions.inc(outcome=outcome)
+        return worker_id, overlap, request_blocks, source, best_overlap
 
     # -- engine interface -----------------------------------------------------
     async def generate(self, request, context: Context) -> AsyncIterator[dict]:
         req = (request if isinstance(request, PreprocessedRequest)
                else PreprocessedRequest.from_wire(request))
-        worker_id, overlap, request_blocks = self._decide(req)
+        with span("router.decide", mode="kv") as sp:
+            worker_id, overlap, request_blocks, source, best = \
+                self._decide(req)
+            sp.set(worker_id=f"{worker_id:x}", overlap_blocks=overlap,
+                   best_overlap_blocks=best,
+                   request_blocks=request_blocks, overlap_source=source)
         new_blocks = request_blocks - overlap
         request_id = context.id
         prefill_tokens = max(0, len(req.token_ids)

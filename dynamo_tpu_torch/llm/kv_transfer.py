@@ -13,11 +13,13 @@ worker of either package assembles a parcel of either.
 from __future__ import annotations
 
 import asyncio
+import time
 from typing import AsyncIterator
 
 import numpy as np
 
 from dynamo_tpu_torch.engine.kv_quant import parcel_dtype, parcel_dtype_name
+from dynamo_tpu_torch.runtime.tracing import span
 
 CHUNK_BYTES = 8 << 20  # 8 MiB response frames
 
@@ -43,7 +45,8 @@ def kv_from_chunks(meta: dict, chunks: list[bytes]) -> np.ndarray:
 
 
 async def collect_prefill_response(stream: AsyncIterator[dict],
-                                   plane_client=None) -> tuple[int, object]:
+                                   plane_client=None,
+                                   metrics=None) -> tuple[int, object]:
     """Assemble a prefill worker's response into (first_token, parcel).
 
     Two wire forms: a transfer TICKET (the parcel is staged on the
@@ -52,39 +55,50 @@ async def collect_prefill_response(stream: AsyncIterator[dict],
     pull starts the moment the ticket lands: a chunk-streamed prefill
     worker sends its ticket before the first token, so the bytes cross
     while later chunks still compute. If the stream dies, the pull is
-    cancelled."""
-    chunks: list[bytes] = []
-    meta = None
-    ticket = None
-    first_token = None
-    pull_task: asyncio.Future | None = None
-    try:
-        async for out in stream:
-            dp = out.get("disagg_params") or {}
-            if "ticket" in dp:
-                ticket = dp["ticket"]
-                if pull_task is None and plane_client is not None:
-                    pull_task = asyncio.ensure_future(
-                        plane_client.pull(ticket))
-            if "kv_chunk" in dp:
-                chunks.append(dp["kv_chunk"])
-            if "shape" in dp:
-                meta = dp
-            toks = out.get("token_ids") or []
-            if toks:
-                first_token = toks[0]
-    except BaseException:
-        if pull_task is not None:
-            pull_task.cancel()
-        raise
-    if first_token is None or (meta is None and ticket is None):
-        if pull_task is not None:
-            pull_task.cancel()
-        raise RuntimeError("incomplete disaggregated prefill response")
-    if ticket is not None:
-        if plane_client is None:
-            raise RuntimeError(
-                "prefill worker sent a KV-plane ticket but this worker "
-                "has no plane client")
-        return first_token, await pull_task
-    return first_token, kv_from_chunks(meta, chunks)
+    cancelled. The whole receive is a ``kv.transfer.recv`` span;
+    ``metrics`` (a ``tracing.PhaseMetrics``) gets its seconds and bytes
+    under ``direction="recv"``."""
+    t0 = time.monotonic()
+    with span("kv.transfer.recv") as sp:
+        chunks: list[bytes] = []
+        meta = None
+        ticket = None
+        first_token = None
+        pull_task: asyncio.Future | None = None
+        try:
+            async for out in stream:
+                dp = out.get("disagg_params") or {}
+                if "ticket" in dp:
+                    ticket = dp["ticket"]
+                    if pull_task is None and plane_client is not None:
+                        pull_task = asyncio.ensure_future(
+                            plane_client.pull(ticket))
+                if "kv_chunk" in dp:
+                    chunks.append(dp["kv_chunk"])
+                if "shape" in dp:
+                    meta = dp
+                toks = out.get("token_ids") or []
+                if toks:
+                    first_token = toks[0]
+        except BaseException:
+            if pull_task is not None:
+                pull_task.cancel()
+            raise
+        if first_token is None or (meta is None and ticket is None):
+            if pull_task is not None:
+                pull_task.cancel()
+            raise RuntimeError("incomplete disaggregated prefill response")
+        if ticket is not None:
+            if plane_client is None:
+                raise RuntimeError(
+                    "prefill worker sent a KV-plane ticket but this worker "
+                    "has no plane client")
+            kv = await pull_task
+            sp.set(path="plane", nbytes=int(kv.nbytes))
+        else:
+            kv = kv_from_chunks(meta, chunks)
+            sp.set(path="inline", nbytes=int(kv.nbytes), chunks=len(chunks))
+    if metrics is not None:
+        metrics.kv_transfer.observe(time.monotonic() - t0, direction="recv")
+        metrics.kv_transfer_bytes.observe(kv.nbytes, direction="recv")
+    return first_token, kv

@@ -1,5 +1,4 @@
-"""Request-migration operator (copy of ``dynamo_tpu.llm.migration`` without
-its metrics counter, journal event and span).
+"""Request-migration operator (copy of ``dynamo_tpu.llm.migration``).
 
 When a worker dies mid-stream (``StreamIncompleteError`` from the request
 plane), re-issue the request to another instance with the tokens already
@@ -7,7 +6,9 @@ generated appended to the prompt and the token budget shrunk by them, up
 to ``migration_limit`` times. With a limit of 0 the stream passes through
 and the error reaches the caller. Retries pace themselves through
 ``policies.MIGRATION`` with a retry budget shared by every stream the
-operator serves.
+operator serves. Each migration counts in ``migrations_total``, emits a
+``migration`` journal event with its reason, and records its backoff as
+a ``migration.retry`` span in the request's trace.
 """
 
 from __future__ import annotations
@@ -18,23 +19,31 @@ from typing import AsyncIterator
 from dynamo_tpu_torch.llm.protocols import (LLMEngineOutput,
                                             PreprocessedRequest)
 from dynamo_tpu_torch.runtime.context import Context
+from dynamo_tpu_torch.runtime import journal
 from dynamo_tpu_torch.runtime.engine import AsyncEngine, Operator
 from dynamo_tpu_torch.runtime.errors import StreamIncompleteError
+from dynamo_tpu_torch.runtime.journal import EventKind
 from dynamo_tpu_torch.runtime.logging import get_logger
 from dynamo_tpu_torch.runtime.retry import Backoff, RetryBudget, policies
+from dynamo_tpu_torch.runtime.tracing import span
 
 log = get_logger("migration")
 
 
 class Migration(Operator):
     def __init__(self, migration_limit: int = 0,
-                 inner: AsyncEngine | None = None):
+                 inner: AsyncEngine | None = None, metrics=None):
         super().__init__(inner)
         self.migration_limit = migration_limit
         # Shared across every stream this operator serves: a mass
         # disconnect drains the bucket and later migrations back off at the
         # policy max.
         self._budget = RetryBudget(rate=20.0, burst=50.0)
+        self._m_migrations = None
+        if metrics is not None:
+            self._m_migrations = metrics.counter(
+                "migrations_total",
+                "Mid-stream migrations (retries after disconnect)")
 
     async def generate(self, request: PreprocessedRequest | dict,
                        context: Context) -> AsyncIterator[LLMEngineOutput]:
@@ -69,11 +78,27 @@ class Migration(Operator):
                 if exc.reason or "migration_reason" not in context.values:
                     context.values["migration_reason"] = (exc.reason
                                                           or "disconnect")
+                if self._m_migrations is not None:
+                    self._m_migrations.inc()
+                # The reference names a chaos injection as the cause when
+                # one is active; the port has no chaos plane (item 18).
+                journal.emit(
+                    EventKind.MIGRATION, cause=None,
+                    trace_id=context.trace_id, attempt=attempt,
+                    reason=context.values.get("migration_reason"),
+                    carried_tokens=len(accumulated),
+                    retries_left=retries_left,
+                    worker_id=context.values.get("worker_id"))
                 log.warning(
                     "Stream disconnected (%s)... recreating stream "
                     "(%d retries left, carrying %d generated tokens)",
                     exc, retries_left, len(accumulated))
-                await backoff.sleep()
+                # The span covers the backoff pause, in the request's
+                # trace (http.request -> ... -> migration.retry).
+                with span("migration.retry", ctx=context, attempt=attempt,
+                          carried_tokens=len(accumulated),
+                          retries_left=retries_left, reason=str(exc)):
+                    await backoff.sleep()
                 # Continue on another worker: the ORIGINAL prompt plus
                 # everything generated so far is the new prompt, and the
                 # budget shrinks by what was emitted. Rebuilding from

@@ -10,7 +10,9 @@ the prefill pool. Queue DEPTH is the backpressure signal: at
 ``max_queue_depth`` or more the decode worker prefills locally instead of
 enqueueing, and so it does when the reply does not come in time. The
 items, subjects and replies are the JAX package's, so either package's
-workers share one queue.
+workers share one queue. The request's trace rides the queue item: the
+dispatch is a ``prefill_queue.dispatch`` span, and the worker records
+``prefill_queue.wait`` (enqueue to pop) and ``prefill_queue.serve``.
 """
 
 from __future__ import annotations
@@ -21,8 +23,10 @@ import uuid
 
 from dynamo_tpu_torch.llm.model_card import model_slug
 from dynamo_tpu_torch.llm.protocols import PreprocessedRequest
+from dynamo_tpu_torch.runtime.context import Context
 from dynamo_tpu_torch.runtime.logging import get_logger
 from dynamo_tpu_torch.runtime.retry import Backoff, policies
+from dynamo_tpu_torch.runtime.tracing import get_recorder, span
 
 log = get_logger("prefill_queue")
 
@@ -83,8 +87,23 @@ class QueuePrefillWorker:
         reply = item.get("reply")
         try:
             req = PreprocessedRequest.from_wire(item["req"])
-            first_token, ticket, prompt_len = await self.engine.run_job(
-                lambda: self.engine.prefill_extract_staged(req, self.plane))
+            # The dispatcher's trace context rides the item; the wait span
+            # starts at the enqueue wall time.
+            ctx = Context.from_wire(item.get("ctx"))
+            rec = get_recorder()
+            if rec.enabled and item.get("t_enq"):
+                waited = max(0.0, time.time() - item["t_enq"])
+                now = time.monotonic()
+                rec.add("prefill_queue.wait", ctx.trace_id,
+                        ctx.parent_span_id, now - waited, now,
+                        attrs={"queue": self.queue})
+            with span("prefill_queue.serve", ctx=ctx,
+                      queue=self.queue) as sp:
+                first_token, ticket, prompt_len = await self.engine.run_job(
+                    lambda: self.engine.prefill_extract_staged(
+                        req, self.plane))
+                sp.set(prompt_tokens=prompt_len,
+                       nbytes=int(ticket.get("nbytes", 0)))
             self.pulled += 1
             log.info("queue prefill served%s: %d tokens, ticket %d",
                      " (device path)" if "cuda_ipc" in ticket else "",
@@ -128,25 +147,29 @@ class QueuePrefillDispatcher:
         reply = REPLY_PREFIX + uuid.uuid4().hex
         sub = await self.client.subscribe(reply)
         try:
-            item = {"req": req.to_wire(), "reply": reply,
-                    "t_enq": time.time()}
-            if context is not None:
-                item["ctx"] = context.to_wire()
-            await self.client.queue_push(self.queue, item)
-            self.enqueued += 1
-            try:
-                msg = await asyncio.wait_for(sub.__aiter__().__anext__(),
-                                             timeout=self.reply_timeout)
-            except asyncio.TimeoutError:
-                log.warning("prefill queue reply timed out after %.0fs",
-                            self.reply_timeout)
-                return None
-            payload = msg["payload"]
-            if "error" in payload:
-                log.warning("queued prefill failed remotely: %s",
-                            payload["error"])
-                return None
-            kv = await self.plane_client.pull(payload["ticket"])
-            return payload["first_token"], kv
+            with span("prefill_queue.dispatch", ctx=context,
+                      queue=self.queue, depth=depth) as sp:
+                item = {"req": req.to_wire(), "reply": reply,
+                        "t_enq": time.time()}
+                if context is not None:
+                    item["ctx"] = context.to_wire()
+                await self.client.queue_push(self.queue, item)
+                self.enqueued += 1
+                try:
+                    msg = await asyncio.wait_for(
+                        sub.__aiter__().__anext__(),
+                        timeout=self.reply_timeout)
+                except asyncio.TimeoutError:
+                    log.warning("prefill queue reply timed out after %.0fs",
+                                self.reply_timeout)
+                    return None
+                payload = msg["payload"]
+                if "error" in payload:
+                    log.warning("queued prefill failed remotely: %s",
+                                payload["error"])
+                    return None
+                kv = await self.plane_client.pull(payload["ticket"])
+                sp.set(nbytes=int(kv.nbytes))
+                return payload["first_token"], kv
         finally:
             await sub.cancel()

@@ -105,13 +105,14 @@ def smi_line() -> str:
 async def serve(engine, requests) -> list[dict]:
     """Serve the requests concurrently through ``engine.generate``; per
     request its tokens, logprobs and top logprobs (empty unless asked
-    for), finish reason, TTFT and total seconds."""
+    for), finish reason, TTFT, total seconds and trace id."""
     from dynamo_tpu_torch.runtime.context import Context
 
     async def one(req):
         t0 = time.monotonic()
         toks, lps, tops, finish, ttft = [], [], [], None, None
-        async for item in engine.generate(req, Context()):
+        ctx = Context()
+        async for item in engine.generate(req, ctx):
             if ttft is None:
                 ttft = time.monotonic() - t0
             toks.extend(item.get("token_ids", []))
@@ -120,7 +121,8 @@ async def serve(engine, requests) -> list[dict]:
             finish = item.get("finish_reason") or finish
         return {"tokens": toks, "log_probs": lps, "top_log_probs": tops,
                 "finish": finish, "ttft_s": ttft,
-                "total_s": time.monotonic() - t0}
+                "total_s": time.monotonic() - t0,
+                "trace_id": ctx.trace_id}
 
     return await asyncio.gather(*[one(r) for r in requests])
 

@@ -1,6 +1,8 @@
 """Endpoint client: the egress half of the request plane (copy of
 ``dynamo_tpu.runtime.client.EndpointClient`` without its circuit
-breakers: selection treats every live instance alike).
+breakers: selection treats every live instance alike). The reference's
+``shed`` journal event, emitted when every instance's breaker is open,
+comes with the breakers (ROADMAP item 12a).
 
 Instances are discovered from a watch of the endpoint's ``instances/``
 prefix, and the live set follows leases as they appear and expire.

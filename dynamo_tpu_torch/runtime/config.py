@@ -4,8 +4,9 @@
 defaults <- TOML file (``DTPU_CONFIG_PATH``, read with ``tomllib``) <-
 ``DTPU_*`` environment variables, as in the reference. A setting of the
 reference that the port does not have (the overload and SLO tables,
-static mode, the status server, thread sizing) raises ``ValueError``
-naming the ROADMAP item it waits for, instead of being ignored.
+static mode, thread sizing) raises ``ValueError`` naming the ROADMAP item
+it waits for, instead of being ignored. ``system_enabled`` and
+``system_port`` start the system status server (``runtime/health.py``).
 """
 
 from __future__ import annotations
@@ -20,12 +21,10 @@ ENV_PREFIX = "DTPU_"
 # Settings of the reference's RuntimeConfig that the port lacks, and the
 # ROADMAP item each waits for.
 _NOT_PORTED = {
-    "overload": "item 12 (overload admission and circuit breakers)",
-    "slo": "item 12 (the SLO plane)",
-    "static_mode": "item 12 (static mode without a coordinator)",
-    "system_enabled": "item 12 (the system status server)",
-    "system_port": "item 12 (the system status server)",
-    "num_worker_threads": "item 12 (runtime thread sizing)",
+    "overload": "item 12a (overload admission and circuit breakers)",
+    "slo": "item 12a (the SLO plane)",
+    "static_mode": "item 12a (static mode without a coordinator)",
+    "num_worker_threads": "item 12a (runtime thread sizing)",
 }
 
 
@@ -61,6 +60,10 @@ class RuntimeConfig:
     # no frames for this long fails typed (StreamIncompleteError ->
     # migration) instead of hanging on a zombie connection. 0 disables.
     stream_idle_timeout_s: float = 300.0
+    # System status server (/health, /live, /metrics, /debug/*) per
+    # process; port 0 picks a free one.
+    system_enabled: bool = False
+    system_port: int = 0
 
     @classmethod
     def from_settings(cls) -> "RuntimeConfig":
@@ -91,6 +94,11 @@ class RuntimeConfig:
                 continue
             if field.type == "float":
                 setattr(cfg, field.name, float(raw))
+            elif field.type == "int":
+                setattr(cfg, field.name, int(raw))
+            elif field.type == "bool":
+                setattr(cfg, field.name, raw.strip().lower()
+                        in ("1", "true", "yes", "on"))
             else:
                 setattr(cfg, field.name, raw)
         return cfg

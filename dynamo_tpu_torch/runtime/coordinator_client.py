@@ -301,6 +301,12 @@ class CoordinatorClient:
         their registrations so a transient stall doesn't silently drain traffic."""
         self._lease_recreated_callbacks.append(callback)
 
+    async def renew_lease(self) -> None:
+        """Renew the primary lease now, ahead of a step known to stall the
+        event loop (and so the keepalive task) for seconds."""
+        await self._request({"m": "lease_keepalive",
+                             "lease": self.primary_lease_id})
+
     async def _keepalive_loop(self, lease_id: int, interval: float) -> None:
         while True:
             await asyncio.sleep(interval)

@@ -1,9 +1,10 @@
 """DistributedRuntime: the node-level singleton (copy of
-``dynamo_tpu.runtime.distributed.DistributedRuntime`` without its metrics
-registry and static mode).
+``dynamo_tpu.runtime.distributed.DistributedRuntime`` without its static
+mode).
 
-It owns the coordinator client; the instance id of everything the process
-serves is its primary lease id. ``with_embedded_coordinator`` starts an
+It owns the coordinator client and the root of the process's metrics
+registry (``metrics``, served at ``/metrics``); the instance id of
+everything the process serves is its primary lease id. ``with_embedded_coordinator`` starts an
 in-process coordinator first, for single-process deployments and tests.
 """
 
@@ -16,7 +17,7 @@ from dynamo_tpu_torch.runtime.config import RuntimeConfig
 from dynamo_tpu_torch.runtime.coordinator import Coordinator
 from dynamo_tpu_torch.runtime.coordinator_client import CoordinatorClient
 from dynamo_tpu_torch.runtime.logging import init_logging
-
+from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
 
 
 class DistributedRuntime:
@@ -26,6 +27,9 @@ class DistributedRuntime:
         self.coordinator_client: CoordinatorClient | None = coordinator_client
         self._embedded_coordinator: Coordinator | None = None
         self.shutdown_event = asyncio.Event()
+        # Root of the metrics hierarchy (runtime -> namespace -> component
+        # -> endpoint).
+        self.metrics = MetricsRegistry()
         # Instance ids are the primary lease id, as the etcd lease id
         # identifies an instance in the reference's design.
         self.instance_id: int = coordinator_client.primary_lease_id

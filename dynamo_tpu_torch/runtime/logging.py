@@ -2,11 +2,14 @@
 trace-context helpers).
 
 DTPU_LOG sets the level filter, as in the reference; loggers live under
-the ``dynamo_tpu_torch`` namespace.
+the ``dynamo_tpu_torch`` namespace. ``current_trace`` holds the trace and
+span ids of the task's open span (``runtime/tracing.py``), and each log
+line carries the trace id's first eight hex digits.
 """
 
 from __future__ import annotations
 
+import contextvars
 import logging
 import os
 import secrets
@@ -14,6 +17,10 @@ import sys
 import time
 
 _configured = False
+
+# Per-task trace context (published by open spans and request handlers).
+current_trace: contextvars.ContextVar[dict | None] = contextvars.ContextVar(
+    "dtpu_trace", default=None)
 
 
 def generate_trace_id() -> str:
@@ -60,9 +67,11 @@ def make_traceparent(trace_id: str, span_id: str, sampled: bool = True) -> str:
 
 class _TextFormatter(logging.Formatter):
     def format(self, record: logging.LogRecord) -> str:
+        trace = current_trace.get()
+        tid = f" trace={trace['trace_id'][:8]}" if trace else ""
         ts = time.strftime("%H:%M:%S", time.localtime(record.created))
         return (f"{ts}.{int(record.msecs):03d} {record.levelname:<5} "
-                f"{record.name}: {record.getMessage()}"
+                f"{record.name}{tid}: {record.getMessage()}"
                 + (f"\n{self.formatException(record.exc_info)}"
                    if record.exc_info else ""))
 

@@ -1,6 +1,5 @@
 """Endpoint server: the ingress half of the request plane (copy of
-``dynamo_tpu.runtime.service.EndpointServer`` without its tracing span and
-metrics counters).
+``dynamo_tpu.runtime.service.EndpointServer``).
 
 A plain duplex framed-TCP server per endpoint instance: one connection
 carries many concurrent request streams, multiplexed by request id
@@ -8,6 +7,11 @@ carries many concurrent request streams, multiplexed by request id
 and ``kill``. Frames out: ``data`` (``p`` and the per-stream sequence
 number ``s``), then ``final`` carrying the total, or ``err`` with one of
 the tokens of ``runtime/errors.py``.
+
+Each request runs under a ``worker.request`` span joined to the caller's
+trace (the ids ride the ``req`` frame's context) and feeds the
+reference's endpoint series: ``requests_total``, ``request_errors_total``,
+``inflight_requests`` and ``request_duration_seconds``.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from dynamo_tpu_torch.runtime.errors import (INCOMPLETE, KILLED,
                                              OverloadedError)
 from dynamo_tpu_torch.runtime.frame import read_frame, write_frame
 from dynamo_tpu_torch.runtime.logging import get_logger
+from dynamo_tpu_torch.runtime.tracing import span
 
 log = get_logger("service")
 
@@ -41,6 +46,17 @@ class EndpointServer:
         self._inflight: dict[str, tuple[asyncio.Task, Context]] = {}
         self._stopping = asyncio.Event()
         self.instance: Instance | None = None
+        comp = endpoint.component
+        metrics = (runtime.metrics.namespace(comp.namespace)
+                   .component(comp.name).endpoint(endpoint.name))
+        self._m_requests = metrics.counter(
+            "requests_total", "Requests received by this endpoint")
+        self._m_errors = metrics.counter(
+            "request_errors_total", "Requests that ended in error")
+        self._m_inflight = metrics.gauge(
+            "inflight_requests", "Currently executing requests")
+        self._m_duration = metrics.histogram(
+            "request_duration_seconds", "Request handling latency")
 
     async def start(self) -> None:
         cfg = self._runtime.config
@@ -137,6 +153,7 @@ class EndpointServer:
             writer.close()
 
     async def _send_err(self, send, rid: str, token: str) -> None:
+        self._m_errors.inc()
         try:
             await send({"t": "err", "rid": rid, "e": token})
         except (ConnectionError, OSError):
@@ -144,16 +161,24 @@ class EndpointServer:
 
     async def _run_request(self, rid: str, request: Any, ctx: Context,
                            send) -> None:
+        self._m_requests.inc()
+        self._m_inflight.inc()
+        started = time.monotonic()
         # Per-stream sequence numbers: data frames carry "s"=0,1,2,... and
         # the final frame carries the total, so the client detects a lost
         # or duplicated frame.
         seq = 0
         try:
-            async for response in self._handler(request, ctx):
-                if ctx.is_killed:
-                    break
-                await send({"t": "data", "rid": rid, "p": response, "s": seq})
-                seq += 1
+            # The ctx ids came on the wire, so this span joins the
+            # caller's trace (frontend http.request -> worker.request).
+            with span("worker.request", ctx=ctx,
+                      endpoint=self._endpoint.path):
+                async for response in self._handler(request, ctx):
+                    if ctx.is_killed:
+                        break
+                    await send({"t": "data", "rid": rid, "p": response,
+                                "s": seq})
+                    seq += 1
             if ctx.is_killed:
                 # A kill issued by our own drain (shutdown) is an incomplete
                 # stream the caller should migrate, not a client kill echo.
@@ -186,6 +211,8 @@ class EndpointServer:
             log.warning("handler error for %s: %s", rid, exc, exc_info=True)
             await self._send_err(send, rid, f"{type(exc).__name__}: {exc}")
         finally:
+            self._m_inflight.dec()
+            self._m_duration.observe(time.monotonic() - started)
             self._inflight.pop(rid, None)
 
     async def shutdown(self, drain_s: float | None = None) -> None:

@@ -281,7 +281,7 @@ async def test_port_client_survives_coordinator_restart(coord_kind):
 
 FIELDS = ["coordinator_url", "namespace", "lease_ttl_s", "bind_host",
           "advertise_host", "shutdown_timeout_s", "retire_drain_s",
-          "stream_idle_timeout_s"]
+          "stream_idle_timeout_s", "system_enabled", "system_port"]
 
 
 def _clear_settings(monkeypatch):
@@ -295,7 +295,8 @@ def _clear_settings(monkeypatch):
     {"DTPU_COORDINATOR_URL": "tcp://10.1.2.3:4999", "DTPU_NAMESPACE": "ns",
      "DTPU_LEASE_TTL_S": "2.5", "DTPU_BIND_HOST": "0.0.0.0",
      "DTPU_ADVERTISE_HOST": "10.0.0.7", "DTPU_SHUTDOWN_TIMEOUT_S": "3",
-     "DTPU_RETIRE_DRAIN_S": "4", "DTPU_STREAM_IDLE_TIMEOUT_S": "0"},
+     "DTPU_RETIRE_DRAIN_S": "4", "DTPU_STREAM_IDLE_TIMEOUT_S": "0",
+     "DTPU_SYSTEM_ENABLED": "1", "DTPU_SYSTEM_PORT": "9123"},
 ], ids=["defaults", "env"])
 def test_runtime_config_matches_reference(env, monkeypatch, tmp_path):
     _clear_settings(monkeypatch)
@@ -321,7 +322,7 @@ def test_runtime_config_matches_reference(env, monkeypatch, tmp_path):
     ("env", "DTPU_OVERLOAD_ENABLED"),
     ("env", "DTPU_SLO_TTFT_P99_MS"),
     ("env", "DTPU_STATIC_MODE"),
-    ("env", "DTPU_SYSTEM_ENABLED"),
+    ("toml", "num_worker_threads = 4\n"),
     ("env", "DTPU_NUM_WORKER_THREADS"),
 ], ids=lambda s: s[1].split("\n")[0])
 def test_runtime_settings_the_port_lacks_are_refused(setting, monkeypatch,

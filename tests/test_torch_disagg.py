@@ -36,6 +36,7 @@
 
 import asyncio
 import json
+import signal
 import time
 
 import jax
@@ -647,10 +648,18 @@ def test_1p1d_entry_points_as_processes(plane):
         if plane:
             assert "device path off: the engine runs on cpu" in \
                 prefill.wait_line("KV plane device path")
+        # SIGUSR1 prints the same counters while the worker serves on.
+        decode.p.send_signal(signal.SIGUSR1)
+        mid = json.loads(decode.wait_line("GPU_WORKER_COUNTERS ").split(
+            " ", 1)[1])
+        assert b'"tiny-test"' in _models(fport)
         for proc in (front, decode, prefill, coord):
             assert proc.stop() == 0, proc.seen[-20:]
         counters = json.loads(decode.wait_line("GPU_WORKER_EXIT ").split(
             " ", 1)[1])
+        assert (mid["engine"], mid["disagg"]) == (counters["engine"],
+                                                  counters["disagg"])
+        assert counters["engine"]["windows"] > 0
         assert counters["disagg"] == {"remote_prefills": 1,
                                       "local_prefills": 0,
                                       "remote_failures": 0}

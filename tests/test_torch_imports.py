@@ -1,8 +1,9 @@
 """The port stands alone: no file of dynamo_tpu_torch/, and not
 chip_smoke.py, imports jax or anything of the JAX package dynamo_tpu, nor
-a package the card's machine lacks (aiohttp, pydantic, tokenizers, jinja2,
-msgpack, xxhash, regex, safetensors, ml_dtypes, huggingface_hub), nor
-``tomli`` (the port reads TOML with the standard library's ``tomllib``)."""
+a package the card's machine lacks (aiohttp, prometheus_client, pydantic,
+tokenizers, jinja2, msgpack, xxhash, regex, safetensors, ml_dtypes,
+huggingface_hub), nor ``tomli`` (the port reads TOML with the standard
+library's ``tomllib``)."""
 
 import ast
 import subprocess
@@ -14,9 +15,9 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "dynamo_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
-FORBIDDEN = {"jax", "jaxlib", "dynamo_tpu", "aiohttp", "pydantic",
-             "tokenizers", "jinja2", "msgpack", "xxhash", "regex", "tomli",
-             "safetensors", "ml_dtypes", "huggingface_hub"}
+FORBIDDEN = {"jax", "jaxlib", "dynamo_tpu", "aiohttp", "prometheus_client",
+             "pydantic", "tokenizers", "jinja2", "msgpack", "xxhash", "regex",
+             "tomli", "safetensors", "ml_dtypes", "huggingface_hub"}
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -55,6 +56,15 @@ def test_scan_reaches_the_distributed_modules(module):
     "engine/safetensors_lite.py", "engine/hub.py", "engine/quant.py",
     "engine/weights.py", "llm/gguf.py"])
 def test_scan_reaches_the_checkpoint_modules(module):
+    assert ROOT / "dynamo_tpu_torch" / module in PORT_FILES
+
+
+@pytest.mark.parametrize("module", [
+    "runtime/metrics.py", "runtime/tracing.py", "runtime/journal.py",
+    "runtime/flight.py", "runtime/health.py", "runtime/http_server.py",
+    "llm/recorder.py", "llm/fleet.py", "llm/timeline.py",
+    "engine/kv_metrics.py"])
+def test_scan_reaches_the_observability_modules(module):
     assert ROOT / "dynamo_tpu_torch" / module in PORT_FILES
 
 

@@ -701,15 +701,17 @@ def test_entry_points_as_processes():
 
 @pytest.mark.parametrize("main,argv,words", [
     (gpu.parse_args, ["--pp", "2"], "ROADMAP item 16"),
-    (gpu.parse_args, ["--ttft-budget-ms", "500"], "ROADMAP item 12"),
+    (gpu.parse_args, ["--ttft-budget-ms", "500"], "ROADMAP item 12a"),
     (gpu.parse_args, ["--num-nodes", "2"], "ROADMAP item 16"),
     (gpu.parse_args, ["--tp", "2"], "ROADMAP item 16"),
     (gpu.parse_args, ["--standby"], "planner"),
     (gpu.parse_args, ["--tool-call-parser", "hermes"], "parsers"),
     (frontend_main.parse_args, ["--slo-ttft-p99-ms", "500"],
-     "ROADMAP item 12"),
+     "ROADMAP item 12a"),
     (frontend_main.parse_args, ["--grpc-port", "9"], "gRPC"),
-    (frontend_main.parse_args, ["--canary"], "ROADMAP item 12"),
+    (frontend_main.parse_args, ["--canary"], "ROADMAP item 12a"),
+    (frontend_main.parse_args, ["--request-log", "r.jsonl"],
+     "ROADMAP item 12a"),
 ], ids=lambda v: " ".join(v) if isinstance(v, list) else None)
 def test_refused_flags_name_their_item(main, argv, words, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -731,8 +733,8 @@ def test_refused_flags_name_their_item(main, argv, words, capsys):
     (["--output-file", "out.jsonl"], "ROADMAP item 24"),
     (["--batch-concurrency", "4"], "ROADMAP item 24"),
     (["--batch-max-tokens", "64"], "ROADMAP item 24"),
-    (["--slo-ttft-p99-ms", "500"], "ROADMAP item 12"),
-    (["--request-log", "requests.jsonl"], "ROADMAP item 12"),
+    (["--slo-ttft-p99-ms", "500"], "ROADMAP item 12a"),
+    (["--request-log", "requests.jsonl"], "ROADMAP item 12a"),
     (["out=mocker"], "ROADMAP item 25"),
     (["out=echo"], "no ROADMAP item"),
 ], ids=lambda v: " ".join(v) if isinstance(v, list) else None)
