@@ -2,7 +2,11 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure exits non-zero without the final line:
+Phases, in order; any failure exits non-zero without the final line. No
+process the script starts outlives it (each dies with it; an exit or a
+SIGTERM kills what still runs), and a run that has not ended after
+WATCHDOG_S prints every stack, its own and each child's, and exits 1.
+Each phase's end prints the seconds so far and the host's memory.
 1. build: compile the paged decode-attention kernel, both entry points
    (paged_attention_hist for a bf16 pool, paged_attention_hist_int8 for an
    int8 pool with per-token scales), from
@@ -425,7 +429,47 @@ Phases, in order; any failure exits non-zero without the final line:
    of that share, and the /metrics window count at phase 14's start
    equals the first reading's windows. Both shares join the kernels
    line.
-In every phase from 3 to 14, each decode window an engine dispatched was
+15. admission and the perf plane at full width, after phase 13's fleet
+   is gone; llama-3-8b engines built as ``backends.gpu`` builds them
+   (seed 0, ADM_PAGES pages, warmup_windows set, a metrics registry).
+   a. The perf plane: the worker engine serves round 1's shape on fresh
+   prompts, then GET /debug/perf on a status server whose provider is
+   its perf_status (the worker's wiring). Checked: the window counters
+   since the engine was built equal its own windows and tokens; the
+   weight-read step is 4.79 ms (16.06 GB at 3350 GB/s); 0 < frac <= 1;
+   the decode_window captures since the engine was built equal its
+   runner's captured programs; no unexpected recapture; hbm.bytes_in_use
+   equals torch.cuda.memory_allocated() read before and after the GET,
+   peak >= in use, the limit is the card's memory; params and KV pool
+   bytes are the runner's; workspace >= the graph pool. It prints the
+   windows' window_s in all beside their device time between CUDA events
+   recorded around each window's enqueue. b. SLA admission: the same
+   engine with a TTFT budget of ADM_BUDGET_PROMPTS burst prompts at the
+   rate round 1 calibrated and reject factor 2 takes ADM_BURST prompts of
+   ADM_BURST_LEN tokens at once. Checked: heads deferred, at least one
+   OverloadedError carrying the projection, every admitted request
+   finishes, admitted + rejected = sent; it prints each admitted
+   request's projected TTFT at submission beside its measured TTFT. c.
+   The brownout fallback: a ``--spec-decode ngram`` engine on the same
+   weights (a budget given at start, so its warmup also captures the plain
+   programs its brownout falls back to), its budget set to one backlog
+   prompt at its calibrated rate, decodes code-like rows while a backlog
+   of prompts arrives. Checked: the level reached >= 2 and returned to 0,
+   plain windows ran under it and spec windows before and after it, every
+   window replayed a graph, the bf16 entry launched m_outer x 32 per spec
+   window plus M x 32 per plain window, and the greedy rows equal a plain
+   engine's on the same prompts or split only at a near-tie (top-2
+   margin within 2 x LOGIT_ATOL). d. The front: a port frontend
+   (``--overload-max-concurrency 4 --slo-ttft-p99-ms``, the limit at 4
+   from the start and a queue of FRONT_QUEUE_DEPTH) over a port worker
+   serving the first engine takes FRONT_BURST chats at once, every fourth
+   ``x-priority: batch``. Checked: 200s plus 503s and 429s, each shed with
+   Retry-After and a typed error, make FRONT_BURST; /metrics shows
+   admitted_total, shed_total and concurrency_limit; /debug/slo answers
+   200 with the reference's keys and a ttft target. Phase 15 runs bf16
+   pools only: its int8 launches are 0 (phases 4, 7, 8 and 12 drive the
+   int8 entry).
+In every phase from 3 to 15, each decode window an engine dispatched was
 a replay of its program's CUDA graph (the runner's replay count rises by
 the windows dispatched; in phase 13 the decode worker's own count), and the warmed engines of phases 8-11 (built as
 ``backends.gpu`` builds them, warmup_windows set) print their programs
@@ -474,6 +518,128 @@ H100_BF16_FLOPS = 989e12       # dense bf16 tensor cores, H100 SXM data sheet
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# The processes this script starts. None may outlive it: each asks the
+# kernel for SIGKILL when this process dies (PR_SET_PDEATHSIG, so a
+# SIGKILL of this process takes them too), and an exit, a SIGTERM or the
+# watchdog kills what still runs. The watchdog ends a run that has not
+# ended WATCHDOG_S after it started, inside the harness's 1200 s: it
+# prints every thread's stack and each child's last lines, so a hang
+# says where it hung, then kills the children and exits 1.
+# ---------------------------------------------------------------------------
+CHILDREN: list = []  # (process, line queue or None, lines seen)
+WATCHDOG_S = 1160
+_PRCTL = None
+
+
+def die_with_parent() -> None:
+    """In a child, before anything else: SIGKILL when the parent dies.
+    (As a ``preexec_fn`` it runs between fork and exec, so the libc call
+    is looked up in the parent, by ``install_guards``.)"""
+    if _PRCTL is not None:
+        _PRCTL(1, 9)  # PR_SET_PDEATHSIG, SIGKILL
+
+
+def _alive(proc) -> bool:
+    return proc.poll() is None if hasattr(proc, "poll") else proc.is_alive()
+
+
+def kill_children() -> list:
+    """SIGKILL every child still running and reap it; the pids killed."""
+    killed = []
+    for proc, _, _ in CHILDREN:
+        if _alive(proc):
+            killed.append(proc.pid)
+            proc.kill()
+    for proc, _, _ in CHILDREN:
+        with contextlib.suppress(Exception):
+            if hasattr(proc, "poll"):
+                proc.wait(timeout=30)
+            else:
+                proc.join(30)
+    return killed
+
+
+def host_memory() -> dict:
+    """GiB: the host's MemAvailable, this process's resident set, and its
+    running children's in all (from /proc)."""
+    import os
+
+    def kib(path, key):
+        with contextlib.suppress(OSError, StopIteration, ValueError):
+            with open(path) as fh:
+                line = next(x for x in fh if x.startswith(key))
+            return int(line.split()[1])
+        return 0
+    kids = sum(kib(f"/proc/{p.pid}/status", "VmRSS:") for p, _, _ in
+               CHILDREN if _alive(p))
+    return {"available_GiB": round(kib("/proc/meminfo", "MemAvailable:")
+                                   / 2**20, 2),
+            "rss_GiB": round(kib(f"/proc/{os.getpid()}/status", "VmRSS:")
+                             / 2**20, 2),
+            "children_rss_GiB": round(kids / 2**20, 2)}
+
+
+def dump_stacks(why: str) -> None:
+    """Every thread's stack of this process, then of each running child
+    (each has the fault handler on, so a SIGABRT makes it print its
+    threads' stacks as it dies), with each child's last lines, to
+    stderr."""
+    import faulthandler
+    import os
+    import signal
+    print(f"chip_smoke: {why}; every thread's stack and each child's "
+          f"last lines follow", file=sys.stderr, flush=True)
+    faulthandler.dump_traceback(all_threads=True)
+    running = [e for e in CHILDREN if _alive(e[0])]
+    for proc, _, _ in running:
+        os.kill(proc.pid, signal.SIGABRT)
+    time.sleep(3)
+    for proc, lines, seen in CHILDREN:
+        while lines is not None and not lines.empty():
+            seen.append(lines.get_nowait())
+        print(f"--- child {proc.pid} {getattr(proc, 'args', '')} (was "
+              f"running: {any(proc is e[0] for e in running)}):\n"
+              f"{''.join(seen[-60:])}", file=sys.stderr, flush=True)
+
+
+def _watchdog() -> None:
+    import os
+    dump_stacks(f"no end after {WATCHDOG_S} s")
+    print(f"chip_smoke: killed {kill_children()}", file=sys.stderr,
+          flush=True)
+    os._exit(1)
+
+
+def install_guards() -> None:
+    """The watchdog, a SIGTERM that kills the children first, and the
+    kill at exit (see above)."""
+    import atexit
+    import ctypes
+    import faulthandler
+    import os
+    import resource
+    import signal
+    import threading
+    global _PRCTL
+    _PRCTL = ctypes.CDLL(None, use_errno=True).prctl
+    # No core files: the watchdog's SIGABRT of a child is for its stacks.
+    resource.setrlimit(resource.RLIMIT_CORE, (0, 0))
+    dog = threading.Timer(WATCHDOG_S, _watchdog)
+    dog.daemon = True
+    dog.start()
+    # Should the watchdog's thread not get the interpreter, the C-level
+    # dump still comes, and the exit takes the children by their
+    # parent-death signal.
+    faulthandler.dump_traceback_later(WATCHDOG_S + 15, exit=True)
+
+    def on_term(signum, frame):
+        kill_children()
+        os._exit(128 + signum)
+    signal.signal(signal.SIGTERM, on_term)
+    atexit.register(kill_children)
 
 
 # ---------------------------------------------------------------------------
@@ -1960,7 +2126,8 @@ def dist_phase(attention, engine, tokenizer, on_loop, traffic) -> dict:
 def _spawn(procs: list, *argv, env: dict | None = None):
     """Start ``python -m *argv`` from the checkout's root (``env`` added
     to its environment), its output lines collected; appends (process,
-    line queue, lines seen) to ``procs`` and returns it."""
+    line queue, lines seen) to ``procs`` and returns it. The process is
+    one of ``CHILDREN``: it dies with this one."""
     import os
     import queue
     import subprocess
@@ -1969,12 +2136,15 @@ def _spawn(procs: list, *argv, env: dict | None = None):
         [sys.executable, "-m", *argv], stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True,
         cwd=os.path.dirname(os.path.abspath(__file__)),
-        env=dict(os.environ, DTPU_LOG="info", **(env or {})))
+        env=dict(os.environ, DTPU_LOG="info", PYTHONFAULTHANDLER="1",
+                 **(env or {})),
+        preexec_fn=die_with_parent)
     lines: queue.Queue = queue.Queue()
     for pipe in (proc.stdout, proc.stderr):
         threading.Thread(target=lambda p=pipe: [lines.put(x) for x in p],
                          daemon=True).start()
     procs.append((proc, lines, []))
+    CHILDREN.append(procs[-1])
     return procs[-1]
 
 
@@ -1988,8 +2158,30 @@ def _wait_line(entry, text, timeout=300) -> str:
             seen.append(lines.get(timeout=1))
         except queue.Empty:
             assert proc.poll() is None, (proc.returncode, seen[-20:])
-            assert time.monotonic() - t0 < timeout, seen[-20:]
+            if time.monotonic() - t0 >= timeout:
+                raise AssertionError(f"no {text!r} after {timeout} s; the "
+                                     f"process's stacks and last lines:\n"
+                                     + "".join(abort_for_stacks(entry)))
     return next(x for x in seen if text in x).strip()
+
+
+def abort_for_stacks(entry) -> list:
+    """SIGABRT a stuck ``_spawn`` process (its fault handler prints every
+    thread's stack as it dies) and return its last lines, the stacks
+    among them."""
+    import queue
+    import signal
+    proc, lines, seen = entry
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGABRT)
+    deadline = time.monotonic() + 5
+    while time.monotonic() < deadline:
+        try:
+            seen.append(lines.get(timeout=0.5))
+        except queue.Empty:
+            if proc.poll() is not None:
+                break
+    return seen[-80:]
 
 
 def dist_subprocesses() -> dict:
@@ -5210,6 +5402,7 @@ def tier_phase(attention, model) -> dict:
 PARCEL_PAGES = (1, 64, 375)
 PARCEL_SEED = 2718
 PARCEL_PAGE = 16  # the workers' --page-size
+SINK_WAIT_S = 120  # 13a's second process answers in 10-15 s
 # 13b: a fresh prompt sent once through the frontend over HTTP.
 FLEET_HTTP_PROMPT = 600
 
@@ -5223,7 +5416,12 @@ def parcel_sink(conn, tickets, pool_shape, device, ipc) -> None:
     IPC)."""
     import hashlib
 
+    import ctypes
+    import faulthandler
+
     from dynamo_tpu_torch.llm.kv_plane import KvPlaneClient
+    ctypes.CDLL(None).prctl(1, 9)  # PR_SET_PDEATHSIG: die with the script
+    faulthandler.enable()  # the watchdog's SIGABRT prints the stacks
     try:
         if device == "cuda":
             torch.cuda.set_device(0)
@@ -5298,6 +5496,8 @@ def parcel_check(ipc=None) -> dict:
     """Phase 13a (see the module docstring). ``ipc``: the plane's exporter
     for both processes (None: CUDA IPC; a CPU rehearsal passes a fake)."""
     import multiprocessing
+    import os
+    import signal
 
     from dynamo_tpu_torch.engine.config import PRESETS
     from dynamo_tpu_torch.llm.kv_plane import KvPlaneServer
@@ -5337,7 +5537,13 @@ def parcel_check(ipc=None) -> dict:
         sink = ctx.Process(target=parcel_sink, args=(
             there, tickets, sink_shape, DEVICE, ipc))
         sink.start()
-        assert here.poll(300), "the sink process did not answer"
+        CHILDREN.append((sink, None, []))
+        if not here.poll(SINK_WAIT_S):
+            # Its fault handler prints its stacks to this stderr.
+            os.kill(sink.pid, signal.SIGABRT)
+            sink.join(10)
+            raise AssertionError(f"the sink process did not answer in "
+                                 f"{SINK_WAIT_S} s (its stacks are above)")
         got = here.recv()
         sink_s = time.monotonic() - t0
         assert "error" not in got, got["error"]
@@ -5363,10 +5569,10 @@ def parcel_check(ipc=None) -> dict:
             f"{after - base} bytes still allocated after every parcel was "
             f"pulled: a staged tensor outlived its ticket")
     finally:
-        server.close()
         if sink is not None and sink.is_alive():
             sink.kill()
             sink.join(30)
+        server.close()
     rows = []
     for p in pulls:
         row = {"pages": p["pages"], "path": p["path"], "bytes": p["bytes"],
@@ -5505,7 +5711,8 @@ def device_fleet(ref: dict) -> dict:
             time.sleep(0.05)
         ready_s = time.monotonic() - t_phase
         t0 = time.monotonic()
-        results = asyncio.run(fleet_traffic(url, bodies))
+        results = asyncio.run(asyncio.wait_for(
+            fleet_traffic(url, bodies), SSE_TIMEOUT_S))
         wall = time.monotonic() - t0
         res = http_call(port, "POST", "/v1/completions", {
             "model": MODEL, "prompt": http_prompt, "stream": True,
@@ -5909,11 +6116,602 @@ def device_path_phase(phase8: dict, ipc=None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: admission and the perf plane at full width
+# ---------------------------------------------------------------------------
+
+ADM_PAGES = 4096
+ADM_SEED = 8642
+ADM_BURST = 16        # 15b: prompts sent at once
+ADM_BURST_LEN = 1500  # tokens each
+ADM_BURST_TOKENS = 16
+ADM_BUDGET_PROMPTS = 4  # 15b's TTFT budget: this many burst prompts
+BROWN_DECODE_LENS = (600, 750, 900, 1050)  # 15c: code-like rows decoding
+BROWN_DECODE_TOKENS = 256
+BROWN_BACKLOG = 8     # 15c: prompts of ADM_BURST_LEN tokens, one token each
+BROWN_WARM = 3        # 15c: fresh prompts that calibrate the rate first
+FRONT_BURST = 32      # 15d: chats sent at once
+FRONT_MAX_CONCURRENCY = 4
+FRONT_QUEUE_DEPTH = 8
+FRONT_SLO_TTFT_MS = 2000.0
+FRONT_TOKENS = 16
+# llama-3-8b's weight-read step: 16.06 GB of bf16 weights at 3350 GB/s.
+ADM_STEP_MS = 4.79
+SLO_KEYS = {"enabled", "fast_burn_threshold", "slow_burn_threshold",
+            "pages_total", "targets", "pressure"}
+
+
+class LoopThread:
+    """An event loop on a thread of its own, for servers the script
+    queries synchronously."""
+
+    def __init__(self):
+        import threading
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def run(self, coro, timeout=600):
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(
+            timeout)
+
+    def close(self) -> None:
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(10)
+
+
+def admission_engine(extra=(), params=None):
+    """A seed-0 llama-3-8b engine built as ``python -m
+    dynamo_tpu_torch.backends.gpu --num-pages ADM_PAGES`` plus ``extra``
+    flags builds it (warmup_windows set), with phase 3's prefill program
+    size and a metrics registry; on ``params`` when given (another
+    engine's tensors), and started, so its warmup programs are
+    captured."""
+    import dataclasses
+
+    from dynamo_tpu_torch.backends import gpu
+    from dynamo_tpu_torch.engine.engine import GPUEngine
+    from dynamo_tpu_torch.profile_decode import MAX_PREFILL_TOKENS, MODEL
+    from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
+    args = gpu.parse_args(["--model", MODEL, "--seed", "0", "--device",
+                           DEVICE, "--num-pages", str(ADM_PAGES), *extra])
+    config = dataclasses.replace(gpu.build_engine_config(args),
+                                 max_prefill_tokens=MAX_PREFILL_TOKENS)
+    assert config.warmup_windows, config
+    t0 = time.monotonic()
+    engine = GPUEngine(config, params=params, seed=args.seed,
+                       metrics_registry=MetricsRegistry().namespace(
+                           "dynamo").component("gpu"))
+    engine.start()
+    log(f"phase 15 engine {' '.join(extra) or '(plain)'}: pages="
+        f"{engine.runner.num_pages} setup {time.monotonic() - t0:.1f}s "
+        f"(warmup {engine.warmup_seconds:.1f}s)")
+    return engine
+
+
+def window_events(runner):
+    """Wrap the runner's window entry points to record CUDA events around
+    each window's enqueue (the packed upload and the graph replay): the
+    device time of the same windows whose ``window_s`` the perf plane
+    reads. Returns the list of (start, end) event pairs; ``del
+    runner.decode_window, runner.decode_spec_window`` undoes it."""
+    pairs = []
+    for name in ("decode_window", "decode_spec_window"):
+        inner = getattr(runner, name)
+
+        def timed(*a, inner=inner, **kw):
+            e0, e1 = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            e0.record()
+            out = inner(*a, **kw)
+            e1.record()
+            pairs.append((e0, e1))
+            return out
+        setattr(runner, name, timed)
+    return pairs
+
+
+def launches_now(attention) -> dict:
+    return {"paged_attention_hist": attention.KERNEL.launches,
+            "paged_attention_hist_int8": attention.KERNEL.launches_int8}
+
+
+def perf_status_check(loop, engine, before: dict, w0: dict,
+                      captured: int) -> dict:
+    """15a's checks of GET /debug/perf on a status server whose provider
+    is ``engine.perf_status`` (the worker's wiring)."""
+    from dynamo_tpu_torch.runtime.config import RuntimeConfig
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.runtime.health import SystemStatusServer
+    from dynamo_tpu_torch.runtime.http_server import http_get_json
+
+    async def up():
+        rt = await DistributedRuntime.detached(RuntimeConfig())
+        server = SystemStatusServer(rt, host="127.0.0.1", port=0, cuda=True,
+                                    perf_provider=engine.perf_status)
+        await server.start()
+        return rt, server
+
+    rt, server = loop.run(up())
+    try:
+        torch.cuda.synchronize()
+        alloc0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        status, body = loop.run(http_get_json(
+            f"127.0.0.1:{server.port}", "/debug/perf", 30))
+        get_ms = (time.perf_counter() - t0) * 1e3
+        alloc1 = torch.cuda.memory_allocated()
+    finally:
+        loop.run(server.stop())
+        loop.run(rt.close())
+    assert status == 200, (status, body)
+    assert set(body) == {"role", "compiles", "window", "roofline", "hbm",
+                         "memory"}, sorted(body)
+    win, roof, hbm, mem = (body["window"], body["roofline"], body["hbm"],
+                           body["memory"])
+    windows = win["windows_total"] - w0["windows_total"]
+    tokens = win["window_tokens_total"] - w0["window_tokens_total"]
+    assert windows == engine.step_count > 0, (windows, engine.step_count)
+    assert tokens == engine.tokens_generated_total > 0, (
+        tokens, engine.tokens_generated_total)
+    assert abs(roof["weight_read_step_ms"] - ADM_STEP_MS) < 0.05, roof
+    assert 0 < roof["frac"] <= 1, roof
+    programs, prev = body["compiles"]["programs"], before["programs"]
+    decode_captures = (programs["decode_window"]["compiles"]
+                       - prev.get("decode_window", {}).get("compiles", 0))
+    assert decode_captures == captured, (decode_captures, captured)
+    assert (body["compiles"]["unexpected_recompiles_total"]
+            == before["unexpected_recompiles_total"]), body["compiles"]
+    assert programs["decode_window"]["cost"]["source"] == "analytic"
+    assert alloc0 == alloc1 == hbm["bytes_in_use"], (
+        alloc0, alloc1, hbm["bytes_in_use"])
+    assert hbm["peak_bytes_in_use"] >= hbm["bytes_in_use"], hbm
+    assert hbm["bytes_limit"] == torch.cuda.get_device_properties(
+        0).total_memory, hbm
+    pool = engine.runner.graph_pool_bytes()
+    assert mem["params_bytes"] == engine.runner.param_bytes, mem
+    assert mem["kv_pool_bytes"] == engine.runner.kv_pool_bytes, mem
+    assert mem["workspace_bytes"] >= pool > 0, (mem, pool)
+    return {"windows": windows, "tokens": tokens, "get_ms": get_ms,
+            "window": win, "roofline": roof, "hbm": hbm, "memory": mem,
+            "graph_pool_bytes": pool, "decode_window_captures":
+                decode_captures,
+            "cost": programs["decode_window"]["cost"]}
+
+
+def perf_plane_check(attention, loop, engine, before: dict,
+                     w0: dict) -> dict:
+    """15a: round 1's traffic on the warmed worker engine, then
+    /debug/perf."""
+    from dynamo_tpu_torch.profile_decode import serve
+    spec = engine.runner.spec
+    prompts = round1_prompts(spec, ADM_SEED)
+    pairs = window_events(engine.runner)
+    attention.KERNEL.launches = attention.KERNEL.launches_int8 = 0
+    replays0 = engine.runner.window_replays
+    try:
+        t0 = time.monotonic()
+        results = asyncio.run(serve(engine, round1_requests(spec, prompts)))
+        wall = time.monotonic() - t0
+        torch.cuda.synchronize()
+        launches = launches_now(attention)
+    finally:
+        del engine.runner.decode_window, engine.runner.decode_spec_window
+    check_replays(engine, replays0, engine.windows_dispatched)
+    for i, r in enumerate(results):
+        assert r["finish"] == "length" and r["tokens"], (i, r["finish"])
+    expected = engine.windows_dispatched * engine.decode_window * \
+        spec.num_layers
+    assert launches["paged_attention_hist"] == expected > 0, (
+        launches, expected)
+    assert launches["paged_attention_hist_int8"] == 0, launches
+    device_ms = sum(a.elapsed_time(b) for a, b in pairs)
+    programs = engine.runner.window_programs()
+    out = perf_status_check(loop, engine, before, w0, programs[
+        "captured" if engine.runner.use_graphs else "programs"])
+    out.update(launches=launches, wall_s=wall, rate_tok_s=(
+        engine.prefill_rate_tok_s),
+               window_device_ms_total=device_ms,
+               window_s_total_ms=out["window"]["window_seconds_total"]
+               * 1e3 - w0["window_seconds_total"] * 1e3,
+               windows_timed=len(pairs))
+    log(f"15a: {out['windows']} windows, {out['tokens']} tokens; window_s "
+        f"{out['window_s_total_ms']:.1f} ms in all against "
+        f"{device_ms:.1f} device ms (CUDA events, {len(pairs)} windows); "
+        f"roofline frac {out['roofline']['frac']} of a "
+        f"{out['roofline']['weight_read_step_ms']} ms step; hbm in use "
+        f"{out['hbm']['bytes_in_use'] / 2**30:.2f} GiB, workspace "
+        f"{out['memory']['workspace_bytes'] / 2**20:.0f} MiB >= graph pool "
+        f"{out['graph_pool_bytes'] / 2**20:.0f} MiB; GET {out['get_ms']:.1f}"
+        f" ms")
+    return out
+
+
+def sla_check(attention, engine) -> dict:
+    """15b: a burst against a TTFT budget of ADM_BUDGET_PROMPTS burst
+    prompts at the rate round 1 calibrated, reject factor 2."""
+    import dataclasses
+
+    from dynamo_tpu_torch.runtime.context import Context
+    from dynamo_tpu_torch.runtime.errors import OverloadedError
+    spec = engine.runner.spec
+    rate = engine.prefill_rate_tok_s
+    assert rate, "round 1 calibrated no prefill rate"
+    budget = ADM_BUDGET_PROMPTS * ADM_BURST_LEN / rate * 1e3
+    plain_config = engine.config
+    engine.config = dataclasses.replace(
+        plain_config, ttft_budget_ms=budget, admission_reject_factor=2.0)
+    rng = np.random.default_rng(ADM_SEED + 1)
+    prompts = [rng.integers(0, spec.vocab_size, ADM_BURST_LEN).tolist()
+               for _ in range(ADM_BURST)]
+    deferred0 = engine.admission_deferred
+    windows0 = engine.windows_dispatched
+    replays0 = engine.runner.window_replays
+
+    async def burst():
+        async def one(prompt, projected):
+            t0 = time.monotonic()
+            req = {"model": spec.name, "token_ids": prompt,
+                   "stop_conditions": {"max_tokens": ADM_BURST_TOKENS,
+                                       "ignore_eos": True}}
+            toks, ttft, finish = [], None, None
+            try:
+                async for item in engine.generate(req, Context()):
+                    if ttft is None:
+                        ttft = time.monotonic() - t0
+                    toks.extend(item.get("token_ids", []))
+                    finish = item.get("finish_reason") or finish
+            except OverloadedError as exc:
+                return {"rejected": str(exc), "projected_ms": projected}
+            return {"tokens": len(toks), "finish": finish,
+                    "ttft_ms": ttft * 1e3, "projected_ms": projected}
+        tasks = []
+        for p in prompts:
+            # The projection generate() judges this arrival by.
+            tasks.append(asyncio.ensure_future(
+                one(p, engine.estimated_ttft_ms(len(p)))))
+            await asyncio.sleep(0)
+        return await asyncio.gather(*tasks)
+
+    attention.KERNEL.launches = attention.KERNEL.launches_int8 = 0
+    try:
+        t0 = time.monotonic()
+        results = asyncio.run(burst())
+        wall = time.monotonic() - t0
+        torch.cuda.synchronize()
+        launches = launches_now(attention)
+    finally:
+        engine.config = plain_config
+    admitted = [r for r in results if "rejected" not in r]
+    rejected = [r for r in results if "rejected" in r]
+    assert len(admitted) + len(rejected) == ADM_BURST, results
+    assert rejected, "the burst met no projection over budget x factor"
+    assert all("projected TTFT" in r["rejected"] for r in rejected), rejected
+    for r in admitted:
+        assert r["finish"] == "length" and r["tokens"] == ADM_BURST_TOKENS, r
+    deferred = engine.admission_deferred - deferred0
+    assert deferred > 0, "the SLA gate deferred no head"
+    windows = engine.windows_dispatched - windows0
+    check_replays(engine, replays0, windows)
+    assert launches["paged_attention_hist"] == \
+        windows * engine.decode_window * spec.num_layers, (launches, windows)
+    out = {"budget_ms": budget, "rate_tok_s": rate, "sent": ADM_BURST,
+           "admitted": len(admitted), "rejected": len(rejected),
+           "admission_deferred": deferred, "wall_s": wall,
+           "launches": launches, "windows": windows,
+           "admitted_projected_vs_measured_ms": [
+               (round(r["projected_ms"], 1), round(r["ttft_ms"], 1))
+               for r in admitted],
+           "rejected_projected_ms": [round(r["projected_ms"], 1)
+                                     for r in rejected],
+           "reject_message": rejected[0]["rejected"]}
+    log(f"15b: budget {budget:.1f} ms at {rate:.0f} tok/s; "
+        f"{len(admitted)} admitted, {len(rejected)} rejected of "
+        f"{ADM_BURST}, {deferred} deferrals; projected vs measured TTFT ms "
+        f"{out['admitted_projected_vs_measured_ms']}")
+    return out
+
+
+def brownout_check(attention, model, plain_engine) -> dict:
+    """15c: a spec engine (on the plain engine's weights) under a prompt
+    backlog that lifts its brownout level to >= 2 and back to 0."""
+    import dataclasses
+    import threading
+
+    from dynamo_tpu_torch.profile_decode import serve
+    spec_engine_ = admission_engine(
+        ("--spec-decode", "ngram", "--spec-k", str(SPEC_K),
+         "--ttft-budget-ms", "1000", "--admission-reject-factor", "0"),
+        params=plain_engine.runner.params)
+    engine, spec = spec_engine_, spec_engine_.runner.spec
+    try:
+        keys = sorted(map(str, engine.runner._window_cache))
+        assert any(k.startswith("('spec'") for k in keys) and len(keys) == 3, \
+            keys
+        rng = np.random.default_rng(ADM_SEED + 2)
+
+        def set_budget() -> float:
+            # Half a backlog prompt at the current rate: the backlog's
+            # projection is then several budgets whatever the rate does
+            # next.
+            budget = 0.5 * ADM_BURST_LEN / engine.prefill_rate_tok_s * 1e3
+            engine.config = dataclasses.replace(engine.config,
+                                                ttft_budget_ms=budget)
+            return budget
+        # The rate's EWMA converges over a few fresh prompts (its first
+        # sample carries the first use of the prefill's shapes).
+        for _ in range(BROWN_WARM):
+            asyncio.run(serve(engine, [{
+                "model": spec.name, "token_ids": rng.integers(
+                    0, spec.vocab_size, ADM_BURST_LEN).tolist(),
+                "stop_conditions": {"max_tokens": 2, "ignore_eos": True}}]))
+        set_budget()
+        decode = [{"model": spec.name,
+                   "token_ids": code_like_prompt(rng, spec.vocab_size, n),
+                   "stop_conditions": {"max_tokens": BROWN_DECODE_TOKENS,
+                                       "ignore_eos": True}}
+                  for n in BROWN_DECODE_LENS]
+        backlog = [{"model": spec.name, "token_ids": rng.integers(
+            0, spec.vocab_size, ADM_BURST_LEN).tolist(),
+            "stop_conditions": {"max_tokens": 1, "ignore_eos": True}}
+            for _ in range(BROWN_BACKLOG)]
+        levels, stop = [], threading.Event()
+
+        def watch():
+            while not stop.is_set():
+                levels.append(engine.brownout_level)
+                time.sleep(0.002)
+        watcher = threading.Thread(target=watch, daemon=True)
+        c0 = (engine.windows_dispatched, engine.spec_brownout_windows,
+              sum(engine.spec_emit_hist))
+        marks = {}
+
+        async def run():
+            dec = asyncio.ensure_future(serve(engine, decode))
+            while sum(engine.spec_emit_hist) - c0[2] < 4 * len(decode):
+                await asyncio.sleep(0.002)
+            marks["before"] = (engine.windows_dispatched,
+                               engine.spec_brownout_windows,
+                               sum(engine.spec_emit_hist))
+            marks["budget"] = set_budget()
+            marks["rate"] = engine.prefill_rate_tok_s
+            back = await serve(engine, backlog)
+            marks["after"] = (engine.windows_dispatched,
+                              engine.spec_brownout_windows,
+                              sum(engine.spec_emit_hist))
+            return await dec, back
+
+        attention.KERNEL.launches = attention.KERNEL.launches_int8 = 0
+        replays0 = engine.runner.window_replays
+        watcher.start()
+        t0 = time.monotonic()
+        try:
+            got, back = asyncio.run(run())
+        finally:
+            stop.set()
+            watcher.join(5)
+        wall = time.monotonic() - t0
+        torch.cuda.synchronize()
+        launches = launches_now(attention)
+        budget, rate = marks["budget"], marks["rate"]
+        windows = engine.windows_dispatched - c0[0]
+        plain_windows = engine.spec_brownout_windows - c0[1]
+        check_replays(engine, replays0, windows)
+        for r in got + back:
+            assert r["finish"] == "length", r["finish"]
+        assert plain_windows > 0, "the backlog brought no plain window"
+        assert marks["after"][1] > marks["before"][1]
+        assert sum(engine.spec_emit_hist) > marks["after"][2], \
+            "no spec window after the backlog cleared"
+        assert max(levels) >= 2 and levels[-1] == 0, (max(levels),
+                                                      levels[-1])
+        expected = ((windows - plain_windows) * engine.spec_m_outer
+                    + plain_windows * engine.decode_window) * spec.num_layers
+        assert launches["paged_attention_hist"] == expected, (
+            launches, expected, windows, plain_windows)
+        assert launches["paged_attention_hist_int8"] == 0, launches
+        status = engine.perf_status()["spec"]
+    finally:
+        engine.stop()
+    # The same decode prompts on the plain engine (greedy).
+    want = asyncio.run(serve(plain_engine, decode))
+    equal = greedy_agree(plain_engine.runner, model,
+                         [r["token_ids"] for r in decode],
+                         [r["tokens"] for r in got],
+                         [r["tokens"] for r in want],
+                         rows=range(len(decode)))
+    out = {"budget_ms": budget, "rate_tok_s": rate, "windows": windows,
+           "plain_windows": plain_windows,
+           "spec_windows": windows - plain_windows,
+           "max_level": max(levels), "level_samples": len(levels),
+           "level_ge2_share": sum(lv >= 2 for lv in levels) / len(levels),
+           "greedy_rows_equal": f"{equal}/{len(decode)}",
+           "launches": launches, "wall_s": wall,
+           "verify_bytes_per_token": status["verify_bytes_per_token"],
+           "acceptance_rate": status["acceptance_rate"],
+           "program_keys": keys}
+    log(f"15c: {windows} windows, {plain_windows} plain under brownout "
+        f"(max level {max(levels)}), greedy rows equal to the plain "
+        f"engine {equal}/{len(decode)}, launches {launches}")
+    del engine, spec_engine_
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _front_call(port: int, body: dict, headers: dict) -> tuple:
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request("POST", "/v1/chat/completions",
+                     body=json.dumps(body).encode(),
+                     headers={"Content-Type": "application/json",
+                              **headers})
+        resp = conn.getresponse()
+        return (resp.status, resp.getheader("Retry-After"),
+                json.loads(resp.read()))
+    finally:
+        conn.close()
+
+
+def front_check(attention, loop, engine) -> dict:
+    """15d: a port front with --overload-max-concurrency and
+    --slo-ttft-p99-ms over a port worker serving ``engine``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dynamo_tpu_torch.backends.gpu import serve_engine
+    from dynamo_tpu_torch.frontend import main as frontend_main
+    from dynamo_tpu_torch.launch import (init_observability, make_limiter,
+                                         start_front)
+    from dynamo_tpu_torch.llm.model_card import deregister_llm
+    from dynamo_tpu_torch.llm.tokenizer import make_test_tokenizer
+    from dynamo_tpu_torch.profile_decode import MODEL
+    from dynamo_tpu_torch.runtime import slo
+    from dynamo_tpu_torch.runtime.config import RuntimeConfig
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    args = frontend_main.parse_args([
+        "--overload-max-concurrency", str(FRONT_MAX_CONCURRENCY),
+        "--slo-ttft-p99-ms", str(FRONT_SLO_TTFT_MS), "--http-port", "0"])
+
+    async def up():
+        worker = await DistributedRuntime.with_embedded_coordinator(
+            RuntimeConfig())
+        server = await serve_engine(worker, engine, MODEL,
+                                    make_test_tokenizer())
+        cfg = RuntimeConfig(coordinator_url=worker.config.coordinator_url)
+        frontend_main.apply_front_args(cfg, args)
+        # A limit at its maximum from the start and a short queue: the
+        # burst sheds.
+        cfg.overload.initial_concurrency = FRONT_MAX_CONCURRENCY
+        cfg.overload.queue_depth = FRONT_QUEUE_DEPTH
+        front = await DistributedRuntime.from_settings(cfg)
+        init_observability(cfg, front.metrics,
+                           worker=f"{front.instance_id:x}")
+        service, watcher = await start_front(
+            front, "127.0.0.1", 0, overload=make_limiter(cfg, front.metrics))
+        deadline = time.monotonic() + 60
+        while watcher.manager.get(MODEL) is None:
+            assert time.monotonic() < deadline, "the model was not discovered"
+            await asyncio.sleep(0.02)
+        return worker, server, front, service, watcher
+
+    async def down(worker, server, front, service, watcher):
+        await service.stop()
+        await watcher.stop()
+        await front.close()
+        await deregister_llm(worker, MODEL)
+        await server.shutdown()
+        await worker.close()
+
+    stack = loop.run(up())
+    try:
+        port = stack[3].port
+        rng = np.random.default_rng(ADM_SEED + 3)
+        words = WORDS
+        bodies = [{"model": MODEL, "stream": False, "ignore_eos": True,
+                   "max_tokens": FRONT_TOKENS,
+                   "messages": [{"role": "user", "content": " ".join(
+                       rng.choice(words, 200 + 20 * i))}]}
+                  for i in range(FRONT_BURST)]
+        headers = [{"x-priority": "batch"} if i % 4 == 3 else {}
+                   for i in range(FRONT_BURST)]
+        attention.KERNEL.launches = attention.KERNEL.launches_int8 = 0
+        windows0 = engine.windows_dispatched
+        replays0 = engine.runner.window_replays
+        t0 = time.monotonic()
+        with ThreadPoolExecutor(FRONT_BURST) as pool:
+            answers = list(pool.map(lambda a: _front_call(port, *a),
+                                    zip(bodies, headers)))
+        wall = time.monotonic() - t0
+        torch.cuda.synchronize()
+        launches = launches_now(attention)
+        windows = engine.windows_dispatched - windows0
+        check_replays(engine, replays0, windows)
+        metrics = http_call(port, "GET", "/metrics")["text"]
+        slo_body = http_call(port, "GET", "/debug/slo")
+    finally:
+        loop.run(down(*stack))
+        slo.configure(slo.SloConfig())
+    by_status = {}
+    for status, retry, body in answers:
+        by_status[status] = by_status.get(status, 0) + 1
+        if status == 200:
+            assert body["usage"]["completion_tokens"] == FRONT_TOKENS, body
+        else:
+            assert status in (429, 503), (status, body)
+            assert retry is not None and int(retry) >= 1, (status, retry)
+            assert body["error"]["type"] in ("rate_limited", "overloaded"), \
+                body
+    assert sum(by_status.values()) == FRONT_BURST, by_status
+    assert by_status.get(200, 0) > 0, by_status
+    for name in ("admitted_total", "shed_total", "concurrency_limit"):
+        assert f"dynamo_tpu_{name}" in metrics, name
+    assert slo_body["status"] == 200, slo_body
+    assert set(slo_body["json"]) == SLO_KEYS, sorted(slo_body["json"])
+    assert "ttft" in slo_body["json"]["targets"], slo_body["json"]
+    assert launches["paged_attention_hist"] == \
+        windows * engine.decode_window * engine.runner.spec.num_layers > 0, (
+            launches, windows)
+    assert launches["paged_attention_hist_int8"] == 0, launches
+    sheds = [line for line in metrics.splitlines()
+             if line.startswith("dynamo_tpu_shed_total{")]
+    out = {"sent": FRONT_BURST, "by_status": by_status, "wall_s": wall,
+           "shed_series": sheds, "windows": windows, "launches": launches,
+           "slo_ttft": slo_body["json"]["targets"]["ttft"]["windows"]["5m"],
+           "slo_pressure": slo_body["json"]["pressure"]}
+    log(f"15d: {by_status} of {FRONT_BURST}; {sheds}; SLO ttft 5m "
+        f"{out['slo_ttft']}")
+    return out
+
+
+def admission_phase(attention, model) -> dict:
+    """Phase 15 (see the module docstring)."""
+    from dynamo_tpu_torch.engine import perf
+    from dynamo_tpu_torch.profile_decode import smi_line
+    t_phase = time.monotonic()
+    smi = smi_line()
+    reg = perf.get_registry()
+    before, w0 = reg.snapshot(), reg.window_snapshot()
+    loop = LoopThread()
+    engine = admission_engine()
+    try:
+        perf_out = perf_plane_check(attention, loop, engine, before, w0)
+        t_b = time.monotonic()
+        sla = sla_check(attention, engine)
+        sla["phase_s"] = time.monotonic() - t_b
+        t_c = time.monotonic()
+        brown = brownout_check(attention, model, engine)
+        brown["phase_s"] = time.monotonic() - t_c
+        t_d = time.monotonic()
+        front = front_check(attention, loop, engine)
+        front["phase_s"] = time.monotonic() - t_d
+    finally:
+        engine.stop()
+        loop.close()
+    launches = {k: sum(part["launches"][k]
+                       for part in (perf_out, sla, brown, front))
+                for k in ("paged_attention_hist",
+                          "paged_attention_hist_int8")}
+    out = {"perf": perf_out, "sla": sla, "brownout": brown, "front": front,
+           "launches": launches, "smi": smi,
+           "int8_launches_why": "phase 15's engines are the worker's "
+                                "default bf16 pool; phases 4, 7, 8 and 12 "
+                                "drive the int8 entry",
+           "phase_s": time.monotonic() - t_phase}
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(json.dumps({"admission_phase": out}, default=str))
+    log(f"phase 15: {out['phase_s']:.1f}s ({smi})")
+    return out
+
+
 def kernel_entry(name, variant, timing, main, max_err, stats,
                  http_launches, dist_launches, ckpt_launches,
                  disagg_launches, kv_launches, verify, spec_launches,
                  lora_launches, tier_launches, device_launches,
-                 obs_launches) -> dict:
+                 obs_launches, admission_launches) -> dict:
     """One kernel's summary: times at the B=32 x 2048 shape, and the same
     numbers at the main path's mid-round shape under ``main_shape``;
     launches in round 1, round 2, the HTTP phase, the distributed phase,
@@ -5922,8 +6720,8 @@ def kernel_entry(name, variant, timing, main, max_err, stats,
     spec round (the verify route), phase 11's LoRA rounds A and B,
     phase 12's rounds on the tier workers, phase 13b's decode worker
     process until phase 14 begins (the KV plane's device path) and
-    phase 14's on that worker, both from the worker's own counters;
-    the verify route's numbers at both
+    phase 14's on that worker, both from the worker's own counters, and
+    phase 15's (its four parts summed); the verify route's numbers at both
     shapes under ``verify_route`` (``verify``: its check's error and the
     two timings)."""
     return {"name": name, "route": "cuda",
@@ -5941,6 +6739,7 @@ def kernel_entry(name, variant, timing, main, max_err, stats,
             "launches_tiers": tier_launches,
             "launches_kv_device": device_launches,
             "launches_observability": obs_launches,
+            "launches_admission": admission_launches,
             "max_abs_err": max(max_err, timing["max_abs_err"],
                                main["max_abs_err"], verify["err"],
                                verify["uniform"]["max_abs_err"],
@@ -5971,13 +6770,17 @@ def main() -> int:
               "(dynamo_tpu_torch not importable)", file=sys.stderr)
         traceback.print_exc()
         return 1
+    install_guards()
     t_start = time.monotonic()
-    seconds, t_last = {}, [t_start]
+    seconds, memory, t_last = {}, {}, [t_start]
 
     def phase_done(label: str) -> None:
         now = time.monotonic()
         seconds[label] = now - t_last[0]
         t_last[0] = now
+        memory[label] = host_memory()
+        log(f"phases {label} done at {now - t_start:.1f}s; host memory "
+            f"{memory[label]}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # Flight bundles of this process and of the workers it spawns go to a
@@ -6038,6 +6841,8 @@ def main() -> int:
         phase_done("13-14 kv device path, observability")
         seconds["14 observability (inside 13b)"] = \
             device["fleet"]["observability"]["phase_s"]
+        admission = admission_phase(attention, model)
+        phase_done("15 admission, perf plane")
     except Exception:  # noqa: BLE001 — report and fail the run
         traceback.print_exc()
         return 1
@@ -6055,6 +6860,7 @@ def main() -> int:
 
     obs_launches = device["fleet"]["observability"]["launches"]
     log(json.dumps({"phase_seconds": seconds}))
+    log(json.dumps({"host_memory_after_phases": memory}))
     log(f"chip_smoke: {time.monotonic() - t_start:.1f} s in all")
     log(json.dumps({"kernels": [
         kernel_entry("paged_attention_hist", "bf16 pool", timing_bf16,
@@ -6068,7 +6874,8 @@ def main() -> int:
                      lora["launches_total"]["paged_attention_hist"],
                      tiers["launches"]["paged_attention_hist"],
                      device["launches"]["paged_attention_hist"],
-                     obs_launches["paged_attention_hist"]),
+                     obs_launches["paged_attention_hist"],
+                     admission["launches"]["paged_attention_hist"]),
         kernel_entry("paged_attention_hist_int8",
                      "int8 pool, _decode_kernel(quantized=True)",
                      timing_int8, main_int8, err_int8, stats_int8,
@@ -6082,7 +6889,8 @@ def main() -> int:
                      lora["launches_total"]["paged_attention_hist_int8"],
                      tiers["launches"]["paged_attention_hist_int8"],
                      device["launches"]["paged_attention_hist_int8"],
-                     obs_launches["paged_attention_hist_int8"])]}))
+                     obs_launches["paged_attention_hist_int8"],
+                     admission["launches"]["paged_attention_hist_int8"])]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

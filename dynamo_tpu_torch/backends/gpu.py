@@ -125,7 +125,7 @@ from dynamo_tpu_torch.llm.kv_router.publisher import (KvEventPublisher,
                                                       WorkerMetricsPublisher)
 from dynamo_tpu_torch import launch
 from dynamo_tpu_torch.engine.config import EngineConfig, parse_watermarks
-from dynamo_tpu_torch.launch import (ADMISSION, NO_PREFILL_PROGRAMS,
+from dynamo_tpu_torch.launch import (NO_PREFILL_PROGRAMS,
                                      ONE_ATTENTION, PARALLEL, PARSERS,
                                      add_engine_args, add_lora_args,
                                      add_refused_flags, lora_args,
@@ -137,7 +137,7 @@ from dynamo_tpu_torch.llm.prefill_queue import (QueuePrefillDispatcher,
                                                 QueuePrefillWorker)
 from dynamo_tpu_torch.llm.tokenizer import Tokenizer
 from dynamo_tpu_torch.llm.fleet import register_status_server
-from dynamo_tpu_torch.runtime import flight, journal, tracing
+from dynamo_tpu_torch.runtime import journal, tracing
 from dynamo_tpu_torch.runtime.config import RuntimeConfig
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
 from dynamo_tpu_torch.runtime.health import SystemStatusServer
@@ -165,8 +165,6 @@ REFUSED_FLAGS = (
                   "directives)", {}),
     ("--tool-call-parser", PARSERS, {"type": str}),
     ("--reasoning-parser", PARSERS, {"type": str}),
-    ("--ttft-budget-ms", ADMISSION, {"type": float}),
-    ("--admission-reject-factor", ADMISSION, {"type": float}),
     ("--attention-backend", ONE_ATTENTION,
      {"type": str, "allowed": ("auto",)}),
     ("--warmup-prefill-ladder", NO_PREFILL_PROGRAMS, {}),
@@ -177,14 +175,20 @@ def build_engine_config(args: argparse.Namespace) -> EngineConfig:
     """The launcher's engine config (with its LoRA slots and KV tiers)
     with ``warmup_windows`` set (a worker makes the smallest bucket's
     window programs before it serves, as the reference's worker does),
-    the worker's speculative decoding and its KVBM watermarks."""
+    the worker's speculative decoding, its KVBM watermarks and its SLA
+    admission (the reject factor only with a budget, as the reference
+    worker sets it)."""
     low, high = parse_watermarks(args.kv_watermarks)
     return dataclasses.replace(launch.build_engine_config(args),
                                warmup_windows=True,
                                spec_decode=args.spec_decode,
                                spec_k=args.spec_k,
                                kv_demote_low_watermark=low,
-                               kv_demote_high_watermark=high)
+                               kv_demote_high_watermark=high,
+                               ttft_budget_ms=args.ttft_budget_ms,
+                               admission_reject_factor=(
+                                   args.admission_reject_factor
+                                   if args.ttft_budget_ms else 0.0))
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -242,6 +246,17 @@ def parse_args(argv=None) -> argparse.Namespace:
                              "are not supported under spec decode")
     parser.add_argument("--spec-k", type=int, default=3,
                         help="drafts verified per speculative step")
+    parser.add_argument("--ttft-budget-ms", type=float, default=None,
+                        help="SLA-aware admission: defer admitting cold "
+                             "prefills while the projected TTFT (measured "
+                             "prefill rate x cold-token backlog) exceeds "
+                             "this budget; a spec engine falls back to "
+                             "plain windows under its brownout")
+    parser.add_argument("--admission-reject-factor", type=float, default=2.0,
+                        help="with --ttft-budget-ms: reject (503) requests "
+                             "whose projected TTFT through the backlog "
+                             "exceeds budget x this factor, so the router "
+                             "retries another worker; 0 = queue unboundedly")
     parser.add_argument("--no-kv-plane", action="store_true",
                         help="no KV plane: parcels ride the request plane "
                              "inline, a prefill worker does not pop the "
@@ -288,10 +303,13 @@ async def serve_engine(runtime: DistributedRuntime, engine: GPUEngine,
                    migration_limit=migration_limit)
 
     def runtime_config():
+        # expected_roofline_frac: the perf expectation a live
+        # perf_roofline_frac is compared with.
         return ModelRuntimeConfig(
             total_kv_blocks=engine.runner.num_pages,
             max_num_seqs=cfg.max_num_seqs,
-            extra={"hidden_size": cfg.model.hidden_size})
+            extra={"hidden_size": cfg.model.hidden_size,
+                   "expected_roofline_frac": cfg.expected_roofline_frac})
     try:
         await register_llm(runtime, ep, model_name, tokenizer,
                            runtime_config=runtime_config(), **card_kw)
@@ -493,15 +511,15 @@ def exit_counters(engine: GPUEngine, base: dict, plane, disagg) -> dict:
 async def start_observability(runtime: DistributedRuntime,
                               cfg: RuntimeConfig, engine: GPUEngine,
                               model_name: str, component: str):
-    """The worker's observability plane: the flight recorder's bundle
-    context, the journal's worker identity and its delta publisher, and,
-    with ``cfg.system_enabled``, the system status server registered for
-    the fleet pane. Returns (journal publisher, status server or None);
-    the caller stops both."""
-    flight.configure(metrics=runtime.metrics,
-                     config_fingerprint=dataclasses.asdict(cfg))
+    """The worker's observability plane: the SLO plane (a fast-burn page
+    writes a flight bundle), the request ledger, the flight recorder's
+    bundle context, the journal's worker identity and its delta
+    publisher, and, with ``cfg.system_enabled``, the system status server
+    (``/debug/perf`` answering ``engine.perf_status``) registered for the
+    fleet pane. Returns (journal publisher, status server or None); the
+    caller stops both."""
     worker = f"{runtime.instance_id:x}"
-    journal.configure(worker=worker, metrics=runtime.metrics)
+    launch.init_observability(cfg, runtime.metrics, worker=worker)
     journal_pub = journal.JournalPublisher(runtime.require_coordinator(),
                                            cfg.namespace, worker)
     # An empty first delta announces this worker's stream (its boot id)
@@ -513,7 +531,8 @@ async def start_observability(runtime: DistributedRuntime,
         status_server = SystemStatusServer(
             runtime, host=cfg.bind_host, port=cfg.system_port,
             kv_provider=engine.kv_status,
-            cuda=engine.runner.device.type == "cuda")
+            cuda=engine.runner.device.type == "cuda",
+            perf_provider=engine.perf_status)
         await status_server.start()
         await register_status_server(
             runtime, status_server.port,
@@ -601,6 +620,9 @@ async def run(args: argparse.Namespace) -> None:
               f"pages={engine.runner.num_pages}", flush=True)
         log.info("serving %s from an engine on %s", model_name,
                  engine.runner.device)
+        log.info("perf plane: weight-read step %.3f ms, expected roofline "
+                 "fraction %s", engine._step_floor_ms,
+                 engine_cfg.expected_roofline_frac)
         # SIGUSR1 prints the same counters and goes on serving: a phase's
         # share of them is the difference of two readings.
         loop.add_signal_handler(signal.SIGUSR1, lambda: print(

@@ -86,6 +86,29 @@ window graph and nothing synchronises the stream. ``KvMetricsUpdater``
 and ``AdapterMetricsUpdater`` export the KV and adapter telemetry on
 their throttle.
 
+SLA admission (``ttft_budget_ms``): a cold-token ledger counts the prompt
+tokens waiting (``_waiting_cold``, every put through ``_queue_put``) and
+admitted with their first token unresolved (``_cold_inflight``, released at
+resolution, preemption and failure); an EWMA of the prefill rate, sampled
+over dispatch to first-token readback, turns it into ``estimated_ttft_ms``.
+``generate`` refuses an arrival whose projection exceeds budget x
+``admission_reject_factor`` (``OverloadedError``, 503 at the front), and
+admission defers the queue head (kept at the head) while admitting it
+would push the in-flight projection past the budget. The same projection
+sets an engine-local brownout level 0..3; at
+``brownout_spec_disable_level`` a spec engine dispatches plain windows
+(``spec_brownout_windows``). A plain window advances neither the draft
+history nor the device positions of its slots, so the engine processes
+every in-flight window when the window kind switches and rewrites those
+slots' history and position from the host tokens before their next spec
+window (``_refresh_stale_history``).
+
+Perf plane (``engine/perf.py``): one roofline sample a processed window
+into the process-global registry (``window_s``, as in the reference, runs
+from dispatch to the end of the readback, so a window pipelined behind
+others carries their wait), the warmup boundary (``mark_ready``), and
+``perf_status()``, the worker's ``/debug/perf`` body.
+
 Not ported yet (later slices): multimodal.
 """
 
@@ -96,6 +119,7 @@ import collections
 import concurrent.futures
 import dataclasses
 import itertools
+import os
 import queue
 import threading
 import time
@@ -104,6 +128,7 @@ from typing import AsyncIterator
 import numpy as np
 import torch
 
+from dynamo_tpu_torch.engine import perf as perf_plane
 from dynamo_tpu_torch.engine.config import EngineConfig
 from dynamo_tpu_torch.engine.kv_cache import PageAllocator
 from dynamo_tpu_torch.engine.kv_host_cache import DiskKVCache, HostKVCache
@@ -129,7 +154,8 @@ from dynamo_tpu_torch.runtime import flight, journal
 from dynamo_tpu_torch.runtime.context import Context
 from dynamo_tpu_torch.runtime.engine import AsyncEngine
 from dynamo_tpu_torch.runtime.errors import (AdapterNotFoundError,
-                                             InvalidRequestError)
+                                             InvalidRequestError,
+                                             OverloadedError)
 from dynamo_tpu_torch.runtime.journal import EventKind
 from dynamo_tpu_torch.runtime.logging import get_logger
 from dynamo_tpu_torch.runtime.tracing import (_LATENCY_BUCKETS, get_recorder,
@@ -233,6 +259,11 @@ class _Request:
     # base model) and the store reference it holds while admitted.
     adapter_slot: int = 0
     adapter_ref: str | None = None
+    # SLA-admission ledger entries: the cold tokens this request adds to
+    # the waiting backlog while queued, and to the in-flight backlog from
+    # admission until its first token resolves.
+    queued_cold: int = 0
+    cold_tokens: int = 0
 
     def push(self, item) -> None:
         self.loop.call_soon_threadsafe(self.out_q.put_nowait, item)
@@ -317,6 +348,30 @@ class GPUEngine(AsyncEngine):
         self.adapter_ids = np.zeros(b, np.int32)  # PK_ADAPTER per slot
         self.overrides: dict[int, int] = {}  # slot -> first token next window
         self.waiting: queue.Queue[_Request] = queue.Queue()
+        # The queue's cold-token counter is written from the event loop
+        # (generate) and the engine thread (admission, requeue).
+        self._queue_stats_lock = threading.Lock()
+        # SLA-aware admission (config.ttft_budget_ms): the measured
+        # end-to-end prefill rate (EWMA over prefill dispatch -> first-token
+        # readback, so queueing behind decode windows is priced in) and the
+        # cold-token ledger the TTFT projection runs on. The disagg extract
+        # jobs (run_job) bypass it, as in the reference.
+        self.prefill_rate_tok_s: float | None = None
+        self._cold_inflight = 0      # admitted; first token not resolved
+        self._waiting_cold = 0       # queued; not admitted
+        self.admission_deferred = 0  # times the gate held the head back
+        # The queue HEAD the gate deferred: parked here, not at the tail,
+        # so later small prompts cannot starve it (strict FIFO).
+        self._deferred_head: _Request | None = None
+        # Engine-local brownout (_update_brownout): 0..3 from the TTFT
+        # projection; at brownout_spec_disable_level a spec engine
+        # dispatches plain windows, counted in spec_brownout_windows.
+        self.brownout_level = 0
+        self.spec_brownout_windows = 0
+        # Slots whose on-device draft history and position a plain window
+        # left behind (a plain window writes neither): the next spec
+        # window rewrites them from the host first.
+        self._hist_stale = np.zeros(b, bool)
         # Dispatched-but-unprocessed windows, oldest first.
         self._inflight: collections.deque[_Window] = collections.deque()
         self._dispatch_serial = 0
@@ -405,6 +460,15 @@ class GPUEngine(AsyncEngine):
         self._flight_chunk_last = 0
         self._flight_stall_last = 0.0
         self._flight_tokens_last = 0
+        # Perf plane (engine/perf.py): the per-window roofline samples feed
+        # the process-global registry; the exporter turns it into the
+        # dynamo_tpu_perf_* series beside the device-memory gauges.
+        self._perf = perf_plane.get_registry()
+        self._perf_tokens_last = 0
+        self._step_floor_ms = config.model.weight_read_step_ms(config.tp,
+                                                               config.pp)
+        self.perf_metrics = (perf_plane.PerfMetricsUpdater(metrics_registry)
+                             if metrics_registry is not None else None)
 
     # -- lifecycle ------------------------------------------------------------
     def start(self, loop: asyncio.AbstractEventLoop | None = None) -> None:
@@ -507,6 +571,84 @@ class GPUEngine(AsyncEngine):
                             field, val, clamped)
                 setattr(s, field, clamped)
 
+    # -- SLA-aware admission ---------------------------------------------------
+    def _queue_put(self, r: _Request, cold: int | None = None) -> None:
+        """Enqueue for admission, counting the request's cold tokens into
+        the waiting backlog (every put site comes through here)."""
+        r.queued_cold = len(r.tokens_all) if cold is None else cold
+        with self._queue_stats_lock:
+            self._waiting_cold += r.queued_cold
+        self.waiting.put(r)
+
+    def _queue_pop_accounting(self, r: _Request) -> None:
+        with self._queue_stats_lock:
+            self._waiting_cold -= r.queued_cold
+        r.queued_cold = 0
+
+    def _maybe_reject(self, prompt_tokens: int) -> None:
+        """Raise ``OverloadedError`` (503 at the front, which the router
+        retries elsewhere) when the projected TTFT through the current
+        backlog exceeds budget x reject_factor. An idle engine never
+        rejects: with no backlog the TTFT is the request's own prefill."""
+        cfg = self.config
+        if not (cfg.ttft_budget_ms and cfg.admission_reject_factor):
+            return
+        backlog = self._cold_inflight + self._waiting_cold
+        rate = self.prefill_rate_tok_s
+        if backlog <= 0 or not rate:
+            return
+        projected = (backlog + prompt_tokens) / rate * 1e3
+        limit = cfg.ttft_budget_ms * cfg.admission_reject_factor
+        if projected > limit:
+            raise OverloadedError(
+                f"projected TTFT {projected:.0f} ms exceeds "
+                f"{limit:.0f} ms ({backlog} cold tokens backlogged at "
+                f"{rate:.0f} tok/s)")
+
+    def _prefill_rate_sample(self, tokens: int, elapsed_s: float) -> None:
+        if tokens <= 0 or elapsed_s <= 1e-6:
+            return
+        s = tokens / elapsed_s
+        self.prefill_rate_tok_s = (
+            s if self.prefill_rate_tok_s is None
+            else 0.7 * self.prefill_rate_tok_s + 0.3 * s)
+
+    def estimated_ttft_ms(self, extra_tokens: int = 0) -> float | None:
+        """Projected TTFT of a hypothetical arrival from the measured
+        prefill rate and the cold-token backlog; None until a prefill has
+        calibrated the rate. A chunked prompt's cold tokens stay in the
+        ledger from admission to its final chunk's first token, and the
+        rate is sampled over the same interval, so the decode windows
+        between chunks are priced in."""
+        if not self.prefill_rate_tok_s:
+            return None
+        return ((self._cold_inflight + self._waiting_cold + extra_tokens)
+                / self.prefill_rate_tok_s * 1e3)
+
+    def _update_brownout(self) -> None:
+        """Pressure level 0..3 from the projected-TTFT / budget ratio, the
+        engine-local counterpart of the front limiter's
+        ``pressure_level()`` (runtime/overload.py)."""
+        cfg = self.config
+        projected = (self.estimated_ttft_ms()
+                     if cfg.ttft_budget_ms else None)
+        if not projected:
+            self.brownout_level = 0
+            return
+        ratio = projected / cfg.ttft_budget_ms
+        self.brownout_level = (0 if ratio < 1.0 else
+                               1 if ratio < 1.5 else
+                               2 if ratio < 2.5 else 3)
+
+    def _use_spec(self) -> bool:
+        """Whether the next window is a speculative one: a spec engine
+        drops back to plain windows while the brownout level is at or
+        above ``brownout_spec_disable_level`` (0 disables the hook)."""
+        cfg = self.config
+        return bool(cfg.spec_decode) and not (
+            cfg.brownout_spec_disable_level
+            and self.brownout_level >= cfg.brownout_spec_disable_level)
+
     async def generate(self, request, context: Context) -> AsyncIterator[dict]:
         """Stream wire dicts (``LLMEngineOutput.to_wire()``) for one
         request, the same items ``TPUEngine.generate`` yields."""
@@ -520,7 +662,8 @@ class GPUEngine(AsyncEngine):
                      tokens_all=list(req.token_ids),
                      len_cap=len(req.token_ids)
                      + (req.stop_conditions.max_tokens or 2**30))
-        self.waiting.put(r)
+        self._maybe_reject(len(req.token_ids))
+        self._queue_put(r)
         while True:
             item = await r.out_q.get()
             if item is None:
@@ -553,7 +696,9 @@ class GPUEngine(AsyncEngine):
         # Admission drops the request's reference once inserted; this
         # frame must not keep a device parcel alive for the whole stream.
         del kv
-        self.waiting.put(r)
+        # The parcel carries the prompt's K/V: no cold prefill, so the SLA
+        # gate and the cold ledger skip it.
+        self._queue_put(r, cold=0)
         while True:
             item = await r.out_q.get()
             if item is None:
@@ -595,8 +740,8 @@ class GPUEngine(AsyncEngine):
     # -- KV observability -----------------------------------------------------
     @property
     def num_waiting(self) -> int:
-        """Requests queued for admission."""
-        return self.waiting.qsize()
+        """Requests queued for admission (the deferred head included)."""
+        return self.waiting.qsize() + (self._deferred_head is not None)
 
     def inventory_digest(self) -> KvInventoryDigest:
         """What KV lives here, for the event plane: blocks per tier
@@ -650,6 +795,55 @@ class GPUEngine(AsyncEngine):
             "digest": self.inventory_digest().to_wire(),
         }
 
+    def perf_status(self) -> dict:
+        """This worker's /debug/perf body (the reference's keys): window
+        captures per program family from the process-global registry, the
+        live window/roofline series, device memory and the runner's
+        params / KV / workspace breakdown. On the card the memory figures
+        are the caching allocator's; nothing falls back to the CPU's."""
+        expected = self.config.expected_roofline_frac
+        raw = os.environ.get("DTPU_EXPECTED_ROOFLINE_FRAC")
+        if raw:
+            expected = float(raw)
+        compiles = self._perf.snapshot()
+        status = {
+            "role": "engine",
+            "compiles": compiles,
+            "window": self._perf.window_snapshot(),
+            "roofline": {
+                "weight_read_step_ms": round(self._step_floor_ms, 4),
+                "frac": round(self._perf.roofline_frac, 4),
+                "expected_frac": expected,
+            },
+            "hbm": self.runner.hbm_stats(),
+            "memory": self.runner.memory_breakdown(),
+        }
+        if self.config.spec_decode:
+            # Bytes per verified position: the spec program's analytic
+            # bytes over its m_outer x (spec_k + 1) positions.
+            cost = (compiles["programs"].get("spec_window") or {}).get(
+                "cost") or {}
+            positions = self.spec_m_outer * (self.config.spec_k + 1)
+            vb = cost.get("bytes_accessed")
+            status["spec"] = {
+                "k": self.config.spec_k,
+                "m_outer": self.spec_m_outer,
+                "drafts": self.spec_drafts,
+                "draft_tokens": self.spec_tokens,
+                "accepted_tokens": self.spec_accepted,
+                "acceptance_rate": round(
+                    self.spec_accepted / self.spec_tokens, 4)
+                if self.spec_tokens else None,
+                # emit_hist[e] = verify steps that emitted e tokens
+                # (0 = dispatched frozen, spec_k + 1 = all drafts landed).
+                "emit_hist": list(self.spec_emit_hist),
+                "brownout_windows": self.spec_brownout_windows,
+                "verify_bytes_per_token": round(vb / positions, 1)
+                if vb and positions else None,
+                "verify_cost_source": cost.get("source"),
+            }
+        return status
+
     def _publish(self) -> None:
         """Drain the allocator's KV events and, when a loop was captured,
         schedule their publication with the load metrics and (when due)
@@ -660,6 +854,8 @@ class GPUEngine(AsyncEngine):
             self.kv_metrics.update(self)
         if self.adapter_metrics is not None:
             self.adapter_metrics.update(self.adapters)
+        if self.perf_metrics is not None:
+            self.perf_metrics.update(self)
         stored, removed = self.allocator.drain_events()
         loop = self._publish_loop
         if loop is None or loop.is_closed():
@@ -991,25 +1187,30 @@ class GPUEngine(AsyncEngine):
         still made at first use. The work is inert: all-zero packed rows
         are inactive (PK_SEQLEN 0), so the windows write only the scratch
         page 0 and leave ``tokens_dev`` and ``counts`` as they are, and
-        the prefill row writes only page 0."""
+        the prefill row writes only page 0. A spec engine with a TTFT
+        budget also makes the plain programs its brownout falls back to."""
         start = t0 = time.monotonic()
         runner, M = self.runner, self.decode_window
         packed = np.zeros((self.config.max_num_seqs,
                            PK_PREFIX + runner.bucket_pages_for(1)), np.int32)
-        if self.config.spec_decode:
-            # One spec program serves every sampling mix (they are data),
-            # and no plain window runs beside it.
+        cfg = self.config
+        plain_keys = list(itertools.product((False, True), repeat=3))
+        if cfg.spec_decode:
+            # One spec program serves every sampling mix (they are data).
+            # Plain windows run beside it only under brownout, and never
+            # with penalties or logprobs (refused under spec).
             _Readback(runner.decode_spec_window(
-                packed, self.spec_m_outer, self.config.spec_k)).numpy()
-        else:
-            one = np.float32(1.0).view(np.int32)
-            for penalized, seeded, logprobs in itertools.product(
-                    (False, True), repeat=3):
-                rows = packed.copy()
-                rows[0, PK_FREQPEN] = one if penalized else 0
-                rows[0, PK_SEEDED] = int(seeded)
-                rows[0, PK_LOGPROB] = int(logprobs)
-                _Readback(runner.decode_window(rows, M)).numpy()
+                packed, self.spec_m_outer, cfg.spec_k)).numpy()
+            brownout = cfg.ttft_budget_ms and cfg.brownout_spec_disable_level
+            plain_keys = ([(False, seeded, False) for seeded in (False, True)]
+                          if brownout else [])
+        one = np.float32(1.0).view(np.int32)
+        for penalized, seeded, logprobs in plain_keys:
+            rows = packed.copy()
+            rows[0, PK_FREQPEN] = one if penalized else 0
+            rows[0, PK_SEEDED] = int(seeded)
+            rows[0, PK_LOGPROB] = int(logprobs)
+            _Readback(runner.decode_window(rows, M)).numpy()
         stats = runner.window_programs()
         log.info("warmed %d window programs M=%d in %.1fs (%.1fs capturing; "
                  "graph pool %.1f MiB)", stats["programs"], M,
@@ -1040,6 +1241,10 @@ class GPUEngine(AsyncEngine):
             return
         finally:
             ready.set()
+        # The perf plane's warmup boundary: a runner capturing a key again
+        # after this is flagged (larger buckets are still captured at first
+        # use, and counted).
+        self._perf.mark_ready()
         depth = max(1, self.config.pipeline_depth)
         while self._running:
             self._run_jobs()
@@ -1056,6 +1261,10 @@ class GPUEngine(AsyncEngine):
             # window, so a long prompt delays live decode slots by about one
             # chunk per window instead of by the whole prompt.
             chunk_dispatched = self._dispatch_prefill_chunks()
+            if self._inflight and self._inflight[-1].spec != self._use_spec():
+                # A brownout switch of the window kind: each kind's next
+                # window needs the host's exact positions and tokens.
+                self._drain_windows()
             have_active = any(r is not None and not r.prefilling
                               for r in self.slot_req)
             if not have_active:
@@ -1245,6 +1454,12 @@ class GPUEngine(AsyncEngine):
                 self._resolve_first(entry)
 
     def _resolve_first(self, entry: dict) -> None:
+        cold = entry.get("cold", 0)
+        if cold:
+            # The rows' cold tokens leave the ledger, and the dispatch ->
+            # readback interval calibrates the projection's rate.
+            self._cold_inflight -= cold
+            self._prefill_rate_sample(cold, time.monotonic() - entry["t0"])
         try:
             vals, lps, top_vs, top_is = entry["handle"].numpy()
         except Exception as exc:  # noqa: BLE001 — device fault at readback
@@ -1306,13 +1521,18 @@ class GPUEngine(AsyncEngine):
     # -- admission / prefill --------------------------------------------------
     def _admit(self) -> bool:
         cfg = self.config
+        self._update_brownout()
         free_slots = [i for i, r in enumerate(self.slot_req) if r is None]
         staged: list[tuple[_Request, int, PrefillSeq]] = []
         while free_slots:
-            try:
-                r = self.waiting.get_nowait()
-            except queue.Empty:
-                break
+            if self._deferred_head is not None:
+                r, self._deferred_head = self._deferred_head, None
+            else:
+                try:
+                    r = self.waiting.get_nowait()
+                except queue.Empty:
+                    break
+            self._queue_pop_accounting(r)
             if r.ctx.is_killed or r.ctx.is_stopped:
                 r.push(LLMEngineOutput(
                     token_ids=[],
@@ -1338,6 +1558,24 @@ class GPUEngine(AsyncEngine):
                 # No pages for the parcel: prefill the whole prompt here.
                 free_slots.insert(0, slot)
                 r.injected = None
+            if (cfg.ttft_budget_ms and self._cold_inflight > 0
+                    and self.prefill_rate_tok_s):
+                # SLA gate: admitting this prompt must not push the
+                # projected prefill backlog past the TTFT budget. With
+                # nothing cold in flight the head always admits (an
+                # over-budget single prompt must not starve).
+                projected = ((self._cold_inflight + len(r.tokens_all))
+                             / self.prefill_rate_tok_s * 1e3)
+                if projected > cfg.ttft_budget_ms:
+                    # Park at the HEAD (strict FIFO), back in the ledger;
+                    # the adapter reference goes so it pins no slot.
+                    self._release_adapter(r)
+                    r.queued_cold = len(r.tokens_all)
+                    with self._queue_stats_lock:
+                        self._waiting_cold += r.queued_cold
+                    self._deferred_head = r
+                    self.admission_deferred += 1
+                    break
             self._note_queue_wait(r)
             try:
                 plan = self._plan_prefill(r)
@@ -1350,9 +1588,11 @@ class GPUEngine(AsyncEngine):
                 # No KV room: put back and stop admitting (the adapter
                 # reference goes too, so a queued request pins no slot).
                 self._release_adapter(r)
-                self.waiting.put(r)
+                self._queue_put(r)
                 break
             slot = free_slots.pop(0)
+            r.cold_tokens = len(r.tokens_all) - r.reuse_tokens
+            self._cold_inflight += r.cold_tokens
             if plan == "chunked":
                 # The long prompt becomes scheduled chunk work; the slot
                 # and every page are held now, and decode windows skip the
@@ -1401,6 +1641,8 @@ class GPUEngine(AsyncEngine):
             except Exception as exc:  # noqa: BLE001
                 log.exception("batched prefill failed")
                 for r, _, _ in group:
+                    self._cold_inflight -= r.cold_tokens
+                    r.cold_tokens = 0
                     self.allocator.release(r.pages)
                     r.pages = []
                     self._release_adapter(r)
@@ -1417,9 +1659,10 @@ class GPUEngine(AsyncEngine):
                 self.runner.seed_history([
                     (slot, np.asarray(r.tokens_all, np.int32), 0, True, None)
                     for r, slot, _ in group])
-            self._pending_first.append({"handle": _Readback(outs),
-                                        "rows": rows,
-                                        "t0": time.monotonic()})
+            self._pending_first.append({
+                "handle": _Readback(outs), "rows": rows,
+                "cold": sum(r.cold_tokens for r, _, _ in group),
+                "t0": time.monotonic()})
         return True
 
     def _admit_injected(self, r: _Request, slot: int) -> bool:
@@ -1632,6 +1875,7 @@ class GPUEngine(AsyncEngine):
                     r.tokens_all, np.int32), 0, True, None)])
             self._pending_first.append({"handle": _Readback(outs),
                                         "rows": [(0, r, r.slot, r.epoch)],
+                                        "cold": r.cold_tokens,
                                         "t0": r.prefill_t0,
                                         "chunked": True})
         self._chunk_inflight.append({"fence": fence.close(),
@@ -1677,6 +1921,8 @@ class GPUEngine(AsyncEngine):
         if r in self._prefilling:
             self._prefilling.remove(r)
         r.prefilling = False
+        self._cold_inflight -= r.cold_tokens
+        r.cold_tokens = 0
         if error is not None:
             r.push(RuntimeError(f"prefill failed: {error}"))
         else:
@@ -1690,6 +1936,8 @@ class GPUEngine(AsyncEngine):
         chunks and requeue the whole request (it re-prefills later)."""
         self._prefilling.remove(r)
         r.prefilling = False
+        self._cold_inflight -= r.cold_tokens
+        r.cold_tokens = 0
         self._requeue_slot(r.slot)
 
     @staticmethod
@@ -1737,6 +1985,8 @@ class GPUEngine(AsyncEngine):
         self.seeds[slot] = 0 if seed is None else mask_seed(seed)
         self.adapter_ids[slot] = r.adapter_slot
         self.overrides.pop(slot, None)
+        # Placement seeds the slot's draft history and position.
+        self._hist_stale[slot] = False
 
     # -- decode windows -------------------------------------------------------
     def _dispatch_window(self) -> _Window:
@@ -1857,16 +2107,49 @@ class GPUEngine(AsyncEngine):
             self.disp_positions[i] += adv
             self.disp_seq_lens[i] += adv
         t0 = time.monotonic()
-        spec = bool(cfg.spec_decode)
+        spec = self._use_spec()
         if spec:
+            self._refresh_stale_history(active_rows)
             outs = self.runner.decode_spec_window(packed, self.spec_m_outer,
                                                   cfg.spec_k)
         else:
+            if cfg.spec_decode:
+                # Brownout: a plain window, which advances neither the
+                # slots' draft history nor their device positions.
+                self.spec_brownout_windows += 1
+                self._hist_stale[active_rows] = True
             outs = self.runner.decode_window(packed, M)
         self.windows_dispatched += 1
         return _Window(toks=_Readback(outs), slots=slots, frozen=frozen,
                        size=M, serial=self._dispatch_serial, t0=t0,
                        spec=spec)
+
+    def _refresh_stale_history(self, rows: list[int]) -> None:
+        """Before a spec window: rewrite the draft history and position of
+        every slot that plain windows advanced since its last spec window
+        from the host's tokens (``seed_history``; the position is that of
+        the token the window feeds next). The engine loop processes every
+        in-flight window before the window kind switches, so the host's
+        tokens are complete here."""
+        stale = [i for i in rows if self._hist_stale[i]]
+        if not stale:
+            return
+        entries = []
+        for i in stale:
+            toks = self.slot_req[i].tokens_all
+            entries.append((i, np.asarray(toks[:-1], np.int32), 0, True,
+                            int(toks[-1])))
+        self.runner.seed_history(entries)
+        self._hist_stale[stale] = False
+
+    def _drain_windows(self) -> None:
+        """Process every in-flight window (a brownout switch of the window
+        kind: the next window's host inputs must be exact)."""
+        while self._inflight:
+            window = self._inflight.popleft()
+            self._do_process(window)
+            self.step_count += 1
+            self._note_flight(window)
 
     def _process_window(self, w: _Window) -> None:
         page = self.config.page_size
@@ -2098,7 +2381,7 @@ class GPUEngine(AsyncEngine):
                      trace_id=r.ctx.trace_id, request=r.ctx.id, slot=slot,
                      tokens=len(r.tokens_all),
                      free_pages=self.allocator.num_free)
-        self.waiting.put(r)
+        self._queue_put(r)
 
     # -- observability (engine thread) ----------------------------------------
     def _note_queue_wait(self, r: _Request) -> None:
@@ -2135,19 +2418,31 @@ class GPUEngine(AsyncEngine):
 
     def _note_flight(self, w: _Window) -> None:
         """One flight-recorder row per processed decode window (the ring
-        skips idle-stable windows itself)."""
+        skips idle-stable windows itself), and the perf plane's roofline
+        sample of the same window, recorded whether or not the ring is
+        on. ``window_s`` is the reference's: dispatch to the end of the
+        readback, which includes the wait behind the windows ahead of it
+        in the pipeline."""
+        now = time.monotonic()
+        tokens_total = self.tokens_generated_total
+        window_tokens = tokens_total - self._perf_tokens_last
+        self._perf_tokens_last = tokens_total
+        if w.t0 and w.toks is not None:
+            self._perf.note_window(
+                now - w.t0, window_tokens,
+                sum(1 for snap in w.slots if snap is not None),
+                w.size, self._step_floor_ms)
         fr = self._flight
         if not fr.enabled:
             return
-        now = time.monotonic()
-        tokens_total = self.tokens_generated_total
         chunk_total = self.chunk_tokens_total
         accepted = fr.record(
             now, now - w.t0 if w.t0 else 0.0,
             sum(1 for r in self.slot_req if r is not None),
             self.num_waiting, self.allocator.num_free,
             chunk_total - self._flight_chunk_last,
-            len(self._chunk_inflight), self.preempt_count, 0,
+            len(self._chunk_inflight), self.preempt_count,
+            self.brownout_level,
             self._flight_stall_last, self.step_count,
             tokens_total - self._flight_tokens_last)
         if accepted:

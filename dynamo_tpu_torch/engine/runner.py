@@ -78,7 +78,7 @@ import time
 import numpy as np
 import torch
 
-from dynamo_tpu_torch.engine import attention
+from dynamo_tpu_torch.engine import attention, perf
 from dynamo_tpu_torch.engine.config import EngineConfig
 from dynamo_tpu_torch.engine.kv_quant import (
     BF16, QuantKV, is_packed_parcel, pack_parcel, parcel_to_bf16, quantize_np,
@@ -265,6 +265,12 @@ class ModelRunner:
         self._capture_stream = None
         self.window_replays = 0   # windows run as graph replays
         self.capture_seconds = 0.0
+        # Perf plane (engine/perf.py): this runner's captures per key (a
+        # second capture of a key after warmup is flagged) and the keys
+        # of its program-less families already counted at first use.
+        self._perf = perf.get_registry()
+        self._captures: dict[tuple, int] = {}
+        self._first_uses: set[tuple] = set()
         # Penalty state: generated-token counts per slot (saturating).
         self.counts = torch.zeros((config.max_num_seqs, spec.vocab_size),
                                   dtype=torch.uint8, device=self.device)
@@ -396,10 +402,12 @@ class ModelRunner:
         with_hist = [i for i, s in enumerate(seqs)
                      if s.hist_pages is not None and len(s.hist_pages)]
         if not with_hist:
+            self._note_first_use("prefill", (bucket, 0))
             return prefill_forward(*args, **lora)[0]
         # Rows without history keep hist_lens 0 and read nothing.
         width = self.bucket_pages_for(max(len(seqs[i].hist_pages)
                                           for i in with_hist))
+        self._note_first_use("prefill", (bucket, width))
         hist_table = np.zeros((b, width), np.int32)
         hist_lens = np.zeros(b, np.int32)
         for i in with_hist:
@@ -541,6 +549,7 @@ class ModelRunner:
         per_launch = attention.hist_flash_bytes(h_hist, spec.num_heads,
                                                 self.k_cache)
         self.attention_bytes += M * spec.num_layers * per_launch
+        self._maybe_cost("decode_window", packed, M, 1, h_hist)
         prog = self._get_window(
             M, packed.shape[1] - PK_PREFIX,
             penalized=bool(packed[:, PK_FREQPEN].any()
@@ -571,9 +580,93 @@ class ModelRunner:
         per_launch = attention.hist_flash_bytes(np.repeat(h_hist, k + 1),
                                                 spec.num_heads, self.k_cache)
         self.attention_bytes += m_outer * spec.num_layers * per_launch
+        self._maybe_cost("spec_window", packed, m_outer, k + 1, h_hist)
         prog = self._get_spec_window(int(m_outer), int(k),
                                      packed.shape[1] - PK_PREFIX)
         return prog.run(packed)
+
+    # -- perf plane (engine/perf.py) -------------------------------------------
+    def _note_first_use(self, family: str, key: tuple) -> None:
+        """Count a program-less family's key at its first use (the
+        counterpart of the reference's compile of that key)."""
+        if (family, key) not in self._first_uses:
+            self._first_uses.add((family, key))
+            self._perf.note_compile(family, key, 0.0, unexpected=False)
+
+    def note_capture(self, key: tuple, seconds: float) -> None:
+        """A window program of ``key`` was captured (on the CPU: run the
+        first time). A second capture of the same key by this runner after
+        the engine's warmup boundary is flagged, as the reference flags a
+        second compile of one wrapper."""
+        n = self._captures.get(key, 0)
+        self._captures[key] = n + 1
+        family = "spec_window" if key[0] == "spec" else "decode_window"
+        self._perf.note_compile(
+            family, key, seconds,
+            unexpected=n >= 1 and self._perf.warmup_complete)
+
+    def _maybe_cost(self, family: str, packed: np.ndarray, steps: int,
+                    positions: int, h_hist: np.ndarray) -> None:
+        """The family's one-time analytic cost, at its first window with
+        live rows: per step, the weights read once plus the paged
+        attention's bytes of every layer, and 2 flops per parameter per
+        row position plus the attention's 4 x D per (query head, history
+        token) of every layer. ``positions`` is the rows each slot
+        forwards per step (1, or k + 1 for a verify step)."""
+        live = packed[:, PK_SEQLEN] > 0
+        if not live.any() or not self._perf.wants_cost(family):
+            return
+        spec = self.spec
+        hist = np.repeat(h_hist * live, positions)
+        per_launch = attention.hist_flash_bytes(hist, spec.num_heads,
+                                                self.k_cache)
+        rows = int(live.sum()) * positions
+        attn_flops = 4 * spec.head_dim * spec.num_heads * int(hist.sum())
+        self._perf.set_cost(
+            family,
+            flops=steps * (2 * spec.num_params() * rows
+                           + spec.num_layers * attn_flops),
+            bytes_accessed=steps * (self.param_bytes
+                                    + spec.num_layers * per_launch))
+
+    def hbm_stats(self) -> dict:
+        """The caching allocator's device-memory figures, under the
+        reference's field names: ``bytes_in_use`` and ``peak_bytes_in_use``
+        are ``torch.cuda.memory_stats`` allocated bytes (current and peak;
+        ``memory_allocated()``), ``bytes_limit`` the device's total memory.
+        ``{}`` on the CPU, as the reference answers on a backend without
+        the API; on the card a failure raises."""
+        if self.device.type != "cuda":
+            return {}
+        stats = torch.cuda.memory_stats(self.device)
+        return {"bytes_in_use": int(stats["allocated_bytes.all.current"]),
+                "peak_bytes_in_use": int(stats["allocated_bytes.all.peak"]),
+                "bytes_limit": int(torch.cuda.get_device_properties(
+                    self.device).total_memory)}
+
+    def memory_breakdown(self) -> dict:
+        """Params / KV-pool / workspace attribution of device memory from
+        the runner's own ledgers (``param_bytes``, ``kv_pool_bytes``).
+        ``workspace_bytes`` is everything else the process holds: the
+        allocated bytes that are neither weights nor pool, with the window
+        graphs' private pool (``graph_pool_bytes``) counted at what it
+        reserves rather than at what is allocated in it between replays.
+        None on the CPU."""
+        hbm = self.hbm_stats()
+        in_use = hbm.get("bytes_in_use")
+        workspace = None
+        if in_use is not None:
+            workspace = max(0, in_use - self.param_bytes
+                            - self.kv_pool_bytes)
+            if self._graph_pool is not None:
+                pool = tuple(self._graph_pool)
+                segs = [seg for seg in torch.cuda.memory_snapshot()
+                        if tuple(seg["segment_pool_id"]) == pool]
+                workspace += sum(seg["total_size"] - seg["allocated_size"]
+                                 for seg in segs)
+        return {"params_bytes": self.param_bytes,
+                "kv_pool_bytes": self.kv_pool_bytes,
+                "workspace_bytes": workspace}
 
     def seed_history(self, entries: list[tuple]) -> None:
         """Write prompt tokens into ``hist_dev`` and set ``positions_dev``
@@ -907,6 +1000,7 @@ class ModelRunner:
         for ``finalize_extract``. Stream order puts the gather before any
         later work that rewrites the pages, so the caller may release
         them at once."""
+        self._note_first_use("extract", ("extract", len(pages)))
         idx = self._upload(np.asarray(pages, np.int64))
         if isinstance(self.k_cache, QuantKV):
             dev = (torch.stack([self.k_cache.data[:, :, idx],
@@ -961,6 +1055,7 @@ class ModelRunner:
         parcel is packed on the host."""
         if isinstance(self.k_cache, QuantKV):
             raise ValueError("device parcels come from a bf16 pool")
+        self._note_first_use("extract", ("extract", len(pages)))
         idx = self._upload(np.asarray(pages, np.int64))
         parcel = torch.stack([self.k_cache[:, :, idx],
                               self.v_cache[:, :, idx]])
@@ -999,6 +1094,7 @@ class ModelRunner:
         device, that is ROADMAP item 20(a))."""
         n = len(pages)
         spec = self.spec
+        self._note_first_use("insert", ("insert", n))
         if kv.ndim != 6 or kv.shape[:4] != (2, spec.num_layers,
                                              spec.num_kv_heads, n):
             raise ValueError(
@@ -1067,10 +1163,14 @@ class WindowProgram:
         self.packed = None   # device control array the graph reads
         self.outs = None     # static outputs the graph writes
         self.tally = (0, 0)  # kernel launches of one replay (bf16, int8)
+        self.ran = False     # the CPU's first run (the perf plane's count)
 
     def run(self, packed: np.ndarray) -> tuple:
         r = self.runner
         if not r.use_graphs:
+            if not self.ran:
+                self.ran = True
+                r.note_capture(self.key, 0.0)
             return self.run_eager(packed)
         if self.graph is None:
             self.capture()
@@ -1126,6 +1226,7 @@ class WindowProgram:
         self.tally = tuple(tally)
         seconds = time.monotonic() - t0
         r.capture_seconds += seconds
+        r.note_capture(self.key, seconds)
         log.info("captured window program %s in %.2fs", self.key, seconds)
 
 

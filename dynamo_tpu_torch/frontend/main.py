@@ -15,47 +15,43 @@ weighed against load (``llm/kv_router``), under the reference's
 with ``--tls-key-path`` serves HTTPS. The front serves ``/metrics`` and
 the debug routes; its ``/debug/timeline`` merges every worker's journal
 (``TimelineCollector``) with its own, and ``/debug/fleet`` fans out over
-the workers' status servers. The reference frontend's other flags are
-refused with the ROADMAP item each waits for.
+the workers' status servers.
+
+The overload defense runs by default (``runtime/overload.py``): an
+adaptive limiter around the generate routes (``--no-overload-defense``,
+``--overload-target-ms``, ``--overload-max-concurrency``,
+``--default-deadline-ms``, the rest via ``DTPU_OVERLOAD_*`` /
+``[overload]``) and per-worker circuit breakers in the endpoint clients.
+The SLO plane (``--no-slo``, ``--slo-ttft-p99-ms``, ``--slo-itl-p99-ms``,
+``--slo-error-rate``; ``DTPU_SLO_*`` / ``[slo]``) answers ``/debug/slo``,
+and ``--request-log PATH`` appends each request's accounting record as
+JSONL. ``--canary`` probes every worker with known-answer greedy requests
+(``llm/canary.py``; ``--canary-interval-s``, ``--canary-ttft-bound-ms``,
+``--canary-gate-joins``, ``DTPU_CANARY_*``). ``--grpc-port`` is refused
+with the ROADMAP item it waits for.
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
-import dataclasses
 import signal
 
-from dynamo_tpu_torch.launch import add_refused_flags, start_front
+from dynamo_tpu_torch.launch import (add_refused_flags, init_observability,
+                                     make_limiter, start_front)
+from dynamo_tpu_torch.llm.canary import (CanaryConfig, CanaryProber,
+                                         apply_canary_env)
 from dynamo_tpu_torch.llm.discovery import ROUTER_MODES
 from dynamo_tpu_torch.llm.kv_router import make_kv_router_factory
 from dynamo_tpu_torch.llm.timeline import TimelineCollector
-from dynamo_tpu_torch.runtime import flight, journal
 from dynamo_tpu_torch.runtime.config import RuntimeConfig
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
 
 
-_OVERLOAD = "ROADMAP item 12a (overload admission and brownout)"
-_SLO = "ROADMAP item 12a (the SLO plane and the request log)"
-_CANARY = "ROADMAP item 12a (canary probes and circuit breakers)"
-
 # The reference frontend's flags that the port does not serve:
 # (flag, what it waits for, add_argument keywords).
 REFUSED_FLAGS = (
-    ("--no-overload-defense", _OVERLOAD, {}),
-    ("--overload-target-ms", _OVERLOAD, {"type": float}),
-    ("--overload-max-concurrency", _OVERLOAD, {"type": int}),
-    ("--default-deadline-ms", _OVERLOAD, {"type": float}),
-    ("--no-slo", _SLO, {}),
-    ("--slo-ttft-p99-ms", _SLO, {"type": float}),
-    ("--slo-itl-p99-ms", _SLO, {"type": float}),
-    ("--slo-error-rate", _SLO, {"type": float}),
-    ("--request-log", _SLO, {"type": str}),
-    ("--canary", _CANARY, {}),
-    ("--canary-interval-s", _CANARY, {"type": float}),
-    ("--canary-ttft-bound-ms", _CANARY, {"type": float}),
-    ("--canary-gate-joins", _CANARY, {}),
-    ("--grpc-port", "the ROADMAP item of the KServe gRPC front",
+    ("--grpc-port", "ROADMAP item 24 (the KServe gRPC front)",
      {"type": int}),
 )
 
@@ -85,8 +81,82 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="serve HTTPS with this PEM certificate "
                              "(needs --tls-key-path)")
     parser.add_argument("--tls-key-path", default=None)
+    # Overload defense; the rest via DTPU_OVERLOAD_* / [overload].
+    parser.add_argument("--no-overload-defense", action="store_true",
+                        help="no adaptive admission or shedding on the "
+                             "HTTP front (breakers stay governed by "
+                             "DTPU_OVERLOAD_BREAKER_ENABLED)")
+    parser.add_argument("--overload-target-ms", type=float, default=None,
+                        help="the TTFT target the admission limit adapts "
+                             "against")
+    parser.add_argument("--overload-max-concurrency", type=int, default=None)
+    parser.add_argument("--default-deadline-ms", type=float, default=None,
+                        help="the deadline of a request without an "
+                             "x-request-deadline-ms header")
+    # SLO plane; the rest via DTPU_SLO_* / [slo].
+    parser.add_argument("--no-slo", action="store_true",
+                        help="no SLO plane (SLIs, burn-rate alerts)")
+    parser.add_argument("--slo-ttft-p99-ms", type=float, default=None,
+                        help="TTFT target: 99%% of requests reach their "
+                             "first token within it")
+    parser.add_argument("--slo-itl-p99-ms", type=float, default=None,
+                        help="ITL target: 99%% of inter-token gaps under it")
+    parser.add_argument("--slo-error-rate", type=float, default=None,
+                        help="availability target: the largest fraction of "
+                             "requests that may fail")
+    parser.add_argument("--request-log", default=None,
+                        help="append per-request accounting records as "
+                             "JSONL here")
+    # Synthetic canary probes; the rest via DTPU_CANARY_*.
+    parser.add_argument("--canary", action="store_true",
+                        help="probe every worker with tiny known-answer "
+                             "greedy requests; repeated failures open its "
+                             "circuit breaker")
+    parser.add_argument("--canary-interval-s", type=float, default=None)
+    parser.add_argument("--canary-ttft-bound-ms", type=float, default=None)
+    parser.add_argument("--canary-gate-joins", action="store_true",
+                        help="hold a joining worker on breaker probation "
+                             "until a canary probe passes")
     add_refused_flags(parser, REFUSED_FLAGS)
     return parser.parse_args(argv)
+
+
+def apply_front_args(cfg: RuntimeConfig, args: argparse.Namespace) -> None:
+    """The overload and SLO flags onto ``cfg``, as the reference frontend
+    applies them."""
+    ov = cfg.overload
+    if args.no_overload_defense:
+        ov.enabled = False
+    if args.overload_target_ms is not None:
+        ov.target_latency_ms = args.overload_target_ms
+    if args.overload_max_concurrency is not None:
+        ov.max_concurrency = args.overload_max_concurrency
+    if args.default_deadline_ms is not None:
+        ov.default_deadline_ms = args.default_deadline_ms
+    if args.no_slo:
+        cfg.slo.enabled = False
+    if args.slo_ttft_p99_ms is not None:
+        cfg.slo.ttft_p99_ms = args.slo_ttft_p99_ms
+    if args.slo_itl_p99_ms is not None:
+        cfg.slo.itl_p99_ms = args.slo_itl_p99_ms
+    if args.slo_error_rate is not None:
+        cfg.slo.error_rate = args.slo_error_rate
+    if args.request_log is not None:
+        cfg.slo.request_log_path = args.request_log
+
+
+def canary_config(args: argparse.Namespace) -> CanaryConfig:
+    """``DTPU_CANARY_*`` under the ``--canary*`` flags."""
+    cfg = apply_canary_env(CanaryConfig())
+    if args.canary:
+        cfg.enabled = True
+    if args.canary_interval_s is not None:
+        cfg.interval_s = args.canary_interval_s
+    if args.canary_ttft_bound_ms is not None:
+        cfg.ttft_bound_ms = args.canary_ttft_bound_ms
+    if args.canary_gate_joins:
+        cfg.enabled = cfg.gate_joins = True
+    return cfg
 
 
 def kv_router_factory(args: argparse.Namespace):
@@ -107,30 +177,45 @@ async def run(args: argparse.Namespace) -> None:
         cfg.coordinator_url = args.coordinator_url
     if args.namespace:
         cfg.namespace = args.namespace
+    apply_front_args(cfg, args)
     loop = asyncio.get_running_loop()
     runtime = await DistributedRuntime.from_settings(cfg)
     for sig in (signal.SIGINT, signal.SIGTERM):
         loop.add_signal_handler(sig, runtime.shutdown)
-    service = watcher = collector = None
+    service = watcher = collector = canary = None
     try:
         # Before discovery starts: the first worker_join events carry this
         # process's id, not the "proc" placeholder.
-        journal.configure(worker=f"{runtime.instance_id:x}",
-                          metrics=runtime.metrics)
-        flight.configure(metrics=runtime.metrics,
-                         config_fingerprint=dataclasses.asdict(cfg))
+        init_observability(cfg, runtime.metrics,
+                           worker=f"{runtime.instance_id:x}")
         collector = TimelineCollector(runtime)
         await collector.start()
+        ccfg = canary_config(args)
+        hooks = None
+        if ccfg.enabled:
+            # The watcher's manager is the one the prober probes.
+            def hooks(watcher):
+                nonlocal canary
+                canary = CanaryProber(watcher.manager, ccfg,
+                                      metrics=runtime.metrics)
+                watcher.on_join = canary.note_join
+                watcher.on_leave = canary.note_leave
         service, watcher = await start_front(
             runtime, args.http_host, args.http_port, args.router_mode,
             kv_router_factory(args), tls_cert_path=args.tls_cert_path,
             tls_key_path=args.tls_key_path,
-            timeline_provider=collector.timeline_status)
+            timeline_provider=collector.timeline_status,
+            overload=make_limiter(cfg, runtime.metrics),
+            watcher_hooks=hooks)
+        if canary is not None:
+            canary.start()
         print(f"FRONTEND_READY port={service.port}", flush=True)
         await runtime.wait_for_shutdown()
     finally:
         for sig in (signal.SIGINT, signal.SIGTERM):
             loop.remove_signal_handler(sig)
+        if canary is not None:
+            await canary.stop()
         if service is not None:
             await service.stop()
             await watcher.stop()

@@ -22,7 +22,13 @@ scales. The tokenizer is the checkpoint's own ``tokenizer.json`` (the
 reference launcher's choice), else ``--tokenizer PATH`` (a
 ``tokenizer.json`` or a ``.gguf``), else, for a preset, the repo's test
 tokenizer. It prints ``LAUNCH_READY in=http out=<gpu|dyn> port=N`` once
-it serves, and stops on SIGINT or SIGTERM. The reference launcher's other
+it serves, and stops on SIGINT or SIGTERM. Both outputs run the front
+behind the overload defense's adaptive limiter (``[overload]`` /
+``DTPU_OVERLOAD_*``; ``DTPU_OVERLOAD_ENABLED=0`` turns it off) and arm the
+SLO plane and the request ledger (``init_observability``):
+``--slo-ttft-p99-ms`` sets the TTFT target and ``--request-log PATH``
+appends each request's accounting record to a JSONL file. The reference
+launcher's other
 inputs and outputs (``in=text|batch|grpc``, ``out=echo|mocker``) and its
 flags that the port does not serve (``REFUSED_FLAGS``) exit naming the
 ROADMAP item each waits for; none is accepted and then ignored. ``--lora NAME=PATH``
@@ -58,20 +64,20 @@ from dynamo_tpu_torch.llm.model_card import (DEFAULT_CHAT_TEMPLATE,
                                              ModelDeploymentCard, ModelEntry,
                                              ModelRuntimeConfig)
 from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+from dynamo_tpu_torch.llm.recorder import configure_ledger
 from dynamo_tpu_torch.llm.tokenizer import Tokenizer, make_test_tokenizer
+from dynamo_tpu_torch.runtime import flight, journal, slo
 from dynamo_tpu_torch.runtime.config import RuntimeConfig
-from dynamo_tpu_torch.runtime import flight
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
 from dynamo_tpu_torch.runtime.logging import get_logger
 from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
+from dynamo_tpu_torch.runtime.overload import AdaptiveLimiter
 
 log = get_logger("launch")
 
 # What the reference's flags and in=/out= values that the port does not
 # serve wait for (the worker main's refusals use the same texts).
 PARALLEL = "ROADMAP item 16 (parallelism across GPUs and nodes)"
-ADMISSION = "ROADMAP item 12a (SLA admission and brownout)"
-OBSERVABILITY = "ROADMAP item 12a (the SLO plane and the request log)"
 PARSERS = "ROADMAP item 23 (the tool-call and reasoning parsers)"
 INPUTS = "ROADMAP item 24 (the launcher's interactive and batch inputs)"
 ONE_ATTENTION = ("no ROADMAP item: the port has one attention path, its "
@@ -105,8 +111,6 @@ REFUSED_FLAGS = (
     ("--output-file", INPUTS, {"type": str}),
     ("--batch-concurrency", INPUTS, {"type": int, "allowed": (8,)}),
     ("--batch-max-tokens", INPUTS, {"type": int, "allowed": (128,)}),
-    ("--slo-ttft-p99-ms", OBSERVABILITY, {"type": float}),
-    ("--request-log", OBSERVABILITY, {"type": str}),
 )
 
 
@@ -249,6 +253,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="out=dyn: the coordinator to discover workers "
                              "on (default: DTPU_COORDINATOR_URL, else "
                              "tcp://127.0.0.1:4222)")
+    # SLO plane + per-request accounting (runtime/slo.py,
+    # llm/recorder.py); the rest via DTPU_SLO_* / [slo] TOML.
+    parser.add_argument("--slo-ttft-p99-ms", type=float, default=None,
+                        help="TTFT SLO target (99%% of requests)")
+    parser.add_argument("--request-log", default=None,
+                        help="append per-request accounting records as "
+                             "JSONL here")
     add_refused_flags(parser, REFUSED_FLAGS)
     args = parser.parse_args(rest)
     for key, value in io.items():
@@ -373,24 +384,63 @@ def build_local_served(args, engine: GPUEngine | None = None,
     return served, engine
 
 
+def init_observability(cfg: RuntimeConfig, metrics,
+                       worker: str | None = None,
+                       fingerprint: dict | None = None) -> None:
+    """Arm this process's SLO plane (``cfg.slo``, its series on
+    ``metrics``), the accounting ledger's ring and JSONL sink, the journal
+    (attributed to ``worker`` when given) and the flight recorder's bundle
+    context (``fingerprint``, default ``cfg``); a fast-burn SLO page
+    freezes the flight ring and writes a bundle. Shared by the launcher,
+    the frontend and the worker main."""
+    plane = slo.configure(cfg.slo, metrics=metrics)
+    configure_ledger(cfg.slo.request_ring, cfg.slo.request_log_path or None)
+    if worker is not None:
+        journal.configure(worker=worker, metrics=metrics)
+    flight.configure(metrics=metrics, config_fingerprint=(
+        fingerprint if fingerprint is not None else dataclasses.asdict(cfg)))
+    plane.on_page(flight.on_slo_page)
+
+
+def apply_slo_args(cfg: RuntimeConfig, args) -> None:
+    """``--slo-ttft-p99-ms`` and ``--request-log`` onto ``cfg.slo``."""
+    if getattr(args, "slo_ttft_p99_ms", None) is not None:
+        cfg.slo.ttft_p99_ms = args.slo_ttft_p99_ms
+    if getattr(args, "request_log", None) is not None:
+        cfg.slo.request_log_path = args.request_log
+
+
+def make_limiter(cfg: RuntimeConfig, metrics) -> AdaptiveLimiter | None:
+    """The front's adaptive limiter of ``cfg.overload``, None when the
+    defense is off."""
+    return (AdaptiveLimiter(cfg.overload, metrics=metrics)
+            if cfg.overload.enabled else None)
+
+
 async def start_http(args, engine: GPUEngine | None = None
                      ) -> tuple[HttpService, GPUEngine]:
     """Build the served model and start the HTTP front on the running
     event loop; the caller stops both. One metrics registry holds the
     front's series and, for an engine built here, the engine's (under
     ``local``/``gpu``, the reference launcher's hierarchy); the flight
-    recorder's bundles snapshot it."""
+    recorder's bundles snapshot it. The runtime settings are the
+    reference launcher's: the defaults (``RuntimeConfig()``), so the
+    front runs the default limiter, with ``--slo-ttft-p99-ms`` and
+    ``--request-log`` on top."""
     metrics = MetricsRegistry()
     served, engine = build_local_served(
         args, engine,
         metrics_registry=metrics.namespace("local").component("gpu"))
-    flight.configure(metrics=metrics,
-                     config_fingerprint=dataclasses.asdict(engine.config))
+    cfg = RuntimeConfig()
+    apply_slo_args(cfg, args)
+    init_observability(cfg, metrics,
+                       fingerprint=dataclasses.asdict(engine.config))
     manager = ModelManager()
     for model in (served, *served.adapter_served):
         manager.models[model.name] = model
     service = HttpService(manager, host=args.http_host, port=args.http_port,
-                          metrics=metrics)
+                          metrics=metrics,
+                          overload=make_limiter(cfg, metrics))
     try:
         await service.start()
     except BaseException:
@@ -402,21 +452,27 @@ async def start_http(args, engine: GPUEngine | None = None
 async def start_front(runtime: DistributedRuntime, host: str, port: int,
                       router_mode: str = "round_robin",
                       kv_router_factory=None, tls_cert_path=None,
-                      tls_key_path=None, timeline_provider=None
+                      tls_key_path=None, timeline_provider=None,
+                      overload: AdaptiveLimiter | None = None,
+                      watcher_hooks=None
                       ) -> tuple[HttpService, ModelWatcher]:
     """The distributed front: an HTTP front over a ModelWatcher of the
     coordinator's models/ prefix (``out=dyn`` and ``python -m
     dynamo_tpu_torch.frontend``); ``kv_router_factory``
     (``llm/kv_router.make_kv_router_factory``) builds the router under
-    ``router_mode="kv"``, the TLS paths serve HTTPS, and
-    ``timeline_provider`` answers ``/debug/timeline``. The caller stops
+    ``router_mode="kv"``, the TLS paths serve HTTPS,
+    ``timeline_provider`` answers ``/debug/timeline``, ``overload`` admits
+    the generate routes and ``watcher_hooks(watcher)`` sets the watcher's
+    fleet hooks before it starts (the canary's). The caller stops
     both."""
     manager = ModelManager()
     watcher = ModelWatcher(runtime, manager, router_mode=router_mode,
                            kv_router_factory=kv_router_factory)
+    if watcher_hooks is not None:
+        watcher_hooks(watcher)
     service = HttpService(manager, host=host, port=port, runtime=runtime,
                           tls_cert_path=tls_cert_path,
-                          tls_key_path=tls_key_path)
+                          tls_key_path=tls_key_path, overload=overload)
     service.timeline_provider = timeline_provider
     try:
         await watcher.start()
@@ -434,10 +490,14 @@ async def start_dyn(args) -> tuple[HttpService, DistributedRuntime,
     cfg = RuntimeConfig.from_settings()
     if args.coordinator_url:
         cfg.coordinator_url = args.coordinator_url
+    apply_slo_args(cfg, args)
     runtime = await DistributedRuntime.from_settings(cfg)
     try:
-        service, watcher = await start_front(runtime, args.http_host,
-                                             args.http_port)
+        init_observability(cfg, runtime.metrics,
+                           worker=f"{runtime.instance_id:x}")
+        service, watcher = await start_front(
+            runtime, args.http_host, args.http_port,
+            overload=make_limiter(cfg, runtime.metrics))
     except BaseException:
         await runtime.close()
         raise

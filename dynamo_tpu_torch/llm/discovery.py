@@ -1,6 +1,5 @@
 """Model discovery: watcher, manager and routed pipeline assembly (copy of
-``dynamo_tpu.llm.discovery`` without the storage plug-in and the canary's
-fleet hooks).
+``dynamo_tpu.llm.discovery`` without the storage plug-in).
 
 ``ModelWatcher`` watches the coordinator's ``models/`` prefix. On the first
 instance of a model it fetches the tokenizer from the object store and
@@ -12,7 +11,9 @@ shared by every model name served by the same worker endpoint. On
 lease-expiry deletes it tells the KV router at once that the worker left
 (``note_worker_leave``) and drops the model when its last instance is
 gone. Each instance that joins or leaves a model emits ``worker_join``
-or ``worker_leave`` on the journal, and each routing choice of a
+or ``worker_leave`` on the journal, then calls the fleet hook
+``on_join`` / ``on_leave`` with ``(served, instance_id)`` when one is set
+(the canary gates joins through them), and each routing choice of a
 RouterEngine is a ``router.decide`` span. The one-process launcher fills
 a ``ModelManager`` with a local ``ServedModel`` instead.
 """
@@ -114,6 +115,10 @@ class ModelWatcher:
         self._task: asyncio.Task | None = None
         self._watch = None
         self._lock = asyncio.Lock()
+        # Fleet hooks, called as (served, instance_id) after the join or
+        # leave journal event (llm/canary.py note_join / note_leave).
+        self.on_join = None
+        self.on_leave = None
 
     async def start(self) -> None:
         self._watch = await self._runtime.require_coordinator().watch_prefix(
@@ -151,6 +156,11 @@ class ModelWatcher:
                 served.instances.add(iid)
                 journal.emit(EventKind.WORKER_JOIN, model=entry.model_name,
                              instance=instance_hex)
+                if self.on_join is not None:
+                    try:
+                        self.on_join(served, iid)
+                    except Exception:  # noqa: BLE001 — a hook, not a gate
+                        log.exception("on_join hook failed")
 
     async def _on_delete(self, key: str) -> None:
         parts = key[len(MODEL_ROOT):].split("/")
@@ -178,6 +188,11 @@ class ModelWatcher:
                                          None)
                     if note_leave is not None:
                         note_leave(iid)
+                    if self.on_leave is not None:
+                        try:
+                            self.on_leave(served, iid)
+                        except Exception:  # noqa: BLE001
+                            log.exception("on_leave hook failed")
                 if not served.instances:
                     log.info("model %s: last instance gone; removing", name)
                     await self._close_served(served)

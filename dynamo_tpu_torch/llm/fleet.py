@@ -68,9 +68,9 @@ async def _probe_worker(sem: asyncio.Semaphore, worker: str, info: dict,
         except (OSError, ValueError, asyncio.TimeoutError) as exc:
             return worker, {"ok": False,
                             "error": f"{type(exc).__name__}: {exc}", **base}
-        # Perf view: same status server, typed partial result. A port
-        # worker answers 501 until ROADMAP item 12c, a worker predating
-        # the perf plane 404; neither contributes a "perf" body.
+        # Perf view: same status server, typed partial result. A worker
+        # predating the perf plane answers 404 (a port worker 501);
+        # neither contributes a "perf" body.
         try:
             status, perf = await http_get_json(addr, "/debug/perf",
                                                timeout_s)

@@ -11,12 +11,26 @@ naming ROADMAP item 13 and ``POST /v1/audio/transcriptions`` 501 naming
 item 15. Errors are OpenAI error bodies: 400 for a body that does not
 parse or validate and for ``ValueError`` / ``InvalidRequestError`` from
 the pipeline, 404 for an unknown model, 404 ``adapter_not_found`` when a
-model name resolves to a LoRA adapter its worker does not hold, 503 with
-``Retry-After: 1`` when a routed model has no live worker
-(``NoInstancesError``), 503 ``overloaded`` with ``Retry-After: 1`` when
-the KV router finds every worker above its busy threshold, 500 otherwise.
-A streamed response pulls its first chunk before it sends headers, so
-pipeline errors keep their status.
+model name resolves to a LoRA adapter its worker does not hold, 503
+``service_unavailable`` when a routed model has no live worker
+(``NoInstancesError``), 503 ``overloaded`` for capacity (the admission
+queue full, every worker busy or circuit-open, a worker's TTFT
+projection), 429 ``rate_limited`` for client pacing (a deadline the
+admission projection cannot meet, batch traffic under brownout), 500
+otherwise. Every 503 and 429 carries ``Retry-After``: the error's own
+hint, else the limiter's queue-drain projection, else the overload
+config's default, in whole seconds rounded up. A streamed response pulls
+its first chunk before it sends headers, so pipeline errors keep their
+status.
+
+Overload defense (``overload``, an ``AdaptiveLimiter``; None turns it
+off): each generate request is admitted through the limiter under its
+``x-priority`` (interactive | batch) and ``x-request-deadline-ms``
+headers (a malformed one is a 400), holds its permit until it ends and
+reports its time to first chunk to it; under brownout ``max_tokens`` is
+clamped and the response carries ``X-Overload-Brownout: <level>``. The
+same first-chunk timing feeds the SLO plane's TTFT and ITL SLIs, and
+each finished request its availability and goodput SLIs.
 
 Each generate request runs under an ``http.request`` span, parented to an
 incoming W3C ``traceparent`` header, whose ids ride the request plane to
@@ -31,6 +45,7 @@ HTTPS; one without the other fails at ``start``.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import json
 import ssl
 import time
@@ -41,21 +56,30 @@ from dynamo_tpu_torch.llm.preprocessor import aggregate_chat_stream
 from dynamo_tpu_torch.llm.protocols import (ChatCompletionRequest,
                                             CompletionRequest, usage_block)
 from dynamo_tpu_torch.llm.recorder import finish_account, make_account
+from dynamo_tpu_torch.runtime import slo as slo_mod
 from dynamo_tpu_torch.runtime.context import Context
 from dynamo_tpu_torch.runtime.errors import (AdapterNotFoundError,
                                              InvalidRequestError,
                                              NoInstancesError,
-                                             OverloadedError)
+                                             OverloadedError,
+                                             RateLimitedError)
 from dynamo_tpu_torch.runtime.health import add_debug_routes
 from dynamo_tpu_torch.runtime.http_server import (Exchange, HttpServer,
                                                   Request, error_body)
 from dynamo_tpu_torch.runtime.logging import (current_trace, get_logger,
                                               parse_traceparent)
 from dynamo_tpu_torch.runtime.metrics import CONTENT_TYPE, MetricsRegistry
+from dynamo_tpu_torch.runtime.overload import (PRIORITY_BATCH,
+                                               PRIORITY_INTERACTIVE,
+                                               AdaptiveLimiter)
 from dynamo_tpu_torch.runtime.tracing import span
 
 log = get_logger("http")
 
+# Overload-defense request and response headers (the reference's).
+DEADLINE_HEADER = "x-request-deadline-ms"
+PRIORITY_HEADER = "x-priority"
+BROWNOUT_HEADER = "X-Overload-Brownout"
 # Accounting: multi-tenant attribution for /debug/requests.
 TENANT_HEADER = "x-tenant"
 
@@ -97,6 +121,12 @@ def _adapter_of(served) -> str | None:
     return extra.get("adapter") if extra.get("lora_base") else None
 
 
+def _retry_after_header(seconds: float) -> dict:
+    """``Retry-After`` in whole seconds (RFC 9110), rounded up so 0.4 s
+    does not tell clients to come straight back."""
+    return {"Retry-After": str(max(1, int(-(-seconds // 1))))}
+
+
 def _sse(payload: dict) -> bytes:
     return b"data: " + json.dumps(payload).encode() + b"\n\n"
 
@@ -115,11 +145,14 @@ class HttpService:
                  port: int = 8000, runtime=None,
                  metrics: MetricsRegistry | None = None,
                  tls_cert_path: str | None = None,
-                 tls_key_path: str | None = None):
-        """``runtime`` (a DistributedRuntime) gives the metrics root and
-        the discovery plane of ``/debug/fleet``; without one, ``metrics``
-        (or a fresh registry) is the root and ``/debug/fleet`` answers
-        503."""
+                 tls_key_path: str | None = None,
+                 overload: AdaptiveLimiter | None = None):
+        """``runtime`` (a DistributedRuntime) gives the metrics root, the
+        discovery plane of ``/debug/fleet`` and the overload config's
+        Retry-After default; without one, ``metrics`` (or a fresh
+        registry) is the root and ``/debug/fleet`` answers 503.
+        ``overload`` admits the generate routes (None: no admission
+        control)."""
         self.manager = manager
         self.host, self.port = host, port
         self._runtime = runtime
@@ -128,6 +161,7 @@ class HttpService:
                         else MetricsRegistry())
         self.tls_cert_path = tls_cert_path
         self.tls_key_path = tls_key_path
+        self.overload = overload
         # GET /debug/timeline provider: the frontend installs its
         # TimelineCollector's merged view before start(); left None, the
         # route serves this process's own journal.
@@ -171,6 +205,7 @@ class HttpService:
         for path, message in NOT_PORTED_ROUTES.items():
             server.add("POST", path, self._not_ported(message))
         add_debug_routes(server, kv_provider=self._kv_router_status,
+                         perf_provider=self._perf_status,
                          timeline_provider=self.timeline_provider)
         await server.start()
         self._server = server
@@ -208,12 +243,15 @@ class HttpService:
             acct = make_account(route, parsed.model)
             acct["adapter"] = _adapter_of(served)
             acct["tenant"] = req.headers.get(TENANT_HEADER)
+            permit = await self._admit(req, ex, acct)
             ctx = self._make_context(req)
             ex.ctx = ctx
+            ex.permit = permit
             acct["request_id"], acct["trace_id"] = ctx.id, ctx.trace_id
             try:
-                with span("http.request", ctx=ctx, route=route,
-                          model=parsed.model):
+                with permit, span("http.request", ctx=ctx, route=route,
+                                  model=parsed.model):
+                    self._apply_brownout(parsed)
                     payload = await run(parsed, served, ex, acct)
             except ConnectionError:
                 acct.update(status="cancelled", reason="client_disconnect")
@@ -233,6 +271,7 @@ class HttpService:
                 await ex.send_json(200, payload)
         except _Outcome as out:
             code = out.code
+            ex.headers = {}  # an error head carries no brownout level
             await ex.send_json(out.code, out.payload, out.extra)
         finally:
             if code is not None:
@@ -242,17 +281,99 @@ class HttpService:
             self._m_duration.observe(time.monotonic() - started,
                                      route=route)
 
-    @staticmethod
-    def _error_outcome(exc: Exception, acct: dict) -> _Outcome:
+    def _retry_after(self, exc: Exception | None = None) -> float:
+        """Retry-After seconds of a shed or overloaded answer: the error's
+        own hint, else the limiter's admission-queue projection, else the
+        overload config's default."""
+        hint = getattr(exc, "retry_after_s", None)
+        if hint:
+            return hint
+        if self.overload is not None:
+            return self.overload.retry_after_s()
+        if self._runtime is not None:
+            return self._runtime.config.overload.retry_after_default_s
+        return 1.0
+
+    def _shed_outcome(self, exc: Exception, acct: dict) -> _Outcome:
+        """The typed 429 (``RateLimitedError``) or 503 answer of a shed,
+        with the limiter's reason in the accounting record."""
+        if isinstance(exc, RateLimitedError):
+            code, err_type, reason = 429, "rate_limited", "rate_limited"
+        else:
+            code, err_type, reason = 503, "overloaded", "overloaded"
+        acct.update(status="shed", http_status=code,
+                    reason=getattr(exc, "shed_reason", reason))
+        return _Outcome(*error_body(str(exc), err_type, code),
+                        _retry_after_header(self._retry_after(exc)))
+
+    def _overload_params(self, req: Request):
+        """(priority, deadline_ms) from the overload request headers; a
+        malformed one is the caller's bug, a 400."""
+        priority = req.headers.get(
+            PRIORITY_HEADER, PRIORITY_INTERACTIVE).strip().lower()
+        if priority not in (PRIORITY_INTERACTIVE, PRIORITY_BATCH):
+            raise ValueError(f"unknown {PRIORITY_HEADER} {priority!r} "
+                             f"(use 'interactive' or 'batch')")
+        raw = req.headers.get(DEADLINE_HEADER)
+        deadline_ms = None
+        if raw is not None:
+            try:
+                deadline_ms = float(raw)
+                if deadline_ms <= 0:
+                    raise ValueError
+            except ValueError:
+                raise ValueError(f"invalid {DEADLINE_HEADER} {raw!r} "
+                                 "(positive milliseconds)") from None
+        return priority, deadline_ms
+
+    async def _admit(self, req: Request, ex: Exchange, acct: dict):
+        """The overload defense's admission of one request: its permit
+        (a null context without a limiter), or an ``_Outcome`` raised with
+        the typed 400, 429 or 503. The record picks up the priority, the
+        deadline, the admission wait and, on a shed, the limiter's
+        reason; the exchange, the brownout header."""
+        if self.overload is None:
+            return contextlib.nullcontext()
+        try:
+            priority, deadline_ms = self._overload_params(req)
+        except ValueError as exc:
+            acct.update(status="error", reason="bad_overload_header",
+                        http_status=400)
+            raise _Outcome(*error_body(str(exc))) from None
+        acct["priority"] = priority
+        acct["deadline_ms"] = deadline_ms
+        t0 = time.monotonic()
+        try:
+            permit = await self.overload.admit(priority, deadline_ms)
+        except (RateLimitedError, OverloadedError) as exc:
+            raise self._shed_outcome(exc, acct) from None
+        acct["queue_wait_s"] = time.monotonic() - t0
+        level = self.overload.pressure_level()
+        acct["brownout_level"] = level
+        if level > 0:
+            # Clients see (and can log) that they got degraded service.
+            ex.headers[BROWNOUT_HEADER] = str(level)
+        return permit
+
+    def _apply_brownout(self, parsed) -> None:
+        """Brownout's degradation hook: clamp max_tokens (the clamped
+        value shows in the usage block)."""
+        if self.overload is None:
+            return
+        clamped = self.overload.clamp_max_tokens(
+            getattr(parsed, "max_tokens", None))
+        if clamped is not None:
+            parsed.max_tokens = clamped
+
+    def _error_outcome(self, exc: Exception, acct: dict) -> _Outcome:
         if isinstance(exc, NoInstancesError):
             acct.update(status="shed", reason="no_instances",
                         http_status=503)
             return _Outcome(*error_body(str(exc), "service_unavailable",
-                                        503), {"Retry-After": "1"})
-        if isinstance(exc, OverloadedError):
-            acct.update(status="shed", reason="overloaded", http_status=503)
-            return _Outcome(*error_body(str(exc), "overloaded", 503),
-                            {"Retry-After": "1"})
+                                        503),
+                            _retry_after_header(self._retry_after(exc)))
+        if isinstance(exc, (RateLimitedError, OverloadedError)):
+            return self._shed_outcome(exc, acct)
         if isinstance(exc, AdapterNotFoundError):
             # A naming error, 404 like an unknown model, typed so clients
             # can tell which.
@@ -281,27 +402,40 @@ class HttpService:
     @staticmethod
     def _account_done(acct: dict | None, ctx) -> None:
         """Finalize and ledger the record once; a record with no outcome
-        is a client that went away."""
+        is a client that went away. The SLO plane's availability and
+        goodput SLIs take real outcomes only (a 400 is the caller's bug,
+        no SLO event)."""
         if acct is None or "_t0" not in acct:
             return
         status = acct.get("status") or "cancelled"
         reason = acct.get("reason") or (
             "client_disconnect" if status == "cancelled" else None)
-        finish_account(acct, status, reason, acct.get("http_status"),
-                       ctx=ctx)
+        http_status = acct.get("http_status")
+        feed = status in ("ok", "shed") or (http_status or 0) >= 500
+        finish_account(acct, status, reason, http_status, ctx=ctx,
+                       slo_plane=slo_mod.get_plane() if feed else None)
 
     @staticmethod
-    async def _timed(chunks: AsyncIterator[dict], acct: dict
+    async def _timed(chunks: AsyncIterator[dict], ex: Exchange, acct: dict
                      ) -> AsyncIterator[dict]:
-        """The accounting record's TTFT, inter-chunk gaps and usage
-        counts, from the chunks as they pass."""
+        """From one timing point: the permit's latency sample (the time to
+        first chunk, which AIMD adapts against), the SLO plane's TTFT and
+        ITL SLIs, and the accounting record's TTFT, inter-chunk gaps and
+        usage counts."""
+        plane = slo_mod.get_plane()
+        permit = ex.permit
         started = time.monotonic()
         last_t = None
         async for chunk in chunks:
             now = time.monotonic()
             if last_t is None:
-                acct["ttft_s"] = now - started
+                ttft = now - started
+                if hasattr(permit, "note_latency"):
+                    permit.note_latency(ttft)
+                plane.observe_ttft(ttft)
+                acct["ttft_s"] = ttft
             else:
+                plane.observe_itl(now - last_t)
                 acct["_itls"].append(now - last_t)
             last_t = now
             usage = chunk.get("usage") if isinstance(chunk, dict) else None
@@ -347,7 +481,7 @@ class HttpService:
     async def _run_chat(self, chat: ChatCompletionRequest, served,
                         ex: Exchange, acct: dict) -> dict | None:
         chunks = self._timed(served.preprocessor.generate(chat, ex.ctx),
-                             acct)
+                             ex, acct)
         if chat.stream:
             await self._sse_stream(ex, chunks, chat.model)
             return None
@@ -367,7 +501,7 @@ class HttpService:
             # Force the usage chunk so the folded response has counts.
             comp.stream_options = {"include_usage": True}
         chunks = self._timed(
-            served.preprocessor.generate_completion(comp, ex.ctx), acct)
+            served.preprocessor.generate_completion(comp, ex.ctx), ex, acct)
         if comp.stream:
             await self._sse_stream(ex, chunks, comp.model)
             return None
@@ -420,7 +554,7 @@ class HttpService:
     async def _run_responses(self, chat: ChatCompletionRequest, served,
                              ex: Exchange, acct: dict) -> dict | None:
         chunks = self._timed(served.preprocessor.generate(chat, ex.ctx),
-                             acct)
+                             ex, acct)
         if chat.stream:
             await self._responses_sse(ex, chunks, chat.model)
             return None
@@ -524,6 +658,25 @@ class HttpService:
                 if engine_status is not None:
                     engines[name] = engine_status()
         return {"role": "frontend", "routers": routers, "engines": engines}
+
+    def _perf_status(self) -> dict:
+        """This front's /debug/perf: the process-global registry plus the
+        full perf view of each in-process engine (the one-process
+        launcher has no worker status server to ask)."""
+        from dynamo_tpu_torch.engine.perf import process_perf_status
+        engines = {}
+        for name, served in self.manager.models.items():
+            if served.client is not None:
+                continue
+            engine = getattr(getattr(served.preprocessor, "inner", None),
+                             "inner", None)
+            status = getattr(engine, "perf_status", None)
+            if status is not None:
+                engines[name] = status()
+        body = process_perf_status()
+        body["role"] = "frontend"
+        body["engines"] = engines
+        return body
 
     async def _debug_fleet(self, req: Request, ex: Exchange) -> None:
         """Every registered worker status server's KV view, merged."""

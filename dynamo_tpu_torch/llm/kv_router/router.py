@@ -60,6 +60,9 @@ class KvPushRouter(AsyncEngine):
         self.indexer = KvIndexer(config.block_size)
         self.sequences = ActiveSequencesMultiWorker()
         self.scheduler = KvScheduler(config, self.sequences)
+        # The client's breakers: the scheduler excludes open workers, the
+        # client records outcomes.
+        self.scheduler.health = getattr(client, "breakers", None)
         self.replica_id = uuid.uuid4().hex[:8]
         self._tasks: list[asyncio.Task] = []
         self._bg_tasks: set[asyncio.Task] = set()

@@ -10,9 +10,10 @@
 lower is better. With temperature 0 the argmin wins (ties go to the first
 candidate); with temperature > 0 a worker is sampled from
 softmax(-logit / T). ``busy_threshold`` raises ``OverloadedError`` when
-every worker's KV usage is at or above it. The circuit-breaker board that
-the reference consults first (``health``) waits for ROADMAP item 12a and
-stays None.
+every worker's KV usage is at or above it. Before any of that, ``health``
+(the request-plane client's ``BreakerBoard``, set by the KV router)
+excludes circuit-open workers, and raises ``OverloadedError`` when all
+are open.
 """
 
 from __future__ import annotations
@@ -45,7 +46,8 @@ class KvScheduler:
         self.sequences = sequences
         # Latest ForwardPassMetrics per worker.
         self.metrics: dict[int, ForwardPassMetrics] = {}
-        # Per-worker circuit breakers: ROADMAP item 12a.
+        # The request-plane client's BreakerBoard (runtime/overload.py),
+        # shared: open breakers are excluded before any cost math.
         self.health = None
 
     def update_metrics(self, metrics: ForwardPassMetrics) -> None:
@@ -74,9 +76,17 @@ class KvScheduler:
                overlaps: OverlapScores) -> tuple[int, int]:
         """Pick a worker; returns (worker_id, overlap_blocks). Raises
         OverloadedError (503 + Retry-After at the front) when there is no
-        candidate or, with busy_threshold set, every one is above it."""
+        candidate, every one is circuit-open or, with busy_threshold set,
+        every one is above it."""
         if not workers:
             raise OverloadedError("no candidate workers")
+        if self.health is not None:
+            admitted = self.health.admitted(workers)
+            if not admitted:
+                raise OverloadedError(
+                    f"all {len(workers)} workers circuit-open "
+                    "(consecutive failures); retry shortly")
+            workers = admitted
         if self.config.busy_threshold is not None:
             free = [w for w in workers
                     if self._usage(w) < self.config.busy_threshold]

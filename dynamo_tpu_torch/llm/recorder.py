@@ -6,8 +6,10 @@
 cannot keep up with. ``RequestLedger`` keeps one accounting record per
 finished request (route, model, adapter, token counts, TTFT, ITL
 percentiles, worker id, migrations, status and reason, trace id) in a
-bounded ring, served at ``/debug/requests``; its JSONL sink waits for
-``--request-log`` (ROADMAP item 12a). ``Recorder`` carries the journal's
+bounded ring, served at ``/debug/requests``, with an optional JSONL sink
+(``--request-log``, ``DTPU_SLO_REQUEST_LOG_PATH``) on ``Recorder``'s
+non-blocking appender; ``finish_account`` also feeds the SLO plane's
+availability and goodput SLIs. ``Recorder`` carries the journal's
 ``DTPU_JOURNAL_PATH`` sink. The stream-recording helpers
 of the reference's module (``record_stream``) are copied when a slice
 needs them.
@@ -105,18 +107,22 @@ def _percentile(sorted_vals: list[float], q: float) -> float | None:
 
 
 class RequestLedger:
-    """Bounded ring of per-request accounting records. ``record()`` is
-    synchronous and non-blocking: the ring append happens under a lock.
-    (The reference's optional JSONL sink, fed by ``--request-log``, waits
-    for ROADMAP item 12a; ``snapshot`` keeps its ``sink`` key, None.)"""
+    """Bounded ring of per-request accounting records + optional JSONL
+    sink. ``record()`` is synchronous and non-blocking: the ring append
+    happens under a lock, the disk write (when configured) rides the
+    ``Recorder`` queue."""
 
-    def __init__(self, capacity: int = 1024):
+    def __init__(self, capacity: int = 1024, path: str | None = None):
         self.capacity = capacity
         self._ring: collections.deque[dict] = collections.deque(
             maxlen=capacity)
         self._lock = threading.Lock()
         self.counts: collections.Counter = collections.Counter()
         self.total = 0
+        self._sink: Recorder | None = Recorder(path) if path else None
+
+    def configure_sink(self, path: str | None) -> None:
+        self._sink = Recorder(path) if path else None
 
     def record(self, rec: dict) -> None:
         status = rec.get("status")
@@ -126,6 +132,13 @@ class RequestLedger:
             self._ring.append(rec)
             self.counts[status] += 1
             self.total += 1
+        sink = self._sink
+        if sink is not None:
+            try:
+                sink.start()  # idempotent; needs a running loop
+            except RuntimeError:
+                return  # engine-thread caller with no loop: ring only
+            sink.record(rec)
 
     def recent(self, limit: int = 100) -> list[dict]:
         """Newest-first records for /debug/requests."""
@@ -134,13 +147,19 @@ class RequestLedger:
         return snapshot[::-1][:max(0, limit)]
 
     def snapshot(self, limit: int = 100) -> dict:
+        sink = self._sink
         return {
             "capacity": self.capacity,
             "total": self.total,
             "counts": dict(self.counts),
-            "sink": None,
+            "sink": ({"path": sink.path, "written": sink.written,
+                      "dropped": sink.dropped} if sink else None),
             "records": self.recent(limit),
         }
+
+    async def close(self) -> None:
+        if self._sink is not None:
+            await self._sink.close()
 
 
 def make_account(route: str, model: str, ctx=None) -> dict:
@@ -186,9 +205,10 @@ def make_account(route: str, model: str, ctx=None) -> dict:
 
 def finish_account(acct: dict, status: str, reason: str | None = None,
                    http_status: int | None = None, ctx=None,
-                   ledger: "RequestLedger | None" = None) -> dict:
-    """Finalize a record and put it in the ledger. (The reference also
-    feeds the SLO plane's availability SLIs from here: ROADMAP item 12a.)"""
+                   ledger: "RequestLedger | None" = None,
+                   slo_plane=None) -> dict:
+    """Finalize + ledger a record, and feed the SLO availability/goodput
+    SLIs from the same event (one instrumentation point, two consumers)."""
     acct["status"] = status
     acct["reason"] = reason
     acct["http_status"] = http_status
@@ -204,6 +224,8 @@ def finish_account(acct: dict, status: str, reason: str | None = None,
             if values.get(key) is not None:
                 acct[key] = values[key]
     (ledger or get_ledger()).record(acct)
+    if slo_plane is not None:
+        slo_plane.observe_request(ok=status == "ok", shed=status == "shed")
     return acct
 
 
@@ -214,12 +236,12 @@ def get_ledger() -> RequestLedger:
     return _LEDGER
 
 
-def configure_ledger(capacity: int | None = None) -> RequestLedger:
-    """Entrypoint wiring. The reference takes the ring's capacity and a
-    JSONL path from its SLO config (``request_ring``,
-    ``request_log_path``); the port's entry points keep the default ring
-    and refuse ``--request-log`` (ROADMAP item 12a)."""
+def configure_ledger(capacity: int | None = None,
+                     path: str | None = None) -> RequestLedger:
+    """Entrypoint wiring (SloConfig.request_ring / request_log_path)."""
     global _LEDGER
     if capacity is not None and capacity != _LEDGER.capacity:
-        _LEDGER = RequestLedger(capacity)
+        _LEDGER = RequestLedger(capacity, path)
+    elif path is not None:
+        _LEDGER.configure_sink(path)
     return _LEDGER

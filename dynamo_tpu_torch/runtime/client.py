@@ -1,8 +1,16 @@
 """Endpoint client: the egress half of the request plane (copy of
-``dynamo_tpu.runtime.client.EndpointClient`` without its circuit
-breakers: selection treats every live instance alike). The reference's
-``shed`` journal event, emitted when every instance's breaker is open,
-comes with the breakers (ROADMAP item 12a).
+``dynamo_tpu.runtime.client.EndpointClient``).
+
+Per-worker circuit breakers (``runtime/overload.py``'s ``BreakerBoard``,
+``breakers``): connect failures, lost connections, frame gaps, idle
+deadlines, ``incomplete`` and ``overloaded`` error frames and handler
+errors count against the worker; a caller's fault (``invalid_request``,
+``rate_limited``, ``adapter_not_found``, ``role_transition``, an echoed
+``killed``) does not. A stream that delivered frames and failed nothing
+is a success whose latency sample is its first frame's. Round-robin and
+random selection skip open breakers (``direct`` does not); when every
+instance is open the client raises ``OverloadedError`` and journals a
+throttled ``shed`` event, as the reference does.
 
 Instances are discovered from a watch of the endpoint's ``instances/``
 prefix, and the live set follows leases as they appear and expire.
@@ -15,16 +23,25 @@ from __future__ import annotations
 import asyncio
 import itertools
 import random
+import time
 import uuid
 from typing import Any, AsyncIterator
 
 from dynamo_tpu_torch.runtime.component import (Endpoint, Instance,
                                                 instance_prefix)
+from dynamo_tpu_torch.runtime import journal
 from dynamo_tpu_torch.runtime.context import Context
-from dynamo_tpu_torch.runtime.errors import (NoInstancesError,
+from dynamo_tpu_torch.runtime.errors import (KILLED, AdapterNotFoundError,
+                                             InvalidRequestError,
+                                             NoInstancesError,
+                                             OverloadedError,
+                                             RateLimitedError,
+                                             RoleTransitionError,
                                              StreamIncompleteError,
                                              error_from_wire)
 from dynamo_tpu_torch.runtime.frame import read_frame, write_frame
+from dynamo_tpu_torch.runtime.journal import EventKind
+from dynamo_tpu_torch.runtime.overload import BreakerBoard
 
 
 ROUTER_MODES = ("round_robin", "random", "direct")
@@ -116,6 +133,13 @@ class EndpointClient:
         self._watch = None
         self._watch_task: asyncio.Task | None = None
         self._instances_event = asyncio.Event()
+        # Per-worker circuit breakers; the KV router's scheduler shares
+        # this board.
+        self.breakers = BreakerBoard(runtime.config.overload,
+                                     metrics=runtime.metrics)
+        # Throttle for the all-breakers-open journal shed event.
+        self._breakers_shed_t = -1e18
+        self._breakers_shed_n = 0
 
     async def start(self) -> None:
         prefix = instance_prefix(self._endpoint.component.namespace,
@@ -133,6 +157,7 @@ class EndpointClient:
 
     def _remove_instance(self, instance_id: int) -> None:
         self._instances.pop(instance_id, None)
+        self.breakers.remove(instance_id)
         conn = self._conns.pop(instance_id, None)
         if conn:
             # Deregistration only stops NEW routing to the instance:
@@ -183,12 +208,33 @@ class EndpointClient:
                     f"instance {instance_id:x} not found for "
                     f"{self._endpoint.path}")
             return self._instances[instance_id]
+        if mode not in ROUTER_MODES:
+            raise ValueError(f"router mode must be one of {ROUTER_MODES}, "
+                             f"got {mode!r}")
+        # Open breakers are skipped (direct above bypasses them: the KV
+        # router has filtered already, and admin verbs and canaries must
+        # reach a sick worker on purpose).
+        healthy = self.breakers.admitted(ids)
+        if not healthy:
+            now = time.monotonic()
+            if now - self._breakers_shed_t >= 1.0:
+                # One event speaks for the storm, with the suppressed tally.
+                journal.emit(
+                    EventKind.SHED,
+                    cause=journal.recent_ref(EventKind.BREAKER_TRANSITION),
+                    reason="breakers_open", instances=len(ids),
+                    endpoint=self._endpoint.path,
+                    suppressed=self._breakers_shed_n)
+                self._breakers_shed_t = now
+                self._breakers_shed_n = 0
+            else:
+                self._breakers_shed_n += 1
+            raise OverloadedError(
+                f"all {len(ids)} instances for {self._endpoint.path} are "
+                "circuit-open; retry shortly")
         if mode == "random":
-            return self._instances[random.choice(ids)]
-        if mode == "round_robin":
-            return self._instances[ids[next(self._rr) % len(ids)]]
-        raise ValueError(f"router mode must be one of {ROUTER_MODES}, "
-                         f"got {mode!r}")
+            return self._instances[random.choice(healthy)]
+        return self._instances[healthy[next(self._rr) % len(healthy)]]
 
     async def _conn_for(self, instance: Instance) -> _InstanceConn:
         # Per-instance lock: concurrent first requests share one connection
@@ -216,9 +262,16 @@ class EndpointClient:
         instance = self._select(mode, instance_id)
         return self._stream(instance, request, ctx)
 
+    async def direct(self, request: Any, instance_id: int,
+                     context: Context | None = None) -> AsyncIterator[Any]:
+        return await self.generate(request, context, mode="direct",
+                                   instance_id=instance_id)
+
     async def _stream(self, instance: Instance, request: Any, ctx: Context
                       ) -> AsyncIterator[Any]:
         rid = uuid.uuid4().hex
+        iid = instance.instance_id
+        breakers = self.breakers
         try:
             conn = await self._conn_for(instance)
             q = conn.open_stream(rid)
@@ -231,13 +284,18 @@ class EndpointClient:
             conn = self._conns.pop(instance.instance_id, None)
             if conn:
                 conn.close()
+            breakers.record_failure(iid)
             raise StreamIncompleteError(
                 f"Stream ended before generation completed "
                 f"(connect to {instance.instance_id:x} failed: {exc})"
             ) from exc
+        breakers.on_dispatch(iid)
         # The worker that served the request: the last dispatch wins, which
         # is what migration wants.
-        ctx.values["worker_id"] = f"{instance.instance_id:x}"
+        ctx.values["worker_id"] = f"{iid:x}"
+        sent_t = time.monotonic()
+        first_latency: float | None = None
+        failed = False
         stop_sent = False
         # A stop/kill issued while we are blocked on the queue must reach
         # the worker at once: a watcher pushes a wakeup into the stream's
@@ -274,6 +332,8 @@ class EndpointClient:
                         await conn.send({"t": "kill", "rid": rid})
                     except (ConnectionError, OSError):
                         pass
+                    failed = True
+                    breakers.record_failure(iid)
                     raise StreamIncompleteError(
                         f"Stream ended before generation completed (no "
                         f"frames from {instance.instance_id:x} for "
@@ -281,10 +341,14 @@ class EndpointClient:
                 if kind == "wake":
                     continue  # cancellation wakeup; the loop top sends it
                 if kind == "data":
+                    if first_latency is None:
+                        first_latency = time.monotonic() - sent_t
                     if seq is not None:
                         if seq < expected_seq:
                             continue  # duplicate frame: already delivered
                         if seq > expected_seq:
+                            failed = True
+                            breakers.record_failure(iid)
                             raise StreamIncompleteError(
                                 "Stream ended before generation completed "
                                 f"(frame gap: expected #{expected_seq}, "
@@ -293,17 +357,36 @@ class EndpointClient:
                     yield payload
                 elif kind == "final":
                     if seq is not None and seq != expected_seq:
+                        failed = True
+                        breakers.record_failure(iid)
                         raise StreamIncompleteError(
                             "Stream ended before generation completed "
                             f"(final after #{expected_seq} of {seq} frames)")
                     return
                 elif kind == "err":
-                    raise error_from_wire(payload)
+                    exc = error_from_wire(payload)
+                    # A caller's fault is no worker-health signal.
+                    if not (isinstance(exc, (InvalidRequestError,
+                                             RateLimitedError,
+                                             AdapterNotFoundError,
+                                             RoleTransitionError))
+                            or payload == KILLED):
+                        failed = True
+                        breakers.record_failure(iid)
+                    raise exc
                 else:  # lost
+                    failed = True
+                    breakers.record_failure(iid)
                     raise StreamIncompleteError(
                         "Stream ended before generation completed "
                         f"(connection to {instance.instance_id:x} lost)")
         finally:
+            # A stream that delivered frames and failed nothing is a
+            # success even when the consumer stops early; its latency
+            # sample is the first frame's (total time scales with
+            # max_tokens, the client's choice).
+            if not failed and first_latency is not None:
+                breakers.record_success(iid, first_latency)
             stop_t.cancel()
             conn.close_stream(rid)
 

@@ -1,12 +1,14 @@
-"""Layered runtime configuration (the fields of
-``dynamo_tpu.runtime.config.RuntimeConfig`` that the port reads).
+"""Layered runtime configuration (copy of
+``dynamo_tpu.runtime.config.RuntimeConfig``).
 
 defaults <- TOML file (``DTPU_CONFIG_PATH``, read with ``tomllib``) <-
-``DTPU_*`` environment variables, as in the reference. A setting of the
-reference that the port does not have (the overload and SLO tables,
-static mode, thread sizing) raises ``ValueError`` naming the ROADMAP item
-it waits for, instead of being ignored. ``system_enabled`` and
-``system_port`` start the system status server (``runtime/health.py``).
+``DTPU_*`` environment variables, as in the reference. The overload
+defense (``runtime/overload.py``) and the SLO plane (``runtime/slo.py``)
+are nested settings: an ``[overload]`` / ``[slo]`` TOML table, then
+``DTPU_OVERLOAD_<FIELD>`` / ``DTPU_SLO_<FIELD>`` per field
+(``_apply_scalar_env``, which the canary's ``DTPU_CANARY_<FIELD>`` uses
+too). ``system_enabled`` and ``system_port`` start the system status
+server (``runtime/health.py``).
 """
 
 from __future__ import annotations
@@ -16,26 +18,37 @@ import os
 import tomllib
 from typing import Any
 
+from dynamo_tpu_torch.runtime.overload import OverloadConfig
+from dynamo_tpu_torch.runtime.slo import SloConfig
+
 ENV_PREFIX = "DTPU_"
 
-# Settings of the reference's RuntimeConfig that the port lacks, and the
-# ROADMAP item each waits for.
-_NOT_PORTED = {
-    "overload": "item 12a (overload admission and circuit breakers)",
-    "slo": "item 12a (the SLO plane)",
-    "static_mode": "item 12a (static mode without a coordinator)",
-    "num_worker_threads": "item 12a (runtime thread sizing)",
-}
+# The nested settings and their classes.
+_NESTED = {"overload": OverloadConfig, "slo": SloConfig}
 
 
 def _env(name: str) -> str | None:
     return os.environ.get(ENV_PREFIX + name)
 
 
-def _refuse(setting: str, field: str) -> None:
-    raise ValueError(f"{setting} is not ported: the port's RuntimeConfig "
-                     f"has no {field!r}; it waits for ROADMAP "
-                     f"{_NOT_PORTED[field]}")
+def _apply_scalar_env(prefix: str, obj: Any) -> None:
+    """``DTPU_<PREFIX>_<FIELD>`` overrides of an all-scalar settings
+    dataclass (``OverloadConfig``, ``SloConfig``, ``CanaryConfig``), typed
+    by each field's current value, as the reference maps them."""
+    for field in dataclasses.fields(type(obj)):
+        raw = _env(f"{prefix}_" + field.name.upper())
+        if raw is None:
+            continue
+        current = getattr(obj, field.name)
+        if isinstance(current, bool):
+            value: Any = raw.strip().lower() in ("1", "true", "yes", "on")
+        elif isinstance(current, int):
+            value = int(raw)
+        elif isinstance(current, float):
+            value = float(raw)
+        else:
+            value = raw
+        setattr(obj, field.name, value)
 
 
 @dataclasses.dataclass
@@ -44,6 +57,9 @@ class RuntimeConfig:
 
     # Control plane (coordinator = etcd+NATS equivalent).
     coordinator_url: str = "tcp://127.0.0.1:4222"
+    # Static mode: no discovery; endpoints are addressed directly
+    # (``DistributedRuntime.detached``).
+    static_mode: bool = False
     # Namespace default for this process.
     namespace: str = "dynamo"
     # Lease TTL for liveness.
@@ -51,6 +67,8 @@ class RuntimeConfig:
     # Request-plane bind host for worker endpoints (ephemeral port).
     bind_host: str = "127.0.0.1"
     advertise_host: str | None = None
+    # Thread-pool sizing (the reference's worker threads).
+    num_worker_threads: int = 4
     # Graceful-shutdown drain timeout.
     shutdown_timeout_s: float = 10.0
     # How long a deregistered instance's in-flight streams may keep
@@ -64,6 +82,13 @@ class RuntimeConfig:
     # process; port 0 picks a free one.
     system_enabled: bool = False
     system_port: int = 0
+    # Overload defense (runtime/overload.py): adaptive admission,
+    # deadline-aware shedding, per-worker circuit breakers, brownout.
+    overload: OverloadConfig = dataclasses.field(
+        default_factory=OverloadConfig)
+    # SLO plane (runtime/slo.py): targets, windowed SLIs, burn-rate
+    # alerts, per-request accounting.
+    slo: SloConfig = dataclasses.field(default_factory=SloConfig)
 
     @classmethod
     def from_settings(cls) -> "RuntimeConfig":
@@ -73,22 +98,17 @@ class RuntimeConfig:
         if toml_path and os.path.exists(toml_path):
             with open(toml_path, "rb") as fh:
                 data: dict[str, Any] = tomllib.load(fh)
-            for key in data:
-                if key in _NOT_PORTED:
-                    _refuse(f"{key!r} in {toml_path}", key)
             for field in dataclasses.fields(cls):
                 if field.name in data:
-                    setattr(cfg, field.name, data[field.name])
-        for key in _NOT_PORTED:
-            name = ENV_PREFIX + key.upper()
-            if key in ("overload", "slo"):
-                hits = sorted(k for k in os.environ
-                              if k.startswith(name + "_"))
-                if hits:
-                    _refuse(hits[0], key)
-            elif name in os.environ:
-                _refuse(name, key)
+                    value = data[field.name]
+                    if field.name in _NESTED and isinstance(value, dict):
+                        value = _NESTED[field.name](**value)
+                    setattr(cfg, field.name, value)
         for field in dataclasses.fields(cls):
+            if field.name in _NESTED:
+                _apply_scalar_env(field.name.upper(),
+                                  getattr(cfg, field.name))
+                continue
             raw = _env(field.name.upper())
             if raw is None:
                 continue

@@ -1,16 +1,18 @@
 """DistributedRuntime: the node-level singleton (copy of
-``dynamo_tpu.runtime.distributed.DistributedRuntime`` without its static
-mode).
+``dynamo_tpu.runtime.distributed.DistributedRuntime``).
 
 It owns the coordinator client and the root of the process's metrics
 registry (``metrics``, served at ``/metrics``); the instance id of
-everything the process serves is its primary lease id. ``with_embedded_coordinator`` starts an
-in-process coordinator first, for single-process deployments and tests.
+everything the process serves is its primary lease id.
+``with_embedded_coordinator`` starts an in-process coordinator first, for
+single-process deployments and tests; ``detached`` is the static mode,
+with no control plane (``has_discovery`` False, a random instance id).
 """
 
 from __future__ import annotations
 
 import asyncio
+import random
 
 from dynamo_tpu_torch.runtime.component import Namespace
 from dynamo_tpu_torch.runtime.config import RuntimeConfig
@@ -22,7 +24,7 @@ from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
 
 class DistributedRuntime:
     def __init__(self, config: RuntimeConfig,
-                 coordinator_client: CoordinatorClient):
+                 coordinator_client: CoordinatorClient | None = None):
         self.config = config
         self.coordinator_client: CoordinatorClient | None = coordinator_client
         self._embedded_coordinator: Coordinator | None = None
@@ -31,8 +33,11 @@ class DistributedRuntime:
         # -> endpoint).
         self.metrics = MetricsRegistry()
         # Instance ids are the primary lease id, as the etcd lease id
-        # identifies an instance in the reference's design.
-        self.instance_id: int = coordinator_client.primary_lease_id
+        # identifies an instance in the reference's design (a detached
+        # runtime draws one).
+        self.instance_id: int = (coordinator_client.primary_lease_id
+                                 if coordinator_client is not None
+                                 else random.getrandbits(63))
         # Model-card keys this process still serves: lease-recreated
         # replays re-put only these (llm/model_card.py).
         self.model_cards: set[str] = set()
@@ -48,6 +53,20 @@ class DistributedRuntime:
         client = await CoordinatorClient.connect(
             host, port, lease_ttl_s=config.lease_ttl_s)
         return cls(config, client)
+
+    @classmethod
+    async def detached(cls, config: RuntimeConfig | None = None
+                       ) -> "DistributedRuntime":
+        """Static mode: no control plane (the reference's
+        ``from_settings_without_discovery``)."""
+        init_logging()
+        config = config or RuntimeConfig.from_settings()
+        config.static_mode = True
+        return cls(config)
+
+    @property
+    def has_discovery(self) -> bool:
+        return self.coordinator_client is not None
 
     @classmethod
     async def with_embedded_coordinator(

@@ -8,7 +8,12 @@ by a drain or the handler's ``GeneratorExit``; the client raises
 client's own kill echoed back), ``invalid_request: <text>`` (the request
 failed validation; the client raises ``InvalidRequestError``, HTTP 400),
 ``overloaded: <text>`` (no capacity; ``OverloadedError``, HTTP 503 with
-``Retry-After``: every LoRA slot held, or a JAX worker's admission),
+``Retry-After``: every LoRA slot held, or the engine's SLA admission),
+``rate_limited: <text>`` (client pacing: a deadline the admission
+projection cannot meet, or batch traffic shed under brownout;
+``RateLimitedError``, HTTP 429 with ``Retry-After``),
+``role_transition: <text>`` (a role-flip directive the worker fenced out;
+``RoleTransitionError``),
 ``adapter_not_found: <text>`` (the request named a LoRA adapter the worker
 does not serve; ``AdapterNotFoundError``, HTTP 404), or the handler's
 error as ``<ExceptionClass>: <text>`` (the client raises ``EngineError``).
@@ -43,15 +48,44 @@ class NoInstancesError(EngineError):
 
 class OverloadedError(EngineError):
     """Capacity rejection: every worker busy (the KV router's
-    ``busy_threshold``). The front answers 503 with ``Retry-After``; on
+    ``busy_threshold``), the admission queue full, or the engine's
+    projected-TTFT gate. The front answers 503 with ``Retry-After``; on
     the wire the class rides an ``overloaded: `` prefix."""
 
     WIRE_PREFIX = "overloaded: "
+    retryable = True
 
     def __init__(self, message: str = "overloaded",
                  retry_after_s: float | None = None):
         super().__init__(message)
         self.retry_after_s = retry_after_s
+
+
+class RateLimitedError(EngineError):
+    """Client-pacing rejection: the deadline is infeasible under the
+    admission projection, it expired while queued, or batch traffic was
+    shed under brownout. The front answers 429 with
+    ``error.type="rate_limited"`` and ``Retry-After``; unlike
+    ``OverloadedError`` it is not retryable as it is. On the wire the
+    class rides a ``rate_limited: `` prefix."""
+
+    WIRE_PREFIX = "rate_limited: "
+    retryable = False
+
+    def __init__(self, message: str = "rate limited",
+                 retry_after_s: float | None = None):
+        super().__init__(message)
+        self.retry_after_s = retry_after_s
+
+
+class RoleTransitionError(EngineError):
+    """A role-flip directive rejected by a worker's role state machine
+    (stale epoch, unknown role, a flip already in flight). Not retryable
+    as it is. On the wire the class rides a ``role_transition: ``
+    prefix."""
+
+    WIRE_PREFIX = "role_transition: "
+    retryable = False
 
 
 class InvalidRequestError(EngineError):
@@ -81,6 +115,12 @@ def error_from_wire(payload) -> EngineError:
         if payload.startswith(InvalidRequestError.WIRE_PREFIX):
             return InvalidRequestError(
                 payload[len(InvalidRequestError.WIRE_PREFIX):])
+        if payload.startswith(RateLimitedError.WIRE_PREFIX):
+            return RateLimitedError(
+                payload[len(RateLimitedError.WIRE_PREFIX):])
+        if payload.startswith(RoleTransitionError.WIRE_PREFIX):
+            return RoleTransitionError(
+                payload[len(RoleTransitionError.WIRE_PREFIX):])
         if payload.startswith(OverloadedError.WIRE_PREFIX):
             return OverloadedError(payload[len(OverloadedError.WIRE_PREFIX):])
         if payload.startswith(AdapterNotFoundError.WIRE_PREFIX):

@@ -11,8 +11,8 @@ are skipped. A decode-stall spike (the engine consults
 background thread writes one JSON bundle (flight ring, recent spans, a
 ``/metrics`` snapshot, the journal's recent slice and the config
 fingerprint) under ``bundle_dir``. Captures are throttled by
-``cooldown_s``. The SLO plane's page hook (``on_slo_page``) waits for
-ROADMAP item 12a.
+``cooldown_s``. A fast-burn SLO page (``on_slo_page``, registered on the
+SLO plane) triggers one too.
 
 Env knobs (read once at import; ``configure()`` overrides):
 ``DTPU_FLIGHT_CAPACITY`` (ring slots, default 512, 0 disables),
@@ -289,8 +289,7 @@ def trigger(reason: str, clock=time.monotonic) -> bool:
 
 
 def on_slo_page(target: str, severity: str) -> None:
-    """SloPlane.on_page adapter: page-severity alerts freeze + capture.
-    The port has no SLO plane to call it yet (ROADMAP item 12a); it is
-    here for that wiring."""
+    """SloPlane.on_page adapter: page-severity alerts freeze + capture
+    (the worker and the fronts register it on the SLO plane)."""
     if severity == "fast":
         trigger(f"slo_burn_{target}")

@@ -21,11 +21,16 @@ server instead of aiohttp).
   worker's ``GPUEngine.kv_status``, a KV-mode front's router view)
 - ``GET /debug/timeline``                 the merged fleet timeline on a
   frontend, this process's journal elsewhere
+- ``GET /debug/slo``                      SLO targets, windowed SLIs, burn
+  rates, alert states and pressure (``runtime/slo.py``)
+- ``GET /debug/perf``                     the engine perf plane: window
+  captures per program family, the window/roofline series, device memory
+  and the memory breakdown (a worker's ``GPUEngine.perf_status``, a
+  front's merged engines); without a provider the process-global
+  registry (``engine/perf.py``'s ``process_perf_status``)
 
-``GET /debug/slo`` answers 501 naming ROADMAP item 12a (the SLO plane)
-and ``GET /debug/perf`` 501 naming item 12c (the perf plane); the
-worker's ``/control/role`` and ``/control/scale`` answer 501 naming item
-25 (role changes and the scale agent). None answers 404.
+The worker's ``/control/role`` and ``/control/scale`` answer 501 naming
+ROADMAP item 25 (role changes and the scale agent), never 404.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ import json
 import tempfile
 from typing import Callable
 
-from dynamo_tpu_torch.runtime import flight, journal, tracing
+from dynamo_tpu_torch.runtime import flight, journal, slo, tracing
 from dynamo_tpu_torch.runtime.http_server import (Exchange, HttpServer,
                                                   Request)
 from dynamo_tpu_torch.runtime.logging import get_logger
@@ -43,10 +48,6 @@ from dynamo_tpu_torch.runtime.metrics import CONTENT_TYPE
 
 log = get_logger("health")
 
-SLO_WAITS = ("the SLO plane is not ported: /debug/slo waits for ROADMAP "
-             "item 12a")
-PERF_WAITS = ("the engine perf plane is not ported: /debug/perf waits for "
-              "ROADMAP item 12c")
 CONTROL_WAITS = ("role changes and the scale agent are not ported: "
                  "/control/role and /control/scale wait for ROADMAP item 25")
 
@@ -68,9 +69,11 @@ def _not_ported(message: str):
 def add_debug_routes(server: HttpServer,
                      kv_provider: Callable[[], dict] | None = None,
                      timeline_provider: Callable[[int], dict] | None = None,
-                     before_block=None, cuda: bool = False) -> None:
+                     before_block=None, cuda: bool = False,
+                     perf_provider: Callable[[], dict] | None = None) -> None:
     """Put the debug routes on ``server``. ``kv_provider`` answers
-    ``/debug/kv``; ``timeline_provider(limit)`` answers
+    ``/debug/kv`` and ``perf_provider`` ``/debug/perf``;
+    ``timeline_provider(limit)`` answers
     ``/debug/timeline`` (a frontend's merged fleet timeline);
     ``before_block`` and ``cuda`` go to ``capture_profile`` (a worker
     renews its lease with the first, and a worker whose engine runs on
@@ -113,18 +116,37 @@ def add_debug_routes(server: HttpServer,
             return
         await ex.send_json(200, body)
 
+    async def debug_perf(_req: Request, ex: Exchange) -> None:
+        provider = perf_provider
+        if provider is None:
+            # The registry is process-global: a process without an engine
+            # still reports what it knows.
+            from dynamo_tpu_torch.engine.perf import process_perf_status
+            provider = process_perf_status
+        try:
+            body = provider()
+        except Exception as exc:  # noqa: BLE001 — a pane, not a crash
+            log.exception("perf status provider failed")
+            await ex.send_json(500, {"error": f"perf provider failed: {exc}"})
+            return
+        await ex.send_json(200, body)
+
     for method, path, handler in (
             ("GET", "/debug/traces", _debug_traces),
             ("GET", "/debug/traces/recent", _debug_traces_recent),
             ("POST", "/debug/profile", debug_profile),
-            ("GET", "/debug/slo", _not_ported(SLO_WAITS)),
+            ("GET", "/debug/slo", _debug_slo),
             ("GET", "/debug/requests", _debug_requests),
             ("GET", "/debug/flight", _debug_flight),
             ("POST", "/debug/flight", _debug_flight_capture),
             ("GET", "/debug/kv", debug_kv),
-            ("GET", "/debug/perf", _not_ported(PERF_WAITS)),
+            ("GET", "/debug/perf", debug_perf),
             ("GET", "/debug/timeline", debug_timeline)):
         server.add(method, path, handler)
+
+
+async def _debug_slo(_req: Request, ex: Exchange) -> None:
+    await ex.send_json(200, slo.get_plane().snapshot())
 
 
 async def _debug_requests(req: Request, ex: Exchange) -> None:
@@ -197,7 +219,8 @@ async def _debug_profile(req: Request, ex: Exchange, before_block,
 class SystemStatusServer:
     def __init__(self, runtime, host: str = "0.0.0.0", port: int = 0,
                  kv_provider: Callable[[], dict] | None = None,
-                 cuda: bool = False):
+                 cuda: bool = False,
+                 perf_provider: Callable[[], dict] | None = None):
         self._runtime = runtime
         self.host, self.port = host, port
         # /debug/profile records CUDA activity: the worker's engine runs
@@ -206,6 +229,8 @@ class SystemStatusServer:
         self._endpoint_health: dict[str, bool] = {}
         # /debug/kv provider for THIS worker (engine.kv_status).
         self.kv_provider = kv_provider
+        # /debug/perf provider for THIS worker (engine.perf_status).
+        self.perf_provider = perf_provider
         self._server: HttpServer | None = None
 
     def set_endpoint_health(self, endpoint_path: str, healthy: bool) -> None:
@@ -220,7 +245,8 @@ class SystemStatusServer:
             server.add(method, "/control/role", _not_ported(CONTROL_WAITS))
             server.add(method, "/control/scale", _not_ported(CONTROL_WAITS))
         add_debug_routes(server, kv_provider=self.kv_provider,
-                         before_block=self._renew_lease, cuda=self.cuda)
+                         before_block=self._renew_lease, cuda=self.cuda,
+                         perf_provider=self.perf_provider)
         await server.start()
         self._server = server
         self.port = server.port

@@ -123,10 +123,16 @@ class Exchange:
         self.writer = writer
         self.ctx = None
         self.streaming = False  # the 200 head of a stream is out
+        # Headers every response head of this exchange carries (the
+        # front's X-Overload-Brownout), and the overload defense's
+        # admission permit of its request.
+        self.headers: dict = {}
+        self.permit = None
 
     async def send(self, code: int, content_type: str, body: bytes,
                    extra: dict | None = None) -> None:
-        self.writer.write(head(code, content_type, len(body), extra) + body)
+        self.writer.write(head(code, content_type, len(body),
+                               {**self.headers, **(extra or {})}) + body)
         await self.writer.drain()
 
     async def send_json(self, code: int, payload: dict,
@@ -137,7 +143,7 @@ class Exchange:
         """The 200 head of a server-sent event stream."""
         self.writer.write(head(200, "text/event-stream",
                                extra={"Cache-Control": "no-cache",
-                                      **(extra or {})}))
+                                      **self.headers, **(extra or {})}))
         self.streaming = True
 
     async def write(self, data: bytes) -> None:

@@ -27,34 +27,18 @@ HIER_LABELS = ("dynamo_namespace", "dynamo_component", "dynamo_endpoint")
 
 CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 
-_12A = "ROADMAP item 12a (admission, overload, breakers, SLO, canary)"
-_12C = "ROADMAP item 12c (the engine perf plane)"
 _25 = "ROADMAP item 25 (the planner, role changes and standby workers)"
 
 # The series docs/OBSERVABILITY.md names that the port does not register
 # yet, and the ROADMAP item that ports each (a test keeps this table and
 # the doc in step).
 NOT_PORTED_SERIES = {
-    **{name: _12A for name in (
-        "admission_queue_depth", "admitted_total", "breaker_open",
-        "breaker_opens_total", "brownout_level", "canary_probes_total",
-        "canary_ttft_seconds", "concurrency_limit", "shed_total",
-        "slo_alert_active", "slo_burn_rate", "slo_sli")},
-    **{name: _12C for name in (
-        "perf_achieved_tok_per_s", "perf_compile_seconds_total",
-        "perf_compiles_total", "perf_hbm_bytes_in_use",
-        "perf_hbm_limit_bytes", "perf_hbm_peak_bytes", "perf_roofline_frac",
-        "perf_spec_acceptance_rate", "perf_spec_accepted_tokens_total",
-        "perf_spec_brownout_windows_total", "perf_spec_draft_tokens_total",
-        "perf_spec_verify_steps_total", "perf_step_seconds",
-        "perf_unexpected_recompiles_total")},
-    **{name: _25 for name in (
+    name: _25 for name in (
         "autoscale_current_workers", "autoscale_decisions_total",
         "autoscale_join_seconds", "autoscale_standby_pool",
         "autoscale_target_workers", "role_flips_total",
         "standby_join_seconds", "standby_promotions_total", "standby_ready",
-        "worker_role")},
-}
+        "worker_role")}
 
 # prometheus_client's default histogram buckets.
 DEFAULT_BUCKETS = (.005, .01, .025, .05, .075, .1, .25, .5, .75, 1.0, 2.5,

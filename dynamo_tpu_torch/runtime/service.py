@@ -25,7 +25,9 @@ from dynamo_tpu_torch.runtime.context import Context
 from dynamo_tpu_torch.runtime.errors import (INCOMPLETE, KILLED,
                                              AdapterNotFoundError,
                                              InvalidRequestError,
-                                             OverloadedError)
+                                             OverloadedError,
+                                             RateLimitedError,
+                                             RoleTransitionError)
 from dynamo_tpu_torch.runtime.frame import read_frame, write_frame
 from dynamo_tpu_torch.runtime.logging import get_logger
 from dynamo_tpu_torch.runtime.tracing import span
@@ -194,10 +196,11 @@ class EndpointServer:
                 await self._send_err(send, rid,
                                      INCOMPLETE)
             raise
-        except (AdapterNotFoundError, OverloadedError) as exc:
-            # An unknown LoRA adapter (404 at the front) or no free adapter
-            # slot (503): typed on the wire, as the reference's server
-            # types them.
+        except (AdapterNotFoundError, OverloadedError, RateLimitedError,
+                RoleTransitionError) as exc:
+            # An unknown LoRA adapter (404 at the front), no capacity
+            # (503), client pacing (429) or a fenced role flip: typed on
+            # the wire, as the reference's server types them.
             await self._send_err(send, rid, f"{exc.WIRE_PREFIX}{exc}")
         except (ValueError, InvalidRequestError) as exc:
             # Request validation: typed on the wire so the front answers

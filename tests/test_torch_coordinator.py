@@ -17,6 +17,7 @@ lacks.
 """
 
 import asyncio
+import dataclasses
 import os
 import socket
 
@@ -316,17 +317,19 @@ def test_runtime_config_matches_reference(env, monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("setting", [
-    ("toml", "[overload]\nenabled = false\n"),
-    ("toml", "[slo]\nttft_p99_ms = 100.0\n"),
+    ("toml", "[overload]\nenabled = false\nqueue_depth = 7\n"),
+    ("toml", "[slo]\nttft_p99_ms = 100.0\nrequest_ring = 8\n"),
     ("toml", "static_mode = true\n"),
-    ("env", "DTPU_OVERLOAD_ENABLED"),
-    ("env", "DTPU_SLO_TTFT_P99_MS"),
-    ("env", "DTPU_STATIC_MODE"),
-    ("toml", "num_worker_threads = 4\n"),
-    ("env", "DTPU_NUM_WORKER_THREADS"),
+    ("env", "DTPU_OVERLOAD_ENABLED=0"),
+    ("env", "DTPU_SLO_TTFT_P99_MS=250"),
+    ("env", "DTPU_STATIC_MODE=1"),
+    ("toml", "num_worker_threads = 6\n"),
+    ("env", "DTPU_NUM_WORKER_THREADS=2"),
 ], ids=lambda s: s[1].split("\n")[0])
-def test_runtime_settings_the_port_lacks_are_refused(setting, monkeypatch,
-                                                      tmp_path):
+def test_runtime_settings_layer_as_the_reference(setting, monkeypatch,
+                                                  tmp_path):
+    """The overload and SLO tables, static mode and thread sizing layer
+    TOML <- DTPU_* env into the same values as the reference's."""
     _clear_settings(monkeypatch)
     kind, text = setting
     if kind == "toml":
@@ -334,6 +337,11 @@ def test_runtime_settings_the_port_lacks_are_refused(setting, monkeypatch,
         toml.write_text(text)
         monkeypatch.setenv("DTPU_CONFIG_PATH", str(toml))
     else:
-        monkeypatch.setenv(text, "1")
-    with pytest.raises(ValueError, match="ROADMAP item 12"):
-        tconfig.RuntimeConfig.from_settings()
+        name, _, value = text.partition("=")
+        monkeypatch.setenv(name, value)
+    t, j = (tconfig.RuntimeConfig.from_settings(),
+            jconfig.RuntimeConfig.from_settings())
+    for field in ("overload", "slo", "static_mode", "num_worker_threads"):
+        assert dataclasses.asdict(t)[field] == dataclasses.asdict(j)[field]
+    assert dataclasses.asdict(t) != dataclasses.asdict(
+        tconfig.RuntimeConfig())

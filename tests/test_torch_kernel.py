@@ -571,3 +571,76 @@ def test_lora_delta_on_gpu_matches_cpu_branch(ndim, s, h, r, d, n):
     base = (ids == 0).numpy()
     assert not got.float().numpy()[base].any()
     assert np.abs(got.float().numpy()[~base]).max() > 0.5
+
+
+@pytest.mark.gpu
+def test_spec_brownout_switch_keeps_the_plain_path_on_gpu():
+    """A spec-decode engine on the card whose brownout level is scripted
+    by window count (spec, then plain windows, then spec again on the
+    same slots: the verify route and the plain window over one pool)
+    gives the greedy tokens of a plain engine on the same prompts; at a
+    first split both tokens are the plain path's teacher-forced top two
+    within two bf16 ulps of its logits (the file's tolerance), and every
+    kind of window ran on the bf16 entry point."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the window graphs and the kernel "
+                    "have no CPU mode")
+    import asyncio
+
+    from dynamo_tpu_torch.engine import config as tcfg
+    from dynamo_tpu_torch.engine import runner as trunner
+    from dynamo_tpu_torch.engine.engine import GPUEngine
+    from dynamo_tpu_torch.runtime.context import Context
+    spec = tcfg.PRESETS["tiny-test"]
+    kw = dict(model=spec, num_pages=256, max_num_seqs=4, max_pages_per_seq=16,
+              prefill_buckets=(64, 128), max_prefill_tokens=256,
+              decode_window=8, pipeline_depth=2, device="cuda")
+    plain = GPUEngine(tcfg.EngineConfig(**kw), seed=3)
+    eng = GPUEngine(tcfg.EngineConfig(spec_decode="ngram", spec_k=3, **kw),
+                    params=plain.runner.params, seed=3)
+
+    def update():
+        eng.brownout_level = 2 if 2 <= eng.windows_dispatched < 5 else 0
+    eng._update_brownout = update
+    rng = np.random.default_rng(31)
+    prompts = [np.tile(rng.integers(1, spec.vocab_size, 6), 10)[:48].tolist()
+               for _ in range(3)] + [rng.integers(1, spec.vocab_size,
+                                                  30).tolist()]
+
+    async def run(engine):
+        async def one(p):
+            req = {"model": "m", "token_ids": p,
+                   "stop_conditions": {"max_tokens": 40, "ignore_eos": True}}
+            toks = []
+            async for out in engine.generate(req, Context()):
+                toks.extend(out.get("token_ids", []))
+            return toks
+        return await asyncio.gather(*(one(p) for p in prompts))
+
+    try:
+        want = asyncio.run(run(plain))
+        attention.KERNEL.launches = attention.KERNEL.launches_int8 = 0
+        got = asyncio.run(run(eng))
+        assert eng.spec_brownout_windows == 3 and eng.spec_drafts > 0
+        assert _counts()[0] > 0 and _counts()[1] == 0
+        r = plain.runner
+        for p, w, g in zip(prompts, want, got):
+            split = next((i for i, (a, b) in enumerate(zip(w, g)) if a != b),
+                         None)
+            if split is None:
+                continue
+            ctx = np.asarray(p + w[:split], np.int32)
+            n = len(ctx)
+            r.prefill_batch([trunner.PrefillSeq(
+                tokens=ctx, chunk_pages=np.arange(200, 200 + -(-n // 16)),
+                sampling=(0.0, 0, 1.0))])
+            lg = r.last_prefill_logits[0].float().cpu().numpy()
+            top2 = set(np.argsort(lg)[::-1][:2].tolist())
+            a, b = w[split], g[split]
+            ulp = float(np.spacing(np.float32(max(abs(lg[a]), abs(lg[b]))))
+                        ) * 2 ** 16
+            assert {a, b} <= top2 and abs(lg[a] - lg[b]) <= 2 * ulp, (
+                split, a, b)
+    finally:
+        plain.stop()
+        eng.stop()

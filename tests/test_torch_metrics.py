@@ -266,5 +266,5 @@ def test_the_not_ported_table_names_items_and_holds_no_ported_series():
     registered = _port_registered()
     stale = sorted(set(tm.NOT_PORTED_SERIES) & registered)
     assert not stale, f"registered by the port, still listed: {stale}"
-    assert all(re.search(r"ROADMAP item (12a|12c|25)\b", item)
+    assert all(re.search(r"ROADMAP item 25\b", item)
                for item in tm.NOT_PORTED_SERIES.values())

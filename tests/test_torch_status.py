@@ -4,13 +4,15 @@
 package's on the CPU:
 
 - a worker's status server answers ``/health``, ``/live``, ``/metrics``
-  and every debug route; ``/debug/slo``, ``/debug/perf`` and the control
-  verbs answer 501 naming the ROADMAP item they wait for, never 404;
+  and every debug route, ``/debug/slo`` and ``/debug/perf`` (the engine's
+  ``perf_status``) included; the control verbs answer 501 naming the
+  ROADMAP item they wait for, never 404;
   ``POST /debug/profile`` answers ``mode: "torch"`` and 409 to a second
   capture at once;
 - a JAX front and a port front over the same port worker: ``/debug/*``
-  bodies with the reference's keys, the same ``/v1/responses`` objects and
-  streamed events, the same 501s, the fleet pane listing the worker;
+  bodies with the reference's keys (``/debug/slo`` and ``/debug/perf``
+  too), the same ``/v1/responses`` objects and streamed events, the same
+  501s, the fleet pane listing the worker;
 - TLS with an ``openssl``-made certificate, as in
   ``tests/test_http_e2e.py``; half-configured TLS fails at start;
 - the reference's own ``scripts/trace_view.py`` and
@@ -70,7 +72,8 @@ async def _worker_fleet():
     server = await gpu.serve_engine(w_rt, engine, MODEL,
                                     make_test_tokenizer())
     status = SystemStatusServer(w_rt, host="127.0.0.1", port=0,
-                                kv_provider=engine.kv_status)
+                                kv_provider=engine.kv_status,
+                                perf_provider=engine.perf_status)
     await status.start()
     await register_status_server(w_rt, status.port,
                                  extra={"backend": "gpu", "model": MODEL})
@@ -100,9 +103,14 @@ async def test_status_server_routes(tmp_path):
         st, kv = await _json(port, "/debug/kv")
         assert st == 200 and kv["role"] == "engine"
         assert set(kv) >= {"allocator", "tiers", "reuse", "digest"}
-        for path, item in (("/debug/slo", "12a"), ("/debug/perf", "12c")):
-            st, body = await _json(port, path)
-            assert st == 501 and f"ROADMAP item {item}" in body["error"]
+        st, body = await _json(port, "/debug/slo")
+        assert st == 200 and set(body) == {
+            "enabled", "fast_burn_threshold", "slow_burn_threshold",
+            "pages_total", "targets", "pressure"}
+        st, body = await _json(port, "/debug/perf")
+        assert st == 200 and set(body) == {"role", "compiles", "window",
+                                           "roofline", "hbm", "memory"}
+        assert body["role"] == "engine" and body["hbm"] == {}
         for path in ("/control/role", "/control/scale"):
             for method in ("GET", "POST"):
                 st, body = await _json(port, path, method, {})
@@ -177,7 +185,8 @@ async def test_fronts_serve_the_same_debug_bodies_and_responses():
                 raw.decode().strip().split("\n\n")[-1].split("data: ", 1)[1])
             for path in ("/debug/requests", "/debug/flight",
                          "/debug/traces/recent", "/debug/timeline",
-                         "/debug/kv", "/debug/fleet"):
+                         "/debug/kv", "/debug/fleet", "/debug/slo",
+                         "/debug/perf"):
                 st, body = await _json(port, path)
                 assert st == 200, (name, path, body)
                 res[path] = body
@@ -195,7 +204,8 @@ async def test_fronts_serve_the_same_debug_bodies_and_responses():
         assert t["stream"] == j["stream"]
         assert t["completed"] == j["completed"]
         for path in ("/debug/requests", "/debug/flight",
-                     "/debug/traces/recent", "/debug/fleet"):
+                     "/debug/traces/recent", "/debug/fleet", "/debug/slo",
+                     "/debug/perf"):
             assert set(t[path]) == set(j[path]), path
         rec_t = t["/debug/requests"]["records"][0]
         rec_j = j["/debug/requests"]["records"][0]

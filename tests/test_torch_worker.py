@@ -701,23 +701,59 @@ def test_entry_points_as_processes():
 
 @pytest.mark.parametrize("main,argv,words", [
     (gpu.parse_args, ["--pp", "2"], "ROADMAP item 16"),
-    (gpu.parse_args, ["--ttft-budget-ms", "500"], "ROADMAP item 12a"),
     (gpu.parse_args, ["--num-nodes", "2"], "ROADMAP item 16"),
     (gpu.parse_args, ["--tp", "2"], "ROADMAP item 16"),
     (gpu.parse_args, ["--standby"], "planner"),
     (gpu.parse_args, ["--tool-call-parser", "hermes"], "parsers"),
-    (frontend_main.parse_args, ["--slo-ttft-p99-ms", "500"],
-     "ROADMAP item 12a"),
     (frontend_main.parse_args, ["--grpc-port", "9"], "gRPC"),
-    (frontend_main.parse_args, ["--canary"], "ROADMAP item 12a"),
-    (frontend_main.parse_args, ["--request-log", "r.jsonl"],
-     "ROADMAP item 12a"),
 ], ids=lambda v: " ".join(v) if isinstance(v, list) else None)
 def test_refused_flags_name_their_item(main, argv, words, capsys):
     with pytest.raises(SystemExit) as exc:
         main(argv)
     assert exc.value.code != 0
     assert words in capsys.readouterr().err
+
+
+_WORKER_ARGV = ["--model", "tiny-test", "--device", "cpu", "--num-pages",
+                "8"]
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["--ttft-budget-ms", "500"], (500.0, 2.0)),
+    (["--ttft-budget-ms", "500", "--admission-reject-factor", "3"],
+     (500.0, 3.0)),
+    (["--admission-reject-factor", "3"], (None, 0.0)),
+], ids=lambda v: " ".join(v) if isinstance(v, list) else None)
+def test_worker_serves_the_admission_flags(argv, want):
+    """--ttft-budget-ms and --admission-reject-factor reach the engine
+    config as the reference worker sets them: the factor (default 2) only
+    with a budget."""
+    cfg = gpu.build_engine_config(gpu.parse_args([*_WORKER_ARGV, *argv]))
+    assert (cfg.ttft_budget_ms, cfg.admission_reject_factor) == want
+
+
+@pytest.mark.parametrize("argv,check", [
+    (["--slo-ttft-p99-ms", "500"], lambda c: c.slo.ttft_p99_ms == 500.0),
+    (["--canary"], None),
+    (["--request-log", "r.jsonl"],
+     lambda c: c.slo.request_log_path == "r.jsonl"),
+    (["--no-overload-defense"], lambda c: not c.overload.enabled),
+    (["--overload-max-concurrency", "4", "--default-deadline-ms", "900"],
+     lambda c: (c.overload.max_concurrency, c.overload.default_deadline_ms)
+     == (4, 900.0)),
+], ids=lambda v: " ".join(v) if isinstance(v, list) else None)
+def test_frontend_serves_the_overload_slo_and_canary_flags(argv, check):
+    """The reference frontend's overload, SLO, request-log and canary
+    flags land where the reference's do (``--canary`` on the prober's
+    config)."""
+    from dynamo_tpu_torch.runtime.config import RuntimeConfig
+    args = frontend_main.parse_args(argv)
+    cfg = RuntimeConfig()
+    frontend_main.apply_front_args(cfg, args)
+    if check is None:
+        assert frontend_main.canary_config(args).enabled
+    else:
+        assert check(cfg)
 
 
 @pytest.mark.parametrize("argv,words", [
@@ -733,8 +769,6 @@ def test_refused_flags_name_their_item(main, argv, words, capsys):
     (["--output-file", "out.jsonl"], "ROADMAP item 24"),
     (["--batch-concurrency", "4"], "ROADMAP item 24"),
     (["--batch-max-tokens", "64"], "ROADMAP item 24"),
-    (["--slo-ttft-p99-ms", "500"], "ROADMAP item 12a"),
-    (["--request-log", "requests.jsonl"], "ROADMAP item 12a"),
     (["out=mocker"], "ROADMAP item 25"),
     (["out=echo"], "no ROADMAP item"),
 ], ids=lambda v: " ".join(v) if isinstance(v, list) else None)
@@ -745,6 +779,20 @@ def test_launcher_refused_flags_name_their_item(argv, words, capsys):
         launch.parse_args(["in=http", "out=gpu", *argv])
     assert exc.value.code != 0
     assert words in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["--slo-ttft-p99-ms", "500"], (500.0, "")),
+    (["--request-log", "requests.jsonl"], (0.0, "requests.jsonl")),
+], ids=lambda v: " ".join(v) if isinstance(v, list) else None)
+def test_launcher_serves_the_slo_flags(argv, want):
+    """The launcher's --slo-ttft-p99-ms and --request-log set the SLO
+    plane's settings, as the reference launcher's do."""
+    from dynamo_tpu_torch.runtime.config import RuntimeConfig
+    args = launch.parse_args(["in=http", "out=gpu", *argv])
+    cfg = RuntimeConfig()
+    launch.apply_slo_args(cfg, args)
+    assert (cfg.slo.ttft_p99_ms, cfg.slo.request_log_path) == want
 
 
 def test_launcher_takes_the_reference_defaults_of_refused_flags():
