@@ -72,7 +72,7 @@ Each phase's end prints the seconds so far and the host's memory.
    row per processed window (idle-stable windows skipped, the token
    column summing to the decode tokens) and decode_step_seconds counted
    every window. After round 2, round 1's shape on fresh prompts is
-   served once to capture its programs, then six times, spans on and off
+   served once to capture its programs, then twice, spans on then off
    in turns (tracing.set_enabled): tok/s and the engine thread's host ms
    per window (dispatch, processing and the flight row, less the wait for
    the window's tokens) of each run, and their means over the runs that
@@ -82,9 +82,12 @@ Each phase's end prints the seconds so far and the host's memory.
    bf16 one; the teacher-forced checks run on int8 pools, and round 1's
    logits stay cosine-close (> 0.99) to the bf16 pool's for the same
    tokens. The observability checks of round 1 run here too.
-5. the OpenAI front at full width: launch.start_http (what ``python -m
-   dynamo_tpu_torch.launch in=http`` runs) builds llama-3-8b (bf16 pool,
-   seed 0) behind the HTTP front on 127.0.0.1 port 0 in this process. The
+5. the OpenAI front at full width and CUT_LAYERS of the 32 layers (phases
+   5 and 6 compare their results only with each other): launch.start_http
+   (what ``python -m dynamo_tpu_torch.launch in=http`` runs) serves a
+   llama-3-8b engine (bf16 pool, seed 0, built by launch.load_engine from
+   the launcher's config with the depth cut) behind the HTTP front on
+   127.0.0.1 port 0 in this process. The
    six chat prompts, then the alone chat's, go once through
    engine.generate (their TTFT at the engine boundary) and leave the
    prefix cache; then, from http.client
@@ -98,14 +101,14 @@ Each phase's end prints the seconds so far and the host's memory.
    tokenizer's count of the rendered template; 32 logprob entries of 3
    alternatives; equal text and usage of the alone pair; 400 and 404
    with the reference's error shape; paged_attention_hist launched
-   windows x M x 32 times, the int8 entry 0 times. It prints each
+   windows x M x CUT_LAYERS times, the int8 entry 0 times. It prints each
    request's TTFT, median gap between chunks and time per output token
    at the client, the phase's tok/s, and the TTFTs of the six chats and
    of the alone chat through engine.generate. Then ``python -m dynamo_tpu_torch.launch
    in=http out=gpu --model tiny-test --http-port 0`` runs as a
    subprocess: its engine is on cuda without --device, it answers a
    streamed chat and exits 0 on SIGTERM.
-6. the distributed main path at full width, before phase 5's engine is
+6. the distributed main path on phase 5's engine, before it is
    released: in this process and over TCP on 127.0.0.1, a worker
    DistributedRuntime with an embedded coordinator serves
    engine.handler() on the request plane and registers the model
@@ -117,29 +120,34 @@ Each phase's end prints the seconds so far and the host's memory.
    prompt_tokens equal to phase 5's; the alone chat's token ids (read by
    a tap on engine.generate) equal phase 5's alone chat at the engine
    boundary, and its text and usage equal phase 5's; /v1/models through
-   discovery; paged_attention_hist launched windows x M x 32 times, the
-   int8 entry 0 times. It prints each request's client TTFT and TPOT
+   discovery; paged_attention_hist launched windows x M x CUT_LAYERS
+   times, the int8 entry 0 times. It prints each request's client TTFT and TPOT
    beside phase 5's, the phase's tok/s, its seconds, and the mean us of
    packb + unpackb over the phase's data frames. Then the coordinator,
    ``python -m dynamo_tpu_torch.backends.gpu --model tiny-test`` and
    ``python -m dynamo_tpu_torch.frontend --http-port 0`` run as
    subprocesses: the worker's engine is on cuda without --device, a
    streamed chat is answered, and all three exit 0 on SIGTERM.
-7. real checkpoints at full width. a. The seed-0 llama-3-8b tree (the
-   preset's weights) is written as a HF checkpoint of the public
-   Meta-Llama-3-8B config.json (CKPT_LAYERS layers) in HF names and
-   [out, in] layout, bf16, in shards of at most 5 GB, with
-   engine/safetensors_lite.save_file into a temporary directory (its free
-   space printed first), beside the test tokenizer's tokenizer.json.
+7. real checkpoints at full width and CUT_LAYERS of the 32 layers (the
+   phase compares its checkpoints only with its own preset engine of the
+   same depth). a. The seed-0 llama-3-8b preset cut to CUT_LAYERS, built
+   with launch.build_engine, serves round 1 (checked as in phase 3): its
+   greedy ids and the teacher-forced logits of its first request are the
+   reference. Its tree (the preset's weights) is written as a HF
+   checkpoint of the public Meta-Llama-3-8B config.json (CUT_LAYERS
+   layers) in HF names and [out, in] layout, bf16, in shards of at most
+   5 GB, with engine/safetensors_lite.save_file into a temporary
+   directory (its free space printed first), beside the test tokenizer's
+   tokenizer.json.
    b. launch.build_engine with --model DIR loads it: every leaf equals
    the written one; round 1 is served and checked as in phase 3 (every
    decode step of every layer launches paged_attention_hist); its greedy
-   ids equal phase 3's preset engine's, or split only at a near-tie of
-   the teacher-forced logits; its teacher-forced logits are within
-   LOGIT_ATOL of phase 3's. c. The same with --quant int8: wq and w_down
+   ids equal the preset engine's, or split only at a near-tie of the
+   teacher-forced logits; its teacher-forced logits are within
+   LOGIT_ATOL of the preset's. c. The same with --quant int8: wq and w_down
    of three layers and the embedding, quantized on the card, equal the
    CPU quantizer's q and s bit for bit; the teacher-forced logits have
-   cosine > 0.99 to phase 3's bf16 weights'; round 1 is served on a bf16
+   cosine > 0.99 to the preset's bf16 weights'; round 1 is served on a bf16
    pool and again with --quant-kv int8 (the int8 entry only). d. The
    Qwen2.5-0.5B config (tied, qkv bias) is written the same way without a
    tokenizer.json: its int8 weights' prefill logits have cosine > 0.99 to
@@ -155,7 +163,8 @@ Each phase's end prints the seconds so far and the host's memory.
 8. disaggregated prefill and decode at full width, after phase 7's
    engines are released. Two seed-0 llama-3-8b engines, each built as
    ``backends.gpu --mode prefill|decode`` builds it with DISAGG_PAGES
-   pages (8 GiB of bf16 pages each, so both fit the card), serve in this
+   pages (8 GiB of bf16 pages each, so both fit the card), at full depth
+   for the bf16 passes and at CUT_LAYERS for the int8 ones, serve in this
    process over TCP on 127.0.0.1: a decode worker runtime with an
    embedded coordinator (``backends.gpu.decode_handler`` and
    ``serve_engine``: DisaggDecodeHandler, the model registered), a
@@ -172,16 +181,19 @@ Each phase's end prints the seconds so far and the host's memory.
    that staged a parcel never takes the device path); bf16 pools inline
    (no plane); the
    decode pool rebuilt as int8 with bf16 parcels quantized on insert;
-   the prefill pool rebuilt as int8 too (packed parcels). Checked in
+   the prefill pool rebuilt as int8 too (packed parcels). The int8 passes
+   compare only with the phase's own reference: both their engines are
+   CUT_LAYERS deep, and before them the int8 decode engine serves round
+   1's six greedy prompts and the long prompt aggregated. Checked in
    each: every request finishes at its max_tokens; remote_prefills
    equals the prompts over 512 tokens, remote_failures is 0, each of
    them was admitted with its parcel (no local fallback at admission)
    and the rest prefilled locally; paged_attention_hist (the int8 entry on the
-   int8 pool) launched windows x M x 32 times on the decode worker and
+   int8 pool) launched windows x M x layers times on the decode worker and
    the other entry 0 times, and the prefill worker ran no window; the
    plane pulled every parcel and the long prompt streamed as three page
    groups (128, 128, 119 pages); greedy ids equal phase 3's (bf16 pool)
-   or phase 4's (int8 pool) aggregated ids, or split only at a near-tie
+   or the int8 reference's aggregated ids, or split only at a near-tie
    of the teacher-forced logits (the long prompt of the mixed pass,
    whose chunks ran over bf16 history, against the plain path of that
    computation); the seeded request's tokens equal the same request
@@ -196,8 +208,9 @@ Each phase's end prints the seconds so far and the host's memory.
    extract's device ms (gathers and copies to pinned memory), the pull
    ms (its wait for the first page group, and the receive and GB/s
    after it), the insert's device and host ms, TTFT and TPOT at the
-   decode worker's handler beside phase 3's (or 4's) engine-boundary
-   TTFT of the same prompt, and the client's first chunk (the test
+   decode worker's handler beside phase 3's (or the int8 reference's)
+   engine-boundary TTFT of the same prompt, and the client's first chunk
+   (the test
    tokenizer decodes most ids to no text, so few chunks reach the
    client); per pass its tok/s. For phase 13 it keeps the plane pass's
    traffic, tokens and remote rows. Then the coordinator, ``python -m
@@ -207,7 +220,7 @@ Each phase's end prints the seconds so far and the host's memory.
    chat over the threshold is prefilled on the prefill worker and
    answered, and all four exit 0 on SIGTERM.
 9. KV-cache-aware routing at full width, after phase 8's engines are
-   released. Two seed-0 llama-3-8b engines cut to KV_LAYERS of its 32
+   released. Two seed-0 llama-3-8b engines cut to CUT_LAYERS of its 32
    layers (every width kept; the phase compares its two passes with each
    other, never with phase 3), each built as ``backends.gpu`` builds it in
    agg mode with DISAGG_PAGES pages, each behind its own
@@ -232,7 +245,7 @@ Each phase's end prints the seconds so far and the host's memory.
    takes the no-reuse path); the kv pass hit more blocks than the
    round-robin pass; the greedy ids of the two passes are equal or split
    at a near-tie of the teacher-forced logits; paged_attention_hist
-   launched windows x M x KV_LAYERS times over both workers in each pass,
+   launched windows x M x CUT_LAYERS times over both workers in each pass,
    the
    int8 entry 0 times; both workers' load metrics and inventory digests
    reached the router (``kv_status()``). It prints each wave-2 request's
@@ -247,8 +260,9 @@ Each phase's end prints the seconds so far and the host's memory.
    same streamed chat goes twice, the second reaches the worker whose
    stored events hold the prompt's blocks, and all four exit 0 on
    SIGTERM.
-10. speculative decoding at full width, after phase 9's engines are
-   released: a seed-0 llama-3-8b engine built as ``python -m
+10. speculative decoding at full width and CUT_LAYERS of the 32 layers
+   (the phase compares the engine only with itself), after phase 9's
+   engines are released: a seed-0 llama-3-8b engine built as ``python -m
    dynamo_tpu_torch.backends.gpu --spec-decode ngram --spec-k 3`` builds
    it (bf16 pool of DISAGG_PAGES pages, warmup_windows set: its one spec
    program is captured at start) serves 8 concurrent requests of 64
@@ -257,8 +271,8 @@ Each phase's end prints the seconds so far and the host's memory.
    drafter's best case), two greedy random prompts, one seeded at
    temperature 0.8 and one at 0.8 / top_p 0.9. Checked: every request
    finishes at 64 tokens; every window was a replay of the spec program's
-   graph; paged_attention_hist launched windows x m_outer x 32 times (the
-   verify route), the int8 entry 0 times; the device accepted at least
+   graph; paged_attention_hist launched windows x m_outer x CUT_LAYERS
+   times (the verify route), the int8 entry 0 times; the device accepted at least
    one draft on the code-like prompts; each greedy id is the argmax of
    the teacher-forced plain path's logits over the request's own tokens
    (plain_forced_logits) or sits at a near-tie (top-2 margin within 2 x
@@ -273,38 +287,43 @@ Each phase's end prints the seconds so far and the host's memory.
    device ms (torch.profiler) with its top ops beside phase 3's decode
    device ms a step, the spec program's capture seconds and graph-pool
    bytes, and the phase's seconds.
-11. batched LoRA at full width, after phase 10's engine is released:
-   three HF PEFT adapters for llama-3-8b are written from seeds with the
-   port's safetensors writer (a: rank 8 and b: rank 16 on all seven
-   targets, c: rank 4 with lora_alpha 12 on the attention projections),
-   and a seed-0 llama-3-8b engine is built as ``python -m
-   dynamo_tpu_torch.backends.gpu --lora a=... --lora b=... --lora c=...
-   --max-adapters 2 --max-lora-rank 16`` builds it (bf16 pool of
-   DISAGG_PAGES pages, warmup_windows set). Round A: round 1's 8 prompts
-   concurrently, 3 on the base model, 3 on a, 2 on b (six greedy, one at
-   temperature 0.8 / top_p 0.9, one seeded). Round B: a request on c,
+11. batched LoRA at full width and CUT_LAYERS of the 32 layers (the phase
+   compares the engine only with itself), after phase 10's engine is
+   released: three HF PEFT adapters for llama-3-8b at that depth are
+   written from seeds with the port's safetensors writer (a: rank 8 and
+   b: rank 16 on all seven targets, c: rank 4 with lora_alpha 12 on the
+   attention projections), and a seed-0 llama-3-8b engine is built as
+   ``python -m dynamo_tpu_torch.backends.gpu --lora a=... --lora b=...
+   --lora c=... --max-adapters 2 --max-lora-rank 16`` builds it (bf16
+   pool of DISAGG_PAGES pages, warmup_windows set). Round A: round 1's 8
+   prompts concurrently, 3 on the base model, 3 on a, 2 on b (six greedy,
+   one at temperature 0.8 / top_p 0.9, one seeded); then the greedy base
+   rows' prompts again, alone on the base model. Round B: a request on c,
    which hot-loads into the slot LRU frees (b's) while captured programs
    exist, beside one on a; while both are held a request on b is
    answered OverloadedError, and an unknown name AdapterNotFoundError.
    Checked: every request finishes at 64 tokens and every window was a
-   graph replay; paged_attention_hist launched windows x 8 x 32 times
-   and the int8 entry 0 times; slot 0 is bit-identical to the base model
+   graph replay; paged_attention_hist launched windows x 8 x CUT_LAYERS
+   times and the int8 entry 0 times; slot 0 is bit-identical to the base
+   model
    (one decode step's logits with the LoRA stacks and ids 0 equal those
    without, and the same window through a runner built without adapters
    on the same parameter tensors and pool gives the same tokens and
    logprobs); every delta of one eager decode step with rows on slots
-   0, 1 and 2 (7 targets x 32 layers, model.lora_delta on the card)
+   0, 1 and 2 (7 targets x CUT_LAYERS layers, model.lora_delta on the
+   card)
    equals a per-row gather computed here without it (x @ A[id] in fp32,
    rounded to bf16, @ B[id]) within LORA_DELTA_RTOL of the delta's
    largest entry, slot-0 rows exact zeros; the greedy base rows equal
-   phase 3's ids or split at a near-tie; each greedy adapter row's id is
+   the same prompts served alone or split at a near-tie; each greedy
+   adapter row's id is
    the argmax of the eager teacher-forced plain path through its adapter or sits at a near-tie
    (top-2 margin within 2 x LOGIT_ATOL); after the hot-load, a window
    program captured before it, replayed with rows on a and c, equals its
    body run eagerly (tokens equal, logprobs within 1e-5). It prints the
    round's tok/s, TTFT and TPOT, the decode device ms a step with all 8
-   rows on adapters beside the same window on the base runner and phase
-   3's (torch.profiler; their difference is the LoRA ops' cost), the ms
+   rows on adapters beside the same window on the base runner
+   (torch.profiler; their difference is the LoRA ops' cost), the ms
    of one hot-load of b (rank 16, about 84 MB host to device), the
    stacks' bytes and the phase's seconds.
 12. KV tiers at full width, after phase 11's engine is released: worker
@@ -429,14 +448,17 @@ Each phase's end prints the seconds so far and the host's memory.
    of that share, and the /metrics window count at phase 14's start
    equals the first reading's windows. Both shares join the kernels
    line.
-15. admission and the perf plane at full width, after phase 13's fleet
+15. admission and the perf plane at full width and CUT_LAYERS of the 32
+   layers (the phase compares its engines only with themselves), after
+   phase 13's fleet
    is gone; llama-3-8b engines built as ``backends.gpu`` builds them
    (seed 0, ADM_PAGES pages, warmup_windows set, a metrics registry).
    a. The perf plane: the worker engine serves round 1's shape on fresh
    prompts, then GET /debug/perf on a status server whose provider is
    its perf_status (the worker's wiring). Checked: the window counters
    since the engine was built equal its own windows and tokens; the
-   weight-read step is 4.79 ms (16.06 GB at 3350 GB/s); 0 < frac <= 1;
+   weight-read step is ADM_STEP_MS (1.669 ms: 5.59 GB at 3350 GB/s at
+   CUT_LAYERS layers); 0 < frac <= 1;
    the decode_window captures since the engine was built equal its
    runner's captured programs; no unexpected recapture; hbm.bytes_in_use
    equals torch.cuda.memory_allocated() read before and after the GET,
@@ -456,8 +478,8 @@ Each phase's end prints the seconds so far and the host's memory.
    prompt at its calibrated rate, decodes code-like rows while a backlog
    of prompts arrives. Checked: the level reached >= 2 and returned to 0,
    plain windows ran under it and spec windows before and after it, every
-   window replayed a graph, the bf16 entry launched m_outer x 32 per spec
-   window plus M x 32 per plain window, and the greedy rows equal a plain
+   window replayed a graph, the bf16 entry launched m_outer x CUT_LAYERS
+   per spec window plus M x CUT_LAYERS per plain window, and the greedy rows equal a plain
    engine's on the same prompts or split only at a near-tie (top-2
    margin within 2 x LOGIT_ATOL). d. The front: a port frontend
    (``--overload-max-concurrency 4 --slo-ttft-p99-ms``, the limit at 4
@@ -469,7 +491,52 @@ Each phase's end prints the seconds so far and the host's memory.
    200 with the reference's keys and a ttft target. Phase 15 runs bf16
    pools only: its int8 launches are 0 (phases 4, 7, 8 and 12 drive the
    int8 entry).
-In every phase from 3 to 15, each decode window an engine dispatched was
+16. the planner and live role changes, on phase 13b's fleet after phase
+   14 (its workers run ``--migration-limit 3`` and ``--tokenizer`` of the
+   test tokenizer with an entry ``<tN>`` for every id from 361 up, so a
+   chat's ids show in the front's stream; prompts encode as before).
+   Every wait, each HTTP call included, has its own bound of ROLE_WAIT_S
+   and fails at once naming phase 16, with the process's stacks. b.
+   Eight streamed greedy chats of ROLE_TOKENS tokens with top-2
+   logprobs go through the frontend as the fleet stands (P prefills, D
+   decodes); their tokens are c's reference. The port's
+   RoleReconfigurator then writes a SetRole directive on this process's
+   lease that flips P to agg. Checked: P's role status reads
+   serving/agg at the directive's epoch; the same verb again acks
+   duplicate and an older epoch answers 409 with last_outcome
+   rejected_stale; P's allocated device memory within 1% across the
+   flip (no weight reload) and no window program captured by it; its
+   model card registered. a. Then a standby S starts: ``python -m
+   dynamo_tpu_torch.backends.gpu --standby --num-pages STANDBY_PAGES``
+   (same model and seed), after P's flip has returned P's cached blocks
+   to the card; its load and warmup overlap c and e. c. The same chats
+   again while POST /control/role flips D to prefill with a
+   ROLE_DRAIN_S drain. Checked: every stream finishes with ROLE_TOKENS
+   tokens; the front's request ledger has one ok record a chat, at
+   least one migrated, every migrated one carrying migration_reason
+   role_flip, and their migrations number the streams D's drain cut or
+   refused (its role counters' cut_streams, read by SIGUSR1); P's
+   paged_attention_hist launches in c (two SIGUSR1 readings) are
+   windows x M x 32, each window a replay, the int8 entry never; each
+   chat's tokens equal b's or split only where this chain's top-2
+   margin is within 2 x LOGIT_ATOL; D serves as prefill. e. ``python -m
+   dynamo_tpu_torch.planner --adjustment-interval 2`` (its connector
+   records, reconfiguration off) runs PLANNER_STEPS steps while four
+   chats decode on P, sees a live worker on the gpu component's load
+   metrics and exits 0 on SIGTERM. d. S parks (GPU_WORKER_READY
+   mode=standby, a standby/ key, no model card); a promote directive,
+   written as FleetScaler writes it, joins it; chats go through the
+   front until the ledger shows one served by S; its
+   standby_join_seconds is read off its /metrics; a retire directive
+   drains it (scale_in) and it exits 0 with its counters (role and
+   scale state retired, launches windows x M x 32). Phase 16's share of P's and D's
+   counters (from phase 14's end to their exit) and S's whole count
+   obey windows x M x 32 and join the kernels line as launches_roles;
+   it prints the flips and their seconds, the migrations by reason, the
+   join seconds, each process's peak device memory and its seconds.
+   Phase 13b's and 14's checks read the workers' counters as phase 14
+   ends (SIGUSR1), since phase 16 changes both roles after.
+In every phase from 3 to 16, each decode window an engine dispatched was
 a replay of its program's CUDA graph (the runner's replay count rises by
 the windows dispatched; in phase 13 the decode worker's own count), and the warmed engines of phases 8-11 (built as
 ``backends.gpu`` builds them, warmup_windows set) print their programs
@@ -1236,7 +1303,7 @@ class HostProbe:
         return (self.seconds - self.wait) * 1e3 / max(1, self.windows)
 
 
-def tracing_cost(engine, pairs: int = 3) -> dict:
+def tracing_cost(engine, pairs: int = 1) -> dict:
     """Round 1's shape on fresh prompts (no prefix hit), served once to
     capture the window programs it reaches, then with spans on and off in
     turns, ``pairs`` times: tok/s and the engine thread's host ms per
@@ -1563,7 +1630,7 @@ def alone_window(engine, rows: int, hist: int):
 
 
 def time_windows(engine, rows: int = 8, hist: int = 1224,
-                 reps: int = 3) -> dict:
+                 reps: int = 1) -> dict:
     """Device-synchronised ms of one decode window, run alone on the
     stopped engine's runner over ``rows`` live rows of ``hist`` tokens in
     fresh pages, with and without one row asking for logprobs (in turns:
@@ -1675,6 +1742,21 @@ def noise_check(vocab: int) -> None:
         f"{vocab} tokens and all {len(bits)} uniforms")
 
 
+# Depth of the engines of every phase that compares its results only with
+# itself (phases 5-6, 7, the int8 passes of 8, 9, 10, 11 and 15): 8 of
+# llama-3-8b's 32 layers, every width kept. A window program's capture
+# costs host time in proportion to the layers, and captures are the
+# script's longest waits.
+CUT_LAYERS = 8
+
+
+def cut_depth(config):
+    """``config`` (an EngineConfig) with its model cut to CUT_LAYERS."""
+    import dataclasses
+    return dataclasses.replace(config, model=dataclasses.replace(
+        config.model, num_layers=CUT_LAYERS))
+
+
 # ---------------------------------------------------------------------------
 # Phase 5: the OpenAI front at full width
 # ---------------------------------------------------------------------------
@@ -1699,16 +1781,17 @@ def chat_body(model: str, rng, n_words: int) -> dict:
 
 
 def http_call(port: int, method: str, path: str, body=None,
-              headers: dict | None = None) -> dict:
+              headers: dict | None = None,
+              timeout: float = SSE_TIMEOUT_S) -> dict:
     """One request over http.client. A streamed answer is read line by
     line: its SSE framing is checked (``data: `` events, each followed by
     a blank line, ``data: [DONE]`` last) and each event's arrival time
     kept. Returns status, content type, and the JSON body (or the text of
     a ``text/plain`` one) or the events with their seconds since the
-    request was sent."""
+    request was sent. A read that waits ``timeout`` seconds raises
+    TimeoutError."""
     import http.client
-    conn = http.client.HTTPConnection("127.0.0.1", port,
-                                      timeout=SSE_TIMEOUT_S)
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
     try:
         t0 = time.perf_counter()
         payload = body if isinstance(body, (bytes, type(None))) \
@@ -1791,11 +1874,11 @@ def forget_prompt(engine, token_ids) -> None:
 
 
 def http_phase(attention) -> dict:
-    """Build the OpenAI front for llama-3-8b (bf16 pool, seed 0) through
-    ``launch.start_http``, the function ``python -m dynamo_tpu_torch.launch
-    in=http`` runs, on 127.0.0.1 port 0 in this process; drive it with
-    http.client and check every answer; the engine is released before this
-    returns."""
+    """Build the OpenAI front for llama-3-8b (bf16 pool, seed 0, cut to
+    CUT_LAYERS layers) through ``launch.start_http``, the function
+    ``python -m dynamo_tpu_torch.launch in=http`` runs, on 127.0.0.1 port 0
+    in this process; drive it with http.client and check every answer;
+    the engine is released before this returns."""
     import threading
     from concurrent.futures import ThreadPoolExecutor
 
@@ -1813,8 +1896,15 @@ def http_phase(attention) -> dict:
     def on_loop(coro, timeout):
         return asyncio.run_coroutine_threadsafe(coro, loop).result(timeout)
 
+    async def start():
+        # Phases 5 and 6 compare their results only with each other.
+        config = cut_depth(launch.build_engine_config(args))
+        engine = launch.load_engine(config, args.resolved_checkpoint,
+                                    args.seed)
+        return await launch.start_http(args, engine)
+
     t0 = time.monotonic()
-    service, engine = on_loop(launch.start_http(args), 900)
+    service, engine = on_loop(start(), 900)
     setup_s = time.monotonic() - t0
     try:
         port, spec = service.port, engine.runner.spec
@@ -2300,10 +2390,9 @@ QWEN25_05B_CONFIG = {
 DEVICE = "cuda"
 # Checkpoint shards of at most this many bytes, as HF writes them.
 SHARD_BYTES = 5 * 10**9
-# Layers of the llama-3-8b layout written to disk: its full depth.
-CKPT_LAYERS = 32
-# Layers whose int8 q/s are held against the CPU quantizer.
-QUANT_CHECK_LAYERS = (0, CKPT_LAYERS // 2, CKPT_LAYERS - 1)
+# Layers whose int8 q/s are held against the CPU quantizer (phase 7 writes
+# and loads CUT_LAYERS of them).
+QUANT_CHECK_LAYERS = (0, CUT_LAYERS // 2, CUT_LAYERS - 1)
 
 
 def hf_tensors(params: dict, spec):
@@ -2466,11 +2555,43 @@ def greedy_agree(runner, model, prompts, tokens, ref_tokens,
     return equal
 
 
+def checkpoint_reference(attention, model) -> dict:
+    """Phase 7's reference: the seed-0 llama-3-8b preset cut to
+    CUT_LAYERS, built as launch.build_engine builds it, serves round 1
+    (checked as in phase 3); its prompts, tokens and the teacher-forced
+    logits of its first request. The engine is released before this
+    returns."""
+    import dataclasses
+
+    from dynamo_tpu_torch import launch
+    from dynamo_tpu_torch.profile_decode import MAX_PREFILL_TOKENS, MODEL
+    args = launch.parse_args(["out=gpu", "--model", MODEL, "--seed", "0"])
+    config = dataclasses.replace(cut_depth(launch.build_engine_config(args)),
+                                 max_prefill_tokens=MAX_PREFILL_TOKENS)
+    engine = launch.load_engine(config, args.resolved_checkpoint, args.seed)
+    runner = engine.runner
+    prompts = round1_prompts(runner.spec)
+    try:
+        results, _ = round1(engine, attention, prompts)
+    finally:
+        engine.stop()
+    tokens = [r["tokens"] for r in results]
+    _, logits = teacher_forced_check(runner, engine.decode_window,
+                                     prompts[0], tokens[0], attention, model,
+                                     quant=False)
+    ref = {"prompts": prompts, "tokens": tokens,
+           "tf_logits": [lg.cpu() for lg in logits]}
+    del engine, runner, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref
+
+
 def checkpoint_engine(attention, model, directory, ref, extra=()) -> dict:
     """Build the engine from ``directory`` through launch.build_engine,
     serve round 1 on it, and hold its teacher-forced logits against the
-    seed-0 preset's (``ref``, from phase 3). Returns the numbers, and
-    under "_engine" the stopped engine, which the caller releases."""
+    seed-0 preset's (``ref``, checkpoint_reference). Returns the numbers,
+    and under "_engine" the stopped engine, which the caller releases."""
     from dynamo_tpu_torch import launch
     from dynamo_tpu_torch.profile_decode import MAX_PREFILL_TOKENS
     loads = []
@@ -2608,7 +2729,7 @@ def write_gguf_tokenizer(path: str) -> None:
         "tokenizer.ggml.eos_token_id": spec["vocab"]["<|endoftext|>"]})
 
 
-def checkpoint_phase(attention, model, ref: dict) -> dict:
+def checkpoint_phase(attention, model) -> dict:
     """Phase 7 (see the module docstring)."""
     import os
     import shutil
@@ -2616,13 +2737,16 @@ def checkpoint_phase(attention, model, ref: dict) -> dict:
 
     from dynamo_tpu_torch.llm.tokenizer import make_test_tokenizer
     t_phase = time.monotonic()
+    # The phase compares its checkpoints only with its own preset engine,
+    # both CUT_LAYERS deep.
+    ref = checkpoint_reference(attention, model)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
         usage = shutil.disk_usage(tmp)
         log(f"checkpoint directory {tmp}: {usage.free / 1e9:.2f} GB free of "
             f"{usage.total / 1e9:.2f} GB")
         llama = os.path.join(tmp, "Meta-Llama-3-8B-layout")
-        config = dict(LLAMA3_8B_CONFIG, num_hidden_layers=CKPT_LAYERS)
+        config = dict(LLAMA3_8B_CONFIG, num_hidden_layers=CUT_LAYERS)
         written = write_checkpoint(llama, config)
         with open(os.path.join(llama, "tokenizer.json"), "wb") as fh:
             fh.write(make_test_tokenizer().to_bytes())
@@ -2680,10 +2804,10 @@ DISAGG_PAGES = 4096
 DISAGG_MAX_LOCAL = 512
 
 
-def disagg_engine(mode: str, quant_kv: str | None):
+def disagg_engine(mode: str, quant_kv: str | None, cut: bool = False):
     """An engine built as ``python -m dynamo_tpu_torch.backends.gpu --mode
     MODE`` builds it (seed-0 llama-3-8b, DISAGG_PAGES pages), with phase
-    3's prefill program size."""
+    3's prefill program size; with ``cut``, CUT_LAYERS deep."""
     import dataclasses
 
     from dynamo_tpu_torch.backends import gpu
@@ -2694,11 +2818,13 @@ def disagg_engine(mode: str, quant_kv: str | None):
     if quant_kv:
         argv += ["--quant-kv", quant_kv]
     args = gpu.parse_args(argv)
-    config = dataclasses.replace(gpu.build_engine_config(args),
+    config = gpu.build_engine_config(args)
+    config = dataclasses.replace(cut_depth(config) if cut else config,
                                  max_prefill_tokens=MAX_PREFILL_TOKENS)
     t0 = time.monotonic()
     engine = load_engine(config, args.resolved_checkpoint, args.seed)
-    log(f"{mode} engine ({quant_kv or 'bf16'} pool): pages="
+    log(f"{mode} engine ({quant_kv or 'bf16'} pool): layers="
+        f"{config.model.num_layers} pages="
         f"{engine.runner.num_pages} pool="
         f"{engine.runner.kv_pool_bytes / 2**30:.2f} GiB setup="
         f"{time.monotonic() - t0:.1f}s")
@@ -2722,6 +2848,27 @@ def disagg_traffic(spec, ref: dict) -> list[dict]:
                     "ignore_eos": True, "max_tokens": n,
                     "stream_options": {"include_usage": True}, **s})
     return out
+
+
+def disagg_reference(engine, ref: dict) -> dict:
+    """The int8 passes' reference, as phase 4's holds it: ``ref``'s six
+    greedy round-1 prompts and its long prompt served aggregated, at once,
+    on ``engine`` (their decode engine, before any pass): the prompts,
+    the tokens and TTFTs of the six and the long prompt's tokens."""
+    from dynamo_tpu_torch.profile_decode import (MAX_TOKENS, MODEL,
+                                                 ROUND2_MAX_TOKENS, serve)
+
+    def request(ids, n):
+        return {"model": MODEL, "token_ids": ids,
+                "stop_conditions": {"max_tokens": n, "ignore_eos": True},
+                "sampling_options": {}}
+    out = asyncio.run(serve(engine, [
+        request(p, MAX_TOKENS) for p in ref["prompts"][:6]]
+        + [request(ref["long_prompt"], ROUND2_MAX_TOKENS)]))
+    return {"prompts": ref["prompts"], "long_prompt": ref["long_prompt"],
+            "tokens": [r["tokens"] for r in out[:6]],
+            "ttft_s": [r["ttft_s"] for r in out[:6]],
+            "long_tokens": out[6]["tokens"]}
 
 
 class DisaggProbe:
@@ -3137,13 +3284,14 @@ def disagg_phase(attention, model, refs: dict) -> dict:
             probe.close()
 
     def check_tokens(stats, d_engine, ref, mixed: bool = False) -> None:
-        """Greedy ids against phase 3's (bf16 pool) or phase 4's (int8
-        pool) aggregated ids at clear margins, the long prompt's too. With
-        ``mixed`` (bf16 parcels into the int8 pool) the long prompt's
-        chunks ran over bf16 history where phase 4's ran over int8
-        history, so its tokens are held against the plain path of this
-        computation instead (whole-prompt prefill, teacher-forced decode
-        over the int8 pool): its argmax, or within 2 x LOGIT_ATOL of it."""
+        """Greedy ids against phase 3's (bf16 pool) or the int8 reference's
+        (disagg_reference) aggregated ids at clear margins, the long
+        prompt's too. With ``mixed`` (bf16 parcels into the int8 pool) the
+        long prompt's chunks ran over bf16 history where the reference's
+        ran over int8 history, so its tokens are held against the plain
+        path of this computation instead (whole-prompt prefill,
+        teacher-forced decode over the int8 pool): its argmax, or within
+        2 x LOGIT_ATOL of it."""
         tokens, prompts = stats["_tokens"], stats["_prompts"]
         runner = d_engine.runner
         equal = greedy_agree(runner, model, prompts[:8], tokens[:8],
@@ -3205,20 +3353,25 @@ def disagg_phase(attention, model, refs: dict) -> dict:
                               "tokens": st["_tokens"],
                               "rows": st["requests_remote"]}
             passes.append(st)
+        p_engine.stop()
         d_engine.stop()
-        del d_engine
+        del p_engine, d_engine
         free()
-        d_engine = disagg_engine("decode", "int8")
+        # The int8 passes compare only with the phase's own aggregated
+        # reference: their engines are CUT_LAYERS deep.
+        p_engine = disagg_engine("prefill", None, cut=True)
+        d_engine = disagg_engine("decode", "int8", cut=True)
+        ref_int8 = disagg_reference(d_engine, refs["int8"])
         st = run_pass("bf16 parcels into int8 pool", p_engine, d_engine,
-                      True, refs["int8"])
-        check_tokens(st, d_engine, refs["int8"], mixed=True)
+                      True, ref_int8)
+        check_tokens(st, d_engine, ref_int8, mixed=True)
         passes.append(st)
         p_engine.stop()
         del p_engine
         free()
-        p_engine = disagg_engine("prefill", "int8")
-        st = run_pass("int8 plane", p_engine, d_engine, True, refs["int8"])
-        check_tokens(st, d_engine, refs["int8"])
+        p_engine = disagg_engine("prefill", "int8", cut=True)
+        st = run_pass("int8 plane", p_engine, d_engine, True, ref_int8)
+        check_tokens(st, d_engine, ref_int8)
         st["seeded_equal"] = seeded_alone(d_engine, st)
         passes.append(st)
         p_engine.stop()
@@ -3310,10 +3463,6 @@ def disagg_subprocesses() -> dict:
 
 # Phase 9: KV-aware routing. Four prefixes of 64 complete blocks each.
 KV_PREFIX_TOKENS = 1024
-# Phase 9's depth: routing, the index and the prefix cache see no layer
-# count, and a quarter of the layers takes a quarter of the graph
-# captures' host time (the script's longest waits).
-KV_LAYERS = 8
 KV_SUFFIX_TOKENS = 128
 KV_WAVE1_TOKENS = 16
 KV_WAVE2_TOKENS = 32
@@ -3359,7 +3508,7 @@ class EngineTap:
 
 def kv_engine():
     """An engine built as ``python -m dynamo_tpu_torch.backends.gpu``
-    builds it in agg mode (seed-0 llama-3-8b at KV_LAYERS layers,
+    builds it in agg mode (seed-0 llama-3-8b at CUT_LAYERS layers,
     DISAGG_PAGES pages), not started: the worker starts it on its event
     loop."""
     import dataclasses
@@ -3369,14 +3518,12 @@ def kv_engine():
     from dynamo_tpu_torch.profile_decode import MAX_PREFILL_TOKENS, MODEL
     args = gpu.parse_args(["--model", MODEL, "--seed", "0", "--device",
                            DEVICE, "--num-pages", str(DISAGG_PAGES)])
-    config = gpu.build_engine_config(args)
-    config = dataclasses.replace(
-        config, max_prefill_tokens=MAX_PREFILL_TOKENS,
-        model=dataclasses.replace(config.model, num_layers=KV_LAYERS))
+    config = dataclasses.replace(cut_depth(gpu.build_engine_config(args)),
+                                 max_prefill_tokens=MAX_PREFILL_TOKENS)
     t0 = time.monotonic()
     engine = load_engine(config, args.resolved_checkpoint, args.seed,
                          start=False)
-    log(f"agg engine: layers={KV_LAYERS} pages={engine.runner.num_pages} "
+    log(f"agg engine: layers={CUT_LAYERS} pages={engine.runner.num_pages} "
         f"pool={engine.runner.kv_pool_bytes / 2**30:.2f} GiB "
         f"setup={time.monotonic() - t0:.1f}s")
     return engine
@@ -3906,10 +4053,11 @@ def spec_requests(spec) -> tuple[list[dict], list[str]]:
 
 
 def spec_engine():
-    """A seed-0 llama-3-8b engine built as ``python -m
-    dynamo_tpu_torch.backends.gpu --spec-decode ngram --spec-k 3`` builds
-    it (warmup_windows set, DISAGG_PAGES pages, bf16 pool), with phase 3's
-    prefill program size; started, so its spec program is captured."""
+    """A seed-0 llama-3-8b engine cut to CUT_LAYERS of its 32 layers
+    (every width kept), built as ``python -m dynamo_tpu_torch.backends.gpu
+    --spec-decode ngram --spec-k 3`` builds it (warmup_windows set,
+    DISAGG_PAGES pages, bf16 pool), with phase 3's prefill program size;
+    started, so its spec program is captured."""
     import dataclasses
 
     from dynamo_tpu_torch.backends import gpu
@@ -3919,12 +4067,13 @@ def spec_engine():
                            DEVICE, "--num-pages", str(DISAGG_PAGES),
                            "--spec-decode", "ngram",
                            "--spec-k", str(SPEC_K)])
-    config = dataclasses.replace(gpu.build_engine_config(args),
+    config = dataclasses.replace(cut_depth(gpu.build_engine_config(args)),
                                  max_prefill_tokens=MAX_PREFILL_TOKENS)
     assert config.warmup_windows and config.spec_decode == "ngram", config
     t0 = time.monotonic()
     engine = load_engine(config, args.resolved_checkpoint, args.seed)
-    log(f"spec engine: pages={engine.runner.num_pages} m_outer="
+    log(f"spec engine: layers={CUT_LAYERS} pages={engine.runner.num_pages} "
+        f"m_outer="
         f"{engine.spec_m_outer} k={SPEC_K} setup="
         f"{time.monotonic() - t0:.1f}s")
     return engine
@@ -4312,7 +4461,7 @@ def write_peft_adapter(directory: str, spec, rank: int, alpha: float,
 
 
 def lora_engine(dirs: dict):
-    """A seed-0 llama-3-8b engine built as ``python -m
+    """A seed-0 llama-3-8b engine cut to CUT_LAYERS, built as ``python -m
     dynamo_tpu_torch.backends.gpu --lora a=... --lora b=... --lora c=...
     --max-adapters 2 --max-lora-rank 16`` builds it (bf16 pool of
     DISAGG_PAGES pages, warmup_windows set), with phase 3's prefill
@@ -4329,7 +4478,7 @@ def lora_engine(dirs: dict):
     for name, directory in dirs.items():
         argv += ["--lora", f"{name}={directory}"]
     args = gpu.parse_args(argv)
-    config = dataclasses.replace(gpu.build_engine_config(args),
+    config = dataclasses.replace(cut_depth(gpu.build_engine_config(args)),
                                  max_prefill_tokens=MAX_PREFILL_TOKENS)
     assert config.warmup_windows and (config.max_adapters,
                                       config.lora_max_rank) == (
@@ -4461,7 +4610,7 @@ def slot0_check(engine, model, attention) -> dict:
     program gives the same tokens, logprobs and top-8. Also times a
     decode step of that window with all 8 rows on adapters (slots 1 and
     2 in turns) against the base runner's (torch.profiler), which is the
-    LoRA ops' cost. Returns the numbers and the base runner."""
+    LoRA ops' cost. Returns the numbers."""
     import dataclasses
 
     from dynamo_tpu_torch.engine import runner as trunner
@@ -4499,31 +4648,29 @@ def slot0_check(engine, model, attention) -> dict:
         torch.cuda.synchronize()
         for a, b in zip(*outs):
             assert torch.equal(a, b), "slot-0 window differs from the base"
-        # In turns: base, every row on an adapter, base.
         base_ms, _ = profiled_step_ms(base, packed, M)
         packed[:8, trunner.PK_ADAPTER] = [1, 2] * 4
         lora_ms, top = profiled_step_ms(runner, packed, M)
         packed[:, trunner.PK_ADAPTER] = 0
-        base_again, _ = profiled_step_ms(base, packed, M)
     finally:
         engine.allocator.release(pages)
     out = {"step_device_ms_8_rows_on_adapters": lora_ms,
-           "step_device_ms_base_runner": [base_ms, base_again],
-           "lora_ops_device_ms": lora_ms - min(base_ms, base_again),
-           "lora_ops_share": (lora_ms - min(base_ms, base_again)) / lora_ms,
+           "step_device_ms_base_runner": base_ms,
+           "lora_ops_device_ms": lora_ms - base_ms,
+           "lora_ops_share": (lora_ms - base_ms) / lora_ms,
            "top_ops_device_ms_per_step": top, "delta_check": deltas}
     log(f"slot 0: one decode step's logits with the LoRA stacks (ids 0) "
         f"and without are equal bit for bit; a window replayed by this "
         f"runner and by a runner without adapters on the same tensors "
         f"gives the same tokens and logprobs. Decode step, 8 rows x 1224 "
         f"tokens: {lora_ms:.3f} device ms with every row on an adapter "
-        f"against {base_ms:.3f} / {base_again:.3f} without LoRA "
+        f"against {base_ms:.3f} without LoRA "
         f"(LoRA ops {out['lora_ops_device_ms']:.3f} ms, "
         f"{out['lora_ops_share']:.1%})")
     return out
 
 
-def hot_load_times(engine, reps: int = 3) -> dict:
+def hot_load_times(engine, reps: int = 1) -> dict:
     """ms of one hot-load of adapter b (rank 16, every target) into a
     free slot: ``AdapterStore.acquire`` from its call until the device
     copies are done (set_adapter_slot: page-locked staging and the host
@@ -4553,8 +4700,9 @@ def hot_load_times(engine, reps: int = 3) -> dict:
     return out
 
 
-def lora_phase(attention, model, ref: dict, decode_step_ms: float) -> dict:
+def lora_phase(attention, model) -> dict:
     """Phase 11 (see the module docstring)."""
+    import dataclasses
     import shutil
     import tempfile
 
@@ -4563,7 +4711,7 @@ def lora_phase(attention, model, ref: dict, decode_step_ms: float) -> dict:
                                                  OverloadedError)
     t_phase = time.monotonic()
     from dynamo_tpu_torch.engine.config import PRESETS
-    spec = PRESETS[MODEL]
+    spec = dataclasses.replace(PRESETS[MODEL], num_layers=CUT_LAYERS)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_lora_")
     try:
         dirs, written = {}, {}
@@ -4585,22 +4733,30 @@ def lora_phase(attention, model, ref: dict, decode_step_ms: float) -> dict:
     prompts = round1_prompts(spec)
     requests = [lora_request(spec, p, a, s) for p, a, s in zip(
         prompts, LORA_ROUND_A, LORA_ROUND_A_SAMPLING)]
+    base_rows = [i for i in range(6) if LORA_ROUND_A[i] is None]
     try:
         results, wall, launches_a, windows_a = lora_served(
             engine, attention, lambda: serve(engine, requests))
+        # The greedy base rows' prompts again, alone on the base model:
+        # the reference of round A's base rows, which shared their
+        # windows with adapter rows.
+        alone = asyncio.run(serve(engine, [
+            lora_request(spec, prompts[i], None) for i in base_rows]))
     finally:
         engine.stop()
     status = engine.adapters.status()
     assert status["resident"] == {"a": 1, "b": 2}, status
     # Slot-0 rows: bit-identical to a runner without adapters (this also
     # captures the logprobs window program that the replay check below
-    # replays after round B's hot-load), and the greedy base rows at
-    # phase 3's ids or split at a near-tie; the greedy adapter rows at the
-    # teacher-forced plain path's argmax through their slots.
+    # replays after round B's hot-load), and the greedy base rows at the
+    # ids served alone or split at a near-tie; the greedy adapter rows at
+    # the teacher-forced plain path's argmax through their slots.
     slot0 = slot0_check(engine, model, attention)
-    base_rows = [i for i in range(6) if LORA_ROUND_A[i] is None]
+    alone_tokens = [None] * len(prompts)
+    for i, r in zip(base_rows, alone):
+        alone_tokens[i] = r["tokens"]
     base_equal = greedy_agree(runner, model, prompts,
-                              [r["tokens"] for r in results], ref["tokens"],
+                              [r["tokens"] for r in results], alone_tokens,
                               rows=base_rows)
     rows = [i for i in range(6) if LORA_ROUND_A[i] is not None]
     agree_a = adapter_rows_check(
@@ -4664,24 +4820,21 @@ def lora_phase(attention, model, ref: dict, decode_step_ms: float) -> dict:
                        "wall_s": wall_b, "refused": refused},
            "launches_total": {k: launches_a[k] + launches_b[k]
                               for k in launches_a},
-           "base_rows_equal_phase3": f"{base_equal}/{len(base_rows)}",
+           "base_rows_equal_alone": f"{base_equal}/{len(base_rows)}",
            "greedy_at_plain_argmax": {"round_a": agree_a,
                                       "round_b": agree_b},
            "replay_vs_eager_after_hot_load_max_abs_logprob_diff":
                replay_diff,
-           "phase3_decode_step_device_ms": decode_step_ms, **slot0,
+           **slot0,
            "hot_load": hot, "stacks_bytes": runner.lora_bytes,
            "adapter_bytes": written, "register_s": register_s,
            "program": {k: warm[k] for k in ("capture_s", "graph_pool_bytes",
                                              "warmup_s")}}
     log(f"phase 11: {n_tok / wall:.1f} tok/s, TTFT median "
         f"{out['ttft_ms_median']:.0f} ms, TPOT median "
-        f"{out['tpot_ms_median']:.2f} ms; base rows equal to phase 3 "
-        f"{out['base_rows_equal_phase3']}; greedy adapter ids at the plain "
-        f"argmax "
-        f"{out['greedy_at_plain_argmax']}; decode step with 8 adapter rows "
-        f"{slot0['step_device_ms_8_rows_on_adapters']:.3f} device ms "
-        f"against phase 3's {decode_step_ms:.3f}")
+        f"{out['tpot_ms_median']:.2f} ms; base rows equal to the same "
+        f"rows alone {out['base_rows_equal_alone']}; greedy adapter ids at "
+        f"the plain argmax {out['greedy_at_plain_argmax']}")
     del engine, runner
     gc.collect()
     torch.cuda.empty_cache()
@@ -5660,8 +5813,10 @@ def _exit_line(entry, timeout=120) -> dict:
 
 
 def device_fleet(ref: dict) -> dict:
-    """Phase 13b (see the module docstring). ``ref``: phase 8's bf16
-    plane pass (its bodies, tokens and remote rows)."""
+    """Phase 13b (see the module docstring), then phases 14 and 16 on its
+    fleet. ``ref``: phase 8's bf16 plane pass (its bodies, tokens and
+    remote rows)."""
+    import os
     import signal
     import tempfile
 
@@ -5682,8 +5837,13 @@ def device_fleet(ref: dict) -> dict:
                        "--host", "127.0.0.1", "--port", "0")
         url = "tcp://127.0.0.1:" + _wait_line(
             coord, "COORDINATOR_READY").rsplit("=", 1)[1]
+        # Phase 16's chats read their ids off the front's stream: every id
+        # decodes to a text of its own. Its drains migrate what they cut.
+        tokenizer = ids_tokenizer(os.path.join(flight_dir, "ids.json"),
+                                  spec.vocab_size)
         common = ("--model", MODEL, "--num-pages", str(DISAGG_PAGES),
-                  "--coordinator-url", url)
+                  "--coordinator-url", url, "--tokenizer", tokenizer,
+                  "--migration-limit", "3")
         if DEVICE == "cpu":
             common += ("--device", "cpu")
         prefill = _spawn(procs, "dynamo_tpu_torch.backends.gpu", "--mode",
@@ -5735,6 +5895,13 @@ def device_fleet(ref: dict) -> dict:
             port, status[1], status[0], hexes[1], hexes[0],
             {"decode": len(bodies) + 1, "remote": n_remote,
              "completions": 1}, flight_dir)
+        # Both workers' counters as phase 14 ends: 13b's and 14's checks
+        # read these, phase 16 the difference to their exit counters.
+        d_end, p_end = read_counters(decode), read_counters(prefill)
+        roles = roles_phase({"url": url, "front": port, "prefill": prefill,
+                             "decode": decode, "status": status,
+                             "hexes": (hexes[0], hexes[1]), "procs": procs,
+                             "tokenizer": tokenizer, "env": status_env})
         for proc, _, _ in (front, decode, prefill, coord):
             proc.send_signal(signal.SIGTERM)
         d_exit, p_exit = _exit_line(decode), _exit_line(prefill)
@@ -5754,7 +5921,7 @@ def device_fleet(ref: dict) -> dict:
     n_dev = all_remote if path == "device" else 0
     for r, b in zip(results, bodies):
         assert len(r["tokens"]) == b["max_tokens"], (len(r["tokens"]), b)
-    dis, client = d_exit["disagg"], d_exit["plane_client"]
+    dis, client = d_end["disagg"], d_end["plane_client"]
     assert (dis["remote_prefills"], dis["remote_failures"],
             dis["local_prefills"]) == (
         all_remote, 0, len(prompts) + 1 - n_remote + 2 * OBS_PROFILE_ROWS
@@ -5762,13 +5929,13 @@ def device_fleet(ref: dict) -> dict:
     assert (client["device_pulls"], client["socket_pulls"],
             client["device_pull_failures"]) == (n_dev, all_remote - n_dev,
                                                 0), client
-    assert d_exit["engine"]["injected_admissions"] == all_remote
-    server = p_exit["plane_server"]
+    assert d_end["engine"]["injected_admissions"] == all_remote
+    server = p_end["plane_server"]
     assert (server["device_stages"], server["device_done"],
             server["staged"]) == (n_dev, n_dev, 0), server
-    assert p_exit["engine"]["device_extracts"] == n_dev
-    assert p_exit["engine"]["windows"] == 0, "the prefill worker decoded"
-    eng = d_exit["engine"]
+    assert p_end["engine"]["device_extracts"] == n_dev
+    assert p_end["engine"]["windows"] == 0, "the prefill worker decoded"
+    eng = d_end["engine"]
     per_window = eng["window_steps"] * eng["layers"]
     # The worker's own counters, split at phase 14's start: 13b's share,
     # phase 14's, and the whole.
@@ -5800,6 +5967,44 @@ def device_fleet(ref: dict) -> dict:
     obs["launches"] = {"paged_attention_hist": shares["14"]["launches"],
                        "paged_attention_hist_int8":
                        shares["14"]["launches_int8"]}
+    # Phase 16's share of each worker (from phase 14's end to its exit)
+    # and the standby's (its whole life): M x 32 launches a window, each
+    # window a replay, the int8 entry never.
+    counted = ("windows", "window_replays", "launches", "launches_int8",
+               "captures")
+    roles["workers"] = {
+        "P": {k: p_exit["engine"][k] - p_end["engine"][k] for k in counted},
+        "D": {k: d_exit["engine"][k] - d_end["engine"][k] for k in counted},
+        "S": {k: roles["standby_engine"][k] for k in counted}}
+    for name, c in roles["workers"].items():
+        assert c["launches_int8"] == 0, (name, c)
+        if DEVICE == "cuda":
+            assert c["launches"] == c["windows"] * per_window, (name, c)
+            assert c["window_replays"] == c["windows"], (name, c)
+    assert roles["workers"]["P"]["windows"] > 0, roles["workers"]
+    assert (p_exit["role"]["role"], d_exit["role"]["role"]) == (
+        "agg", "prefill"), (p_exit["role"], d_exit["role"])
+    roles["peak_GiB"] = {"P": p_exit["engine"]["peak_bytes"] / 2**30,
+                         "D": d_exit["engine"]["peak_bytes"] / 2**30,
+                         "S": roles["standby_peak_GiB"]}
+    roles["launches"] = {
+        "paged_attention_hist": sum(c["launches"]
+                                    for c in roles["workers"].values()),
+        "paged_attention_hist_int8": sum(
+            c["launches_int8"] for c in roles["workers"].values())}
+    log(json.dumps({"roles_phase": {k: v for k, v in roles.items()
+                                    if k != "standby_engine"}}))
+    log(f"16: P prefill->agg by the RoleReconfigurator in "
+        f"{roles['flips']['P prefill->agg']['seconds']:.2f}s (no reload: "
+        f"allocated {roles['p_allocated_bytes']}, no capture), D "
+        f"decode->prefill under 8 chats with a {ROLE_DRAIN_S:.0f} s drain in "
+        f"{roles['flips']['D decode->prefill']['seconds']:.2f}s, migrations "
+        f"{roles['migrations']}, chats equal to 16b's "
+        f"{roles['chats_equal_of_8']}/8, splits {roles['splits']}; standby "
+        f"joined in {roles['standby_join_seconds']:.3f}s, served and "
+        f"retired; planner {len(roles['planner_steps'])} steps; launches "
+        f"{ {n: c['launches'] for n, c in roles['workers'].items()} }; "
+        f"peak GiB {roles['peak_GiB']}; {roles['phase_s']:.1f}s")
     # The first token of each remote prompt, its prefill worker's sample,
     # equals phase 8's (the unseeded top-p request samples anew). The
     # greedy ids (rows 0-5 and the long prompt) equal phase 8's, or split
@@ -5856,7 +6061,7 @@ def device_fleet(ref: dict) -> dict:
            "launches": {"paged_attention_hist": mid["launches"],
                         "paged_attention_hist_int8": mid["launches_int8"]},
            "windows_13b": mid["windows"],
-           "observability": obs,
+           "observability": obs, "roles": roles,
            "phase_s": time.monotonic() - t_phase}
     log(f"13b: 1P1D {MODEL} as processes ({ready[0]}; {ready[1]}; serving "
         f"in {ready_s:.1f}s; {probes[0]}); {n_remote} remote prefills all "
@@ -6099,11 +6304,435 @@ def observability_phase(front: int, decode: int, prefill: int,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the planner and live role changes, on phase 13b's fleet
+# ---------------------------------------------------------------------------
+
+ROLE_CHAT_WORDS = (480, 520, 560, 600, 640, 680, 720, 760)  # 16b-16c chats
+ROLE_TOKENS = 64
+ROLE_SEED = 9753
+ROLE_DRAIN_S = 1.0
+# The standby's pool: 1 GiB of bf16 pages. Beside P and D (peaks of 26.3
+# and 24.5 GiB) an H100 80GB has about 18.6 GiB free at phase 16's start;
+# S peaks near 16.6 GiB at this size (17.6 GiB with 1024 pages).
+STANDBY_PAGES = 512
+ROLE_WAIT_S = 120  # every wait of phase 16 fails at once past this
+PLANNER_INTERVAL_S = 2.0
+PLANNER_STEPS = 3
+
+
+def ids_tokenizer(path: str, vocab: int) -> str:
+    """Write the test tokenizer with a vocab entry ``<tN>`` for every id N
+    from its own size up to ``vocab``: prompts encode as before (no merge
+    makes such an entry), and every id a llama-3-8b worker samples decodes
+    to a text of its own, so a stream through the front shows its ids."""
+    from dynamo_tpu_torch.llm.tokenizer import TEST_TOKENIZER
+    with open(TEST_TOKENIZER) as fh:
+        spec = json.load(fh)
+    table = spec["model"]["vocab"]
+    for i in range(len(table), vocab):
+        table[f"<t{i}>"] = i
+    with open(path, "w") as fh:
+        json.dump(spec, fh)
+    return path
+
+
+def role_wait(entry, what: str, fn, timeout: float = ROLE_WAIT_S):
+    """Poll ``fn`` until it returns something truthy; past ``timeout``
+    fail at once, naming phase 16 and ``what``, with the stacks of
+    ``entry`` (a ``_spawn`` process, or None)."""
+    deadline = time.monotonic() + timeout
+    while True:
+        got = fn()
+        if got:
+            return got
+        if time.monotonic() >= deadline:
+            stacks = "".join(abort_for_stacks(entry)) if entry else ""
+            raise AssertionError(f"phase 16: {what} not within {timeout} s"
+                                 + (f"; stacks and last lines:\n{stacks}"
+                                    if stacks else ""))
+        time.sleep(0.1)
+
+
+def read_counters(entry, timeout: float = ROLE_WAIT_S) -> dict:
+    """SIGUSR1 a serving worker and return the GPU_WORKER_COUNTERS line it
+    prints in answer (not an earlier one)."""
+    import queue
+    import signal
+    proc, lines, seen = entry
+    prefix = "GPU_WORKER_COUNTERS "
+    before = sum(x.startswith(prefix) for x in seen)
+    proc.send_signal(signal.SIGUSR1)
+    deadline = time.monotonic() + timeout
+    while sum(x.startswith(prefix) for x in seen) <= before:
+        assert proc.poll() is None, (proc.returncode, seen[-20:])
+        if time.monotonic() >= deadline:
+            raise AssertionError(
+                "phase 16: no GPU_WORKER_COUNTERS answer; stacks:\n"
+                + "".join(abort_for_stacks(entry)))
+        try:
+            seen.append(lines.get(timeout=0.5))
+        except queue.Empty:
+            pass
+    line = [x for x in seen if x.startswith(prefix)][-1]
+    return json.loads(line.split(" ", 1)[1])
+
+
+def chat_tokens(res: dict) -> dict:
+    """A streamed chat's tokens through the front: each token's text (its
+    logprob entry's, or, for the one chunk of a token that carries no
+    logprobs, the first token of a remote prefill, the chunk's content,
+    or None where the stream held its text back: a partial UTF-8 byte)
+    and the top-2 margin behind it (None without logprobs). A chunk with
+    neither logprobs nor content but a finish reason ends the stream."""
+    texts, margins = [], []
+    for event in res["events"]:
+        for choice in event["choices"]:
+            entries = (choice.get("logprobs") or {}).get("content") or []
+            content = (choice.get("delta") or {}).get("content") or ""
+            if entries:
+                for e in entries:
+                    texts.append(e["token"])
+                    tops = e["top_logprobs"]
+                    margins.append(tops[0]["logprob"] - tops[1]["logprob"])
+            elif content or not choice.get("finish_reason"):
+                texts.append(content or None)
+                margins.append(None)
+    return {"texts": texts, "margins": margins}
+
+
+def role_call(port: int, method: str, path: str, body=None) -> dict:
+    """``http_call`` bounded by ROLE_WAIT_S: a call that waits longer fails
+    at once, naming phase 16."""
+    try:
+        return http_call(port, method, path, body, timeout=ROLE_WAIT_S)
+    except TimeoutError as exc:
+        raise AssertionError(f"phase 16: {method} {path} on port {port} "
+                             f"not answered within {ROLE_WAIT_S} s") from exc
+
+
+def role_chats(port: int, bodies: list[dict]) -> list[dict]:
+    """Send ``bodies`` through the front at once (a thread each); each
+    answer as ``http_call`` returns it."""
+    import threading
+    answers: list = [None] * len(bodies)
+
+    def send(i):
+        answers[i] = http_call(port, "POST", "/v1/chat/completions",
+                               bodies[i], timeout=ROLE_WAIT_S)
+    threads = [threading.Thread(target=send, args=(i,), daemon=True)
+               for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    return threads, answers
+
+
+def join_chats(threads, answers, what: str) -> list[dict]:
+    deadline = time.monotonic() + ROLE_WAIT_S
+    for t in threads:
+        t.join(timeout=max(0.0, deadline - time.monotonic()))
+    assert not any(t.is_alive() for t in threads), (
+        f"phase 16: {what} not answered within {ROLE_WAIT_S} s")
+    for a in answers:
+        assert a is not None, f"phase 16: {what}: a chat failed"
+        s = stream_summary(a)
+        assert a["status"] == 200 and s["finish"] == "length", (what, s)
+        assert s["usage"]["completion_tokens"] == ROLE_TOKENS, (what, s)
+    return answers
+
+
+def role_exit(entry, what: str) -> int:
+    """The exit code of a ``_spawn`` process that was told to stop,
+    waited for at most ROLE_WAIT_S (past it, phase 16 fails naming
+    ``what``)."""
+    role_wait(entry, what, lambda: entry[0].poll() is not None)
+    return entry[0].returncode
+
+
+def roles_phase(fleet: dict) -> dict:
+    """Phase 16 (see the module docstring) on phase 13b's fleet after
+    phase 14. ``fleet``: the coordinator's url, the frontend's port, the
+    prefill and decode workers' ``_spawn`` entries, status ports and ids,
+    the process list the standby joins, the tokenizer file and the
+    status servers' environment."""
+    import signal
+
+    from dynamo_tpu_torch.planner.capacity import FleetScaler
+    from dynamo_tpu_torch.planner.reconfig import RoleReconfigurator
+    from dynamo_tpu_torch.profile_decode import MODEL
+    from dynamo_tpu_torch.runtime.config import RuntimeConfig
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+
+    t_phase = time.monotonic()
+    url, front = fleet["url"], fleet["front"]
+    prefill, decode = fleet["prefill"], fleet["decode"]
+    p_status, d_status = fleet["status"]
+    p_hex, d_hex = fleet["hexes"]
+    census = device_census("phase 16 start")
+    loop = LoopThread()
+    rt = loop.run(DistributedRuntime.from_settings(
+        RuntimeConfig(coordinator_url=url)), timeout=ROLE_WAIT_S)
+    client = rt.require_coordinator()
+    reconf = RoleReconfigurator(client, rt.config.namespace)
+    scaler = FleetScaler(client, rt.config.namespace)
+    rng = np.random.default_rng(ROLE_SEED)
+    bodies = []
+    for n in ROLE_CHAT_WORDS:
+        body = chat_body(MODEL, rng, n)
+        body.update(max_tokens=ROLE_TOKENS, logprobs=True, top_logprobs=2)
+        bodies.append(body)
+
+    def role_of(port):
+        return role_call(port, "GET", "/control/role")["json"]
+
+    def on_loop(coro):
+        try:
+            return loop.run(coro, timeout=ROLE_WAIT_S)
+        except TimeoutError as exc:
+            raise AssertionError(f"phase 16: a coordinator call not "
+                                 f"answered within {ROLE_WAIT_S} s") from exc
+
+    try:
+        # 16b. The chats once through the fleet as it stands: P prefills,
+        # D decodes. Their tokens are 16c's reference.
+        t0 = time.monotonic()
+        ref = [chat_tokens(a) for a in join_chats(
+            *role_chats(front, bodies), "16b's reference chats")]
+        ref_s = time.monotonic() - t0
+        assert all(len(r["texts"]) == ROLE_TOKENS for r in ref), [
+            len(r["texts"]) for r in ref]
+        # The planner's flip: P from prefill to agg, by the port's
+        # RoleReconfigurator, on this process's lease.
+        p_before = read_counters(prefill)
+        fleet_view = on_loop(reconf.fleet())
+        assert {s["worker"]: s["role"] for s in fleet_view} == {
+            p_hex: "prefill", d_hex: "decode"}, fleet_view
+        epoch = reconf._next_epoch(fleet_view,
+                                   on_loop(reconf.pending_directives()))
+        t0 = time.monotonic()
+        on_loop(reconf.issue(p_hex, "agg", epoch))
+        status = role_wait(prefill, "P's flip to agg", lambda: (
+            lambda s: s if (s["role"], s["state"], s["epoch"]) == (
+                "agg", "serving", epoch) else None)(role_of(p_status)))
+        p_flip_s = time.monotonic() - t0
+        assert status["last_outcome"]["outcome"] == "ok", status
+        dup = role_call(p_status, "POST", "/control/role",
+                        {"role": "agg", "epoch": epoch})
+        assert dup["status"] == 200 and dup["json"]["outcome"] == \
+            "duplicate", dup
+        stale = role_call(p_status, "POST", "/control/role",
+                          {"role": "decode", "epoch": epoch - 1})
+        assert stale["status"] == 409, stale
+        assert role_of(p_status)["last_outcome"]["outcome"] == \
+            "rejected_stale"
+        p_after = read_counters(prefill)
+        alloc = (p_before["engine"]["allocated_bytes"],
+                 p_after["engine"]["allocated_bytes"])
+        if DEVICE == "cuda":
+            assert abs(alloc[1] - alloc[0]) <= 0.01 * alloc[0], alloc
+        assert p_after["engine"]["captures"] == \
+            p_before["engine"]["captures"], (p_before, p_after)
+        # 16a. The standby starts now that P's flip has returned P's
+        # cached blocks to the card; its load and warmup overlap 16c and
+        # 16e.
+        common = ("--model", MODEL, "--coordinator-url", url, "--tokenizer",
+                  fleet["tokenizer"], "--migration-limit", "3")
+        if DEVICE == "cpu":
+            common += ("--device", "cpu")
+        standby = _spawn(fleet["procs"], "dynamo_tpu_torch.backends.gpu",
+                         "--standby", "--num-pages", str(STANDBY_PAGES),
+                         *common, env=fleet["env"])
+        # The model is served on P now too (its card and endpoint).
+        role_wait(None, "P's model card", lambda: len(
+            [k for k in on_loop(client.kv_get_prefix("models/"))]) >= 2)
+        # 16c. The same chats while D flips to prefill over the status
+        # server, its drain 1 s: what the drain cuts migrates.
+        led0 = role_call(front, "GET", "/debug/requests?limit=1000")[
+            "json"]["total"]
+        p_c0, d_c0 = read_counters(prefill), read_counters(decode)
+        threads, answers = role_chats(front, bodies)
+        role_wait(decode, "16c's chats on D", lambda: role_of(d_status)[
+            "inflight"] > 0)
+        t0 = time.monotonic()
+        flip = role_call(d_status, "POST", "/control/role",
+                         {"role": "prefill", "epoch": epoch + 1,
+                          "drain_s": ROLE_DRAIN_S})
+        d_flip_s = time.monotonic() - t0
+        assert flip["status"] == 200 and flip["json"]["outcome"] == "ok", \
+            flip
+        got = [chat_tokens(a) for a in join_chats(threads, answers,
+                                                  "16c's chats")]
+        p_c1, d_c1 = read_counters(prefill), read_counters(decode)
+        records = role_call(front, "GET", "/debug/requests?limit=1000")[
+            "json"]
+        new = records["records"][:records["total"] - led0]
+        assert len(new) == len(bodies) and all(
+            r["status"] == "ok" for r in new), new
+        # The drain cut streams, and each migrated with the typed reason:
+        # the migrations number the streams D sent back.
+        migrated = [r for r in new if r["migrations"]]
+        by_reason: dict = {}
+        for r in migrated:
+            by_reason[r["migration_reason"]] = by_reason.get(
+                r["migration_reason"], 0) + 1
+        assert migrated and set(by_reason) == {"role_flip"}, (
+            by_reason, new)
+        cut = d_c1["role"]["cut_streams"] - d_c0["role"]["cut_streams"]
+        assert sum(r["migrations"] for r in migrated) == cut, (
+            [r["migrations"] for r in migrated], cut)
+        c = {k: p_c1["engine"][k] - p_c0["engine"][k] for k in (
+            "windows", "window_replays", "launches", "launches_int8")}
+        per_window = p_c1["engine"]["window_steps"] * \
+            p_c1["engine"]["layers"]
+        assert c["windows"] > 0 and c["launches_int8"] == 0, c
+        if DEVICE == "cuda":
+            assert c["launches"] == c["windows"] * per_window, c
+            assert c["window_replays"] == c["windows"], c
+        # Each chat's tokens equal 16b's or split only at a near-tie (a
+        # token whose text the stream held back compares equal).
+        equal, splits = 0, []
+        for i, (g, r) in enumerate(zip(got, ref)):
+            j = next((k for k, (a, b) in enumerate(zip(g["texts"],
+                                                       r["texts"]))
+                      if a != b and None not in (a, b)), None)
+            if j is None:
+                equal += 1
+                continue
+            margin = g["margins"][j]
+            assert margin is not None and margin <= 2 * LOGIT_ATOL, (
+                f"chat {i}: token {j} is {g['texts'][j]!r}, 16b's "
+                f"{r['texts'][j]!r}, at margin {margin}")
+            splits.append({"chat": i, "token": j, "margin": margin})
+        d_status_after = role_of(d_status)
+        assert (d_status_after["role"], d_status_after["state"]) == (
+            "prefill", "serving"), d_status_after
+        # 16e. The planner as a process, its connector a FakeConnector,
+        # reconfiguration off, while a few chats decode on P (S still
+        # loads meanwhile).
+        t0 = time.monotonic()
+        planner = _spawn(fleet["procs"], "dynamo_tpu_torch.planner",
+                         "--coordinator-url", url, "--adjustment-interval",
+                         str(PLANNER_INTERVAL_S), "--decode-component", "gpu")
+        _wait_line(planner, "PLANNER_READY", timeout=ROLE_WAIT_S)
+        busy = role_chats(front, bodies[:4])
+
+        def steps():
+            return [json.loads(x.split(" ", 1)[1]) for x in planner[2]
+                    if x.startswith("PLANNER_STEP ")]
+        role_wait(planner, f"{PLANNER_STEPS} planner steps", lambda: (
+            _drain(planner), len(steps()) >= PLANNER_STEPS)[1])
+        join_chats(*busy, "16e's chats")
+        planner[0].send_signal(signal.SIGTERM)
+        code = role_exit(planner, "the planner's exit")
+        assert code == 0, (code, planner[2][-20:])
+        decisions = steps()
+        assert all("decode" in d["decisions"] for d in decisions), decisions
+        assert max(d["live_workers"]["decode"] for d in decisions) >= 1, \
+            decisions
+        planner_s = time.monotonic() - t0
+        # 16d. The standby: parked with no card, then promoted as the
+        # FleetScaler promotes, serving, retired.
+        ready = _wait_line(standby, "GPU_WORKER_READY", timeout=ROLE_WAIT_S)
+        assert "mode=standby" in ready, ready
+        s_status = int(_wait_line(standby, "GPU_WORKER_STATUS",
+                                  timeout=5).rsplit("=", 1)[1])
+        s_hex = ready.split("worker=", 1)[1].split()[0]
+        parked = on_loop(scaler.standbys())
+        assert [s["worker"] for s in parked] == [s_hex], parked
+        cards = on_loop(client.kv_get_prefix("models/"))
+        assert not any(k["k"].endswith(s_hex) for k in cards), cards
+        fleet_view = on_loop(scaler.fleet())
+        epoch_s = scaler._next_epoch(fleet_view, on_loop(scaler.pending()),
+                                     on_loop(scaler.role_directives()))
+        t0 = time.monotonic()
+        on_loop(scaler.issue(s_hex, "promote", "agg", epoch_s))
+        role_wait(standby, "S's promotion", lambda: role_call(
+            s_status, "GET", "/control/scale")["json"]["state"] == "active")
+        promote_s = time.monotonic() - t0
+        sent_to = []
+        small = dict(bodies[0], max_tokens=8, stream=False, logprobs=False)
+        small.pop("top_logprobs")
+        small.pop("stream_options")
+
+        def landed_on_standby():
+            res = role_call(front, "POST", "/v1/chat/completions", small)
+            assert res["status"] == 200, res
+            last = role_call(front, "GET", "/debug/requests?limit=1")[
+                "json"]["records"][0]
+            sent_to.append(last["worker_id"])
+            return last["worker_id"] == s_hex
+        role_wait(standby, "a chat on S", landed_on_standby)
+        join_s = sample_sum(scrape(s_status)[0],
+                            "dynamo_tpu_standby_join_seconds")
+        epoch_r = scaler._next_epoch(on_loop(scaler.fleet()),
+                                     on_loop(scaler.pending()),
+                                     on_loop(scaler.role_directives()))
+        on_loop(scaler.issue(s_hex, "retire", None, epoch_r))
+        role_exit(standby, "S's exit after its retire")
+        s_exit = _exit_line(standby, timeout=ROLE_WAIT_S)
+        assert s_exit["scale"]["state"] == "retired", s_exit
+        assert s_exit["role"]["state"] == "retired", s_exit
+        s_eng = s_exit["engine"]
+        assert s_eng["windows"] > 0 and s_eng["launches_int8"] == 0, s_eng
+        if DEVICE == "cuda":
+            assert s_eng["launches"] == s_eng["windows"] * per_window, s_eng
+            assert s_eng["window_replays"] == s_eng["windows"], s_eng
+    finally:
+        loop.run(rt.close(), timeout=30)
+        loop.close()
+    out = {"flips": {"P prefill->agg": {"epoch": epoch, "seconds": p_flip_s,
+                                        "drain_s": 0.0},
+                     "D decode->prefill": {"epoch": epoch + 1,
+                                           "seconds": d_flip_s,
+                                           "drain_s": ROLE_DRAIN_S}},
+           "p_allocated_bytes": alloc, "reference_s": ref_s,
+           "migrations": by_reason, "d_cut_streams": cut,
+           "chats_equal_of_8": equal,
+           "splits": splits, "p_16c": c, "promote_s": promote_s,
+           "standby_join_seconds": join_s, "chats_to_s": len(sent_to),
+           "standby_engine": s_eng,
+           "standby_peak_GiB": s_eng["peak_bytes"] / 2**30,
+           "planner_steps": decisions, "planner_s": planner_s,
+           "epochs": {"p": epoch, "d": epoch + 1, "promote": epoch_s,
+                      "retire": epoch_r},
+           "card_free_GiB_at_start": census["card_free_GiB"],
+           "phase_s": time.monotonic() - t_phase}
+    return out
+
+
+def _drain(entry) -> None:
+    """Move a ``_spawn`` process's queued lines into its seen list."""
+    import queue
+    _, lines, seen = entry
+    while True:
+        try:
+            seen.append(lines.get_nowait())
+        except queue.Empty:
+            return
+
+
+def device_census(label: str) -> dict:
+    """This process's allocated and reserved device memory after a
+    collection, and the card's free memory (every process's use counts
+    there): what a worker started now can take."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = (torch.cuda.mem_get_info() if DEVICE == "cuda"
+                   else (0, 0))
+    out = {"label": label,
+           "allocated_GiB": torch.cuda.memory_allocated() / 2**30,
+           "reserved_GiB": torch.cuda.memory_reserved() / 2**30,
+           "card_free_GiB": free / 2**30, "card_total_GiB": total / 2**30}
+    log(json.dumps({"device_memory": out}))
+    return out
+
+
 def device_path_phase(phase8: dict, ipc=None) -> dict:
     """Phase 13 (see the module docstring)."""
     from dynamo_tpu_torch.profile_decode import smi_line
     t_phase = time.monotonic()
     smi = smi_line()
+    device_census("phase 13 start")
     parcels = parcel_check(ipc)
     fleet = device_fleet(phase8)
     out = {"parcels": parcels, "fleet": fleet, "smi": smi,
@@ -6135,8 +6764,12 @@ FRONT_MAX_CONCURRENCY = 4
 FRONT_QUEUE_DEPTH = 8
 FRONT_SLO_TTFT_MS = 2000.0
 FRONT_TOKENS = 16
-# llama-3-8b's weight-read step: 16.06 GB of bf16 weights at 3350 GB/s.
-ADM_STEP_MS = 4.79
+# The weight-read step phase 15's engines (CUT_LAYERS deep) must report:
+# their bf16 weights (the
+# embedding and the head, and per layer attention, MLP and two norms:
+# 2,795,573,248 parameters, 5.59 GB) at 3350 GB/s. At 32 layers it is
+# 16.06 GB and 4.79 ms.
+ADM_STEP_MS = 1.669
 SLO_KEYS = {"enabled", "fast_burn_threshold", "slow_burn_threshold",
             "pages_total", "targets", "pressure"}
 
@@ -6162,7 +6795,8 @@ class LoopThread:
 
 
 def admission_engine(extra=(), params=None):
-    """A seed-0 llama-3-8b engine built as ``python -m
+    """A seed-0 llama-3-8b engine cut to CUT_LAYERS of its 32 layers
+    (every width kept), built as ``python -m
     dynamo_tpu_torch.backends.gpu --num-pages ADM_PAGES`` plus ``extra``
     flags builds it (warmup_windows set), with phase 3's prefill program
     size and a metrics registry; on ``params`` when given (another
@@ -6176,7 +6810,7 @@ def admission_engine(extra=(), params=None):
     from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
     args = gpu.parse_args(["--model", MODEL, "--seed", "0", "--device",
                            DEVICE, "--num-pages", str(ADM_PAGES), *extra])
-    config = dataclasses.replace(gpu.build_engine_config(args),
+    config = dataclasses.replace(cut_depth(gpu.build_engine_config(args)),
                                  max_prefill_tokens=MAX_PREFILL_TOKENS)
     assert config.warmup_windows, config
     t0 = time.monotonic()
@@ -6711,7 +7345,7 @@ def kernel_entry(name, variant, timing, main, max_err, stats,
                  http_launches, dist_launches, ckpt_launches,
                  disagg_launches, kv_launches, verify, spec_launches,
                  lora_launches, tier_launches, device_launches,
-                 obs_launches, admission_launches) -> dict:
+                 obs_launches, admission_launches, roles_launches) -> dict:
     """One kernel's summary: times at the B=32 x 2048 shape, and the same
     numbers at the main path's mid-round shape under ``main_shape``;
     launches in round 1, round 2, the HTTP phase, the distributed phase,
@@ -6720,8 +7354,10 @@ def kernel_entry(name, variant, timing, main, max_err, stats,
     spec round (the verify route), phase 11's LoRA rounds A and B,
     phase 12's rounds on the tier workers, phase 13b's decode worker
     process until phase 14 begins (the KV plane's device path) and
-    phase 14's on that worker, both from the worker's own counters, and
-    phase 15's (its four parts summed); the verify route's numbers at both
+    phase 14's on that worker, both from the worker's own counters,
+    phase 15's (its four parts summed) and phase 16's (the prefill worker
+    flipped to agg, the decode worker until its flip, the promoted
+    standby); the verify route's numbers at both
     shapes under ``verify_route`` (``verify``: its check's error and the
     two timings)."""
     return {"name": name, "route": "cuda",
@@ -6740,6 +7376,7 @@ def kernel_entry(name, variant, timing, main, max_err, stats,
             "launches_kv_device": device_launches,
             "launches_observability": obs_launches,
             "launches_admission": admission_launches,
+            "launches_roles": roles_launches,
             "max_abs_err": max(max_err, timing["max_abs_err"],
                                main["max_abs_err"], verify["err"],
                                verify["uniform"]["max_abs_err"],
@@ -6823,7 +7460,7 @@ def main() -> int:
         phase_done("5-6 http, dist")
         refs = {"bf16": stats_bf16.pop("_round1"),
                 "int8": stats_int8.pop("_round1")}
-        ckpt = checkpoint_phase(attention, model, refs["bf16"])
+        ckpt = checkpoint_phase(attention, model)
         phase_done("7 checkpoints")
         disagg = disagg_phase(attention, model, refs)
         phase_done("8 disagg")
@@ -6832,8 +7469,7 @@ def main() -> int:
         spec = spec_phase(attention, model,
                           stats_bf16["round2"]["decode_step_device_ms"])
         phase_done("10 spec decode")
-        lora = lora_phase(attention, model, refs["bf16"],
-                          stats_bf16["round2"]["decode_step_device_ms"])
+        lora = lora_phase(attention, model)
         phase_done("11 lora")
         tiers = tier_phase(attention, model)
         phase_done("12 kv tiers")
@@ -6841,6 +7477,8 @@ def main() -> int:
         phase_done("13-14 kv device path, observability")
         seconds["14 observability (inside 13b)"] = \
             device["fleet"]["observability"]["phase_s"]
+        seconds["16 roles, planner (inside 13b)"] = \
+            device["fleet"]["roles"]["phase_s"]
         admission = admission_phase(attention, model)
         phase_done("15 admission, perf plane")
     except Exception:  # noqa: BLE001 — report and fail the run
@@ -6859,6 +7497,7 @@ def main() -> int:
                 for mode, p in kv["passes"].items()}
 
     obs_launches = device["fleet"]["observability"]["launches"]
+    roles_launches = device["fleet"]["roles"]["launches"]
     log(json.dumps({"phase_seconds": seconds}))
     log(json.dumps({"host_memory_after_phases": memory}))
     log(f"chip_smoke: {time.monotonic() - t_start:.1f} s in all")
@@ -6875,7 +7514,8 @@ def main() -> int:
                      tiers["launches"]["paged_attention_hist"],
                      device["launches"]["paged_attention_hist"],
                      obs_launches["paged_attention_hist"],
-                     admission["launches"]["paged_attention_hist"]),
+                     admission["launches"]["paged_attention_hist"],
+                     roles_launches["paged_attention_hist"]),
         kernel_entry("paged_attention_hist_int8",
                      "int8 pool, _decode_kernel(quantized=True)",
                      timing_int8, main_int8, err_int8, stats_int8,
@@ -6890,7 +7530,8 @@ def main() -> int:
                      tiers["launches"]["paged_attention_hist_int8"],
                      device["launches"]["paged_attention_hist_int8"],
                      obs_launches["paged_attention_hist_int8"],
-                     admission["launches"]["paged_attention_hist_int8"])]}))
+                     admission["launches"]["paged_attention_hist_int8"],
+                     roles_launches["paged_attention_hist_int8"])]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

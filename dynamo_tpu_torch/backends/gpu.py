@@ -9,20 +9,23 @@ prefill and decode.
     python -m dynamo_tpu_torch.backends.gpu --model llama-3-8b --spec-decode ngram --spec-k 3
     python -m dynamo_tpu_torch.backends.gpu --model llama-3-8b --lora a=/path/to/peft_a --lora b=/path/to/peft_b
     python -m dynamo_tpu_torch.backends.gpu --model llama-3-8b --host-cache-pages 4096 --kv-disk-cache-dir /var/kv --kv-watermarks 0.2,0.3
+    python -m dynamo_tpu_torch.backends.gpu --model llama-3-8b --standby --num-pages 1024
 
 connects to the coordinator (and fails with its connection error when it
 cannot be reached), builds the engine off the event loop so lease
 keepalives keep flowing while the weights load, serves
 ``{namespace}/{component}/{endpoint}`` (``gpu/generate`` by default) on
 the request plane, registers the model with ``register_llm`` and prints
-``GPU_WORKER_READY mode=<agg|prefill|decode> port=N worker=<hex>
+``GPU_WORKER_READY mode=<agg|prefill|decode|standby> port=N worker=<hex>
 pages=N``. On SIGINT or SIGTERM it deregisters, stops the endpoint and the
 engine, prints ``GPU_WORKER_EXIT {json}`` (``exit_counters``: windows and
 kernel launches since it began to serve, peak device memory, the KV
 plane's and the disaggregation counters), closes the runtime and exits
 0; SIGUSR1 prints the same counters as ``GPU_WORKER_COUNTERS {json}``
-and the worker serves on. The engine runs on ``--device`` (``cuda`` by
-default; the CPU only under ``--device cpu``). ``--model`` resolves as in
+and the worker serves on (they carry the role, its flips, the window
+programs captured and, on the card, the device memory allocated). The
+engine runs on ``--device`` (``cuda`` by default; the CPU only under
+``--device cpu``). ``--model`` resolves as in
 the launcher (``engine/hub.py``: a preset with random weights from
 ``--seed``, a checkpoint directory, or a hub id in the local HF cache;
 nothing is downloaded) and ``--quant int8`` serves int8 weights. The
@@ -60,12 +63,13 @@ empty profiler session at start: a process's first one records
 nothing); it registers the server for the frontend's ``/debug/fleet``
 and prints ``GPU_WORKER_STATUS port=N`` before the ready line.
 
-In ``agg`` and ``decode`` mode the worker publishes, on its instance id,
-its KV events, load metrics and inventory digests
+The worker publishes, on its instance id and whatever its role, its KV
+events, load metrics and inventory digests
 (``llm/kv_router/publisher.py``) for a frontend under ``--router-mode
-kv``: the engine is started on the event loop, which its publishers use,
-and the digest is republished every two seconds while idle. A prefill
-worker registers no model and publishes nothing, as in the reference.
+kv`` and for the planner, as the reference's does, so a worker flipped
+to agg or decode is seen at once: the engine is started on the event
+loop, which its publishers use, and the digest is republished every two
+seconds while idle. A prefill worker registers no model.
 
 ``--host-cache-pages N`` gives the engine a G2 host-DRAM tier of N pages
 and ``--kv-disk-cache-dir DIR`` a G3 disk tier behind it
@@ -87,6 +91,17 @@ primary lease and watches that prefix, so its engine's G4 source
 (``RemoteBlockSource``) consults the plane of every other worker of the
 same model.
 
+``--mode`` is the launch role: the worker changes role live through
+the SetRole protocol (``llm/reconfig.py``). A planner's directive or the
+status server's POST /control/role drains the in-flight streams (those
+cut migrate, typed ``role_flip``) and rebuilds the serving profile around
+the same engine (``make_profile_builder``): no weight reload, and no new
+window program, since every worker warms its programs whatever its role.
+Every worker also answers scale directives (``llm/standby.py``): a
+retire drains it out of the fleet (typed ``scale_in``) and it exits.
+``--standby`` loads and warms the engine, then parks deregistered on a
+``standby/`` key until a promote directive starts its role manager.
+
 ``--mode prefill`` serves ``llm/disagg.make_prefill_handler`` at
 ``{namespace}/{--prefill-component}/generate`` (``prefill`` by default)
 and registers no model; with its KV plane it stages parcels there and
@@ -97,9 +112,7 @@ prompts longer than
 ``--max-local-prefill-length`` (or the coordinator's ``disagg/<model>``)
 prefill on a prefill worker, found by round robin or, with
 ``--prefill-dispatch queue``, through the queue under
-``--max-prefill-queue-depth``. The ``SetRole`` flips, standby and scale
-directives of the reference's role manager wait for the planner's ROADMAP
-items.
+``--max-prefill-queue-depth``.
 """
 
 from __future__ import annotations
@@ -135,6 +148,8 @@ from dynamo_tpu_torch.llm.model_card import (ModelRuntimeConfig,
                                              register_llm)
 from dynamo_tpu_torch.llm.prefill_queue import (QueuePrefillDispatcher,
                                                 QueuePrefillWorker)
+from dynamo_tpu_torch.llm.reconfig import RoleManager, ServingProfile
+from dynamo_tpu_torch.llm.standby import ScaleAgent
 from dynamo_tpu_torch.llm.tokenizer import Tokenizer
 from dynamo_tpu_torch.llm.fleet import register_status_server
 from dynamo_tpu_torch.runtime import journal, tracing
@@ -161,8 +176,6 @@ REFUSED_FLAGS = (
     ("--dp", PARALLEL, {"type": int, "allowed": (1,)}),
     ("--pp-microbatch", PARALLEL, {}),
     ("--ring-attention", PARALLEL, {}),
-    ("--standby", "the planner's ROADMAP items (standby workers and scale "
-                  "directives)", {}),
     ("--tool-call-parser", PARSERS, {"type": str}),
     ("--reasoning-parser", PARSERS, {"type": str}),
     ("--attention-backend", ONE_ATTENTION,
@@ -208,7 +221,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="agg = fully local; prefill = prefill-only "
                              "worker (serves KV parcels); decode = decode "
                              "worker forwarding long prompts to prefill "
-                             "workers")
+                             "workers; the launch role, changed live by "
+                             "SetRole directives (llm/reconfig.py)")
+    parser.add_argument("--standby", action="store_true",
+                        help="park as a pre-warmed standby: weights loaded "
+                             "and window programs captured, but "
+                             "deregistered, announced on a standby/ lease "
+                             "key until a promote directive "
+                             "(llm/standby.py)")
     parser.add_argument("--max-local-prefill-length", type=int, default=512,
                         help="decode mode: prompts longer than this prefill "
                              "remotely (dynamic through the coordinator's "
@@ -474,50 +494,132 @@ async def close_decode_handler(handler: DisaggDecodeHandler) -> None:
     handler.plane_client.close()
 
 
+def make_profile_builder(runtime: DistributedRuntime, args, engine: GPUEngine,
+                         tokenizer: Tokenizer, model_name: str,
+                         plane: KvPlaneServer | None,
+                         decode_handlers: list | None = None):
+    """``build(role) -> ServingProfile`` around ONE engine, for
+    ``RoleManager`` (the reference worker's profile builder). The engine,
+    its weights, pool and window programs, lives outside the profile and
+    survives every flip; a profile holds what the role registers and the
+    machinery around it: the prefill endpoint and queue worker
+    (prefill), the decode handler's prefill client, threshold watch and
+    plane client (decode), the model and adapter cards (decode, agg). The
+    launch role and a flipped-to role are built by the same code; on the
+    card a build first returns the allocator's unused cached blocks to
+    the card. Each decode handler built is appended to
+    ``decode_handlers`` (the exit counters read them)."""
+    prefill_component = args.prefill_component or PREFILL_COMPONENT
+    adapter_names = [n for n, _ in lora_args(args)]
+
+    async def build(role: str) -> ServingProfile:
+        if engine.runner.device.type == "cuda":
+            # A new role allocates other transients than the old one (a
+            # prefill worker's chunk activations and staged parcels, a
+            # decode worker's inserted parcels), so the blocks the old
+            # role cached go back to the card, where the other processes
+            # sharing it (co-located workers, a standby waiting to be
+            # promoted) can take them. The engine's own tensors and window
+            # programs stay.
+            torch.cuda.empty_cache()
+        prof = ServingProfile(role)
+        if role == "prefill":
+            server, queue_worker = await serve_prefill(
+                runtime, engine, model_name, plane, prefill_component)
+            prof.add_server(server)
+            if queue_worker is not None:
+                # A drain pauses the pulls first: queued prompts go to
+                # the peers.
+                prof.add_pausable(queue_worker)
+                prof.add_closer("prefill-queue", queue_worker.stop)
+            return prof
+        handler = None
+        if role == "decode":
+            disagg = await decode_handler(
+                runtime, engine, model_name, args.max_local_prefill_length,
+                prefill_component, args.prefill_dispatch,
+                args.max_prefill_queue_depth)
+            if decode_handlers is not None:
+                decode_handlers.append(disagg)
+            handler = disagg.handler()
+            prof.add_closer("decode-handler",
+                            lambda: close_decode_handler(disagg))
+        server = await serve_engine(runtime, engine, model_name, tokenizer,
+                                    args.component, args.endpoint,
+                                    args.migration_limit, handler=handler,
+                                    adapters=adapter_names)
+        prof.add_server(server)
+        for name in (model_name, *adapter_names):
+            prof.add_closer(f"card-{name}",
+                            lambda n=name: deregister_llm(runtime, n))
+        return prof
+
+    return build
+
+
 def engine_counters(engine: GPUEngine) -> dict:
-    """The engine's windows, replays and kernel launches so far."""
+    """The engine's windows, replays, kernel launches and window programs
+    captured so far."""
     return {"windows": engine.windows_dispatched,
             "window_replays": engine.runner.window_replays,
             "launches": attention.KERNEL.launches,
-            "launches_int8": attention.KERNEL.launches_int8}
+            "launches_int8": attention.KERNEL.launches_int8,
+            "captures": engine.runner.window_programs()["captured"]}
 
 
-def exit_counters(engine: GPUEngine, base: dict, plane, disagg) -> dict:
+def exit_counters(engine: GPUEngine, base: dict, plane,
+                  decode_handlers: list, roles: RoleManager | None = None,
+                  scale: ScaleAgent | None = None) -> dict:
     """What a worker prints as it exits (``GPU_WORKER_EXIT``): its
-    engine's counters since ``base`` (taken when it began to serve) and
-    its peak device memory, its KV plane server's counters and, on a
-    decode worker, the disaggregation handler's and its plane client's,
-    with the recent pulls ``(ticket, header s, end s, bytes, path)``."""
+    engine's counters since ``base`` (taken when it began to serve), its
+    peak and (on the card) allocated device memory, its KV plane server's
+    counters, its role, flips and standby state and, once it has served
+    as a decode worker, the disaggregation counters summed over its
+    decode handlers and the latest handler's plane client's, with the
+    recent pulls ``(ticket, header s, end s, bytes, path)``."""
     now = engine_counters(engine)
+    on_card = engine.runner.device.type == "cuda"
     out = {"engine": {k: now[k] - base[k] for k in now} | {
         "window_steps": engine.decode_window,
         "layers": engine.runner.spec.num_layers,
         "injected_admissions": engine.injected_admissions,
         "device_extracts": engine.device_extracts,
         "streamed_extracts": engine.streamed_extracts,
-        "peak_bytes": (torch.cuda.max_memory_allocated()
-                       if engine.runner.device.type == "cuda" else 0)}}
+        "peak_bytes": torch.cuda.max_memory_allocated() if on_card else 0,
+        "allocated_bytes": torch.cuda.memory_allocated() if on_card else 0}}
+    if roles is not None:
+        out["role"] = {"role": roles.role, "state": roles.state,
+                       "epoch": roles.applied_epoch, "flips": roles.flips,
+                       "cut_streams": roles.cut_streams}
+    if scale is not None:
+        out["scale"] = {"state": scale.state,
+                        "promotions": scale.promotions,
+                        "join_seconds": scale.join_seconds}
     if plane is not None:
         out["plane_server"] = plane.stats()
-    if disagg is not None:
-        out["disagg"] = {"remote_prefills": disagg.remote_prefills,
-                         "local_prefills": disagg.local_prefills,
-                         "remote_failures": disagg.remote_failures}
-        out["plane_client"] = disagg.plane_client.stats() | {
-            "recent": list(disagg.plane_client.recent)}
+    if decode_handlers:
+        out["disagg"] = {k: sum(getattr(h, k) for h in decode_handlers)
+                         for k in ("remote_prefills", "local_prefills",
+                                   "remote_failures")}
+        client = decode_handlers[-1].plane_client
+        out["plane_client"] = client.stats() | {
+            "recent": list(client.recent)}
     return out
 
 
 async def start_observability(runtime: DistributedRuntime,
                               cfg: RuntimeConfig, engine: GPUEngine,
-                              model_name: str, component: str):
+                              model_name: str, component: str,
+                              roles: RoleManager | None = None,
+                              scale: ScaleAgent | None = None):
     """The worker's observability plane: the SLO plane (a fast-burn page
     writes a flight bundle), the request ledger, the flight recorder's
     bundle context, the journal's worker identity and its delta
     publisher, and, with ``cfg.system_enabled``, the system status server
-    (``/debug/perf`` answering ``engine.perf_status``) registered for the
-    fleet pane. Returns (journal publisher, status server or None); the
-    caller stops both."""
+    (``/debug/perf`` answering ``engine.perf_status``, ``/control/role``
+    and ``/control/scale`` answering ``roles`` and ``scale``) registered
+    for the fleet pane. Returns (journal publisher, status server or
+    None); the caller stops both."""
     worker = f"{runtime.instance_id:x}"
     launch.init_observability(cfg, runtime.metrics, worker=worker)
     journal_pub = journal.JournalPublisher(runtime.require_coordinator(),
@@ -532,7 +634,8 @@ async def start_observability(runtime: DistributedRuntime,
             runtime, host=cfg.bind_host, port=cfg.system_port,
             kv_provider=engine.kv_status,
             cuda=engine.runner.device.type == "cuda",
-            perf_provider=engine.perf_status)
+            perf_provider=engine.perf_status, role_manager=roles,
+            scale_agent=scale)
         await status_server.start()
         await register_status_server(
             runtime, status_server.port,
@@ -557,19 +660,19 @@ async def run(args: argparse.Namespace) -> None:
     runtime = await DistributedRuntime.from_settings(cfg)
     for sig in (signal.SIGINT, signal.SIGTERM):
         loop.add_signal_handler(sig, runtime.shutdown)
-    engine = server = plane = peer_task = queue_worker = disagg = None
+    engine = plane = peer_task = roles = scale = None
     inventory_pub = base = journal_pub = status_server = None
-    registered: list[str] = []  # model names whose cards we put
+    decode_handlers: list[DisaggDecodeHandler] = []
     try:
         engine_cfg = build_engine_config(args)
         ckpt = args.resolved_checkpoint
         tokenizer = load_tokenizer(ckpt, args.tokenizer,
                                    checkpoint_first=False)
         model_name = args.model_name or engine_cfg.model.name
-        kv_pub = metrics_pub = inventory_pub = None
-        if args.mode != "prefill":
-            kv_pub, metrics_pub, inventory_pub = make_publishers(
-                runtime, args.component)
+        # Every role publishes (a flip must not leave the worker unseen by
+        # the KV router and the planner).
+        kv_pub, metrics_pub, inventory_pub = make_publishers(
+            runtime, args.component)
         # Engine construction blocks for seconds (weights, KV pool); run it
         # off the event loop so the coordinator lease keepalives flow.
         engine = await loop.run_in_executor(None, functools.partial(
@@ -577,8 +680,6 @@ async def run(args: argparse.Namespace) -> None:
             kv_publisher=kv_pub, metrics_publisher=metrics_pub,
             metrics_registry=runtime.metrics.namespace(cfg.namespace)
             .component(args.component)))
-        # Started for the loop the publishers run on, from an executor:
-        # the warmup takes seconds, and the lease keepalives must flow.
         engine.inventory_publisher = inventory_pub
         loras = lora_args(args)
         if loras:
@@ -587,35 +688,34 @@ async def run(args: argparse.Namespace) -> None:
             # adapters do not stall the lease keepalives.
             await loop.run_in_executor(None, lambda: [
                 engine.register_adapter(n, path=p) for n, p in loras])
+        # Started for the loop the publishers run on, from an executor:
+        # the warmup takes seconds, and the lease keepalives must flow.
         await loop.run_in_executor(None, engine.start, loop)
         base = engine_counters(engine)
-        journal_pub, status_server = await start_observability(
-            runtime, cfg, engine, model_name, args.component)
-        if inventory_pub is not None:
-            inventory_pub.start_periodic(engine.inventory_digest)
-        prefill_component = args.prefill_component or PREFILL_COMPONENT
         if not args.no_kv_plane:
             plane, peer_task = await start_kv_plane(
                 runtime, engine, model_name, args.kv_plane_host)
-        if args.mode == "prefill":
-            server, queue_worker = await serve_prefill(
-                runtime, engine, model_name, plane, prefill_component)
-        else:
-            handler = None
-            if args.mode == "decode":
-                disagg = await decode_handler(
-                    runtime, engine, model_name,
-                    args.max_local_prefill_length, prefill_component,
-                    args.prefill_dispatch, args.max_prefill_queue_depth)
-                handler = disagg.handler()
-            adapter_names = [n for n, _ in loras]
-            server = await serve_engine(runtime, engine, model_name,
-                                        tokenizer, args.component,
-                                        args.endpoint, args.migration_limit,
-                                        handler=handler,
-                                        adapters=adapter_names)
-            registered = [model_name, *adapter_names]
-        print(f"GPU_WORKER_READY mode={args.mode} port={server.port} "
+        extra = {"backend": "gpu", "model": model_name}
+        roles = RoleManager(runtime, make_profile_builder(
+            runtime, args, engine, tokenizer, model_name, plane,
+            decode_handlers), role=args.mode, status_extra=extra)
+        # Every worker answers scale directives (a retire drains it out
+        # and stops it); a standby parks, warmed and deregistered, until
+        # a promote starts its role manager.
+        scale = ScaleAgent(runtime, roles, standby=args.standby,
+                           status_extra=extra, metrics=runtime.metrics)
+        # After the journal's worker identity: the standby_ready event
+        # carries this worker's id.
+        journal_pub, status_server = await start_observability(
+            runtime, cfg, engine, model_name, args.component, roles, scale)
+        inventory_pub.start_periodic(engine.inventory_digest)
+        if not args.standby:
+            await roles.start()
+        await scale.start()
+        port = (roles.profile.servers[0].port
+                if roles.profile and roles.profile.servers else 0)
+        mode = "standby" if args.standby else args.mode
+        print(f"GPU_WORKER_READY mode={mode} port={port} "
               f"worker={runtime.instance_id:x} "
               f"pages={engine.runner.num_pages}", flush=True)
         log.info("serving %s from an engine on %s", model_name,
@@ -626,8 +726,9 @@ async def run(args: argparse.Namespace) -> None:
         # SIGUSR1 prints the same counters and goes on serving: a phase's
         # share of them is the difference of two readings.
         loop.add_signal_handler(signal.SIGUSR1, lambda: print(
-            "GPU_WORKER_COUNTERS " + json.dumps(
-                exit_counters(engine, base, plane, disagg)), flush=True))
+            "GPU_WORKER_COUNTERS " + json.dumps(exit_counters(
+                engine, base, plane, decode_handlers, roles, scale)),
+            flush=True))
         await runtime.wait_for_shutdown()
     finally:
         for sig in (signal.SIGINT, signal.SIGTERM, signal.SIGUSR1):
@@ -638,21 +739,21 @@ async def run(args: argparse.Namespace) -> None:
             journal_pub.stop_periodic()
         if status_server is not None:
             await status_server.stop()
-        for name in registered:
-            await deregister_llm(runtime, name)
-        if queue_worker is not None:
-            await queue_worker.stop()
-        if server is not None:
-            await server.shutdown()
-        if disagg is not None:
-            await close_decode_handler(disagg)
+        # The role manager owns the serving profile: its endpoint
+        # servers, cards and role machinery go down through it, whatever
+        # role the worker ended in.
+        if scale is not None:
+            await scale.stop()
+        if roles is not None:
+            await roles.stop()
         if plane is not None:
             await close_kv_plane(engine, plane, peer_task)
         if engine is not None:
             engine.stop()
             if base is not None:
-                print("GPU_WORKER_EXIT " + json.dumps(
-                    exit_counters(engine, base, plane, disagg)), flush=True)
+                print("GPU_WORKER_EXIT " + json.dumps(exit_counters(
+                    engine, base, plane, decode_handlers, roles, scale)),
+                    flush=True)
         await runtime.close()
 
 

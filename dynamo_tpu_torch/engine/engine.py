@@ -163,6 +163,9 @@ from dynamo_tpu_torch.runtime.tracing import (_LATENCY_BUCKETS, get_recorder,
 
 log = get_logger("gpu_engine")
 
+# Longest sleep of an idle engine loop between its periodic duties.
+IDLE_WAIT_S = 0.02
+
 
 class _Readback:
     """Device results copied to pinned host memory without waiting.
@@ -409,6 +412,12 @@ class GPUEngine(AsyncEngine):
             collections.deque(maxlen=4096)
         # Engine-thread jobs: (fn, concurrent future).
         self._jobs: queue.Queue = queue.Queue()
+        # Set where work arrives (a queued request, a job, stop): the idle
+        # loop sleeps on it instead of polling, so an idle engine does not
+        # take the interpreter lock from a busy one in the same process
+        # (a window capture on another engine's thread slowed 2-3x beside
+        # a polling one).
+        self._wake = threading.Event()
         self.streamed_extracts = 0  # chunk-streamed extracts staged
         self.device_extracts = 0    # device parcels staged (one each)
         self.injected_admissions = 0  # parcels inserted at admission
@@ -503,6 +512,7 @@ class GPUEngine(AsyncEngine):
 
     def stop(self) -> None:
         self._running = False
+        self._wake.set()
         if self._thread:
             self._thread.join(timeout=30)
             self._thread = None
@@ -579,6 +589,7 @@ class GPUEngine(AsyncEngine):
         with self._queue_stats_lock:
             self._waiting_cold += r.queued_cold
         self.waiting.put(r)
+        self._wake.set()
 
     def _queue_pop_accounting(self, r: _Request) -> None:
         with self._queue_stats_lock:
@@ -912,6 +923,7 @@ class GPUEngine(AsyncEngine):
         self.start()
         fut: concurrent.futures.Future = concurrent.futures.Future()
         self._jobs.put((fn, fut))
+        self._wake.set()
         return await asyncio.wrap_future(fut)
 
     def _run_jobs(self) -> None:
@@ -1312,7 +1324,10 @@ class GPUEngine(AsyncEngine):
             elif (not admitted and not have_active and not self._prefilling
                   and self._jobs.empty()):
                 self._resolve_spills(force=True)
-                time.sleep(0.002)  # idle
+                # Idle: until work arrives, or IDLE_WAIT_S for the
+                # periodic duties (spills, the KVBM sweep, queued kills).
+                self._wake.wait(IDLE_WAIT_S)
+                self._wake.clear()
 
     # -- KV tiers (G2/G3 offload, onboarding from G2/G3/G4) -------------------
     @property

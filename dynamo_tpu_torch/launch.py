@@ -13,23 +13,26 @@ package's) register there.
     python -m dynamo_tpu_torch.launch --model tiny-test --device cpu
     python -m dynamo_tpu_torch.launch --model llama-3-8b --lora a=/path/to/peft_a
     python -m dynamo_tpu_torch.launch in=http out=dyn --coordinator-url tcp://127.0.0.1:4222
+    python -m dynamo_tpu_torch.launch in=http out=mocker --http-port 0
 
 ``--model`` is a preset (random weights from ``--seed``), a HF Llama or
 Qwen2 checkpoint directory (``config.json`` and ``*.safetensors``), or a
 hub id already in the local HF cache (``engine/hub.py``; nothing is
-downloaded). ``--quant int8`` serves int8 weights with float32 per-channel
+downloaded). ``out=mocker`` serves the engine simulator
+(``llm/mocker.py``, ten times faster than its default timing, with the
+test tokenizer), as the reference launcher's ``out=mocker`` does. ``--quant int8`` serves int8 weights with float32 per-channel
 scales. The tokenizer is the checkpoint's own ``tokenizer.json`` (the
 reference launcher's choice), else ``--tokenizer PATH`` (a
 ``tokenizer.json`` or a ``.gguf``), else, for a preset, the repo's test
 tokenizer. It prints ``LAUNCH_READY in=http out=<gpu|dyn> port=N`` once
-it serves, and stops on SIGINT or SIGTERM. Both outputs run the front
+it serves (``out=<gpu|dyn|mocker>``), and stops on SIGINT or SIGTERM. Both outputs run the front
 behind the overload defense's adaptive limiter (``[overload]`` /
 ``DTPU_OVERLOAD_*``; ``DTPU_OVERLOAD_ENABLED=0`` turns it off) and arm the
 SLO plane and the request ledger (``init_observability``):
 ``--slo-ttft-p99-ms`` sets the TTFT target and ``--request-log PATH``
 appends each request's accounting record to a JSONL file. The reference
 launcher's other
-inputs and outputs (``in=text|batch|grpc``, ``out=echo|mocker``) and its
+inputs and output (``in=text|batch|grpc``, ``out=echo``) and its
 flags that the port does not serve (``REFUSED_FLAGS``) exit naming the
 ROADMAP item each waits for; none is accepted and then ignored. ``--lora NAME=PATH``
 (repeatable, ``out=gpu`` only, as in the reference) registers a HF PEFT
@@ -89,7 +92,6 @@ NOT_PORTED = {
     "in=text": INPUTS,
     "in=batch": INPUTS,
     "in=grpc": "ROADMAP item 24 (the KServe gRPC front)",
-    "out=mocker": "ROADMAP item 25 (the mocker engine, with the planner)",
     "out=echo": "no ROADMAP item: the echo engine is copied when a slice "
                 "needs it",
 }
@@ -242,7 +244,7 @@ def parse_args(argv=None) -> argparse.Namespace:
         else:
             rest.append(a)
     parser = argparse.ArgumentParser(
-        description="dynamo_tpu_torch launcher (in=http out=gpu|dyn)")
+        description="dynamo_tpu_torch launcher (in=http out=gpu|dyn|mocker)")
     add_engine_args(parser)
     add_lora_args(parser)
     parser.add_argument("--context-length", type=int, default=8192)
@@ -269,8 +271,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                          f"{wait}")
     if io["in"] != "http":
         parser.error(f"in= must be http, got {io['in']!r}")
-    if io["out"] not in ("gpu", "dyn"):
-        parser.error(f"out= must be gpu or dyn, got {io['out']!r}")
+    if io["out"] not in ("gpu", "dyn", "mocker"):
+        parser.error(f"out= must be gpu or dyn or mocker, got {io['out']!r}")
     if args.lora and io["out"] != "gpu":
         parser.error("--lora needs the real engine (out=gpu)")
     args.input, args.output = io["in"], io["out"]
@@ -351,16 +353,24 @@ def build_local_served(args, engine: GPUEngine | None = None,
                        ) -> tuple[ServedModel, GPUEngine]:
     """Static pipeline: Preprocessor -> Backend -> GPUEngine, no network.
     ``engine``: a started engine to serve from (default: ``build_engine``
-    of ``args``, with its series on ``metrics_registry``). With ``--lora`` each adapter registers on the engine
+    of ``args``, with its series on ``metrics_registry``; under
+    ``out=mocker`` the simulator, started on the running loop, with the
+    test tokenizer). With ``--lora`` each adapter registers on the engine
     and its name becomes a ServedModel of its own (in
     ``served.adapter_served``) whose card binds it to the base model, as
     a distributed front resolves discovered adapter cards."""
-    config = build_engine_config(args)
-    tokenizer = load_tokenizer(args.resolved_checkpoint, args.tokenizer,
-                               checkpoint_first=True)
-    engine = engine or load_engine(config, args.resolved_checkpoint,
-                                   args.seed,
-                                   metrics_registry=metrics_registry)
+    if args.output == "mocker":
+        from dynamo_tpu_torch.llm.mocker import MockerConfig, MockerEngine
+        engine = MockerEngine(MockerConfig(speedup_ratio=10.0))
+        engine.start()
+        tokenizer = make_test_tokenizer()
+    else:
+        config = build_engine_config(args)
+        tokenizer = load_tokenizer(args.resolved_checkpoint, args.tokenizer,
+                                   checkpoint_first=True)
+        engine = engine or load_engine(config, args.resolved_checkpoint,
+                                       args.seed,
+                                       metrics_registry=metrics_registry)
     name = args.model_name or os.path.basename(args.model.rstrip("/"))
     backend = Backend(tokenizer, inner=engine)
 
@@ -444,9 +454,16 @@ async def start_http(args, engine: GPUEngine | None = None
     try:
         await service.start()
     except BaseException:
-        engine.stop()
+        await stop_engine(engine)
         raise
     return service, engine
+
+
+async def stop_engine(engine) -> None:
+    """Stop a GPUEngine (blocking) or the mocker (a coroutine)."""
+    res = engine.stop()
+    if asyncio.iscoroutine(res):
+        await res
 
 
 async def start_front(runtime: DistributedRuntime, host: str, port: int,
@@ -522,10 +539,13 @@ async def run(args) -> None:
                 await runtime.close()
         else:
             service, engine = await start_http(args)
-            serving = f"{args.model} from an engine on {engine.runner.device}"
+            serving = (f"{args.model} from the mocker"
+                       if args.output == "mocker" else
+                       f"{args.model} from an engine on "
+                       f"{engine.runner.device}")
 
             async def stop_rest():
-                engine.stop()
+                await stop_engine(engine)
         try:
             print(f"LAUNCH_READY in={args.input} out={args.output} "
                   f"port={service.port}", flush=True)

@@ -50,10 +50,20 @@ class QueuePrefillWorker:
         self.poll_timeout = poll_timeout
         self.pulled = 0
         self.failed = 0
+        self._paused = False
         self._task: asyncio.Task | None = None
 
     def start(self) -> None:
         self._task = asyncio.create_task(self._loop())
+
+    def pause(self) -> None:
+        """Stop pulling new queue work: a draining worker (a role flip, a
+        retire) leaves queued prompts to its peers; the item being served
+        finishes. Idempotent."""
+        self._paused = True
+
+    def resume(self) -> None:
+        self._paused = False
 
     async def stop(self) -> None:
         if self._task is not None:
@@ -70,6 +80,9 @@ class QueuePrefillWorker:
     async def _loop(self) -> None:
         backoff = Backoff(policies.QUEUE_POP)
         while True:
+            if self._paused:
+                await asyncio.sleep(self.poll_timeout)
+                continue
             try:
                 item = await self.client.queue_pop(
                     self.queue, timeout=self.poll_timeout)

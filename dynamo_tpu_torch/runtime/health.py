@@ -29,8 +29,19 @@ server instead of aiohttp).
   front's merged engines); without a provider the process-global
   registry (``engine/perf.py``'s ``process_perf_status``)
 
-The worker's ``/control/role`` and ``/control/scale`` answer 501 naming
-ROADMAP item 25 (role changes and the scale agent), never 404.
+A worker's server also carries the control verbs, as the reference's:
+
+- ``GET /control/role``   the role manager's status (``llm/reconfig.py``)
+- ``POST /control/role``  ``{"role": "prefill", "epoch": 7, "drain_s"?}``:
+  a SetRole flip, fenced as a directive is (409 with the typed error on
+  a stale epoch or a flip in flight; the epoch is required, so a
+  replayed call cannot flip again)
+- ``GET /control/scale``  the scale agent's standby status
+  (``llm/standby.py``)
+- ``POST /control/scale`` ``{"action": "promote"|"retire", "epoch": N,
+  "role"?}``: the scale directive's verb, fenced the same way
+
+A process without a role manager (or scale agent) answers 404 there.
 """
 
 from __future__ import annotations
@@ -41,6 +52,7 @@ import tempfile
 from typing import Callable
 
 from dynamo_tpu_torch.runtime import flight, journal, slo, tracing
+from dynamo_tpu_torch.runtime.errors import RoleTransitionError
 from dynamo_tpu_torch.runtime.http_server import (Exchange, HttpServer,
                                                   Request)
 from dynamo_tpu_torch.runtime.logging import get_logger
@@ -48,22 +60,18 @@ from dynamo_tpu_torch.runtime.metrics import CONTENT_TYPE
 
 log = get_logger("health")
 
-CONTROL_WAITS = ("role changes and the scale agent are not ported: "
-                 "/control/role and /control/scale wait for ROADMAP item 25")
 
-
-def _body_json(req: Request) -> dict:
+def _body_json(req: Request, strict: bool = False) -> dict | None:
+    """The request's JSON object; when the body is not one, an empty dict,
+    or None with ``strict`` (the control verbs answer 400 then, as the
+    reference's do)."""
     try:
         body = req.json()
     except ValueError:
-        return {}
-    return body if isinstance(body, dict) else {}
-
-
-def _not_ported(message: str):
-    async def handler(_req: Request, ex: Exchange) -> None:
-        await ex.send_json(501, {"error": message})
-    return handler
+        body = None
+    if isinstance(body, dict):
+        return body
+    return None if strict else {}
 
 
 def add_debug_routes(server: HttpServer,
@@ -220,7 +228,8 @@ class SystemStatusServer:
     def __init__(self, runtime, host: str = "0.0.0.0", port: int = 0,
                  kv_provider: Callable[[], dict] | None = None,
                  cuda: bool = False,
-                 perf_provider: Callable[[], dict] | None = None):
+                 perf_provider: Callable[[], dict] | None = None,
+                 role_manager=None, scale_agent=None):
         self._runtime = runtime
         self.host, self.port = host, port
         # /debug/profile records CUDA activity: the worker's engine runs
@@ -231,6 +240,10 @@ class SystemStatusServer:
         self.kv_provider = kv_provider
         # /debug/perf provider for THIS worker (engine.perf_status).
         self.perf_provider = perf_provider
+        # llm/reconfig.RoleManager: the SetRole verb (/control/role).
+        self.role_manager = role_manager
+        # llm/standby.ScaleAgent: the scale verb (/control/scale).
+        self.scale_agent = scale_agent
         self._server: HttpServer | None = None
 
     def set_endpoint_health(self, endpoint_path: str, healthy: bool) -> None:
@@ -241,9 +254,10 @@ class SystemStatusServer:
         server.add("GET", "/health", self._health)
         server.add("GET", "/live", self._live)
         server.add("GET", "/metrics", self._metrics)
-        for method in ("GET", "POST"):
-            server.add(method, "/control/role", _not_ported(CONTROL_WAITS))
-            server.add(method, "/control/scale", _not_ported(CONTROL_WAITS))
+        server.add("GET", "/control/role", self._role_status)
+        server.add("POST", "/control/role", self._role_set)
+        server.add("GET", "/control/scale", self._scale_status)
+        server.add("POST", "/control/scale", self._scale_apply)
         add_debug_routes(server, kv_provider=self.kv_provider,
                          before_block=self._renew_lease, cuda=self.cuda,
                          perf_provider=self.perf_provider)
@@ -274,3 +288,73 @@ class SystemStatusServer:
 
     async def _metrics(self, _req: Request, ex: Exchange) -> None:
         await ex.send(200, CONTENT_TYPE, self._runtime.metrics.expose())
+
+    # -- the scale verb (llm/standby.py) -----------------------------------------
+    async def _scale_status(self, _req: Request, ex: Exchange) -> None:
+        if self.scale_agent is None:
+            await ex.send_json(404, {"error": "no scale agent on this worker"})
+            return
+        await ex.send_json(200, self.scale_agent.standby_status())
+
+    async def _scale_apply(self, req: Request, ex: Exchange) -> None:
+        """POST /control/scale: the scale directive's verb from an
+        operator, fenced as the coordinator directive is."""
+        if self.scale_agent is None:
+            await ex.send_json(404, {"error": "no scale agent on this worker"})
+            return
+        body = _body_json(req, strict=True)
+        if body is None:
+            await ex.send_json(400, {"error": "invalid JSON body"})
+            return
+        action, epoch = body.get("action"), body.get("epoch")
+        if action not in ("promote", "retire") or not isinstance(epoch, int):
+            await ex.send_json(400, {
+                "error": "body must carry action:promote|retire and "
+                         "epoch:int (above the applied epoch in "
+                         "GET /control/scale)"})
+            return
+        directive = {**body, "issued_by": str(body.get("issued_by", "http"))}
+        try:
+            if action == "promote":
+                await self.scale_agent._promote(directive)
+            else:
+                await self.scale_agent._retire(directive)
+        except RoleTransitionError as exc:
+            await ex.send_json(409, {"error": str(exc),
+                                     "type": "role_transition"})
+            return
+        await ex.send_json(200, self.scale_agent.standby_status())
+
+    # -- the SetRole verb (llm/reconfig.py) --------------------------------------
+    async def _role_status(self, _req: Request, ex: Exchange) -> None:
+        if self.role_manager is None:
+            await ex.send_json(404, {"error": "no role manager on this worker"})
+            return
+        await ex.send_json(200, self.role_manager.status())
+
+    async def _role_set(self, req: Request, ex: Exchange) -> None:
+        """POST /control/role: a SetRole flip from an operator. The epoch
+        is required, so a replayed call cannot flip again."""
+        if self.role_manager is None:
+            await ex.send_json(404, {"error": "no role manager on this worker"})
+            return
+        body = _body_json(req, strict=True)
+        if body is None:
+            await ex.send_json(400, {"error": "invalid JSON body"})
+            return
+        role, epoch = body.get("role"), body.get("epoch")
+        if not isinstance(role, str) or not isinstance(epoch, int):
+            await ex.send_json(400, {
+                "error": "body must carry role:str and epoch:int (epoch "
+                         "must be above the applied epoch in "
+                         "GET /control/role)"})
+            return
+        try:
+            outcome = await self.role_manager.set_role(
+                role, epoch, issued_by=str(body.get("issued_by", "http")),
+                drain_s=body.get("drain_s"))
+        except RoleTransitionError as exc:
+            await ex.send_json(409, {"error": str(exc),
+                                     "type": "role_transition"})
+            return
+        await ex.send_json(200, outcome)

@@ -122,6 +122,11 @@ class policies:
     # every migrated stream redial in lockstep.
     MIGRATION = RetryPolicy(initial_delay_s=0.05, max_delay_s=1.0,
                             multiplier=2.0, jitter=0.5)
+    # Kubernetes scale patches (planner/kube.py): bounded; a planner step
+    # that cannot reach the API server journals a typed failure and the
+    # next interval decides again.
+    KUBE_SCALE = RetryPolicy(initial_delay_s=0.5, max_delay_s=4.0,
+                             multiplier=2.0, jitter=0.2, max_attempts=3)
     # G4 peer-tier breaker curve (kv_plane.RemoteBlockSource): the
     # cooldown after the Nth consecutive failure on one peer. Not a sleep
     # (the consult runs on the engine thread) but how long that peer's

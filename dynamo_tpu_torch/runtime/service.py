@@ -47,6 +47,14 @@ class EndpointServer:
         self._conn_writers: set[asyncio.StreamWriter] = set()
         self._inflight: dict[str, tuple[asyncio.Task, Context]] = {}
         self._stopping = asyncio.Event()
+        # Why a drain cuts streams (a role flip, a scale-in): the reason
+        # rides the typed incomplete frames, so the caller's migration
+        # attributes the retry.
+        self._drain_reason: str | None = None
+        # Streams a drain sent back with an incomplete frame: cut at its
+        # deadline, or refused while it ran. Each is one migration at the
+        # caller.
+        self.cut_streams = 0
         self.instance: Instance | None = None
         comp = endpoint.component
         metrics = (runtime.metrics.namespace(comp.namespace)
@@ -121,8 +129,9 @@ class EndpointServer:
                     if self._stopping.is_set():
                         # Draining: refuse new work so callers retry
                         # elsewhere.
+                        self.cut_streams += 1
                         await send({"t": "err", "rid": rid,
-                                    "e": INCOMPLETE})
+                                    "e": self._incomplete_wire()})
                         continue
                     ctx = Context.from_wire(msg.get("ctx"))
                     ctx.values["request_id"] = rid
@@ -185,7 +194,7 @@ class EndpointServer:
                 # A kill issued by our own drain (shutdown) is an incomplete
                 # stream the caller should migrate, not a client kill echo.
                 await send({"t": "err", "rid": rid,
-                            "e": (INCOMPLETE
+                            "e": (self._incomplete_wire()
                                   if self._stopping.is_set() else KILLED)})
             else:
                 await send({"t": "final", "rid": rid, "s": seq})
@@ -193,8 +202,7 @@ class EndpointServer:
             if self._stopping.is_set():
                 # Drain deadline hit: send the typed incomplete frame so the
                 # caller's migration re-issues at once.
-                await self._send_err(send, rid,
-                                     INCOMPLETE)
+                await self._send_err(send, rid, self._incomplete_wire())
             raise
         except (AdapterNotFoundError, OverloadedError, RateLimitedError,
                 RoleTransitionError) as exc:
@@ -218,14 +226,26 @@ class EndpointServer:
             self._m_duration.observe(time.monotonic() - started)
             self._inflight.pop(rid, None)
 
-    async def shutdown(self, drain_s: float | None = None) -> None:
+    def _incomplete_wire(self) -> str:
+        """The incomplete-stream token, ``incomplete:<reason>`` while a
+        drain with a reason runs (``errors.error_from_wire`` splits it)."""
+        if self._drain_reason:
+            return f"{INCOMPLETE}:{self._drain_reason}"
+        return INCOMPLETE
+
+    async def shutdown(self, drain_s: float | None = None,
+                       reason: str | None = None) -> None:
         """Deregister, then drain (graceful) or cancel (fast) in-flight
         work. ``drain_s`` overrides the constructed choice for this call:
         a positive value drains up to that deadline, 0 kills at once.
         Streams still running at the deadline are killed with a typed
-        incomplete frame. A second call returns at once."""
+        incomplete frame, ``incomplete:<reason>`` when ``reason`` is given
+        (a role flip's ``role_flip``, a scale-in's ``scale_in``), so the
+        caller's migration attributes the retry. A second call returns at
+        once."""
         if self._server is None:
             return
+        self._drain_reason = reason or self._drain_reason
         self._stopping.set()
         if self.instance is not None:
             try:
@@ -243,6 +263,7 @@ class EndpointServer:
             while self._inflight and time.monotonic() < deadline:
                 await asyncio.sleep(0.05)
         victims = list(self._inflight.values())
+        self.cut_streams += len(victims)
         for task, ctx in victims:
             ctx.kill()
             task.cancel()

@@ -644,3 +644,92 @@ def test_spec_brownout_switch_keeps_the_plain_path_on_gpu():
     finally:
         plain.stop()
         eng.stop()
+
+
+@pytest.mark.gpu
+def test_flipped_engine_window_graph_replay_equals_eager_body_on_gpu():
+    """A worker's GPUEngine (tiny-test, window programs warmed) flipped
+    agg -> prefill -> decode -> agg through ``backends.gpu``'s profiles and
+    a RoleManager on an embedded coordinator keeps its weights (the same
+    tensors at the same addresses, allocated memory within 1%) and makes
+    no program; afterwards a window program of its runner, replayed from
+    its graph, equals its body run eagerly on the same state (greedy
+    tokens equal, logprobs within 1e-5)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA graphs have no CPU mode")
+    import asyncio
+
+    from dynamo_tpu_torch import launch
+    from dynamo_tpu_torch.backends import gpu
+    from dynamo_tpu_torch.engine import runner as trunner
+    from dynamo_tpu_torch.llm.reconfig import RoleManager
+    from dynamo_tpu_torch.llm.tokenizer import make_test_tokenizer
+    from dynamo_tpu_torch.runtime.config import RuntimeConfig
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    args = gpu.parse_args(["--model", "tiny-test", "--num-pages", "256",
+                           "--no-kv-plane"])
+
+    async def flips():
+        rt = await DistributedRuntime.with_embedded_coordinator(
+            RuntimeConfig(namespace="flip"))
+        engine = launch.load_engine(gpu.build_engine_config(args), None, 0,
+                                    start=False)
+        engine.start(asyncio.get_running_loop())
+        params = [t for t in engine.runner.params.values()
+                  if isinstance(t, torch.Tensor)]
+        ptrs = [t.data_ptr() for t in params]
+        before = (torch.cuda.memory_allocated(),
+                  engine.runner.window_programs())
+        mgr = RoleManager(rt, gpu.make_profile_builder(
+            rt, args, engine, make_test_tokenizer(), "tiny-test", None, []),
+            role="agg", drain_s=0.1)
+        await mgr.start()
+        outcomes = [(await mgr.set_role(role, epoch))["outcome"]
+                    for epoch, role in enumerate(
+                        ("prefill", "decode", "agg"), 1)]
+        after = (torch.cuda.memory_allocated(),
+                 engine.runner.window_programs())
+        await mgr.stop()
+        engine.stop()
+        await rt.close()
+        return engine, params, ptrs, before, after, outcomes
+
+    engine, params, ptrs, before, after, outcomes = asyncio.run(flips())
+    assert outcomes == ["ok", "ok", "ok"]
+    assert [t.data_ptr() for t in params] == ptrs
+    assert abs(after[0] - before[0]) <= 0.01 * before[0], (before, after)
+    assert after[1]["programs"] == before[1]["programs"] == 8
+    assert after[1]["captured"] == before[1]["captured"]
+    r, spec, page = engine.runner, engine.runner.spec, 16
+    M, B = engine.decode_window, engine.config.max_num_seqs
+    rng = np.random.default_rng(23)
+    lens = (40, 77, 100)
+    seqs = [trunner.PrefillSeq(
+        tokens=rng.integers(0, spec.vocab_size, n).astype(np.int32),
+        chunk_pages=np.arange(1 + 8 * i, 1 + 8 * i + -(-n // page)),
+        sampling=(0.0, 0, 1.0)) for i, n in enumerate(lens)]
+    r.prefill_batch(seqs, slots=[0, 1, 2])
+    width = r.bucket_pages_for(8)
+    packed = np.zeros((B, trunner.PK_PREFIX + width), np.int32)
+    for i, n in enumerate(lens):
+        packed[i, trunner.PK_POS] = n
+        packed[i, trunner.PK_SEQLEN] = n + 1
+        packed[i, trunner.PK_TOPP] = np.float32(1.0).view(np.int32)
+        packed[i, trunner.PK_CAP] = 8 * page
+        packed[i, trunner.PK_PREFIX:trunner.PK_PREFIX + 8] = \
+            np.arange(1 + 8 * i, 9 + 8 * i)
+    packed[1, trunner.PK_LOGPROB] = 1
+    tokens, step = r.tokens_dev.clone(), r._noise_step.clone()
+    prog = r._get_window(M, width, False, False, True)
+    assert prog.graph is not None  # warmed before the flips
+    replays = r.window_replays
+    replayed = [t.clone() for t in prog.run(packed)]
+    assert r.window_replays == replays + 1
+    r.tokens_dev.copy_(tokens)
+    r._noise_step.copy_(step)
+    eager = prog.run_eager(packed)
+    torch.cuda.synchronize()
+    assert torch.equal(replayed[0], eager[0]), (replayed[0], eager[0])
+    diff = max(float((replayed[1] - eager[1]).abs().max()),
+               float((replayed[2][..., :5] - eager[2][..., :5]).abs().max()))
+    assert diff <= 1e-5, diff

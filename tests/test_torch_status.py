@@ -5,8 +5,8 @@ package's on the CPU:
 
 - a worker's status server answers ``/health``, ``/live``, ``/metrics``
   and every debug route, ``/debug/slo`` and ``/debug/perf`` (the engine's
-  ``perf_status``) included; the control verbs answer 501 naming the
-  ROADMAP item they wait for, never 404;
+  ``perf_status``) included; the control verbs, served, answer 404
+  naming what this server lacks (a role manager, a scale agent);
   ``POST /debug/profile`` answers ``mode: "torch"`` and 409 to a second
   capture at once;
 - a JAX front and a port front over the same port worker: ``/debug/*``
@@ -111,10 +111,14 @@ async def test_status_server_routes(tmp_path):
         assert st == 200 and set(body) == {"role", "compiles", "window",
                                            "roofline", "hbm", "memory"}
         assert body["role"] == "engine" and body["hbm"] == {}
-        for path in ("/control/role", "/control/scale"):
+        # The control verbs are served; this server carries no role
+        # manager or scale agent, so they answer 404 naming which.
+        for path, what in (("/control/role", "role manager"),
+                           ("/control/scale", "scale agent")):
             for method in ("GET", "POST"):
                 st, body = await _json(port, path, method, {})
-                assert st == 501 and "ROADMAP item 25" in body["error"]
+                assert st == 404 and body == {
+                    "error": f"no {what} on this worker"}
         st, body = await _json(port, "/debug/requests?limit=5")
         assert st == 200 and set(body) == {"capacity", "total", "counts",
                                            "sink", "records"}

@@ -703,11 +703,16 @@ def test_entry_points_as_processes():
     (gpu.parse_args, ["--pp", "2"], "ROADMAP item 16"),
     (gpu.parse_args, ["--num-nodes", "2"], "ROADMAP item 16"),
     (gpu.parse_args, ["--tp", "2"], "ROADMAP item 16"),
-    (gpu.parse_args, ["--standby"], "planner"),
+    (gpu.parse_args, ["--standby"], None),
     (gpu.parse_args, ["--tool-call-parser", "hermes"], "parsers"),
     (frontend_main.parse_args, ["--grpc-port", "9"], "gRPC"),
 ], ids=lambda v: " ".join(v) if isinstance(v, list) else None)
 def test_refused_flags_name_their_item(main, argv, words, capsys):
+    """Each refused flag exits naming its item; ``--standby`` (``words``
+    None) is served now: the worker parses it and parks as a standby."""
+    if words is None:
+        assert main(argv).standby is True
+        return
     with pytest.raises(SystemExit) as exc:
         main(argv)
     assert exc.value.code != 0
@@ -769,16 +774,34 @@ def test_frontend_serves_the_overload_slo_and_canary_flags(argv, check):
     (["--output-file", "out.jsonl"], "ROADMAP item 24"),
     (["--batch-concurrency", "4"], "ROADMAP item 24"),
     (["--batch-max-tokens", "64"], "ROADMAP item 24"),
-    (["out=mocker"], "ROADMAP item 25"),
+    (["out=mocker"], None),
     (["out=echo"], "no ROADMAP item"),
 ], ids=lambda v: " ".join(v) if isinstance(v, list) else None)
 def test_launcher_refused_flags_name_their_item(argv, words, capsys):
     """Every flag of the reference launcher that the port does not serve,
-    and out=echo|mocker, exit naming what they wait for."""
+    and out=echo, exit naming what they wait for; out=mocker (``words``
+    None) is served now: it parses and builds the mocker's pipeline."""
+    if words is None:
+        args = launch.parse_args(["in=http", "out=gpu", *argv])
+        assert args.output == "mocker"
+        served, engine = _mocker_served(args)
+        assert type(engine).__name__ == "MockerEngine"
+        assert served.name == "tiny-test"
+        return
     with pytest.raises(SystemExit) as exc:
         launch.parse_args(["in=http", "out=gpu", *argv])
     assert exc.value.code != 0
     assert words in capsys.readouterr().err
+
+
+def _mocker_served(args):
+    """``build_local_served`` of an out=mocker launch, on a loop of its
+    own (the mocker starts its loop task there), stopped after."""
+    async def build():
+        served, engine = launch.build_local_served(args)
+        await launch.stop_engine(engine)
+        return served, engine
+    return asyncio.run(build())
 
 
 @pytest.mark.parametrize("argv,want", [
