@@ -520,10 +520,12 @@ Each phase's end prints the seconds so far and the host's memory.
    windows x M x 32, each window a replay, the int8 entry never; each
    chat's tokens equal b's or split only where this chain's top-2
    margin is within 2 x LOGIT_ATOL; D serves as prefill. e. ``python -m
-   dynamo_tpu_torch.planner --adjustment-interval 2`` (its connector
+   dynamo_tpu_torch.planner --adjustment-interval 0.5`` (its connector
    records, reconfiguration off) runs PLANNER_STEPS steps while four
-   chats decode on P, sees a live worker on the gpu component's load
-   metrics and exits 0 on SIGTERM. d. S parks (GPU_WORKER_READY
+   chats of PLANNER_CHAT_TOKENS tokens decode on P (they outlast the
+   steps), sees a live worker on the gpu component's load metrics and a
+   decode demand (active + waiting) above 0 in a step, and exits 0 on
+   SIGTERM. d. S parks (GPU_WORKER_READY
    mode=standby, a standby/ key, no model card); a promote directive,
    written as FleetScaler writes it, joins it; chats go through the
    front until the ledger shows one served by S; its
@@ -536,6 +538,40 @@ Each phase's end prints the seconds so far and the host's memory.
    join seconds, each process's peak device memory and its seconds.
    Phase 13b's and 14's checks read the workers' counters as phase 14
    ends (SIGUSR1), since phase 16 changes both roles after.
+17. embeddings, in three places (no kernel runs on the embed path: it is
+   an eager pass with dense attention, so phase 17 launches neither
+   kernel). a. On phase 3's full-depth engine before it is released
+   (embed_phase): four greedy chats with top-2 logprobs are served alone,
+   then again, each prompt first dropped from the prefix cache, while
+   ``engine.embed`` runs over 8 inputs of 1 to 2048 tokens (one token,
+   round 1's first six prompts and a 2048-token prompt; a batch of 8 at
+   the 2048 bucket) with ``last`` and then ``mean`` pooling. Checked:
+   every vector finite with |norm - 1| <= 1e-3; each input embedded
+   alone equals its row of the batch at cosine >= 0.999; argmax of the
+   lm head over a ``last`` vector equals its chat's greedy first token
+   where that token's top-2 margin exceeds 2 x LOGIT_ATOL; the chats
+   decoded through the jobs (slots live when each job ran) and their
+   tokens equal the chats served alone, or split only where this
+   chain's top-2 margin is within 2 x LOGIT_ATOL; every window of the
+   run a replay. It prints each job's device ms (CUDA events around
+   ``runner.embed`` on the engine thread) and its peak device bytes
+   above what was allocated before it. b. On phase 5's front
+   (embed_http): ``POST /v1/embeddings`` with a string, a list of two
+   strings and 300 token ids; each vector equals ``engine.embed`` of the
+   same ids within 1e-3 abs and usage counts the prompt tokens; an empty
+   list, an empty string and 8193 ids (over ``context_length``) answer
+   400. In phase 6, the string through the distributed front (request
+   plane, ``{"embed": True}`` to the worker) equals the front's vector
+   within 1e-3 abs. c. In phase 7, on its CUT_LAYERS-deep llama-3-8b
+   checkpoint before it is removed (batch_launcher): ``python -m
+   dynamo_tpu_torch.launch in=batch out=gpu --model DIR
+   --reasoning-parser deepseek_r1 --tool-call-parser hermes
+   --batch-concurrency 4`` over a JSONL of 8 prompts and one malformed
+   line logs an engine on cuda, exits 0 and writes 9 rows in input
+   order: one error row, 8 rows with tokens > 0 and a finish reason; the
+   summary line's output_tokens is the rows' sum. Random weights emit no
+   think or tool tags, so the parsed chats are held only by the CPU
+   tests.
 In every phase from 3 to 16, each decode window an engine dispatched was
 a replay of its program's CUDA graph (the runner's replay count rises by
 the windows dispatched; in phase 13 the decode worker's own count), and the warmed engines of phases 8-11 (built as
@@ -1125,6 +1161,8 @@ def main_path(attention, model, quant_kv: str | None) -> dict:
         round2 = second_round(engine, attention, prompts)
         if not quant_kv:
             stats["tracing_cost"] = tracing_cost(engine)
+            stats["embeddings"] = embed_phase(engine, attention, model,
+                                              prompts)
     finally:
         engine.stop()
     round2.update(round2_plain_checks(engine, model, round2,
@@ -1171,6 +1209,176 @@ def main_path(attention, model, quant_kv: str | None) -> dict:
     log(f"released: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still "
         f"allocated")
     return stats
+
+
+# ---------------------------------------------------------------------------
+# Phase 17a: embeddings beside live decode at full depth
+# ---------------------------------------------------------------------------
+
+EMBED_LONG = 2048  # the longest input: the largest bucket phase 3 serves
+EMBED_CHAT_TOKENS = 128
+EMBED_COSINE = 0.999
+
+
+def embed_inputs(spec, prompts) -> list[list[int]]:
+    """17a's 8 inputs: one token, round 1's first six prompts and a
+    2048-token prompt."""
+    rng = np.random.default_rng(17)
+    return ([[int(rng.integers(0, spec.vocab_size))]] + prompts[:6]
+            + [rng.integers(0, spec.vocab_size, EMBED_LONG).tolist()])
+
+
+def kernel_launches(attention) -> dict:
+    """Both entry points' launch counts so far."""
+    return {"paged_attention_hist": attention.KERNEL.launches,
+            "paged_attention_hist_int8": attention.KERNEL.launches_int8}
+
+
+def top2_margins(result) -> list:
+    """Each token's top-2 logprob margin (a logit margin) of a served
+    request asked for top-2 logprobs."""
+    out = []
+    for alts in result["top_log_probs"]:
+        lp = sorted((a["logprob"] for a in alts), reverse=True)
+        out.append(lp[0] - lp[1] if len(lp) > 1 else None)
+    return out
+
+
+def embed_phase(engine, attention, model, prompts) -> dict:
+    """Phase 17a (see the module docstring) on phase 3's engine."""
+    from dynamo_tpu_torch.profile_decode import MODEL, serve
+    t_phase = time.monotonic()
+    runner = engine.runner
+    spec = runner.spec
+    inputs = embed_inputs(spec, prompts)
+    chats = [{"model": MODEL, "token_ids": p,
+              "stop_conditions": {"max_tokens": EMBED_CHAT_TOKENS,
+                                  "ignore_eos": True},
+              "sampling_options": {"logprobs": 2}} for p in prompts[:6]]
+    for p in prompts[:6]:
+        forget_prompt(engine, p)
+    alone = asyncio.run(serve(engine, chats))
+    for p in prompts[:6]:
+        forget_prompt(engine, p)
+
+    # runner.embed timed on the engine thread: CUDA events around it on
+    # the engine's stream (after the windows queued before it), its peak
+    # above what was allocated before, and the slots live as it ran.
+    inner = runner.embed
+    jobs = []
+
+    def timed(token_lists, pooling="last"):
+        live = sum(r is not None for r in engine.slot_req)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        before = kernel_launches(attention)
+        ev[0].record()
+        out = inner(token_lists, pooling)
+        ev[1].record()
+        ev[1].synchronize()
+        launches = {k: v - before[k]
+                    for k, v in kernel_launches(attention).items()}
+        jobs.append({"pooling": pooling, "inputs": len(token_lists),
+                     "live_slots": live, "launches": launches,
+                     "device_ms": ev[0].elapsed_time(ev[1]),
+                     "peak_bytes": torch.cuda.max_memory_allocated() - base})
+        return out
+
+    async def with_jobs():
+        from dynamo_tpu_torch.runtime.context import Context
+        started = [asyncio.Event() for _ in chats]
+
+        async def chat(req, first):
+            toks, tops = [], []
+            async for item in engine.generate(req, Context()):
+                toks.extend(item.get("token_ids", []))
+                tops.extend(item.get("top_log_probs", []))
+                first.set()
+            return {"tokens": toks, "top_log_probs": tops}
+        tasks = [asyncio.ensure_future(chat(c, e))
+                 for c, e in zip(chats, started)]
+        # The jobs go in once every chat has its first tokens.
+        await asyncio.wait_for(asyncio.gather(*(e.wait() for e in started)),
+                               SSE_TIMEOUT_S)
+        vectors = {}
+        for pooling in ("last", "mean"):
+            vectors[pooling] = await engine.embed(inputs, pooling)
+        return vectors, await asyncio.wait_for(asyncio.gather(*tasks),
+                                               SSE_TIMEOUT_S)
+
+    windows0 = engine.windows_dispatched
+    replays0 = runner.window_replays
+    runner.embed = timed
+    try:
+        vectors, live = asyncio.run(with_jobs())
+    finally:
+        del runner.embed
+    check_replays(engine, replays0, engine.windows_dispatched - windows0)
+    # Each job ran while the chats held their slots, and launched no
+    # kernel (the embed path is dense attention).
+    assert len(jobs) == 2, jobs
+    for job in jobs:
+        assert job["live_slots"] >= len(chats), jobs
+        assert not any(job["launches"].values()), jobs
+    # The chats: the same tokens as alone, or a split at a near-tie.
+    splits = []
+    for i, (got, ref) in enumerate(zip(live, alone)):
+        assert len(got["tokens"]) == EMBED_CHAT_TOKENS, (i, len(got["tokens"]))
+        j = next((k for k, (a, b) in enumerate(zip(got["tokens"],
+                                                   ref["tokens"]))
+                  if a != b), None)
+        if j is not None:
+            margin = top2_margins(got)[j]
+            assert margin is not None and margin <= 2 * LOGIT_ATOL, (
+                f"chat {i}: token {j} is {got['tokens'][j]}, alone "
+                f"{ref['tokens'][j]}, at margin {margin}")
+            splits.append({"chat": i, "token": j, "margin": margin})
+    # The vectors: finite and unit, each alone equal to its batch row.
+    alone_cos, norm_err = {}, 0.0
+    for pooling, rows in vectors.items():
+        arr = np.asarray(rows, np.float64)
+        assert arr.shape == (len(inputs), spec.hidden_size), arr.shape
+        assert np.all(np.isfinite(arr)), pooling
+        norm_err = max(norm_err, float(np.abs(
+            np.linalg.norm(arr, axis=-1) - 1).max()))
+        cos = []
+        for i, ids in enumerate(inputs):
+            one = np.asarray(runner.embed([ids], pooling)[0], np.float64)
+            cos.append(float(one @ arr[i] / np.linalg.norm(one)
+                             / np.linalg.norm(arr[i])))
+        alone_cos[pooling] = cos
+        assert min(cos) >= EMBED_COSINE, (pooling, cos)
+    assert norm_err <= 1e-3, norm_err
+    # argmax of the lm head over a "last" vector (inputs 1-6 are the
+    # chats' prompts): the chat's greedy first token where its top-2
+    # margin is clear, and one of its top two everywhere.
+    heads = model.lm_logits(torch.tensor(
+        np.asarray(vectors["last"], np.float32)[1:1 + len(chats)],
+        device=runner.device).to(torch.bfloat16), runner.params,
+        spec).argmax(-1).tolist()
+    head_checks = []
+    for i, (head, ref) in enumerate(zip(heads, alone)):
+        margin = top2_margins(ref)[0]
+        top2 = [a["token_id"] for a in ref["top_log_probs"][0]]
+        assert ref["tokens"][0] == top2[0] and head in top2, (i, head, top2)
+        if margin > 2 * LOGIT_ATOL:
+            assert head == ref["tokens"][0], (i, head, ref["tokens"][0],
+                                              margin)
+        head_checks.append({"chat": i, "argmax": head,
+                            "first_token": ref["tokens"][0],
+                            "margin": margin,
+                            "clear": margin > 2 * LOGIT_ATOL})
+    out = {"inputs": [len(ids) for ids in inputs], "jobs": jobs,
+           "max_norm_err": norm_err,
+           "min_alone_cosine": {k: min(v) for k, v in alone_cos.items()},
+           "lm_head_checks": head_checks, "chat_splits": splits,
+           "launches": {k: sum(job["launches"][k] for job in jobs)
+                        for k in jobs[0]["launches"]},
+           "phase_s": time.monotonic() - t_phase}
+    log(json.dumps({"embed_phase": out}))
+    return out
 
 
 def round1_prompts(spec, seed: int = 0) -> list[list[int]]:
@@ -2032,13 +2240,15 @@ def http_phase(attention) -> dict:
                  "kernel_launches": launches["paged_attention_hist"],
                  "launches": launches}
         log(json.dumps({"http_phase": stats}))
+        stats["embeddings"] = embed_http(attention, port, engine, tok,
+                                         on_loop)
         traffic = {"chats": chats, "comp": comp, "alone": alone,
                    "rendered": rendered, "prompt_ids": prompt_ids,
                    "alone_ids": alone_ids,
                    "alone_tokens": alone_engine["tokens"],
                    "alone_text": streamed["text"],
                    "summaries": summaries, "alone_summary": streamed,
-                   "names": names}
+                   "names": names, "embed": stats["embeddings"]}
         stats["dist"] = dist_phase(attention, engine, tok, on_loop, traffic)
         stats["window_programs"] = graph_stats(engine, "phases 5-6")
     finally:
@@ -2053,6 +2263,77 @@ def http_phase(attention) -> dict:
     log(f"released: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still "
         f"allocated")
     return stats
+
+
+# Phase 17b: /v1/embeddings through the front and the request plane.
+EMBED_TEXT = "the quick brown fox jumps over the lazy dog"
+EMBED_HTTP_ATOL = 1e-3
+
+
+def embed_http(attention, port: int, engine, tok, on_loop) -> dict:
+    """Phase 17b's front part (see the module docstring) on phase 5's
+    front and engine."""
+    from dynamo_tpu_torch.profile_decode import MODEL
+    t0 = time.monotonic()
+    ids = np.random.default_rng(171).integers(
+        0, engine.runner.spec.vocab_size, 300).tolist()
+    pair = ["hello world", "def main return for in range"]
+    cases = [(EMBED_TEXT, [tok.encode(EMBED_TEXT)]),
+             (pair, [tok.encode(t) for t in pair]), (ids, [ids])]
+    before = kernel_launches(attention)
+    worst, text_vector = 0.0, None
+    for raw, lists in cases:
+        res = http_call(port, "POST", "/v1/embeddings",
+                        {"model": MODEL, "input": raw})
+        assert res["status"] == 200, res
+        body = res["json"]
+        assert [d["index"] for d in body["data"]] == list(range(len(lists)))
+        total = sum(len(t) for t in lists)
+        assert body["usage"] == {"prompt_tokens": total,
+                                 "total_tokens": total}, body["usage"]
+        got = np.asarray([d["embedding"] for d in body["data"]])
+        want = np.asarray(on_loop(engine.embed(lists, "last"), 120))
+        err = float(np.abs(got - want).max())
+        assert err <= EMBED_HTTP_ATOL, (raw if isinstance(raw, str)
+                                        else len(raw), err)
+        worst = max(worst, err)
+        if raw == EMBED_TEXT:
+            text_vector = got[0]
+    over = [[1] * (8192 + 1)]  # the launcher's default context_length + 1
+    for raw in ([], "", over):
+        res = http_call(port, "POST", "/v1/embeddings",
+                        {"model": MODEL, "input": raw})
+        assert res["status"] == 400, res
+        assert res["json"]["error"]["type"] == "invalid_request_error", res
+    launches = {k: v - before[k]
+                for k, v in kernel_launches(attention).items()}
+    assert not any(launches.values()), launches
+    out = {"max_abs_err_vs_engine": worst, "launches": launches,
+           "seconds": time.monotonic() - t0}
+    log(json.dumps({"embed_http": out}))
+    return dict(out, _text_vector=text_vector)
+
+
+def embed_request_plane(attention, port: int, front: dict) -> dict:
+    """Phase 17b's request-plane part: the front's string through phase
+    6's distributed front (``{"embed": True}`` to the worker) gives the
+    front's vector."""
+    from dynamo_tpu_torch.profile_decode import MODEL
+    t0 = time.monotonic()
+    before = kernel_launches(attention)
+    res = http_call(port, "POST", "/v1/embeddings",
+                    {"model": MODEL, "input": EMBED_TEXT})
+    assert res["status"] == 200, res
+    got = np.asarray(res["json"]["data"][0]["embedding"])
+    err = float(np.abs(got - front.pop("_text_vector")).max())
+    assert err <= EMBED_HTTP_ATOL, err
+    launches = {k: v - before[k]
+                for k, v in kernel_launches(attention).items()}
+    assert not any(launches.values()), launches
+    out = {"max_abs_err_vs_front": err, "launches": launches,
+           "seconds": time.monotonic() - t0}
+    log(json.dumps({"embed_request_plane": out}))
+    return out
 
 
 def dist_phase(attention, engine, tokenizer, on_loop, traffic) -> dict:
@@ -2174,6 +2455,7 @@ def dist_phase(attention, engine, tokenizer, on_loop, traffic) -> dict:
         assert launches["paged_attention_hist"] == expected > 0, (
             launches, expected)
         assert launches["paged_attention_hist_int8"] == 0, launches
+        embed = embed_request_plane(attention, port, traffic["embed"])
     finally:
         del engine.generate
         on_loop(down(*stack), 120)
@@ -2207,7 +2489,7 @@ def dist_phase(attention, engine, tokenizer, on_loop, traffic) -> dict:
              "codec_us_per_frame": codec_us,
              "windows": windows, "window_steps": engine.decode_window,
              "kernel_launches": launches["paged_attention_hist"],
-             "launches": launches,
+             "launches": launches, "embeddings": embed,
              "phase_s": time.monotonic() - t_phase}
     log(json.dumps({"dist_phase": stats}))
     return stats
@@ -2729,6 +3011,68 @@ def write_gguf_tokenizer(path: str) -> None:
         "tokenizer.ggml.eos_token_id": spec["vocab"]["<|endoftext|>"]})
 
 
+# Phase 17c: the launcher's in=batch input as a process.
+BATCH_PROMPTS = 8
+BATCH_MALFORMED_AT = 3  # the malformed line's index among the rows
+BATCH_MAX_TOKENS = 16
+
+
+def batch_launcher(directory: str, tmp: str) -> dict:
+    """Phase 17c (see the module docstring): ``python -m
+    dynamo_tpu_torch.launch in=batch`` with both parsers named, over the
+    checkpoint at ``directory``; the JSONL and its rows in ``tmp``."""
+    import os
+    from dynamo_tpu_torch.llm.parsers import REASONING_FORMATS, TOOL_FORMATS
+    t0 = time.monotonic()
+    rng = np.random.default_rng(23)
+    lines = [json.dumps({"prompt": " ".join(rng.choice(WORDS, size=n))})
+             for n in rng.integers(20, 400, BATCH_PROMPTS)]
+    lines.insert(BATCH_MALFORMED_AT, '{"prompt": "unterminated')
+    inp = os.path.join(tmp, "batch.jsonl")
+    out_path = os.path.join(tmp, "batch-rows.jsonl")
+    with open(inp, "w", encoding="utf-8") as fh:
+        fh.write("\n".join(lines) + "\n")
+    assert "deepseek_r1" in REASONING_FORMATS and "hermes" in TOOL_FORMATS
+    procs = []
+    try:
+        entry = _spawn(procs, "dynamo_tpu_torch.launch", "in=batch",
+                       "out=gpu", "--model", directory, "--num-pages",
+                       "1024", "--input-file", inp, "--output-file",
+                       out_path, "--batch-concurrency", "4",
+                       "--batch-max-tokens", str(BATCH_MAX_TOKENS),
+                       "--reasoning-parser", "deepseek_r1",
+                       "--tool-call-parser", "hermes")
+        device = _wait_line(entry, "from an engine on", timeout=300)
+        assert "from an engine on cuda" in device, device
+        summary = json.loads(_wait_line(entry, '"batch_prompts"',
+                                        timeout=300))
+        proc, _, seen = entry
+        code = proc.wait(timeout=120)
+        assert code == 0, (code, seen[-20:])
+    finally:
+        for proc, _, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+    with open(out_path, encoding="utf-8") as fh:
+        rows = [json.loads(line) for line in fh]
+    assert [r["index"] for r in rows] == list(range(BATCH_PROMPTS + 1)), rows
+    errors = [r["index"] for r in rows if "error" in r]
+    assert errors == [BATCH_MALFORMED_AT], rows
+    good = [r for r in rows if "error" not in r]
+    assert all(r["tokens"] > 0 and r["finish_reason"] for r in good), good
+    assert summary["batch_prompts"] == BATCH_PROMPTS + 1, summary
+    assert summary["errors"] == 1, summary
+    assert summary["output_tokens"] == sum(r["tokens"] for r in rows), (
+        summary, rows)
+    out = {"rows": len(rows), "errors": errors,
+           "tokens": [r["tokens"] for r in good],
+           "finish_reasons": sorted({r["finish_reason"] for r in good}),
+           "summary": summary, "seconds": time.monotonic() - t0}
+    log(json.dumps({"batch_launcher": out}))
+    return out
+
+
 def checkpoint_phase(attention, model) -> dict:
     """Phase 7 (see the module docstring)."""
     import os
@@ -2775,6 +3119,7 @@ def checkpoint_phase(attention, model) -> dict:
                                     ("--quant", "int8", "--quant-kv", "int8"))
         assert int8_kv["tf_min_cosine_vs_preset"] > MIN_COSINE, int8_kv
         release(int8_kv)
+        batch = batch_launcher(llama, tmp)
         shutil.rmtree(llama)
 
         qwen = os.path.join(tmp, "Qwen2.5-0.5B-layout")
@@ -2786,7 +3131,7 @@ def checkpoint_phase(attention, model) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     mm = int8_mm_times()
     out = {"written": written, "bf16_weights": bf16, "int8_weights": int8,
-           "int8_weights_int8_pool": int8_kv,
+           "int8_weights_int8_pool": int8_kv, "batch_launcher": batch,
            "qwen_written": qwen_written, "qwen": qwen_stats, **mm,
            "phase_s": time.monotonic() - t_phase}
     log(json.dumps({"checkpoint_phase": out}))
@@ -6317,8 +6662,12 @@ ROLE_DRAIN_S = 1.0
 # S peaks near 16.6 GiB at this size (17.6 GiB with 1024 pages).
 STANDBY_PAGES = 512
 ROLE_WAIT_S = 120  # every wait of phase 16 fails at once past this
-PLANNER_INTERVAL_S = 2.0
+PLANNER_INTERVAL_S = 0.5
 PLANNER_STEPS = 3
+# 16e's chats decode this many tokens: seconds on P, so the planner's
+# steps fall while they decode (64-token chats ended before its first
+# step, and its demand read 0).
+PLANNER_CHAT_TOKENS = 512
 
 
 def ids_tokenizer(path: str, vocab: int) -> str:
@@ -6427,7 +6776,8 @@ def role_chats(port: int, bodies: list[dict]) -> list[dict]:
     return threads, answers
 
 
-def join_chats(threads, answers, what: str) -> list[dict]:
+def join_chats(threads, answers, what: str,
+               tokens: int = ROLE_TOKENS) -> list[dict]:
     deadline = time.monotonic() + ROLE_WAIT_S
     for t in threads:
         t.join(timeout=max(0.0, deadline - time.monotonic()))
@@ -6437,7 +6787,7 @@ def join_chats(threads, answers, what: str) -> list[dict]:
         assert a is not None, f"phase 16: {what}: a chat failed"
         s = stream_summary(a)
         assert a["status"] == 200 and s["finish"] == "length", (what, s)
-        assert s["usage"]["completion_tokens"] == ROLE_TOKENS, (what, s)
+        assert s["usage"]["completion_tokens"] == tokens, (what, s)
     return answers
 
 
@@ -6614,14 +6964,15 @@ def roles_phase(fleet: dict) -> dict:
                          "--coordinator-url", url, "--adjustment-interval",
                          str(PLANNER_INTERVAL_S), "--decode-component", "gpu")
         _wait_line(planner, "PLANNER_READY", timeout=ROLE_WAIT_S)
-        busy = role_chats(front, bodies[:4])
+        busy = role_chats(front, [dict(b, max_tokens=PLANNER_CHAT_TOKENS)
+                                  for b in bodies[:4]])
 
         def steps():
             return [json.loads(x.split(" ", 1)[1]) for x in planner[2]
                     if x.startswith("PLANNER_STEP ")]
         role_wait(planner, f"{PLANNER_STEPS} planner steps", lambda: (
             _drain(planner), len(steps()) >= PLANNER_STEPS)[1])
-        join_chats(*busy, "16e's chats")
+        join_chats(*busy, "16e's chats", PLANNER_CHAT_TOKENS)
         planner[0].send_signal(signal.SIGTERM)
         code = role_exit(planner, "the planner's exit")
         assert code == 0, (code, planner[2][-20:])
@@ -6629,6 +6980,8 @@ def roles_phase(fleet: dict) -> dict:
         assert all("decode" in d["decisions"] for d in decisions), decisions
         assert max(d["live_workers"]["decode"] for d in decisions) >= 1, \
             decisions
+        demand = [d["decisions"]["decode"]["demand"] for d in decisions]
+        assert max(demand) > 0, decisions
         planner_s = time.monotonic() - t0
         # 16d. The standby: parked with no card, then promoted as the
         # FleetScaler promotes, serving, retired.
@@ -7345,7 +7698,8 @@ def kernel_entry(name, variant, timing, main, max_err, stats,
                  http_launches, dist_launches, ckpt_launches,
                  disagg_launches, kv_launches, verify, spec_launches,
                  lora_launches, tier_launches, device_launches,
-                 obs_launches, admission_launches, roles_launches) -> dict:
+                 obs_launches, admission_launches, roles_launches,
+                 embed_launches) -> dict:
     """One kernel's summary: times at the B=32 x 2048 shape, and the same
     numbers at the main path's mid-round shape under ``main_shape``;
     launches in round 1, round 2, the HTTP phase, the distributed phase,
@@ -7357,7 +7711,8 @@ def kernel_entry(name, variant, timing, main, max_err, stats,
     phase 14's on that worker, both from the worker's own counters,
     phase 15's (its four parts summed) and phase 16's (the prefill worker
     flipped to agg, the decode worker until its flip, the promoted
-    standby); the verify route's numbers at both
+    standby) and phase 17's (its embed jobs and /v1/embeddings requests:
+    0, the embed path runs neither kernel); the verify route's numbers at both
     shapes under ``verify_route`` (``verify``: its check's error and the
     two timings)."""
     return {"name": name, "route": "cuda",
@@ -7377,6 +7732,7 @@ def kernel_entry(name, variant, timing, main, max_err, stats,
             "launches_observability": obs_launches,
             "launches_admission": admission_launches,
             "launches_roles": roles_launches,
+            "launches_embeddings": embed_launches,
             "max_abs_err": max(max_err, timing["max_abs_err"],
                                main["max_abs_err"], verify["err"],
                                verify["uniform"]["max_abs_err"],
@@ -7481,6 +7837,14 @@ def main() -> int:
             device["fleet"]["roles"]["phase_s"]
         admission = admission_phase(attention, model)
         phase_done("15 admission, perf plane")
+        embed = {"a": stats_bf16["embeddings"],
+                 "b": stats_http["embeddings"],
+                 "b_request_plane": stats_http["dist"]["embeddings"],
+                 "c": ckpt["batch_launcher"]}
+        seconds["17a embeddings (inside 3)"] = embed["a"]["phase_s"]
+        seconds["17b /v1/embeddings (inside 5-6)"] = (
+            embed["b"]["seconds"] + embed["b_request_plane"]["seconds"])
+        seconds["17c in=batch (inside 7)"] = embed["c"]["seconds"]
     except Exception:  # noqa: BLE001 — report and fail the run
         traceback.print_exc()
         return 1
@@ -7498,6 +7862,10 @@ def main() -> int:
 
     obs_launches = device["fleet"]["observability"]["launches"]
     roles_launches = device["fleet"]["roles"]["launches"]
+
+    def embed_launches(kernel):
+        return sum(embed[part]["launches"][kernel]
+                   for part in ("a", "b", "b_request_plane"))
     log(json.dumps({"phase_seconds": seconds}))
     log(json.dumps({"host_memory_after_phases": memory}))
     log(f"chip_smoke: {time.monotonic() - t_start:.1f} s in all")
@@ -7515,7 +7883,8 @@ def main() -> int:
                      device["launches"]["paged_attention_hist"],
                      obs_launches["paged_attention_hist"],
                      admission["launches"]["paged_attention_hist"],
-                     roles_launches["paged_attention_hist"]),
+                     roles_launches["paged_attention_hist"],
+                     embed_launches("paged_attention_hist")),
         kernel_entry("paged_attention_hist_int8",
                      "int8 pool, _decode_kernel(quantized=True)",
                      timing_int8, main_int8, err_int8, stats_int8,
@@ -7531,7 +7900,8 @@ def main() -> int:
                      device["launches"]["paged_attention_hist_int8"],
                      obs_launches["paged_attention_hist_int8"],
                      admission["launches"]["paged_attention_hist_int8"],
-                     roles_launches["paged_attention_hist_int8"])]}))
+                     roles_launches["paged_attention_hist_int8"],
+                     embed_launches("paged_attention_hist_int8"))]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -47,6 +47,10 @@ rest hot-load on demand; ``--max-lora-rank`` (default 8) is the rank
 every adapter pads to. A prefill worker advertises no adapter names: the
 decode side keeps adapter requests local.
 
+``--tool-call-parser`` and ``--reasoning-parser`` name the parsers
+(``llm/parsers.py``) of the registered model and adapter cards, which
+every front, the JAX package's too, applies to the model's chat streams.
+
 The reference worker's other flags are refused with the ROADMAP item each
 waits for; none is accepted and then ignored.
 
@@ -139,8 +143,9 @@ from dynamo_tpu_torch.llm.kv_router.publisher import (KvEventPublisher,
 from dynamo_tpu_torch import launch
 from dynamo_tpu_torch.engine.config import EngineConfig, parse_watermarks
 from dynamo_tpu_torch.launch import (NO_PREFILL_PROGRAMS,
-                                     ONE_ATTENTION, PARALLEL, PARSERS,
+                                     ONE_ATTENTION, PARALLEL,
                                      add_engine_args, add_lora_args,
+                                     add_parser_args,
                                      add_refused_flags, lora_args,
                                      load_engine, load_tokenizer)
 from dynamo_tpu_torch.llm.model_card import (ModelRuntimeConfig,
@@ -176,8 +181,6 @@ REFUSED_FLAGS = (
     ("--dp", PARALLEL, {"type": int, "allowed": (1,)}),
     ("--pp-microbatch", PARALLEL, {}),
     ("--ring-attention", PARALLEL, {}),
-    ("--tool-call-parser", PARSERS, {"type": str}),
-    ("--reasoning-parser", PARSERS, {"type": str}),
     ("--attention-backend", ONE_ATTENTION,
      {"type": str, "allowed": ("auto",)}),
     ("--warmup-prefill-ladder", NO_PREFILL_PROGRAMS, {}),
@@ -209,6 +212,7 @@ def parse_args(argv=None) -> argparse.Namespace:
         description="dynamo_tpu_torch GPU engine worker")
     add_engine_args(parser)
     add_lora_args(parser)
+    add_parser_args(parser)
     parser.add_argument("--namespace", default=None)
     parser.add_argument("--component", default="gpu")
     parser.add_argument("--endpoint", default="generate")
@@ -305,7 +309,9 @@ async def serve_engine(runtime: DistributedRuntime, engine: GPUEngine,
                        model_name: str, tokenizer: Tokenizer,
                        component: str = "gpu", endpoint: str = "generate",
                        migration_limit: int = 0,
-                       handler=None, adapters=()) -> EndpointServer:
+                       handler=None, adapters=(),
+                       tool_call_parser: str | None = None,
+                       reasoning_parser: str | None = None) -> EndpointServer:
     """Serve ``handler`` (default ``engine.handler()``; a decode worker's
     is ``DisaggDecodeHandler.handler()``) at
     ``{namespace}/{component}/{endpoint}`` and register the model, and one
@@ -320,7 +326,9 @@ async def serve_engine(runtime: DistributedRuntime, engine: GPUEngine,
                                      graceful_shutdown=False)
     card_kw = dict(context_length=cfg.max_model_len,
                    kv_cache_block_size=cfg.page_size,
-                   migration_limit=migration_limit)
+                   migration_limit=migration_limit,
+                   tool_call_parser=tool_call_parser,
+                   reasoning_parser=reasoning_parser)
 
     def runtime_config():
         # expected_roofline_frac: the perf expectation a live
@@ -547,7 +555,9 @@ def make_profile_builder(runtime: DistributedRuntime, args, engine: GPUEngine,
         server = await serve_engine(runtime, engine, model_name, tokenizer,
                                     args.component, args.endpoint,
                                     args.migration_limit, handler=handler,
-                                    adapters=adapter_names)
+                                    adapters=adapter_names,
+                                    tool_call_parser=args.tool_call_parser,
+                                    reasoning_parser=args.reasoning_parser)
         prof.add_server(server)
         for name in (model_name, *adapter_names):
             prof.add_closer(f"card-{name}",

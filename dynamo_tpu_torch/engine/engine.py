@@ -33,6 +33,9 @@ CUDA IPC path, else streamed one page group per chunk). A decode worker's
 device tensor from the plane's device path): admission inserts it into
 fresh pages and the request decodes from the prefill worker's first
 token, under the same seeded and penalty rules as a local prefill.
+Embeddings (``embed``, the /v1/embeddings backend) are such a job too:
+one eager ``runner.embed`` pass between windows, outside admission, the
+SLA gate and the cold-token ledger, as in the reference.
 
 KV routing (``llm/kv_router``): after each processed window the engine
 drains the allocator's stored and removed block hashes and, with
@@ -721,22 +724,31 @@ class GPUEngine(AsyncEngine):
                 return
 
     def handler(self):
-        """The endpoint handler that serves ``generate`` and the admin
+        """The endpoint handler that serves ``generate``, ``embed``
+        (``{"embed": True, "token_lists", "pooling"}``, answered with one
+        ``{"embeddings": [[...], ...]}`` item) and the admin
         ``clear_kv_blocks`` on the request plane
-        (``Endpoint.serve_endpoint``). ``embed`` requests are refused,
-        never answered with an empty stream."""
+        (``Endpoint.serve_endpoint``)."""
         async def handle(request, context):
             if isinstance(request, dict) and request.get("clear_kv_blocks"):
                 yield {"cleared": await self.clear_kv_blocks()}
                 return
             if isinstance(request, dict) and request.get("embed"):
-                raise InvalidRequestError(
-                    "embed requests are not ported yet: they wait for "
-                    "ROADMAP item 13")
+                yield {"embeddings": await self.embed(
+                    request["token_lists"], request.get("pooling", "last"))}
+                return
             async for out in self.generate(request, context):
                 yield out
 
         return handle
+
+    async def embed(self, token_lists: list[list[int]],
+                    pooling: str = "last") -> list[list[float]]:
+        """Batch embeddings (``runner.embed``), computed on the engine
+        thread between windows (the /v1/embeddings backend)."""
+        out = await self.run_job(
+            lambda: self.runner.embed(token_lists, pooling))
+        return [row.tolist() for row in out]
 
     async def clear_kv_blocks(self) -> int:
         """Admin: drop the reusable (inactive) prefix cache; the host and

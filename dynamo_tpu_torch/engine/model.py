@@ -519,6 +519,37 @@ def _prefill(params, spec, k_cache, v_cache, tokens, positions, page_table,
     return lm_logits(x_last, params, spec), k_cache, v_cache
 
 
+def embed_forward(params: Params, spec: ModelSpec, tokens, seq_lens,
+                  pooling: str = "last") -> torch.Tensor:
+    """Embedding forward (the reference's ``embed_forward``): a full pass
+    with no KV cache over tokens [B,S] (padded) with seq_lens [B], the
+    final hidden states pooled over the valid positions, ``"last"`` (the
+    final valid token) or ``"mean"`` (masked mean). Returns L2-normalized
+    [B,H] float32 (the engine side of /v1/embeddings)."""
+    b, s = tokens.shape
+    x = embed_lookup(params["embed"], tokens)
+    positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+    cos, sin = rope_tables(positions, spec.head_dim, spec.rope_theta)
+    valid = positions < seq_lens[:, None]
+    for layer in range(spec.num_layers):
+        lp = layer_params(params, layer)
+        h = rms_norm(x, lp["input_norm"], spec.rms_norm_eps)
+        q, k, v = _qkv(h, lp, spec, cos, sin)
+        attn = causal_attention(q, k, v, positions, valid, spec.q_per_kv)
+        x = x + mm(attn.reshape(b, s, -1), lp["wo"])
+        h2 = rms_norm(x, lp["post_attn_norm"], spec.rms_norm_eps)
+        x = x + ffn_block(h2, lp, spec)
+    x = rms_norm(x, params["final_norm"], spec.rms_norm_eps).float()
+    if pooling == "mean":
+        m = valid[..., None].float()
+        pooled = (x * m).sum(dim=1) / m.sum(dim=1).clamp(min=1.0)
+    else:
+        last = (seq_lens.long() - 1).clamp(min=0)
+        pooled = x[torch.arange(b, device=x.device), last]
+    return pooled / torch.linalg.norm(pooled, dim=-1,
+                                      keepdim=True).clamp(min=1e-12)
+
+
 def decode_window_step(params: Params, spec: ModelSpec, k_cache, v_cache,
                        k_buf, v_buf, m: int, tokens, positions, page_table,
                        hist_lens, attention_impl=None, lora=None,

@@ -7,6 +7,8 @@
   ``tokens_dev`` so the next decode window chains from it without a host
   round trip. ``prefill_chunk_async`` runs an intermediate chunk, whose
   sampled token nobody needs.
+- ``embed``: the pooled, normalized final hidden states of a padded batch
+  of prompts (/v1/embeddings), one eager pass with no KV cache.
 - ``decode_window``: M decode steps for the whole slot batch. The host
   uploads one packed int32 control array per window (the ``PK_*`` columns,
   byte-identical to the reference), tokens chain on the device, the
@@ -84,8 +86,8 @@ from dynamo_tpu_torch.engine.kv_quant import (
     BF16, QuantKV, is_packed_parcel, pack_parcel, parcel_to_bf16, quantize_np,
     scatter_tokens, unpack_parcel)
 from dynamo_tpu_torch.engine.model import (decode_window_multi_step,
-                                           decode_window_step, init_params,
-                                           prefill_forward,
+                                           decode_window_step, embed_forward,
+                                           init_params, prefill_forward,
                                            prefill_with_history)
 from dynamo_tpu_torch.engine.quant import (QTensor, is_quantized,
                                            quantize_params)
@@ -472,6 +474,34 @@ class ModelRunner:
         if any(s.logprobs for s in seqs):
             lp, top_v, top_i = logprobs_of(logits, sampled)
         return sampled, lp, top_v, top_i
+
+    def embed(self, token_lists: list[list[int]],
+              pooling: str = "last") -> np.ndarray:
+        """Pooled, L2-normalized embeddings [n, H] float32 on the host for
+        a batch of prompts, padded to the bucket of the longest and to a
+        power-of-two batch (padding rows: token 0, length 1, dropped).
+        Eager, like the prefill: no CUDA graph."""
+        cfg = self.config
+        if not token_lists or any(not t for t in token_lists):
+            raise ValueError("embeddings need at least one non-empty input")
+        n_max = max(len(t) for t in token_lists)
+        if n_max > cfg.prefill_buckets[-1]:
+            raise ValueError(
+                f"embedding input of {n_max} tokens exceeds the largest "
+                f"prefill bucket ({cfg.prefill_buckets[-1]})")
+        bucket = cfg.bucket_for(n_max)
+        bp = 1
+        while bp < len(token_lists):
+            bp *= 2
+        toks = np.zeros((bp, bucket), np.int32)
+        lens = np.ones((bp,), np.int32)
+        for i, t in enumerate(token_lists):
+            toks[i, :len(t)] = t
+            lens[i] = len(t)
+        self._note_first_use("embed", (bucket, bp, pooling))
+        out = embed_forward(self.params, self.spec, self._upload(toks),
+                            self._upload(lens), pooling=pooling)
+        return out[:len(token_lists)].cpu().numpy()
 
     def prefill_chunk_async(self, seq: PrefillSeq) -> None:
         """Enqueue one intermediate chunk of a long prompt. Nothing comes

@@ -37,8 +37,9 @@ import argparse
 import asyncio
 import signal
 
-from dynamo_tpu_torch.launch import (add_refused_flags, init_observability,
-                                     make_limiter, start_front)
+from dynamo_tpu_torch.launch import (GRPC, add_refused_flags,
+                                     init_observability, make_limiter,
+                                     start_front)
 from dynamo_tpu_torch.llm.canary import (CanaryConfig, CanaryProber,
                                          apply_canary_env)
 from dynamo_tpu_torch.llm.discovery import ROUTER_MODES
@@ -51,8 +52,7 @@ from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
 # The reference frontend's flags that the port does not serve:
 # (flag, what it waits for, add_argument keywords).
 REFUSED_FLAGS = (
-    ("--grpc-port", "ROADMAP item 24 (the KServe gRPC front)",
-     {"type": int}),
+    ("--grpc-port", GRPC, {"type": int}),
 )
 
 

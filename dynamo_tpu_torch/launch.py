@@ -6,7 +6,16 @@ detokenizing backend and GPUEngine in one process, with no coordinator and
 no network hop between front and engine; ``out=dyn`` runs the same front
 over a ``ModelWatcher`` on ``--coordinator-url`` and serves whatever
 workers (``python -m dynamo_tpu_torch.backends.gpu``, or the JAX
-package's) register there.
+package's) register there. ``in=text`` and ``in=batch`` drive the same
+one-process pipeline (``out=gpu`` or ``out=mocker``) without a front:
+``in=text`` reads one user message a line from stdin and streams the
+answer to stdout until an empty line or EOF; ``in=batch`` runs the JSONL
+``--input-file`` (``{"prompt": ...}`` or ``{"messages": [...]}`` rows,
+optional ``max_tokens`` and ``temperature``) through it,
+``--batch-concurrency`` requests at a time (``--batch-max-tokens`` by
+default), writes one result row a line in input order to
+``--output-file`` (default ``<input>.results.jsonl``; a malformed line or
+a failed request gives an error row) and prints one summary JSON line.
 
     python -m dynamo_tpu_torch.launch in=http out=gpu --model llama-3-8b
     python -m dynamo_tpu_torch.launch --model /path/to/checkpoint --quant int8
@@ -14,6 +23,8 @@ package's) register there.
     python -m dynamo_tpu_torch.launch --model llama-3-8b --lora a=/path/to/peft_a
     python -m dynamo_tpu_torch.launch in=http out=dyn --coordinator-url tcp://127.0.0.1:4222
     python -m dynamo_tpu_torch.launch in=http out=mocker --http-port 0
+    python -m dynamo_tpu_torch.launch in=text --model tiny-test --device cpu
+    python -m dynamo_tpu_torch.launch in=batch --input-file prompts.jsonl --batch-concurrency 4
 
 ``--model`` is a preset (random weights from ``--seed``), a HF Llama or
 Qwen2 checkpoint directory (``config.json`` and ``*.safetensors``), or a
@@ -30,9 +41,10 @@ behind the overload defense's adaptive limiter (``[overload]`` /
 ``DTPU_OVERLOAD_*``; ``DTPU_OVERLOAD_ENABLED=0`` turns it off) and arm the
 SLO plane and the request ledger (``init_observability``):
 ``--slo-ttft-p99-ms`` sets the TTFT target and ``--request-log PATH``
-appends each request's accounting record to a JSONL file. The reference
-launcher's other
-inputs and output (``in=text|batch|grpc``, ``out=echo``) and its
+appends each request's accounting record to a JSONL file.
+``--tool-call-parser`` and ``--reasoning-parser`` name the parsers
+(``llm/parsers.py``) on the served models' cards. The reference
+launcher's other input and output (``in=grpc``, ``out=echo``) and its
 flags that the port does not serve (``REFUSED_FLAGS``) exit naming the
 ROADMAP item each waits for; none is accepted and then ignored. ``--lora NAME=PATH``
 (repeatable, ``out=gpu`` only, as in the reference) registers a HF PEFT
@@ -50,9 +62,11 @@ from __future__ import annotations
 import argparse
 import asyncio
 import dataclasses
+import json
 import os
 import signal
 import sys
+import time
 
 from dynamo_tpu_torch.engine.config import EngineConfig
 from dynamo_tpu_torch.engine.engine import GPUEngine
@@ -67,10 +81,12 @@ from dynamo_tpu_torch.llm.model_card import (DEFAULT_CHAT_TEMPLATE,
                                              ModelDeploymentCard, ModelEntry,
                                              ModelRuntimeConfig)
 from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+from dynamo_tpu_torch.llm.protocols import ChatCompletionRequest
 from dynamo_tpu_torch.llm.recorder import configure_ledger
 from dynamo_tpu_torch.llm.tokenizer import Tokenizer, make_test_tokenizer
 from dynamo_tpu_torch.runtime import flight, journal, slo
 from dynamo_tpu_torch.runtime.config import RuntimeConfig
+from dynamo_tpu_torch.runtime.context import Context
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
 from dynamo_tpu_torch.runtime.logging import get_logger
 from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
@@ -81,17 +97,14 @@ log = get_logger("launch")
 # What the reference's flags and in=/out= values that the port does not
 # serve wait for (the worker main's refusals use the same texts).
 PARALLEL = "ROADMAP item 16 (parallelism across GPUs and nodes)"
-PARSERS = "ROADMAP item 23 (the tool-call and reasoning parsers)"
-INPUTS = "ROADMAP item 24 (the launcher's interactive and batch inputs)"
+GRPC = "ROADMAP item 24 (the KServe gRPC front)"
 ONE_ATTENTION = ("no ROADMAP item: the port has one attention path, its "
                  "paged-attention kernel")
 NO_PREFILL_PROGRAMS = ("no ROADMAP item: the port compiles no prefill "
                        "programs")
 
 NOT_PORTED = {
-    "in=text": INPUTS,
-    "in=batch": INPUTS,
-    "in=grpc": "ROADMAP item 24 (the KServe gRPC front)",
+    "in=grpc": GRPC,
     "out=echo": "no ROADMAP item: the echo engine is copied when a slice "
                 "needs it",
 }
@@ -107,12 +120,6 @@ REFUSED_FLAGS = (
     ("--attention-backend", ONE_ATTENTION,
      {"type": str, "allowed": ("auto",)}),
     ("--warmup-prefill-ladder", NO_PREFILL_PROGRAMS, {}),
-    ("--tool-call-parser", PARSERS, {"type": str}),
-    ("--reasoning-parser", PARSERS, {"type": str}),
-    ("--input-file", INPUTS, {"type": str}),
-    ("--output-file", INPUTS, {"type": str}),
-    ("--batch-concurrency", INPUTS, {"type": int, "allowed": (8,)}),
-    ("--batch-max-tokens", INPUTS, {"type": int, "allowed": (128,)}),
 )
 
 
@@ -213,6 +220,17 @@ def add_lora_args(parser: argparse.ArgumentParser) -> None:
                              "larger rank is refused)")
 
 
+def add_parser_args(parser: argparse.ArgumentParser) -> None:
+    """The backward-edge parser flags, shared by the launcher and the
+    worker main: the names go on the served model cards."""
+    parser.add_argument("--tool-call-parser", default=None,
+                        help="tool-call format on the backward edge "
+                             "(hermes, llama3_json, mistral, nemotron_deci, "
+                             "phi4, default)")
+    parser.add_argument("--reasoning-parser", default=None,
+                        help="think-tag splitting (deepseek_r1, basic)")
+
+
 def lora_args(args) -> list[tuple[str, str]]:
     """The repeated ``--lora NAME=PATH`` flags as (name, path) pairs."""
     out = []
@@ -244,9 +262,21 @@ def parse_args(argv=None) -> argparse.Namespace:
         else:
             rest.append(a)
     parser = argparse.ArgumentParser(
-        description="dynamo_tpu_torch launcher (in=http out=gpu|dyn|mocker)")
+        description="dynamo_tpu_torch launcher (in=http|text|batch "
+                    "out=gpu|dyn|mocker)")
     add_engine_args(parser)
     add_lora_args(parser)
+    add_parser_args(parser)
+    parser.add_argument("--input-file", default=None,
+                        help="in=batch: JSONL of prompts ({'prompt': ...} or "
+                             "{'messages': [...]}, optional max_tokens)")
+    parser.add_argument("--output-file", default=None,
+                        help="in=batch: JSONL results path "
+                             "(default <input-file>.results.jsonl)")
+    parser.add_argument("--batch-concurrency", type=int, default=8,
+                        help="in=batch: max in-flight requests")
+    parser.add_argument("--batch-max-tokens", type=int, default=128,
+                        help="in=batch: default max_tokens per prompt")
     parser.add_argument("--context-length", type=int, default=8192)
     parser.add_argument("--http-host", default="127.0.0.1")
     parser.add_argument("--http-port", type=int, default=8000,
@@ -269,10 +299,14 @@ def parse_args(argv=None) -> argparse.Namespace:
         if wait:
             parser.error(f"{key}={value} is not ported yet: it waits for "
                          f"{wait}")
-    if io["in"] != "http":
-        parser.error(f"in= must be http, got {io['in']!r}")
+    if io["in"] not in ("http", "text", "batch"):
+        parser.error(f"in= must be http|text|batch, got {io['in']!r}")
+    if io["in"] == "batch" and not args.input_file:
+        parser.error("in=batch requires --input-file")
     if io["out"] not in ("gpu", "dyn", "mocker"):
         parser.error(f"out= must be gpu or dyn or mocker, got {io['out']!r}")
+    if io["in"] != "http" and io["out"] == "dyn":
+        parser.error(f"in={io['in']} requires a local out= engine")
     if args.lora and io["out"] != "gpu":
         parser.error("--lora needs the real engine (out=gpu)")
     args.input, args.output = io["in"], io["out"]
@@ -378,6 +412,8 @@ def build_local_served(args, engine: GPUEngine | None = None,
         card = ModelDeploymentCard(
             name=model, chat_template=DEFAULT_CHAT_TEMPLATE,
             context_length=args.context_length,
+            tool_call_parser=args.tool_call_parser,
+            reasoning_parser=args.reasoning_parser,
             runtime_config=ModelRuntimeConfig(extra=extra))
         entry = ModelEntry(model_name=model, namespace="local",
                            component="local", endpoint="generate",
@@ -427,16 +463,14 @@ def make_limiter(cfg: RuntimeConfig, metrics) -> AdaptiveLimiter | None:
             if cfg.overload.enabled else None)
 
 
-async def start_http(args, engine: GPUEngine | None = None
-                     ) -> tuple[HttpService, GPUEngine]:
-    """Build the served model and start the HTTP front on the running
-    event loop; the caller stops both. One metrics registry holds the
-    front's series and, for an engine built here, the engine's (under
-    ``local``/``gpu``, the reference launcher's hierarchy); the flight
-    recorder's bundles snapshot it. The runtime settings are the
-    reference launcher's: the defaults (``RuntimeConfig()``), so the
-    front runs the default limiter, with ``--slo-ttft-p99-ms`` and
-    ``--request-log`` on top."""
+def local_pipeline(args, engine: GPUEngine | None = None):
+    """``build_local_served`` with this process's observability armed:
+    one metrics registry holds, for an engine built here, the engine's
+    series (under ``local``/``gpu``, the reference launcher's hierarchy)
+    and the front's; the flight recorder's bundles snapshot it. The
+    runtime settings are the reference launcher's: the defaults
+    (``RuntimeConfig()``) with ``--slo-ttft-p99-ms`` and
+    ``--request-log`` on top. Returns (served, engine, metrics, cfg)."""
     metrics = MetricsRegistry()
     served, engine = build_local_served(
         args, engine,
@@ -445,6 +479,15 @@ async def start_http(args, engine: GPUEngine | None = None
     apply_slo_args(cfg, args)
     init_observability(cfg, metrics,
                        fingerprint=dataclasses.asdict(engine.config))
+    return served, engine, metrics, cfg
+
+
+async def start_http(args, engine: GPUEngine | None = None
+                     ) -> tuple[HttpService, GPUEngine]:
+    """Build the served model (``local_pipeline``) and start the HTTP
+    front on the running event loop, behind the default limiter; the
+    caller stops both."""
+    served, engine, metrics, cfg = local_pipeline(args, engine)
     manager = ModelManager()
     for model in (served, *served.adapter_served):
         manager.models[model.name] = model
@@ -521,9 +564,135 @@ async def start_dyn(args) -> tuple[HttpService, DistributedRuntime,
     return service, runtime, watcher
 
 
+async def run_text_repl(served: ServedModel) -> None:
+    """in=text: an interactive prompt loop on stdin, one user message a
+    line, each answer streamed to stdout; an empty line or EOF ends it."""
+    loop = asyncio.get_running_loop()
+    print("dynamo-tpu text console — empty line or EOF exits", flush=True)
+    while True:
+        line = await loop.run_in_executor(None, sys.stdin.readline)
+        if not line or not line.strip():
+            return
+        req = ChatCompletionRequest.model_validate({
+            "model": served.name,
+            "messages": [{"role": "user", "content": line.strip()}],
+            "max_tokens": 64, "stream": True})
+        async for chunk in served.preprocessor.generate(req, Context()):
+            for choice in chunk.get("choices", []):
+                piece = choice.get("delta", {}).get("content")
+                if piece:
+                    print(piece, end="", flush=True)
+        print(flush=True)
+
+
+def read_batch(path: str) -> list:
+    """in=batch: the JSONL file's jobs, one per non-blank line; a line
+    that does not parse is a ``ValueError`` in its place."""
+    jobs = []
+    with open(path, "r", encoding="utf-8") as fh:
+        for line in fh:
+            if not line.strip():
+                continue
+            try:
+                jobs.append(json.loads(line))
+            except json.JSONDecodeError as exc:
+                jobs.append(ValueError(f"unparseable JSONL line: {exc}"))
+    return jobs
+
+
+async def batch_row(served: ServedModel, args, idx: int, job,
+                    sem: asyncio.Semaphore) -> dict:
+    """One in=batch job's result row: its text, finish reason, completion
+    tokens (from the usage block: text deltas are not one per token),
+    elapsed and first-content seconds; an error row for a malformed line
+    or a failed request, so the rest of the batch goes on."""
+    try:
+        if isinstance(job, Exception):
+            raise job
+        if not isinstance(job, dict):
+            raise ValueError(f"line is {type(job).__name__}, "
+                             "expected a JSON object")
+        messages = job.get("messages") or [
+            {"role": "user", "content": job.get("prompt", "")}]
+        req = ChatCompletionRequest.model_validate({
+            "model": served.name, "messages": messages,
+            "max_tokens": int(job.get("max_tokens", args.batch_max_tokens)),
+            "temperature": job.get("temperature", 0.0), "stream": True,
+            "stream_options": {"include_usage": True}})
+        text, n_tokens, finish = [], 0, None
+        async with sem:
+            t0 = time.monotonic()
+            t_first = None
+            async for chunk in served.preprocessor.generate(req, Context()):
+                usage = chunk.get("usage")
+                if usage:
+                    n_tokens = usage.get("completion_tokens", n_tokens)
+                for choice in chunk.get("choices", []):
+                    piece = choice.get("delta", {}).get("content")
+                    if piece:
+                        if t_first is None:
+                            t_first = time.monotonic()
+                        text.append(piece)
+                    if choice.get("finish_reason"):
+                        finish = choice["finish_reason"]
+            elapsed = time.monotonic() - t0
+        return {"index": idx, "text": "".join(text),
+                "finish_reason": finish, "tokens": n_tokens,
+                "elapsed_s": round(elapsed, 4),
+                "ttft_s": round((t_first or t0) - t0, 4)}
+    except Exception as exc:  # noqa: BLE001 — keep the batch going
+        return {"index": idx, "error": f"{type(exc).__name__}: {exc}",
+                "tokens": 0}
+
+
+async def run_batch(served: ServedModel, args) -> dict:
+    """in=batch: the ``--input-file`` jobs through the pipeline,
+    ``--batch-concurrency`` at a time; writes their rows in input order
+    to ``--output-file`` (default ``<input>.results.jsonl``) and prints
+    and returns the summary."""
+    jobs = read_batch(args.input_file)
+    out_path = args.output_file or args.input_file + ".results.jsonl"
+    sem = asyncio.Semaphore(args.batch_concurrency)
+    t0 = time.monotonic()
+    results = await asyncio.gather(*[batch_row(served, args, i, job, sem)
+                                     for i, job in enumerate(jobs)])
+    elapsed = time.monotonic() - t0
+    with open(out_path, "w", encoding="utf-8") as fh:
+        for row in results:
+            fh.write(json.dumps(row) + "\n")
+    total_tokens = sum(r["tokens"] for r in results)
+    summary = {
+        "batch_prompts": len(jobs),
+        "errors": sum(1 for r in results if "error" in r),
+        "output_tokens": total_tokens, "elapsed_s": round(elapsed, 3),
+        "tok_s": round(total_tokens / elapsed, 1) if elapsed else 0.0,
+        "results": out_path}
+    print(json.dumps(summary), flush=True)
+    return summary
+
+
+async def run_local_input(args) -> None:
+    """in=text or in=batch over the one-process pipeline, then stop its
+    engine."""
+    served, engine, _, _ = local_pipeline(args)
+    log.info("in=%s: %s", args.input,
+             f"{args.model} from the mocker" if args.output == "mocker" else
+             f"{args.model} from an engine on {engine.runner.device}")
+    try:
+        if args.input == "text":
+            await run_text_repl(served)
+        else:
+            await run_batch(served, args)
+    finally:
+        await stop_engine(engine)
+
+
 async def run(args) -> None:
     """Serve until SIGINT or SIGTERM, then stop the front and what it
-    serves from."""
+    serves from (in=text and in=batch: until their input ends)."""
+    if args.input != "http":
+        await run_local_input(args)
+        return
     loop = asyncio.get_running_loop()
     done = asyncio.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):

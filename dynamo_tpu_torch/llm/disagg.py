@@ -255,7 +255,8 @@ class DisaggDecodeHandler:
                 yield {"cleared": freed}
                 return
             if isinstance(request, dict) and request.get("embed"):
-                # Refused as the aggregated worker refuses it.
+                # Embeddings take no disaggregated path: this worker's
+                # engine answers them, as an aggregated worker's does.
                 async for out in self.engine.handler()(request, context):
                     yield out
                 return

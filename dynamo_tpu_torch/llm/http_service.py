@@ -5,10 +5,10 @@ routes, bodies, error statuses, metrics and spans of
 Routes: ``POST /v1/chat/completions``, ``POST /v1/completions`` and
 ``POST /v1/responses`` (streamed as server-sent events, or not),
 ``GET /v1/models``, ``GET /health``, ``GET /live``, ``GET /metrics``,
-``POST /clear_kv_blocks``, ``GET /debug/fleet`` and the debug routes of
-``runtime/health.add_debug_routes``. ``POST /v1/embeddings`` answers 501
-naming ROADMAP item 13 and ``POST /v1/audio/transcriptions`` 501 naming
-item 15. Errors are OpenAI error bodies: 400 for a body that does not
+``POST /v1/embeddings``, ``POST /clear_kv_blocks``, ``GET /debug/fleet``
+and the debug routes of ``runtime/health.add_debug_routes``.
+``POST /v1/audio/transcriptions`` answers 501 naming ROADMAP item 15.
+Errors are OpenAI error bodies: 400 for a body that does not
 parse or validate and for ``ValueError`` / ``InvalidRequestError`` from
 the pipeline, 404 for an unknown model, 404 ``adapter_not_found`` when a
 model name resolves to a LoRA adapter its worker does not hold, 503
@@ -84,8 +84,6 @@ BROWNOUT_HEADER = "X-Overload-Brownout"
 TENANT_HEADER = "x-tenant"
 
 NOT_PORTED_ROUTES = {
-    "/v1/embeddings": "embeddings are not ported: /v1/embeddings waits "
-                      "for ROADMAP item 13",
     "/v1/audio/transcriptions": "audio input is not ported: "
                                 "/v1/audio/transcriptions waits for "
                                 "ROADMAP item 15",
@@ -195,6 +193,7 @@ class HttpService:
                 ("POST", "/v1/chat/completions", self._chat),
                 ("POST", "/v1/completions", self._completion),
                 ("POST", "/v1/responses", self._responses),
+                ("POST", "/v1/embeddings", self._embeddings),
                 ("GET", "/v1/models", self._models),
                 ("POST", "/clear_kv_blocks", self._clear_kv_blocks),
                 ("GET", "/health", self._health),
@@ -609,6 +608,83 @@ class HttpService:
             raise
 
     # -- the other routes -----------------------------------------------------
+    async def _embeddings(self, req: Request, ex: Exchange) -> None:
+        """OpenAI /v1/embeddings: tokenizes the input (a string, a list of
+        strings, a token list or a list of token lists) and asks the
+        in-process engine (static pipeline) or a worker (``{"embed":
+        True, ...}`` round-robin) for the pooled, normalized vectors."""
+        route = "embeddings"
+        started = time.monotonic()
+        self._m_inflight.inc(route=route)
+        code, payload, extra = 500, None, None
+        try:
+            code, payload, extra = await self._embed_answer(req)
+        except Exception as exc:  # noqa: BLE001
+            log.exception("embeddings handler failed")
+            code, payload = error_body(f"internal error: {exc}",
+                                       "internal_error", 500)
+        finally:
+            self._m_requests.inc(route=route, status=str(code))
+            self._m_inflight.dec(route=route)
+            self._m_duration.observe(time.monotonic() - started, route=route)
+        await ex.send_json(code, payload, extra)
+
+    async def _embed_answer(self, req: Request
+                            ) -> tuple[int, dict, dict | None]:
+        """(status, body, extra headers) of one /v1/embeddings request."""
+        try:
+            body = req.json()
+            model = body["model"]
+            raw = body.get("input")
+            if raw is None:
+                raise ValueError("missing 'input'")
+        except (KeyError, ValueError) as exc:
+            return (*error_body(str(exc)), None)
+        served = self.manager.get(model)
+        if served is None:
+            return (*error_body(f"model {model!r} not found",
+                                "model_not_found", 404), None)
+        inputs = raw if isinstance(raw, list) else [raw]
+        if inputs and isinstance(inputs[0], int):
+            inputs = [inputs]  # one pre-tokenized prompt
+        tokenizer = served.preprocessor.tokenizer
+        token_lists = [t if isinstance(t, list) else tokenizer.encode(t)
+                       for t in inputs]
+        limit = served.entry.card.context_length
+        if not token_lists or any(not t for t in token_lists):
+            return (*error_body("'input' must contain at least one "
+                                "non-empty prompt"), None)
+        if any(len(t) > limit for t in token_lists):
+            return (*error_body(f"input exceeds the model context length "
+                                f"({limit})"), None)
+        pooling = body.get("pooling", "last")
+        try:
+            if served.client is None:
+                # Static pipeline (the launcher): the in-process engine
+                # behind Preprocessor -> Backend.
+                vectors = await served.preprocessor.inner.inner.embed(
+                    token_lists, pooling)
+            else:
+                stream = await served.client.generate(
+                    {"embed": True, "token_lists": token_lists,
+                     "pooling": pooling}, mode="round_robin")
+                vectors = None
+                async for item in stream:
+                    if "embeddings" in item:
+                        vectors = item["embeddings"]
+                if vectors is None:
+                    raise RuntimeError("worker returned no embeddings")
+        except NoInstancesError as exc:
+            return (*error_body(str(exc), "service_unavailable", 503),
+                    _retry_after_header(self._retry_after(exc)))
+        total = sum(len(t) for t in token_lists)
+        return 200, {
+            "object": "list", "model": model,
+            "data": [{"object": "embedding", "index": i, "embedding": v}
+                     for i, v in enumerate(vectors)],
+            "usage": {"prompt_tokens": total, "total_tokens": total},
+        }, None
+
     @staticmethod
     def _not_ported(message: str):
         async def handler(_req: Request, ex: Exchange) -> None:

@@ -58,8 +58,8 @@ class ModelDeploymentCard:
     context_length: int = 8192
     kv_cache_block_size: int = 16
     migration_limit: int = 0
-    # Backward-edge parsers: not ported; a card that names one is refused
-    # by the preprocessor.
+    # Backward-edge parsers: names resolved by llm/parsers.py TOOL_FORMATS
+    # / REASONING_FORMATS; None = raw text.
     tool_call_parser: str | None = None
     reasoning_parser: str | None = None
     runtime_config: ModelRuntimeConfig = dataclasses.field(
@@ -119,6 +119,8 @@ async def register_llm(
     context_length: int = 8192,
     kv_cache_block_size: int = 16,
     migration_limit: int = 0,
+    tool_call_parser: str | None = None,
+    reasoning_parser: str | None = None,
     runtime_config: ModelRuntimeConfig | None = None,
 ) -> ModelEntry:
     """Register a served model: ship the tokenizer to the object store and
@@ -134,6 +136,7 @@ async def register_llm(
         context_length=context_length,
         kv_cache_block_size=kv_cache_block_size,
         migration_limit=migration_limit,
+        tool_call_parser=tool_call_parser, reasoning_parser=reasoning_parser,
         runtime_config=runtime_config or ModelRuntimeConfig())
     entry = ModelEntry(model_name=model_name,
                        namespace=endpoint.component.namespace,

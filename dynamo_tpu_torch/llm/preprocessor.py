@@ -5,9 +5,12 @@ The forward direction renders the default chat template
 (``llm/chat_template.py``, no jinja2), tokenizes, and applies sampling and
 stop defaulting into a PreprocessedRequest; the backward direction turns
 LLMEngineOutput streams into OpenAI chat.completion.chunk /
-text_completion deltas with usage and finish reasons. Image parts, the
-vision encoder and the tool-call and reasoning parsers are not ported: a
-request that needs them raises ``ValueError`` (a 400 at the front).
+text_completion deltas with usage and finish reasons. When the card
+names parsers (``llm/parsers.py``), think-tags go out as
+``reasoning_content`` deltas and tool-call payloads are held out of the
+content and emitted as ``tool_calls`` at finish. Image parts and the
+vision encoder are not ported: a request with an image raises
+``ValueError`` (a 400 at the front).
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ from typing import Any, AsyncIterator
 
 from dynamo_tpu_torch.llm import chat_template
 from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+from dynamo_tpu_torch.llm.parsers import (StreamingReasoningParser,
+                                          StreamingToolCallParser)
 from dynamo_tpu_torch.llm.protocols import (
     ChatCompletionRequest,
     CompletionRequest,
@@ -156,18 +161,14 @@ class OpenAIPreprocessor(Operator):
 
 
 class ChatDeltaGenerator:
-    """LLMEngineOutput stream -> OpenAI chat.completion.chunk dicts. The
-    tool-call and reasoning parsers are not ported: naming one raises
-    ``ValueError``."""
+    """LLMEngineOutput stream -> OpenAI chat.completion.chunk dicts. When
+    the card names parsers, think-tags split into reasoning_content deltas
+    and tool-call payloads are held out of the content stream and emitted
+    as tool_calls at finish (finish_reason becomes "tool_calls")."""
 
     def __init__(self, request: ChatCompletionRequest, prompt_tokens: int,
                  tool_call_parser: str | None = None,
                  reasoning_parser: str | None = None):
-        for kind, name in (("tool-call", tool_call_parser),
-                           ("reasoning", reasoning_parser)):
-            if name is not None:
-                raise ValueError(f"the {kind} parser {name!r} is not "
-                                 "supported by the port")
         self.id = chat_completion_id()
         self.model = request.model
         self.created = now_unix()
@@ -176,6 +177,10 @@ class ChatDeltaGenerator:
         self.include_usage = bool(
             (request.stream_options or {}).get("include_usage"))
         self._first = True
+        self._reasoning = (StreamingReasoningParser(reasoning_parser)
+                           if reasoning_parser else None)
+        self._tools = (StreamingToolCallParser(tool_call_parser)
+                       if tool_call_parser else None)
 
     def _base(self) -> dict:
         return {"id": self.id, "object": "chat.completion.chunk",
@@ -189,9 +194,30 @@ class ChatDeltaGenerator:
             delta["role"] = "assistant"
             self._first = False
         content = out.text or ""
+        reasoning = ""
+        if self._reasoning is not None and content:
+            content, reasoning = self._reasoning.feed(content)
+        if self._tools is not None and content:
+            content = self._tools.feed(content)
         finish = out.finish_reason.to_openai() if out.finish_reason else None
+        if finish:
+            if self._reasoning is not None:
+                tail_c, tail_r = self._reasoning.finish()
+                if self._tools is not None and tail_c:
+                    tail_c = self._tools.feed(tail_c)
+                content += tail_c
+                reasoning += tail_r
+            if self._tools is not None:
+                trailing, calls = self._tools.finish()
+                content += trailing
+                if calls:
+                    delta["tool_calls"] = [c.to_openai(i)
+                                           for i, c in enumerate(calls)]
+                    finish = "tool_calls"
         if content:
             delta["content"] = content
+        if reasoning:
+            delta["reasoning_content"] = reasoning
         lp_block = None
         if out.log_probs is not None:
             entries = []
@@ -207,7 +233,8 @@ class ChatDeltaGenerator:
             lp_block = {"content": entries}
         if delta or finish or lp_block:
             # lp_block alone still emits: tokens whose text is held back
-            # (stop-string prefix) must not lose their logprobs.
+            # (stop-string prefix, tool-call jail) must not lose their
+            # logprobs.
             chunk = self._base()
             chunk["choices"] = [{"index": 0, "delta": delta,
                                  "logprobs": lp_block,
@@ -267,8 +294,11 @@ class CompletionDeltaGenerator:
 
 async def aggregate_chat_stream(chunks: AsyncIterator[dict],
                                 prompt_tokens: int) -> dict:
-    """Fold a chunk stream into a non-streaming chat.completion response."""
+    """Fold a chunk stream into a non-streaming chat.completion response
+    (reasoning_content and tool_calls carried as the reference's)."""
     content: list[str] = []
+    reasoning: list[str] = []
+    tool_calls: list[dict] = []
     lp_entries: list[dict] = []
     role = "assistant"
     finish_reason = None
@@ -287,6 +317,10 @@ async def aggregate_chat_stream(chunks: AsyncIterator[dict],
             delta = choice.get("delta", {})
             if delta.get("content"):
                 content.append(delta["content"])
+            if delta.get("reasoning_content"):
+                reasoning.append(delta["reasoning_content"])
+            if delta.get("tool_calls"):
+                tool_calls.extend(delta["tool_calls"])
             if delta.get("role"):
                 role = delta["role"]
             if choice.get("logprobs"):
@@ -294,6 +328,11 @@ async def aggregate_chat_stream(chunks: AsyncIterator[dict],
             if choice.get("finish_reason"):
                 finish_reason = choice["finish_reason"]
     message: dict[str, Any] = {"role": role, "content": "".join(content)}
+    if reasoning:
+        message["reasoning_content"] = "".join(reasoning)
+    if tool_calls:
+        message["tool_calls"] = tool_calls
+        message["content"] = message["content"] or None
     return {
         "id": cid, "object": "chat.completion", "created": created,
         "model": model,

@@ -494,15 +494,18 @@ async def test_clear_kv_blocks_fans_out_to_prefill_workers(pair):
                                                Context())]
         assert out == [{"cleared": held}]
         assert not p_alloc.inactive and not d_alloc.inactive
-        # A plain engine's handler serves it too; embed stays refused on
-        # both, as on an aggregated worker.
+        # A plain engine's handler serves it too; embed is answered on
+        # both, the decode worker's from its own engine, as the
+        # reference's.
         items = [i async for i in pair[0].handler()({"clear_kv_blocks": True},
                                                     Context())]
         assert items == [{"cleared": 0}]
-        for handle in (pair[0].handler(), s.handle):
-            with pytest.raises(InvalidRequestError, match="item 13"):
-                async for _ in handle({"embed": True}, Context()):
-                    pass
+        embed = {"embed": True, "token_lists": [[3, 4, 5]]}
+        for handle, engine in ((pair[0].handler(), pair[0]),
+                               (s.handle, pair[1])):
+            items = [i async for i in handle(dict(embed), Context())]
+            assert items == [{"embeddings": await engine.embed(
+                embed["token_lists"], "last")}]
     finally:
         await stop_stack(s)
 

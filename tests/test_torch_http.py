@@ -306,8 +306,13 @@ async def test_greedy_chat_through_both_fronts(quant_kv):
 # -- the launcher -------------------------------------------------------------
 
 def test_launcher_refuses_inputs_of_later_slices(capsys):
-    for argv, word in ((["in=text"], "interactive"), (["in=grpc"], "gRPC"),
-                       (["in=batch"], "batch"),
+    # in=text and in=batch are served since the inputs slice
+    # (test_torch_launch_inputs.py); in=batch still needs its file.
+    assert launch.parse_args(["in=text"]).input == "text"
+    assert launch.parse_args(["in=batch", "--input-file", "p.jsonl"]) \
+        .input == "batch"
+    for argv, word in ((["in=grpc"], "gRPC"),
+                       (["in=batch"], "in=batch requires --input-file"),
                        (["out=tpu"], "out= must be gpu or dyn")):
         with pytest.raises(SystemExit):
             launch.parse_args(argv)

@@ -11,6 +11,8 @@ component and its mocker, against the JAX package's.
 - ``profile_sweep`` runs over the mocker and over a ``GPUEngine``
   factory; ``python -m dynamo_tpu_torch.planner`` reads a mocker
   worker's load metrics, prints its steps and exits 0 on SIGTERM.
+- The planner reads a decode demand > 0 from a ``GPUEngine`` worker's load
+  metrics while streams decode on it, also after a prefill-to-agg flip.
 Everything runs on the CPU.
 """
 
@@ -550,6 +552,86 @@ def test_planner_process_reads_a_mocker_worker_and_exits_on_sigterm():
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+
+
+@pytest.mark.parametrize("mode", ["agg", "prefill"],
+                         ids=["agg", "prefill-flipped-to-agg"])
+@async_test(timeout=180)
+async def test_planner_reads_demand_from_a_gpu_engine_worker(mode):
+    """A tiny ``GPUEngine`` worker (``python -m
+    dynamo_tpu_torch.backends.gpu --device cpu``; launched as a prefill
+    worker and flipped to agg over ``/control/role``, as phase 16e's P,
+    or agg from the start) under four streams that outlast two planner
+    steps: ``Planner._demand()`` and the steps' decode demand read > 0
+    while they decode, from the worker's load metrics on the ``gpu``
+    component."""
+    from dynamo_tpu_torch.runtime import config as tconfig
+    from dynamo_tpu_torch.runtime import coordinator as tcoord
+    from dynamo_tpu_torch.runtime import distributed as tdist
+    coord = tcoord.Coordinator("127.0.0.1", 0)
+    await coord.start()
+    env = dict(os.environ, DTPU_SYSTEM_ENABLED="1", DTPU_SYSTEM_PORT="0",
+               OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dynamo_tpu_torch.backends.gpu", "--model",
+         "tiny-test", "--device", "cpu", "--num-pages", "256",
+         "--coordinator-url", coord.url, "--mode", mode], cwd=ROOT,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    q, seen = _lines(proc), []
+    stops = []
+    try:
+        status = int((await asyncio.to_thread(
+            _wait, q, seen, "GPU_WORKER_STATUS"))[0].rsplit("=", 1)[1])
+        await asyncio.to_thread(_wait, q, seen, "GPU_WORKER_READY")
+        if mode == "prefill":
+            import urllib.request
+            flip = urllib.request.Request(
+                f"http://127.0.0.1:{status}/control/role", method="POST",
+                data=json.dumps({"role": "agg", "epoch": 1,
+                                 "drain_s": 1}).encode(),
+                headers={"Content-Type": "application/json"})
+            answer = await asyncio.to_thread(
+                lambda: urllib.request.urlopen(flip, timeout=30).read())
+            assert json.loads(answer)["outcome"] == "ok", answer
+        rt = await tdist.DistributedRuntime.from_settings(
+            tconfig.RuntimeConfig(coordinator_url=coord.url))
+        stops.append(rt.close)
+        planner = tplanner.Planner(tplanner.PlannerConfig(
+            decode_component="gpu", adjustment_interval_s=0.3),
+            tplanner.FakeConnector(), runtime=rt)
+        await planner.start()
+        stops.append(planner.stop)
+        client = await rt.namespace().component("gpu").endpoint(
+            "generate").client()
+        stops.append(client.close)
+        await client.wait_for_instances(30)
+
+        async def stream(i):
+            wire = {"model": "tiny-test", "token_ids": list(range(1, 40 + i)),
+                    "stop_conditions": {"max_tokens": 200,
+                                        "ignore_eos": True},
+                    "sampling_options": {}}
+            n = 0
+            async for item in await client.generate(wire):
+                n += len(item.get("token_ids", []))
+            return n
+
+        steps0 = len(planner.decisions)
+        loads = [asyncio.ensure_future(stream(i)) for i in range(4)]
+        demand = []
+        while not all(t.done() for t in loads):
+            demand.append(sum(planner._demand()))
+            await asyncio.sleep(0.02)
+        assert [t.result() for t in loads] == [200] * 4
+        during = [d["demand"] for d in planner.decisions[steps0:]]
+        assert max(demand) > 0, demand
+        assert len(during) >= 2 and max(during) > 0, during
+    finally:
+        for stop in reversed(stops):
+            await stop()
+        proc.terminate()
+        await asyncio.to_thread(proc.wait, 30)
+        await coord.stop()
 
 
 _STREAM_CLIENT = """

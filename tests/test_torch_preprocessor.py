@@ -130,8 +130,15 @@ def test_refusals(pre):
         tpre.OpenAIPreprocessor(
             tcard.ModelDeploymentCard(name="m", chat_template="{{ x }}"),
             make_test_tokenizer())
-    with pytest.raises(ValueError, match="tool-call parser"):
-        tpre.ChatDeltaGenerator(image, 1, tool_call_parser="hermes")
+    # A named parser is served since the parsers slice (cases in
+    # test_torch_parsers.py): the payload leaves as tool_calls.
+    gen = tpre.ChatDeltaGenerator(image, 1, tool_call_parser="hermes")
+    chunks = gen.step(tproto.LLMEngineOutput(
+        token_ids=[1], text='<tool_call>{"name": "f", "arguments": {}}'
+        '</tool_call>', finish_reason=tproto.FinishReason.EOS))
+    choice = chunks[-1]["choices"][0]
+    assert choice["finish_reason"] == "tool_calls"
+    assert choice["delta"]["tool_calls"][0]["function"]["name"] == "f"
     for bad in ({"model": MODEL}, chat(messages="x"), chat(max_tokens=1.5),
                 chat(stream=2), chat(stop=[1]), chat(n=None),
                 {"messages": MSGS}, chat(messages=[{"content": "x"}])):

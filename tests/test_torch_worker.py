@@ -703,15 +703,19 @@ def test_entry_points_as_processes():
     (gpu.parse_args, ["--pp", "2"], "ROADMAP item 16"),
     (gpu.parse_args, ["--num-nodes", "2"], "ROADMAP item 16"),
     (gpu.parse_args, ["--tp", "2"], "ROADMAP item 16"),
-    (gpu.parse_args, ["--standby"], None),
-    (gpu.parse_args, ["--tool-call-parser", "hermes"], "parsers"),
+    (gpu.parse_args, ["--standby"], {"standby": True}),
+    (gpu.parse_args, ["--tool-call-parser", "hermes"],
+     {"tool_call_parser": "hermes"}),
     (frontend_main.parse_args, ["--grpc-port", "9"], "gRPC"),
 ], ids=lambda v: " ".join(v) if isinstance(v, list) else None)
 def test_refused_flags_name_their_item(main, argv, words, capsys):
-    """Each refused flag exits naming its item; ``--standby`` (``words``
-    None) is served now: the worker parses it and parks as a standby."""
-    if words is None:
-        assert main(argv).standby is True
+    """Each refused flag exits naming its item; ``--standby`` and
+    ``--tool-call-parser`` (``words`` a dict) are served now: the worker
+    parses them into those values (it parks as a standby; it names the
+    parser on its cards)."""
+    if isinstance(words, dict):
+        args = main(argv)
+        assert {k: getattr(args, k) for k in words} == words
         return
     with pytest.raises(SystemExit) as exc:
         main(argv)
@@ -768,19 +772,26 @@ def test_frontend_serves_the_overload_slo_and_canary_flags(argv, check):
     (["--sp", "2"], "ROADMAP item 16"),
     (["--attention-backend", "pallas"], "no ROADMAP item"),
     (["--warmup-prefill-ladder"], "no ROADMAP item"),
-    (["--tool-call-parser", "hermes"], "ROADMAP item 23"),
-    (["--reasoning-parser", "deepseek_r1"], "ROADMAP item 23"),
-    (["--input-file", "prompts.jsonl"], "ROADMAP item 24"),
-    (["--output-file", "out.jsonl"], "ROADMAP item 24"),
-    (["--batch-concurrency", "4"], "ROADMAP item 24"),
-    (["--batch-max-tokens", "64"], "ROADMAP item 24"),
+    (["--tool-call-parser", "hermes"], {"tool_call_parser": "hermes"}),
+    (["--reasoning-parser", "deepseek_r1"],
+     {"reasoning_parser": "deepseek_r1"}),
+    (["--input-file", "prompts.jsonl"], {"input_file": "prompts.jsonl"}),
+    (["--output-file", "out.jsonl"], {"output_file": "out.jsonl"}),
+    (["--batch-concurrency", "4"], {"batch_concurrency": 4}),
+    (["--batch-max-tokens", "64"], {"batch_max_tokens": 64}),
     (["out=mocker"], None),
     (["out=echo"], "no ROADMAP item"),
 ], ids=lambda v: " ".join(v) if isinstance(v, list) else None)
 def test_launcher_refused_flags_name_their_item(argv, words, capsys):
     """Every flag of the reference launcher that the port does not serve,
     and out=echo, exit naming what they wait for; out=mocker (``words``
-    None) is served now: it parses and builds the mocker's pipeline."""
+    None) is served now: it parses and builds the mocker's pipeline. The
+    parser and batch flags (``words`` a dict) are served too: they parse
+    into those values."""
+    if isinstance(words, dict):
+        args = launch.parse_args(["in=http", "out=gpu", *argv])
+        assert {k: getattr(args, k) for k in words} == words
+        return
     if words is None:
         args = launch.parse_args(["in=http", "out=gpu", *argv])
         assert args.output == "mocker"
